@@ -1,0 +1,134 @@
+"""Autoregressive sampling with a KV cache.
+
+Counterpart of `slamkit_tpu/models/generate.py`: left-padded prompts, one
+prefill through the flash kernel, then single-token decode steps over the
+cache; temperature / top-k / top-p sampling, a repetition penalty, a
+bad-words vocab mask, and pad after eos. The JAX package traces the decode
+loop with `lax.scan`; here it is a Python loop. Sampling draws come from an
+explicit `torch.Generator`, so they differ from JAX's keys; the warped
+logits they are drawn from are the same.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .transformer import Decoder, init_cache
+
+NEG_INF = -1e30
+
+
+def warp_logits(logits: torch.Tensor, temperature: Optional[float],
+                top_k: Optional[int], top_p: Optional[float]) -> torch.Tensor:
+    """Temperature, then top-k, then top-p (HF warper order). Masked ids get
+    NEG_INF, which softmax turns into an exact 0."""
+    if temperature is not None:
+        logits = logits / max(float(temperature), 1e-6)
+    if top_k is not None and top_k > 0:
+        # clamped to the vocab size (HF TopKLogitsWarper)
+        kth = torch.topk(logits, min(int(top_k), logits.shape[-1]), dim=-1).values[..., -1:]
+        logits = logits.masked_fill(logits < kth, NEG_INF)
+    if top_p is not None:
+        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+        cum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
+        # keep the smallest set of ids whose cumulative prob exceeds top_p;
+        # an index past the end (rounding) keeps everything, as JAX's
+        # out-of-range take_along_axis does
+        cutoff_idx = (cum < top_p).sum(dim=-1, keepdim=True).clamp(max=logits.shape[-1] - 1)
+        cutoff = torch.gather(sorted_logits, -1, cutoff_idx)
+        logits = logits.masked_fill(logits < cutoff, NEG_INF)
+    return logits
+
+
+def _sample(logits, generator, do_sample, temperature, top_k, top_p):
+    if not do_sample:
+        return torch.argmax(logits, dim=-1)
+    probs = torch.softmax(warp_logits(logits, temperature, top_k, top_p), dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+def _apply_repetition_penalty(logits, seen, penalty):
+    """HF semantics: logits of already-seen ids are divided by the penalty
+    when positive, multiplied when negative."""
+    penalized = torch.where(logits > 0, logits / penalty, logits * penalty)
+    return torch.where(seen, penalized, logits)
+
+
+def compute_copy(decoder: Decoder) -> Decoder:
+    """The decoder with its weights cast to the compute dtype once, as the
+    JAX package casts every float32 array of more than one dimension before
+    its decode loop (per-layer arrays are stacked there, so all of them; the
+    1-D final norm stays float32 and is shared with `decoder`)."""
+    dt = decoder.cfg.compute_dtype
+    state = {}
+    for name, p in decoder.state_dict().items():
+        cast = name.startswith("layers.") or p.dim() > 1
+        state[name] = p.to(dt) if cast else p
+    clone = Decoder(decoder.cfg, device="meta")
+    clone.load_state_dict(state, assign=True)
+    return clone
+
+
+@torch.inference_mode()
+def generate(decoder: Decoder, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+             generator: Optional[torch.Generator], *, max_new_tokens: int,
+             do_sample: bool = True, temperature: Optional[float] = None,
+             top_k: Optional[int] = None, top_p: Optional[float] = None,
+             eos_token_id: Optional[int] = None, pad_token_id: int = 0,
+             repetition_penalty: Optional[float] = None,
+             bad_words_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """input_ids [B, L0] LEFT-padded, attention_mask [B, L0], both on the
+    decoder's device. Returns [B, L0 + max_new_tokens]; positions after eos
+    hold pad_token_id. bad_words_mask: bool [V], True = banned id."""
+    b, l0 = input_ids.shape
+    if max_new_tokens <= 0:  # HF returns the prompt unchanged
+        return input_ids
+    cfg = decoder.cfg
+    dev = input_ids.device
+    dec = compute_copy(decoder)
+
+    mask = attention_mask.to(torch.int32)
+    prompt_seg = torch.where(mask > 0, 0, -1).to(torch.int32)
+    seg_full = torch.cat([prompt_seg, torch.zeros((b, max_new_tokens), dtype=torch.int32,
+                                                  device=dev)], dim=1)
+    positions = (torch.cumsum(mask, dim=1) - 1).clamp(min=0)
+    prompt_len = mask.sum(dim=1)
+
+    cache = init_cache(cfg, b, l0 + max_new_tokens, device=dev)
+    logits, cache = dec(input_ids, positions=positions, segment_ids=prompt_seg,
+                        cache=cache, cache_index=0)
+    last_logits = logits[:, -1, :]  # rightmost position is the last real token
+
+    def mask_logits(lg, seen):
+        if bad_words_mask is not None:
+            lg = lg.masked_fill(bad_words_mask[None, :], NEG_INF)
+        if repetition_penalty is not None:
+            lg = _apply_repetition_penalty(lg, seen, repetition_penalty)
+        return lg
+
+    # per-row presence of the prompt's non-pad ids, for the penalty
+    rows = torch.arange(b, device=dev)
+    seen = torch.zeros((b, cfg.vocab_size), dtype=torch.bool, device=dev)
+    seen[rows[:, None].expand(b, l0)[mask > 0], input_ids[mask > 0].long()] = True
+
+    tok = _sample(mask_logits(last_logits, seen), generator, do_sample,
+                  temperature, top_k, top_p)
+    seen[rows, tok] = True
+    finished = (tok == eos_token_id) if eos_token_id is not None else \
+        torch.zeros(b, dtype=torch.bool, device=dev)
+    out = [tok]
+    for i in range(max_new_tokens - 1):
+        pos = (prompt_len + i)[:, None]
+        logits, cache = dec(tok[:, None], positions=pos, segment_ids=seg_full,
+                            cache=cache, cache_index=l0 + i)
+        nxt = _sample(mask_logits(logits[:, -1, :], seen), generator, do_sample,
+                      temperature, top_k, top_p)
+        nxt = torch.where(finished, torch.full_like(nxt, pad_token_id), nxt)
+        seen[rows, nxt] = True
+        if eos_token_id is not None:
+            finished = finished | (nxt == eos_token_id)
+        out.append(nxt)
+        tok = nxt
+    gen = torch.stack(out, dim=1).to(input_ids.dtype)
+    return torch.cat([input_ids, gen], dim=1)

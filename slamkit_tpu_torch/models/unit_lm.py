@@ -1,0 +1,281 @@
+"""UnitLM — the unit language model's serving surface.
+
+Counterpart of `slamkit_tpu/models/unit_lm.py`: `UnitLMConfig`, and `UnitLM`
+with `log_likelihood` (scoring), `generate` (sampling), `save_pretrained` /
+`from_pretrained` on the JAX package's own files (`unit_lm_config.json` +
+`params.npz`, so checkpoints cross-load both ways), and `tlm_factory`. Training
+(`loss_fn`), mesh placement and the reference-toolkit checkpoint loader are
+not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import logging
+import os
+from typing import List, Optional, Union
+
+import numpy as np
+import torch
+
+from ..utils.calculation_utils import calc_nll
+from .convert import load_flat, to_flat
+from .generate import generate as _generate
+from .presets import DecoderConfig, resolve_base_config, translate_decoder_overrides
+from .transformer import Decoder, param_count
+
+logger = logging.getLogger(__name__)
+
+CONFIG_NAME = "unit_lm_config.json"
+WEIGHTS_NAME = "params.npz"
+
+
+@dataclasses.dataclass
+class UnitLMConfig:
+    """The JAX package's UnitLMConfig, field for field (same json)."""
+
+    base_model_name: str = "facebook/opt-125m"
+    vocab_size: int = 502
+    twist_init: bool = True
+    use_cache: bool = True
+    pad_token_id: int = 0
+    bos_token_id: int = 1
+    eos_token_id: int = 1
+    torch_dtype: Optional[str] = None      # 'bfloat16' | 'float32' | None
+    attn_implementation: Optional[str] = None
+    rope_theta: Optional[float] = None
+    trust_remote_code: Optional[bool] = None
+    use_safetensors: Optional[bool] = None
+    dropout: float = 0.0
+    attention_dropout: float = 0.0
+    layerdrop: float = 0.0
+    remat: bool = False
+    remat_policy: str = "full"
+    remat_layers: int = -1
+    config_overrides: dict = dataclasses.field(default_factory=dict)
+
+    def decoder_config(self) -> DecoderConfig:
+        attn_impl = {"flash_attention_2": "flash", None: "auto"}.get(
+            self.attn_implementation, self.attn_implementation or "auto")
+        dtype = "bfloat16" if self.torch_dtype in ("bfloat16", None) else "float32"
+        explicit = dict(
+            vocab_size=self.vocab_size,
+            rope_theta=self.rope_theta,
+            dtype=dtype,
+            attn_impl=attn_impl,
+            remat=self.remat or None,
+            remat_policy=self.remat_policy if self.remat_policy != "full" else None,
+            remat_layers=self.remat_layers if self.remat_layers != -1 else None,
+            dropout=self.dropout or None,
+            attention_dropout=self.attention_dropout or None,
+            layerdrop=self.layerdrop or None,
+        )
+        merged = {**translate_decoder_overrides(self.config_overrides),
+                  **{k: v for k, v in explicit.items() if v is not None}}
+        return resolve_base_config(self.base_model_name, **merged)
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "UnitLMConfig":
+        known = {f.name for f in dataclasses.fields(cls)}
+        base = {k: v for k, v in d.items() if k in known}
+        extra = {k: v for k, v in d.items() if k not in known}
+        if extra:
+            # unknown config_args are decoder overrides; explicit
+            # config_overrides entries win over strays
+            base["config_overrides"] = {**extra, **(base.get("config_overrides") or {})}
+        return cls(**base)
+
+
+#: HF generate() kwargs accepted only at these no-op values. A value matches
+#: when it has the same type and compares equal, so num_beams=True or
+#: early_stopping=0 are rejected (the JAX package's `v in noop` accepts them).
+_NOOP_GENERATE_KWARGS = {
+    "num_beams": (1, None), "num_return_sequences": (1, None),
+    "length_penalty": (1.0, None), "early_stopping": (False, None),
+    "use_cache": (True, None), "min_new_tokens": (0, None),
+    "no_repeat_ngram_size": (0, None), "typical_p": (1.0, None),
+    "epsilon_cutoff": (0.0, None), "eta_cutoff": (0.0, None),
+    "diversity_penalty": (0.0, None), "penalty_alpha": (0.0, None),
+}
+
+
+def _is_noop(value, noop: tuple) -> bool:
+    return any(value is None if n is None else (type(value) is type(n) and value == n)
+               for n in noop)
+
+
+class UnitLM:
+    def __init__(self, config: UnitLMConfig, params: Optional[dict] = None,
+                 seed: int = 0, device: Union[str, torch.device] = "cpu"):
+        """params: a flat JAX-layout dict (`params.npz` keys) to load; without
+        it the gslm random init runs from `seed`. device is where the weights
+        live and every call runs; nothing moves implicitly."""
+        self.config = config
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        cfg = config.decoder_config()
+        self.decoder = Decoder(cfg, device=self.device)
+        if params is not None:
+            load_flat(self.decoder, params)
+        elif config.twist_init:
+            raise ValueError(
+                "twist_init=True needs the pretrained text-LM weights (the TWIST "
+                "warm start), which this port cannot load yet: pass params, load "
+                "a checkpoint with from_pretrained, or set twist_init=False")
+        else:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            self.decoder.reset_parameters(gen)
+        logger.info("UnitLM: %s, %.1fM params on %s", config.base_model_name,
+                    param_count(self.decoder) / 1e6, self.device)
+
+    def _tensor(self, x) -> torch.Tensor:
+        if isinstance(x, torch.Tensor):
+            if x.device != self.device:
+                raise ValueError(f"input on {x.device}, model on {self.device}")
+            return x
+        return torch.as_tensor(np.asarray(x), device=self.device)
+
+    # -- scoring --------------------------------------------------------------
+    @torch.inference_mode()
+    def log_likelihood(self, tokens, mean_nll: bool = True,
+                       ignore_tokens: Optional[List[int]] = None) -> torch.Tensor:
+        """Per-sequence log likelihood [B]: pads (pad_token_id) are excluded,
+        bos scores as a real token, ignored vocab ids get -inf logits. T is
+        padded up to a multiple of 64 with pads (scores are unchanged)."""
+        pad = self.config.pad_token_id
+        tokens = self._tensor(tokens)
+        rem = (-tokens.shape[-1]) % 64
+        if rem:
+            tokens = torch.nn.functional.pad(tokens, (0, rem), value=pad)
+        seg = torch.where(tokens == pad, -1, 0).to(torch.int32)
+        logits, _ = self.decoder(tokens, segment_ids=seg)
+        if ignore_tokens is not None:
+            m = torch.zeros(self.decoder.cfg.vocab_size, dtype=torch.bool, device=self.device)
+            m[torch.as_tensor(list(ignore_tokens), dtype=torch.long, device=self.device)] = True
+            logits = logits.masked_fill(m, float("-inf"))
+        target = tokens[..., 1:]
+        return -calc_nll(logits[..., :-1, :], target, target != pad, mean_nll)
+
+    # -- generation -----------------------------------------------------------
+    def generate(self, input_ids, attention_mask=None, *, max_new_tokens: int = 150,
+                 do_sample: bool = True, temperature: float = 1.0,
+                 top_k: Optional[int] = None, top_p: Optional[float] = None,
+                 repetition_penalty: Optional[float] = None,
+                 bad_words_ids: Optional[list] = None,
+                 seed: Optional[int] = None,
+                 generator: Optional[torch.Generator] = None,
+                 weight_quant: Optional[str] = None,
+                 **kwargs) -> torch.Tensor:
+        """Sampling generation on LEFT-padded prompts; returns
+        [B, L0 + max_new_tokens] on the model's device.
+
+        Draws come from `generator` (on the model's device), else from a new
+        one seeded with `seed` (random when None). Unsupported HF generate
+        kwargs raise unless passed at their no-op value."""
+        for k, v in kwargs.items():
+            noop = _NOOP_GENERATE_KWARGS.get(k)
+            if noop is not None and _is_noop(v, noop):
+                continue
+            raise ValueError(
+                f"UnitLM.generate does not implement {k}={v!r} (supported: "
+                f"max_new_tokens, do_sample, temperature, top_k, top_p, "
+                f"repetition_penalty, bad_words_ids, seed/generator; {k} is "
+                + (f"only supported at its no-op value {noop[0]!r}" if noop is not None
+                   else "not a recognised generation knob") + ")")
+        if weight_quant == "int8":
+            raise NotImplementedError(
+                "weight_quant='int8' needs the int8 dequant-matmul kernel, which is "
+                "not ported yet; refusing rather than running dense")
+        if weight_quant:
+            raise ValueError(f"unknown weight_quant {weight_quant!r} (only 'int8')")
+        pad = self.config.pad_token_id
+        input_ids = self._tensor(input_ids)
+        if attention_mask is None:
+            attention_mask = (input_ids != pad).to(torch.int32)
+        else:
+            attention_mask = self._tensor(attention_mask)
+        # bucket the prompt length (LEFT pad), sliced off the result
+        rem = (-input_ids.shape[-1]) % 64
+        if rem:
+            input_ids = torch.nn.functional.pad(input_ids, (rem, 0), value=pad)
+            attention_mask = torch.nn.functional.pad(attention_mask, (rem, 0))
+        bad_mask = None
+        if bad_words_ids:
+            bad_mask = torch.zeros(self.decoder.cfg.vocab_size, dtype=torch.bool,
+                                   device=self.device)
+            for ids in bad_words_ids:
+                ids = ids if isinstance(ids, (list, tuple)) else [ids]
+                if len(ids) == 1:  # only unigram bans exist in the pipeline
+                    bad_mask[int(ids[0])] = True
+        if generator is None:
+            generator = torch.Generator(device=self.device)
+            if seed is None:
+                generator.seed()
+            else:
+                generator.manual_seed(seed)
+        # numerical no-ops map to None so the warpers are skipped
+        if temperature is not None and float(temperature) == 1.0:
+            temperature = None
+        if top_p is not None and float(top_p) >= 1.0:
+            top_p = None
+        if repetition_penalty is not None and float(repetition_penalty) == 1.0:
+            repetition_penalty = None
+        out = _generate(self.decoder, input_ids, attention_mask, generator,
+                        max_new_tokens=max_new_tokens, do_sample=do_sample,
+                        temperature=temperature, top_k=top_k, top_p=top_p,
+                        repetition_penalty=repetition_penalty,
+                        eos_token_id=self.config.eos_token_id,
+                        pad_token_id=pad, bad_words_mask=bad_mask)
+        return out[:, rem:] if rem else out
+
+    # -- persistence ----------------------------------------------------------
+    def save_pretrained(self, save_directory: str):
+        """Write `unit_lm_config.json` + `params.npz` in the JAX package's
+        layout; the weights land via temp file + rename."""
+        os.makedirs(save_directory, exist_ok=True)
+        with open(os.path.join(save_directory, CONFIG_NAME), "w") as f:
+            json.dump(self.config.to_dict(), f, indent=2)
+        tmp = os.path.join(save_directory, "." + WEIGHTS_NAME + ".tmp")
+        with open(tmp, "wb") as f:
+            np.savez(f, **to_flat(self.decoder))
+        os.replace(tmp, os.path.join(save_directory, WEIGHTS_NAME))
+
+    @classmethod
+    def from_pretrained(cls, path: str, device: Union[str, torch.device] = "cpu",
+                        **overrides) -> "UnitLM":
+        """Load a checkpoint written by either package's save_pretrained."""
+        cfg_path = os.path.join(path, CONFIG_NAME)
+        if not os.path.isfile(cfg_path):
+            raise FileNotFoundError(
+                f"{cfg_path} not found (reference-toolkit HF checkpoints are not "
+                f"supported by the port yet)")
+        with open(cfg_path) as f:
+            cfg = UnitLMConfig.from_dict({**json.load(f), **overrides})
+        with np.load(os.path.join(path, WEIGHTS_NAME)) as flat:
+            params = {k: flat[k] for k in flat.files}
+        return cls(cfg, params=params, device=device)
+
+
+def _plain(node) -> dict:
+    """A composed config node (slamkit_tpu.config.ConfigNode) or a mapping as
+    a plain dict, without importing the config composer."""
+    if hasattr(node, "to_container"):
+        return node.to_container()
+    return dict(node)
+
+
+def tlm_factory(cfg, device: Union[str, torch.device] = "cpu") -> UnitLM:
+    """Build a UnitLM from the composed model config (`tlm_type`,
+    `pretrained_model`, `config_args`)."""
+    if cfg.tlm_type not in ("twist", "gslm"):
+        raise ValueError(f"Unknown tlm type: {cfg.tlm_type}")
+    args = _plain(cfg.config_args)
+    if cfg.get("pretrained_model"):
+        overrides = {k: args.get(k) for k in ("attn_implementation", "torch_dtype")}
+        overrides["use_cache"] = args.get("use_cache", False)
+        return UnitLM.from_pretrained(cfg.pretrained_model, device=device, **overrides)
+    return UnitLM(UnitLMConfig.from_dict(args), device=device)
