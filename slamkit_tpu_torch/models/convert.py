@@ -5,10 +5,12 @@ arrays under their own names (`embed`, `final_norm_scale`, ...) and the
 per-layer arrays stacked on a leading layer axis under `layers/<name>`
 (`layers/q_w` is [L, D, q_dim]). The port keeps the same names and the same
 [in, out] layout, one `DecoderLayer` per layer, so converting is stacking.
+The same mapping carries gradients out (`grads_to_flat`), so a test can hold
+them against `jax.grad` leaf by leaf.
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
@@ -24,14 +26,28 @@ def _expected_shapes(decoder: Decoder) -> dict[str, tuple]:
     return shapes
 
 
-def to_flat(decoder: Decoder) -> dict[str, np.ndarray]:
-    """The decoder's weights as the JAX package's flat `params.npz` dict."""
-    flat = {name: p.detach().float().cpu().numpy()
-            for name, p in decoder.named_parameters(recurse=False)}
+def to_flat(decoder: Decoder, tensors: Optional[Mapping[str, torch.Tensor]] = None
+            ) -> dict[str, np.ndarray]:
+    """The decoder's weights as the JAX package's flat `params.npz` dict.
+
+    tensors: stand-ins for the parameters, keyed by the decoder's
+    `named_parameters()` names (a snapshot of them, or their gradients)."""
+    if tensors is None:
+        tensors = dict(decoder.named_parameters())
+    get = lambda name: tensors[name].detach().float()
+    flat = {name: get(name).cpu().numpy()
+            for name, _ in decoder.named_parameters(recurse=False)}
     for name, _ in decoder.layers[0].named_parameters():
         flat[f"layers/{name}"] = torch.stack(
-            [getattr(lp, name).detach().float() for lp in decoder.layers]).cpu().numpy()
+            [get(f"layers.{i}.{name}") for i in range(len(decoder.layers))]).cpu().numpy()
     return flat
+
+
+def grads_to_flat(decoder: Decoder) -> dict[str, np.ndarray]:
+    """The parameters' `.grad`s under the JAX names and layout (a parameter
+    that received no gradient counts as zeros, as `jax.grad` gives them)."""
+    return to_flat(decoder, {name: p.grad if p.grad is not None else torch.zeros_like(p)
+                             for name, p in decoder.named_parameters()})
 
 
 @torch.no_grad()

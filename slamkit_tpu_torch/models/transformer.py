@@ -1,4 +1,4 @@
-"""Causal-transformer decoder, eval mode, as a `torch.nn.Module`.
+"""Causal-transformer decoder as a `torch.nn.Module`, for serving and training.
 
 Counterpart of `slamkit_tpu/models/transformer.py`: one configurable decoder
 covers the families of the preset table (opt, qwen2, llama, gpt_neox) — RMS or
@@ -11,13 +11,18 @@ Parameters keep the JAX package's names and [in, out] matrix layout, one
 `models/convert.py` maps `params.npz` onto the module by stacking. They are
 stored float32 and cast to the compute dtype where they are used.
 
-Full-sequence attention (scoring, generation prefill) goes through
-`ops.flash_attention`: the CUDA kernel on the card, the plain version on the
-CPU. The single-token decode step attends over the KV cache with plain
-einsums, as the JAX package does. The KV cache is updated in place.
+Full-sequence attention (training, scoring, generation prefill) goes through
+`ops.flash_attention`: the CUDA kernels on the card, the plain versions on
+the CPU; under autograd its gradient is the flash backward. The single-token
+decode step attends over the KV cache with plain einsums, as the JAX package
+does. The KV cache is updated in place.
 
-Training-only knobs (dropout, attention_dropout, layerdrop, remat) are not
-ported; a config that sets them raises.
+Training: the parameters take gradients (serving runs under
+`torch.inference_mode`). `cfg.remat` checkpoints the first `remat_layers`
+layers (all when -1) with `torch.utils.checkpoint`, the JAX package's
+`jax.checkpoint` of the layer scan: the backward recomputes each layer's
+forward, flash kernel included. Dropout, attention dropout, layerdrop and the
+"qkv" remat policy are not ported; a config that sets them raises.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import flash_attention
 from .presets import DecoderConfig
@@ -33,20 +39,23 @@ from .presets import DecoderConfig
 NEG_INF = -1e30
 
 
-def _check_eval_only(cfg: DecoderConfig):
+def _check_supported(cfg: DecoderConfig):
+    """Refuse what the port does not implement yet (ROADMAP queue 1 item 6)."""
     for name in ("dropout", "attention_dropout", "layerdrop"):
         if getattr(cfg, name) > 0.0:
-            raise ValueError(f"{name}={getattr(cfg, name)}: the port's decoder is "
-                             f"eval-only and does not implement it")
-    if cfg.remat:
-        raise ValueError("remat is a training knob the port's decoder does not implement")
+            raise ValueError(f"{name}={getattr(cfg, name)}: the port's decoder does not "
+                             f"implement dropout or layerdrop yet (ROADMAP queue 1 item 6)")
+    if cfg.remat_policy != "full":
+        raise ValueError(f"remat_policy={cfg.remat_policy!r}: the port checkpoints whole "
+                         f"layers only (\"full\"); the qkv policy waits (ROADMAP queue 1 "
+                         f"item 6)")
 
 
 def _param(*shape, device, fill: Optional[float] = None) -> nn.Parameter:
     t = torch.empty(shape, dtype=torch.float32, device=device)
     if fill is not None and t.device.type != "meta":
         t.fill_(fill)
-    return nn.Parameter(t, requires_grad=False)
+    return nn.Parameter(t)
 
 
 def _opt_param(module: nn.Module, name: str, present: bool, *shape, device, fill=None):
@@ -209,14 +218,14 @@ def _layer(x, lp: DecoderLayer, rope, segment_ids, cfg: DecoderConfig,
 
 
 class Decoder(nn.Module):
-    """The decoder's parameters and its eval-mode forward.
+    """The decoder's parameters and its forward.
 
     Built with uninitialised weights; call `reset_parameters(generator)` for
     the gslm random init, or load weights (`models.convert.load_flat`)."""
 
     def __init__(self, cfg: DecoderConfig, device=None):
         super().__init__()
-        _check_eval_only(cfg)
+        _check_supported(cfg)
         self.cfg = cfg
         D, E, dev = cfg.hidden_size, cfg.embed_proj_dim or cfg.hidden_size, device
         ln_bias = cfg.norm == "layernorm" and cfg.norm_bias
@@ -279,7 +288,14 @@ class Decoder(nn.Module):
             x = x + F.embedding(idx, self.pos_embed).to(dt)
 
         rope = _rope_angles(positions, cfg) if cfg.pos == "rope" else None
+        n_remat = 0
+        if cfg.remat and cache is None and torch.is_grad_enabled():
+            n_remat = cfg.num_layers if cfg.remat_layers < 0 else \
+                min(cfg.remat_layers, cfg.num_layers)
         for i, lp in enumerate(self.layers):
+            if i < n_remat:
+                x = checkpoint(_layer, x, lp, rope, segment_ids, cfg, use_reentrant=False)
+                continue
             kv = None if cache is None else (cache[0][i], cache[1][i])
             x = _layer(x, lp, rope, segment_ids, cfg, cache_kv=kv,
                        cache_index=cache_index)

@@ -1,11 +1,11 @@
-"""UnitLM — the unit language model's serving surface.
+"""UnitLM — the unit language model's serving and training surface.
 
 Counterpart of `slamkit_tpu/models/unit_lm.py`: `UnitLMConfig`, and `UnitLM`
-with `log_likelihood` (scoring), `generate` (sampling), `save_pretrained` /
-`from_pretrained` on the JAX package's own files (`unit_lm_config.json` +
-`params.npz`, so checkpoints cross-load both ways), and `tlm_factory`. Training
-(`loss_fn`), mesh placement and the reference-toolkit checkpoint loader are
-not ported yet.
+with `loss_fn` (training), `log_likelihood` (scoring), `generate` (sampling),
+`save_pretrained` / `from_pretrained` on the JAX package's own files
+(`unit_lm_config.json` + `params.npz`, so checkpoints cross-load both ways),
+and `tlm_factory`. Mesh placement and the reference-toolkit checkpoint loader
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ from typing import List, Optional, Union
 import numpy as np
 import torch
 
-from ..utils.calculation_utils import calc_nll
+from ..utils.calculation_utils import calc_nll, cross_entropy_loss
 from .convert import load_flat, to_flat
 from .generate import generate as _generate
 from .presets import DecoderConfig, resolve_base_config, translate_decoder_overrides
@@ -139,6 +139,22 @@ class UnitLM:
             return x
         return torch.as_tensor(np.asarray(x), device=self.device)
 
+    # -- training -------------------------------------------------------------
+    def parameters(self):
+        """The trainable parameters (the decoder's), in a fixed order."""
+        return list(self.decoder.parameters())
+
+    def loss_fn(self, batch: dict) -> torch.Tensor:
+        """Training loss on {'input_ids', 'labels', 'segment_ids'?,
+        'positions'?, 'num_items_in_batch'?}: the shifted cross entropy over
+        labels != -100, divided by num_items_in_batch when given (the
+        accumulation group's count) and by the batch's own count otherwise.
+        The batch's tensors must be on the model's device."""
+        get = lambda key: None if batch.get(key) is None else self._tensor(batch[key])
+        logits, _ = self.decoder(get("input_ids"), positions=get("positions"),
+                                 segment_ids=get("segment_ids"))
+        return cross_entropy_loss(logits, get("labels"), batch.get("num_items_in_batch"))
+
     # -- scoring --------------------------------------------------------------
     @torch.inference_mode()
     def log_likelihood(self, tokens, mean_nll: bool = True,
@@ -233,15 +249,17 @@ class UnitLM:
         return out[:, rem:] if rem else out
 
     # -- persistence ----------------------------------------------------------
-    def save_pretrained(self, save_directory: str):
+    def save_pretrained(self, save_directory: str, params: Optional[dict] = None):
         """Write `unit_lm_config.json` + `params.npz` in the JAX package's
-        layout; the weights land via temp file + rename."""
+        layout; the weights land via temp file + rename. params: a snapshot
+        of the weights keyed by `decoder.named_parameters()` names to write
+        instead of the live ones (a background checkpoint's copy)."""
         os.makedirs(save_directory, exist_ok=True)
         with open(os.path.join(save_directory, CONFIG_NAME), "w") as f:
             json.dump(self.config.to_dict(), f, indent=2)
         tmp = os.path.join(save_directory, "." + WEIGHTS_NAME + ".tmp")
         with open(tmp, "wb") as f:
-            np.savez(f, **to_flat(self.decoder))
+            np.savez(f, **to_flat(self.decoder, params))
         os.replace(tmp, os.path.join(save_directory, WEIGHTS_NAME))
 
     @classmethod

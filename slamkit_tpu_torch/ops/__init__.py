@@ -1,5 +1,7 @@
-from .attention_ref import attention_mask, mha_reference
-from .flash_attention import flash_attention, flash_attention_fwd
+from .attention_ref import attention_mask, mha_reference, mha_reference_bwd
+from .flash_attention import (FlashAttentionFunction, flash_attention,
+                              flash_attention_bwd, flash_attention_fwd)
 
-__all__ = ["attention_mask", "mha_reference", "flash_attention",
+__all__ = ["attention_mask", "mha_reference", "mha_reference_bwd",
+           "FlashAttentionFunction", "flash_attention", "flash_attention_bwd",
            "flash_attention_fwd"]

@@ -1,17 +1,18 @@
-"""Plain PyTorch attention with causal + segment-id masking.
+"""Plain PyTorch attention with causal + segment-id masking, and its backward.
 
-Counterpart of `slamkit_tpu/ops/attention_ref.py`. It is the flash kernel's
-plain version: the CPU path of `ops.flash_attention`, and the ground truth the
-CUDA kernel is held against on the card. It computes what the kernel computes
-(`slamkit_tpu/ops/flash_attention.py::_fwd_kernel`), including its edge rules,
-which the JAX reference does not share:
+Counterpart of `slamkit_tpu/ops/attention_ref.py`. These are the flash
+kernels' plain versions: the CPU path of `ops.flash_attention`, and the ground
+truth the CUDA kernels are held against on the card. They compute what the
+kernels compute (`slamkit_tpu/ops/flash_attention.py::_fwd_kernel` and
+`_bwd_kernel`), including their edge rules, which the JAX reference does not
+share:
 
   * GQA without repeating kv: q head h reads kv head h // G (kv-major);
   * the row log-sum-exp is returned beside the output;
   * a row that attends nowhere outputs exactly 0 with LSE = +1e30
     (`LSE_SENTINEL`), where the JAX reference returns the mean of v.
 
-Softmax and both products run in float32 whatever the input dtype.
+Softmax and every product run in float32 whatever the input dtype.
 """
 from __future__ import annotations
 
@@ -74,3 +75,44 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.exp(s - lse[..., None])
     out = torch.einsum("bkgqt,bktd->bkgqd", p, v.float())
     return out.reshape(b, h, t, d).to(q.dtype), lse.reshape(b, h, t)
+
+
+def mha_reference_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      segment_ids: Optional[torch.Tensor],
+                      kv_segment_ids: Optional[torch.Tensor],
+                      out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                      causal: bool = True, sm_scale: Optional[float] = None):
+    """The backward of `mha_reference` by its explicit formulas, in float32,
+    from an external output and LSE (as the Pallas `_bwd_kernel` takes them,
+    `slamkit_tpu/ops/flash_attention.py:277-304`):
+
+        P = exp(scale * Q K^T - LSE) under the masks (0 off them; a dead
+            row's LSE is +1e30, so its P is 0),
+        delta = rowsum(dO o O),  dV = P^T dO,  dS = P o (dO V^T - delta) * scale,
+        dK = dS^T Q,  dQ = dS K,
+
+    with dK and dV summed over the G query heads of each kv head. Shapes as
+    `mha_reference`, plus out/do [B, H, T, D] and lse [B, H, T]; returns
+    (dq, dk, dv) in the dtypes of q, k and v."""
+    b, h, t, d = q.shape
+    h_kv = k.shape[1]
+    g = h // h_kv
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    if kv_segment_ids is None:
+        kv_segment_ids = segment_ids
+    q5 = q.float().reshape(b, h_kv, g, t, d)
+    do5 = do.float().reshape(b, h_kv, g, t, d)
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bkgqd,bktd->bkgqt", q5, kf) * sm_scale
+    p = torch.exp(s - lse.float().reshape(b, h_kv, g, t, 1))
+    mask = attention_mask(t, k.shape[2], causal=causal, q_segment_ids=segment_ids,
+                          k_segment_ids=kv_segment_ids, device=q.device)
+    if mask is not None:
+        p = torch.where(mask[:, :, None] if mask.dim() == 4 else mask, p, 0.0)
+    delta = (do5 * out.float().reshape(b, h_kv, g, t, d)).sum(-1, keepdim=True)
+    dv = torch.einsum("bkgqt,bkgqd->bktd", p, do5)
+    ds = p * (torch.einsum("bkgqd,bktd->bkgqt", do5, vf) - delta) * sm_scale
+    dk = torch.einsum("bkgqt,bkgqd->bktd", ds, q5)
+    dq = torch.einsum("bkgqt,bktd->bkgqd", ds, kf)
+    return dq.reshape(b, h, t, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

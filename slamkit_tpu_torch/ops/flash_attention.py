@@ -1,15 +1,19 @@
-"""Flash-attention forward: the CUDA kernel for CUDA tensors, the plain
-version for CPU tensors.
+"""Flash attention, forward and backward: the CUDA kernels for CUDA tensors,
+the plain versions for CPU tensors.
 
 Counterpart of `slamkit_tpu/ops/flash_attention.py` (`flash_attention` :495,
-`_fwd` :198, kernel `_fwd_kernel` :124). The kernel is
-`ops/csrc/flash_fwd.cu`, built with nvcc on first use (`ops/_build.py`) and
-called through ctypes on PyTorch's current stream. Dispatch is by the device
-of the tensors and nothing else: a CPU tensor runs `mha_reference`, a CUDA
-tensor launches the kernel or raises.
+`_fwd` :198 with kernel `_fwd_kernel` :124; `_bwd` :340 with kernel
+`_bwd_kernel` :247; the `_flash` custom VJP :431-448). The kernels are
+`ops/csrc/flash_fwd.cu` and `ops/csrc/flash_bwd.cu`, built with nvcc on first
+use (`ops/_build.py`) and called through ctypes on PyTorch's current stream.
+Dispatch is by the device of the tensors and nothing else: a CPU tensor runs
+`mha_reference` / `mha_reference_bwd`, a CUDA tensor launches the kernel or
+raises. `FlashAttentionFunction` carries the gradient; `flash_attention`
+routes through it when autograd is recording.
 
-`flash_attention_fwd.launches` counts kernel launches (never plain-version
-calls), so a caller can show that its path went through the kernel.
+`flash_attention_fwd.launches` and `flash_attention_bwd.launches` count
+kernel launches (never plain-version calls), so a caller can show that its
+path went through the kernels.
 """
 from __future__ import annotations
 
@@ -19,9 +23,10 @@ from typing import Optional
 import torch
 
 from . import _build
-from .attention_ref import mha_reference
+from .attention_ref import mha_reference, mha_reference_bwd
 
 KERNEL = "flash_fwd"
+KERNEL_BWD = "flash_bwd"
 
 
 def _kernel_fn():
@@ -29,6 +34,15 @@ def _kernel_fn():
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float, i, p]
+        fn.restype = i
+    return fn
+
+
+def _kernel_bwd_fn():
+    fn = _build.load(KERNEL_BWD).slamkit_flash_bwd_bf16
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 11 + [i, i, i, i, i, ctypes.c_float, i, p]
         fn.restype = i
     return fn
 
@@ -50,27 +64,45 @@ def _check(q, k, v, segment_ids, kv_segment_ids):
         raise ValueError(f"inputs are on several devices: {devices}")
 
 
-def _launch(q, k, v, q_seg, k_seg, causal: bool, sm_scale: float):
-    if q.dtype != torch.bfloat16 or k.dtype != torch.bfloat16 or v.dtype != torch.bfloat16:
-        raise TypeError(f"the CUDA flash kernel takes bfloat16; got "
-                        f"{q.dtype}, {k.dtype}, {v.dtype}")
-    b, h, t, d = q.shape
-    if d not in (64, 128):
-        raise ValueError(f"the CUDA flash kernel takes head dim 64 or 128; got {d}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
+def _segments(segment_ids, kv_segment_ids):
+    if kv_segment_ids is None:
+        return segment_ids, segment_ids
+    if segment_ids is None:
+        raise ValueError("kv_segment_ids needs segment_ids for the queries")
+    return segment_ids, kv_segment_ids
+
+
+def _check_kernel_inputs(what: str, **tensors):
+    """What both CUDA kernels take: bf16, contiguous, 16-byte aligned, d 64/128."""
+    for name, x in tensors.items():
+        if x.dtype != torch.bfloat16:
+            raise TypeError(f"the CUDA flash {what} kernel takes bfloat16; got "
+                            f"{name} {x.dtype}")
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    if q_seg is not None:
-        q_seg = q_seg.to(torch.int32).contiguous()
-        k_seg = k_seg.to(torch.int32).contiguous()
+    d = tensors["q"].shape[-1]
+    if d not in (64, 128):
+        raise ValueError(f"the CUDA flash {what} kernel takes head dim 64 or 128; got {d}")
+
+
+def _seg_ptrs(q_seg, k_seg):
+    if q_seg is None:
+        return None, None, ()
+    q_seg = q_seg.to(torch.int32).contiguous()
+    k_seg = k_seg.to(torch.int32).contiguous()
+    return q_seg.data_ptr(), k_seg.data_ptr(), (q_seg, k_seg)
+
+
+def _launch(q, k, v, q_seg, k_seg, causal: bool, sm_scale: float):
+    _check_kernel_inputs("forward", q=q, k=k, v=v)
+    b, h, t, d = q.shape
+    q_ptr, k_ptr, _keep = _seg_ptrs(q_seg, k_seg)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _kernel_fn()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            q_seg.data_ptr() if q_seg is not None else None,
-            k_seg.data_ptr() if k_seg is not None else None,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), q_ptr, k_ptr,
             out.data_ptr(), lse.data_ptr(),
             b, h, k.shape[1], t, d, float(sm_scale), int(causal), stream)
     if err != 0:
@@ -95,10 +127,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, segment_ids, kv_segment_ids)
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
-    if kv_segment_ids is None:
-        kv_segment_ids = segment_ids
-    elif segment_ids is None:
-        raise ValueError("kv_segment_ids needs segment_ids for the queries")
+    segment_ids, kv_segment_ids = _segments(segment_ids, kv_segment_ids)
     if q.device.type == "cpu":
         return mha_reference(q, k, v, segment_ids=segment_ids, causal=causal,
                              sm_scale=sm_scale, kv_segment_ids=kv_segment_ids)
@@ -110,11 +139,95 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_fwd.launches = 0
 
 
+def _launch_bwd(q, k, v, out, lse, do, q_seg, k_seg, causal: bool, sm_scale: float):
+    _check_kernel_inputs("backward", q=q, k=k, v=v, out=out, do=do)
+    b, h, t, d = q.shape
+    if tuple(lse.shape) != (b, h, t):
+        raise ValueError(f"lse must be [B, H, T] = {(b, h, t)}; got {tuple(lse.shape)}")
+    lse = lse.float().contiguous()
+    # delta = rowsum(dO o O) of the O the forward returned, outside the kernel
+    # as in the JAX package (flash_attention.py:345)
+    delta = (do.float() * out.float()).sum(-1).contiguous()
+    q_ptr, k_ptr, _keep = _seg_ptrs(q_seg, k_seg)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _kernel_bwd_fn()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), q_ptr, k_ptr,
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, h, k.shape[1], t, d, float(sm_scale), int(causal), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_bwd launch failed: CUDA error {err}")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        segment_ids: Optional[torch.Tensor] = None,
+                        kv_segment_ids: Optional[torch.Tensor] = None,
+                        causal: bool = True,
+                        sm_scale: Optional[float] = None):
+    """Gradients (dq, dk, dv) of attention from an external output and LSE
+    (those the forward returned, or, for a ring schedule, the merged global
+    ones), with the forward's shapes and masks; do is dL/d(out).
+    delta = rowsum(dO o O) is taken here, in float32."""
+    _check(q, k, v, segment_ids, kv_segment_ids)
+    if out.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"out {tuple(out.shape)} and do {tuple(do.shape)} must match "
+                         f"q {tuple(q.shape)}")
+    if {x.device for x in (out, lse, do)} != {q.device}:
+        raise ValueError(f"out, lse and do must be on {q.device}")
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    segment_ids, kv_segment_ids = _segments(segment_ids, kv_segment_ids)
+    if q.device.type == "cpu":
+        return mha_reference_bwd(q, k, v, segment_ids, kv_segment_ids, out, lse, do,
+                                 causal=causal, sm_scale=sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention runs on cpu or cuda, not {q.device}")
+    return _launch_bwd(q, k, v, out, lse, do, segment_ids, kv_segment_ids, causal,
+                       sm_scale)
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Attention whose gradient is `flash_attention_bwd` (the JAX package's
+    `_flash` custom VJP): the forward saves q, k, v, out, lse and the segment
+    ids; the backward recomputes P from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, segment_ids, kv_segment_ids, causal, sm_scale):
+        out, lse = flash_attention_fwd(q, k, v, segment_ids=segment_ids, causal=causal,
+                                       sm_scale=sm_scale, kv_segment_ids=kv_segment_ids)
+        ctx.save_for_backward(q, k, v, out, lse, segment_ids, kv_segment_ids)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, out, lse, segment_ids, kv_segment_ids = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(),
+                                         segment_ids=segment_ids,
+                                         kv_segment_ids=kv_segment_ids,
+                                         causal=ctx.causal, sm_scale=ctx.sm_scale)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     segment_ids: Optional[torch.Tensor] = None,
                     causal: bool = True,
                     sm_scale: Optional[float] = None) -> torch.Tensor:
     """Flash attention over [B, H, T, D] with optional [B, T] segment ids
-    (the JAX package's public entry); returns the output only."""
+    (the JAX package's public entry); returns the output only. Under autograd
+    it goes through `FlashAttentionFunction`, so the backward kernel runs."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFunction.apply(q, k, v, segment_ids, None, causal,
+                                            sm_scale)[0]
     return flash_attention_fwd(q, k, v, segment_ids=segment_ids, causal=causal,
                                sm_scale=sm_scale)[0]

@@ -1,8 +1,13 @@
-"""Likelihood helpers (counterpart of `slamkit_tpu/utils/calculation_utils.py`
-`token_nll` and `calc_nll`; the training loss waits for the training port)."""
+"""Likelihood and loss helpers (counterpart of
+`slamkit_tpu/utils/calculation_utils.py` `token_nll`, `calc_nll` and
+`cross_entropy_loss`)."""
 from __future__ import annotations
 
+from typing import Optional, Union
+
 import torch
+
+IGNORE_INDEX = -100
 
 
 def token_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -24,3 +29,23 @@ def calc_nll(logits: torch.Tensor, target: torch.Tensor, mask: torch.Tensor,
     if len_norm:
         return ll / mask.sum(dim=-1).clamp(min=1)
     return ll
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       num_items_in_batch: Optional[Union[torch.Tensor, int]] = None,
+                       ignore_index: int = IGNORE_INDEX,
+                       pre_shifted: bool = False) -> torch.Tensor:
+    """Shifted causal-LM loss: the mean NLL over valid targets, or their sum
+    over `num_items_in_batch` when the caller gives the accumulation group's
+    global count (so microbatch losses add up to the group's mean).
+
+    pre_shifted=True: labels[t] is already the target of logits[t]."""
+    if pre_shifted:
+        shift_logits, shift_labels = logits, labels
+    else:
+        shift_logits, shift_labels = logits[..., :-1, :], labels[..., 1:]
+    valid = shift_labels != ignore_index
+    nll = (token_nll(shift_logits, shift_labels) * valid).sum()
+    if num_items_in_batch is not None:
+        return nll / num_items_in_batch
+    return nll / valid.sum().clamp(min=1)

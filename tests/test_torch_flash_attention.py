@@ -17,6 +17,10 @@ from slamkit_tpu.ops import flash_attention as jax_flash_attention
 from slamkit_tpu.ops.flash_attention import FlashConfig, _fwd
 from slamkit_tpu_torch.ops import flash_attention, flash_attention_fwd, mha_reference
 
+# the gate runs several pytest workers on the CPU's cores: one torch thread
+# each keeps their thread pools from oversubscribing the cores
+torch.set_num_threads(1)
+
 TOL = dict(atol=2e-5, rtol=2e-5)
 
 

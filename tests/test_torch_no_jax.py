@@ -1,5 +1,6 @@
-"""The port stands without JAX, and `chip_smoke.py` refuses to run without a
-card: no CPU fallback can pass for a GPU run."""
+"""The port stands without JAX (serving, and training two steps with a save),
+and `chip_smoke.py` refuses to run without a card: no CPU fallback can pass
+for a GPU run."""
 import json
 import os
 import pathlib
@@ -13,16 +14,39 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 _NO_JAX = r"""
-import sys
+import json, os, sys, tempfile
 import torch
 import slamkit_tpu_torch
 import slamkit_tpu_torch.ops
+from slamkit_tpu_torch.data import load_token_dataset
 from slamkit_tpu_torch.models import UnitLM, UnitLMConfig
-lm = UnitLM(UnitLMConfig(base_model_name="EleutherAI/pythia-14m", vocab_size=64,
-                         twist_init=False, torch_dtype="float32"))
+from slamkit_tpu_torch.tokeniser import UnitTokeniser
+from slamkit_tpu_torch.trainer import SLAMTrainer
+
+# the gate runs several pytest workers on the CPU's cores: one torch thread
+# each keeps their thread pools from oversubscribing the cores
+torch.set_num_threads(1)
+lm = UnitLM(UnitLMConfig(base_model_name="EleutherAI/pythia-14m", vocab_size=502,
+                         twist_init=False, torch_dtype="float32", remat=True))
 ll = lm.log_likelihood([[1, 5, 6, 7, 1, 0]])
 out = lm.generate([[1, 5, 6]], max_new_tokens=3, seed=0)
 assert torch.isfinite(ll).all() and out.shape == (1, 6)
+with tempfile.TemporaryDirectory() as d:
+    with open(os.path.join(d, "tokens.jsonl"), "w") as f:
+        for i in range(24):
+            units = "".join(f"<Un{(7 * i + j) % 500}>" for j in range(5 + i))
+            f.write(json.dumps({"file_name": str(i), "audio_repr": units}) + "\n")
+    ds = load_token_dataset(os.path.join(d, "tokens.jsonl"), UnitTokeniser())
+    args = {"output_dir": os.path.join(d, "out"), "per_device_train_batch_size": 2,
+            "gradient_accumulation_steps": 2, "max_steps": 2, "learning_rate": 1e-3,
+            "lr_scheduler_type": "cosine_with_min_lr", "lr_scheduler_kwargs": {"min_lr": 5e-5},
+            "max_grad_norm": 0.5, "optim_state_dtype": "bfloat16", "save_steps": 2,
+            "logging_steps": 1}
+    state = SLAMTrainer(lm, args, ds, packing=True, context_len=64).train()
+    assert state.global_step == 2, state
+    assert os.path.isfile(os.path.join(d, "out", "checkpoint-2", "trainer_state.json"))
+    assert os.path.isfile(os.path.join(d, "out", "checkpoint-2", "state", "train_state.pt"))
+    UnitLM.from_pretrained(os.path.join(d, "out", "checkpoint-2"))
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "slamkit_tpu.")))
 print("LOADED", bad)
 """
@@ -30,6 +54,7 @@ print("LOADED", bad)
 
 def _run(args, cwd, timeout=120):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"   # one thread beside the gate's other workers
     return subprocess.run(args, cwd=cwd, env=env, capture_output=True, text=True,
                           timeout=timeout)
 
@@ -93,7 +118,9 @@ def test_chip_smoke_slice_rehearsal_on_cpu(chip_smoke, capsys):
 
     import torch
 
-    cfg = dataclasses.replace(chip_smoke.slam_config(), torch_dtype="float32",
+    from slamkit_tpu_torch.tools.slam_recipe import slam_config
+
+    cfg = dataclasses.replace(slam_config(), torch_dtype="float32",
                               config_overrides=dict(num_hidden_layers=2, hidden_size=64,
                                                     num_attention_heads=4,
                                                     num_key_value_heads=2, head_dim=16,
@@ -104,3 +131,32 @@ def test_chip_smoke_slice_rehearsal_on_cpu(chip_smoke, capsys):
     assert set(result["generation"]) == {"sample", "greedy"}
     json.dumps(result)
     assert "scoring: 8 requests" in capsys.readouterr().out
+
+
+def test_chip_smoke_training_rehearsal_on_cpu(chip_smoke, tmp_path, capsys):
+    """The smoke's training and card-vs-CPU phases end to end on the CPU at a
+    2-layer width: four steps with a save at step 3, a resumed run that
+    repeats step 4, the export reloaded; no kernel launch is counted."""
+    import dataclasses
+
+    import torch
+
+    from slamkit_tpu_torch.tools.slam_recipe import slam_config
+
+    cfg = dataclasses.replace(slam_config(), torch_dtype="float32",
+                              config_overrides=dict(num_hidden_layers=2, hidden_size=64,
+                                                    num_attention_heads=4,
+                                                    num_key_value_heads=2, head_dim=16,
+                                                    intermediate_size=128))
+    cpu = torch.device("cpu")
+    result = chip_smoke.run_training(cpu, "cpu rehearsal", cfg=cfg, work=tmp_path, n_rows=80,
+                                     lengths=(10, 60), context_len=64,
+                                     per_device_train_batch_size=2,
+                                     gradient_accumulation_steps=2)
+    assert result["launches"] == {"flash_fwd": 0, "flash_bwd": 0}
+    assert result["resume_err"] == 0.0
+    assert result["losses"][-1] < result["losses"][0]
+    json.dumps(result)
+    check = chip_smoke.check_card_vs_cpu(cpu, tmp_path, cfg=cfg, context=64)
+    assert check["loss_err"] < 1e-5 and check["min_grad_cosine"] > 0.9999
+    assert "resume from checkpoint-3" in capsys.readouterr().out

@@ -22,6 +22,10 @@ from slamkit_tpu.models.unit_lm import _flatten, _unflatten
 from slamkit_tpu_torch.models import Decoder, init_cache, load_flat, to_flat
 from slamkit_tpu_torch.models.presets import DecoderConfig, resolve_base_config
 
+# the gate runs several pytest workers on the CPU's cores: one torch thread
+# each keeps their thread pools from oversubscribing the cores
+torch.set_num_threads(1)
+
 TOL = dict(atol=1e-4, rtol=1e-4)
 SMALL = dict(hidden_size=64, num_layers=2, num_heads=4, num_kv_heads=2, head_dim=16,
              intermediate_size=128, vocab_size=96, max_position_embeddings=128,
@@ -169,7 +173,7 @@ def test_learned_pos_overflow_raises():
 
 
 @pytest.mark.parametrize("knob", [dict(dropout=0.1), dict(attention_dropout=0.1),
-                                  dict(layerdrop=0.1), dict(remat=True)])
+                                  dict(layerdrop=0.1), dict(remat=True, remat_policy="qkv")])
 def test_training_knobs_raise(knob):
     cfg = dataclasses.replace(_configs("qwen2")[0], **knob)
     with pytest.raises(ValueError):

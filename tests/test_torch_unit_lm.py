@@ -22,6 +22,10 @@ from slamkit_tpu.tokeniser.unit_tokeniser import pad_token_batch
 from slamkit_tpu_torch.models import UnitLM, UnitLMConfig, tlm_factory
 from slamkit_tpu_torch.models.generate import NEG_INF, _sample, warp_logits
 
+# the gate runs several pytest workers on the CPU's cores: one torch thread
+# each keeps their thread pools from oversubscribing the cores
+torch.set_num_threads(1)
+
 jax_generate = importlib.import_module("slamkit_tpu.models.generate")
 
 SMALL_QWEN = dict(
