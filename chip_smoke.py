@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training slices once on an NVIDIA GPU.
+"""Drive the PyTorch port's serving, training and speech-continuation slices
+once on an NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -7,8 +8,8 @@ Run from the repository root on a machine with one CUDA card (an H100 for
 the sm_90a kernels). Phases, in order; any failure exits non-zero:
 
   1. device  — require CUDA; print the card, its power limit and versions;
-               switch TF32 off for float32 matmuls.
-  2. build   — compile the CUDA kernels from `slamkit_tpu_torch/ops/csrc`,
+               switch TF32 off for float32 matmuls and cuDNN.
+  2. build   — compile the four CUDA kernels from `slamkit_tpu_torch/ops/csrc`,
                one nvcc per source, all started together.
   3. kernels — the flash-attention forward kernel against its plain PyTorch
                version (float32 from the same bf16 inputs) at the slices'
@@ -17,6 +18,12 @@ the sm_90a kernels). Phases, in order; any failure exits non-zero:
                overhead).
   3b. backward kernels — the flash backward (dq, dk, dv) against its plain
                version the same way, at the training shapes.
+  3c. dq_matmul — the int8 dequant-matmul kernel against its plain version
+               at the Slam decoder's four (K, N) projection shapes, for the
+               decode rows (M = 8) and the prefill rows (M = 1024).
+  3d. probe  — the contraction-probe kernel against its plain version at its
+               four shapes, the K=64/K=128 and N=64/N=128 time ratios, then
+               its entry point `tools/bench_flash.py --matmul-probe`.
   4. scoring — a Slam-width UnitLM (Qwen2.5-0.5B decoder, 502 units, bf16,
                random init from a seed) saved and reloaded with
                save_pretrained / from_pretrained, scoring 8 unit-token
@@ -36,12 +43,30 @@ the sm_90a kernels). Phases, in order; any failure exits non-zero:
   7. card vs CPU — one packed [2, 256] microbatch at full width: loss and
                every parameter gradient in bf16 on the card against float32
                on the CPU, on the same weights.
+  8. speech  — eight seeded 3 s 16 kHz WAV prompts through
+               `generative_metric.generate` and a SpeechLM of mhubert-base-25hz
+               HuBERT (tap 11) + a 500-unit k-means (centroids drawn from the
+               prompts' own features) + the Slam UnitLM + the CodeHiFiGAN at
+               its published widths, all with seeded random weights;
+               generate.yaml's sampling settings with
+               weight_quant="int8", then dense. Then every dq_matmul call of
+               one int8 prefill (M = 8 x the prompt's length) and one decode
+               step held to its plain version within one bf16 ulp; HuBERT,
+               the int8 prefill logits and the vocoder on the card against
+               float32 CPU runs (or the plain dequant path) on the same
+               weights.
 
 Each main path runs with the launch counters zeroed just before it and read
 just after: every scoring forward and every generation prefill launches the
 forward kernel once per layer (phases 4-5); every training microbatch
 launches it twice per layer (forward and remat recompute) and the backward
-kernel once per layer (phase 6). The last lines are a JSON object with every
+kernel once per layer (phase 6); every int8 generate call calls dq_matmul
+for the 7 projections of every layer in the prefill and in each decode step
+(7 x 24 x 150 = 25200; a call counts one launch, though a decode call with
+split K also launches its reduction pass) and the flash forward once per
+layer (phase 8); the
+probe's entry point launches its kernel 7 times a shape (phase 3d). The last
+lines are a JSON object with every
 measurement, the card's name and power limit, a JSON object describing each
 kernel, and `{"ok": true, "device": {...}}`.
 """
@@ -90,6 +115,42 @@ RESUME_BOUND = 1e-3
 # cosine with the float32 one >= 0.99 (bf16 activations carry ~3 significant
 # digits, which bends a gradient by ~1e-2 radians at most)
 TRAIN_LOSS_BOUND, GRAD_COSINE_FLOOR = 2e-2, 0.99
+# the Slam decoder's (K, N) projection shapes: q/o 896x896, k/v 896x128,
+# up/gate 896x4864, down 4864x896
+SLAM_KN = ((896, 896), (896, 128), (896, 4864), (4864, 896))
+# phase 8, card against float32 CPU on the same weights. HuBERT runs float32
+# on both (TF32 off), so its tapped features differ by summation order only
+# (~1e-6 relative per stage over ~20 stages): ||card - cpu|| / ||cpu|| <=
+# 1e-4 (a TF32 or bf16 path would sit at 1e-3 or more). Unit ids: at least
+# 0.98 of them equal, since an argmin over 500 centroids may flip on a
+# near-tie
+HUBERT_REL_BOUND, UNIT_AGREE_FLOOR = 1e-4, 0.98
+# int8 prefill logits, the dq_matmul kernel against its plain version inside
+# the same bf16 forward. Each projection output may round one bf16 ulp
+# (2^-8) the other way, and every later bf16 op re-rounds what such a flip
+# moved, so the logits differ by the bf16 forward's own noise, not by
+# anything the kernel adds. The yardstick is that noise measured on the same
+# prompt: the plain path against the plain product in the Pallas kernel's
+# order (the scale after the sum), which differs from it the same way.
+# ||kernel - plain|| / ||plain|| <= 3 x that (floored at 1e-3): a wrong
+# column or scale would sit near 1
+INT8_LOGIT_YARDSTICK_FACTOR = 3.0
+# the vocoder body on the same conditioning, float32 on both (TF32 off for
+# cuDNN): max |d| of the tanh waveform <= 1e-4. Durations round(exp(d) - 1)
+# are compared apart: at least 0.98 of them equal, none off by more than 1
+VOCODER_ABS_BOUND, DURATION_AGREE_FLOOR = 1e-4, 0.98
+# scripts/bench_vocoder.py::FULL_CFG: the textless CodeHiFiGAN's published
+# widths (50 Hz frames, 320x upsample to 16 kHz)
+CODEHIFIGAN_CFG = {
+    "model_in_dim": 128, "num_embeddings": 504, "embedding_dim": 128,
+    "upsample_initial_channel": 512, "upsample_rates": [5, 4, 4, 2, 2],
+    "upsample_kernel_sizes": [11, 8, 8, 4, 4], "resblock_kernel_sizes": [3, 7, 11],
+    "resblock_dilation_sizes": [[1, 3, 5], [1, 3, 5], [1, 3, 5]],
+    "dur_predictor_params": {"encoder_embed_dim": 128, "var_pred_hidden_dim": 256,
+                             "var_pred_kernel_size": 3, "var_pred_dropout": 0.5},
+}
+# config/metric/generate.yaml's generate_kwargs, seeded
+GENERATE_KWARGS = dict(temperature=0.8, top_k=25, max_new_tokens=150, do_sample=True, seed=0)
 # published dense bf16 tensor-core peaks (NVIDIA data sheets), by card name
 BF16_PEAK_FLOPS = (("H100 PCIe", 756e12), ("H100 NVL", 835e12), ("H100", 989e12),
                    ("H200", 989e12))
@@ -322,6 +383,92 @@ def check_backward_kernels(dev) -> list[dict]:
         del got, want
         _require(ok, f"the flash backward kernel disagrees with the plain version at {name}")
     return results
+
+
+def check_dq_kernels(dev) -> list[dict]:
+    """Phase 3c: the dq_matmul kernel against its plain version at the Slam
+    decoder's four (K, N) pairs, for the decode rows (M = 8) and the
+    prefill rows (M = 8 x 128)."""
+    import torch
+
+    from slamkit_tpu_torch.ops import dq_matmul, dq_matmul_reference, quantize_weight
+    from slamkit_tpu_torch.ops.quant import ulp_bound
+
+    results = []
+    for m in (8, 1024):
+        for k, n in SLAM_KN:
+            g = torch.Generator(device=dev).manual_seed(m + k + n)
+            x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+            q, s = quantize_weight(torch.randn((k, n), generator=g, device=dev) * 0.02)
+            run = lambda: dq_matmul(x, q, s)
+            plain = lambda: dq_matmul_reference(x, q, s)
+            got, want = run().float(), plain().float()
+            torch.cuda.synchronize()
+            err = (got - want).abs()
+            ulps = (err / ulp_bound(got, want)).max().item()   # reason there
+            ms = _cuda_ms(run, warmup=3, iters=50)
+            plain_ms = _cuda_ms(plain, warmup=2, iters=20)
+            device_ms, plain_device_ms = _graph_ms(run, 50), _graph_ms(plain, 20)
+            ok = ulps <= 1.0 and bool(torch.isfinite(got).all().item())
+            results.append(dict(m=m, k=k, n=n, max_abs_err=err.max().item(), max_ulps=ulps,
+                                ms=ms, plain_ms=plain_ms, device_ms=device_ms,
+                                plain_device_ms=plain_device_ms,
+                                weight_gb_per_s=k * n / device_ms * 1e-6,
+                                tflops=2 * m * k * n / device_ms * 1e-9, ok=ok))
+            print(f"dq_matmul [{m},{k}]x[{k},{n}]: |d|={err.max().item():.3e}, "
+                  f"{ulps:.2f} bf16 ulp (<= 1)  eager: kernel {ms:.4f} ms plain "
+                  f"{plain_ms:.4f} ms; graph: kernel {device_ms:.4f} ms plain "
+                  f"{plain_device_ms:.4f} ms ({k * n / device_ms * 1e-6:.1f} GB/s of int8 "
+                  f"weights, {2 * m * k * n / device_ms * 1e-9:.2f} TFLOP/s)  "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            _require(ok, f"the dq_matmul kernel disagrees with the plain version at "
+                     f"[{m},{k}]x[{k},{n}]")
+    return results
+
+
+def check_probe(dev) -> dict:
+    """Phase 3d: the probe kernel against its plain version at its four
+    shapes, then its main path: `tools/bench_flash.py --matmul-probe`."""
+    import torch
+
+    from slamkit_tpu_torch.ops import matmul_probe, matmul_probe_reference
+    from slamkit_tpu_torch.ops.matmul_probe import REPS, SHAPES, error_bound
+    from slamkit_tpu_torch.tools import bench_flash
+
+    rows = []
+    for m, k, n in SHAPES:
+        g = torch.Generator(device=dev).manual_seed(m + k + n)
+        a = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+        b = torch.randn((k, n), generator=g, device=dev).to(torch.bfloat16)
+        run = lambda: matmul_probe(a, b, REPS)
+        plain = lambda: matmul_probe_reference(a, b, REPS)
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        bound = error_bound(k, REPS) * want.abs().max().item()   # reason there
+        ms, plain_ms = _cuda_ms(run, warmup=3, iters=20), _cuda_ms(plain, warmup=1, iters=5)
+        device_ms, plain_device_ms = _graph_ms(run, 20), _graph_ms(plain, 3)
+        ok = err <= bound
+        rows.append(dict(m=m, k=k, n=n, reps=REPS, max_abs_err=err, bound=bound, ms=ms,
+                         plain_ms=plain_ms, device_ms=device_ms,
+                         plain_device_ms=plain_device_ms,
+                         tflops=2 * m * k * n * REPS / device_ms * 1e-9, ok=ok))
+        print(f"probe [{m},{k}]x[{k},{n}] x{REPS}: |d|={err:.3e} (<= {bound:.3e})  eager: "
+              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms; graph: kernel {device_ms:.4f} ms "
+              f"plain {plain_device_ms:.4f} ms ({rows[-1]['tflops']:.1f} TFLOP/s)  "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        _require(ok, f"the probe kernel disagrees with the plain version at {(m, k, n)}")
+    dev_ms = {(r["m"], r["k"], r["n"]): r["device_ms"] for r in rows}
+    ratios = {"k64_over_k128": dev_ms[SHAPES[0]] / dev_ms[SHAPES[1]],
+              "n64_over_n128": dev_ms[SHAPES[2]] / dev_ms[SHAPES[3]]}
+    print(f"probe ratios (graph): K=64/K=128 {ratios['k64_over_k128']:.3f}, "
+          f"N=64/N=128 {ratios['n64_over_n128']:.3f}", flush=True)
+    matmul_probe.launches = 0                 # the main path's count starts here
+    bench_flash.main(["--matmul-probe", "--iters", "5"])
+    launches = matmul_probe.launches
+    _require(launches == len(SHAPES) * (2 + 5), f"bench_flash --matmul-probe launched the "
+             f"probe kernel {launches} times, not {len(SHAPES) * 7}")
+    return dict(shapes=rows, ratios=ratios, launches=launches)
 
 
 def run_slice(dev, smi: str, cfg=None) -> dict:
@@ -607,6 +754,260 @@ def check_card_vs_cpu(dev, work: pathlib.Path, cfg=None, batch=2, context=256) -
                 min_grad_cosine=cos[worst], min_grad_cosine_tensor=worst)
 
 
+def write_prompts(folder: pathlib.Path, n: int, seconds: float, seed: int = 0) -> str:
+    """n seeded 16 kHz WAVs of `seconds` each (a gliding tone in noise);
+    returns their glob."""
+    from slamkit_tpu_torch.utils.audio import save_wav
+
+    rng = np.random.default_rng(seed)
+    folder.mkdir(parents=True, exist_ok=True)
+    t = np.arange(int(seconds * 16000)) / 16000
+    for i in range(n):
+        f0 = rng.uniform(100, 300) * (1 + 0.3 * np.sin(2 * np.pi * rng.uniform(0.5, 2) * t))
+        tone = 0.3 * np.sin(2 * np.pi * np.cumsum(f0) / 16000)
+        save_wav(str(folder / f"prompt{i}.wav"), tone + 0.05 * rng.standard_normal(t.size))
+    return str(folder / "*.wav")
+
+
+class Spans:
+    """Times named methods of the pipeline's parts (the card synchronised on
+    both sides) and counts the kernel launches inside each call."""
+
+    def __init__(self, dev):
+        self.dev, self.rows = dev, []
+
+    def wrap(self, obj, method: str, label: str):
+        from slamkit_tpu_torch.ops import dq_matmul, flash_attention_fwd
+
+        fn = getattr(obj, method)
+
+        def timed(*args, **kwargs):
+            _sync(self.dev)
+            before = (dq_matmul.launches, flash_attention_fwd.launches)
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            _sync(self.dev)
+            self.rows.append(dict(span=label, seconds=time.perf_counter() - t0,
+                                  dq=dq_matmul.launches - before[0],
+                                  flash=flash_attention_fwd.launches - before[1],
+                                  args=args, kwargs=kwargs, out=out))
+            return out
+
+        setattr(obj, method, timed)
+
+    def take(self, label: str) -> list[dict]:
+        rows = [r for r in self.rows if r["span"] == label]
+        self.rows = [r for r in self.rows if r["span"] != label]
+        return rows
+
+
+def run_speech(dev, smi: str, work: pathlib.Path, lm_cfg=None, hubert_cfg=None,
+               voc_cfg=None, n_prompts: int = 8, seconds: float = 3.0,
+               generate_kwargs=None) -> dict:
+    """Phase 8: speech continuation through `generative_metric.generate` and
+    a SpeechLM of HuBERT + k-means + UnitLM + CodeHiFiGAN, int8 then dense;
+    then the card held against float32 CPU runs on the same weights. On the
+    card every int8 generate call must run all 7 projections of every layer
+    through dq_matmul in the prefill and in each decode step, and the prefill
+    through the flash kernel; on the CPU (a rehearsal at small configs) the
+    plain versions run and no launch may be counted."""
+    import contextlib
+
+    import torch
+
+    from slamkit_tpu_torch.feature_extractor import (HUBERT_CONFIG_PRESETS, HubertConfig,
+                                                     HubertFeatureExtractor, assign_clusters)
+    from slamkit_tpu_torch.feature_extractor.hubert import random_params
+    from slamkit_tpu_torch.metric import generative_metric
+    from slamkit_tpu_torch.models import SpeechLM, UnitLM, transformer
+    from slamkit_tpu_torch.models.transformer import init_cache
+    from slamkit_tpu_torch.ops import dq_matmul, dq_matmul_reference, flash_attention_fwd
+    from slamkit_tpu_torch.ops.quant import ulp_bound
+    from slamkit_tpu_torch.tokeniser import UnitTokeniser
+    from slamkit_tpu_torch.tools.slam_recipe import slam_config
+    from slamkit_tpu_torch.utils.tree import to_torch
+    from slamkit_tpu_torch.vocoder import HiFiGANVocoder, hifigan
+
+    lm_cfg = lm_cfg or slam_config()
+    hubert_cfg = hubert_cfg or HubertConfig(**HUBERT_CONFIG_PRESETS["slprl/mhubert-base-25hz"])
+    voc_cfg = voc_cfg or CODEHIFIGAN_CFG
+    gen_kw = dict(generate_kwargs or GENERATE_KWARGS)
+    n_layers, new = lm_cfg.decoder_config().num_layers, gen_kw["max_new_tokens"]
+    on_card = dev.type == "cuda"
+    tap = hubert_cfg.num_hidden_layers - 1      # mhubert-base-25hz's units: layer 11 of 12
+    prompts = write_prompts(work / "prompts", n_prompts, seconds)
+
+    hubert_params = random_params(hubert_cfg, seed=1)
+    fe = HubertFeatureExtractor.from_params(
+        hubert_params, hubert_cfg, np.zeros((500, hubert_cfg.hidden_size), np.float32),
+        layer=tap, device=dev)
+    # The k-means file is not in the repository, so its 500 centroids are
+    # drawn from the tapped features of the prompts themselves (seeded; the
+    # Forgy start of k-means). Random centroids would not do: every frame is
+    # a layer-normed vector sharing a large component with the others, and
+    # one random centroid then wins every frame, which leaves one unit a
+    # prompt. This first forward also warms HuBERT up before it is timed.
+    prompt_wavs = np.stack([generative_metric.load_audio(str(p), 16000) for p in
+                            sorted((work / "prompts").glob("*.wav"))])
+    frames = fe.features(torch.from_numpy(prompt_wavs).to(dev)).reshape(
+        -1, hubert_cfg.hidden_size).cpu().numpy()
+    rng = np.random.default_rng(8)
+    centroids = frames[rng.choice(len(frames), 500, replace=len(frames) < 500)]
+    fe.centroids = torch.from_numpy(centroids).to(dev)
+    voc_params = hifigan.convert_torch_generator(hifigan.random_state_dict(voc_cfg, seed=2),
+                                                 voc_cfg)
+    lm = UnitLM(lm_cfg, seed=0, device=dev)
+    voc = HiFiGANVocoder.from_params(voc_params, voc_cfg, device=dev)
+    model = SpeechLM(lm, UnitTokeniser(fe, num_units=500), voc)
+    spans = Spans(dev)
+    spans.wrap(model.tokeniser, "build_prompt", "tokenise")
+    spans.wrap(lm, "generate", "generate")
+    spans.wrap(voc, "vocode_batch", "vocode")
+
+    runs = {}
+    for quant in ("int8", None):
+        name = quant or "dense"
+        dq_matmul.launches = flash_attention_fwd.launches = 0   # the main path's count
+        res = generative_metric.generate(model, prompts, batch_size=8, prompt_length=3,
+                                         num_workers=8, weight_quant=quant, **gen_kw)
+        launches = {"dq_matmul": dq_matmul.launches, "flash_fwd": flash_attention_fwd.launches}
+        tok, gen, vocode = spans.take("tokenise"), spans.take("generate"), spans.take("vocode")
+        wavs = res["generate"]
+        _require(len(wavs) == n_prompts and all(
+            w.size > 0 and np.isfinite(w).all() for w in wavs),
+            f"{name}: not {n_prompts} non-empty finite waveforms")
+        per_call = {"dq_matmul": (7 * n_layers * new if quant else 0) if on_card else 0,
+                    "flash_fwd": n_layers if on_card else 0}
+        for row in gen:
+            got = {"dq_matmul": row["dq"], "flash_fwd": row["flash"]}
+            _require(got == per_call, f"a {name} generate call launched {got}, expected "
+                     f"{per_call}")
+        rows = sum(r["out"].shape[0] for r in gen)
+        gen_s = sum(r["seconds"] for r in gen)
+        audio_s = sum(w.size for w in wavs) / 16000
+        voc_s = sum(r["seconds"] for r in vocode)
+        runs[name] = dict(
+            launches=launches, generate_calls=len(gen), tokenise_ms=1e3 * sum(
+                r["seconds"] for r in tok), generate_s=gen_s,
+            new_tokens_per_s=rows * new / gen_s, vocode_s=voc_s, audio_s=audio_s,
+            vocode_x_realtime=audio_s / voc_s,
+            prompt_ids=[list(r["out"]["input_ids"].shape) for r in tok])
+        print(f"speech ({name}): {n_prompts} prompts of {seconds} s, tokenise "
+              f"{runs[name]['tokenise_ms']:.1f} ms, prompt ids {runs[name]['prompt_ids']}, "
+              f"generate {gen_s:.3f} s = {rows * new / gen_s:.1f} new tokens/s, vocode "
+              f"{voc_s:.3f} s for {audio_s:.2f} s of audio ({audio_s / voc_s:.1f}x real "
+              f"time), launches {launches} on {smi}", flush=True)
+        last_prompt = tok[-1]["out"]["input_ids"]
+        last_units = vocode[-1]["args"][0]
+
+    # ---- the card against float32 CPU runs on the same weights -----------
+    cpu = torch.device("cpu")
+    wav = prompt_wavs[:2]
+    fe_cpu = HubertFeatureExtractor.from_params(hubert_params, hubert_cfg, centroids,
+                                                layer=tap)
+    feats = fe.features(torch.from_numpy(wav).to(dev)).float()
+    feats_cpu = fe_cpu.features(torch.from_numpy(wav))
+    hubert_err = ((feats.cpu() - feats_cpu).norm() / feats_cpu.norm()).item()
+    ids = assign_clusters(feats, fe.centroids).cpu()
+    agree = (ids == assign_clusters(feats_cpu, fe_cpu.centroids)).float().mean().item()
+    print(f"HuBERT card vs CPU on 2 prompts: ||d|| / ||cpu|| = {hubert_err:.3e} (<= "
+          f"{HUBERT_REL_BOUND}), unit ids agree {agree:.4f} (>= {UNIT_AGREE_FLOOR})",
+          flush=True)
+    _require(hubert_err <= HUBERT_REL_BOUND and agree >= UNIT_AGREE_FLOOR,
+             "HuBERT on the card disagrees with the float32 CPU run")
+
+    @contextlib.contextmanager
+    def dq_path(fn):
+        kernel, transformer.dq_matmul = transformer.dq_matmul, fn
+        try:
+            yield
+        finally:
+            transformer.dq_matmul = kernel
+
+    def pallas_order(x, q, s):
+        """The plain product in the Pallas kernel's order: the scale
+        multiplies the float32 sum (quant.py:48), not the weights."""
+        return ((x.float() @ q.float()) * s.float().reshape(1, -1)).to(torch.bfloat16)
+
+    held = dict(calls=0, max_ulps=0.0, shapes=set())
+
+    def held_to_plain(x, q, s):
+        """The kernel, held on every call to its plain version on the same
+        (x, q, s) within one bf16 ulp (`ulp_bound`, reason there)."""
+        got = kernel(x, q, s)
+        want = dq_matmul_reference(x, q, s)
+        ulps = ((got.float() - want.float()).abs() / ulp_bound(got, want)).max().item()
+        held["calls"] += 1
+        held["max_ulps"] = max(held["max_ulps"], ulps)
+        held["shapes"].add((x.shape[0], *q.shape))
+        _require(ulps <= 1.0 and bool(torch.isfinite(got).all().item()),
+                 f"dq_matmul [{x.shape[0]},{q.shape[0]}]x{list(q.shape)} is {ulps:.2f} bf16 "
+                 f"ulp from its plain version in the int8 prefill or decode step")
+        return got
+
+    kernel = transformer.dq_matmul
+    prepared = lm._int8_decode_params()
+    ids_t = torch.as_tensor(last_prompt, device=dev)
+    b, l0 = ids_t.shape
+    mask = (ids_t != 0).to(torch.int32)       # left pads, as generate lays them out
+    prefill = dict(positions=(torch.cumsum(mask, dim=1) - 1).clamp(min=0),
+                   segment_ids=torch.where(mask > 0, 0, -1).to(torch.int32))
+    with torch.inference_mode():
+        # the prefill at the prompt's own M = B x L0 and one decode step
+        # (M = B), every projection held to the plain version as it runs
+        cache = init_cache(prepared.cfg, b, l0 + 1, device=dev)
+        with dq_path(held_to_plain):
+            logits, cache = prepared(ids_t, **prefill, cache=cache, cache_index=0)
+            prepared(logits[:, -1].argmax(-1)[:, None], positions=prefill["positions"][:, -1:] + 1,
+                     segment_ids=torch.cat([prefill["segment_ids"], torch.zeros_like(
+                         prefill["segment_ids"][:, :1])], dim=1), cache=cache, cache_index=l0)
+        _require(held["calls"] == 2 * 7 * n_layers, f"{held['calls']} dq_matmul calls held in "
+                 f"one prefill and one decode step, not {2 * 7 * n_layers}")
+        print(f"dq_matmul held per call in the int8 prefill (M = {b} x {l0}) and one decode "
+              f"step (M = {b}): {held['calls']} calls at {len(held['shapes'])} shapes, at most "
+              f"{held['max_ulps']:.2f} bf16 ulp (<= 1)", flush=True)
+        with dq_path(dq_matmul_reference):
+            plain_logits, _ = prepared(ids_t, **prefill)
+        with dq_path(pallas_order):
+            order_logits, _ = prepared(ids_t, **prefill)
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+    logit_err, logit_yardstick = rel(logits, plain_logits), rel(order_logits, plain_logits)
+    logit_max_err = (logits - plain_logits).abs().max().item()
+    logit_bound = max(INT8_LOGIT_YARDSTICK_FACTOR * logit_yardstick, 1e-3)
+    print(f"int8 prefill logits {list(logits.shape)}, dq_matmul kernel vs plain: "
+          f"||d|| / ||plain|| = {logit_err:.3e} (<= {logit_bound:.3e} = "
+          f"{INT8_LOGIT_YARDSTICK_FACTOR} x {logit_yardstick:.3e}, the two plain orders), "
+          f"max |d| {logit_max_err:.3e}", flush=True)
+    _require(logit_err <= logit_bound, "the int8 prefill logits disagree with the plain path")
+
+    units = np.asarray(last_units[0])[:50]
+    cpu_params = to_torch(voc_params, cpu)
+    h_cpu = hifigan._build_conditioning(cpu_params, voc_cfg, units, dur_prediction=True)
+    with torch.inference_mode():
+        x = voc.params["dict"][torch.as_tensor(units[None], dtype=torch.long, device=dev)]
+        dur = hifigan.durations(hifigan.variance_predictor(
+            voc.params["dur_predictor"], voc_cfg["dur_predictor_params"], x))[0]
+        x_cpu = cpu_params["dict"][torch.as_tensor(units[None], dtype=torch.long)]
+        dur_cpu = hifigan.durations(hifigan.variance_predictor(
+            cpu_params["dur_predictor"], voc_cfg["dur_predictor_params"], x_cpu))[0]
+    dur_agree = float((dur == dur_cpu).mean())
+    dur_max = int(np.abs(dur - dur_cpu).max())
+    body = hifigan.generator_forward(voc.params, voc_cfg, h_cpu.to(dev)).cpu()
+    body_cpu = hifigan.generator_forward(cpu_params, voc_cfg, h_cpu)
+    voc_err = (body - body_cpu).abs().max().item()
+    print(f"vocoder card vs CPU on {len(units)} units: durations agree {dur_agree:.4f} (>= "
+          f"{DURATION_AGREE_FLOOR}), max |d dur| {dur_max} (<= 1); body on the same "
+          f"conditioning [{h_cpu.shape[-1]} frames]: |d wav|={voc_err:.3e} (<= "
+          f"{VOCODER_ABS_BOUND})", flush=True)
+    _require(dur_agree >= DURATION_AGREE_FLOOR and dur_max <= 1 and voc_err <= VOCODER_ABS_BOUND,
+             "the vocoder on the card disagrees with the float32 CPU run")
+    return dict(runs=runs, hubert_rel_err=hubert_err, unit_agreement=agree,
+                dq_held_calls=held["calls"], dq_held_max_ulps=held["max_ulps"],
+                int8_logit_err=logit_err, int8_logit_bound=logit_bound,
+                int8_logit_yardstick=logit_yardstick, int8_logit_max_err=logit_max_err,
+                duration_agreement=dur_agree, vocoder_err=voc_err)
+
+
 def main() -> int:
     if not (ROOT / "slamkit_tpu_torch" / "ops" / "csrc" / "flash_fwd.cu").is_file():
         print("chip_smoke: run from a checkout of the repository (slamkit_tpu_torch/ "
@@ -635,10 +1036,13 @@ def main() -> int:
     # ---- phase 2: build, one nvcc per source, all at once -------------------
     from slamkit_tpu_torch.ops import _build
     from slamkit_tpu_torch.ops.flash_attention import KERNEL, KERNEL_BWD
+    from slamkit_tpu_torch.ops.matmul_probe import KERNEL as PROBE_KERNEL
+    from slamkit_tpu_torch.ops.quant import KERNEL as DQ_KERNEL
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        libs = list(pool.map(_build.build, (KERNEL, KERNEL_BWD)))
+    names = (KERNEL, KERNEL_BWD, DQ_KERNEL, PROBE_KERNEL)
+    with ThreadPoolExecutor(len(names)) as pool:
+        libs = list(pool.map(_build.build, names))
     print(f"built {', '.join(str(lib.relative_to(ROOT)) for lib in libs)} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for lib in libs:
@@ -647,6 +1051,8 @@ def main() -> int:
     with torch.inference_mode():
         kernel_rows = check_kernels(dev)
         backward_rows = check_backward_kernels(dev)
+        dq_rows = check_dq_kernels(dev)
+        probe_result = check_probe(dev)
     torch.cuda.empty_cache()
     slice_result = run_slice(dev, smi)
     _require(slice_result["launches"] > 0, "the main path never launched the flash kernel")
@@ -655,18 +1061,27 @@ def main() -> int:
         train_result = run_training(dev, smi, work=pathlib.Path(work))
         torch.cuda.empty_cache()
         cpu_result = check_card_vs_cpu(dev, pathlib.Path(work))
+        torch.cuda.empty_cache()
+        speech_result = run_speech(dev, smi, pathlib.Path(work))
+    speech_runs = speech_result["runs"]
 
     score = next(r for r in kernel_rows if r["name"] == "score_ctx1024")
     bwd = next(r for r in backward_rows if r["name"] == "slam_ctx1024")
+    # the kernels line times dq_matmul at a decode step's largest projection
+    # (up / gate: [8, 896] x [896, 4864]) and the probe at its K = 128 shape
+    dq = next(r for r in dq_rows if (r["m"], r["k"], r["n"]) == (8, 896, 4864))
+    probe = next(r for r in probe_result["shapes"] if r["k"] == 128)
     print(json.dumps({"shapes": kernel_rows, "backward_shapes": backward_rows,
+                      "dq_shapes": dq_rows, "probe": probe_result,
                       "slice": slice_result, "training": train_result,
-                      "card_vs_cpu": cpu_result}), flush=True)
+                      "card_vs_cpu": cpu_result, "speech": speech_result}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": [
         {"name": "flash_fwd", "route": "cuda",
          "source": "slamkit_tpu_torch/ops/csrc/flash_fwd.cu",
          "replaces": "slamkit_tpu/ops/flash_attention.py:124",
-         "launches": slice_result["launches"] + train_result["launches"]["flash_fwd"],
+         "launches": slice_result["launches"] + train_result["launches"]["flash_fwd"]
+         + sum(r["launches"]["flash_fwd"] for r in speech_runs.values()),
          "max_abs_err": max(r["max_abs_err_out"] for r in kernel_rows),
          "ms": score["ms"], "plain_ms": score["plain_ms"]},
         {"name": "flash_bwd", "route": "cuda",
@@ -674,7 +1089,19 @@ def main() -> int:
          "replaces": "slamkit_tpu/ops/flash_attention.py:247",
          "launches": train_result["launches"]["flash_bwd"],
          "max_abs_err": max(max(r["max_abs_err"].values()) for r in backward_rows),
-         "ms": bwd["ms"], "plain_ms": bwd["plain_ms"]}]}), flush=True)
+         "ms": bwd["ms"], "plain_ms": bwd["plain_ms"]},
+        {"name": "dq_matmul", "route": "cuda",
+         "source": "slamkit_tpu_torch/ops/csrc/dq_matmul.cu",
+         "replaces": "slamkit_tpu/ops/quant.py:43",
+         "launches": speech_runs["int8"]["launches"]["dq_matmul"],
+         "max_abs_err": max(r["max_abs_err"] for r in dq_rows),
+         "ms": dq["ms"], "plain_ms": dq["plain_ms"]},
+        {"name": "matmul_probe", "route": "cuda",
+         "source": "slamkit_tpu_torch/ops/csrc/matmul_probe.cu",
+         "replaces": "scripts/bench_flash.py:98",
+         "launches": probe_result["launches"],
+         "max_abs_err": max(r["max_abs_err"] for r in probe_result["shapes"]),
+         "ms": probe["ms"], "plain_ms": probe["plain_ms"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

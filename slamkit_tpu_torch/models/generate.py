@@ -7,6 +7,10 @@ bad-words vocab mask, and pad after eos. The JAX package traces the decode
 loop with `lax.scan`; here it is a Python loop. Sampling draws come from an
 explicit `torch.Generator`, so they differ from JAX's keys; the warped
 logits they are drawn from are the same.
+
+`weight_quant="int8"` (JAX `generate.py:124`) quantizes the seven projection
+weights of every layer per output channel (`ops/quant.py`) and runs them
+through the dequant-matmul kernel in the prefill and in every decode step.
 """
 from __future__ import annotations
 
@@ -14,6 +18,7 @@ from typing import Optional
 
 import torch
 
+from ..ops.quant import quantize_weight
 from .transformer import Decoder, init_cache
 
 NEG_INF = -1e30
@@ -55,6 +60,39 @@ def _apply_repetition_penalty(logits, seen, penalty):
     return torch.where(seen, penalized, logits)
 
 
+#: the per-layer projections that `weight_quant="int8"` quantizes (JAX
+#: `generate.py:58`); embeddings (a gather) and the logit head stay dense
+_QUANT_KEYS = ("q_w", "k_w", "v_w", "o_w", "up_w", "gate_w", "down_w")
+
+
+def _weights(decoder: Decoder) -> dict:
+    """name -> tensor, or {"q", "s"} for a projection that is int8 already."""
+    state = dict(decoder.state_dict())
+    for i, layer in enumerate(decoder.layers):
+        for key in _QUANT_KEYS:
+            w = getattr(layer, key, None)
+            if isinstance(w, dict):
+                state[f"layers.{i}.{key}"] = w
+    return state
+
+
+def _assemble(decoder: Decoder, state: dict) -> Decoder:
+    """A Decoder holding `state`'s tensors without copies; an int8 dict
+    replaces its parameter as a plain attribute, which `_proj` reads."""
+    clone = Decoder(decoder.cfg, device="meta")
+    dense = {k: v for k, v in state.items() if not isinstance(v, dict)}
+    missing = clone.load_state_dict(dense, strict=False, assign=True).missing_keys
+    if set(missing) != {k for k, v in state.items() if isinstance(v, dict)}:
+        raise ValueError(f"weights missing from the decoder's state: {sorted(missing)}")
+    for name, w in state.items():
+        if isinstance(w, dict):
+            module, leaf = name.rsplit(".", 1)
+            layer = clone.get_submodule(module)
+            del layer._parameters[leaf]
+            setattr(layer, leaf, w)
+    return clone
+
+
 def compute_copy(decoder: Decoder) -> Decoder:
     """The decoder with its weights cast to the compute dtype once, as the
     JAX package casts every float32 array of more than one dimension before
@@ -62,12 +100,39 @@ def compute_copy(decoder: Decoder) -> Decoder:
     1-D final norm stays float32 and is shared with `decoder`)."""
     dt = decoder.cfg.compute_dtype
     state = {}
-    for name, p in decoder.state_dict().items():
-        cast = name.startswith("layers.") or p.dim() > 1
+    for name, p in _weights(decoder).items():
+        cast = not isinstance(p, dict) and (name.startswith("layers.") or p.dim() > 1)
         state[name] = p.to(dt) if cast else p
-    clone = Decoder(decoder.cfg, device="meta")
-    clone.load_state_dict(state, assign=True)
-    return clone
+    return _assemble(decoder, state)
+
+
+def _quantize_decode_params(state: dict) -> dict:
+    """int8 weight-only quantization of every layer's `_QUANT_KEYS` weight in
+    a name -> weight dict (JAX `_quantize_decode_params` :61). Leaves that are
+    {"q", "s"} already pass through untouched."""
+    out = dict(state)
+    for name, w in state.items():
+        if (name.startswith("layers.") and name.rsplit(".", 1)[-1] in _QUANT_KEYS
+                and isinstance(w, torch.Tensor)):
+            q, s = quantize_weight(w)
+            out[name] = {"q": q, "s": s}
+    return out
+
+
+def prepare_int8_decode_params(decoder: Decoder) -> Decoder:
+    """The decoder for int8 decoding: its weights cast to the compute dtype
+    FIRST and the cast values quantized, as JAX `generate` does
+    (`generate.py:121-125`; quantizing the float32 masters instead would put
+    a few weights one int8 step away). Idempotent: a decoder prepared before
+    comes back with the same int8 tensors."""
+    return _assemble(decoder, _quantize_decode_params(_weights(compute_copy(decoder))))
+
+
+def is_int8_prepared(decoder: Decoder) -> bool:
+    """True when every layer's `_QUANT_KEYS` projection is an int8 dict, as
+    `prepare_int8_decode_params` leaves them."""
+    return all(isinstance(getattr(layer, key, None), dict)
+               for layer in decoder.layers for key in _QUANT_KEYS)
 
 
 @torch.inference_mode()
@@ -77,16 +142,25 @@ def generate(decoder: Decoder, input_ids: torch.Tensor, attention_mask: torch.Te
              top_k: Optional[int] = None, top_p: Optional[float] = None,
              eos_token_id: Optional[int] = None, pad_token_id: int = 0,
              repetition_penalty: Optional[float] = None,
-             bad_words_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+             bad_words_mask: Optional[torch.Tensor] = None,
+             weight_quant: Optional[str] = None) -> torch.Tensor:
     """input_ids [B, L0] LEFT-padded, attention_mask [B, L0], both on the
     decoder's device. Returns [B, L0 + max_new_tokens]; positions after eos
-    hold pad_token_id. bad_words_mask: bool [V], True = banned id."""
+    hold pad_token_id. bad_words_mask: bool [V], True = banned id.
+    weight_quant="int8" runs every projection of the prefill and of each
+    decode step through `dq_matmul` on int8 weights; a decoder that
+    `prepare_int8_decode_params` returned runs as it is."""
     b, l0 = input_ids.shape
     if max_new_tokens <= 0:  # HF returns the prompt unchanged
         return input_ids
     cfg = decoder.cfg
     dev = input_ids.device
-    dec = compute_copy(decoder)
+    if weight_quant == "int8":
+        dec = decoder if is_int8_prepared(decoder) else prepare_int8_decode_params(decoder)
+    elif weight_quant:
+        raise ValueError(f"unknown weight_quant {weight_quant!r} (only 'int8')")
+    else:
+        dec = compute_copy(decoder)
 
     mask = attention_mask.to(torch.int32)
     prompt_seg = torch.where(mask > 0, 0, -1).to(torch.int32)

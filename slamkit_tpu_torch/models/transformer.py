@@ -23,6 +23,11 @@ layers (all when -1) with `torch.utils.checkpoint`, the JAX package's
 `jax.checkpoint` of the layer scan: the backward recomputes each layer's
 forward, flash kernel included. Dropout, attention dropout, layerdrop and the
 "qkv" remat policy are not ported; a config that sets them raises.
+
+int8 decode: a layer's seven projection weights may be int8 dicts instead of
+parameters (`_proj`); `models/generate.py` builds such a copy for
+`generate(weight_quant="int8")`, and its prefill and decode steps then run
+every projection through the `dq_matmul` kernel.
 """
 from __future__ import annotations
 
@@ -33,7 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops import flash_attention
+from ..ops import dq_matmul, flash_attention
 from .presets import DecoderConfig
 
 NEG_INF = -1e30
@@ -129,7 +134,18 @@ def _rope(x, cos, sin):
 
 
 def _proj(x, w, b, dt):
-    y = x @ w.to(dt)
+    """[..., d] @ [d, f] (+ b). w is a dense weight or an int8 weight
+    {"q": int8 [d, f], "s": bf16 [1, f]} (the int8 decode path,
+    `generate.prepare_int8_decode_params`): as the JAX package's `_proj_w`,
+    the input goes to `dq_matmul` in bf16 and its bf16 output comes back in
+    the compute dtype."""
+    if isinstance(w, dict):
+        lead = x.shape[:-1]
+        y = dq_matmul(x.reshape(-1, x.shape[-1]).to(torch.bfloat16).contiguous(),
+                      w["q"], w["s"])
+        y = y.reshape(*lead, y.shape[-1]).to(dt)
+    else:
+        y = x @ w.to(dt)
     return y + b.to(dt) if b is not None else y
 
 

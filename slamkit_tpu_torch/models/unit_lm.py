@@ -21,6 +21,7 @@ import torch
 from ..utils.calculation_utils import calc_nll, cross_entropy_loss
 from .convert import load_flat, to_flat
 from .generate import generate as _generate
+from .generate import prepare_int8_decode_params as _prepare_int8
 from .presets import DecoderConfig, resolve_base_config, translate_decoder_overrides
 from .transformer import Decoder, param_count
 
@@ -190,8 +191,9 @@ class UnitLM:
         [B, L0 + max_new_tokens] on the model's device.
 
         Draws come from `generator` (on the model's device), else from a new
-        one seeded with `seed` (random when None). Unsupported HF generate
-        kwargs raise unless passed at their no-op value."""
+        one seeded with `seed` (random when None). weight_quant="int8" decodes
+        with int8 projection weights through the dq_matmul kernel. Unsupported
+        HF generate kwargs raise unless passed at their no-op value."""
         for k, v in kwargs.items():
             noop = _NOOP_GENERATE_KWARGS.get(k)
             if noop is not None and _is_noop(v, noop):
@@ -202,11 +204,7 @@ class UnitLM:
                 f"repetition_penalty, bad_words_ids, seed/generator; {k} is "
                 + (f"only supported at its no-op value {noop[0]!r}" if noop is not None
                    else "not a recognised generation knob") + ")")
-        if weight_quant == "int8":
-            raise NotImplementedError(
-                "weight_quant='int8' needs the int8 dequant-matmul kernel, which is "
-                "not ported yet; refusing rather than running dense")
-        if weight_quant:
+        if weight_quant not in (None, "int8"):
             raise ValueError(f"unknown weight_quant {weight_quant!r} (only 'int8')")
         pad = self.config.pad_token_id
         input_ids = self._tensor(input_ids)
@@ -240,13 +238,33 @@ class UnitLM:
             top_p = None
         if repetition_penalty is not None and float(repetition_penalty) == 1.0:
             repetition_penalty = None
-        out = _generate(self.decoder, input_ids, attention_mask, generator,
+        decoder = self._int8_decode_params() if weight_quant == "int8" else self.decoder
+        out = _generate(decoder, input_ids, attention_mask, generator,
                         max_new_tokens=max_new_tokens, do_sample=do_sample,
                         temperature=temperature, top_k=top_k, top_p=top_p,
                         repetition_penalty=repetition_penalty,
                         eos_token_id=self.config.eos_token_id,
-                        pad_token_id=pad, bad_words_mask=bad_mask)
+                        pad_token_id=pad, bad_words_mask=bad_mask,
+                        weight_quant=weight_quant)
         return out[:, rem:] if rem else out
+
+    def _int8_decode_params(self):
+        """The int8 decode copy of the decoder, built once per set of weights
+        and reused across generate() calls (JAX `unit_lm.py:265`). The key is
+        the parameters' identity and their version counters, so assigning a
+        new decoder, loading weights or an optimizer step (all in place here,
+        unlike JAX's new arrays) invalidates it."""
+        key = [(p, p._version) for p in self.decoder.parameters()]
+        cached = getattr(self, "_int8_cache", None)
+        if cached is not None and len(cached[0]) == len(key) and all(
+                a is b and va == vb for (a, va), (b, vb) in zip(cached[0], key)):
+            return cached[1]
+        # drop the stale copy BEFORE building the new one, so the old int8
+        # weights and the new cast copy are never resident together
+        self._int8_cache = None
+        prepared = _prepare_int8(self.decoder)
+        self._int8_cache = (key, prepared)
+        return prepared
 
     # -- persistence ----------------------------------------------------------
     def save_pretrained(self, save_directory: str, params: Optional[dict] = None):

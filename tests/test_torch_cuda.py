@@ -1,4 +1,5 @@
-"""The CUDA flash-attention kernels against their plain versions, on the card.
+"""The CUDA kernels (flash attention, dq_matmul, the probe) against their plain
+versions, on the card.
 
 Skips where CUDA is absent. The card's host has no JAX, and tests/conftest.py
 imports it, so run this file there without the conftest:
@@ -228,3 +229,90 @@ def test_backward_kernel_refuses_what_it_does_not_take(dev):
         flash_attention_bwd(q, k, v, out, lse.cpu(), out)
     with pytest.raises(ValueError, match="several devices"):
         flash_attention_bwd(q, k.cpu(), v, out, lse, out)
+
+
+# --------------------------------------------------------------------------- #
+# dq_matmul and the probe kernel
+# --------------------------------------------------------------------------- #
+SLAM_KN = [(896, 896), (896, 128), (896, 4864), (4864, 896)]
+
+
+def _dq_inputs(dev, m, k, n, seed=0):
+    from slamkit_tpu_torch.ops import quantize_weight
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    q, s = quantize_weight(torch.randn((k, n), generator=g, device=dev) * 0.02)
+    return x, q, s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(m, k, n) for m in (8, 16, 1024) for k, n in SLAM_KN]
+                         + [(1, 896, 896), (5, 64, 250), (3, 72, 131), (17, 896, 250),
+                            (1000, 896, 130), (100, 72, 896), (64, 4864, 128)])
+def test_dq_matmul_kernel_matches_plain(dev, m, k, n):
+    from slamkit_tpu_torch.ops import dq_matmul, dq_matmul_reference
+    from slamkit_tpu_torch.ops.quant import ulp_bound
+
+    x, q, s = _dq_inputs(dev, m, k, n, seed=m + k + n)
+    before = dq_matmul.launches
+    got = dq_matmul(x, q, s)
+    assert dq_matmul.launches == before + 1
+    want = dq_matmul_reference(x, q, s)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    got, want = got.float(), want.float()
+    assert bool(((got - want).abs() <= ulp_bound(got, want)).all()), \
+        (got - want).abs().max().item()
+
+
+@pytest.mark.cuda
+def test_dq_matmul_kernel_refuses_what_it_does_not_take(dev):
+    from slamkit_tpu_torch.ops import dq_matmul
+
+    x, q, s = _dq_inputs(dev, 8, 64, 128)
+    with pytest.raises(TypeError, match="bfloat16"):
+        dq_matmul(x.float(), q, s)
+    with pytest.raises(ValueError, match="several devices"):
+        dq_matmul(x, q.cpu(), s)
+    with pytest.raises(ValueError, match="disagree on K"):
+        dq_matmul(x[:, :32].contiguous(), q, s)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        dq_matmul(x[:, :60].contiguous(), q[:60].contiguous(), s)
+    with pytest.raises(ValueError, match="contiguous"):
+        dq_matmul(x, q.t().contiguous().t(), s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,reps", [(1024, 64, 1024, 64), (1024, 128, 1024, 64),
+                                        (1024, 1024, 64, 64), (1024, 1024, 128, 64),
+                                        (64, 32, 64, 1), (128, 96, 192, 3)])
+def test_probe_kernel_matches_plain(dev, m, k, n, reps):
+    """Within `error_bound(K, reps)` of max |plain| (the reason is there:
+    the tensor cores truncate each step into the kernel's one float32 sum)."""
+    from slamkit_tpu_torch.ops import matmul_probe, matmul_probe_reference
+    from slamkit_tpu_torch.ops.matmul_probe import error_bound
+
+    g = torch.Generator(device=dev).manual_seed(m + k + n)
+    a = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    b = torch.randn((k, n), generator=g, device=dev).to(torch.bfloat16)
+    before = matmul_probe.launches
+    got = matmul_probe(a, b, reps)
+    assert matmul_probe.launches == before + 1
+    want = matmul_probe_reference(a, b, reps)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    assert (got - want).abs().max().item() <= error_bound(k, reps) * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_probe_kernel_refuses_what_it_does_not_take(dev):
+    from slamkit_tpu_torch.ops import matmul_probe
+
+    a = torch.zeros((64, 64), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(TypeError, match="bfloat16"):
+        matmul_probe(a.float(), a.float())
+    with pytest.raises(ValueError, match="multiples"):
+        matmul_probe(a[:48].contiguous(), a)
+    with pytest.raises(ValueError, match="several devices"):
+        matmul_probe(a, a.cpu())

@@ -1,6 +1,7 @@
-"""The port stands without JAX (serving, and training two steps with a save),
-and `chip_smoke.py` refuses to run without a card: no CPU fallback can pass
-for a GPU run."""
+"""The port stands without JAX (serving, training two steps with a save,
+speech continuation dense and int8, the two benchmark tools), and
+`chip_smoke.py` refuses to run without a card: no CPU fallback can pass for a
+GPU run."""
 import json
 import os
 import pathlib
@@ -47,6 +48,47 @@ with tempfile.TemporaryDirectory() as d:
     assert os.path.isfile(os.path.join(d, "out", "checkpoint-2", "trainer_state.json"))
     assert os.path.isfile(os.path.join(d, "out", "checkpoint-2", "state", "train_state.pt"))
     UnitLM.from_pretrained(os.path.join(d, "out", "checkpoint-2"))
+
+# the speech path: WAV prompts -> HuBERT + k-means -> int8 and dense decoding
+# -> CodeHiFiGAN, at tiny widths with seeded random weights
+import numpy as np
+from slamkit_tpu_torch.feature_extractor import HubertConfig, HubertFeatureExtractor
+from slamkit_tpu_torch.feature_extractor.hubert import random_params
+from slamkit_tpu_torch.metric import generative_metric
+from slamkit_tpu_torch.models import SpeechLM
+from slamkit_tpu_torch.tools import bench_decode, bench_flash
+from slamkit_tpu_torch.utils.audio import save_wav
+from slamkit_tpu_torch.vocoder import HiFiGANVocoder, hifigan
+
+hcfg = HubertConfig(conv_dim=(16, 16), conv_kernel=(10, 3), conv_stride=(5, 2),
+                    hidden_size=16, num_hidden_layers=2, num_attention_heads=2,
+                    intermediate_size=32, num_conv_pos_embeddings=4,
+                    num_conv_pos_embedding_groups=2)
+vcfg = {"model_in_dim": 8, "num_embeddings": 500, "embedding_dim": 8,
+        "upsample_initial_channel": 8, "upsample_rates": [2], "upsample_kernel_sizes": [4],
+        "resblock_kernel_sizes": [3], "resblock_dilation_sizes": [[1]],
+        "dur_predictor_params": {"encoder_embed_dim": 8, "var_pred_hidden_dim": 8,
+                                 "var_pred_kernel_size": 3}}
+centroids = np.random.default_rng(0).standard_normal((500, 16)).astype(np.float32)
+fe = HubertFeatureExtractor.from_params(random_params(hcfg), hcfg, centroids, layer=1)
+voc = HiFiGANVocoder.from_params(
+    hifigan.convert_torch_generator(hifigan.random_state_dict(vcfg), vcfg), vcfg)
+speech = SpeechLM(lm, UnitTokeniser(fe), voc)
+with tempfile.TemporaryDirectory() as d:
+    for i in range(2):
+        save_wav(os.path.join(d, f"{i}.wav"), 0.1 * np.sin(np.arange(1600 + 400 * i) / 9.0))
+    for quant in ("int8", None):
+        res = generative_metric.generate(speech, os.path.join(d, "*.wav"), batch_size=2,
+                                         num_workers=2, max_new_tokens=3, seed=0,
+                                         weight_quant=quant)
+        assert len(res["generate"]) == 2 and all(w.size > 0 for w in res["generate"])
+probe = bench_flash.probe(torch.device("cpu"), shapes=((64, 32, 64),), reps=2, iters=1)
+assert probe["shapes"][0]["ms"] > 0
+assert bench_flash.bench_shape(torch.device("cpu"), b=1, h=2, t=32, d=16, segs=2,
+                               iters=1)["fwd_bwd_ms"] > 0
+dec = bench_decode.run(lm, batch=2, prompt=4, new=3, iters=1)
+assert dec["int8_dq_launches_per_call"] == 0 and dec["speedup"] > 0
+assert bench_decode.main([]) == 1 and bench_flash.main(["--matmul-probe"]) == 1  # no card
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "slamkit_tpu.")))
 print("LOADED", bad)
 """
@@ -160,3 +202,47 @@ def test_chip_smoke_training_rehearsal_on_cpu(chip_smoke, tmp_path, capsys):
     check = chip_smoke.check_card_vs_cpu(cpu, tmp_path, cfg=cfg, context=64)
     assert check["loss_err"] < 1e-5 and check["min_grad_cosine"] > 0.9999
     assert "resume from checkpoint-3" in capsys.readouterr().out
+
+
+def test_chip_smoke_speech_rehearsal_on_cpu(chip_smoke, tmp_path, capsys):
+    """The smoke's speech-continuation phase end to end on the CPU at tiny
+    widths: WAV prompts through generative_metric.generate, int8 then dense,
+    eight finite waveforms each, and the card-vs-CPU checks (here CPU against
+    CPU, so exact); the plain versions run and no kernel launch is counted."""
+    import dataclasses
+
+    import torch
+
+    from slamkit_tpu_torch.feature_extractor import HubertConfig
+    from slamkit_tpu_torch.tools.slam_recipe import slam_config
+
+    lm_cfg = dataclasses.replace(slam_config(), torch_dtype="float32",
+                                 config_overrides=dict(num_hidden_layers=2, hidden_size=64,
+                                                       num_attention_heads=4,
+                                                       num_key_value_heads=2, head_dim=16,
+                                                       intermediate_size=128))
+    hubert_cfg = HubertConfig(conv_dim=(32,) * 3, conv_kernel=(10, 3, 2), conv_stride=(5, 2, 2),
+                              hidden_size=32, num_hidden_layers=3, num_attention_heads=2,
+                              intermediate_size=64, num_conv_pos_embeddings=8,
+                              num_conv_pos_embedding_groups=4)
+    voc_cfg = {**chip_smoke.CODEHIFIGAN_CFG, "model_in_dim": 16, "embedding_dim": 16,
+               "upsample_initial_channel": 16, "upsample_rates": [4, 2],
+               "upsample_kernel_sizes": [8, 4], "resblock_kernel_sizes": [3, 5],
+               "resblock_dilation_sizes": [[1, 3], [1, 3]],
+               "dur_predictor_params": {"encoder_embed_dim": 16, "var_pred_hidden_dim": 16,
+                                        "var_pred_kernel_size": 3, "var_pred_dropout": 0.5}}
+    result = chip_smoke.run_speech(
+        torch.device("cpu"), "cpu rehearsal", tmp_path, lm_cfg=lm_cfg, hubert_cfg=hubert_cfg,
+        voc_cfg=voc_cfg, seconds=0.3,
+        generate_kwargs=dict(chip_smoke.GENERATE_KWARGS, max_new_tokens=5))
+    for name in ("int8", "dense"):
+        run = result["runs"][name]
+        assert run["launches"] == {"dq_matmul": 0, "flash_fwd": 0}
+        assert run["generate_calls"] == 1 and run["new_tokens_per_s"] > 0
+        assert run["prompt_ids"][0][0] == 8
+    assert result["hubert_rel_err"] == 0.0 and result["unit_agreement"] == 1.0
+    assert result["int8_logit_err"] == 0.0
+    assert result["dq_held_calls"] == 2 * 7 * 2 and result["dq_held_max_ulps"] == 0.0
+    assert result["duration_agreement"] == 1.0 and result["vocoder_err"] == 0.0
+    json.dumps(result)
+    assert "speech (int8): 8 prompts of 0.3 s" in capsys.readouterr().out

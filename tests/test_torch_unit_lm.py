@@ -185,8 +185,8 @@ def test_generate_kwarg_surface(ckpt):
                 dict(totally_unknown_knob=3)):
         with pytest.raises(ValueError, match=next(iter(bad))):
             lm.generate(prompt, max_new_tokens=2, **bad)
-    with pytest.raises(NotImplementedError, match="int8"):
-        lm.generate(prompt, max_new_tokens=2, weight_quant="int8")
+    out = lm.generate(prompt, max_new_tokens=2, seed=0, weight_quant="int8")
+    assert out.shape == (1, 6) and torch.equal(out[:, :4], torch.from_numpy(prompt))
     with pytest.raises(ValueError, match="weight_quant"):
         lm.generate(prompt, max_new_tokens=2, weight_quant="fp4")
 
