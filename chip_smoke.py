@@ -15,15 +15,25 @@ the sm_90a kernels). Phases, in order; any failure exits non-zero:
                version (float32 from the same bf16 inputs) at the slices'
                shapes, each timed twice between CUDA events: as eager calls,
                and as a CUDA-graph replay (device time without the host's
-               overhead).
+               overhead). Beside it, per shape: the library call that
+               computes the same function (`scaled_dot_product_attention`
+               with the segment and causal mask as a bool [B, 1, T, T] and
+               GQA; the backend that ran is printed), graph-timed the same
+               way and never used by the port; the bound (the larger of the
+               bytes over 3.35 TB/s and the visible pairs' FLOPs over 989
+               TFLOP/s, H100 SXM data sheet); roofline_share = bound / kernel
+               and vs_library = kernel / library.
   3b. backward kernels — the flash backward (dq, dk, dv) against its plain
-               version the same way, at the training shapes.
+               version the same way, at the training shapes; its library
+               call is the backward of the same SDPA call, timed alone.
   3c. dq_matmul — the int8 dequant-matmul kernel against its plain version
                at the Slam decoder's four (K, N) projection shapes, for the
-               decode rows (M = 8) and the prefill rows (M = 1024).
+               decode rows (M = 8 and 16) and the prefill rows (M = 1024);
+               library call `torch._weight_int8pack_mm`.
   3d. probe  — the contraction-probe kernel against its plain version at its
                four shapes, the K=64/K=128 and N=64/N=128 time ratios, then
-               its entry point `tools/bench_flash.py --matmul-probe`.
+               its entry point `tools/bench_flash.py --matmul-probe` (no
+               single PyTorch call computes the probe: no library time).
   4. scoring — a Slam-width UnitLM (Qwen2.5-0.5B decoder, 502 units, bf16,
                random init from a seed) saved and reloaded with
                save_pretrained / from_pretrained, scoring 8 unit-token
@@ -62,13 +72,19 @@ forward kernel once per layer (phases 4-5); every training microbatch
 launches it twice per layer (forward and remat recompute) and the backward
 kernel once per layer (phase 6); every int8 generate call calls dq_matmul
 for the 7 projections of every layer in the prefill and in each decode step
-(7 x 24 x 150 = 25200; a call counts one launch, though a decode call with
-split K also launches its reduction pass) and the flash forward once per
-layer (phase 8); the
-probe's entry point launches its kernel 7 times a shape (phase 3d). The last
-lines are a JSON object with every
-measurement, the card's name and power limit, a JSON object describing each
-kernel, and `{"ok": true, "device": {...}}`.
+(7 x 24 x 150 = 25200, each one kernel launch) and the flash forward once
+per layer (phase 8); the probe's entry point launches its kernel 7 times a
+shape (phase 3d). A flash backward call counts one, though it launches three
+kernels (the delta / segment-range pre-pass, dK/dV, dQ). The last lines are
+a JSON object with every measurement, the card's name and power limit, a
+JSON object describing each kernel at its representative shape, and
+`{"ok": true, "device": {...}}`. In the kernel line, `ms` and `plain_ms` are
+eager times between CUDA events (host overhead included, as in every
+earlier version of the line); `graph_ms`, `plain_graph_ms` and `library_ms`
+are CUDA-graph device times, and `roofline_share` and `vs_library` are
+reckoned from them; `library_timed` says how the library call was timed, or
+why it has no time (`library_ms` is then null: a library call whose graph
+capture fails is not timed another way).
 """
 from __future__ import annotations
 
@@ -151,6 +167,9 @@ CODEHIFIGAN_CFG = {
 }
 # config/metric/generate.yaml's generate_kwargs, seeded
 GENERATE_KWARGS = dict(temperature=0.8, top_k=25, max_new_tokens=150, do_sample=True, seed=0)
+# the bound of a kernel: the H100 SXM's memory rate and dense bf16 tensor-core
+# rate (NVIDIA data sheet), against which every roofline share is stated
+HBM_BYTES_PER_S, BF16_FLOPS_PER_S = 3.35e12, 989e12
 # published dense bf16 tensor-core peaks (NVIDIA data sheets), by card name
 BF16_PEAK_FLOPS = (("H100 PCIe", 756e12), ("H100 NVL", 835e12), ("H100", 989e12),
                    ("H200", 989e12))
@@ -251,6 +270,134 @@ def _left_padded(rng, b, t):
     return seg
 
 
+def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
+    """The least time the card could take (ms) and what sets it: the bytes
+    moved (each input read once, each output written once) over the memory
+    rate, or the operations over the bf16 tensor-core rate."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_flops = flops / BF16_FLOPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_flops else (by_flops, "operations")
+
+
+def visible_pairs(seg: np.ndarray, kv_seg, causal: bool) -> int:
+    """Query-key pairs attention computes, summed over batch rows: equal
+    segment ids (kv_seg defaults to seg) and, when causal, key <= query."""
+    b, t = seg.shape
+    kv = seg if kv_seg is None else kv_seg
+    pairs = 0
+    for r in range(b):
+        for v in np.unique(seg[r]):
+            k_in = kv[r] == v
+            if causal:
+                pairs += int(np.cumsum(k_in)[seg[r] == v].sum())
+            else:
+                pairs += int(k_in.sum()) * int((seg[r] == v).sum())
+    return pairs
+
+
+def flash_cost(shape, seg, kv_seg, causal: bool, backward: bool) -> tuple[float, float]:
+    """(bytes, FLOPs) of the flash forward or backward at [B, H / Hkv, T, D]
+    from this case's own segment ids. Forward: q, k, v and the ids read, out
+    (bf16) and LSE (f32) written; 4 D FLOPs a visible pair and head (Q K^T,
+    P V). Backward: q, k, v, out, dO, LSE and the ids read, dq, dk, dv
+    written; 10 D FLOPs a visible pair and head (S, dP, dV, dK, dQ)."""
+    b, h, hkv, t, d = shape
+    ids = b * t * 4 * (1 if kv_seg is None else 2)
+    q_bytes, kv_bytes, rows = b * h * t * d * 2, b * hkv * t * d * 2, b * h * t
+    pairs = h * (visible_pairs(seg, kv_seg, causal) if seg is not None
+                 else b * (t * (t + 1) // 2 if causal else t * t))
+    if backward:
+        return 3 * q_bytes + 2 * kv_bytes + rows * 4 + ids + q_bytes + 2 * kv_bytes, 10 * d * pairs
+    return 2 * q_bytes + 2 * kv_bytes + rows * 4 + ids, 4 * d * pairs
+
+
+def _ratios(device_ms: float, bound: float, library_ms):
+    """roofline_share = bound / kernel, vs_library = kernel / library."""
+    return bound / device_ms, (device_ms / library_ms if library_ms else None)
+
+
+def kernel_row(name: str, source: str, replaces: str, cuda_kernels: list[str], launches: int,
+               max_abs_err: float, at: dict) -> dict:
+    """One kernel's entry in the kernels line from its row `at` of phase 3,
+    3b, 3c or 3d. `launches` counts wrapper calls on the main path; each call
+    runs the CUDA kernels in `cuda_kernels` one after another (an entry
+    "a | b" runs one of the two, by shape)."""
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "cuda_kernels": cuda_kernels,
+            "kernels_per_launch": len(cuda_kernels), "max_abs_err": max_abs_err,
+            "ms": at["ms"], "plain_ms": at["plain_ms"], "graph_ms": at["device_ms"],
+            "plain_graph_ms": at["plain_device_ms"], "bound_ms": at["bound_ms"],
+            "bound_by": at["bound_by"], "library_ms": at["library_ms"],
+            "library_timed": at["library"], "roofline_share": at["roofline_share"],
+            "vs_library": at["vs_library"]}
+
+
+def _first_error(e: BaseException) -> str:
+    """The first line of the error that started a chain: a capture that
+    fails inside the graph is reported by `capture_end` as "a previous error
+    during capture", with the cause as its context."""
+    while e.__context__ is not None:
+        e = e.__context__
+    return f"{type(e).__name__}: {str(e).splitlines()[0][:120] if str(e) else ''}"
+
+
+def _library_ms(fn, iters: int):
+    """A library call's CUDA-graph time (ms), captured as `_graph_ms`
+    captures the kernel, and how it was timed. A call whose capture fails
+    gets (None, the error): it is never timed another way, so every library
+    time stands beside the kernel's graph time."""
+    import torch
+
+    try:
+        return _graph_ms(fn, iters), "graph"
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        return None, f"none: its graph capture failed ({_first_error(e)})"
+
+
+def _library_text(library_ms, timed: str, vs_library) -> str:
+    if library_ms is None:
+        return f"library {timed}"
+    return f"library {library_ms:.4f} ms ({timed}), vs_library {vs_library:.3f}"
+
+
+def _sdpa_library(q, k, v, seg, kv_seg, causal: bool):
+    """The fused `scaled_dot_product_attention` call that computes the flash
+    kernel's function: a bool [B, 1, T, T] mask from the segment ids and
+    causality, GQA by `enable_gqa` where the backend takes it, else k / v
+    expanded to H heads here (outside any timed window). Returns (call,
+    its k, its v, enable_gqa, backend name), or None when no fused backend
+    takes the inputs: the unfused math backend is no yardstick."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    t = q.shape[2]
+    kv = seg if kv_seg is None else kv_seg
+    mask = seg[:, None, :, None] == kv[:, None, None, :]
+    if causal:
+        mask = mask & torch.ones((t, t), dtype=torch.bool, device=q.device).tril()
+    g = q.shape[1] // k.shape[1]
+    expanded = (k.repeat_interleave(g, 1), v.repeat_interleave(g, 1))
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION):
+        for gqa, (kk, vv) in ((True, (k, v)), (False, expanded)):
+            def call(q=q, kk=kk, vv=vv, gqa=gqa, backend=backend):
+                with sdpa_kernel(backend):
+                    return F.scaled_dot_product_attention(q, kk, vv, attn_mask=mask,
+                                                          enable_gqa=gqa)
+            try:
+                call()
+                torch.cuda.synchronize()
+            except RuntimeError:
+                continue
+            return call, kk, vv, gqa, f"{backend.name}{'' if gqa else ' (k/v expanded)'}"
+    return None
+
+
+NO_SDPA = "none: no fused scaled_dot_product_attention backend took the inputs"
+
+
 def check_kernels(dev) -> list[dict]:
     """Phase 3: the kernel against the plain version at the slice's shapes."""
     import torch
@@ -278,6 +425,8 @@ def check_kernels(dev) -> list[dict]:
             seg = np.zeros((b, t), np.int32)
             seg[:, 100:140] = 7
             kv_seg = torch.zeros((b, t), dtype=torch.int32, device=dev)
+        bound, bound_by = bound_ms(*flash_cost((b, h, hkv, t, d), seg, None if kv_seg is None
+                                               else kv_seg.cpu().numpy(), causal, backward=False))
         seg = torch.from_numpy(seg).to(dev)
         run = lambda: flash_attention_fwd(q, k, v, segment_ids=seg, causal=causal,
                                           kv_segment_ids=kv_seg)
@@ -296,18 +445,30 @@ def check_kernels(dev) -> list[dict]:
         ms = _cuda_ms(run, warmup=3, iters=20)
         plain_ms = _cuda_ms(plain, warmup=1, iters=5)
         device_ms, plain_device_ms = _graph_ms(run, 20), _graph_ms(plain, 3)
+        sdpa = _sdpa_library(q, k, v, seg, kv_seg, causal)
+        if sdpa is None:
+            library_ms, timed = None, NO_SDPA
+        else:
+            library_ms, timed = _library_ms(sdpa[0], 20)
+            timed = f"sdpa {sdpa[4]}, {timed}"
+        share, vs_library = _ratios(device_ms, bound, library_ms)
         ok = err_out <= OUT_BOUND and err_lse <= LSE_BOUND and dead_ok
         if name == "dead_rows":
             ok = ok and n_dead == b * h * 40
         results.append(dict(name=name, shape=[b, h, hkv, t, d], causal=causal,
                             max_abs_err_out=err_out, max_abs_err_lse=err_lse,
                             dead_rows=n_dead, ms=ms, plain_ms=plain_ms,
-                            device_ms=device_ms, plain_device_ms=plain_device_ms, ok=ok))
+                            device_ms=device_ms, plain_device_ms=plain_device_ms,
+                            library_ms=library_ms, library=timed,
+                            bound_ms=bound, bound_by=bound_by, roofline_share=share,
+                            vs_library=vs_library, ok=ok))
         print(f"kernel {name:16s} [{b},{h}/{hkv},{t},{d}] causal={causal}: "
               f"|dout|={err_out:.3e} (<= {OUT_BOUND}) |dlse|={err_lse:.3e} "
               f"(<= {LSE_BOUND}) dead={n_dead} dead_ok={dead_ok}  eager: kernel "
               f"{ms:.4f} ms plain {plain_ms:.4f} ms; graph: kernel {device_ms:.4f} ms "
-              f"plain {plain_device_ms:.4f} ms  {'ok' if ok else 'FAIL'}", flush=True)
+              f"plain {plain_device_ms:.4f} ms {_library_text(library_ms, timed, vs_library)}; "
+              f"bound {bound:.4f} ms by {bound_by}, roofline_share {share:.3f}  "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
         _require(ok, f"the flash kernel disagrees with the plain version at {name}")
     return results
 
@@ -322,6 +483,36 @@ def _grad_errors(got, want) -> list[tuple]:
         rows.append((name, diff.abs().max().item(), BWD_REL_BOUND * w.abs().max().item() + 1e-5,
                      (diff.norm(dim=-1) / row_bound).max().item()))
     return rows
+
+
+def _sdpa_backward_ms(q, k, v, do, seg, kv_seg):
+    """The backward of phase 3's library call on the same inputs, timed
+    alone: the forward runs once outside the window, then
+    `torch.autograd.grad(..., retain_graph=True)` is timed. Returns (ms or
+    None, how it was timed or why it was not). Everything runs on a side
+    stream: autograd runs a backward op on its forward op's stream, and a
+    forward on the legacy default stream would tie that stream to the
+    capture, which CUDA refuses."""
+    import torch
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream), torch.inference_mode(False), torch.enable_grad():
+        qg, kg, vg, dog = (x.clone() for x in (q, k, v, do))
+        sdpa = _sdpa_library(qg, kg, vg, seg, kv_seg, True)
+        if sdpa is None:
+            return None, NO_SDPA
+        call, kk, vv, _, backend = sdpa
+        kk.requires_grad_()
+        vv.requires_grad_()
+        qg.requires_grad_()
+        out = call(qg, kk, vv)
+        grad = lambda: torch.autograd.grad(out, (qg, kk, vv), dog, retain_graph=True)
+        grad()                         # a first call outside the capture (plans, workspace)
+        torch.cuda.synchronize()
+        ms, timed = _library_ms(grad, 20)
+    torch.cuda.current_stream().wait_stream(stream)
+    return ms, f"sdpa backward {backend}, {timed}"
 
 
 def check_backward_kernels(dev) -> list[dict]:
@@ -351,6 +542,8 @@ def check_backward_kernels(dev) -> list[dict]:
             seg = np.zeros((b, t), np.int32)
             seg[:, 100:140] = 7
             kv_seg = torch.zeros((b, t), dtype=torch.int32, device=dev)
+        bound, bound_by = bound_ms(*flash_cost((b, h, hkv, t, d), seg, None if kv_seg is None
+                                               else kv_seg.cpu().numpy(), True, backward=True))
         seg = torch.from_numpy(seg).to(dev)
         out, lse = flash_attention_fwd(q, k, v, segment_ids=seg, kv_segment_ids=kv_seg)
         run = lambda: flash_attention_bwd(q, k, v, out, lse, do, segment_ids=seg,
@@ -366,36 +559,67 @@ def check_backward_kernels(dev) -> list[dict]:
         ms = _cuda_ms(run, warmup=3, iters=20)
         plain_ms = _cuda_ms(plain, warmup=1, iters=3)
         device_ms, plain_device_ms = _graph_ms(run, 20), _graph_ms(plain, 2)
-        ok = all(e <= bound and row <= 1 for _, e, bound, row in errs) and dead_ok and all(
-            bool(torch.isfinite(x).all().item()) for x in got)
+        again = run()
+        deterministic = all(torch.equal(x, y) for x, y in zip(got, again))
+        library_ms, timed = _sdpa_backward_ms(q, k, v, do, seg, kv_seg)
+        share, vs_library = _ratios(device_ms, bound, library_ms)
+        ok = all(e <= bd and row <= 1 for _, e, bd, row in errs) and dead_ok and all(
+            bool(torch.isfinite(x).all().item()) for x in got) and deterministic
         results.append(dict(name=name, shape=[b, h, hkv, t, d],
                             max_abs_err={n: e for n, e, _, _ in errs},
                             bound={n: bd for n, _, bd, _ in errs},
                             worst_row_over_bound={n: r for n, _, _, r in errs},
+                            deterministic=deterministic,
                             ms=ms, plain_ms=plain_ms, device_ms=device_ms,
-                            plain_device_ms=plain_device_ms, ok=ok))
+                            plain_device_ms=plain_device_ms, library_ms=library_ms,
+                            library=timed, bound_ms=bound, bound_by=bound_by,
+                            roofline_share=share, vs_library=vs_library, ok=ok))
         print(f"backward {name:14s} [{b},{h}/{hkv},{t},{d}]: "
               + " ".join(f"|{n}|={e:.3e} (<= {bd:.3e}) row {r:.3f} (<= 1)"
                          for n, e, bd, r in errs)
-              + f" dead_ok={dead_ok}  eager: kernel {ms:.4f} ms plain {plain_ms:.4f} ms; "
-              f"graph: kernel {device_ms:.4f} ms plain {plain_device_ms:.4f} ms  "
+              + f" dead_ok={dead_ok} bitwise-repeatable={deterministic}  eager: kernel "
+              f"{ms:.4f} ms plain {plain_ms:.4f} ms; graph: kernel {device_ms:.4f} ms plain "
+              f"{plain_device_ms:.4f} ms {_library_text(library_ms, timed, vs_library)}; "
+              f"bound {bound:.4f} ms by {bound_by}, roofline_share {share:.3f}  "
               f"{'ok' if ok else 'FAIL'}", flush=True)
-        del got, want
+        del got, want, again
         _require(ok, f"the flash backward kernel disagrees with the plain version at {name}")
     return results
 
 
+def _int8pack_library(x, q, s, want):
+    """`torch._weight_int8pack_mm(x, q^T, s)` (the same function: int8 [N,
+    K] weights, a bf16 scale per output column) graph-timed on the inputs of
+    a dq_matmul call; (None, the refusal) where this torch refuses it. Its
+    distance from the plain version, in bf16 ulps, goes into the note."""
+    import torch
+
+    from slamkit_tpu_torch.ops.quant import ulp_bound
+
+    w_nk, scales = q.t().contiguous(), s.reshape(-1).contiguous()
+    call = lambda: torch._weight_int8pack_mm(x, w_nk, scales)
+    try:
+        got = call().float()
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        return None, f"none: {type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    ulps = ((got - want.float()).abs() / ulp_bound(got, want)).max().item()
+    ms, timed = _library_ms(call, 50)
+    return ms, f"torch._weight_int8pack_mm, {timed}, {ulps:.2f} ulp from plain"
+
+
 def check_dq_kernels(dev) -> list[dict]:
     """Phase 3c: the dq_matmul kernel against its plain version at the Slam
-    decoder's four (K, N) pairs, for the decode rows (M = 8) and the
-    prefill rows (M = 8 x 128)."""
+    decoder's four (K, N) pairs, for the decode rows (M = 8, the smoke's
+    batch, and 16, tools/bench_decode.py's) and the prefill rows (M = 8 x
+    128); beside it `torch._weight_int8pack_mm` on the same (x, q, s)."""
     import torch
 
     from slamkit_tpu_torch.ops import dq_matmul, dq_matmul_reference, quantize_weight
     from slamkit_tpu_torch.ops.quant import ulp_bound
 
     results = []
-    for m in (8, 1024):
+    for m in (8, 16, 1024):
         for k, n in SLAM_KN:
             g = torch.Generator(device=dev).manual_seed(m + k + n)
             x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
@@ -409,21 +633,36 @@ def check_dq_kernels(dev) -> list[dict]:
             ms = _cuda_ms(run, warmup=3, iters=50)
             plain_ms = _cuda_ms(plain, warmup=2, iters=20)
             device_ms, plain_device_ms = _graph_ms(run, 50), _graph_ms(plain, 20)
-            ok = ulps <= 1.0 and bool(torch.isfinite(got).all().item())
+            deterministic = torch.equal(run(), run())
+            library_ms, library = _int8pack_library(x, q, s, want)
+            bound, bound_by = bound_ms(m * k * 2 + k * n + n * 2 + m * n * 2, 2 * m * k * n)
+            share, vs_library = _ratios(device_ms, bound, library_ms)
+            ok = ulps <= 1.0 and bool(torch.isfinite(got).all().item()) and deterministic
             results.append(dict(m=m, k=k, n=n, max_abs_err=err.max().item(), max_ulps=ulps,
-                                ms=ms, plain_ms=plain_ms, device_ms=device_ms,
-                                plain_device_ms=plain_device_ms,
+                                deterministic=deterministic, ms=ms, plain_ms=plain_ms,
+                                device_ms=device_ms, plain_device_ms=plain_device_ms,
+                                library_ms=library_ms, library=library, bound_ms=bound,
+                                bound_by=bound_by, roofline_share=share, vs_library=vs_library,
                                 weight_gb_per_s=k * n / device_ms * 1e-6,
                                 tflops=2 * m * k * n / device_ms * 1e-9, ok=ok))
             print(f"dq_matmul [{m},{k}]x[{k},{n}]: |d|={err.max().item():.3e}, "
-                  f"{ulps:.2f} bf16 ulp (<= 1)  eager: kernel {ms:.4f} ms plain "
-                  f"{plain_ms:.4f} ms; graph: kernel {device_ms:.4f} ms plain "
-                  f"{plain_device_ms:.4f} ms ({k * n / device_ms * 1e-6:.1f} GB/s of int8 "
-                  f"weights, {2 * m * k * n / device_ms * 1e-9:.2f} TFLOP/s)  "
+                  f"{ulps:.2f} bf16 ulp (<= 1), bitwise-repeatable={deterministic}  eager: "
+                  f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms; graph: kernel {device_ms:.4f} "
+                  f"ms plain {plain_device_ms:.4f} ms "
+                  f"{_library_text(library_ms, library, vs_library)}; bound {bound:.4f} ms by "
+                  f"{bound_by}, roofline_share {share:.3f} "
+                  f"({k * n / device_ms * 1e-6:.1f} GB/s of int8 weights, "
+                  f"{2 * m * k * n / device_ms * 1e-9:.2f} TFLOP/s)  "
                   f"{'ok' if ok else 'FAIL'}", flush=True)
             _require(ok, f"the dq_matmul kernel disagrees with the plain version at "
                      f"[{m},{k}]x[{k},{n}]")
     return results
+
+
+# the probe repeats one product REPS times into one float32 sum; no single
+# PyTorch call computes that (a matmul of the repeated operands would be
+# another function), so its rows carry no library time
+PROBE_LIBRARY = "none: no single PyTorch call repeats a product into one sum"
 
 
 def check_probe(dev) -> dict:
@@ -448,15 +687,19 @@ def check_probe(dev) -> dict:
         bound = error_bound(k, REPS) * want.abs().max().item()   # reason there
         ms, plain_ms = _cuda_ms(run, warmup=3, iters=20), _cuda_ms(plain, warmup=1, iters=5)
         device_ms, plain_device_ms = _graph_ms(run, 20), _graph_ms(plain, 3)
+        time_bound, bound_by = bound_ms(m * k * 2 + k * n * 2 + m * n * 4, 2 * m * k * n * REPS)
         ok = err <= bound
         rows.append(dict(m=m, k=k, n=n, reps=REPS, max_abs_err=err, bound=bound, ms=ms,
                          plain_ms=plain_ms, device_ms=device_ms,
-                         plain_device_ms=plain_device_ms,
+                         plain_device_ms=plain_device_ms, library_ms=None,
+                         library=PROBE_LIBRARY, bound_ms=time_bound, bound_by=bound_by,
+                         roofline_share=time_bound / device_ms, vs_library=None,
                          tflops=2 * m * k * n * REPS / device_ms * 1e-9, ok=ok))
         print(f"probe [{m},{k}]x[{k},{n}] x{REPS}: |d|={err:.3e} (<= {bound:.3e})  eager: "
               f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms; graph: kernel {device_ms:.4f} ms "
-              f"plain {plain_device_ms:.4f} ms ({rows[-1]['tflops']:.1f} TFLOP/s)  "
-              f"{'ok' if ok else 'FAIL'}", flush=True)
+              f"plain {plain_device_ms:.4f} ms ({rows[-1]['tflops']:.1f} TFLOP/s); bound "
+              f"{time_bound:.4f} ms by {bound_by}, roofline_share "
+              f"{time_bound / device_ms:.3f}; library none  {'ok' if ok else 'FAIL'}", flush=True)
         _require(ok, f"the probe kernel disagrees with the plain version at {(m, k, n)}")
     dev_ms = {(r["m"], r["k"], r["n"]): r["device_ms"] for r in rows}
     ratios = {"k64_over_k128": dev_ms[SHAPES[0]] / dev_ms[SHAPES[1]],
@@ -731,7 +974,8 @@ def check_card_vs_cpu(dev, work: pathlib.Path, cfg=None, batch=2, context=256) -
                ("input_ids", "labels", "segment_ids", "positions")}
     card = UnitLM(cfg or slam_config(), seed=3, device=dev)
     card.save_pretrained(str(work / "card_vs_cpu"))
-    cpu = UnitLM.from_pretrained(str(work / "card_vs_cpu"), torch_dtype="float32")
+    cpu = UnitLM.from_pretrained(str(work / "card_vs_cpu"), torch_dtype="float32",
+                                 device="cpu")
     loss_card = card.loss_fn({k: v.to(dev) for k, v in batch_t.items()})
     loss_card.backward()
     loss_cpu = cpu.loss_fn(batch_t)
@@ -904,7 +1148,7 @@ def run_speech(dev, smi: str, work: pathlib.Path, lm_cfg=None, hubert_cfg=None,
     cpu = torch.device("cpu")
     wav = prompt_wavs[:2]
     fe_cpu = HubertFeatureExtractor.from_params(hubert_params, hubert_cfg, centroids,
-                                                layer=tap)
+                                                layer=tap, device="cpu")
     feats = fe.features(torch.from_numpy(wav).to(dev)).float()
     feats_cpu = fe_cpu.features(torch.from_numpy(wav))
     hubert_err = ((feats.cpu() - feats_cpu).norm() / feats_cpu.norm()).item()
@@ -1076,32 +1320,26 @@ def main() -> int:
                       "slice": slice_result, "training": train_result,
                       "card_vs_cpu": cpu_result, "speech": speech_result}), flush=True)
     print(nvidia_smi(), flush=True)
+
     print(json.dumps({"kernels": [
-        {"name": "flash_fwd", "route": "cuda",
-         "source": "slamkit_tpu_torch/ops/csrc/flash_fwd.cu",
-         "replaces": "slamkit_tpu/ops/flash_attention.py:124",
-         "launches": slice_result["launches"] + train_result["launches"]["flash_fwd"]
-         + sum(r["launches"]["flash_fwd"] for r in speech_runs.values()),
-         "max_abs_err": max(r["max_abs_err_out"] for r in kernel_rows),
-         "ms": score["ms"], "plain_ms": score["plain_ms"]},
-        {"name": "flash_bwd", "route": "cuda",
-         "source": "slamkit_tpu_torch/ops/csrc/flash_bwd.cu",
-         "replaces": "slamkit_tpu/ops/flash_attention.py:247",
-         "launches": train_result["launches"]["flash_bwd"],
-         "max_abs_err": max(max(r["max_abs_err"].values()) for r in backward_rows),
-         "ms": bwd["ms"], "plain_ms": bwd["plain_ms"]},
-        {"name": "dq_matmul", "route": "cuda",
-         "source": "slamkit_tpu_torch/ops/csrc/dq_matmul.cu",
-         "replaces": "slamkit_tpu/ops/quant.py:43",
-         "launches": speech_runs["int8"]["launches"]["dq_matmul"],
-         "max_abs_err": max(r["max_abs_err"] for r in dq_rows),
-         "ms": dq["ms"], "plain_ms": dq["plain_ms"]},
-        {"name": "matmul_probe", "route": "cuda",
-         "source": "slamkit_tpu_torch/ops/csrc/matmul_probe.cu",
-         "replaces": "scripts/bench_flash.py:98",
-         "launches": probe_result["launches"],
-         "max_abs_err": max(r["max_abs_err"] for r in probe_result["shapes"]),
-         "ms": probe["ms"], "plain_ms": probe["plain_ms"]}]}), flush=True)
+        kernel_row("flash_fwd", "slamkit_tpu_torch/ops/csrc/flash_fwd.cu",
+                   "slamkit_tpu/ops/flash_attention.py:124", ["flash_fwd_kernel"],
+                   slice_result["launches"] + train_result["launches"]["flash_fwd"]
+                   + sum(r["launches"]["flash_fwd"] for r in speech_runs.values()),
+                   max(r["max_abs_err_out"] for r in kernel_rows), score),
+        kernel_row("flash_bwd", "slamkit_tpu_torch/ops/csrc/flash_bwd.cu",
+                   "slamkit_tpu/ops/flash_attention.py:247",
+                   ["flash_bwd_prep_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"],
+                   train_result["launches"]["flash_bwd"],
+                   max(max(r["max_abs_err"].values()) for r in backward_rows), bwd),
+        kernel_row("dq_matmul", "slamkit_tpu_torch/ops/csrc/dq_matmul.cu",
+                   "slamkit_tpu/ops/quant.py:43", ["dq_gemv_kernel | dq_gemm_kernel"],
+                   speech_runs["int8"]["launches"]["dq_matmul"],
+                   max(r["max_abs_err"] for r in dq_rows), dq),
+        kernel_row("matmul_probe", "slamkit_tpu_torch/ops/csrc/matmul_probe.cu",
+                   "scripts/bench_flash.py:98", ["matmul_probe_kernel"],
+                   probe_result["launches"],
+                   max(r["max_abs_err"] for r in probe_result["shapes"]), probe)]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.device import DEFAULT_DEVICE, resolve_device
 from ..utils.tree import to_torch
 
 
@@ -397,8 +398,9 @@ def convert_fairseq_state(state: dict):
     return convert_hf_state_dict(sd, cfg), cfg
 
 
-def load_hubert(path: str, device="cpu"):
+def load_hubert(path: str, device=DEFAULT_DEVICE):
     """A local HF directory or a fairseq `.pt` -> (params on `device`, config)."""
+    device = resolve_device(device)
     if str(path).endswith(".pt"):
         state = torch.load(path, map_location="cpu", weights_only=False)
         params, cfg = convert_fairseq_state(state)

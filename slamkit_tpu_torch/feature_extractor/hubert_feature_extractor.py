@@ -27,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.device import DEFAULT_DEVICE, resolve_device
 from ..utils.tree import to_torch
 from .audio_feature_extractor import AudioFeatureExtractor
 from .hubert import HubertConfig, config_from_fairseq, fairseq_model_cfg, forward, load_hubert
@@ -62,11 +63,11 @@ class HubertFeatureExtractor(AudioFeatureExtractor):
                  layer: int = 9, num_units: int = 500, compile: bool = False,
                  cache_path: Optional[str] = None, load_config_only: bool = False,
                  bucket_samples: Optional[int] = None,
-                 device: Union[str, torch.device] = "cpu"):
+                 device: Union[str, torch.device] = DEFAULT_DEVICE):
         self.layer = layer
         self.num_units = num_units
         self.bucket_samples = bucket_samples
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.params = None
         self.centroids = None
         if load_config_only:
@@ -78,14 +79,14 @@ class HubertFeatureExtractor(AudioFeatureExtractor):
     @classmethod
     def from_params(cls, params: dict, config: HubertConfig, centroids, layer: int,
                     num_units: Optional[int] = None, bucket_samples: Optional[int] = None,
-                    device: Union[str, torch.device] = "cpu") -> "HubertFeatureExtractor":
+                    device: Union[str, torch.device] = DEFAULT_DEVICE) -> "HubertFeatureExtractor":
         """An extractor over weights in memory: `params` a HuBERT params tree
         (numpy or torch leaves), `centroids` [K, C]."""
         fe = cls.__new__(cls)
         fe.layer = layer
         fe.num_units = num_units if num_units is not None else int(np.shape(centroids)[0])
         fe.bucket_samples = bucket_samples
-        fe.device = torch.device(device)
+        fe.device = resolve_device(device)
         fe.config = config
         fe.params = to_torch(params, fe.device)
         fe._set_centroids(centroids)

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..utils.calculation_utils import calc_nll, cross_entropy_loss
+from ..utils.device import DEFAULT_DEVICE, resolve_device
 from .convert import load_flat, to_flat
 from .generate import generate as _generate
 from .generate import prepare_int8_decode_params as _prepare_int8
@@ -110,14 +111,13 @@ def _is_noop(value, noop: tuple) -> bool:
 
 class UnitLM:
     def __init__(self, config: UnitLMConfig, params: Optional[dict] = None,
-                 seed: int = 0, device: Union[str, torch.device] = "cpu"):
+                 seed: int = 0, device: Union[str, torch.device] = DEFAULT_DEVICE):
         """params: a flat JAX-layout dict (`params.npz` keys) to load; without
         it the gslm random init runs from `seed`. device is where the weights
-        live and every call runs; nothing moves implicitly."""
+        live and every call runs (the card by default; without one, pass
+        device="cpu"); nothing moves implicitly."""
         self.config = config
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and self.device.index is None:
-            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.device = resolve_device(device)
         cfg = config.decoder_config()
         self.decoder = Decoder(cfg, device=self.device)
         if params is not None:
@@ -281,7 +281,7 @@ class UnitLM:
         os.replace(tmp, os.path.join(save_directory, WEIGHTS_NAME))
 
     @classmethod
-    def from_pretrained(cls, path: str, device: Union[str, torch.device] = "cpu",
+    def from_pretrained(cls, path: str, device: Union[str, torch.device] = DEFAULT_DEVICE,
                         **overrides) -> "UnitLM":
         """Load a checkpoint written by either package's save_pretrained."""
         cfg_path = os.path.join(path, CONFIG_NAME)
@@ -304,7 +304,7 @@ def _plain(node) -> dict:
     return dict(node)
 
 
-def tlm_factory(cfg, device: Union[str, torch.device] = "cpu") -> UnitLM:
+def tlm_factory(cfg, device: Union[str, torch.device] = DEFAULT_DEVICE) -> UnitLM:
     """Build a UnitLM from the composed model config (`tlm_type`,
     `pretrained_model`, `config_args`)."""
     if cfg.tlm_type not in ("twist", "gslm"):

@@ -6,52 +6,85 @@
 // q_pos >= k_pos, equal segment ids, keys < T; a dead row's LSE is +1e30 so
 // its P is exactly 0),
 //   dV = P^T dO,   dS = P o (dO V^T - delta) * scale,   dK = dS^T Q,   dQ = dS K,
-// where delta = rowsum(dO o O) comes from the caller (JAX computes it outside
-// its kernel too, flash_attention.py:345). q heads are kv-major (head h reads
-// kv head h / G); dK and dV sum over the G heads of a kv group.
+// with delta = rowsum(dO o O) of the external O (JAX computes it outside its
+// kernel, flash_attention.py:345; here a pre-pass kernel does). q heads are
+// kv-major (head h reads kv head h / G); dK and dV sum over the G heads of a
+// kv group.
 //
-// What bounds it on the H100: the backward does 2.5x the forward's matmul
-// work (S, dP, dV, dK per tile pair, plus S, dP, dQ again in the dQ pass),
-// all through mma.sync from shared memory; at the Slam shape
-// ([8, 14/2, 1024, 64]) the tensors are ~60 MB, so it is bound by the tensor
-// cores' issue rate and shared-memory traffic, not by HBM bytes.
+// What bounds it on the H100: at the Slam shape ([8, 14/2, 1024, 64], 8
+// packed segments) the bytes (q, k, v, O, dO, LSE read, dq, dk, dv written,
+// ~68 MB) take ~20 us at 3.35 TB/s and the products of the visible pairs
+// ~8 us at 989 TFLOP/s: bytes bound it. What holds it back is latency: a
+// 64-key tile of a packed batch sees only ~3 q tiles, so a CTA's fixed work
+// (finding its tiles, its first loads, the sum over the cluster) weighs as
+// much as its products, and the per-element mask and exp of P run at two
+// or three warps a scheduler.
 // What the design does about it:
-//   * two kernels, FlashAttention-2's split, and no atomics, so dQ, dK and
-//     dV are deterministic run to run:
-//       - dkdv: one CTA (4 warps) per (64-key tile, kv head, batch row).
-//         Each warp owns 16 keys and computes the transposed scores
-//         S^T = K Q^T for them, so P^T and dS^T land in registers already as
-//         the A operand of dV += P^T dO and dK += dS^T Q (the register
-//         re-packing the forward uses for P V). It loops over the G query
-//         heads of the group and over the q tiles from the diagonal on,
-//         keeping dK and dV in f32 registers: GQA sums without atomics.
-//       - dq: one CTA per (64-row q tile, q head, batch row); each warp owns
-//         16 q rows, holds its Q and dO fragments in registers, loops over
-//         the k tiles up to the diagonal and keeps dQ in f32 registers.
-//     The scores and probabilities are recomputed in both (7 matmuls per
-//     tile pair against Pallas's 5, which wrote per-k-block dQ partials
-//     only because a TPU grid has no atomics).
-//   * tiles are staged in padded shared memory (row stride d + 8 halves:
-//     conflict-free fragment reads); the transposed operands (dO and Q as
-//     B with k = query) are read as two halves of neighbouring rows.
+//   * three launches, no atomics, so dQ, dK and dV are bitwise deterministic:
+//       - prep: delta = rowsum(dO o O) from the bf16 tensors (one 16-byte load
+//         per lane, a fixed shuffle tree), and the segment-id ranges of
+//         every 32-row block of q_seg and k_seg, so the other two kernels
+//         can list the tiles they must visit before loading any.
+//       - dkdv: one CTA (one warpgroup) per (64-key tile, q head, batch row):
+//         G times the CTAs of one per kv head, 1792 at the Slam shape. The G
+//         CTAs of a kv group form a thread-block cluster; each keeps its
+//         head's dK and dV in f32 registers, and at the end sends each row
+//         to the cluster CTA that owns it (distributed shared memory, one
+//         slot per sender), once every CTA of the cluster has started (a
+//         barrier arrived at on entry; at d = 128, where the gather reuses
+//         the tiles, a full cluster barrier); after one more cluster
+//         barrier every owner sums its rows' slots in rank order and writes
+//         them. G <= 8 (every preset in models/presets.py: G = 1, 3, 4, 6, 7
+//         or 8) takes one CTA per head;
+//         a larger G takes the largest cluster size C <= 8 dividing G, each
+//         CTA walking G / C heads in order (none of the presets).
+//       - dq: one CTA per (64-row q tile, q head, batch row): loops over the
+//         listed k tiles and keeps dQ in f32 registers.
+//   * loads: the dkdv pass streams Q, dO, LSE, delta (and q segment ids)
+//     through a 3-stage shared-memory ring with cp.async, the dq pass K and V
+//     (and k segment ids); the next two tiles load while this one multiplies.
+//   * products: at d = 64 every product is wgmma m64n64k16, the warpgroup's
+//     64 keys (dkdv) or 64 q rows (dq) being the M rows: S^T = K Q^T and
+//     dP^T = V dO^T (S = Q K^T and dP = dO V^T) with both operands in
+//     128-byte-swizzled shared memory, dV += P^T dO and dK += dS^T Q (dQ +=
+//     dS K) with P^T, dS^T (dS) packed from the accumulators straight into
+//     A-operand registers and the B tile read MN-major. At d = 128 (dK, dV,
+//     S and dP would not fit one warpgroup's registers) the products stay
+//     mma.sync m16n8k16 from padded shared memory, B fragments by ldmatrix.
+//   * the mask and exp: each thread reads its query columns' LSE, delta and
+//     segment ids as pairs, and takes 2^x on the SFU for every element (-inf
+//     off the mask), so the warp never branches.
+//   * causal balance: the k tiles that see the most q tiles (the first) and
+//     the q tiles that see the most keys (the last) are launched first.
 //   * causal: tile pairs above the diagonal are never visited; with segment
-//     ids, tile pairs whose id ranges are disjoint are skipped before their
-//     operands are loaded. A k tile that sees no query (a -1 tail) still
-//     writes its zeros.
-//   * any T: the ragged edge is masked in the kernel, no host-side padding.
-// Left for later work: wgmma, TMA and a multi-stage pipeline.
+//     ids, tiles whose id ranges are disjoint are left off the lists before
+//     their operands are loaded; a block's pads (id < 0) keep a range of
+//     their own, so a tile ending in a -1 tail is not taken to span every
+//     id. A k tile that sees no query still writes its zeros. Any T: the
+//     ragged edge is masked in the kernel.
+// Left for later work: fewer, larger CTAs (or a persistent grid) to spread
+// each CTA's fixed cost, and a producer warp with TMA.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <climits>
+#include <cmath>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kTile = 64;                 // keys per dkdv CTA, q rows per dq CTA
+constexpr int kBlock = 32;                // rows per entry of the segment-range table
+constexpr int kStages = 3;                // depth of the cp.async rings
+constexpr int kMaxCluster = 8;            // the portable cluster size
 constexpr float kLog2e = 1.4426950408889634f;
+
+// ---------------------------------------------------------------- helpers --
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -65,8 +98,49 @@ __device__ __forceinline__ uint32_t pack_bf16_raw(__nv_bfloat16 lo, __nv_bfloat1
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// 2^x on the SFU (ex2.approx, relative error ~2^-22, subnormal results
+// flushed to 0: far below the bf16 rounding of P), called on every element
+// (-inf where the mask is off) so that the warp never branches.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 (or 4) bytes global -> shared, asynchronously; zeros where !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// The cluster barrier split in two: every thread arrives at the kernel's
+// entry and waits just before its first write to another CTA's shared
+// memory, which is allowed only once every CTA of the cluster has started.
+// The main loop runs between the two, so the wait costs almost nothing.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
 // D (16x8, f32) += A (16x16, bf16, row) * B (16x8, bf16, col)
@@ -109,130 +183,393 @@ __device__ __forceinline__ void load_b_cols(uint32_t& b0, uint32_t& b1,
   b1 = pack_bf16_raw(p[8 * stride], p[9 * stride]);
 }
 
-// min / max segment id over the valid entries [base, base + N) of `seg`
-// (entries at or past `limit` are ignored); every lane gets the result.
-template <int N>
-__device__ __forceinline__ void seg_range(const int* seg, int base, int limit,
-                                          int lane, int& lo, int& hi) {
-  lo = INT_MAX;
-  hi = INT_MIN;
-#pragma unroll
-  for (int i = 0; i < N / 32; ++i) {
-    const int idx = lane + 32 * i;
-    if (base + idx < limit) {
-      const int s = seg[idx];
-      lo = min(lo, s);
-      hi = max(hi, s);
-    }
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
-    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
-  }
+// four 8 x 8 bf16 matrices from shared memory, lane l giving row l % 8 of
+// matrix l / 8; as mma fragments (.trans: transposed, for a B whose k index
+// runs down the rows)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
 }
 
-// rows [row0, row0 + ROWS) x D of a [T, D] slab into a padded smem tile,
-// zeros past T
+// rows [row0, row0 + ROWS) x D of a [T, D] slab into a padded smem tile (row
+// stride D + 8 halves), zeros past T
 template <int ROWS, int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          int row0, int T, int tid) {
+__device__ __forceinline__ void cp_tile_padded(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                               int row0, int T, int tid) {
   constexpr int kStride = D + 8, kChunks = D / 8;
   static_assert((ROWS * kChunks) % kThreads == 0, "tile load must split evenly");
 #pragma unroll
   for (int i = 0; i < ROWS * kChunks / kThreads; ++i) {
     const int c = tid + i * kThreads;
     const int row = c / kChunks, col = (c % kChunks) * 8;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + row < T) x = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + row) * D + col);
-    *reinterpret_cast<uint4*>(&dst[row * kStride + col]) = x;
+    const bool ok = row0 + row < T;
+    cp_async16(&dst[row * kStride + col], ok ? src + (size_t)(row0 + row) * D + col : src, ok);
   }
 }
 
-// --------------------------------------------------------------------------
-// dK, dV: one CTA per (64-key tile, kv head, batch row); BQ query rows a step
-// --------------------------------------------------------------------------
-template <int D, int BQ>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v,
-                      const __nv_bfloat16* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta,
-                      const int* __restrict__ q_seg,
-                      const int* __restrict__ k_seg,
-                      __nv_bfloat16* __restrict__ dk,
-                      __nv_bfloat16* __restrict__ dv,
-                      int H, int Hkv, int T, float sm_scale, int causal) {
-  constexpr int kStride = D + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Vs = Ks + kTile * kStride;
-  __nv_bfloat16* Qs = Vs + kTile * kStride;
-  __nv_bfloat16* dOs = Qs + BQ * kStride;
-  float* lse_s = reinterpret_cast<float*>(dOs + BQ * kStride);   // log2 domain
-  float* delta_s = lse_s + BQ;
-  int* qseg_s = reinterpret_cast<int*>(delta_s + BQ);
-  int* kseg_s = qseg_s + BQ;
+// rows [row0, row0 + ROWS) x 64 of a [T, 64] slab into a 128-byte-swizzled
+// smem tile (the layout wgmma reads with SWIZZLE_128B: row r's 16-byte chunk
+// c lands at chunk c ^ (r % 8); the tile starts 1024-byte aligned)
+template <int ROWS>
+__device__ __forceinline__ void cp_tile_sw128(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                              int row0, int T, int tid) {
+  static_assert((ROWS * 8) % kThreads == 0, "tile load must split evenly");
+  unsigned char* base = reinterpret_cast<unsigned char*>(dst);
+#pragma unroll
+  for (int i = 0; i < ROWS * 8 / kThreads; ++i) {
+    const int c = tid + i * kThreads;
+    const int row = c >> 3, ch = c & 7;
+    const bool ok = row0 + row < T;
+    cp_async16(base + row * 128 + ((ch ^ (row & 7)) << 4),
+               ok ? src + (size_t)(row0 + row) * 64 + ch * 8 : src, ok);
+  }
+}
 
-  const int k_tile = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
-  const int G = H / Hkv;
-  const int k0 = k_tile * kTile;
+// either layout: swizzled for wgmma, padded for mma.sync
+template <int ROWS, int D, bool kSwizzled>
+__device__ __forceinline__ void cp_tile(__nv_bfloat16* dst, const __nv_bfloat16* src, int row0,
+                                        int T, int tid) {
+  if constexpr (kSwizzled) {
+    cp_tile_sw128<ROWS>(dst, src, row0, T, tid);
+  } else {
+    cp_tile_padded<ROWS, D>(dst, src, row0, T, tid);
+  }
+}
+
+// ------------------------------------------------------------------ wgmma --
+
+// Shared-memory matrix descriptor of a 128-byte-swizzled bf16 tile whose rows
+// are 128 bytes (64 values): address >> 4, the leading byte offset (unused
+// here: one swizzle atom spans the operand's contiguous dimension), the
+// stride byte offset 1024 (the next group of 8 rows), SWIZZLE_128B.
+__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
+  const uint64_t addr = smem_u32(tile);
+  return ((addr & 0x3FFFFull) >> 4) | (1ull << 16) | ((1024ull >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving accesses to an accumulator across the
+// asynchronous wgmma region
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+#define WGMMA_D32                                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "   \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define WGMMA_OUT32(d)                                                                   \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),    \
+  "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),           \
+  "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),        \
+  "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),        \
+  "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),        \
+  "+f"(d[31])
+
+// d (64 x 64, f32) (+)= A (64 x 16, smem, K-major) * B (16 x 64, smem, K-major)
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WGMMA_OUT32(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64, f32) += A (64 x 16, registers) * B (16 x 64, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WGMMA_OUT32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// ------------------------------------------------------- segment ranges --
+
+// A block's segment ids as two ranges, (x, y) over the ids >= 0 and (z, w)
+// over the pads' (< 0), each empty as (INT_MAX, INT_MIN): a tile that ends in
+// a -1 tail then does not seem to span every id between -1 and its last.
+__device__ __forceinline__ int4 empty_range() {
+  return make_int4(INT_MAX, INT_MIN, INT_MAX, INT_MIN);
+}
+__device__ __forceinline__ int4 join(int4 a, int4 b) {
+  return make_int4(min(a.x, b.x), max(a.y, b.y), min(a.z, b.z), max(a.w, b.w));
+}
+__device__ __forceinline__ bool meet(int4 a, int4 b) {
+  return (a.x <= b.y && b.x <= a.y) || (a.z <= b.w && b.z <= a.w);
+}
+
+// the ranges of the 32-row blocks [blk0, blk1) of one row's table, joined
+__device__ __forceinline__ int4 block_range(const int4* table, int blk0, int blk1, int n_blk) {
+  int4 r = empty_range();
+  for (int i = blk0; i < blk1 && i < n_blk; ++i) r = join(r, table[i]);
+  return r;
+}
+
+// The tiles t in [t_begin, t_end) (of `per` 32-row blocks each) whose ranges
+// meet `want`, in increasing order, into `list`; returns how many. `counts`
+// is kWarps ints of scratch. Every thread of the CTA calls it.
+__device__ int build_list(int* list, int* counts, const int4* table, int n_blk, int t_begin,
+                          int t_end, int per, int4 want, int tid) {
+  const int warp = tid >> 5, lane = tid & 31;
+  int n = 0;
+  for (int base = t_begin; base < t_end; base += kThreads) {
+    const int t = base + tid;
+    bool need = false;
+    if (t < t_end) {
+      need = meet(block_range(table, t * per, t * per + per, n_blk), want);
+    }
+    const unsigned ballot = __ballot_sync(0xffffffffu, need);
+    if (lane == 0) counts[warp] = __popc(ballot);
+    __syncthreads();
+    int before = n, total = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      before += w < warp ? counts[w] : 0;
+      total += counts[w];
+    }
+    if (need) list[before + __popc(ballot & ((1u << lane) - 1u))] = t;
+    n += total;
+    __syncthreads();                        // counts is reused
+  }
+  return n;
+}
+
+// ------------------------------------------------------------------ prep --
+
+// delta[row] = sum_d dO[row, d] O[row, d] over the B*H*T rows (D / 8 lanes a
+// row, 16 bytes each); then, in the blocks after those, the segment-id ranges
+// of every 32-row block of q_seg (table 0) and k_seg (table 1), a warp each.
+template <int D>
+__global__ void __launch_bounds__(256)
+flash_bwd_prep_kernel(const __nv_bfloat16* __restrict__ out,
+                      const __nv_bfloat16* __restrict__ dout, float* __restrict__ delta,
+                      int rows, const int* __restrict__ q_seg,
+                      const int* __restrict__ k_seg, int4* __restrict__ ranges, int B,
+                      int T, int n_blk) {
+  constexpr int kLanes = D / 8, kRowsPerBlock = 256 / kLanes;
+  const int n_delta = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
+  if ((int)blockIdx.x < n_delta) {
+    const int row = blockIdx.x * kRowsPerBlock + threadIdx.x / kLanes;
+    const int l = threadIdx.x % kLanes;
+    float acc = 0.f;
+    if (row < rows) {
+      const uint4 a = *reinterpret_cast<const uint4*>(out + (size_t)row * D + l * 8);
+      const uint4 b = *reinterpret_cast<const uint4*>(dout + (size_t)row * D + l * 8);
+      const __nv_bfloat162* pa = reinterpret_cast<const __nv_bfloat162*>(&a);
+      const __nv_bfloat162* pb = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 fa = __bfloat1622float2(pa[j]), fb = __bfloat1622float2(pb[j]);
+        acc = fmaf(fa.x, fb.x, acc);
+        acc = fmaf(fa.y, fb.y, acc);
+      }
+    }
+#pragma unroll
+    for (int off = kLanes / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (row < rows && l == 0) delta[row] = acc;
+    return;
+  }
+  const int w = (blockIdx.x - n_delta) * 8 + threadIdx.x / 32, lane = threadIdx.x & 31;
+  if (w >= 2 * B * n_blk) return;
+  const int which = w / (B * n_blk), rest = w - which * B * n_blk;
+  const int b = rest / n_blk, blk = rest - b * n_blk;
+  const int* seg = which ? k_seg : q_seg;
+  const int t = blk * kBlock + lane;
+  int4 r = empty_range();
+  if (t < T) {
+    const int id = seg[(size_t)b * T + t];
+    if (id >= 0) {
+      r.x = r.y = id;
+    } else {
+      r.z = r.w = id;
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    r = join(r, make_int4(__shfl_xor_sync(0xffffffffu, r.x, off),
+                          __shfl_xor_sync(0xffffffffu, r.y, off),
+                          __shfl_xor_sync(0xffffffffu, r.z, off),
+                          __shfl_xor_sync(0xffffffffu, r.w, off)));
+  }
+  if (lane == 0) ranges[w] = r;
+}
+
+// ------------------------------------------------------------------ dkdv --
+
+struct BwdArgs {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  const __nv_bfloat16* dout;
+  const float* lse;
+  const float* delta;
+  const int* q_seg;
+  const int* k_seg;
+  const int4* ranges;      // [2][B][n_blk] (q_seg's, then k_seg's), or null
+  __nv_bfloat16* dq;
+  __nv_bfloat16* dk;
+  __nv_bfloat16* dv;
+  int B, H, Hkv, T, n_blk, walk, causal;
+  float sm_scale;
+};
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) &
+                                          ~uintptr_t(1023));
+}
+
+// Shared memory of a dkdv CTA, in bytes from a 1024-aligned base: the K and V
+// tiles, kStages (Q tile, dO tile) stages, per stage BQ LSE, delta and q
+// segment ids, the tile's k segment ids, kWarps counts, the epilogue's f32
+// gather of the cluster's dK / dV rows ([C][ceil(2 kTile / C)][D + 8], at
+// most (2 kTile + 8) rows) and the q-tile list. At d = 128 the gather reuses
+// the tiles instead, so that a CTA stays under 100 KB.
+template <int D, int BQ, bool kWgmma>
+struct KvSmem {
+  static constexpr int kStride = kWgmma ? D : D + 8;       // halves a row
+  static constexpr int kTileKV = kTile * kStride * 2, kTileQ = BQ * kStride * 2;
+  static constexpr int kK = 0, kV = kTileKV, kQ = 2 * kTileKV;
+  static constexpr int kDO = kQ + kStages * kTileQ;
+  static constexpr int kLse = kDO + kStages * kTileQ;
+  static constexpr int kDelta = kLse + kStages * BQ * 4;
+  static constexpr int kQseg = kDelta + kStages * BQ * 4;
+  static constexpr int kKseg = kQseg + kStages * BQ * 4;
+  static constexpr int kCounts = kKseg + kTile * 4;
+  static constexpr int kGatherBytes = (2 * kTile + kMaxCluster) * (D + 8) * 4;
+  static constexpr int kGather = D == 64 ? kCounts + kWarps * 4 : 0;
+  static constexpr int kList = kGather == 0 ? kCounts + kWarps * 4 : kGather + kGatherBytes;
+  static_assert(kGather != 0 || kGatherBytes <= kLse, "the gather must fit the tiles");
+  static_assert(!kWgmma || (kTileKV % 1024 == 0 && kTileQ % 1024 == 0), "swizzled tiles");
+  static size_t bytes(int T) { return 1024 + kList + 4 * (size_t)((T + BQ - 1) / BQ); }
+};
+
+// One CTA per (64-key tile, head walk, batch row); the grid's x is Hkv * C in
+// clusters of C, the CTA of rank r walking heads hk * G + r * walk + [0, walk).
+template <int D, int BQ, bool kWgmma>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_bwd_dkdv_kernel(const BwdArgs a) {
+  static_assert(!kWgmma || (D == 64 && BQ == 64), "wgmma takes d = 64, 64 queries a tile");
+  using L = KvSmem<D, BQ, kWgmma>;
+  constexpr int kStride = L::kStride;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(sm + L::kK);
+  __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(sm + L::kV);
+  float* lse_s = reinterpret_cast<float*>(sm + L::kLse);
+  float* delta_s = reinterpret_cast<float*>(sm + L::kDelta);
+  int* qseg_s = reinterpret_cast<int*>(sm + L::kQseg);
+  int* kseg_s = reinterpret_cast<int*>(sm + L::kKseg);
+  int* counts = reinterpret_cast<int*>(sm + L::kCounts);
+  int* list = reinterpret_cast<int*>(sm + L::kList);
+  auto Qs = [&](int st) { return reinterpret_cast<__nv_bfloat16*>(sm + L::kQ + st * L::kTileQ); };
+  auto dOs = [&](int st) { return reinterpret_cast<__nv_bfloat16*>(sm + L::kDO + st * L::kTileQ); };
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = cluster.num_blocks(), rank = cluster.block_rank();
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  const bool has_seg = q_seg != nullptr;
-  const float scale_log2 = sm_scale * kLog2e;
+  const int T = a.T, G = a.H / a.Hkv;
+  const int hk = blockIdx.x / C, b = blockIdx.y;
+  const int k0 = blockIdx.z * kTile;        // z = 0 first: under causality it sees the most
+  const bool has_seg = a.ranges != nullptr;
+  const float scale_log2 = a.sm_scale * kLog2e;
+  const size_t kv_base = ((size_t)b * a.Hkv + hk) * T * D;
+  if constexpr (L::kGather != 0) cluster_arrive_relaxed();   // this CTA has started
 
-  const size_t kv_base = ((size_t)b * Hkv + hk) * T * D;
-  load_tile<kTile, D>(Ks, k + kv_base, k0, T, tid);
-  load_tile<kTile, D>(Vs, v + kv_base, k0, T, tid);
+  // K, V and the keys' segment ids: the first cp.async group
+  cp_tile<kTile, D, kWgmma>(Ks, a.k + kv_base, k0, T, tid);
+  cp_tile<kTile, D, kWgmma>(Vs, a.v + kv_base, k0, T, tid);
   if (has_seg && tid < kTile) {
-    kseg_s[tid] = k0 + tid < T ? k_seg[(size_t)b * T + k0 + tid] : 0;
+    const bool ok = k0 + tid < T;
+    cp_async4(&kseg_s[tid], a.k_seg + (size_t)b * T + (ok ? k0 + tid : 0), ok);
   }
-  __syncthreads();
-  int k_lo = 0, k_hi = 0;
-  if (has_seg) seg_range<kTile>(kseg_s, k0, T, lane, k_lo, k_hi);
+  cp_async_commit();
+
+  // the q tiles these keys can see, in order
+  const int n_q = (T + BQ - 1) / BQ, qt_start = a.causal ? k0 / BQ : 0;
+  int n_list = n_q - qt_start;
+  if (has_seg) {
+    const int4 kr = block_range(a.ranges + ((size_t)a.B + b) * a.n_blk, k0 / kBlock,
+                                (k0 + kTile) / kBlock, a.n_blk);
+    n_list = build_list(list, counts, a.ranges + (size_t)b * a.n_blk, a.n_blk, qt_start, n_q,
+                        BQ / kBlock, kr, tid);
+  }
+  const int iters = a.walk * n_list, h0 = hk * G + rank * a.walk;
+  auto q_tile = [&](int it) { const int i = it % n_list; return has_seg ? list[i] : qt_start + i; };
+  auto load_stage = [&](int it) {
+    const int h = h0 + it / n_list, q0 = q_tile(it) * BQ, st = it % kStages;
+    const size_t row_base = ((size_t)b * a.H + h) * T;
+    cp_tile<BQ, D, kWgmma>(Qs(st), a.q + row_base * D, q0, T, tid);
+    cp_tile<BQ, D, kWgmma>(dOs(st), a.dout + row_base * D, q0, T, tid);
+    if (tid < BQ) {
+      const bool ok = q0 + tid < T;
+      const size_t r = row_base + (ok ? q0 + tid : 0);
+      cp_async4(&lse_s[st * BQ + tid], a.lse + r, ok);
+      cp_async4(&delta_s[st * BQ + tid], a.delta + r, ok);
+      if (has_seg) cp_async4(&qseg_s[st * BQ + tid], a.q_seg + (size_t)b * T + (ok ? q0 + tid : 0), ok);
+    }
+  };
 
   const int kr = warp * 16;                 // this warp's keys within the tile
   const int key0 = k0 + kr + g, key1 = key0 + 8;
-  const int kseg0 = has_seg ? kseg_s[kr + g] : 0;
-  const int kseg1 = has_seg ? kseg_s[kr + g + 8] : 0;
-
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+  float dk[D / 8][4], dv[D / 8][4], s[BQ / 8][4], dp[BQ / 8][4];
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < BQ / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
   }
 
-  const int n_q = (T + BQ - 1) / BQ;
-  const int qt_start = causal ? k0 / BQ : 0;
-  for (int hq = 0; hq < G; ++hq) {
-    const int h = hk * G + hq;
-    const size_t q_base = ((size_t)b * H + h) * T * D;
-    const size_t row_base = ((size_t)b * H + h) * T;
-    for (int qt = qt_start; qt < n_q; ++qt) {
-      const int q0 = qt * BQ;
-      __syncthreads();                      // the previous step's readers are done
-      if (has_seg) {
-        if (tid < BQ) qseg_s[tid] = q0 + tid < T ? q_seg[(size_t)b * T + q0 + tid] : 0;
-        __syncthreads();
-        int q_lo, q_hi;
-        seg_range<BQ>(qseg_s, q0, T, lane, q_lo, q_hi);
-        if (q_hi < k_lo || k_hi < q_lo) continue;   // uniform across the CTA
-      }
-      load_tile<BQ, D>(Qs, q + q_base, q0, T, tid);
-      load_tile<BQ, D>(dOs, dout + q_base, q0, T, tid);
-      if (tid < BQ) {
-        const bool in = q0 + tid < T;
-        lse_s[tid] = in ? lse[row_base + q0 + tid] * kLog2e : 0.f;
-        delta_s[tid] = in ? delta[row_base + q0 + tid] : 0.f;
-      }
-      __syncthreads();
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < iters) load_stage(st);
+    cp_async_commit();
+  }
+  for (int it = 0; it < iters; ++it) {
+    cp_async_wait<kStages - 2>();           // this tile (and K, V) have landed
+    if constexpr (kWgmma) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();                        // ... for every thread; the last stage is free
+    if (it + kStages - 1 < iters) load_stage(it + kStages - 1);
+    cp_async_commit();
+    const int st = it % kStages, q0 = q_tile(it) * BQ;
+    const __nv_bfloat16* Qt = Qs(st);
+    const __nv_bfloat16* dOt = dOs(st);
 
-      // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys x BQ queries
-      float s[BQ / 8][4], dp[BQ / 8][4];
+    // S^T = K Q^T and dP^T = V dO^T for the tile's 64 keys x BQ queries
+    if constexpr (kWgmma) {
+      float(&sf)[32] = reinterpret_cast<float(&)[32]>(s);
+      float(&dpf)[32] = reinterpret_cast<float(&)[32]>(dp);
+      const uint64_t dk_ = sw128_desc(Ks), dv_ = sw128_desc(Vs);
+      const uint64_t dq_ = sw128_desc(Qt), do_ = sw128_desc(dOt);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) wgmma_ss(sf, dk_ + 2 * kk, dq_ + 2 * kk, kk);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) wgmma_ss(dpf, dv_ + 2 * kk, do_ + 2 * kk, kk);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(sf);
+      fence_regs(dpf);
+    } else {
 #pragma unroll
       for (int j = 0; j < BQ / 8; ++j) {
 #pragma unroll
@@ -246,113 +583,221 @@ flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int j = 0; j < BQ / 8; ++j) {
           uint32_t b0, b1;
-          load_b_rows(b0, b1, Qs, kStride, j * 8, kk * 16, g, t4);
+          load_b_rows(b0, b1, Qt, kStride, j * 8, kk * 16, g, t4);
           mma_16816(s[j], ka, b0, b1);
-          load_b_rows(b0, b1, dOs, kStride, j * 8, kk * 16, g, t4);
+          load_b_rows(b0, b1, dOt, kStride, j * 8, kk * 16, g, t4);
           mma_16816(dp[j], va, b0, b1);
         }
       }
+    }
 
-      // P^T (masked, exactly 0 off the mask and on dead rows) and
-      // dS^T = P^T (dP^T - delta) * scale, both per (key, query) element
+    // P^T (masked, exactly 0 off the mask and on dead rows) and
+    // dS^T = P^T (dP^T - delta) * scale, both per (key, query) element
+    const int kseg0 = has_seg ? kseg_s[kr + g] : 0, kseg1 = has_seg ? kseg_s[kr + g + 8] : 0;
+    const float* lse_t = lse_s + st * BQ;
+    const float* delta_t = delta_s + st * BQ;
+    const int* qseg_t = qseg_s + st * BQ;
 #pragma unroll
-      for (int j = 0; j < BQ / 8; ++j) {
+    for (int j = 0; j < BQ / 8; ++j) {
+      // this thread's two query columns of block j: LSE, delta, segment ids
+      const int qi = j * 8 + 2 * t4;
+      const float2 lse2 = *reinterpret_cast<const float2*>(lse_t + qi);
+      const float2 dl = *reinterpret_cast<const float2*>(delta_t + qi);
+      const int2 qs = has_seg ? *reinterpret_cast<const int2*>(qseg_t + qi) : make_int2(0, 0);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = j * 8 + 2 * t4 + (e & 1);
-          const int qpos = q0 + qi;
-          const int key = e < 2 ? key0 : key1;
-          bool ok = key < T && qpos < T && (!causal || key <= qpos);
-          if (has_seg) ok = ok && qseg_s[qi] == (e < 2 ? kseg0 : kseg1);
-          const float p = ok ? exp2f(s[j][e] * scale_log2 - lse_s[qi]) : 0.f;
-          s[j][e] = p;
-          dp[j][e] = p * (dp[j][e] - delta_s[qi]) * sm_scale;
-        }
+      for (int e = 0; e < 4; ++e) {
+        const int c = e & 1, qpos = q0 + qi + c;
+        const int key = e < 2 ? key0 : key1;
+        bool ok = key < T && qpos < T && (!a.causal || key <= qpos);
+        if (has_seg) ok = ok && (c ? qs.y : qs.x) == (e < 2 ? kseg0 : kseg1);
+        const float x = fmaf(s[j][e], scale_log2, -(c ? lse2.y : lse2.x) * kLog2e);
+        const float p = fast_exp2(ok ? x : -INFINITY);   // no branch: 2^-inf = 0
+        s[j][e] = p;
+        dp[j][e] = p * (dp[j][e] - (c ? dl.y : dl.x)) * a.sm_scale;
       }
+    }
 
-      // dV += P^T dO and dK += dS^T Q: the k index is the query
+    // dV += P^T dO and dK += dS^T Q: the k index is the query
+    uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      da[kk][0] = pack_bf16(dp[2 * kk][0], dp[2 * kk][1]);
+      da[kk][1] = pack_bf16(dp[2 * kk][2], dp[2 * kk][3]);
+      da[kk][2] = pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
+      da[kk][3] = pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
+    }
+    if constexpr (kWgmma) {
+      float(&dvf)[32] = reinterpret_cast<float(&)[32]>(dv);
+      float(&dkf)[32] = reinterpret_cast<float(&)[32]>(dk);
+      const uint64_t do_ = sw128_desc(dOt), dq_ = sw128_desc(Qt);
+      wgmma_fence();
+#pragma unroll   // k16 steps of the queries: 16 rows of 128 bytes each
+      for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs(dvf, pa[kk], do_ + kk * (2048 >> 4));
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs(dkf, da[kk], dq_ + kk * (2048 >> 4));
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(dvf);
+      fence_regs(dkf);
+    } else {
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk) {
-        uint32_t pa[4], da[4];
-        pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-        pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-        pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-        da[0] = pack_bf16(dp[2 * kk][0], dp[2 * kk][1]);
-        da[1] = pack_bf16(dp[2 * kk][2], dp[2 * kk][3]);
-        da[2] = pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
-        da[3] = pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
 #pragma unroll
         for (int n = 0; n < D / 8; ++n) {
           uint32_t b0, b1;
-          load_b_cols(b0, b1, dOs, kStride, kk * 16, n * 8, g, t4);
-          mma_16816(dv_acc[n], pa, b0, b1);
-          load_b_cols(b0, b1, Qs, kStride, kk * 16, n * 8, g, t4);
-          mma_16816(dk_acc[n], da, b0, b1);
+          load_b_cols(b0, b1, dOt, kStride, kk * 16, n * 8, g, t4);
+          mma_16816(dv[n], pa[kk], b0, b1);
+          load_b_cols(b0, b1, Qt, kStride, kk * 16, n * 8, g, t4);
+          mma_16816(dk[n], da[kk], b0, b1);
         }
       }
     }
   }
+  cp_async_wait<0>();
+  __syncthreads();                          // the tiles are free for the sums
 
-  // every key row < T is written, zeros included
-  __nv_bfloat16* dk_r0 = dk + kv_base + (size_t)key0 * D;
-  __nv_bfloat16* dk_r1 = dk + kv_base + (size_t)key1 * D;
-  __nv_bfloat16* dv_r0 = dv + kv_base + (size_t)key0 * D;
-  __nv_bfloat16* dv_r1 = dv + kv_base + (size_t)key1 * D;
+  // The tile's 2 kTile f32 rows (dK's, then dV's) go straight from the
+  // registers to the CTA that owns them (rows [o per, (o + 1) per) to rank
+  // o), into its slot for this rank; after one cluster barrier every owner
+  // sums its rows' C slots in rank order and writes them. Every key row < T
+  // is written, zeros included.
+  constexpr int kRS = D + 8;
+  const int per = (2 * kTile + C - 1) / C;
+  float* gather = reinterpret_cast<float*>(sm + L::kGather);   // [C][per][kRS]
+  if constexpr (L::kGather == 0) {
+    cluster.sync();                         // the gather reuses the tiles
+  } else {
+    cluster_wait();                         // every CTA of the cluster has started
+  }
+  auto put = [&](int row, int c, float x, float y) {
+    const int owner = row / per;
+    float* dst = cluster.map_shared_rank(gather, owner) + (rank * per + row - owner * per) * kRS + c;
+    *reinterpret_cast<float2*>(dst) = make_float2(x, y);
+  };
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     const int c = n * 8 + 2 * t4;
-    if (key0 < T) {
-      *reinterpret_cast<__nv_bfloat162*>(dk_r0 + c) = __floats2bfloat162_rn(dk_acc[n][0], dk_acc[n][1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv_r0 + c) = __floats2bfloat162_rn(dv_acc[n][0], dv_acc[n][1]);
+    put(kr + g, c, dk[n][0], dk[n][1]);
+    put(kr + g + 8, c, dk[n][2], dk[n][3]);
+    put(kTile + kr + g, c, dv[n][0], dv[n][1]);
+    put(kTile + kr + g + 8, c, dv[n][2], dv[n][3]);
+  }
+  cluster.sync();
+  const int row0 = rank * per, rows = min(2 * kTile, row0 + per) - row0;
+  for (int idx = tid; idx < rows * (D / 4); idx += kThreads) {
+    const int lr = idx / (D / 4), col = (idx - lr * (D / 4)) * 4;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r) {
+      if (r < C) {
+        const float4 p = *reinterpret_cast<const float4*>(gather + (r * per + lr) * kRS + col);
+        acc.x += p.x; acc.y += p.y; acc.z += p.z; acc.w += p.w;
+      }
     }
-    if (key1 < T) {
-      *reinterpret_cast<__nv_bfloat162*>(dk_r1 + c) = __floats2bfloat162_rn(dk_acc[n][2], dk_acc[n][3]);
-      *reinterpret_cast<__nv_bfloat162*>(dv_r1 + c) = __floats2bfloat162_rn(dv_acc[n][2], dv_acc[n][3]);
+    const int row = row0 + lr, key = k0 + row % kTile;
+    if (key < T) {
+      __nv_bfloat16* dst = (row < kTile ? a.dk : a.dv) + kv_base + (size_t)key * D + col;
+      *reinterpret_cast<uint2*>(dst) = make_uint2(pack_bf16(acc.x, acc.y), pack_bf16(acc.z, acc.w));
     }
   }
 }
 
-// --------------------------------------------------------------------------
-// dQ: one CTA per (64-row q tile, q head, batch row); BN keys a step
-// --------------------------------------------------------------------------
-template <int D, int BN>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v,
-                    const __nv_bfloat16* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta,
-                    const int* __restrict__ q_seg,
-                    const int* __restrict__ k_seg,
-                    __nv_bfloat16* __restrict__ dq,
-                    int H, int Hkv, int T, float sm_scale, int causal) {
-  constexpr int kStride = D + 8;
-  __shared__ __align__(16) __nv_bfloat16 Ks[BN * kStride];
-  __shared__ __align__(16) __nv_bfloat16 Vs[BN * kStride];
-  __shared__ int kseg_s[BN];
+// --------------------------------------------------------------------- dq --
 
-  const int q_tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (H / Hkv);
-  const int q0 = q_tile * kTile;
+// Shared memory of a dq CTA, in bytes from a 1024-aligned base: with wgmma
+// the Q and dO tiles (the A operands, 128-byte swizzled), then kStages (K
+// tile, V tile) stages (swizzled, or padded to D + 8 halves a row for
+// mma.sync), per stage BN k segment ids, kWarps counts and the k-tile list.
+template <int D, int BN, bool kWgmma>
+struct QSmem {
+  static constexpr int kStride = kWgmma ? D : D + 8;       // halves a row
+  static constexpr int kTileKV = BN * kStride * 2;
+  static constexpr int kQ = 0, kDO = kWgmma ? kTile * D * 2 : 0;
+  static constexpr int kK = 2 * kDO;
+  static constexpr int kKseg = kK + kStages * 2 * kTileKV;
+  static constexpr int kCounts = kKseg + kStages * BN * 4;
+  static constexpr int kList = kCounts + kWarps * 4;
+  static_assert(!kWgmma || (kTileKV % 1024 == 0 && kDO % 1024 == 0), "swizzled tiles");
+  static size_t bytes(int T) { return 1024 + kList + 4 * (size_t)((T + BN - 1) / BN); }
+};
+
+// One CTA per (64-row q tile, q head, batch row); BN keys a step.
+template <int D, int BN, bool kWgmma>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel(const BwdArgs a) {
+  static_assert(!kWgmma || (D == 64 && BN == 64), "wgmma takes d = 64, 64 keys a tile");
+  using L = QSmem<D, BN, kWgmma>;
+  constexpr int kStride = L::kStride;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(sm + L::kQ);
+  __nv_bfloat16* dOs = reinterpret_cast<__nv_bfloat16*>(sm + L::kDO);
+  auto Ks = [&](int st) { return reinterpret_cast<__nv_bfloat16*>(sm + L::kK + st * 2 * L::kTileKV); };
+  auto Vs = [&](int st) {
+    return reinterpret_cast<__nv_bfloat16*>(sm + L::kK + st * 2 * L::kTileKV + L::kTileKV);
+  };
+  int* kseg_s = reinterpret_cast<int*>(sm + L::kKseg);
+  int* counts = reinterpret_cast<int*>(sm + L::kCounts);
+  int* list = reinterpret_cast<int*>(sm + L::kList);
+
+  const int T = a.T;
+  const int n_qt = (T + kTile - 1) / kTile;
+  const int q0 = (n_qt - 1 - (int)blockIdx.z) * kTile;   // the last first: it sees the most keys
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int hk = h / (a.H / a.Hkv);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  const bool has_seg = q_seg != nullptr;
-  const float scale_log2 = sm_scale * kLog2e;
+  const bool has_seg = a.ranges != nullptr;
+  const float scale_log2 = a.sm_scale * kLog2e;
 
-  const size_t q_base = ((size_t)b * H + h) * T * D;
-  const size_t kv_base = ((size_t)b * Hkv + hk) * T * D;
-  const size_t row_base = ((size_t)b * H + h) * T;
+  const size_t q_base = ((size_t)b * a.H + h) * T * D;
+  const size_t kv_base = ((size_t)b * a.Hkv + hk) * T * D;
+  const size_t row_base = ((size_t)b * a.H + h) * T;
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
 
-  // Q and dO fragments (A operands, row major), kept for the whole k loop
-  uint32_t qa[D / 16][4], da[D / 16][4];
-  {
-    const __nv_bfloat16* q_r0 = q + q_base + (size_t)r0 * D;
-    const __nv_bfloat16* q_r1 = q + q_base + (size_t)r1 * D;
-    const __nv_bfloat16* d_r0 = dout + q_base + (size_t)r0 * D;
-    const __nv_bfloat16* d_r1 = dout + q_base + (size_t)r1 * D;
+  // the k tiles these rows can see, in order
+  const int n_k = (T + BN - 1) / BN;
+  const int k_end = a.causal ? min(n_k, (q0 + kTile - 1) / BN + 1) : n_k;
+  int n_list = k_end;
+  if (has_seg) {
+    const int4 qr = block_range(a.ranges + (size_t)b * a.n_blk, q0 / kBlock,
+                                (q0 + kTile) / kBlock, a.n_blk);
+    n_list = build_list(list, counts, a.ranges + ((size_t)a.B + b) * a.n_blk, a.n_blk, 0,
+                        k_end, BN / kBlock, qr, tid);
+  }
+  auto k_tile = [&](int it) { return has_seg ? list[it] : it; };
+  auto load_stage = [&](int it) {
+    const int k0 = k_tile(it) * BN, st = it % kStages;
+    cp_tile<BN, D, kWgmma>(Ks(st), a.k + kv_base, k0, T, tid);
+    cp_tile<BN, D, kWgmma>(Vs(st), a.v + kv_base, k0, T, tid);
+    if (has_seg && tid < BN) {
+      const bool ok = k0 + tid < T;
+      cp_async4(&kseg_s[st * BN + tid], a.k_seg + (size_t)b * T + (ok ? k0 + tid : 0), ok);
+    }
+  };
+  if constexpr (kWgmma) {                   // Q and dO: a group before the stages'
+    cp_tile_sw128<kTile>(Qs, a.q + q_base, q0, T, tid);
+    cp_tile_sw128<kTile>(dOs, a.dout + q_base, q0, T, tid);
+  }
+  cp_async_commit();
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < n_list) load_stage(st);
+    cp_async_commit();
+  }
+
+  // with mma.sync, the Q and dO fragments (A operands, row major) are kept
+  // in registers for the whole k loop
+  uint32_t qa[kWgmma ? 1 : D / 16][4], da[kWgmma ? 1 : D / 16][4];
+  if constexpr (!kWgmma) {
+    const __nv_bfloat16* q_r0 = a.q + q_base + (size_t)r0 * D;
+    const __nv_bfloat16* q_r1 = a.q + q_base + (size_t)r1 * D;
+    const __nv_bfloat16* d_r0 = a.dout + q_base + (size_t)r0 * D;
+    const __nv_bfloat16* d_r1 = a.dout + q_base + (size_t)r1 * D;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const int c = kk * 16 + 2 * t4;
@@ -366,89 +811,126 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
       da[kk][3] = r1 < T ? ld32(d_r1 + c + 8) : 0u;
     }
   }
-  const float lse0 = r0 < T ? lse[row_base + r0] * kLog2e : 0.f;
-  const float lse1 = r1 < T ? lse[row_base + r1] * kLog2e : 0.f;
-  const float delta0 = r0 < T ? delta[row_base + r0] : 0.f;
-  const float delta1 = r1 < T ? delta[row_base + r1] : 0.f;
-
-  int qseg0 = 0, qseg1 = 0, q_lo = 0, q_hi = 0;
-  if (has_seg) {
-    const int* qs = q_seg + (size_t)b * T;
-    qseg0 = r0 < T ? qs[r0] : 0;
-    qseg1 = r1 < T ? qs[r1] : 0;
-    seg_range<kTile>(qs + q0, q0, T, lane, q_lo, q_hi);
-  }
+  const float lse0 = r0 < T ? a.lse[row_base + r0] * kLog2e : 0.f;
+  const float lse1 = r1 < T ? a.lse[row_base + r1] * kLog2e : 0.f;
+  const float delta0 = r0 < T ? a.delta[row_base + r0] : 0.f;
+  const float delta1 = r1 < T ? a.delta[row_base + r1] : 0.f;
+  const int qseg0 = has_seg && r0 < T ? a.q_seg[(size_t)b * T + r0] : 0;
+  const int qseg1 = has_seg && r1 < T ? a.q_seg[(size_t)b * T + r1] : 0;
 
   float acc[D / 8][4];
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
-  const int n_k = (T + BN - 1) / BN;
-  const int k_end = causal ? min(n_k, (q0 + kTile - 1) / BN + 1) : n_k;
-  for (int kt = 0; kt < k_end; ++kt) {
-    const int k0 = kt * BN;
-    __syncthreads();                        // the previous tile's readers are done
-    if (has_seg) {
-      if (tid < BN) kseg_s[tid] = k0 + tid < T ? k_seg[(size_t)b * T + k0 + tid] : 0;
-      __syncthreads();
-      int k_lo, k_hi;
-      seg_range<BN>(kseg_s, k0, T, lane, k_lo, k_hi);
-      if (q_hi < k_lo || k_hi < q_lo) continue;     // uniform across the CTA
-    }
-    load_tile<BN, D>(Ks, k + kv_base, k0, T, tid);
-    load_tile<BN, D>(Vs, v + kv_base, k0, T, tid);
-    __syncthreads();
+  float s[BN / 8][4], dp[BN / 8][4];
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+  }
 
-    // S = Q K^T and dP = dO V^T for this warp's 16 rows x BN keys
-    float s[BN / 8][4], dp[BN / 8][4];
+  for (int it = 0; it < n_list; ++it) {
+    cp_async_wait<kStages - 2>();           // this tile (and Q, dO) have landed
+    if constexpr (kWgmma) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();                        // ... for every thread; the last stage is free
+    if (it + kStages - 1 < n_list) load_stage(it + kStages - 1);
+    cp_async_commit();
+    const int st = it % kStages, k0 = k_tile(it) * BN;
+    const __nv_bfloat16* Kt = Ks(st);
+    const __nv_bfloat16* Vt = Vs(st);
+    const int* kseg_t = kseg_s + st * BN;
+
+    // S = Q K^T and dP = dO V^T for the 64 rows x BN keys: wgmma from the
+    // swizzled tiles, or mma.sync per warp's 16 rows, where one ldmatrix
+    // gives the B fragments of keys 8 j.. of two 16-deep k steps
+    if constexpr (kWgmma) {
+      float(&sf)[32] = reinterpret_cast<float(&)[32]>(s);
+      float(&dpf)[32] = reinterpret_cast<float(&)[32]>(dp);
+      const uint64_t q_ = sw128_desc(Qs), do_ = sw128_desc(dOs);
+      const uint64_t k_ = sw128_desc(Kt), v_ = sw128_desc(Vt);
+      wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
+      for (int kk = 0; kk < D / 16; ++kk) wgmma_ss(sf, q_ + 2 * kk, k_ + 2 * kk, kk);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      for (int kk = 0; kk < D / 16; ++kk) wgmma_ss(dpf, do_ + 2 * kk, v_ + 2 * kk, kk);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(sf);
+      fence_regs(dpf);
+    } else {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t b0, b1;
-        load_b_rows(b0, b1, Ks, kStride, j * 8, kk * 16, g, t4);
-        mma_16816(s[j], qa[kk], b0, b1);
-        load_b_rows(b0, b1, Vs, kStride, j * 8, kk * 16, g, t4);
-        mma_16816(dp[j], da[kk], b0, b1);
+      for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < D / 16; kk += 2) {
+          const int off = (j * 8 + (lane & 7)) * kStride + kk * 16 + (lane >> 3) * 8;
+          uint32_t kb[4], vb[4];
+          ldsm_x4(kb, Kt + off);
+          ldsm_x4(vb, Vt + off);
+          mma_16816(s[j], qa[kk], kb[0], kb[1]);
+          mma_16816(s[j], qa[kk + 1], kb[2], kb[3]);
+          mma_16816(dp[j], da[kk], vb[0], vb[1]);
+          mma_16816(dp[j], da[kk + 1], vb[2], vb[3]);
+        }
       }
     }
 
     // dS = P (dP - delta) * scale, P masked exactly to 0
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
+      const int kj0 = j * 8 + 2 * t4;
+      const int2 ks = has_seg ? *reinterpret_cast<const int2*>(kseg_t + kj0) : make_int2(0, 0);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int kj = j * 8 + 2 * t4 + (e & 1);
-        const int key = k0 + kj;
+        const int key = k0 + kj0 + (e & 1);
         const int row = e < 2 ? r0 : r1;
-        bool ok = key < T && row < T && (!causal || key <= row);
-        if (has_seg) ok = ok && kseg_s[kj] == (e < 2 ? qseg0 : qseg1);
-        const float p = ok ? exp2f(s[j][e] * scale_log2 - (e < 2 ? lse0 : lse1)) : 0.f;
-        s[j][e] = p * (dp[j][e] - (e < 2 ? delta0 : delta1)) * sm_scale;
+        bool ok = key < T && row < T && (!a.causal || key <= row);
+        if (has_seg) ok = ok && ((e & 1) ? ks.y : ks.x) == (e < 2 ? qseg0 : qseg1);
+        const float x = s[j][e] * scale_log2 - (e < 2 ? lse0 : lse1);
+        const float p = fast_exp2(ok ? x : -INFINITY);
+        s[j][e] = p * (dp[j][e] - (e < 2 ? delta0 : delta1)) * a.sm_scale;
       }
     }
 
-    // dQ += dS K: the k index is the key
+    // dQ += dS K: the k index is the key. wgmma takes dS from registers
+    // and K as an MN-major B; mma.sync reads K with a transposing ldmatrix,
+    // two 8-wide column blocks at a time
+    uint32_t sa[BN / 16][4];
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
-      uint32_t sa[4];
-      sa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      sa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      sa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      sa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      sa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      sa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      sa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      sa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    }
+    if constexpr (kWgmma) {
+      float(&accf)[32] = reinterpret_cast<float(&)[32]>(acc);
+      const uint64_t k_ = sw128_desc(Kt);
+      wgmma_fence();
+#pragma unroll   // k16 steps of the keys: 16 rows of 128 bytes each
+      for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs(accf, sa[kk], k_ + kk * (2048 >> 4));
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(accf);
+    } else {
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        uint32_t b0, b1;
-        load_b_cols(b0, b1, Ks, kStride, kk * 16, n * 8, g, t4);
-        mma_16816(acc[n], sa, b0, b1);
+      for (int kk = 0; kk < BN / 16; ++kk) {
+#pragma unroll
+        for (int n = 0; n < D / 8; n += 2) {
+          uint32_t kb[4];
+          ldsm_x4_t(kb, Kt + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * kStride +
+                            (n + (lane >> 4)) * 8);
+          mma_16816(acc[n], sa[kk], kb[0], kb[1]);
+          mma_16816(acc[n + 1], sa[kk], kb[2], kb[3]);
+        }
       }
     }
   }
+  cp_async_wait<0>();
 
-  __nv_bfloat16* o_r0 = dq + q_base + (size_t)r0 * D;
-  __nv_bfloat16* o_r1 = dq + q_base + (size_t)r1 * D;
+  __nv_bfloat16* o_r0 = a.dq + q_base + (size_t)r0 * D;
+  __nv_bfloat16* o_r1 = a.dq + q_base + (size_t)r1 * D;
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     const int c = n * 8 + 2 * t4;
@@ -457,66 +939,123 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D, int BQ, int BN>
-int launch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-           const __nv_bfloat16* dout, const float* lse, const float* delta,
-           const int* q_seg, const int* k_seg,
-           __nv_bfloat16* dq, __nv_bfloat16* dk, __nv_bfloat16* dv,
-           int B, int H, int Hkv, int T, float sm_scale, int causal, cudaStream_t s) {
-  constexpr int kStride = D + 8;
-  constexpr size_t kSmem = (size_t)(2 * kTile + 2 * BQ) * kStride * sizeof(__nv_bfloat16)
-                           + (size_t)(3 * BQ + kTile) * 4;
-  // once per device, on the first (eager) call: not inside a graph capture
-  static unsigned long long configured = 0;
+// ----------------------------------------------------------------- launch --
+
+// The largest cluster size <= 8 that divides G (G itself for every preset).
+int cluster_size(int G) {
+  for (int c = G < kMaxCluster ? G : kMaxCluster; c > 1; --c) {
+    if (G % c == 0) return c;
+  }
+  return 1;
+}
+
+// once per device, on the first (eager) call, not inside a graph capture:
+// allow the kernels the card's whole opt-in shared memory
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, unsigned long long& configured, int dev) {
+  if ((configured >> dev) & 1ull) return cudaSuccess;
+  int most = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+  if (err != cudaSuccess) return err;
+  configured |= 1ull << dev;
+  return cudaSuccess;
+}
+
+template <int D, int BQ, bool kWgmma, int BN>
+cudaError_t launch(const BwdArgs& a, const __nv_bfloat16* out, float* delta, cudaStream_t s) {
+  using DqKernel = void (*)(BwdArgs);
+  constexpr DqKernel dq_kernel = flash_bwd_dq_kernel<D, BN, kWgmma>;
+  static unsigned long long kv_configured = 0, q_configured = 0;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (!((configured >> dev) & 1ull)) {
-    err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<D, BQ>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
-    if (err != cudaSuccess) return (int)err;
-    configured |= 1ull << dev;
-  }
-  const dim3 grid_kv((T + kTile - 1) / kTile, Hkv, B);
-  flash_bwd_dkdv_kernel<D, BQ><<<grid_kv, kThreads, kSmem, s>>>(
-      q, k, v, dout, lse, delta, q_seg, k_seg, dk, dv, H, Hkv, T, sm_scale, causal);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(flash_bwd_dkdv_kernel<D, BQ, kWgmma>, kv_configured, dev);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(dq_kernel, q_configured, dev);
+  if (err != cudaSuccess) return err;
+
+  // prep: delta, and the segment-range tables
+  const int rows = a.B * a.H * a.T, per_block = 256 / (D / 8);
+  const int n_delta = (rows + per_block - 1) / per_block;
+  const int n_ranges = a.ranges != nullptr ? (2 * a.B * a.n_blk + 7) / 8 : 0;
+  flash_bwd_prep_kernel<D><<<n_delta + n_ranges, 256, 0, s>>>(
+      out, a.dout, delta, rows, a.q_seg, a.k_seg, const_cast<int4*>(a.ranges), a.B, a.T,
+      a.n_blk);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid_q((T + kTile - 1) / kTile, H, B);
-  flash_bwd_dq_kernel<D, BN><<<grid_q, kThreads, 0, s>>>(
-      q, k, v, dout, lse, delta, q_seg, k_seg, dq, H, Hkv, T, sm_scale, causal);
-  return (int)cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  // dkdv: clusters of C CTAs along x
+  const int C = a.H / a.Hkv / a.walk;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.Hkv * C, a.B, (a.T + kTile - 1) / kTile);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = KvSmem<D, BQ, kWgmma>::bytes(a.T);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, flash_bwd_dkdv_kernel<D, BQ, kWgmma>, a);
+  if (err != cudaSuccess) return err;
+
+  // dq
+  const dim3 grid_q(a.H, a.B, (a.T + kTile - 1) / kTile);
+  dq_kernel<<<grid_q, kThreads, QSmem<D, BN, kWgmma>::bytes(a.T), s>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry, bound with ctypes. q, dout [B,H,T,D], k/v [B,Hkv,T,D] bf16 and
-// contiguous; lse, delta [B,H,T] f32 (lse natural log, +1e30 on dead rows);
-// q_seg / k_seg [B,T] int32 or both null; dq [B,H,T,D], dk/dv [B,Hkv,T,D] bf16.
-// Launches the dkdv and dq kernels on `stream`; returns cudaGetLastError().
+// Floats of scratch the caller provides: delta [B, H, T] (rounded up to a
+// multiple of 4), then the segment-range tables, 2 x B x ceil(T / 32) int4s.
+extern "C" long long slamkit_flash_bwd_scratch_floats(int B, int H, int T) {
+  const long long rows = (long long)B * H * T;
+  return (rows + 3) / 4 * 4 + 8LL * B * ((T + kBlock - 1) / kBlock);
+}
+
+// Plain C entry, bound with ctypes. q, out, dout [B,H,T,D], k/v [B,Hkv,T,D]
+// bf16 and contiguous; lse [B,H,T] f32 (natural log, +1e30 on dead rows);
+// q_seg / k_seg [B,T] int32 or both null; dq [B,H,T,D], dk/dv [B,Hkv,T,D]
+// bf16; scratch: slamkit_flash_bwd_scratch_floats(B, H, T) floats. Launches
+// the prep, dkdv and dq kernels on `stream`; returns the first launch error.
 extern "C" int slamkit_flash_bwd_bf16(const void* q, const void* k, const void* v,
-                                      const void* dout, const float* lse,
-                                      const float* delta, const int* q_seg,
-                                      const int* k_seg, void* dq, void* dk, void* dv,
-                                      int B, int H, int Hkv, int T, int D,
-                                      float sm_scale, int causal, void* stream) {
+                                      const void* out, const void* dout, const float* lse,
+                                      const int* q_seg, const int* k_seg, void* dq, void* dk,
+                                      void* dv, float* scratch, int B, int H, int Hkv, int T,
+                                      int D, float sm_scale, int causal, void* stream) {
   if (B <= 0 || T <= 0 || Hkv <= 0 || H % Hkv != 0) return (int)cudaErrorInvalidValue;
   if ((q_seg == nullptr) != (k_seg == nullptr)) return (int)cudaErrorInvalidValue;
+  BwdArgs a;
+  a.q = reinterpret_cast<const __nv_bfloat16*>(q);
+  a.k = reinterpret_cast<const __nv_bfloat16*>(k);
+  a.v = reinterpret_cast<const __nv_bfloat16*>(v);
+  a.dout = reinterpret_cast<const __nv_bfloat16*>(dout);
+  a.lse = lse;
+  a.delta = scratch;
+  a.q_seg = q_seg;
+  a.k_seg = k_seg;
+  a.n_blk = (T + kBlock - 1) / kBlock;
+  a.ranges = q_seg == nullptr ? nullptr
+             : reinterpret_cast<const int4*>(scratch + ((long long)B * H * T + 3) / 4 * 4);
+  a.dq = reinterpret_cast<__nv_bfloat16*>(dq);
+  a.dk = reinterpret_cast<__nv_bfloat16*>(dk);
+  a.dv = reinterpret_cast<__nv_bfloat16*>(dv);
+  a.B = B;
+  a.H = H;
+  a.Hkv = Hkv;
+  a.T = T;
+  a.walk = (H / Hkv) / cluster_size(H / Hkv);
+  a.causal = causal;
+  a.sm_scale = sm_scale;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const auto* qp = reinterpret_cast<const __nv_bfloat16*>(q);
-  const auto* kp = reinterpret_cast<const __nv_bfloat16*>(k);
-  const auto* vp = reinterpret_cast<const __nv_bfloat16*>(v);
-  const auto* dop = reinterpret_cast<const __nv_bfloat16*>(dout);
-  auto* dqp = reinterpret_cast<__nv_bfloat16*>(dq);
-  auto* dkp = reinterpret_cast<__nv_bfloat16*>(dk);
-  auto* dvp = reinterpret_cast<__nv_bfloat16*>(dv);
-  if (D == 64) {
-    return launch<64, 64, 64>(qp, kp, vp, dop, lse, delta, q_seg, k_seg, dqp, dkp, dvp,
-                              B, H, Hkv, T, sm_scale, causal, s);
-  }
-  if (D == 128) {   // half-height tiles keep dK/dV and S/dP within the registers
-    return launch<128, 32, 32>(qp, kp, vp, dop, lse, delta, q_seg, k_seg, dqp, dkp, dvp,
-                               B, H, Hkv, T, sm_scale, causal, s);
-  }
+  const auto* o = reinterpret_cast<const __nv_bfloat16*>(out);
+  if (D == 64) return (int)launch<64, 64, true, 64>(a, o, scratch, s);
+  // half-height tiles keep dK/dV and S/dP within the registers
+  if (D == 128) return (int)launch<128, 32, false, 32>(a, o, scratch, s);
   return (int)cudaErrorInvalidValue;
 }

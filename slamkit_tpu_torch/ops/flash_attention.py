@@ -18,6 +18,7 @@ path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -38,13 +39,18 @@ def _kernel_fn():
     return fn
 
 
-def _kernel_bwd_fn():
-    fn = _build.load(KERNEL_BWD).slamkit_flash_bwd_bf16
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 11 + [i, i, i, i, i, ctypes.c_float, i, p]
-        fn.restype = i
-    return fn
+@functools.lru_cache(maxsize=None)
+def _kernel_bwd_fns():
+    """(the launch, the scratch size) of the backward library."""
+    lib = _build.load(KERNEL_BWD)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = lib.slamkit_flash_bwd_bf16
+    fn.argtypes = [p] * 12 + [i, i, i, i, i, ctypes.c_float, i, p]
+    fn.restype = i
+    scratch = lib.slamkit_flash_bwd_scratch_floats
+    scratch.argtypes = [i, i, i]
+    scratch.restype = ctypes.c_longlong
+    return fn, scratch
 
 
 def _check(q, k, v, segment_ids, kv_segment_ids):
@@ -145,18 +151,19 @@ def _launch_bwd(q, k, v, out, lse, do, q_seg, k_seg, causal: bool, sm_scale: flo
     if tuple(lse.shape) != (b, h, t):
         raise ValueError(f"lse must be [B, H, T] = {(b, h, t)}; got {tuple(lse.shape)}")
     lse = lse.float().contiguous()
-    # delta = rowsum(dO o O) of the O the forward returned, outside the kernel
-    # as in the JAX package (flash_attention.py:345)
-    delta = (do.float() * out.float()).sum(-1).contiguous()
     q_ptr, k_ptr, _keep = _seg_ptrs(q_seg, k_seg)
+    launch, scratch_floats = _kernel_bwd_fns()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    # delta = rowsum(dO o O) of the O the forward returned (outside the
+    # kernel proper, as in the JAX package, flash_attention.py:345) is the
+    # kernel's pre-pass; it and the segment-range tables live in `scratch`
+    scratch = torch.empty(scratch_floats(b, h, t), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _kernel_bwd_fn()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), q_ptr, k_ptr,
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, h, k.shape[1], t, d, float(sm_scale), int(causal), stream)
+        err = launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), q_ptr, k_ptr, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            scratch.data_ptr(), b, h, k.shape[1], t, d, float(sm_scale), int(causal), stream)
     if err != 0:
         raise RuntimeError(f"flash_bwd launch failed: CUDA error {err}")
     flash_attention_bwd.launches += 1
@@ -172,7 +179,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Gradients (dq, dk, dv) of attention from an external output and LSE
     (those the forward returned, or, for a ring schedule, the merged global
     ones), with the forward's shapes and masks; do is dL/d(out).
-    delta = rowsum(dO o O) is taken here, in float32."""
+    delta = rowsum(dO o O) is taken in float32: by the kernel's pre-pass on
+    the card, by the plain version on the CPU."""
     _check(q, k, v, segment_ids, kv_segment_ids)
     if out.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"out {tuple(out.shape)} and do {tuple(do.shape)} must match "

@@ -12,9 +12,9 @@ dequantizes on chip, so the bf16 weight never exists in device memory.
 Dispatch is by the device of the tensors: a CPU tensor runs the plain version
 `dq_matmul_reference`, a CUDA tensor launches the kernel or raises.
 `dq_matmul.launches` counts the wrapper's calls that launched the kernel on
-the card, never plain-version calls. A call is one launch, except a decode
-call whose K is split: it launches the GEMV and then its reduction pass, and
-still counts one.
+the card, never plain-version calls. Every call is one kernel launch (the
+decode GEMV sums its split of K inside a thread-block cluster), so the count
+is of launches and of calls alike.
 """
 from __future__ import annotations
 
@@ -26,8 +26,6 @@ import torch
 from . import _build
 
 KERNEL = "dq_matmul"
-GEMV_MAX_ROWS = 16          # the kernel's decode (GEMV) path takes M <= 16
-_GEMV_COLS, _GEMV_MAX_CHUNK = 128, 512
 
 
 def quantize_weight(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -65,28 +63,13 @@ def ulp_bound(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
     return torch.exp2(torch.floor(torch.log2(mag)) - 7)
 
 
+@functools.lru_cache(maxsize=None)
 def _kernel_fn():
     fn = _build.load(KERNEL).slamkit_dq_matmul_bf16
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, p]
-        fn.restype = i
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, p, p, i, i, i, p]
+    fn.restype = i
     return fn
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def gemv_chunk(k: int, n: int, sms: int) -> int:
-    """K rows per CTA on the decode path: enough CTAs for ~2 per SM over the
-    128-column panels, at least 32 and at most 512 rows (a multiple of 8)."""
-    panels = -(-n // _GEMV_COLS)
-    want = max(1, -(-2 * sms // panels))
-    per_cta = -(-k // want)
-    chunk = -(-per_cta // 8) * 8
-    return min(max(chunk, 32), _GEMV_MAX_CHUNK)
 
 
 def _check(x, q, s):
@@ -115,18 +98,13 @@ def _launch(x, q, s):
     n = q.shape[1]
     if k % 8:
         raise ValueError(f"the CUDA dq_matmul kernel takes K a multiple of 8; got {k}")
+    index = x.device.index
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return _launch(x, q, s)
     y = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
-    work, chunk = None, 0
-    if m <= GEMV_MAX_ROWS:
-        chunk = gemv_chunk(k, n, _sm_count(x.device.index))
-        split = -(-k // chunk)
-        if split > 1:
-            work = torch.empty((split, m, n), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _kernel_fn()(x.data_ptr(), q.data_ptr(), s.data_ptr(), y.data_ptr(),
-                           None if work is None else work.data_ptr(), m, k, n, chunk,
-                           stream)
+    err = _kernel_fn()(x.data_ptr(), q.data_ptr(), s.data_ptr(), y.data_ptr(), m, k, n,
+                       torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"dq_matmul launch failed: CUDA error {err}")
     dq_matmul.launches += 1

@@ -15,6 +15,7 @@ from typing import Dict, List, Optional, Union
 
 import numpy as np
 
+from ..utils.device import DEFAULT_DEVICE
 from . import unit_codec
 
 
@@ -76,7 +77,7 @@ def _init_feature_extractor(fe_type: str, cfg: dict, device):
     raise ValueError(f"Unknown speech tokeniser type: {fe_type}")
 
 
-def tokeniser_factory(cfg, device="cpu") -> AudioTokeniser:
+def tokeniser_factory(cfg, device=DEFAULT_DEVICE) -> AudioTokeniser:
     cfg = _plain(cfg)
     fe_cfg = dict(cfg["feature_extractor"])
     # the vocabulary always follows the feature extractor's unit count

@@ -6,6 +6,8 @@ from abc import ABC, abstractmethod
 
 import numpy as np
 
+from ..utils.device import DEFAULT_DEVICE
+
 _OPTIONAL_KEYS = ("vocoder_suffix", "speaker_meta", "style_meta", "bucket_frames",
                   "model_path", "config_path")
 
@@ -20,7 +22,7 @@ class AudioVocoder(ABC):
         return [self.vocode(t, **kwargs) for t in token_lists]
 
 
-def vocoder_factory(cfg, device="cpu"):
+def vocoder_factory(cfg, device=DEFAULT_DEVICE):
     get = cfg.get if hasattr(cfg, "get") else (lambda k, d=None: getattr(cfg, k, d))
     kind = get("vocoder_type")
     if kind is None:

@@ -16,6 +16,7 @@ from typing import List, Optional, Union
 import numpy as np
 import torch
 
+from ..utils.device import DEFAULT_DEVICE, resolve_device
 from ..utils.tree import to_torch
 from .audio_vocoder import AudioVocoder
 from .checkpoint_manager import CHECKPOINT_MANAGER
@@ -37,7 +38,8 @@ class HiFiGANVocoder(AudioVocoder):
                  vocab_size: Optional[int] = None, vocoder_suffix: Optional[str] = None,
                  speaker_meta=None, style_meta=None, bucket_frames: Optional[int] = None,
                  model_path: Optional[str] = None, config_path: Optional[str] = None,
-                 device: Union[str, torch.device] = "cpu"):
+                 device: Union[str, torch.device] = DEFAULT_DEVICE):
+        device = resolve_device(device)
         speaker_path = style_path = None
         if model_path is None:
             name = f"{dense_model_name}-{quantizer_model_name}-{vocab_size}-hifigan"
@@ -59,10 +61,10 @@ class HiFiGANVocoder(AudioVocoder):
     @classmethod
     def from_params(cls, params: dict, cfg: dict, bucket_frames: Optional[int] = None,
                     speakers: Optional[List[str]] = None, styles: Optional[List[str]] = None,
-                    device: Union[str, torch.device] = "cpu") -> "HiFiGANVocoder":
+                    device: Union[str, torch.device] = DEFAULT_DEVICE) -> "HiFiGANVocoder":
         """A vocoder over a params tree in memory (numpy or torch leaves)."""
         voc = cls.__new__(cls)
-        voc._setup(to_torch(params, device), cfg, bucket_frames, speakers, styles)
+        voc._setup(to_torch(params, resolve_device(device)), cfg, bucket_frames, speakers, styles)
         return voc
 
     def _setup(self, params, cfg, bucket_frames, speakers, styles):

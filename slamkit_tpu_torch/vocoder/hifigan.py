@@ -20,6 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.device import DEFAULT_DEVICE, resolve_device
 from ..utils.tree import to_torch
 
 LRELU_SLOPE = 0.1
@@ -273,9 +274,10 @@ def random_state_dict(cfg: dict, seed: int = 0) -> dict:
     return sd
 
 
-def load_checkpoint(model_path: str, config_path: str, device="cpu"):
+def load_checkpoint(model_path: str, config_path: str, device=DEFAULT_DEVICE):
     """A textless CodeHiFiGAN checkpoint (`{'generator': state dict}`) and its
     config json -> (params on `device`, cfg)."""
+    device = resolve_device(device)
     with open(config_path) as f:
         cfg = json.load(f)
     state = torch.load(model_path, map_location="cpu", weights_only=False)

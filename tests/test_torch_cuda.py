@@ -169,16 +169,37 @@ def _compare_bwd(dev, b, h, hkv, t, d, causal, kind, kv_seg=None, seg=None):
     return got
 
 
+# G = H / Hkv: 7 (Slam, slam_dh128), 1, 4, 3, 2, and past the portable
+# cluster size of 8: 16 (clusters of 8, each CTA walking 2 heads) and 11
+# (prime: one CTA walks all 11)
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,hkv,t,d", [
     (8, 14, 2, 1024, 64), (8, 14, 2, 1000, 64), (8, 7, 1, 1024, 128),
     (4, 14, 2, 2048, 64), (1, 4, 4, 1, 64), (2, 4, 1, 17, 128), (2, 6, 2, 65, 64),
-    (2, 7, 1, 200, 128),
+    (2, 7, 1, 200, 128), (2, 4, 2, 300, 64), (1, 16, 1, 200, 64), (1, 11, 1, 129, 128),
+    (2, 16, 1, 97, 128),
 ])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("kind", [None, "packed", "left_padded"])
 def test_backward_kernel_matches_plain(dev, b, h, hkv, t, d, causal, kind):
     _compare_bwd(dev, b, h, hkv, t, d, causal, kind)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,hkv,t,d", [(8, 14, 2, 1024, 64), (2, 7, 1, 333, 128),
+                                         (1, 16, 1, 200, 64)])
+def test_backward_kernel_is_deterministic(dev, b, h, hkv, t, d):
+    """No atomics: two calls on the same inputs give bitwise-equal dq, dk, dv
+    (the resumed training run repeats a step exactly only so)."""
+    q, k, v = _inputs(dev, b, h, hkv, t, d, seed=3)
+    do = _inputs(dev, b, h, h, t, d, seed=4)[0]
+    seg = _segments("packed", b, t, seed=5).to(dev)
+    out, lse = flash_attention_fwd(q, k, v, segment_ids=seg)
+    first = flash_attention_bwd(q, k, v, out, lse, do, segment_ids=seg)
+    second = flash_attention_bwd(q, k, v, out, lse, do, segment_ids=seg)
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
 
 
 @pytest.mark.cuda
@@ -229,6 +250,12 @@ def test_backward_kernel_refuses_what_it_does_not_take(dev):
         flash_attention_bwd(q, k, v, out, lse.cpu(), out)
     with pytest.raises(ValueError, match="several devices"):
         flash_attention_bwd(q, k.cpu(), v, out, lse, out)
+    with pytest.raises(ValueError, match="lse must be"):
+        flash_attention_bwd(q, k, v, out, lse[:, :1].contiguous(), out)
+    with pytest.raises(ValueError, match="must match"):
+        flash_attention_bwd(q, k, v, out[:, :, :32].contiguous(), lse, out)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_bwd(q, k, v, out, lse, out.transpose(2, 3).contiguous().transpose(2, 3))
 
 
 # --------------------------------------------------------------------------- #
@@ -246,10 +273,16 @@ def _dq_inputs(dev, m, k, n, seed=0):
     return x, q, s
 
 
+# the decode GEMV at M = 1, 3, 8, 16 and the prefill at 1024 over the Slam
+# (K, N) pairs; ragged N (not a multiple of 16, or of 8), and K that does not
+# split evenly over the cluster (904 = 8 x 113: slices of 120 rows and a
+# last of 64)
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", [(m, k, n) for m in (8, 16, 1024) for k, n in SLAM_KN]
-                         + [(1, 896, 896), (5, 64, 250), (3, 72, 131), (17, 896, 250),
-                            (1000, 896, 130), (100, 72, 896), (64, 4864, 128)])
+@pytest.mark.parametrize("m,k,n", [(m, k, n) for m in (1, 3, 8, 16, 1024) for k, n in SLAM_KN]
+                         + [(5, 64, 250), (3, 72, 131), (17, 896, 250),
+                            (1000, 896, 130), (100, 72, 896), (64, 4864, 128),
+                            (8, 904, 896), (16, 904, 250), (3, 4864, 131), (16, 8, 4864),
+                            (12, 896, 4868)])
 def test_dq_matmul_kernel_matches_plain(dev, m, k, n):
     from slamkit_tpu_torch.ops import dq_matmul, dq_matmul_reference
     from slamkit_tpu_torch.ops.quant import ulp_bound
@@ -267,6 +300,19 @@ def test_dq_matmul_kernel_matches_plain(dev, m, k, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(8, 896, 4864), (16, 4864, 896), (3, 904, 131)])
+def test_dq_matmul_kernel_is_deterministic(dev, m, k, n):
+    """The split of K is summed in a fixed order (no atomics): two calls give
+    bitwise-equal outputs."""
+    from slamkit_tpu_torch.ops import dq_matmul
+
+    x, q, s = _dq_inputs(dev, m, k, n, seed=7)
+    first, second = dq_matmul(x, q, s), dq_matmul(x, q, s)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
 def test_dq_matmul_kernel_refuses_what_it_does_not_take(dev):
     from slamkit_tpu_torch.ops import dq_matmul
 
@@ -281,6 +327,10 @@ def test_dq_matmul_kernel_refuses_what_it_does_not_take(dev):
         dq_matmul(x[:, :60].contiguous(), q[:60].contiguous(), s)
     with pytest.raises(ValueError, match="contiguous"):
         dq_matmul(x, q.t().contiguous().t(), s)
+    with pytest.raises(TypeError, match="int8"):
+        dq_matmul(x, q.float(), s)
+    with pytest.raises(ValueError, match="s must be"):
+        dq_matmul(x, q, s[:, :64].contiguous())
 
 
 @pytest.mark.cuda

@@ -100,7 +100,8 @@ def test_unit_ids_equal_jax(fixture):
     wav = np.zeros((2, 16000), np.float32)
     wav[0] = f["wav"]
     wav[1, :11000] = rng.standard_normal(11000).astype(np.float32) * 0.1
-    port = HubertFeatureExtractor.from_params(params, cfg, centroids, layer=3)
+    port = HubertFeatureExtractor.from_params(params, cfg, centroids, layer=3,
+                                              device="cpu")
     got = port.extract(wav, lens)
     want = _jax_extractor(params, jcfg, centroids, layer=3).extract(wav, lens)
     assert [len(g) for g in got] == [len(w) for w in want] == [50, 35]
@@ -127,7 +128,7 @@ def test_mhubert_25hz_preset_frames_and_unit_duration():
     jax_fe = JaxHubertFE(pretrained_model="slprl/mhubert-base-25hz", load_config_only=True,
                          cache_path="/nonexistent-cache-is-not-read")
     port = HubertFeatureExtractor(pretrained_model="slprl/mhubert-base-25hz",
-                                  load_config_only=True)
+                                  load_config_only=True, device="cpu")
     assert port.config.conv_stride == tuple(HUBERT_CONFIG_PRESETS[
         "slprl/mhubert-base-25hz"]["conv_stride"])
     assert len(port.config.conv_dim) == 8
@@ -184,7 +185,7 @@ def test_weight_loaders_match_jax(fixture, tmp_path):
     (hf / "config.json").write_text(json.dumps(cfg_dict))
     torch.save({k: torch.from_numpy(np.array(v)) for k, v in sd.items()},
                hf / "pytorch_model.bin")
-    params, cfg = hubert.load_hubert(str(hf))
+    params, cfg = hubert.load_hubert(str(hf), device="cpu")
     assert cfg.do_stable_layer_norm and cfg.feat_extract_norm == "layer"
     same(jax.tree_util.tree_map(lambda t: t.numpy(), params))
 
@@ -199,10 +200,10 @@ def test_weight_loaders_match_jax(fixture, tmp_path):
     assert dataclass_values(cfg) == dataclass_values(jcfg2)
     same(got)
     torch.save(state, tmp_path / "hubert.pt")
-    params, _ = hubert.load_hubert(str(tmp_path / "hubert.pt"))
+    params, _ = hubert.load_hubert(str(tmp_path / "hubert.pt"), device="cpu")
     same(jax.tree_util.tree_map(lambda t: t.numpy(), params))
     with pytest.raises(FileNotFoundError, match="nothing is"):
-        hubert.load_hubert(str(tmp_path / "missing"))
+        hubert.load_hubert(str(tmp_path / "missing"), device="cpu")
 
 
 def dataclass_values(cfg):

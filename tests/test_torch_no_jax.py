@@ -28,7 +28,7 @@ from slamkit_tpu_torch.trainer import SLAMTrainer
 # each keeps their thread pools from oversubscribing the cores
 torch.set_num_threads(1)
 lm = UnitLM(UnitLMConfig(base_model_name="EleutherAI/pythia-14m", vocab_size=502,
-                         twist_init=False, torch_dtype="float32", remat=True))
+                         twist_init=False, torch_dtype="float32", remat=True), device="cpu")
 ll = lm.log_likelihood([[1, 5, 6, 7, 1, 0]])
 out = lm.generate([[1, 5, 6]], max_new_tokens=3, seed=0)
 assert torch.isfinite(ll).all() and out.shape == (1, 6)
@@ -47,7 +47,7 @@ with tempfile.TemporaryDirectory() as d:
     assert state.global_step == 2, state
     assert os.path.isfile(os.path.join(d, "out", "checkpoint-2", "trainer_state.json"))
     assert os.path.isfile(os.path.join(d, "out", "checkpoint-2", "state", "train_state.pt"))
-    UnitLM.from_pretrained(os.path.join(d, "out", "checkpoint-2"))
+    UnitLM.from_pretrained(os.path.join(d, "out", "checkpoint-2"), device="cpu")
 
 # the speech path: WAV prompts -> HuBERT + k-means -> int8 and dense decoding
 # -> CodeHiFiGAN, at tiny widths with seeded random weights
@@ -70,9 +70,10 @@ vcfg = {"model_in_dim": 8, "num_embeddings": 500, "embedding_dim": 8,
         "dur_predictor_params": {"encoder_embed_dim": 8, "var_pred_hidden_dim": 8,
                                  "var_pred_kernel_size": 3}}
 centroids = np.random.default_rng(0).standard_normal((500, 16)).astype(np.float32)
-fe = HubertFeatureExtractor.from_params(random_params(hcfg), hcfg, centroids, layer=1)
+fe = HubertFeatureExtractor.from_params(random_params(hcfg), hcfg, centroids, layer=1,
+                                        device="cpu")
 voc = HiFiGANVocoder.from_params(
-    hifigan.convert_torch_generator(hifigan.random_state_dict(vcfg), vcfg), vcfg)
+    hifigan.convert_torch_generator(hifigan.random_state_dict(vcfg), vcfg), vcfg, device="cpu")
 speech = SpeechLM(lm, UnitTokeniser(fe), voc)
 with tempfile.TemporaryDirectory() as d:
     for i in range(2):
@@ -246,3 +247,73 @@ def test_chip_smoke_speech_rehearsal_on_cpu(chip_smoke, tmp_path, capsys):
     assert result["duration_agreement"] == 1.0 and result["vocoder_err"] == 0.0
     json.dumps(result)
     assert "speech (int8): 8 prompts of 0.3 s" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("kind", ["packed", "left_padded", "dead_rows"])
+def test_chip_smoke_counts_visible_pairs(chip_smoke, causal, kind):
+    """The attention bound counts the pairs this case's segment ids let
+    through, as a brute-force count of the mask does."""
+    rng = np.random.default_rng(3)
+    b, t = 3, 70
+    kv = None
+    if kind == "packed":
+        seg = chip_smoke._packed_segments(rng, b, t, 4)
+    elif kind == "left_padded":
+        seg = chip_smoke._left_padded(rng, b, t)
+    else:
+        seg = np.zeros((b, t), np.int32)
+        seg[:, 10:20] = 7
+        kv = np.zeros((b, t), np.int32)
+    keys = seg if kv is None else kv
+    mask = seg[:, :, None] == keys[:, None, :]
+    if causal:
+        mask &= np.tril(np.ones((t, t), bool))
+    assert chip_smoke.visible_pairs(seg, kv, causal) == int(mask.sum())
+    n_bytes, flops = chip_smoke.flash_cost((b, 4, 2, t, 16), seg, kv, causal, backward=False)
+    assert flops == 4 * 16 * 4 * int(mask.sum())
+    ids = b * t * 4 * (1 if kv is None else 2)
+    assert n_bytes == 2 * (b * 4 * t * 16 * 2) + 2 * (b * 2 * t * 16 * 2) + b * 4 * t * 4 + ids
+    n_bytes_bwd, flops_bwd = chip_smoke.flash_cost((b, 4, 2, t, 16), seg, kv, causal,
+                                                   backward=True)
+    assert flops_bwd == 10 * 16 * 4 * int(mask.sum())
+    assert n_bytes_bwd == n_bytes + 2 * (b * 4 * t * 16 * 2) + 2 * (b * 2 * t * 16 * 2)
+
+
+def test_chip_smoke_bound_takes_the_larger_time(chip_smoke):
+    ms, by = chip_smoke.bound_ms(3.35e9, 1.0)           # 3.35 GB at 3.35 TB/s
+    assert by == "bytes" and abs(ms - 1.0) < 1e-12
+    ms, by = chip_smoke.bound_ms(1.0, 989e9)            # 989 GFLOP at 989 TFLOP/s
+    assert by == "operations" and abs(ms - 1.0) < 1e-12
+    share, vs = chip_smoke._ratios(2.0, 1.0, 4.0)
+    assert share == 0.5 and vs == 0.5
+    assert chip_smoke._ratios(2.0, 1.0, None)[1] is None
+
+
+
+def test_chip_smoke_kernel_row_keeps_eager_and_graph_times_apart(chip_smoke):
+    """`ms` and `plain_ms` stay eager times; the graph times, the library
+    time and the ratios reckoned from them have keys of their own."""
+    at = dict(ms=0.30, plain_ms=5.0, device_ms=0.20, plain_device_ms=4.0, bound_ms=0.02,
+              bound_by="bytes", library_ms=None, library="none: its graph capture failed",
+              roofline_share=0.1, vs_library=None)
+    row = chip_smoke.kernel_row("k", "a.cu", "b.py:1", ["prep", "main", "tail"], 7, 0.01, at)
+    assert (row["ms"], row["plain_ms"], row["graph_ms"], row["plain_graph_ms"]) == (
+        0.30, 5.0, 0.20, 4.0)
+    assert row["launches"] == 7 and row["kernels_per_launch"] == 3
+    assert row["library_ms"] is None and row["library_timed"].startswith("none")
+    assert {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms"} <= row.keys()
+
+
+def test_chip_smoke_reports_the_error_that_broke_a_capture(chip_smoke):
+    """A capture that fails inside the graph surfaces at `capture_end` as
+    "a previous error"; the note names the error that caused it."""
+    with pytest.raises(RuntimeError) as caught:
+        try:
+            raise RuntimeError("operation not permitted when stream is capturing\nmore")
+        finally:
+            raise RuntimeError("operation failed due to a previous error during capture")
+    assert chip_smoke._first_error(caught.value) == (
+        "RuntimeError: operation not permitted when stream is capturing")
+    assert chip_smoke._library_text(None, "none: why", None) == "library none: why"

@@ -116,7 +116,7 @@ def ckpt(tmp_path_factory):
 
 
 def test_quantize_decode_params_covers_keys_and_is_idempotent(ckpt):
-    dec = UnitLM.from_pretrained(ckpt).decoder
+    dec = UnitLM.from_pretrained(ckpt, device="cpu").decoder
     prepared = prepare_int8_decode_params(dec)
     params = dict(prepared.named_parameters())
     for i, layer in enumerate(prepared.layers):
@@ -152,7 +152,7 @@ def test_int8_weights_match_jax(ckpt, dtype):
     float32 masters would put a few values one int8 step away)."""
     _, qparams = _jax_int8_params(ckpt, torch_dtype=dtype)
     prepared = prepare_int8_decode_params(
-        UnitLM.from_pretrained(ckpt, torch_dtype=dtype).decoder)
+        UnitLM.from_pretrained(ckpt, torch_dtype=dtype, device="cpu").decoder)
     for key in _QUANT_KEYS:
         for i, layer in enumerate(prepared.layers):
             w = getattr(layer, key)
@@ -164,7 +164,7 @@ def test_int8_weights_match_jax(ckpt, dtype):
 
 def test_int8_prefill_logits_match_jax(ckpt):
     model, qparams = _jax_int8_params(ckpt)
-    prepared = prepare_int8_decode_params(UnitLM.from_pretrained(ckpt).decoder)
+    prepared = prepare_int8_decode_params(UnitLM.from_pretrained(ckpt, device="cpu").decoder)
     ids = np.random.default_rng(0).integers(2, 502, (2, 24))
     want, _ = jax_forward(qparams, model.decoder, jnp.asarray(ids))
     with torch.inference_mode():
@@ -178,13 +178,13 @@ def test_greedy_int8_generate_matches_jax(ckpt):
     prompt = pad_token_batch(seqs, 0, "left")["input_ids"]
     want = np.asarray(JaxUnitLM.from_pretrained(ckpt).generate(
         prompt, max_new_tokens=8, do_sample=False, seed=0, weight_quant="int8"))
-    got = UnitLM.from_pretrained(ckpt).generate(
+    got = UnitLM.from_pretrained(ckpt, device="cpu").generate(
         prompt, max_new_tokens=8, do_sample=False, seed=0, weight_quant="int8")
     np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_int8_cache_is_rebuilt_when_weights_change(ckpt):
-    lm = UnitLM.from_pretrained(ckpt)
+    lm = UnitLM.from_pretrained(ckpt, device="cpu")
     first = lm._int8_decode_params()
     assert lm._int8_decode_params() is first
     with torch.no_grad():
@@ -193,7 +193,7 @@ def test_int8_cache_is_rebuilt_when_weights_change(ckpt):
     assert second is not first
     torch.testing.assert_close(second.layers[0].q_w["s"].float(),
                                2 * first.layers[0].q_w["s"].float(), rtol=1e-2, atol=0)
-    lm.decoder = UnitLM.from_pretrained(ckpt).decoder  # new parameters
+    lm.decoder = UnitLM.from_pretrained(ckpt, device="cpu").decoder  # new parameters
     assert lm._int8_decode_params() is not second
     assert lm._int8_decode_params() is lm._int8_decode_params()
 
@@ -208,7 +208,7 @@ def test_generate_runs_a_prepared_decoder_as_it_is(ckpt, monkeypatch):
     real = gen.prepare_int8_decode_params
     monkeypatch.setattr(gen, "prepare_int8_decode_params",
                         lambda dec: prepared.append(dec) or real(dec))
-    lm = UnitLM.from_pretrained(ckpt)
+    lm = UnitLM.from_pretrained(ckpt, device="cpu")
     prompt = np.random.default_rng(6).integers(2, 502, (2, 5))
     kw = dict(max_new_tokens=3, do_sample=False, seed=0, weight_quant="int8")
     first = lm.generate(prompt, **kw)
@@ -234,7 +234,7 @@ def test_int8_generate_runs_every_projection_through_dq_matmul(ckpt, monkeypatch
         return dq_matmul_reference(x, q, s)
 
     monkeypatch.setattr(transformer, "dq_matmul", counting)
-    lm = UnitLM.from_pretrained(ckpt)
+    lm = UnitLM.from_pretrained(ckpt, device="cpu")
     prompt = np.random.default_rng(4).integers(2, 502, (3, 7))
     lm.generate(prompt, max_new_tokens=5, seed=0)
     assert calls == []

@@ -99,9 +99,10 @@ def parts(tmp_path_factory):
 def _port(p):
     cfg = HubertConfig.from_hf_dict(p["cfg_dict"])
     fe = HubertFeatureExtractor.from_params(convert_hf_state_dict(p["sd"], cfg), cfg,
-                                            p["centroids"], layer=LAYER)
-    voc = HiFiGANVocoder.from_params(convert_torch_generator(p["voc_sd"], VOC_CFG), VOC_CFG)
-    return SpeechLM(UnitLM.from_pretrained(p["ckpt"]), UnitTokeniser(fe, num_units=N_UNITS),
+                                            p["centroids"], layer=LAYER, device="cpu")
+    voc = HiFiGANVocoder.from_params(convert_torch_generator(p["voc_sd"], VOC_CFG), VOC_CFG,
+                                     device="cpu")
+    return SpeechLM(UnitLM.from_pretrained(p["ckpt"], device="cpu"), UnitTokeniser(fe, num_units=N_UNITS),
                     Recorder(voc))
 
 

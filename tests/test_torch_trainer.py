@@ -70,7 +70,7 @@ def tiny_dataset(n=64, seed=0):
 
 
 def tiny_model(seed=0):
-    return UnitLM(UnitLMConfig(**TINY), seed=seed)
+    return UnitLM(UnitLMConfig(**TINY), seed=seed, device="cpu")
 
 
 def params_of(model):
@@ -102,7 +102,7 @@ def test_losses_match_jax_trainer(tmp_path):
                             eval_dataset=JaxTokenDataset.from_lists(evals),
                             packing=True, context_len=32, mesh=mesh)
     want = jax_tr.train()
-    tr = SLAMTrainer(UnitLM(UnitLMConfig(**TINY), params=flat),
+    tr = SLAMTrainer(UnitLM(UnitLMConfig(**TINY), params=flat, device="cpu"),
                      train_args(tmp_path / "port", **over), TokenDataset.from_lists(train),
                      eval_dataset=TokenDataset.from_lists(evals), packing=True, context_len=32)
     got = tr.train()
@@ -129,7 +129,7 @@ def test_train_two_steps_and_export_loads_in_jax(tmp_path, packing):
     back = JaxUnitLM.from_pretrained(str(ckpt))
     for k, v in params_of(model).items():
         np.testing.assert_array_equal(_flatten(back.params)[k], v, err_msg=k)
-    assert UnitLM.from_pretrained(str(ckpt)).decoder.cfg == model.decoder.cfg
+    assert UnitLM.from_pretrained(str(ckpt), device="cpu").decoder.cfg == model.decoder.cfg
 
 
 def test_train_loss_decreases(tmp_path):

@@ -79,7 +79,7 @@ def test_loss_and_every_gradient_match_jax(flat_weights, remat):
     want_loss, want_grads = jax.value_and_grad(jax_model.loss_fn)(jax_model.params, jax_batch)
     want = _flatten(want_grads)
 
-    model = UnitLM(UnitLMConfig(**cfg), params=flat_weights)
+    model = UnitLM(UnitLMConfig(**cfg), params=flat_weights, device="cpu")
     fwd0 = flash_attention_fwd.launches
     loss = model.loss_fn({k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()})
     loss.backward()
@@ -105,7 +105,8 @@ def test_remat_recomputes_attention(flat_weights, monkeypatch):
     grads = []
     for remat in (False, True):
         calls.clear()
-        model = UnitLM(UnitLMConfig(**{**SMALL_QWEN, "remat": remat}), params=flat_weights)
+        model = UnitLM(UnitLMConfig(**{**SMALL_QWEN, "remat": remat}), params=flat_weights,
+                           device="cpu")
         model.loss_fn(batch).backward()
         assert len(calls) == (4 if remat else 2)
         grads.append(grads_to_flat(model.decoder))
@@ -132,7 +133,7 @@ def test_training_refuses_unported_knobs():
     for knob in (dict(dropout=0.1), dict(layerdrop=0.1), dict(attention_dropout=0.1),
                  dict(remat=True, remat_policy="qkv")):
         with pytest.raises(ValueError, match="ROADMAP"):
-            UnitLM(dataclasses.replace(UnitLMConfig(**SMALL_QWEN), **knob))
+            UnitLM(dataclasses.replace(UnitLMConfig(**SMALL_QWEN), **knob), device="cpu")
 
 
 def _unflatten(flat):

@@ -59,7 +59,7 @@ def _prompts(seed, lens, vocab=502):
 
 
 def test_jax_checkpoint_loads_and_port_checkpoint_loads_in_jax(ckpt, tmp_path):
-    port = UnitLM.from_pretrained(ckpt)
+    port = UnitLM.from_pretrained(ckpt, device="cpu")
     ref = JaxUnitLM.from_pretrained(ckpt)
     assert port.config.to_dict() == ref.config.to_dict()
     port.save_pretrained(str(tmp_path))
@@ -85,7 +85,7 @@ def test_log_likelihood_matches_jax(ckpt, mean_nll, ignore):
         tokens[i, :n] = row
     want = np.asarray(JaxUnitLM.from_pretrained(ckpt).log_likelihood(
         tokens, mean_nll=mean_nll, ignore_tokens=ignore))
-    got = UnitLM.from_pretrained(ckpt).log_likelihood(
+    got = UnitLM.from_pretrained(ckpt, device="cpu").log_likelihood(
         tokens, mean_nll=mean_nll, ignore_tokens=ignore)
     assert got.shape == (3,) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=1e-4)
@@ -100,7 +100,7 @@ def test_greedy_generate_matches_jax(ckpt, kwargs):
     prompt = _prompts(2, [9, 5, 13])              # ragged, LEFT-padded
     want = np.asarray(JaxUnitLM.from_pretrained(ckpt).generate(
         prompt, max_new_tokens=20, do_sample=False, seed=0, **kwargs))
-    got = UnitLM.from_pretrained(ckpt).generate(
+    got = UnitLM.from_pretrained(ckpt, device="cpu").generate(
         prompt, max_new_tokens=20, do_sample=False, seed=0, **kwargs)
     assert got.shape == (3, 13 + 20)
     np.testing.assert_array_equal(got.numpy(), want)
@@ -116,7 +116,7 @@ def test_greedy_generate_pads_after_eos_like_jax(ckpt):
     eos = int(free[0, 11 + 2])
     want = np.asarray(JaxUnitLM.from_pretrained(ckpt, eos_token_id=eos).generate(
         prompt, max_new_tokens=12, do_sample=False))
-    got = UnitLM.from_pretrained(ckpt, eos_token_id=eos).generate(
+    got = UnitLM.from_pretrained(ckpt, eos_token_id=eos, device="cpu").generate(
         prompt, max_new_tokens=12, do_sample=False).numpy()
     np.testing.assert_array_equal(got, want)
     gen = got[:, 11:]
@@ -165,7 +165,7 @@ def test_sampling_draws_are_seeded_and_in_support():
 
 
 def test_generate_sampling_is_reproducible_per_generator(ckpt):
-    lm = UnitLM.from_pretrained(ckpt)
+    lm = UnitLM.from_pretrained(ckpt, device="cpu")
     prompt = _prompts(7, [8, 4])
     run = lambda seed: lm.generate(prompt, max_new_tokens=10, temperature=0.8, top_k=25,
                                    generator=torch.Generator().manual_seed(seed))
@@ -175,7 +175,7 @@ def test_generate_sampling_is_reproducible_per_generator(ckpt):
 
 
 def test_generate_kwarg_surface(ckpt):
-    lm = UnitLM.from_pretrained(ckpt)
+    lm = UnitLM.from_pretrained(ckpt, device="cpu")
     prompt = np.array([[1, 5, 6, 7]], np.int32)
     assert torch.equal(lm.generate(prompt, max_new_tokens=0), torch.from_numpy(prompt))
     out = lm.generate(prompt, max_new_tokens=2, seed=0, num_beams=1, use_cache=True,
@@ -193,18 +193,18 @@ def test_generate_kwarg_surface(ckpt):
 
 def test_twist_init_without_weights_raises():
     with pytest.raises(ValueError, match="twist_init"):
-        UnitLM(UnitLMConfig(**{**SMALL_QWEN, "twist_init": True}))
+        UnitLM(UnitLMConfig(**{**SMALL_QWEN, "twist_init": True}), device="cpu")
 
 
 def test_tlm_factory_gslm_and_pretrained(ckpt):
     args = {**SMALL_QWEN, **SMALL_QWEN["config_overrides"]}
     del args["config_overrides"]
     fresh = tlm_factory(ConfigNode({"tlm_type": "gslm", "pretrained_model": None,
-                                    "config_args": args}))
+                                    "config_args": args}), device="cpu")
     assert fresh.decoder.cfg.num_layers == 2 and fresh.decoder.cfg.hidden_size == 64
     loaded = tlm_factory(ConfigNode({"tlm_type": "twist", "pretrained_model": ckpt,
-                                     "config_args": {"torch_dtype": "float32"}}))
-    ref = UnitLM.from_pretrained(ckpt)
+                                     "config_args": {"torch_dtype": "float32"}}), device="cpu")
+    ref = UnitLM.from_pretrained(ckpt, device="cpu")
     for a, b in zip(loaded.decoder.parameters(), ref.decoder.parameters()):
         assert torch.equal(a, b)
     with pytest.raises(ValueError, match="tlm type"):

@@ -157,7 +157,7 @@ def test_vocoder_from_checkpoint_files_matches_jax(tmp_path, state_dict, params)
                               _weight_normed(state_dict).items()}}, tmp_path / "g.pt")
     (tmp_path / "config.json").write_text(json.dumps(TINY_CFG))
     voc = HiFiGANVocoder(model_path=str(tmp_path / "g.pt"),
-                         config_path=str(tmp_path / "config.json"))
+                         config_path=str(tmp_path / "config.json"), device="cpu")
     assert voc.has_dur_predictor
     codes = [np.array([1, 2, 3]), np.array([-1, -2]), np.array([4, 5, 6, 7, 8])]
     got = voc.vocode_batch(codes)
@@ -169,7 +169,7 @@ def test_vocoder_from_checkpoint_files_matches_jax(tmp_path, state_dict, params)
         np.testing.assert_allclose(g, w, **TOL)
     np.testing.assert_allclose(got[0], voc.vocode(codes[0]), rtol=1e-5, atol=1e-7)
     with pytest.raises(ValueError, match="config_path"):
-        HiFiGANVocoder(model_path=str(tmp_path / "g.pt"))
+        HiFiGANVocoder(model_path=str(tmp_path / "g.pt"), device="cpu")
 
 
 def test_named_checkpoint_resolves_local_files_only(tmp_path):
