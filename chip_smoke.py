@@ -22,14 +22,17 @@ the sm_90a kernels). Phases, in order; any failure exits non-zero:
                way and never used by the port; the bound (the larger of the
                bytes over 3.35 TB/s and the visible pairs' FLOPs over 989
                TFLOP/s, H100 SXM data sheet); roofline_share = bound / kernel
-               and vs_library = kernel / library.
+               and vs_library = kernel / library. Each call is repeated and
+               must give bitwise the same out and LSE.
   3b. backward kernels — the flash backward (dq, dk, dv) against its plain
                version the same way, at the training shapes; its library
                call is the backward of the same SDPA call, timed alone.
   3c. dq_matmul — the int8 dequant-matmul kernel against its plain version
                at the Slam decoder's four (K, N) projection shapes, for the
-               decode rows (M = 8 and 16) and the prefill rows (M = 1024);
-               library call `torch._weight_int8pack_mm`.
+               decode rows (M = 8 and 16) and the prefill rows (M = 600 and
+               1024); library call `torch._weight_int8pack_mm`; beside each
+               prefill row the dense path's `x @ w` (bf16, weight dequantized
+               before the timing).
   3d. probe  — the contraction-probe kernel against its plain version at its
                four shapes, the K=64/K=128 and N=64/N=128 time ratios, then
                its entry point `tools/bench_flash.py --matmul-probe` (no
@@ -84,7 +87,10 @@ earlier version of the line); `graph_ms`, `plain_graph_ms` and `library_ms`
 are CUDA-graph device times, and `roofline_share` and `vs_library` are
 reckoned from them; `library_timed` says how the library call was timed, or
 why it has no time (`library_ms` is then null: a library call whose graph
-capture fails is not timed another way).
+capture fails is not timed another way). The dq_matmul entry is timed at
+a decode shape (the GEMV, M <= 16) and carries the prefill GEMM's own times
+(M > 16) at M = 1024, up / gate, under `prefill`, beside the dense path's
+`dense_graph_ms`.
 """
 from __future__ import annotations
 
@@ -332,6 +338,17 @@ def kernel_row(name: str, source: str, replaces: str, cuda_kernels: list[str], l
             "vs_library": at["vs_library"]}
 
 
+def prefill_entry(at: dict) -> dict:
+    """The prefill GEMM's times (`dq_gemm_kernel`, M > 16) from its phase-3c
+    row `at`, under the kernels line's names, with the dense path's time."""
+    return {"cuda_kernel": "dq_gemm_kernel", "shape": [at["m"], at["k"], at["n"]],
+            "ms": at["ms"], "plain_ms": at["plain_ms"], "graph_ms": at["device_ms"],
+            "plain_graph_ms": at["plain_device_ms"], "bound_ms": at["bound_ms"],
+            "bound_by": at["bound_by"], "library_ms": at["library_ms"],
+            "roofline_share": at["roofline_share"], "vs_library": at["vs_library"],
+            "tflops": at["tflops"], "dense_graph_ms": at["dense_graph_ms"]}
+
+
 def _first_error(e: BaseException) -> str:
     """The first line of the error that started a chain: a capture that
     fails inside the graph is reported by `capture_end` as "a previous error
@@ -442,6 +459,9 @@ def check_kernels(dev) -> list[dict]:
         n_dead = int(dead.sum().item())
         dead_ok = bool((lse[dead] == 1e30).all().item() and (out[dead] == 0).all().item()
                        and torch.equal(lse == 1e30, dead))
+        again = run()
+        deterministic = torch.equal(out, again[0]) and torch.equal(lse, again[1])
+        del again
         ms = _cuda_ms(run, warmup=3, iters=20)
         plain_ms = _cuda_ms(plain, warmup=1, iters=5)
         device_ms, plain_device_ms = _graph_ms(run, 20), _graph_ms(plain, 3)
@@ -452,19 +472,21 @@ def check_kernels(dev) -> list[dict]:
             library_ms, timed = _library_ms(sdpa[0], 20)
             timed = f"sdpa {sdpa[4]}, {timed}"
         share, vs_library = _ratios(device_ms, bound, library_ms)
-        ok = err_out <= OUT_BOUND and err_lse <= LSE_BOUND and dead_ok
+        ok = err_out <= OUT_BOUND and err_lse <= LSE_BOUND and dead_ok and deterministic
         if name == "dead_rows":
             ok = ok and n_dead == b * h * 40
         results.append(dict(name=name, shape=[b, h, hkv, t, d], causal=causal,
                             max_abs_err_out=err_out, max_abs_err_lse=err_lse,
-                            dead_rows=n_dead, ms=ms, plain_ms=plain_ms,
+                            dead_rows=n_dead, deterministic=deterministic, ms=ms,
+                            plain_ms=plain_ms,
                             device_ms=device_ms, plain_device_ms=plain_device_ms,
                             library_ms=library_ms, library=timed,
                             bound_ms=bound, bound_by=bound_by, roofline_share=share,
                             vs_library=vs_library, ok=ok))
         print(f"kernel {name:16s} [{b},{h}/{hkv},{t},{d}] causal={causal}: "
               f"|dout|={err_out:.3e} (<= {OUT_BOUND}) |dlse|={err_lse:.3e} "
-              f"(<= {LSE_BOUND}) dead={n_dead} dead_ok={dead_ok}  eager: kernel "
+              f"(<= {LSE_BOUND}) dead={n_dead} dead_ok={dead_ok} bitwise-repeatable={deterministic}"
+              f"  eager: kernel "
               f"{ms:.4f} ms plain {plain_ms:.4f} ms; graph: kernel {device_ms:.4f} ms "
               f"plain {plain_device_ms:.4f} ms {_library_text(library_ms, timed, vs_library)}; "
               f"bound {bound:.4f} ms by {bound_by}, roofline_share {share:.3f}  "
@@ -611,15 +633,20 @@ def _int8pack_library(x, q, s, want):
 def check_dq_kernels(dev) -> list[dict]:
     """Phase 3c: the dq_matmul kernel against its plain version at the Slam
     decoder's four (K, N) pairs, for the decode rows (M = 8, the smoke's
-    batch, and 16, tools/bench_decode.py's) and the prefill rows (M = 8 x
-    128); beside it `torch._weight_int8pack_mm` on the same (x, q, s)."""
+    batch, and 16, tools/bench_decode.py's) and the prefill rows (M = 8 x 75,
+    phase 8's prompt of 3 s at 25 Hz, and 8 x 128); beside it
+    `torch._weight_int8pack_mm` on the same (x, q, s) and, for the prefill
+    rows, the dense path's cost: the graph time of `x @ w` with w the bf16
+    weight dequantized outside the timed region (what a prefill without
+    weight_quant="int8" pays; not the library call)."""
     import torch
 
-    from slamkit_tpu_torch.ops import dq_matmul, dq_matmul_reference, quantize_weight
+    from slamkit_tpu_torch.ops import (dequantize_weight, dq_matmul, dq_matmul_reference,
+                                       quantize_weight)
     from slamkit_tpu_torch.ops.quant import ulp_bound
 
     results = []
-    for m in (8, 16, 1024):
+    for m in (8, 16, 600, 1024):
         for k, n in SLAM_KN:
             g = torch.Generator(device=dev).manual_seed(m + k + n)
             x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
@@ -637,8 +664,15 @@ def check_dq_kernels(dev) -> list[dict]:
             library_ms, library = _int8pack_library(x, q, s, want)
             bound, bound_by = bound_ms(m * k * 2 + k * n + n * 2 + m * n * 2, 2 * m * k * n)
             share, vs_library = _ratios(device_ms, bound, library_ms)
+            dense_ms, dense_text = None, ""
+            if m > 16:
+                w = dequantize_weight(q, s)
+                dense_ms = _graph_ms(lambda: x @ w, 50)
+                dense_text = f"; dense path x @ w (bf16) {dense_ms:.4f} ms"
+                del w
             ok = ulps <= 1.0 and bool(torch.isfinite(got).all().item()) and deterministic
             results.append(dict(m=m, k=k, n=n, max_abs_err=err.max().item(), max_ulps=ulps,
+                                dense_graph_ms=dense_ms,
                                 deterministic=deterministic, ms=ms, plain_ms=plain_ms,
                                 device_ms=device_ms, plain_device_ms=plain_device_ms,
                                 library_ms=library_ms, library=library, bound_ms=bound,
@@ -652,7 +686,7 @@ def check_dq_kernels(dev) -> list[dict]:
                   f"{_library_text(library_ms, library, vs_library)}; bound {bound:.4f} ms by "
                   f"{bound_by}, roofline_share {share:.3f} "
                   f"({k * n / device_ms * 1e-6:.1f} GB/s of int8 weights, "
-                  f"{2 * m * k * n / device_ms * 1e-9:.2f} TFLOP/s)  "
+                  f"{2 * m * k * n / device_ms * 1e-9:.2f} TFLOP/s){dense_text}  "
                   f"{'ok' if ok else 'FAIL'}", flush=True)
             _require(ok, f"the dq_matmul kernel disagrees with the plain version at "
                      f"[{m},{k}]x[{k},{n}]")
@@ -1314,6 +1348,8 @@ def main() -> int:
     # the kernels line times dq_matmul at a decode step's largest projection
     # (up / gate: [8, 896] x [896, 4864]) and the probe at its K = 128 shape
     dq = next(r for r in dq_rows if (r["m"], r["k"], r["n"]) == (8, 896, 4864))
+    # ... and the prefill GEMM (M > 16), a kernel of its own, at M = 1024 up / gate
+    dq_prefill = next(r for r in dq_rows if (r["m"], r["k"], r["n"]) == (1024, 896, 4864))
     probe = next(r for r in probe_result["shapes"] if r["k"] == 128)
     print(json.dumps({"shapes": kernel_rows, "backward_shapes": backward_rows,
                       "dq_shapes": dq_rows, "probe": probe_result,
@@ -1332,10 +1368,11 @@ def main() -> int:
                    ["flash_bwd_prep_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"],
                    train_result["launches"]["flash_bwd"],
                    max(max(r["max_abs_err"].values()) for r in backward_rows), bwd),
-        kernel_row("dq_matmul", "slamkit_tpu_torch/ops/csrc/dq_matmul.cu",
-                   "slamkit_tpu/ops/quant.py:43", ["dq_gemv_kernel | dq_gemm_kernel"],
-                   speech_runs["int8"]["launches"]["dq_matmul"],
-                   max(r["max_abs_err"] for r in dq_rows), dq),
+        dict(kernel_row("dq_matmul", "slamkit_tpu_torch/ops/csrc/dq_matmul.cu",
+                        "slamkit_tpu/ops/quant.py:43", ["dq_gemv_kernel | dq_gemm_kernel"],
+                        speech_runs["int8"]["launches"]["dq_matmul"],
+                        max(r["max_abs_err"] for r in dq_rows), dq),
+             prefill=prefill_entry(dq_prefill)),
         kernel_row("matmul_probe", "slamkit_tpu_torch/ops/csrc/matmul_probe.cu",
                    "scripts/bench_flash.py:98", ["matmul_probe_kernel"],
                    probe_result["launches"],

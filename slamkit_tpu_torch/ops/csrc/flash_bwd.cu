@@ -72,9 +72,13 @@
 #include <cmath>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
+
+using namespace hopper;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
@@ -85,73 +89,6 @@ constexpr int kMaxCluster = 8;            // the portable cluster size
 constexpr float kLog2e = 1.4426950408889634f;
 
 // ---------------------------------------------------------------- helpers --
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16_raw(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// 2^x on the SFU (ex2.approx, relative error ~2^-22, subnormal results
-// flushed to 0: far below the bf16 rounding of P), called on every element
-// (-inf where the mask is off) so that the warp never branches.
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 (or 4) bytes global -> shared, asynchronously; zeros where !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// The cluster barrier split in two: every thread arrives at the kernel's
-// entry and waits just before its first write to another CTA's shared
-// memory, which is allowed only once every CTA of the cluster has started.
-// The main loop runs between the two, so the wait costs almost nothing.
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-}
-
-// D (16x8, f32) += A (16x16, bf16, row) * B (16x8, bf16, col)
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // A fragment (16 rows x 16 cols at [row0, col0]) of a row-major smem tile
 __device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* tile,
@@ -183,18 +120,6 @@ __device__ __forceinline__ void load_b_cols(uint32_t& b0, uint32_t& b1,
   b1 = pack_bf16_raw(p[8 * stride], p[9 * stride]);
 }
 
-// four 8 x 8 bf16 matrices from shared memory, lane l giving row l % 8 of
-// matrix l / 8; as mma fragments (.trans: transposed, for a B whose k index
-// runs down the rows)
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
-}
-
 // rows [row0, row0 + ROWS) x D of a [T, D] slab into a padded smem tile (row
 // stride D + 8 halves), zeros past T
 template <int ROWS, int D>
@@ -211,113 +136,15 @@ __device__ __forceinline__ void cp_tile_padded(__nv_bfloat16* dst, const __nv_bf
   }
 }
 
-// rows [row0, row0 + ROWS) x 64 of a [T, 64] slab into a 128-byte-swizzled
-// smem tile (the layout wgmma reads with SWIZZLE_128B: row r's 16-byte chunk
-// c lands at chunk c ^ (r % 8); the tile starts 1024-byte aligned)
-template <int ROWS>
-__device__ __forceinline__ void cp_tile_sw128(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                              int row0, int T, int tid) {
-  static_assert((ROWS * 8) % kThreads == 0, "tile load must split evenly");
-  unsigned char* base = reinterpret_cast<unsigned char*>(dst);
-#pragma unroll
-  for (int i = 0; i < ROWS * 8 / kThreads; ++i) {
-    const int c = tid + i * kThreads;
-    const int row = c >> 3, ch = c & 7;
-    const bool ok = row0 + row < T;
-    cp_async16(base + row * 128 + ((ch ^ (row & 7)) << 4),
-               ok ? src + (size_t)(row0 + row) * 64 + ch * 8 : src, ok);
-  }
-}
-
 // either layout: swizzled for wgmma, padded for mma.sync
 template <int ROWS, int D, bool kSwizzled>
 __device__ __forceinline__ void cp_tile(__nv_bfloat16* dst, const __nv_bfloat16* src, int row0,
                                         int T, int tid) {
   if constexpr (kSwizzled) {
-    cp_tile_sw128<ROWS>(dst, src, row0, T, tid);
+    cp_tile_sw128<ROWS, kThreads>(dst, src, 64, row0, T, tid);
   } else {
     cp_tile_padded<ROWS, D>(dst, src, row0, T, tid);
   }
-}
-
-// ------------------------------------------------------------------ wgmma --
-
-// Shared-memory matrix descriptor of a 128-byte-swizzled bf16 tile whose rows
-// are 128 bytes (64 values): address >> 4, the leading byte offset (unused
-// here: one swizzle atom spans the operand's contiguous dimension), the
-// stride byte offset 1024 (the next group of 8 rows), SWIZZLE_128B.
-__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
-  const uint64_t addr = smem_u32(tile);
-  return ((addr & 0x3FFFFull) >> 4) | (1ull << 16) | ((1024ull >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keeps the compiler from moving accesses to an accumulator across the
-// asynchronous wgmma region
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-#define WGMMA_D32                                                                        \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "   \
-  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-#define WGMMA_OUT32(d)                                                                   \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),    \
-  "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),           \
-  "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),        \
-  "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),        \
-  "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),        \
-  "+f"(d[31])
-
-// d (64 x 64, f32) (+)= A (64 x 16, smem, K-major) * B (16 x 64, smem, K-major)
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D32
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : WGMMA_OUT32(d)
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// d (64 x 64, f32) += A (64 x 16, registers) * B (16 x 64, smem, MN-major)
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : WGMMA_OUT32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// ------------------------------------------------------- segment ranges --
-
-// A block's segment ids as two ranges, (x, y) over the ids >= 0 and (z, w)
-// over the pads' (< 0), each empty as (INT_MAX, INT_MIN): a tile that ends in
-// a -1 tail then does not seem to span every id between -1 and its last.
-__device__ __forceinline__ int4 empty_range() {
-  return make_int4(INT_MAX, INT_MIN, INT_MAX, INT_MIN);
-}
-__device__ __forceinline__ int4 join(int4 a, int4 b) {
-  return make_int4(min(a.x, b.x), max(a.y, b.y), min(a.z, b.z), max(a.w, b.w));
-}
-__device__ __forceinline__ bool meet(int4 a, int4 b) {
-  return (a.x <= b.y && b.x <= a.y) || (a.z <= b.w && b.z <= a.w);
-}
-
-// the ranges of the 32-row blocks [blk0, blk1) of one row's table, joined
-__device__ __forceinline__ int4 block_range(const int4* table, int blk0, int blk1, int n_blk) {
-  int4 r = empty_range();
-  for (int i = blk0; i < blk1 && i < n_blk; ++i) r = join(r, table[i]);
-  return r;
 }
 
 // The tiles t in [t_begin, t_end) (of `per` 32-row blocks each) whose ranges
@@ -427,11 +254,6 @@ struct BwdArgs {
   int B, H, Hkv, T, n_blk, walk, causal;
   float sm_scale;
 };
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) &
-                                          ~uintptr_t(1023));
-}
 
 // Shared memory of a dkdv CTA, in bytes from a 1024-aligned base: the K and V
 // tiles, kStages (Q tile, dO tile) stages, per stage BQ LSE, delta and q
@@ -546,7 +368,7 @@ flash_bwd_dkdv_kernel(const BwdArgs a) {
   }
   for (int it = 0; it < iters; ++it) {
     cp_async_wait<kStages - 2>();           // this tile (and K, V) have landed
-    if constexpr (kWgmma) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    if constexpr (kWgmma) fence_async_smem();
     __syncthreads();                        // ... for every thread; the last stage is free
     if (it + kStages - 1 < iters) load_stage(it + kStages - 1);
     cp_async_commit();
@@ -636,9 +458,9 @@ flash_bwd_dkdv_kernel(const BwdArgs a) {
       const uint64_t do_ = sw128_desc(dOt), dq_ = sw128_desc(Qt);
       wgmma_fence();
 #pragma unroll   // k16 steps of the queries: 16 rows of 128 bytes each
-      for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs(dvf, pa[kk], do_ + kk * (2048 >> 4));
+      for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs(dvf, pa[kk], do_ + kk * kDescRows16);
 #pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs(dkf, da[kk], dq_ + kk * (2048 >> 4));
+      for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs(dkf, da[kk], dq_ + kk * kDescRows16);
       wgmma_commit();
       wgmma_wait0();
       fence_regs(dvf);
@@ -780,8 +602,8 @@ flash_bwd_dq_kernel(const BwdArgs a) {
     }
   };
   if constexpr (kWgmma) {                   // Q and dO: a group before the stages'
-    cp_tile_sw128<kTile>(Qs, a.q + q_base, q0, T, tid);
-    cp_tile_sw128<kTile>(dOs, a.dout + q_base, q0, T, tid);
+    cp_tile_sw128<kTile, kThreads>(Qs, a.q + q_base, 64, q0, T, tid);
+    cp_tile_sw128<kTile, kThreads>(dOs, a.dout + q_base, 64, q0, T, tid);
   }
   cp_async_commit();
 #pragma unroll
@@ -831,7 +653,7 @@ flash_bwd_dq_kernel(const BwdArgs a) {
 
   for (int it = 0; it < n_list; ++it) {
     cp_async_wait<kStages - 2>();           // this tile (and Q, dO) have landed
-    if constexpr (kWgmma) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    if constexpr (kWgmma) fence_async_smem();
     __syncthreads();                        // ... for every thread; the last stage is free
     if (it + kStages - 1 < n_list) load_stage(it + kStages - 1);
     cp_async_commit();
@@ -909,7 +731,7 @@ flash_bwd_dq_kernel(const BwdArgs a) {
       const uint64_t k_ = sw128_desc(Kt);
       wgmma_fence();
 #pragma unroll   // k16 steps of the keys: 16 rows of 128 bytes each
-      for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs(accf, sa[kk], k_ + kk * (2048 >> 4));
+      for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs(accf, sa[kk], k_ + kk * kDescRows16);
       wgmma_commit();
       wgmma_wait0();
       fence_regs(accf);
@@ -947,20 +769,6 @@ int cluster_size(int G) {
     if (G % c == 0) return c;
   }
   return 1;
-}
-
-// once per device, on the first (eager) call, not inside a graph capture:
-// allow the kernels the card's whole opt-in shared memory
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, unsigned long long& configured, int dev) {
-  if ((configured >> dev) & 1ull) return cudaSuccess;
-  int most = 0;
-  cudaError_t err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
-  if (err != cudaSuccess) return err;
-  configured |= 1ull << dev;
-  return cudaSuccess;
 }
 
 template <int D, int BQ, bool kWgmma, int BN>

@@ -7,63 +7,99 @@
 // q heads are kv-major: q head h reads kv head h / (H / Hkv); kv is never
 // repeated.
 //
-// What bounds it on the H100: at the serving shapes (T <= 1024, d = 64) the
-// work is ~2*T*d flops per score and the K/V tiles are re-read by every q tile,
-// so it is bound by the tensor-core issue rate and by shared-memory traffic,
-// not by HBM bytes (q/k/v/out of one [8, 14/2, 1024, 64] call are ~40 MB).
+// What bounds it on the H100: at the Slam shape ([8, 14/2, 1024, 64], 8
+// packed segments) the bytes (q, k, v read, out and LSE written, ~34 MB) take
+// ~10 us at 3.35 TB/s and the products of the visible pairs ~4 us at 989
+// TFLOP/s: bytes bound it. What holds it back is latency: a 64-row q tile of
+// the packed batch sees only ~2-3 k tiles, so each CTA's fixed work (its Q
+// load, finding its tiles, the first K/V loads, the epilogue) weighs as much
+// as its products, and whatever runs per element (mask, exp) runs at the
+// instruction rate of one warpgroup.
 // What the design does about it:
-//   * one CTA (4 warps) per (q tile of 64 rows, q head, batch row); each warp
-//     owns 16 q rows, keeps its Q fragments, the online-softmax state (m, l)
-//     and the output accumulator in registers for the whole k loop, and runs
-//     both products with mma.sync m16n8k16 (bf16 -> f32). The probabilities
-//     never leave registers: the S accumulator layout is re-packed in place as
-//     the A operand of P V (the FlashAttention-2 register trick).
-//   * K/V tiles of 64 keys are staged in padded shared memory (row stride
-//     d + 8 halves: conflict-free fragment reads);
-//   * causal: k tiles above the diagonal are never visited; with segment ids,
-//     k tiles whose id range is disjoint from the q tile's are skipped before
-//     their K/V are loaded (packed rows attend only inside their segment);
-//   * any T: the ragged edge is masked in the kernel (keys >= T are masked,
-//     rows >= T are not stored), no host-side padding copy.
-// Left for later work: wgmma, TMA and a multi-stage K/V pipeline.
+//   * one CTA of one warpgroup per (64-row q tile, q head, batch row), the
+//     last q tiles (under causality the heaviest) launched first and the G
+//     q heads of a kv group next to each other, so their K/V tiles are read
+//     while still in L2. Two heads of a group a CTA, sharing one ring and one
+//     tile list, ran the Slam shape within the run-to-run spread of this
+//     design on the card (NVIDIA H100 80GB HBM3, 700 W) and slower at short
+//     rows, so a CTA is one head;
+//   * the tile list first: before any K/V load the CTA reads the q tile's
+//     and every candidate k tile's segment ids (one coalesced read, warp
+//     votes, no shared-memory round trip a tile) and lists the k tiles that
+//     can be seen, each marked interior when it needs no mask: below the
+//     diagonal, before T, and with the q tile inside one segment that covers
+//     the whole k tile. A block's pads (id < 0) keep a range of their own, so
+//     a tile ending in a -1 tail is not taken to span every id. The C entry
+//     keeps its signature and takes no scratch, so the list is built in the
+//     CTA rather than by a pre-pass: its cost is the same one read of ids a
+//     pre-pass's table would have needed, and there is one launch a call;
+//   * loads: Q once into shared memory, K and V (and the keys' segment ids)
+//     through a cp.async ring (3 stages at d = 64, 2 at d = 128), the next
+//     tiles loading while this one multiplies; every tile is stored 128-byte
+//     swizzled, d = 128 as two 64-column halves;
+//   * products on wgmma m64n64k16: S = Q K^T with both operands in shared
+//     memory, then O += P V with P packed from the S accumulators straight
+//     into A-operand registers and V read MN-major. At d = 128 the registers
+//     allow it too (S 32, O 64, P 16 a thread; ptxas: 154 registers, no
+//     spills), and on the card d128_ctx1024 ran in 0.037-0.040 ms: d = 128
+//     stays on wgmma, O as two 64-column halves;
+//   * the mask only on the tiles that need it, as -inf; every element's
+//     exp is the SFU's 2^x with no branch (2^-inf = 0), the online softmax's
+//     running max floored at -1e25 so a row that has seen nothing stays 0;
+//   * no atomics and no split of the keys across CTAs: bitwise deterministic.
+// Left for later work: the G heads of a group in a cluster with TMA
+// multicast, and overlapping one tile's softmax with the next tile's S
+// product.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <climits>
+#include <cmath>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kBlockM = 64;    // q rows per CTA
-constexpr int kBlockN = 64;    // keys per k tile
-constexpr int kWarps = 4;      // 16 q rows each
-constexpr int kThreads = kWarps * 32;
-constexpr float kNegInf = -1e30f;       // masked score
-constexpr float kMClamp = -1e25f;       // running-max floor: exp2(kNegInf - m) == 0
+using namespace hopper;
+
+constexpr int kTile = 64;               // q rows per CTA, keys per k tile
+constexpr int kWarps = 4;               // a warpgroup, 16 q rows a warp
+constexpr int kThreads = kWarps * 32;   // threads of a warpgroup
+constexpr int kInterior = 1 << 30;      // a list entry's mark: the tile takes no mask
+constexpr float kMClamp = -1e25f;       // running-max floor: 2^(-inf - m) == 0
 constexpr float kLseSentinel = 1e30f;   // dead rows
 constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+struct FwdArgs {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  const int* q_seg;
+  const int* k_seg;
+  __nv_bfloat16* out;
+  float* lse;
+  int H, Hkv, T, causal;
+  float scale_log2;
+};
 
-__device__ __forceinline__ uint32_t pack_bf16_raw(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// D (16x8, f32) += A (16x16, bf16, row) * B (16x8, bf16, col)
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// Shared memory, in bytes from a 1024-aligned base: the Q tile, kStages (K
+// tile, V tile) stages (each [64][D] as D / 64 swizzled [64][64] halves, as
+// the Q tile), per stage 64 key segment ids, the q tile's two
+// range halves and the list's length, then the k tiles' flags and the list,
+// n_k ints each.
+template <int D>
+struct FwdSmem {
+  static constexpr int kStages = D == 64 ? 3 : 2;
+  static constexpr int kTileBytes = kTile * D * 2;
+  static constexpr int kQ = 0, kK = kTileBytes;
+  static constexpr int kKseg = kK + kStages * 2 * kTileBytes;
+  static constexpr int kQrange = kKseg + kStages * kTile * 4;
+  static constexpr int kCount = kQrange + 2 * 16;
+  static constexpr int kFlags = kCount + 16;
+  static size_t bytes(int T) { return 1024 + kFlags + 8 * (size_t)((T + kTile - 1) / kTile); }
+};
 
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
@@ -75,188 +111,235 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// min / max segment id over the valid entries [base, base + 64) of `seg`
-// (entries at or past `limit` are ignored); every lane gets the result.
-__device__ __forceinline__ void seg_range(const int* seg, int base, int limit,
-                                          int lane, int& lo, int& hi) {
-  lo = INT_MAX;
-  hi = INT_MIN;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    int idx = lane + 32 * i;
-    if (base + idx < limit) {
-      int s = seg[idx];
-      lo = min(lo, s);
-      hi = max(hi, s);
-    }
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
-    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 const int* __restrict__ q_seg,
-                 const int* __restrict__ k_seg,
-                 __nv_bfloat16* __restrict__ out,
-                 float* __restrict__ lse,
-                 int H, int Hkv, int T, float scale_log2, int causal) {
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  constexpr int kStride = D + 8;           // padded smem row, in halves
-  constexpr int kChunks = D / 8;           // 16-byte chunks per row
-  __shared__ __align__(16) __nv_bfloat16 Ks[kBlockN * kStride];
-  __shared__ __align__(16) __nv_bfloat16 Vs[kBlockN * kStride];
-  __shared__ int kseg_s[kBlockN];
+flash_fwd_kernel(const FwdArgs a) {
+  using L = FwdSmem<D>;
+  constexpr int NH = D / 64, S = L::kStages, kHalf = kTile * 64;   // halves of a [64][64] tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(sm + L::kQ);
+  auto Ks = [&](int st) { return reinterpret_cast<__nv_bfloat16*>(sm + L::kK + st * 2 * L::kTileBytes); };
+  auto Vs = [&](int st) {
+    return reinterpret_cast<__nv_bfloat16*>(sm + L::kK + st * 2 * L::kTileBytes + L::kTileBytes);
+  };
+  int* kseg_s = reinterpret_cast<int*>(sm + L::kKseg);
+  int4* qrange_s = reinterpret_cast<int4*>(sm + L::kQrange);
+  int* count_s = reinterpret_cast<int*>(sm + L::kCount);
 
-  const int q_tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (H / Hkv);
-  const int q0 = q_tile * kBlockM;
+  const int T = a.T;
+  const int n_k = (T + kTile - 1) / kTile;
+  int* flags = reinterpret_cast<int*>(sm + L::kFlags);
+  int* list = flags + n_k;
+  const int q_tile = n_k - 1 - (int)blockIdx.z;   // the last first: it sees the most keys
+  const int q0 = q_tile * kTile;
+  const int h = blockIdx.x, hk = h / (a.H / a.Hkv), b = blockIdx.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  const bool has_seg = q_seg != nullptr;
+  const bool has_seg = a.q_seg != nullptr;
+  const size_t q_base = ((size_t)b * a.H + h) * T * D;
+  const size_t kv_base = ((size_t)b * a.Hkv + hk) * T * D;
+  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;   // this thread's two rows
 
-  const size_t q_base = ((size_t)b * H + h) * T * D;
-  const size_t kv_base = ((size_t)b * Hkv + hk) * T * D;
-  const int r0 = q0 + warp * 16 + g;       // this thread's two rows
-  const int r1 = r0 + 8;
-
-  // Q fragments (A operand, row major), kept for the whole k loop
-  uint32_t qa[D / 16][4];
-  const __nv_bfloat16* q_r0 = q + q_base + (size_t)r0 * D;
-  const __nv_bfloat16* q_r1 = q + q_base + (size_t)r1 * D;
+  // Q: the first cp.async group
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + 2 * t4;
-    qa[kk][0] = r0 < T ? *reinterpret_cast<const uint32_t*>(q_r0 + c) : 0u;
-    qa[kk][1] = r1 < T ? *reinterpret_cast<const uint32_t*>(q_r1 + c) : 0u;
-    qa[kk][2] = r0 < T ? *reinterpret_cast<const uint32_t*>(q_r0 + c + 8) : 0u;
-    qa[kk][3] = r1 < T ? *reinterpret_cast<const uint32_t*>(q_r1 + c + 8) : 0u;
+  for (int hh = 0; hh < NH; ++hh) {
+    cp_tile_sw128<kTile, kThreads>(Qs + hh * kHalf, a.q + q_base + hh * 64, D, q0, T, tid);
   }
+  cp_async_commit();
 
-  int qseg0 = 0, qseg1 = 0, q_lo = 0, q_hi = 0;
+  // ---- the k tiles these rows can see, in order, marked interior or not
+  const int k_end = a.causal ? min(n_k, q_tile + 1) : n_k;
+  auto corner_free = [&](int k0) {           // before T, and (causal) below the diagonal
+    return k0 + kTile <= T && (!a.causal || k0 + kTile - 1 <= q0);
+  };
+  int qseg0 = 0, qseg1 = 0;
   if (has_seg) {
-    const int* qs = q_seg + (size_t)b * T;
+    const int* qs = a.q_seg + (size_t)b * T;
+    const int* ks = a.k_seg + (size_t)b * T;
     qseg0 = r0 < T ? qs[r0] : 0;
     qseg1 = r1 < T ? qs[r1] : 0;
-    seg_range(qs + q0, q0, T, lane, q_lo, q_hi);
-  }
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  }
-  float m0 = kMClamp, m1 = kMClamp;        // running max (log2 domain)
-  float l0 = 0.f, l1 = 0.f;                // per-thread partial row sums
-
-  const int n_k = (T + kBlockN - 1) / kBlockN;
-  const int k_end = causal ? min(n_k, q_tile + 1) : n_k;
-  for (int kt = 0; kt < k_end; ++kt) {
-    const int k0 = kt * kBlockN;
-    __syncthreads();                       // previous tile's readers are done
-    if (has_seg) {
-      if (tid < kBlockN) {
-        kseg_s[tid] = k0 + tid < T ? k_seg[(size_t)b * T + k0 + tid] : 0;
-      }
-      __syncthreads();
-      int k_lo, k_hi;
-      seg_range(kseg_s, k0, T, lane, k_lo, k_hi);
-      if (q_hi < k_lo || k_hi < q_lo) continue;   // uniform across the CTA
-    }
-#pragma unroll
-    for (int i = 0; i < kBlockN * kChunks / kThreads; ++i) {
-      const int c = tid + i * kThreads;
-      const int row = c / kChunks, col = (c % kChunks) * 8;
-      uint4 kv4 = make_uint4(0u, 0u, 0u, 0u), vv4 = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + row < T) {
-        const size_t off = kv_base + (size_t)(k0 + row) * D + col;
-        kv4 = *reinterpret_cast<const uint4*>(k + off);
-        vv4 = *reinterpret_cast<const uint4*>(v + off);
-      }
-      *reinterpret_cast<uint4*>(&Ks[row * kStride + col]) = kv4;
-      *reinterpret_cast<uint4*>(&Vs[row * kStride + col]) = vv4;
+    if (warp < 2) {                          // the q tile's ids; rows past T do not count
+      const int row = q0 + warp * 32 + lane;
+      const int4 r = warp_join(row < T ? range_of(qs[row]) : empty_range());
+      if (lane == 0) qrange_s[warp] = r;
     }
     __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows x 64 keys: 8 n-tiles of 8 keys
-    float s[kBlockN / 8][4];
+    const int4 qr = join(qrange_s[0], qrange_s[1]);
+    // one id covers the q tile: uq
+    const bool q_one = (qr.x == qr.y && qr.z > qr.w) || (qr.x > qr.y && qr.z == qr.w);
+    const int uq = qr.x <= qr.y ? qr.x : qr.z;
+    // warp w takes the k tiles w, w + 4, ...: two ids a lane, four tiles'
+    // loads in flight before the votes
+    for (int base = warp; base < k_end; base += 4 * kWarps) {
+      int ids[4][2];
 #pragma unroll
-    for (int j = 0; j < kBlockN / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      const __nv_bfloat16* krow = &Ks[(j * 8 + g) * kStride + 2 * t4];
+      for (int u = 0; u < 4; ++u) {
+        const int key = (base + kWarps * u) * kTile + lane;
+        ids[u][0] = key < T ? ks[key] : 0;
+        ids[u][1] = key + 32 < T ? ks[key + 32] : 0;
+      }
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(krow + kk * 16);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(krow + kk * 16 + 8);
-        mma_16816(s[j], qa[kk], b0, b1);
+      for (int u = 0; u < 4; ++u) {
+        const int kt = base + kWarps * u;
+        if (kt >= k_end) break;                // uniform across the warp
+        const int key = kt * kTile + lane;
+        const bool v0 = key < T, v1 = key + 32 < T;
+        const bool need = __any_sync(0xffffffffu, (v0 && in_range(ids[u][0], qr)) ||
+                                                      (v1 && in_range(ids[u][1], qr)));
+        const bool one = __all_sync(0xffffffffu, v0 && v1 && ids[u][0] == uq && ids[u][1] == uq);
+        if (lane == 0) {
+          flags[kt] = need ? (kt | (q_one && one && corner_free(kt * kTile) ? kInterior : 0)) : -1;
+        }
       }
     }
+  } else {
+    for (int kt = tid; kt < k_end; kt += kThreads) {
+      flags[kt] = kt | (corner_free(kt * kTile) ? kInterior : 0);
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {                           // the listed tiles, in order
+    int n = 0;
+    for (int base = 0; base < k_end; base += 32) {
+      const int t = base + lane;
+      const int f = t < k_end ? flags[t] : -1;
+      const unsigned ballot = __ballot_sync(0xffffffffu, f >= 0);
+      if (f >= 0) list[n + __popc(ballot & ((1u << lane) - 1u))] = f;
+      n += __popc(ballot);
+    }
+    if (lane == 0) *count_s = n;
+  }
+  __syncthreads();
+  const int n_list = *count_s;
 
-    // mask, scale into the log2 domain, and take the row maxima
-    float mx0 = kNegInf, mx1 = kNegInf;
+  auto load_stage = [&](int it) {
+    const int k0 = (list[it] & (kInterior - 1)) * kTile, st = it % S;
 #pragma unroll
-    for (int j = 0; j < kBlockN / 8; ++j) {
+    for (int hh = 0; hh < NH; ++hh) {
+      cp_tile_sw128<kTile, kThreads>(Ks(st) + hh * kHalf, a.k + kv_base + hh * 64, D, k0, T, tid);
+      cp_tile_sw128<kTile, kThreads>(Vs(st) + hh * kHalf, a.v + kv_base + hh * 64, D, k0, T, tid);
+    }
+    if (has_seg && tid < kTile) {
+      const bool ok = k0 + tid < T;
+      cp_async4(&kseg_s[st * kTile + tid], a.k_seg + (size_t)b * T + (ok ? k0 + tid : 0), ok);
+    }
+  };
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + j * 8 + 2 * t4 + (e & 1);
-        const int row = e < 2 ? r0 : r1;
-        bool ok = key < T && (!causal || key <= row);
-        if (has_seg) ok = ok && kseg_s[key - k0] == (e < 2 ? qseg0 : qseg1);
-        const float x = ok ? s[j][e] * scale_log2 : kNegInf;
-        s[j][e] = x;
-        if (e < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
+  for (int st = 0; st < S - 1; ++st) {
+    if (st < n_list) load_stage(st);
+    cp_async_commit();
+  }
+
+  float o[NH][32], s[32];
+#pragma unroll
+  for (int hh = 0; hh < NH; ++hh) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[hh][i] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+  float m0 = kMClamp, m1 = kMClamp;          // running max (log2 domain)
+  float l0 = 0.f, l1 = 0.f;                  // per-thread partial row sums
+
+  for (int it = 0; it < n_list; ++it) {
+    cp_async_wait<S - 2>();                  // this tile (and Q) have landed
+    fence_async_smem();
+    __syncthreads();                         // ... for every thread; the last stage is free
+    if (it + S - 1 < n_list) load_stage(it + S - 1);
+    cp_async_commit();
+    const int st = it % S, entry = list[it];
+    const int k0 = (entry & (kInterior - 1)) * kTile;
+
+    // S = Q K^T: 64 rows x 64 keys; accumulator element 4 j + e is row
+    // 16 warp + g (+ 8 for e >= 2), key 8 j + 2 t4 + (e & 1)
+    wgmma_fence();
+#pragma unroll
+    for (int hh = 0; hh < NH; ++hh) {
+      const uint64_t q_ = sw128_desc(Qs + hh * kHalf), k_ = sw128_desc(Ks(st) + hh * kHalf);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_ss(s, q_ + 2 * kk, k_ + 2 * kk, hh + kk);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(s);
+
+    // scale into the log2 domain; mask (-inf) only where the tile needs it
+    if (entry & kInterior) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] *= a.scale_log2;
+    } else {
+      const int* kseg_t = kseg_s + st * kTile;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int kj = j * 8 + 2 * t4;
+        const int2 ksg = has_seg ? *reinterpret_cast<const int2*>(kseg_t + kj) : make_int2(0, 0);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + kj + (e & 1);
+          const int row = e < 2 ? r0 : r1;
+          bool ok = key < T && (!a.causal || key <= row);
+          if (has_seg) ok = ok && ((e & 1) ? ksg.y : ksg.x) == (e < 2 ? qseg0 : qseg1);
+          s[4 * j + e] = ok ? s[4 * j + e] * a.scale_log2 : -INFINITY;
+        }
       }
     }
-    const float mn0 = fmaxf(m0, quad_max(mx0));
-    const float mn1 = fmaxf(m1, quad_max(mx1));
-    const float corr0 = exp2f(m0 - mn0), corr1 = exp2f(m1 - mn1);
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    }
+    const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
+    const float corr0 = fast_exp2(m0 - mn0), corr1 = fast_exp2(m1 - mn1);
     m0 = mn0;
     m1 = mn1;
     float ps0 = 0.f, ps1 = 0.f;
 #pragma unroll
-    for (int j = 0; j < kBlockN / 8; ++j) {
-      s[j][0] = exp2f(s[j][0] - mn0);
-      s[j][1] = exp2f(s[j][1] - mn0);
-      s[j][2] = exp2f(s[j][2] - mn1);
-      s[j][3] = exp2f(s[j][3] - mn1);
-      ps0 += s[j][0] + s[j][1];
-      ps1 += s[j][2] + s[j][3];
+    for (int j = 0; j < 8; ++j) {
+      s[4 * j] = fast_exp2(s[4 * j] - mn0);
+      s[4 * j + 1] = fast_exp2(s[4 * j + 1] - mn0);
+      s[4 * j + 2] = fast_exp2(s[4 * j + 2] - mn1);
+      s[4 * j + 3] = fast_exp2(s[4 * j + 3] - mn1);
+      ps0 += s[4 * j] + s[4 * j + 1];
+      ps1 += s[4 * j + 2] + s[4 * j + 3];
     }
     l0 = l0 * corr0 + ps0;
     l1 = l1 * corr1 + ps1;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      acc[n][0] *= corr0;
-      acc[n][1] *= corr0;
-      acc[n][2] *= corr1;
-      acc[n][3] *= corr1;
-    }
-
-    // O += P V: P (bf16) re-packed from the S accumulators as the A operand;
-    // V is the B operand (k = key, n = head-dim column), read as halves
+    for (int hh = 0; hh < NH; ++hh) {
 #pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const __nv_bfloat16* v0 = &Vs[(kk * 16 + 2 * t4) * kStride + g];
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        const __nv_bfloat16* vp = v0 + n * 8;
-        const uint32_t b0 = pack_bf16_raw(vp[0], vp[kStride]);
-        const uint32_t b1 = pack_bf16_raw(vp[8 * kStride], vp[9 * kStride]);
-        mma_16816(acc[n], pa, b0, b1);
+      for (int j = 0; j < 8; ++j) {
+        o[hh][4 * j] *= corr0;
+        o[hh][4 * j + 1] *= corr0;
+        o[hh][4 * j + 2] *= corr1;
+        o[hh][4 * j + 3] *= corr1;
       }
     }
+
+    // O += P V: P (bf16) packed from the S accumulators as A fragments, the
+    // k index being the key; V MN-major, 16 keys (rows of 128 bytes) a step
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int hh = 0; hh < NH; ++hh) {
+      const uint64_t v_ = sw128_desc(Vs(st) + hh * kHalf);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs(o[hh], pa[kk], v_ + kk * kDescRows16);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+#pragma unroll
+    for (int hh = 0; hh < NH; ++hh) fence_regs(o[hh]);
   }
+  cp_async_wait<0>();
 
   // epilogue: full row sums, normalise, zero dead rows, store O and LSE
   l0 = quad_sum(l0);
@@ -264,25 +347,41 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   const bool alive0 = l0 > 0.f, alive1 = l1 > 0.f;
   const float inv0 = alive0 ? 1.f / l0 : 0.f;
   const float inv1 = alive1 ? 1.f / l1 : 0.f;
-  __nv_bfloat16* o_r0 = out + q_base + (size_t)r0 * D;
-  __nv_bfloat16* o_r1 = out + q_base + (size_t)r1 * D;
+  __nv_bfloat16* o_r0 = a.out + q_base + (size_t)r0 * D;
+  __nv_bfloat16* o_r1 = a.out + q_base + (size_t)r1 * D;
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int c = n * 8 + 2 * t4;
-    if (r0 < T) {
-      *reinterpret_cast<__nv_bfloat162*>(o_r0 + c) =
-          __floats2bfloat162_rn(acc[n][0] * inv0, acc[n][1] * inv0);
-    }
-    if (r1 < T) {
-      *reinterpret_cast<__nv_bfloat162*>(o_r1 + c) =
-          __floats2bfloat162_rn(acc[n][2] * inv1, acc[n][3] * inv1);
+  for (int hh = 0; hh < NH; ++hh) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = hh * 64 + j * 8 + 2 * t4;
+      if (r0 < T) {
+        *reinterpret_cast<__nv_bfloat162*>(o_r0 + c) =
+            __floats2bfloat162_rn(o[hh][4 * j] * inv0, o[hh][4 * j + 1] * inv0);
+      }
+      if (r1 < T) {
+        *reinterpret_cast<__nv_bfloat162*>(o_r1 + c) =
+            __floats2bfloat162_rn(o[hh][4 * j + 2] * inv1, o[hh][4 * j + 3] * inv1);
+      }
     }
   }
   if (t4 == 0) {
-    float* lse_bh = lse + ((size_t)b * H + h) * T;
+    float* lse_bh = a.lse + ((size_t)b * a.H + h) * T;
     if (r0 < T) lse_bh[r0] = alive0 ? m0 * kLn2 + logf(l0) : kLseSentinel;
     if (r1 < T) lse_bh[r1] = alive1 ? m1 * kLn2 + logf(l1) : kLseSentinel;
   }
+}
+
+template <int D>
+cudaError_t launch(const FwdArgs& a, int B, cudaStream_t s) {
+  static unsigned long long configured = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(flash_fwd_kernel<D>, configured, dev);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.H, B, (a.T + kTile - 1) / kTile);
+  flash_fwd_kernel<D><<<grid, kThreads, FwdSmem<D>::bytes(a.T), s>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -297,21 +396,21 @@ extern "C" int slamkit_flash_fwd_bf16(const void* q, const void* k, const void* 
                                       float sm_scale, int causal, void* stream) {
   if (B <= 0 || T <= 0 || Hkv <= 0 || H % Hkv != 0) return (int)cudaErrorInvalidValue;
   if ((q_seg == nullptr) != (k_seg == nullptr)) return (int)cudaErrorInvalidValue;
-  const dim3 grid((T + kBlockM - 1) / kBlockM, H, B);
-  const float scale_log2 = sm_scale * 1.4426950408889634f;
+  FwdArgs a;
+  a.q = reinterpret_cast<const __nv_bfloat16*>(q);
+  a.k = reinterpret_cast<const __nv_bfloat16*>(k);
+  a.v = reinterpret_cast<const __nv_bfloat16*>(v);
+  a.q_seg = q_seg;
+  a.k_seg = k_seg;
+  a.out = reinterpret_cast<__nv_bfloat16*>(out);
+  a.lse = lse;
+  a.H = H;
+  a.Hkv = Hkv;
+  a.T = T;
+  a.causal = causal;
+  a.scale_log2 = sm_scale * kLog2e;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const auto* qp = reinterpret_cast<const __nv_bfloat16*>(q);
-  const auto* kp = reinterpret_cast<const __nv_bfloat16*>(k);
-  const auto* vp = reinterpret_cast<const __nv_bfloat16*>(v);
-  auto* op = reinterpret_cast<__nv_bfloat16*>(out);
-  if (D == 64) {
-    flash_fwd_kernel<64><<<grid, kThreads, 0, s>>>(qp, kp, vp, q_seg, k_seg, op, lse,
-                                                   H, Hkv, T, scale_log2, causal);
-  } else if (D == 128) {
-    flash_fwd_kernel<128><<<grid, kThreads, 0, s>>>(qp, kp, vp, q_seg, k_seg, op, lse,
-                                                    H, Hkv, T, scale_log2, causal);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (D == 64) return (int)launch<64>(a, B, s);
+  if (D == 128) return (int)launch<128>(a, B, s);
+  return (int)cudaErrorInvalidValue;
 }

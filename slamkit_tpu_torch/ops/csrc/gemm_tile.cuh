@@ -1,5 +1,5 @@
-// A 64 x 64 output tile of a bf16 matrix product on the tensor cores, shared
-// by dq_matmul.cu and matmul_probe.cu.
+// A 64 x 64 output tile of a bf16 matrix product on the tensor cores, used
+// by matmul_probe.cu.
 //
 // Four warps (128 threads) own one tile; warp w computes rows 32 (w / 2) ..
 // +31 and columns 32 (w % 2) .. +31 with mma.sync m16n8k16 (bf16 in, f32
@@ -15,29 +15,17 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace gemm_tile {
+
+using hopper::mma_16816;
+using hopper::pack_bf16_raw;
 
 constexpr int kBM = 64, kBN = 64, kBK = 32;
 constexpr int kThreads = 128;
 constexpr int kAStride = kBK + 8;   // halves
 constexpr int kBStride = kBN + 8;   // halves
-
-__device__ __forceinline__ uint32_t pack_bf16_raw(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// D (16x8, f32) += A (16x16, bf16, row) * B (16x8, bf16, col)
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __device__ __forceinline__ void zero(float (&acc)[2][4][4]) {
 #pragma unroll

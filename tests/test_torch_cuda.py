@@ -57,6 +57,12 @@ def _segments(kind, b, t, seed=0):
             for s, lo in enumerate(cuts):
                 seg[r, lo:] = s + 1
             seg[r, t - int(rng.integers(0, max(1, t // 8))):] = -1
+        elif kind == "segments16":  # 16-token segments packed end to end
+            seg[r] = np.arange(t) // 16
+        elif kind == "one":  # one segment over the whole row
+            pass
+        elif kind == "pad_tail":  # one segment, then a -1 tail
+            seg[r, t - int(rng.integers(1, max(2, t // 3))):] = -1
         else:  # left padded
             seg[r, :int(rng.integers(0, t))] = -1
     return torch.from_numpy(seg)
@@ -95,6 +101,35 @@ def _compare(dev, b, h, hkv, t, d, causal, kind, kv_seg=None):
 @pytest.mark.parametrize("kind", [None, "packed", "left_padded"])
 def test_kernel_matches_plain(dev, b, h, hkv, t, d, causal, kind):
     _compare(dev, b, h, hkv, t, d, causal, kind)
+
+
+# the forward's tile list and its interior (unmasked) tiles: T under one
+# tile and one past it, 64 segments of 16 tokens (every tile masked), one
+# segment over the row (every tile below the diagonal interior), a -1 tail,
+# left padding; d = 128 with G = 7
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,hkv,t,d", [
+    (2, 14, 2, 40, 64), (2, 14, 2, 65, 64), (2, 14, 2, 1024, 64), (2, 7, 1, 1024, 128),
+    (2, 7, 1, 65, 128),
+])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("kind", ["segments16", "one", "pad_tail", "left_padded"])
+def test_kernel_matches_plain_at_segment_layouts(dev, b, h, hkv, t, d, causal, kind):
+    _compare(dev, b, h, hkv, t, d, causal, kind)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,hkv,t,d", [(8, 14, 2, 1024, 64), (8, 7, 1, 1024, 128)])
+def test_kernel_is_deterministic(dev, b, h, hkv, t, d):
+    """No atomics, no split of the keys: two calls on the same inputs give
+    bitwise-equal out and LSE."""
+    q, k, v = _inputs(dev, b, h, hkv, t, d, seed=6)
+    seg = _segments("packed", b, t, seed=7).to(dev)
+    first = flash_attention_fwd(q, k, v, segment_ids=seg)
+    second = flash_attention_fwd(q, k, v, segment_ids=seg)
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
 
 
 @pytest.mark.cuda
@@ -273,16 +308,20 @@ def _dq_inputs(dev, m, k, n, seed=0):
     return x, q, s
 
 
-# the decode GEMV at M = 1, 3, 8, 16 and the prefill at 1024 over the Slam
-# (K, N) pairs; ragged N (not a multiple of 16, or of 8), and K that does not
-# split evenly over the cluster (904 = 8 x 113: slices of 120 rows and a
-# last of 64)
+# the decode GEMV at M = 1, 3, 8, 16 and the prefill at 17 (one warpgroup),
+# 600 (8 x 75: the smoke's int8 prefill), 1000 and 1024 over the Slam (K, N)
+# pairs; ragged N (not a multiple of 16, or of 8), and K that does not split
+# evenly over the cluster (904 = 8 x 113: slices of 120 rows and a last of
+# 64) nor into the prefill's 64-deep steps (904 = 14 x 64 + 8)
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", [(m, k, n) for m in (1, 3, 8, 16, 1024) for k, n in SLAM_KN]
+@pytest.mark.parametrize("m,k,n", [(m, k, n) for m in (1, 3, 8, 16, 17, 600, 1000, 1024)
+                                   for k, n in SLAM_KN]
                          + [(5, 64, 250), (3, 72, 131), (17, 896, 250),
                             (1000, 896, 130), (100, 72, 896), (64, 4864, 128),
                             (8, 904, 896), (16, 904, 250), (3, 4864, 131), (16, 8, 4864),
-                            (12, 896, 4868)])
+                            (12, 896, 4868), (17, 904, 896), (600, 904, 4864),
+                            (1000, 904, 250), (1024, 904, 131), (1024, 896, 4868),
+                            (65, 904, 130)])
 def test_dq_matmul_kernel_matches_plain(dev, m, k, n):
     from slamkit_tpu_torch.ops import dq_matmul, dq_matmul_reference
     from slamkit_tpu_torch.ops.quant import ulp_bound
@@ -300,10 +339,13 @@ def test_dq_matmul_kernel_matches_plain(dev, m, k, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", [(8, 896, 4864), (16, 4864, 896), (3, 904, 131)])
+@pytest.mark.parametrize("m,k,n", [(8, 896, 4864), (16, 4864, 896), (3, 904, 131),
+                                   (1024, 896, 4864), (1024, 4864, 896), (600, 896, 128),
+                                   (17, 904, 250)])
 def test_dq_matmul_kernel_is_deterministic(dev, m, k, n):
-    """The split of K is summed in a fixed order (no atomics): two calls give
-    bitwise-equal outputs."""
+    """The decode GEMV sums its split of K in a fixed order (no atomics) and
+    the prefill GEMM takes K in one pass: two calls give bitwise-equal
+    outputs."""
     from slamkit_tpu_torch.ops import dq_matmul
 
     x, q, s = _dq_inputs(dev, m, k, n, seed=7)

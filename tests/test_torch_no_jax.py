@@ -56,7 +56,7 @@ from slamkit_tpu_torch.feature_extractor import HubertConfig, HubertFeatureExtra
 from slamkit_tpu_torch.feature_extractor.hubert import random_params
 from slamkit_tpu_torch.metric import generative_metric
 from slamkit_tpu_torch.models import SpeechLM
-from slamkit_tpu_torch.tools import bench_decode, bench_flash
+from slamkit_tpu_torch.tools import bench_decode, bench_flash, bench_prefill
 from slamkit_tpu_torch.utils.audio import save_wav
 from slamkit_tpu_torch.vocoder import HiFiGANVocoder, hifigan
 
@@ -90,6 +90,7 @@ assert bench_flash.bench_shape(torch.device("cpu"), b=1, h=2, t=32, d=16, segs=2
 dec = bench_decode.run(lm, batch=2, prompt=4, new=3, iters=1)
 assert dec["int8_dq_launches_per_call"] == 0 and dec["speedup"] > 0
 assert bench_decode.main([]) == 1 and bench_flash.main(["--matmul-probe"]) == 1  # no card
+assert bench_prefill.main([]) == 1
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "slamkit_tpu.")))
 print("LOADED", bad)
 """
@@ -304,6 +305,20 @@ def test_chip_smoke_kernel_row_keeps_eager_and_graph_times_apart(chip_smoke):
     assert row["library_ms"] is None and row["library_timed"].startswith("none")
     assert {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms"} <= row.keys()
+
+
+def test_chip_smoke_prefill_entry_names_the_gemm_and_its_graph_times(chip_smoke):
+    """The dq_matmul entry's `prefill` sub-entry carries the prefill GEMM's
+    own phase-3c row: its shape, graph times under the kernels line's names,
+    and the dense path's time beside them."""
+    at = dict(m=1024, k=896, n=4864, ms=0.04, plain_ms=0.3, device_ms=0.03,
+              plain_device_ms=0.27, bound_ms=0.009, bound_by="operations", library_ms=9.8,
+              roofline_share=0.3, vs_library=0.003, tflops=289.0, dense_graph_ms=0.016)
+    entry = chip_smoke.prefill_entry(at)
+    assert entry["cuda_kernel"] == "dq_gemm_kernel" and entry["shape"] == [1024, 896, 4864]
+    assert (entry["graph_ms"], entry["plain_graph_ms"], entry["ms"]) == (0.03, 0.27, 0.04)
+    assert (entry["bound_ms"], entry["library_ms"], entry["dense_graph_ms"]) == (
+        0.009, 9.8, 0.016)
 
 
 def test_chip_smoke_reports_the_error_that_broke_a_capture(chip_smoke):
