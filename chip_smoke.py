@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training and speech-continuation slices
-once on an NVIDIA GPU.
+and its command line once on an NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -68,6 +68,19 @@ the sm_90a kernels). Phases, in order; any failure exits non-zero:
                the int8 prefill logits and the vocoder on the card against
                float32 CPU runs (or the plain dequant path) on the same
                weights.
+  9. command line — `slamkit_tpu_torch.cli.train` in process on the repo's
+               config/ tree with the paper's model=slam (twist_init left
+               true: no Qwen weights on disk, so the TWIST warm start logs
+               its random-init fallback), full width and depth, packing,
+               remat, bf16 moments, 2 steps of 4 x 8 at context 1024 on a
+               seeded Markov corpus, a save at step 2, step 2 traced by
+               training_args.profile_steps=1; the checkpoint reloaded through
+               model.pretrained_model with remat on; then
+               `slamkit_tpu_torch.cli.eval` metric=sblimp on it over 32
+               seeded WAV pairs, through a random mhubert-base-25hz written
+               to disk as an HF directory and 500 centroids drawn from its
+               features, and the first scoring call's first 4 utterances
+               held against the same checkpoint in float32 on the CPU.
 
 Each main path runs with the launch counters zeroed just before it and read
 just after: every scoring forward and every generation prefill launches the
@@ -76,8 +89,9 @@ launches it twice per layer (forward and remat recompute) and the backward
 kernel once per layer (phase 6); every int8 generate call calls dq_matmul
 for the 7 projections of every layer in the prefill and in each decode step
 (7 x 24 x 150 = 25200, each one kernel launch) and the flash forward once
-per layer (phase 8); the probe's entry point launches its kernel 7 times a
-shape (phase 3d). A flash backward call counts one, though it launches three
+per layer (phase 8); the command line's training launches them as phase 6
+does, and its scoring the forward once per layer a call (phase 9); the
+probe's entry point launches its kernel 7 times a shape (phase 3d). A flash backward call counts one, though it launches three
 kernels (the delta / segment-range pre-pass, dK/dV, dQ). The last lines are
 a JSON object with every measurement, the card's name and power limit, a
 JSON object describing each kernel at its representative shape, and
@@ -1286,6 +1300,219 @@ def run_speech(dev, smi: str, work: pathlib.Path, lm_cfg=None, hubert_cfg=None,
                 duration_agreement=dur_agree, vocoder_err=voc_err)
 
 
+class _LogLines:
+    """Collects the messages of one logger while a phase runs."""
+
+    def __init__(self, name: str):
+        import logging
+
+        self.lines = []
+        self.logger = logging.getLogger(name)
+        self.handler = logging.Handler(logging.INFO)
+        self.handler.emit = lambda record: self.lines.append(record.getMessage())
+
+    def __enter__(self):
+        import logging
+
+        self.level = self.logger.level
+        self.logger.setLevel(logging.INFO)
+        self.logger.addHandler(self.handler)
+        return self.lines
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+        self.logger.setLevel(self.level)
+
+
+def write_pairs(folder: pathlib.Path, n_pairs: int, seconds=(1.0, 3.0), seed: int = 9) -> str:
+    """An sBLIMP layout of n_pairs seeded 16 kHz WAV pairs, `<i>+<p|n>.wav`
+    in one folder (metric.subfolder=false), each a gliding tone in noise of
+    a length drawn from `seconds`."""
+    from slamkit_tpu_torch.utils.audio import save_wav
+
+    rng = np.random.default_rng(seed)
+    folder.mkdir(parents=True, exist_ok=True)
+    for i in range(2 * n_pairs):
+        t = np.arange(int(rng.uniform(*seconds) * 16000)) / 16000
+        f0 = rng.uniform(100, 300) * (1 + 0.3 * np.sin(2 * np.pi * rng.uniform(0.5, 2) * t))
+        tone = 0.3 * np.sin(2 * np.pi * np.cumsum(f0) / 16000)
+        save_wav(str(folder / f"{i}+{'pn'[i % 2]}.wav"), tone + 0.05 * rng.standard_normal(t.size))
+    return str(folder)
+
+
+def run_cli(dev, smi: str, work: pathlib.Path, model_overrides=(), hubert_cfg=None,
+            n_rows: int = 400, lengths=(100, 1001), context: int = 1024, batch: int = 8,
+            accum: int = 4, n_pairs: int = 32, seconds=(1.0, 3.0)) -> dict:
+    """Phase 9: the command line. `python -m slamkit_tpu_torch.cli.train` in
+    process on the paper's config (model=slam with twist_init left true,
+    packing, remat, bf16 moments; 2 steps of `accum` x `batch` at `context`,
+    a save at step 2, step 2 traced), then `cli.eval` with metric=sblimp on
+    that checkpoint over n_pairs seeded WAV pairs, through a random HuBERT
+    written to disk as an HF directory and centroids drawn from its own
+    features. On the card every training microbatch must launch the
+    backward kernel once per layer and the forward twice (remat), and every
+    scoring call the forward once per layer; on the CPU (a rehearsal at
+    narrow widths, `model_overrides`) no launch may be counted."""
+    import gc
+
+    import torch
+
+    from slamkit_tpu_torch.cli import eval as cli_eval
+    from slamkit_tpu_torch.cli import train as cli_train
+    from slamkit_tpu_torch.config import compose
+    from slamkit_tpu_torch.feature_extractor import (HUBERT_CONFIG_PRESETS, HubertConfig,
+                                                     HubertFeatureExtractor)
+    from slamkit_tpu_torch.feature_extractor.hubert import random_params, save_hf_dir
+    from slamkit_tpu_torch.metric import modelling_metric as mm
+    from slamkit_tpu_torch.models import UnitLM, tlm_factory
+    from slamkit_tpu_torch.ops import flash_attention_bwd, flash_attention_fwd
+    from slamkit_tpu_torch.tools.slam_recipe import write_markov_corpus
+    from slamkit_tpu_torch.utils.audio import load_audio
+
+    on_card = dev.type == "cuda"
+    model_overrides = list(model_overrides)
+    write_markov_corpus(work / "cli_tokens.jsonl", n_rows, lengths)
+    write_markov_corpus(work / "cli_val.jsonl", 16, lengths, seed=1)
+    out, steps = work / "cli_run", 2
+    data = [f"data.train_path={work / 'cli_tokens.jsonl'}",
+            f"data.val_path={work / 'cli_val.jsonl'}"]
+    train_args = ["model=slam", f"model.context_len={context}", *model_overrides, *data,
+                  "data.packing=true", f"training_args.output_dir={out}",
+                  f"training_args.max_steps={steps}",
+                  f"training_args.per_device_train_batch_size={batch}",
+                  f"training_args.per_device_eval_batch_size={batch}",
+                  f"training_args.gradient_accumulation_steps={accum}",
+                  "training_args.remat=true", "training_args.optim_state_dtype=bfloat16",
+                  "training_args.save_steps=2", "training_args.logging_steps=1",
+                  "training_args.profile_steps=1", "training_args.profile_start=1",
+                  *([] if on_card else ["training_args.use_cpu=true"])]
+    print(f"cli.train {' '.join(train_args)}", flush=True)
+    flash_attention_fwd.launches = flash_attention_bwd.launches = 0   # the main path's count
+    with _LogLines("slamkit_tpu_torch.models.hf_convert") as twist_log:
+        t0 = time.perf_counter()
+        state = cli_train.train(train_args)
+        _sync(dev)
+        train_s = time.perf_counter() - t0
+    train_launches = {"flash_fwd": flash_attention_fwd.launches,
+                      "flash_bwd": flash_attention_bwd.launches}
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    twist = twist_log[0] if twist_log else "no warning: the base's weights were loaded"
+    logs = [r for r in state.log_history if "loss" in r]
+    losses = [r["loss"] for r in logs]
+    step_s = [r["num_input_tokens_seen"] - (logs[i - 1]["num_input_tokens_seen"] if i else 0)
+              for i, r in enumerate(logs)]
+    step_s = [n / r["tokens_per_sec"] for n, r in zip(step_s, logs)]
+    print(f"cli.train: {state.global_step} steps, losses {losses}, step seconds {step_s} "
+          f"(step 1 warms up, step 2 is traced), label tokens/s "
+          f"{[r['tokens_per_sec'] for r in logs]}, {train_s:.1f} s in all, launches "
+          f"{train_launches}; TWIST: {twist}; on {smi}", flush=True)
+    _require(state.global_step == steps and len(losses) == steps
+             and all(math.isfinite(x) for x in losses), f"cli.train did not take {steps} "
+             f"finite logged steps: {losses}")
+    trace = out / "profile" / "trace.json.gz"
+    _require(trace.is_file(), f"training_args.profile_steps=1 wrote no trace at {trace}")
+    ckpt = out / f"checkpoint-{steps}"
+    # the checkpoint reloads through model.pretrained_model, with the remat
+    # that cli.train derives from training_args.remat=true
+    cfg = compose(str(ROOT / "config"), "train", ["model=slam", f"model.pretrained_model={ckpt}",
+                                                  *model_overrides, *data])
+    cfg.model.config_args.remat = True
+    reloaded = tlm_factory(cfg.model, device=dev)
+    remat_on = bool(reloaded.decoder.cfg.remat and reloaded.config.remat)
+    twist_init, n_layers = reloaded.config.twist_init, reloaded.decoder.cfg.num_layers
+    del reloaded
+    gc.collect()
+    print(f"{ckpt.name} reloads through model.pretrained_model: remat {remat_on}, "
+          f"twist_init {twist_init}, {n_layers} layers; trace {trace.relative_to(work)} "
+          f"({trace.stat().st_size} B)", flush=True)
+    _require(remat_on, "the checkpoint reloaded through model.pretrained_model without remat")
+    want_bwd = steps * accum * n_layers if on_card else 0
+    _require(train_launches["flash_bwd"] == want_bwd and (
+        train_launches["flash_fwd"] >= 2 * want_bwd if on_card
+        else train_launches["flash_fwd"] == 0), f"cli.train launched {train_launches}: "
+             f"expected {want_bwd} backward calls and at least twice as many forward ones")
+
+    # ---- cli.eval on the checkpoint ----------------------------------------
+    hubert_cfg = hubert_cfg or HubertConfig(**HUBERT_CONFIG_PRESETS["slprl/mhubert-base-25hz"])
+    tap = hubert_cfg.num_hidden_layers - 1
+    pairs = pathlib.Path(write_pairs(work / "sblimp", n_pairs, seconds))
+    hubert_params = random_params(hubert_cfg, seed=3)
+    save_hf_dir(str(work / "hubert"), hubert_params, hubert_cfg)
+    # centroids drawn from the random HuBERT's own features of the pairs
+    # (seeded), as phase 8 draws them: random ones would give one unit a wav
+    fe = HubertFeatureExtractor.from_params(hubert_params, hubert_cfg,
+                                            np.zeros((500, hubert_cfg.hidden_size), np.float32),
+                                            layer=tap, device=dev)
+    frames = np.concatenate([fe.features(torch.from_numpy(load_audio(str(p)))[None].to(dev))[0]
+                             .cpu().numpy() for p in sorted(pairs.glob("*.wav"))[:8]])
+    rng = np.random.default_rng(10)
+    np.save(work / "km.npy", frames[rng.choice(len(frames), 500, replace=len(frames) < 500)])
+    del fe
+    eval_args = [f"model.pretrained_model={ckpt}", "metric=sblimp", f"metric.data_path={pairs}",
+                 "metric.subfolder=false",
+                 f"tokeniser.feature_extractor.pretrained_model={work / 'hubert'}",
+                 f"tokeniser.feature_extractor.kmeans_path={work / 'km.npy'}",
+                 f"tokeniser.feature_extractor.layer={tap}", "batch_size=8", "num_workers=8",
+                 *([] if on_card else ["device=cpu", "model.config_args.torch_dtype=float32"])]
+    print(f"cli.eval {' '.join(eval_args)}", flush=True)
+    calls, metric_s = [], []
+    score, timed = UnitLM.log_likelihood, mm.modelling_metric
+
+    def recorded(self, tokens, *args, **kwargs):
+        ll = score(self, tokens, *args, **kwargs)
+        calls.append((np.array(tokens), ll.float().cpu().numpy()))
+        return ll
+
+    def timed_metric(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return timed(*args, **kwargs)
+        finally:
+            metric_s.append(time.perf_counter() - t0)
+
+    UnitLM.log_likelihood, mm.modelling_metric = recorded, timed_metric
+    flash_attention_fwd.launches = 0                                   # the main path's count
+    try:
+        t0 = time.perf_counter()
+        res = cli_eval.eval_main(eval_args)
+        eval_s = time.perf_counter() - t0
+    finally:
+        UnitLM.log_likelihood, mm.modelling_metric = score, timed
+    eval_launches = flash_attention_fwd.launches
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    n_scored = sum(len(ll) for _, ll in calls)
+    print(f"cli.eval: sBLIMP {res['sBLIMP']} over {n_pairs} pairs, {len(calls)} scoring calls, "
+          f"{n_pairs / metric_s[0]:.1f} pairs/s in the metric ({metric_s[0]:.3f} s; {eval_s:.1f} "
+          f"s with the loads), launches {eval_launches} on {smi}", flush=True)
+    _require(n_scored == 2 * n_pairs and 0.0 <= res["sBLIMP"] <= 1.0 and all(
+        np.isfinite(ll).all() for _, ll in calls), f"cli.eval scored {n_scored} utterances, "
+             f"not {2 * n_pairs} finite ones: {res}")
+    _require(eval_launches == (len(calls) * n_layers if on_card else 0),
+             f"cli.eval launched the flash forward {eval_launches} times, not "
+             f"{len(calls) * n_layers if on_card else 0}")
+    # a few pairs' log likelihoods on the card against the same checkpoint
+    # in float32 on the CPU, on the same token ids
+    tokens, card_ll = calls[0][0][:4], calls[0][1][:4]
+    cpu_lm = UnitLM.from_pretrained(str(ckpt), device="cpu", torch_dtype="float32")
+    cpu_ll = cpu_lm.log_likelihood(tokens).numpy()
+    del cpu_lm
+    ll_err = float(np.abs(card_ll - cpu_ll).max())
+    print(f"cli.eval card vs float32 CPU on {len(tokens)} utterances: {card_ll.tolist()} vs "
+          f"{cpu_ll.tolist()} |d|={ll_err:.3e} (<= {TRAIN_LOSS_BOUND})", flush=True)
+    _require(ll_err <= TRAIN_LOSS_BOUND, "cli.eval's scores on the card disagree with the "
+             "float32 CPU run")
+    return dict(train_launches=train_launches, eval_launches=eval_launches, losses=losses,
+                step_seconds=step_s, label_tokens_per_s=[r["tokens_per_sec"] for r in logs],
+                train_seconds=train_s, twist=twist, trace_bytes=trace.stat().st_size,
+                reload_remat=remat_on, sblimp=res["sBLIMP"], eval_calls=len(calls),
+                eval_pairs_per_s=n_pairs / metric_s[0], eval_seconds=eval_s,
+                card_vs_cpu_ll_err=ll_err)
+
+
 def main() -> int:
     if not (ROOT / "slamkit_tpu_torch" / "ops" / "csrc" / "flash_fwd.cu").is_file():
         print("chip_smoke: run from a checkout of the repository (slamkit_tpu_torch/ "
@@ -1341,6 +1568,8 @@ def main() -> int:
         cpu_result = check_card_vs_cpu(dev, pathlib.Path(work))
         torch.cuda.empty_cache()
         speech_result = run_speech(dev, smi, pathlib.Path(work))
+        torch.cuda.empty_cache()
+        cli_result = run_cli(dev, smi, pathlib.Path(work))
     speech_runs = speech_result["runs"]
 
     score = next(r for r in kernel_rows if r["name"] == "score_ctx1024")
@@ -1354,19 +1583,22 @@ def main() -> int:
     print(json.dumps({"shapes": kernel_rows, "backward_shapes": backward_rows,
                       "dq_shapes": dq_rows, "probe": probe_result,
                       "slice": slice_result, "training": train_result,
-                      "card_vs_cpu": cpu_result, "speech": speech_result}), flush=True)
+                      "card_vs_cpu": cpu_result, "speech": speech_result,
+                      "cli": cli_result}), flush=True)
     print(nvidia_smi(), flush=True)
 
     print(json.dumps({"kernels": [
         kernel_row("flash_fwd", "slamkit_tpu_torch/ops/csrc/flash_fwd.cu",
                    "slamkit_tpu/ops/flash_attention.py:124", ["flash_fwd_kernel"],
                    slice_result["launches"] + train_result["launches"]["flash_fwd"]
-                   + sum(r["launches"]["flash_fwd"] for r in speech_runs.values()),
+                   + sum(r["launches"]["flash_fwd"] for r in speech_runs.values())
+                   + cli_result["train_launches"]["flash_fwd"] + cli_result["eval_launches"],
                    max(r["max_abs_err_out"] for r in kernel_rows), score),
         kernel_row("flash_bwd", "slamkit_tpu_torch/ops/csrc/flash_bwd.cu",
                    "slamkit_tpu/ops/flash_attention.py:247",
                    ["flash_bwd_prep_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"],
-                   train_result["launches"]["flash_bwd"],
+                   train_result["launches"]["flash_bwd"]
+                   + cli_result["train_launches"]["flash_bwd"],
                    max(max(r["max_abs_err"].values()) for r in backward_rows), bwd),
         dict(kernel_row("dq_matmul", "slamkit_tpu_torch/ops/csrc/dq_matmul.cu",
                         "slamkit_tpu/ops/quant.py:43", ["dq_gemv_kernel | dq_gemm_kernel"],

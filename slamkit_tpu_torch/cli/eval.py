@@ -1,0 +1,132 @@
+"""Stage 4 on the port: score or sample a trained unit LM.
+
+    python -m slamkit_tpu_torch.cli.eval model.pretrained_model=<checkpoint> metric=sblimp \
+        metric.data_path=<dir> tokeniser.feature_extractor.pretrained_model=<HuBERT dir> \
+        tokeniser.feature_extractor.kmeans_path=<centroids.npy> [device=cpu] [overrides ...]
+
+The counterpart of `cli/eval.py`'s speech branch, on the repo's `config/`
+tree (eval.yaml): the modelling metrics (swuggy, sblimp, storycloze, salmon,
+with `metric.joint_pairs`) print their scores, and `metric_type: generate`
+continues WAV prompts through `metric/generative_metric.generate`. Every
+`device` but `cpu` (eval.yaml's `tpu` included) runs on the CUDA card.
+Not ported: asr_perplexity and llm_as_judge (ROADMAP queue 1 item 13),
+cross-modal metrics (item 19), eval_mesh > 1 (item 14); they raise.
+"""
+import logging
+import os
+
+from ..config import main, to_container
+from ..utils.path_utils import resolve_reference_path
+
+logger = logging.getLogger(__name__)
+
+
+@main(config_name="eval", config_path="../../config")
+def eval_main(cfg):
+    logging.basicConfig(level=logging.INFO)
+    import numpy as np
+
+    from ..metric.generative_metric import generate
+    from ..metric.modelling_metric import salmon, sblimp, storycloze, swuggy
+    from ..models.speech_lm import SpeechLM
+    from ..models.unit_lm import tlm_factory
+    from ..tokeniser import tokeniser_factory
+    from ..utils.device import DEFAULT_DEVICE
+    from ..vocoder.audio_vocoder import vocoder_factory
+
+    mt = cfg.metric.metric_type
+    if cfg.metric.get("cross_modal", False):
+        raise NotImplementedError(f"cross-modal metric {mt!r}: not ported yet (ROADMAP "
+                                  f"queue 1 item 19)")
+    if mt in ("asr_perplexity", "llm_as_judge"):
+        raise NotImplementedError(f"metric {mt!r}: the Whisper and text-LM backends are not "
+                                  f"ported yet (ROADMAP queue 1 item 13)")
+    if int(cfg.get("eval_mesh", 0) or 0) > 1:
+        raise NotImplementedError(f"eval_mesh={cfg.eval_mesh}: sharded evaluation is not "
+                                  f"ported yet (ROADMAP queue 1 item 14)")
+    device = "cpu" if cfg.get("device", None) == "cpu" else DEFAULT_DEVICE
+
+    if not cfg.model.pretrained_model:
+        logger.warning("No pretrained model specified. please specify one with "
+                       "model.pretrained_model=<path>")
+    tokeniser = tokeniser_factory(cfg.tokeniser, device=device)
+    if cfg.model.config_args.vocab_size == -1:
+        cfg.model.config_args.vocab_size = len(tokeniser.text_tokeniser)
+    tlm = tlm_factory(cfg.model, device=device)
+    vocoder = vocoder_factory(cfg.vocoder, device=device)
+    model = SpeechLM(tlm, tokeniser, vocoder=vocoder)
+
+    path = resolve_reference_path(cfg.metric.data_path, cfg.get("reference_path", None))
+    used_token_modality = cfg.metric.get("used_token_modality", None)
+    mean_nll = cfg.metric.get("mean_nll", True)
+    gen_kwargs = to_container(cfg.metric.get("generate_kwargs", None)) or {}
+
+    # joint_pairs scores (pos, neg) in one [2B] call (metric.joint_pairs)
+    jp = bool(cfg.metric.get("joint_pairs", False))
+    if mt == "swuggy":
+        res = swuggy(model, path, used_token_modality, mean_nll, cfg.batch_size,
+                     cfg.num_workers, cfg.pin_memory, cfg.metric.get("subfolder", False),
+                     joint_pairs=jp)
+    elif mt == "sblimp":
+        res = sblimp(model, path, used_token_modality, mean_nll, cfg.batch_size,
+                     cfg.num_workers, cfg.pin_memory, cfg.metric.get("subfolder", False),
+                     joint_pairs=jp)
+    elif mt == "storycloze":
+        res = storycloze(model, path, used_token_modality, mean_nll, cfg.batch_size,
+                         cfg.num_workers, cfg.pin_memory, cfg.metric.get("subfolder", False),
+                         joint_pairs=jp)
+    elif mt == "salmon":
+        res = salmon(model, path, used_token_modality, mean_nll, cfg.metric.parts,
+                     cfg.batch_size, cfg.num_workers, cfg.pin_memory, joint_pairs=jp)
+    elif mt == "generate":
+        if cfg.vocoder.vocoder_type is None:
+            logger.warning("Running generation without a vocoder generates "
+                           "tokens only; set e.g. vocoder=vocoder_hubert_25")
+        res = generate(model, path, cfg.batch_size, used_token_modality,
+                       cfg.metric.prompt_length, cfg.metric.get("min_file_length", None),
+                       cfg.metric.get("alignment_folder", None),
+                       cfg.metric.get("use_alignment", False),
+                       tokeniser.fe_sample_rate, cfg.metric.num_files,
+                       cfg.num_workers, cfg.pin_memory, **gen_kwargs)
+    else:
+        raise ValueError(f"Unknown metric type: {mt}")
+
+    if mt != "generate":
+        for key, val in res.items():
+            if isinstance(val, list):
+                print(f"{key}:")
+                for i, v in enumerate(val):
+                    print(f"\t{i}: {v}")
+            else:
+                print(f"{key}: {val}")
+
+    if cfg.metric.get("out_path", False) and "generate" in res and \
+            cfg.vocoder.vocoder_type is not None:
+        from ..utils.audio import save_wav
+
+        os.makedirs(cfg.metric.out_path, exist_ok=True)
+        for i, gen in enumerate(res["generate"]):
+            if i == cfg.metric.get("num_log", -1):
+                print(f"Only saving first {i} samples")
+                break
+            if np.size(gen) == 0:
+                continue
+            save_wav(os.path.join(cfg.metric.out_path,
+                                  f"{cfg.metric.metric_type}_{i}.{cfg.metric.ext}"),
+                     np.asarray(gen).ravel(), tokeniser.fe_sample_rate)
+
+    if cfg.logger.report_to == "wandb":
+        import wandb
+
+        if cfg.logger.run_id is None:
+            raise ValueError("No run_id specified for wandb logging")
+        wandb.init(project=cfg.logger.project, entity=cfg.logger.entity,
+                   id=cfg.logger.run_id, resume="must")
+        metric_name = f"{mt}/{os.path.basename(os.path.normpath(cfg.metric.data_path))}"
+        wandb.log({f"{metric_name}-{part}": val for part, val in res.items()
+                   if part not in ("generate", "prompts")})
+    return res
+
+
+if __name__ == "__main__":
+    eval_main()

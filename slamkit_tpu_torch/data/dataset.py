@@ -3,8 +3,9 @@
 A copy of the single-corpus path of `slamkit_tpu/data/dataset.py`
 (`TokenDataset` :74, `load_token_dataset` :297, `parse_single_dataset` :477,
 `_bestfit_slabs` :582, `_pack_bestfit` :617, `pack_into_rows` :675,
-`pad_into_rows` :772, `Batcher` :804), copied because the JAX package's data
-module cannot be imported without jax. `tests/test_torch_data.py` holds its
+`pad_into_rows` :772, `Batcher` :804) and the single-corpus case of
+`init_dataset` :502, copied because the JAX package's data module cannot be
+imported without jax. `tests/test_torch_data.py` holds its
 batches equal to the original's bit for bit.
 
   * storage is one flat int32 buffer plus per-sequence (starts, lengths)
@@ -16,8 +17,9 @@ batches equal to the original's bit for bit.
   * the stream is a deterministic function of (seed, epoch), so a resume can
     fast-forward by batch index.
 
-Not ported yet (ROADMAP): multi-corpus `interleave`, the disk spill of
-`TokenWriter` (the buffer stays in RAM) and the `saved_ds_path` cache.
+Not ported yet (ROADMAP queue 1 item 18): multi-corpus `interleave`, the disk
+spill of `TokenWriter` (the buffer stays in RAM) and the `saved_ds_path`
+cache; `init_dataset` raises on a list of train paths or a saved_ds_path.
 """
 from __future__ import annotations
 
@@ -159,6 +161,25 @@ def parse_single_dataset(cfg, tokeniser, train_path: str,
         ds["train"] = ds["train"].filter_by_length(min_len=data["chunk_units_min_length"])
     logger.info("Statistics over tokens: %s", ds["train"].token_stats())
     return ds
+
+
+def init_dataset(cfg, tokeniser) -> Dict[str, TokenDataset]:
+    """{'train', 'validation'?} from the composed config (`data.train_path`,
+    `data.val_path`, the length filters and `model.context_len`), as the JAX
+    package's `init_dataset` builds them for one corpus. A list of train
+    paths (multi-corpus interleaving) and a `data.saved_ds_path` cache raise
+    rather than being ignored."""
+    data = cfg["data"]
+    if data.get("saved_ds_path", None):
+        raise NotImplementedError(
+            f"data.saved_ds_path={data.get('saved_ds_path')!r}: the dataset cache is not "
+            f"ported yet (ROADMAP queue 1 item 18)")
+    train_path = data["train_path"]
+    if not isinstance(train_path, str):
+        raise NotImplementedError(
+            f"data.train_path={list(train_path)!r}: multi-corpus interleaving is not "
+            f"ported yet (ROADMAP queue 1 item 18); give one path or glob")
+    return parse_single_dataset(cfg, tokeniser, train_path, data.get("val_path", None))
 
 
 # --------------------------------------------------------------------------- #

@@ -15,6 +15,8 @@ Loaders read local files only and never import transformers:
 a local directory (`config.json` + `pytorch_model.bin` or
 `model.safetensors`); `config_from_fairseq` / `convert_fairseq_state`
 (:281-364) map a fairseq / textless `.pt` read with `torch.load`.
+`save_hf_dir` writes a params tree as such a directory (its weights random
+where the checkpoint is not at hand).
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.device import DEFAULT_DEVICE, resolve_device
+from ..utils.safetensors import read_safetensors, write_safetensors
 from ..utils.tree import to_torch
 
 
@@ -259,30 +262,55 @@ def convert_hf_state_dict(sd: dict, cfg: HubertConfig) -> dict:
     return params
 
 
-_SAFETENSORS_DTYPES = {"F32": np.float32, "F16": np.float16, "F64": np.float64,
-                       "I64": np.int64, "I32": np.int32}
+def hf_state_dict(params: dict, cfg: HubertConfig) -> dict:
+    """The inverse of `convert_hf_state_dict`: a params tree as an HF
+    HubertModel state dict (numpy), the positional conv as weight norm with
+    g = ||w|| over dims (0, 1) and v = w, which folds back to w."""
+    f32 = lambda a: np.ascontiguousarray(np.asarray(a, dtype=np.float32))
+    sd = {}
+    for i, lp in enumerate(params["conv_layers"]):
+        sd[f"feature_extractor.conv_layers.{i}.conv.weight"] = f32(lp["conv_w"])
+        if "conv_b" in lp:
+            sd[f"feature_extractor.conv_layers.{i}.conv.bias"] = f32(lp["conv_b"])
+        if "norm_scale" in lp:
+            sd[f"feature_extractor.conv_layers.{i}.layer_norm.weight"] = f32(lp["norm_scale"])
+            sd[f"feature_extractor.conv_layers.{i}.layer_norm.bias"] = f32(lp["norm_bias"])
+    w = f32(params["pos_conv_w"])
+    sd["encoder.pos_conv_embed.conv.weight_g"] = np.sqrt((w ** 2).sum(axis=(0, 1), keepdims=True))
+    sd["encoder.pos_conv_embed.conv.weight_v"] = w
+    sd["encoder.pos_conv_embed.conv.bias"] = f32(params["pos_conv_b"])
+    names = {"q_w": "attention.q_proj.weight", "q_b": "attention.q_proj.bias",
+             "k_w": "attention.k_proj.weight", "k_b": "attention.k_proj.bias",
+             "v_w": "attention.v_proj.weight", "v_b": "attention.v_proj.bias",
+             "o_w": "attention.out_proj.weight", "o_b": "attention.out_proj.bias",
+             "ln1_scale": "layer_norm.weight", "ln1_bias": "layer_norm.bias",
+             "ff_in_w": "feed_forward.intermediate_dense.weight",
+             "ff_in_b": "feed_forward.intermediate_dense.bias",
+             "ff_out_w": "feed_forward.output_dense.weight",
+             "ff_out_b": "feed_forward.output_dense.bias",
+             "ln2_scale": "final_layer_norm.weight", "ln2_bias": "final_layer_norm.bias"}
+    for key, hf in names.items():
+        for i in range(cfg.num_hidden_layers):
+            sd[f"encoder.layers.{i}.{hf}"] = f32(params["layers"][key][i])
+    sd["feature_projection.projection.weight"] = f32(params["fp_proj_w"])
+    sd["feature_projection.projection.bias"] = f32(params["fp_proj_b"])
+    sd["encoder.layer_norm.weight"] = f32(params["enc_norm_scale"])
+    sd["encoder.layer_norm.bias"] = f32(params["enc_norm_bias"])
+    if cfg.feat_proj_layer_norm:
+        sd["feature_projection.layer_norm.weight"] = f32(params["fp_norm_scale"])
+        sd["feature_projection.layer_norm.bias"] = f32(params["fp_norm_bias"])
+    return sd
 
 
-def read_safetensors(path: str) -> dict:
-    """A `.safetensors` file as name -> numpy array (float and int tensors;
-    bf16 is widened to float32), without the safetensors package."""
-    with open(path, "rb") as f:
-        n = int.from_bytes(f.read(8), "little")
-        header = json.loads(f.read(n))
-        data = f.read()
-    out = {}
-    for name, info in header.items():
-        if name == "__metadata__":
-            continue
-        lo, hi = info["data_offsets"]
-        raw = data[lo:hi]
-        if info["dtype"] == "BF16":
-            bits = np.frombuffer(raw, np.uint16).astype(np.uint32) << 16
-            arr = bits.view(np.float32)
-        else:
-            arr = np.frombuffer(raw, _SAFETENSORS_DTYPES[info["dtype"]])
-        out[name] = arr.reshape(info["shape"])
-    return out
+def save_hf_dir(path: str, params: dict, cfg: HubertConfig):
+    """Write a params tree as a local HF HubertModel directory (config.json
+    + model.safetensors), which `load_hf_dir` and transformers both read."""
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({**dataclasses.asdict(cfg), "model_type": "hubert",
+                   "architectures": ["HubertModel"]}, f, indent=2)
+    write_safetensors(os.path.join(path, "model.safetensors"), hf_state_dict(params, cfg),
+                      metadata={"format": "pt"})
 
 
 def _strip_prefix(sd: dict) -> dict:

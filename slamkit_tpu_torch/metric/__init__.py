@@ -1,3 +1,6 @@
 from .generative_metric import PromptDataset, generate
+from .modelling_metric import (ModellingMetricDataset, SalmonDataset, salmon, sblimp,
+                               storycloze, swuggy)
 
-__all__ = ["PromptDataset", "generate"]
+__all__ = ["PromptDataset", "generate", "ModellingMetricDataset", "SalmonDataset", "salmon",
+           "sblimp", "storycloze", "swuggy"]

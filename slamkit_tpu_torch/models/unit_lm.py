@@ -3,9 +3,10 @@
 Counterpart of `slamkit_tpu/models/unit_lm.py`: `UnitLMConfig`, and `UnitLM`
 with `loss_fn` (training), `log_likelihood` (scoring), `generate` (sampling),
 `save_pretrained` / `from_pretrained` on the JAX package's own files
-(`unit_lm_config.json` + `params.npz`, so checkpoints cross-load both ways),
-and `tlm_factory`. Mesh placement and the reference-toolkit checkpoint loader
-are not ported yet.
+(`unit_lm_config.json` + `params.npz`, so checkpoints cross-load both ways)
+and on the reference toolkit's HF checkpoints, `export_hf`, the TWIST warm
+start (`twist_init`, through `models/hf_convert.py`), and `tlm_factory`. Mesh
+placement and `push_to_hub` (it needs the network) are not ported.
 """
 from __future__ import annotations
 
@@ -23,7 +24,10 @@ from ..utils.device import DEFAULT_DEVICE, resolve_device
 from .convert import load_flat, to_flat
 from .generate import generate as _generate
 from .generate import prepare_int8_decode_params as _prepare_int8
-from .presets import DecoderConfig, resolve_base_config, translate_decoder_overrides
+from .hf_convert import (convert_state_dict, export_hf_checkpoint, load_hf_state_dict,
+                         load_twist_params)
+from .presets import (DecoderConfig, config_from_hf_dict, resolve_base_config,
+                      translate_decoder_overrides)
 from .transformer import Decoder, param_count
 
 logger = logging.getLogger(__name__)
@@ -111,22 +115,23 @@ def _is_noop(value, noop: tuple) -> bool:
 
 class UnitLM:
     def __init__(self, config: UnitLMConfig, params: Optional[dict] = None,
-                 seed: int = 0, device: Union[str, torch.device] = DEFAULT_DEVICE):
+                 seed: int = 0, device: Union[str, torch.device] = DEFAULT_DEVICE,
+                 decoder_config: Optional[DecoderConfig] = None):
         """params: a flat JAX-layout dict (`params.npz` keys) to load; without
-        it the gslm random init runs from `seed`. device is where the weights
-        live and every call runs (the card by default; without one, pass
-        device="cpu"); nothing moves implicitly."""
+        it, twist_init converts the base LM's weights (`load_twist_params`)
+        and otherwise, or where they cannot be used, the random init runs
+        from `seed`. device is where the weights live and every call runs
+        (the card by default; without one, pass device="cpu"); nothing moves
+        implicitly. decoder_config replaces `config.decoder_config()` (a
+        reference checkpoint's own architecture)."""
         self.config = config
         self.device = resolve_device(device)
-        cfg = config.decoder_config()
+        cfg = decoder_config or config.decoder_config()
         self.decoder = Decoder(cfg, device=self.device)
+        if params is None and config.twist_init:
+            params = load_twist_params(config, cfg, seed=seed)
         if params is not None:
             load_flat(self.decoder, params)
-        elif config.twist_init:
-            raise ValueError(
-                "twist_init=True needs the pretrained text-LM weights (the TWIST "
-                "warm start), which this port cannot load yet: pass params, load "
-                "a checkpoint with from_pretrained, or set twist_init=False")
         else:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             self.decoder.reset_parameters(gen)
@@ -280,20 +285,63 @@ class UnitLM:
             np.savez(f, **to_flat(self.decoder, params))
         os.replace(tmp, os.path.join(save_directory, WEIGHTS_NAME))
 
+    def export_hf(self, save_directory: str):
+        """An HF-loadable export (config.json + model.safetensors), so parity
+        evals can run the model under transformers."""
+        export_hf_checkpoint(to_flat(self.decoder), self.decoder.cfg,
+                             self.config.base_model_name, save_directory)
+
     @classmethod
     def from_pretrained(cls, path: str, device: Union[str, torch.device] = DEFAULT_DEVICE,
                         **overrides) -> "UnitLM":
-        """Load a checkpoint written by either package's save_pretrained."""
+        """Load a checkpoint written by either package's save_pretrained, or
+        by the reference toolkit (an HF directory with `config.json` and no
+        `unit_lm_config.json`)."""
         cfg_path = os.path.join(path, CONFIG_NAME)
-        if not os.path.isfile(cfg_path):
-            raise FileNotFoundError(
-                f"{cfg_path} not found (reference-toolkit HF checkpoints are not "
-                f"supported by the port yet)")
+        if not os.path.isfile(cfg_path) and os.path.isfile(os.path.join(path, "config.json")):
+            return cls._from_reference_checkpoint(path, device, **overrides)
         with open(cfg_path) as f:
             cfg = UnitLMConfig.from_dict({**json.load(f), **overrides})
         with np.load(os.path.join(path, WEIGHTS_NAME)) as flat:
             params = {k: flat[k] for k in flat.files}
         return cls(cfg, params=params, device=device)
+
+    @classmethod
+    def _from_reference_checkpoint(cls, path: str, device, **overrides) -> "UnitLM":
+        """A checkpoint saved by the reference toolkit (model_type
+        'speech_language_model'): the wrapped causal LM's weights live under
+        the 'lm.' prefix, and the nested `base_config` gives the decoder's
+        architecture where present (JAX `unit_lm.py:424`). The remat knobs
+        of the overrides apply to that architecture too."""
+        with open(os.path.join(path, "config.json")) as f:
+            ref_cfg = json.load(f)
+        if ref_cfg.get("model_type") not in (None, "speech_language_model"):
+            raise ValueError(f"Not a reference UnitLM checkpoint: {path}")
+        base_config = ref_cfg.get("base_config") or {}
+        cfg = UnitLMConfig.from_dict({
+            "base_model_name": ref_cfg.get("base_model_name", "facebook/opt-125m"),
+            "vocab_size": ref_cfg.get("vocab_size", 502),
+            "twist_init": ref_cfg.get("twist_init", True),
+            "pad_token_id": ref_cfg.get("pad_token_id", 0),
+            "bos_token_id": ref_cfg.get("bos_token_id", 1),
+            "eos_token_id": ref_cfg.get("eos_token_id", 1),
+            **overrides,
+        })
+        sd = load_hf_state_dict(path)
+        sd = {(k[3:] if k.startswith("lm.") else k): v for k, v in sd.items()}
+        if base_config.get("model_type"):
+            kwargs = config_from_hf_dict(base_config)
+            kwargs["vocab_size"] = cfg.vocab_size
+            if cfg.torch_dtype not in ("bfloat16", None):
+                kwargs["dtype"] = "float32"
+            decoder_cfg = DecoderConfig(**kwargs, remat=cfg.remat,
+                                        remat_policy=cfg.remat_policy,
+                                        remat_layers=cfg.remat_layers)
+        else:
+            decoder_cfg = cfg.decoder_config()
+        logger.info("Loading a reference-format UnitLM from %s", path)
+        return cls(cfg, params=convert_state_dict(sd, decoder_cfg), device=device,
+                   decoder_config=decoder_cfg)
 
 
 def _plain(node) -> dict:
@@ -313,5 +361,9 @@ def tlm_factory(cfg, device: Union[str, torch.device] = DEFAULT_DEVICE) -> UnitL
     if cfg.get("pretrained_model"):
         overrides = {k: args.get(k) for k in ("attn_implementation", "torch_dtype")}
         overrides["use_cache"] = args.get("use_cache", False)
+        # the remat knobs (cli/train sets remat from training_args) hold on
+        # a fine-tune or a cont_training start too
+        overrides.update({k: args[k] for k in ("remat", "remat_policy", "remat_layers")
+                          if args.get(k) is not None})
         return UnitLM.from_pretrained(cfg.pretrained_model, device=device, **overrides)
     return UnitLM(UnitLMConfig.from_dict(args), device=device)

@@ -1,6 +1,8 @@
 """The speech-only unit tokeniser: audio or `<UnN>` strings to token ids.
 
-A copy of `slamkit_tpu/tokeniser/unit_tokeniser.py`: the string side
+A copy of `slamkit_tpu/tokeniser/unit_tokeniser.py`: `UnitVocab` (:27), the
+vocabulary that `text_tokeniser` holds and whose length `cli/train.py` reads
+for `vocab_size: -1`; the string side
 (`pad_token_batch` :60, `_encode_one` :103, `string_tokenise` :107,
 `prepare_batch` :137) and the audio side over a feature extractor
 (`tokenise` :126, `build_prompt` :129, `decode_sample` :141,
@@ -40,6 +42,22 @@ def pad_token_batch(seqs: List[List[int]], pad_id: int, padding_side: str = "rig
     return {"input_ids": batch, "attention_mask": mask}
 
 
+class UnitVocab:
+    """The vocabulary's size and special ids (the JAX package's stand-in for
+    the reference's HF text tokeniser; the port reads only its length)."""
+
+    def __init__(self, num_units: int, offset: int, pad_token_id: int, bos_token_id: int,
+                 eos_token_id: int):
+        self.num_units = num_units
+        self.offset = offset
+        self.pad_token_id = pad_token_id
+        self.bos_token_id = bos_token_id
+        self.eos_token_id = eos_token_id
+
+    def __len__(self) -> int:
+        return self.num_units + self.offset
+
+
 class UnitTokeniser(AudioTokeniser):
     """Unit strings to ids; audio too when built over a feature extractor."""
 
@@ -54,6 +72,8 @@ class UnitTokeniser(AudioTokeniser):
         self.num_units = num_units
         # units sit immediately after the special ids
         self.offset = max(self.eos_token_id, self.bos_token_id, self.pad_token_id) + 1
+        self.text_tokeniser = UnitVocab(num_units, self.offset, pad_token_id,
+                                        self.bos_token_id, self.eos_token_id)
 
     def __len__(self) -> int:
         return self.num_units + self.offset

@@ -17,7 +17,12 @@ eval_dataset, callbacks, packing, context_len, packing_strategy).train()`.
   * checkpoints save the exact data-stream position (`data_pos`), resume
     replays from it, and a changed packing strategy is refused;
   * `max_steps` or `num_train_epochs` sets the schedule's length; the run
-    ends with a final eval and save.
+    ends with a final eval and save;
+  * `profile_steps` > 0 traces steps [profile_start, profile_start +
+    profile_steps) with `torch.profiler` (CUDA activity on the card, CPU
+    activity always) into `<output_dir>/profile/trace.json.gz`, where the
+    `train/forward`, `train/backward` and `train/optimizer` ranges name the
+    step's parts.
 
 The loop runs synchronously on the model's device (no mesh, no upload or
 metrics threads); a checkpoint may be written in the background from a
@@ -48,8 +53,8 @@ BATCH_KEYS = ("input_ids", "labels", "segment_ids", "positions")
 
 
 def _refuse_unported(args):
-    """The JAX trainer's mesh, multihost and profiling knobs wait for later
-    ROADMAP items; a non-default value raises rather than being ignored."""
+    """The JAX trainer's mesh and multihost knobs wait for a later ROADMAP
+    item; a non-default value raises rather than being ignored."""
     def bad(key, what, item):
         raise NotImplementedError(f"training_args.{key}={args.get(key)!r}: {what} is not "
                                   f"ported yet (ROADMAP {item})")
@@ -65,8 +70,6 @@ def _refuse_unported(args):
         bad("cp_schedule", "the ring-attention schedule", "queue 1 item 14")
     if args.get("multihost", False):
         bad("multihost", "multi-host training", "queue 1 item 14")
-    if int(args.get("profile_steps", 0) or 0) > 0:
-        bad("profile_steps", "the profiler hook", "queue 1 item 7")
 
 
 class SLAMTrainer:
@@ -249,6 +252,26 @@ class SLAMTrainer:
         logger.info("Resumed from %s at step %d", path, self.state.global_step)
 
     # ------------------------------------------------------------------ #
+    # profiling
+    # ------------------------------------------------------------------ #
+    def _start_profiler(self):
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.start()
+        return profiler
+
+    def _stop_profiler(self, profiler):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profiler.stop()
+        out = os.path.join(self.args["output_dir"], "profile")
+        os.makedirs(out, exist_ok=True)
+        profiler.export_chrome_trace(os.path.join(out, "trace.json.gz"))
+        logger.info("Saved profiler trace to %s", out)
+
+    # ------------------------------------------------------------------ #
     # loop
     # ------------------------------------------------------------------ #
     def _log(self, record: dict):
@@ -270,6 +293,11 @@ class SLAMTrainer:
         for cb in self.callbacks:
             cb.on_train_begin(args, state, control)
 
+        # steps [profile_start, profile_start + profile_steps) are traced
+        # into <output_dir>/profile (the JAX trainer's window and defaults)
+        profile_steps = int(args.get("profile_steps", 0) or 0)
+        profile_start = int(args.get("profile_start", 3) or 3)
+        profiler = None
         logging_steps = int(args.get("logging_steps", 50) or 50)
         save_steps = int(args.get("save_steps", 0) or 0)
         eval_steps = int(args.get("eval_steps", 0) or 0)
@@ -285,10 +313,15 @@ class SLAMTrainer:
 
         def step(group):
             nonlocal save_due, eval_due, window_loss, window_t0, window_tokens
-            nonlocal last_eval_step, last_save_step
+            nonlocal last_eval_step, last_save_step, profiler
             for _ in group:
                 self._pending_positions.popleft()
+            if profile_steps and state.global_step == profile_start and profiler is None:
+                profiler = self._start_profiler()
             loss_sum, tokens = self._train_step(group)
+            if profiler is not None and state.global_step >= profile_start + profile_steps - 1:
+                self._stop_profiler(profiler)
+                profiler = None
             state.global_step += 1
             state.epoch = state.global_step / self.steps_per_epoch
             step_no = state.global_step
@@ -348,6 +381,8 @@ class SLAMTrainer:
                 continue
             break
 
+        if profiler is not None:   # the run ended inside the window
+            self._stop_profiler(profiler)
         # final evaluate + save, unless a stop callback just did both
         if do_eval and last_eval_step != state.global_step:
             self.evaluate()

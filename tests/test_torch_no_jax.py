@@ -1,7 +1,9 @@
-"""The port stands without JAX (serving, training two steps with a save,
-speech continuation dense and int8, the two benchmark tools), and
-`chip_smoke.py` refuses to run without a card: no CPU fallback can pass for a
-GPU run."""
+"""The port stands without JAX, PyYAML, transformers and safetensors (the
+card's host has none of them): serving, training two steps with a save,
+speech continuation dense and int8, the benchmark tools, and the command
+line (composing train.yaml with model=slam, two training steps through
+`cli.train`, one sBLIMP pair through `cli.eval`); and `chip_smoke.py`
+refuses to run without a card: no CPU fallback can pass for a GPU run."""
 import json
 import os
 import pathlib
@@ -15,7 +17,19 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 _NO_JAX = r"""
-import json, os, sys, tempfile
+import importlib.abc, json, os, sys, tempfile
+
+BLOCKED = ("jax", "slamkit_tpu", "yaml", "transformers", "safetensors")
+
+
+class Blocker(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"{name} is blocked: the port must run without it")
+        return None
+
+
+sys.meta_path.insert(0, Blocker())
 import torch
 import slamkit_tpu_torch
 import slamkit_tpu_torch.ops
@@ -91,7 +105,47 @@ dec = bench_decode.run(lm, batch=2, prompt=4, new=3, iters=1)
 assert dec["int8_dq_launches_per_call"] == 0 and dec["speedup"] > 0
 assert bench_decode.main([]) == 1 and bench_flash.main(["--matmul-probe"]) == 1  # no card
 assert bench_prefill.main([]) == 1
-bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "slamkit_tpu.")))
+
+# the command line: the repo's config/ tree without PyYAML, cli.train on the
+# paper's model=slam (cut to two narrow layers) and cli.eval on one pair
+from slamkit_tpu_torch.cli import eval as cli_eval
+from slamkit_tpu_torch.cli import train as cli_train
+from slamkit_tpu_torch.config import compose
+from slamkit_tpu_torch.feature_extractor.hubert import save_hf_dir
+
+cfg = compose("config", "train", ["model=slam"])
+assert cfg.model.config_args.twist_init is True and cfg.model.context_len == 1024
+assert cfg.training_args.learning_rate == 1e-3
+narrow = [f"+model.config_args.{k}={v}" for k, v in dict(
+    num_hidden_layers=2, hidden_size=64, num_attention_heads=4, num_key_value_heads=2,
+    head_dim=16, intermediate_size=128).items()]
+with tempfile.TemporaryDirectory() as d:
+    corpus = os.path.join(d, "tokens.jsonl")
+    with open(corpus, "w") as f:
+        for i in range(24):
+            units = "".join(f"<Un{(7 * i + j) % 500}>" for j in range(5 + i))
+            f.write(json.dumps({"file_name": str(i), "audio_repr": units}) + "\n")
+    state = cli_train.train(["model=slam", "model.context_len=64",
+                             "model.config_args.torch_dtype=float32", *narrow,
+                             f"data.train_path={corpus}", f"data.val_path={corpus}",
+                             "data.packing=true", f"training_args.output_dir={d}/run",
+                             "training_args.max_steps=2", "training_args.use_cpu=true",
+                             "training_args.per_device_train_batch_size=2",
+                             "training_args.remat=true", "training_args.save_steps=2"])
+    assert state.global_step == 2, state
+    save_hf_dir(os.path.join(d, "hubert"), random_params(hcfg), hcfg)
+    np.save(os.path.join(d, "km.npy"), centroids)
+    os.makedirs(os.path.join(d, "pair"))
+    for i in range(2):
+        save_wav(os.path.join(d, "pair", f"{i}+x.wav"), 0.1 * np.sin(np.arange(1600 + 400 * i) / 7.0))
+    res = cli_eval.eval_main([f"model.pretrained_model={d}/run/checkpoint-2", "metric=sblimp",
+                              f"metric.data_path={d}/pair", "metric.subfolder=false",
+                              f"tokeniser.feature_extractor.pretrained_model={d}/hubert",
+                              f"tokeniser.feature_extractor.kmeans_path={d}/km.npy",
+                              "tokeniser.feature_extractor.layer=1", "device=cpu",
+                              "num_workers=1"])
+    assert res["sBLIMP"] in (0.0, 0.5, 1.0), res
+bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 print("LOADED", bad)
 """
 
@@ -110,11 +164,14 @@ def test_port_imports_and_runs_without_jax():
 
 
 def test_port_sources_never_import_jax():
-    for path in (ROOT / "slamkit_tpu_torch").rglob("*.py"):
+    """No import of jax, the JAX package, PyYAML, transformers or safetensors
+    anywhere in the port or in chip_smoke.py."""
+    banned = ("jax", "slamkit_tpu", "yaml", "transformers", "safetensors")
+    for path in [*(ROOT / "slamkit_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py"]:
         for line in path.read_text().splitlines():
             words = line.split()
             assert not (words[:1] in (["import"], ["from"]) and len(words) > 1
-                        and words[1].split(".")[0] in ("jax", "slamkit_tpu")), (path, line)
+                        and words[1].split(".")[0] in banned), (path, line)
 
 
 def test_chip_smoke_fails_without_cuda():
@@ -248,6 +305,37 @@ def test_chip_smoke_speech_rehearsal_on_cpu(chip_smoke, tmp_path, capsys):
     assert result["duration_agreement"] == 1.0 and result["vocoder_err"] == 0.0
     json.dumps(result)
     assert "speech (int8): 8 prompts of 0.3 s" in capsys.readouterr().out
+
+
+def test_chip_smoke_cli_rehearsal_on_cpu(chip_smoke, tmp_path, capsys):
+    """The smoke's command-line phase end to end on the CPU at narrow widths:
+    cli.train on model=slam (twist_init true, the TWIST fallback logged) for
+    2 steps with a save and a trace, the reload through
+    model.pretrained_model with remat, cli.eval on 4 pairs; no kernel launch
+    is counted and the CPU check is exact."""
+    import torch
+
+    from slamkit_tpu_torch.feature_extractor import HubertConfig
+
+    narrow = ["model.config_args.torch_dtype=float32"] + [
+        f"+model.config_args.{k}={v}" for k, v in dict(
+            num_hidden_layers=2, hidden_size=64, num_attention_heads=4, num_key_value_heads=2,
+            head_dim=16, intermediate_size=128).items()]
+    hubert_cfg = HubertConfig(conv_dim=(32,) * 3, conv_kernel=(10, 3, 2), conv_stride=(5, 2, 2),
+                              hidden_size=32, num_hidden_layers=3, num_attention_heads=2,
+                              intermediate_size=64, num_conv_pos_embeddings=8,
+                              num_conv_pos_embedding_groups=4)
+    result = chip_smoke.run_cli(torch.device("cpu"), "cpu rehearsal", tmp_path,
+                                model_overrides=narrow, hubert_cfg=hubert_cfg, n_rows=48,
+                                lengths=(10, 60), context=64, batch=2, accum=2, n_pairs=4,
+                                seconds=(0.2, 0.4))
+    assert result["train_launches"] == {"flash_fwd": 0, "flash_bwd": 0}
+    assert result["eval_launches"] == 0 and result["eval_calls"] == 2   # pos, neg
+    assert result["reload_remat"] and result["card_vs_cpu_ll_err"] == 0.0
+    assert result["twist"].startswith("TWIST init requested")
+    assert len(result["losses"]) == 2 and result["trace_bytes"] > 0
+    json.dumps(result)
+    assert "cli.eval: sBLIMP" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("causal", [True, False])

@@ -5,7 +5,7 @@ resume equivalence (also across an epoch boundary), periodic saves after an
 off-grid resume, async save equal to sync, token-id-range counting, the last
 accumulation group flushed, incomplete checkpoints skipped, a changed
 packing strategy refused, atomic host artifacts, exports the JAX package
-loads, and the refusals of unported knobs.
+loads, the profiler's trace, and the refusals of unported knobs.
 
 Tolerances: losses 1e-4 relative against JAX (float32 forward, backward and
 AdamW whose sums run in another order, over three steps); the port against
@@ -299,8 +299,22 @@ def test_save_host_artifacts_atomic_and_nonmutating(tmp_path):
 
 @pytest.mark.parametrize("knob", [dict(fsdp="true"), dict(mesh_shape="[4,2]"),
                                   dict(mesh_axes="[data,seq]"), dict(cp_schedule="zigzag"),
-                                  dict(multihost="true"), dict(profile_steps=2),
-                                  dict(optim="adafactor")])
+                                  dict(multihost="true"), dict(optim="adafactor")])
 def test_unported_knobs_raise(tmp_path, knob):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SLAMTrainer(tiny_model(), train_args(tmp_path, **knob), tiny_dataset(), context_len=32)
+
+
+def test_profile_steps_write_a_trace(tmp_path):
+    """profile_steps=2 from profile_start=1 traces steps 2 and 3 of four into
+    <output_dir>/profile with the step's named ranges, and the run goes on."""
+    import gzip
+
+    args = train_args(tmp_path, max_steps=4, profile_steps=2, profile_start=1)
+    state = SLAMTrainer(tiny_model(), args, tiny_dataset(), context_len=32).train()
+    assert state.global_step == 4
+    trace = tmp_path / "profile" / "trace.json.gz"
+    events = json.loads(gzip.decompress(trace.read_bytes()))["traceEvents"]
+    names = [e.get("name") for e in events]
+    for span in ("train/forward", "train/backward", "train/optimizer"):
+        assert names.count(span) == 2, span

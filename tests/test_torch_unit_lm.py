@@ -191,11 +191,6 @@ def test_generate_kwarg_surface(ckpt):
         lm.generate(prompt, max_new_tokens=2, weight_quant="fp4")
 
 
-def test_twist_init_without_weights_raises():
-    with pytest.raises(ValueError, match="twist_init"):
-        UnitLM(UnitLMConfig(**{**SMALL_QWEN, "twist_init": True}), device="cpu")
-
-
 def test_tlm_factory_gslm_and_pretrained(ckpt):
     args = {**SMALL_QWEN, **SMALL_QWEN["config_overrides"]}
     del args["config_overrides"]
