@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training and speech-continuation slices
-and its command line once on an NVIDIA GPU.
+"""Drive the PyTorch port's serving, training, speech-continuation and DPO
+slices and its command line once on an NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -81,6 +81,23 @@ the sm_90a kernels). Phases, in order; any failure exits non-zero:
                to disk as an HF directory and 500 centroids drawn from its
                features, and the first scoring call's first 4 utterances
                held against the same checkpoint in float32 on the CPU.
+  10. data preparation and DPO — in phase 9's work directory:
+               `cli.extract_features ext=wav` over phase 9's WAV pairs and
+               `cli.prepare_tokens` on its features.jsonl, every line held to
+               a direct `audio_represent` of the same batch of files;
+               `cli.preference_alignment_feature_extractor` over 16 seeded
+               WAV triples (3 s prompts, 1-2 s completions); then
+               `cli.preference_alignment_train` from phase 9's checkpoint-2
+               (dpo_training_args: lr 5e-5, beta 0.1, 8 pairs a step, so
+               [16, 152] batches) on a seeded Markov preference set of 64
+               rows (prompts of 100 units, completions of 50) for 4 steps
+               with a save at step 3, whose step-1 loss must be ln 2; a run
+               resumed from that save must repeat step 4; the export reloads
+               and scores; one [2 x 2, 152] batch in bf16 on the card against
+               float32 on the CPU (loss, rewards, every gradient).
+
+Phases 3 and 3b also hold the kernels at DPO's shape (`dpo_T152`: [16, 14/2,
+152, 64], one segment of 110-152 tokens a row and a -1 tail).
 
 Each main path runs with the launch counters zeroed just before it and read
 just after: every scoring forward and every generation prefill launches the
@@ -90,10 +107,13 @@ kernel once per layer (phase 6); every int8 generate call calls dq_matmul
 for the 7 projections of every layer in the prefill and in each decode step
 (7 x 24 x 150 = 25200, each one kernel launch) and the flash forward once
 per layer (phase 8); the command line's training launches them as phase 6
-does, and its scoring the forward once per layer a call (phase 9); the
-probe's entry point launches its kernel 7 times a shape (phase 3d). A flash backward call counts one, though it launches three
-kernels (the delta / segment-range pre-pass, dK/dV, dQ). The last lines are
-a JSON object with every measurement, the card's name and power limit, a
+does, and its scoring the forward once per layer a call (phase 9); every
+DPO step launches the forward once per layer for the reference and 1 +
+remat times for the policy, and the backward once per layer, and every DPO
+evaluation batch the forward twice per layer (phase 10); the probe's entry
+point launches its kernel 7 times a shape (phase 3d). A flash backward call
+counts one, though it launches three kernels (the delta / segment-range
+pre-pass, dK/dV, dQ). The last lines are a JSON object with every measurement, the card's name and power limit, a
 JSON object describing each kernel at its representative shape, and
 `{"ok": true, "device": {...}}`. In the kernel line, `ms` and `plain_ms` are
 eager times between CUDA events (host overhead included, as in every
@@ -151,6 +171,14 @@ RESUME_BOUND = 1e-3
 # cosine with the float32 one >= 0.99 (bf16 activations carry ~3 significant
 # digits, which bends a gradient by ~1e-2 radians at most)
 TRAIN_LOSS_BOUND, GRAD_COSINE_FLOOR = 2e-2, 0.99
+# DPO, card vs CPU on one [2 x 2, 152] batch: the loss within 2e-2 and every
+# gradient's cosine >= 0.99, as above. A row's summed completion
+# log-probability within 2e-2 a token (the per-token bound of a mean NLL
+# above, times the row's completion tokens); a reward, beta times the mean
+# of (policy - reference) sums, within beta x 2 x that; a margin, the
+# difference of two rewards, within twice that; and the sign of a margin
+# agrees wherever the CPU's margin is further than its bound from 0
+DPO_TOKEN_BOUND = 2e-2
 # the Slam decoder's (K, N) projection shapes: q/o 896x896, k/v 896x128,
 # up/gate 896x4864, down 4864x896
 SLAM_KN = ((896, 896), (896, 128), (896, 4864), (4864, 896))
@@ -274,12 +302,12 @@ def _packed_segments(rng, b, t, n_seg):
     return seg
 
 
-def _right_padded(rng, b, t):
-    """[b, t] ids as log_likelihood builds them: 0 on each request, -1 on
-    its right pads."""
+def _right_padded(rng, b, t, lo=100):
+    """[b, t] ids as log_likelihood and DPO's collate build them: 0 on each
+    row's lo..t tokens, -1 on its right pads."""
     seg = np.full((b, t), -1, np.int32)
     for r in range(b):
-        seg[r, :int(rng.integers(100, t + 1))] = 0
+        seg[r, :int(rng.integers(lo, t + 1))] = 0
     return seg
 
 
@@ -445,6 +473,7 @@ def check_kernels(dev) -> list[dict]:
         ("d128_ctx1024", (8, 7, 1, 1024, 128), True, _packed_segments(rng, 8, 1024, 8)),
         ("noncausal_T1000", (2, 14, 2, 1000, 64), False, _packed_segments(rng, 2, 1000, 4)),
         ("dead_rows", (2, 14, 2, 256, 64), True, None),
+        ("dpo_T152", (16, 14, 2, 152, 64), True, _right_padded(rng, 16, 152, lo=110)),
     ]
     results = []
     for name, (b, h, hkv, t, d), causal, seg in cases:
@@ -555,7 +584,8 @@ def check_backward_kernels(dev) -> list[dict]:
     """Phase 3b: the backward kernel against the plain backward at the
     training shapes: the Slam batch (8 packed segments and a -1 tail), a
     ragged T, d = 128 (config/model/slam_dh128.yaml), the SIMS context 2048
-    (config/train_inter_scale.yaml), and dead rows."""
+    (config/train_inter_scale.yaml), dead rows, and DPO's [2 x 8, 152] batch
+    (one segment of 110-152 tokens a row, then a -1 tail)."""
     import torch
 
     from slamkit_tpu_torch.ops import flash_attention_bwd, flash_attention_fwd, mha_reference_bwd
@@ -567,6 +597,7 @@ def check_backward_kernels(dev) -> list[dict]:
         ("d128_ctx1024", (8, 7, 1, 1024, 128), _packed_segments(rng, 8, 1024, 8)),
         ("sims_ctx2048", (4, 14, 2, 2048, 64), _packed_segments(rng, 4, 2048, 8)),
         ("dead_rows", (2, 14, 2, 256, 64), None),
+        ("dpo_T152", (16, 14, 2, 152, 64), _right_padded(rng, 16, 152, lo=110)),
     ]
     results = []
     for name, (b, h, hkv, t, d), seg in cases:
@@ -1046,6 +1077,13 @@ def check_card_vs_cpu(dev, work: pathlib.Path, cfg=None, batch=2, context=256) -
                 min_grad_cosine=cos[worst], min_grad_cosine_tensor=worst)
 
 
+def _tone(rng, seconds: float) -> np.ndarray:
+    """`seconds` of 16 kHz audio: a gliding tone in noise, drawn from rng."""
+    t = np.arange(int(seconds * 16000)) / 16000
+    f0 = rng.uniform(100, 300) * (1 + 0.3 * np.sin(2 * np.pi * rng.uniform(0.5, 2) * t))
+    return 0.3 * np.sin(2 * np.pi * np.cumsum(f0) / 16000) + 0.05 * rng.standard_normal(t.size)
+
+
 def write_prompts(folder: pathlib.Path, n: int, seconds: float, seed: int = 0) -> str:
     """n seeded 16 kHz WAVs of `seconds` each (a gliding tone in noise);
     returns their glob."""
@@ -1053,11 +1091,8 @@ def write_prompts(folder: pathlib.Path, n: int, seconds: float, seed: int = 0) -
 
     rng = np.random.default_rng(seed)
     folder.mkdir(parents=True, exist_ok=True)
-    t = np.arange(int(seconds * 16000)) / 16000
     for i in range(n):
-        f0 = rng.uniform(100, 300) * (1 + 0.3 * np.sin(2 * np.pi * rng.uniform(0.5, 2) * t))
-        tone = 0.3 * np.sin(2 * np.pi * np.cumsum(f0) / 16000)
-        save_wav(str(folder / f"prompt{i}.wav"), tone + 0.05 * rng.standard_normal(t.size))
+        save_wav(str(folder / f"prompt{i}.wav"), _tone(rng, seconds))
     return str(folder / "*.wav")
 
 
@@ -1333,10 +1368,7 @@ def write_pairs(folder: pathlib.Path, n_pairs: int, seconds=(1.0, 3.0), seed: in
     rng = np.random.default_rng(seed)
     folder.mkdir(parents=True, exist_ok=True)
     for i in range(2 * n_pairs):
-        t = np.arange(int(rng.uniform(*seconds) * 16000)) / 16000
-        f0 = rng.uniform(100, 300) * (1 + 0.3 * np.sin(2 * np.pi * rng.uniform(0.5, 2) * t))
-        tone = 0.3 * np.sin(2 * np.pi * np.cumsum(f0) / 16000)
-        save_wav(str(folder / f"{i}+{'pn'[i % 2]}.wav"), tone + 0.05 * rng.standard_normal(t.size))
+        save_wav(str(folder / f"{i}+{'pn'[i % 2]}.wav"), _tone(rng, rng.uniform(*seconds)))
     return str(folder)
 
 
@@ -1513,6 +1545,345 @@ def run_cli(dev, smi: str, work: pathlib.Path, model_overrides=(), hubert_cfg=No
                 card_vs_cpu_ll_err=ll_err)
 
 
+def write_triples(folder: pathlib.Path, n: int, seed: int = 11, prompt_s: float = 3.0,
+                  completion_s=(1.0, 2.0)) -> str:
+    """n seeded preference triples of 16 kHz WAVs (a prompt of `prompt_s`,
+    chosen and rejected of a length drawn from `completion_s`, each a gliding
+    tone in noise) and the jsonl naming them; returns its path."""
+    from slamkit_tpu_torch.utils.audio import save_wav
+
+    rng = np.random.default_rng(seed)
+    folder.mkdir(parents=True, exist_ok=True)
+    with open(folder / "triples.jsonl", "w") as f:
+        for i in range(n):
+            row = {}
+            for key, seconds in (("prompt", prompt_s), ("chosen", rng.uniform(*completion_s)),
+                                 ("rejected", rng.uniform(*completion_s))):
+                path = folder / f"{i}_{key}.wav"
+                save_wav(str(path), _tone(rng, seconds))
+                row[f"{key}_path"] = str(path)
+            f.write(json.dumps(row) + "\n")
+    return str(folder / "triples.jsonl")
+
+
+def check_dpo_card_vs_cpu(dev, ckpt: pathlib.Path, rows: list, beta: float) -> dict:
+    """Phase 10's card-vs-CPU check: one [2 x B, T] DPO batch; the policy is
+    the checkpoint moved by seeded noise (5% of each tensor's RMS, so that the
+    rewards are not 0), the reference the checkpoint itself. Loss, rewards
+    and every policy gradient in bf16 on the card against float32 on the CPU,
+    on the same weights."""
+    import torch
+
+    from slamkit_tpu_torch.models import UnitLM, grads_to_flat
+    from slamkit_tpu_torch.trainer.slam_dpo_trainer import (collate, dpo_objective, row_len,
+                                                            sequence_logps)
+
+    batch = collate(rows, [max(row_len(r) for r in rows)], PAD)
+    n_completion = max(len(r["chosen_input_ids"]) for r in rows)
+    gen = torch.Generator().manual_seed(12)
+    policy_cpu = UnitLM.from_pretrained(str(ckpt), device="cpu", torch_dtype="float32")
+    with torch.no_grad():
+        for p in policy_cpu.decoder.parameters():
+            p.add_(0.05 * p.pow(2).mean().sqrt() * torch.randn(p.shape, generator=gen))
+    moved = {k: v.detach().clone() for k, v in policy_cpu.decoder.state_dict().items()}
+    out = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        if d.type == "cpu":
+            policy = policy_cpu
+            ref = UnitLM.from_pretrained(str(ckpt), device=d, torch_dtype="float32")
+        else:
+            policy = UnitLM.from_pretrained(str(ckpt), device=d)
+            policy.decoder.load_state_dict(moved)
+            ref = UnitLM.from_pretrained(str(ckpt), device=d)
+        b = {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
+        lp = sequence_logps(policy.decoder, b)
+        with torch.no_grad():
+            ref_lp = sequence_logps(ref.decoder, b)
+        loss, metrics = dpo_objective(lp, ref_lp, beta)
+        loss.backward()
+        out[name] = dict(loss=loss.item(), metrics={k: v.item() for k, v in metrics.items()},
+                         lp=lp.detach().cpu().numpy(), ref_lp=ref_lp.cpu().numpy(),
+                         grads=grads_to_flat(policy.decoder))
+        del policy, ref
+    card, cpu = out["card"], out["cpu"]
+    lp_err = float(max(np.abs(card["lp"] - cpu["lp"]).max(),
+                       np.abs(card["ref_lp"] - cpu["ref_lp"]).max()))
+    lp_bound = DPO_TOKEN_BOUND * n_completion
+    reward_bound = beta * 2 * lp_bound
+    bounds = {"rewards/chosen": reward_bound, "rewards/rejected": reward_bound,
+              "rewards/margins": 2 * reward_bound}
+    reward_err = {k: abs(card["metrics"][k] - cpu["metrics"][k]) for k in card["metrics"]}
+    half = len(rows)
+    margins = lambda o: beta * ((o["lp"][:half] - o["lp"][half:])
+                                - (o["ref_lp"][:half] - o["ref_lp"][half:]))
+    z_card, z_cpu = margins(card), margins(cpu)
+    clear = np.abs(z_cpu) > 2 * reward_bound        # rows whose sign cannot flip
+    signs_ok = bool((np.sign(z_card[clear]) == np.sign(z_cpu[clear])).all())
+    cos = {}
+    for k, w in cpu["grads"].items():
+        a, b = card["grads"][k].ravel().astype(np.float64), w.ravel().astype(np.float64)
+        cos[k] = float(a @ b / max(np.linalg.norm(a) * np.linalg.norm(b), 1e-30))
+    worst = min(cos, key=cos.get)
+    loss_err = abs(card["loss"] - cpu["loss"])
+    shape = list(batch["input_ids"].shape)
+    print(f"DPO card vs CPU on one {shape} batch (policy: the checkpoint + 5% noise): loss "
+          f"{card['loss']} vs {cpu['loss']} |d|={loss_err:.3e} (<= {TRAIN_LOSS_BOUND}); row "
+          f"log-probs |d|={lp_err:.3e} (<= {lp_bound:.3e}); "
+          + ", ".join(f"{k} {card['metrics'][k]:.6f} vs {cpu['metrics'][k]:.6f}"
+                      + (f" |d|={reward_err[k]:.3e} (<= {bounds[k]:.3e})" if k in bounds else "")
+                      for k in card["metrics"])
+          + f"; margins card {z_card.tolist()} cpu {z_cpu.tolist()}, signs agree where |z| > "
+          f"{2 * reward_bound:.3f}: {signs_ok}; lowest gradient cosine {cos[worst]:.6f} "
+          f"({worst}; floor {GRAD_COSINE_FLOOR}) over {len(cos)} tensors", flush=True)
+    _require(loss_err <= TRAIN_LOSS_BOUND and lp_err <= lp_bound and signs_ok
+             and all(reward_err[k] <= bd for k, bd in bounds.items()),
+             "the card's DPO loss or rewards disagree with the CPU's")
+    _require(cos[worst] >= GRAD_COSINE_FLOOR, f"the DPO gradient of {worst} disagrees with "
+             f"the CPU's (cosine {cos[worst]})")
+    return dict(shape=shape, loss_card=card["loss"], loss_cpu=cpu["loss"], loss_err=loss_err,
+                logp_err=lp_err, logp_bound=lp_bound, reward_err=reward_err,
+                reward_bounds=bounds, margins_card=z_card.tolist(), margins_cpu=z_cpu.tolist(),
+                min_grad_cosine=cos[worst], min_grad_cosine_tensor=worst)
+
+
+def run_dpo(dev, smi: str, work: pathlib.Path, hubert_cfg=None, n_triples: int = 16,
+            triple_seconds=(3.0, (1.0, 2.0)), n_train: int = 64, n_val: int = 16,
+            batch: int = 8, prompt_len: int = 100, completion_len: int = 50,
+            steps: int = 4) -> dict:
+    """Phase 10, in phase 9's work directory (its HuBERT directory, centroids,
+    WAV pairs and checkpoint-2): `cli.extract_features` over the pairs and
+    `cli.prepare_tokens` on its output, each line held to a direct
+    `audio_represent` of the same batch of files;
+    `cli.preference_alignment_feature_extractor` over seeded WAV triples;
+    then `cli.preference_alignment_train` from checkpoint-2 on a seeded Markov
+    preference set (`steps` steps of 2 x `batch` rows, a save a step before
+    the end), a run resumed from that save, and one batch on the card against
+    float32 on the CPU. On the card every DPO step must launch the forward
+    kernel once per layer for the reference and 1 + remat times for the
+    policy, and the backward kernel once per layer; every eval batch the
+    forward twice per layer; on the CPU (a rehearsal at narrow widths) no
+    launch may be counted."""
+    import gc
+
+    import torch
+
+    from slamkit_tpu_torch.cli import extract_features as cli_extract
+    from slamkit_tpu_torch.cli import preference_alignment_feature_extractor as cli_pref_fe
+    from slamkit_tpu_torch.cli import preference_alignment_train as cli_dpo
+    from slamkit_tpu_torch.cli import prepare_tokens as cli_prepare
+    from slamkit_tpu_torch.config import compose
+    from slamkit_tpu_torch.feature_extractor import HUBERT_CONFIG_PRESETS, HubertConfig
+    from slamkit_tpu_torch.models import UnitLM
+    from slamkit_tpu_torch.ops import flash_attention_bwd, flash_attention_fwd
+    from slamkit_tpu_torch.tokeniser import UnitTokeniser, tokeniser_factory
+    from slamkit_tpu_torch.tools.slam_recipe import write_preference_rows
+    from slamkit_tpu_torch.trainer import SLAMDPOTrainer, tokenize_row
+    from slamkit_tpu_torch.utils.audio import load_audio
+
+    on_card = dev.type == "cuda"
+    hubert_cfg = hubert_cfg or HubertConfig(**HUBERT_CONFIG_PRESETS["slprl/mhubert-base-25hz"])
+    fe_args = [f"tokeniser.feature_extractor.pretrained_model={work / 'hubert'}",
+               f"tokeniser.feature_extractor.kmeans_path={work / 'km.npy'}",
+               f"tokeniser.feature_extractor.layer={hubert_cfg.num_hidden_layers - 1}",
+               *([] if on_card else ["device=cpu"])]
+
+    # ---- stage 1 and 2 ------------------------------------------------------
+    wav_dir = work / "sblimp"
+    # phase 6 wrote a tokens.jsonl here, and prepare_tokens appends
+    features, tokens = work / "stage1_features.jsonl", work / "stage2_tokens.jsonl"
+    t0 = time.perf_counter()
+    n_feat = cli_extract.extract_features([f"data_path={wav_dir}", "ext=wav",
+                                           f"out_path={features}", "batch_size=8",
+                                           "num_workers=8", *fe_args])
+    _sync(dev)
+    stage1_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n_tok = cli_prepare.prepare_tokens([f"data_path={features}", f"out_path={tokens}",
+                                        *([] if on_card else ["+device=cpu"])])
+    stage2_s = time.perf_counter() - t0
+    wavs = sorted(str(p) for p in wav_dir.glob("**/*.wav"))
+    feat_rows = [json.loads(line) for line in features.read_text().splitlines()]
+    tok_rows = [json.loads(line) for line in tokens.read_text().splitlines()]
+    names = [r["file_name"] for r in feat_rows]
+    audio = {n: load_audio(n) for n in names}
+    _require(n_feat == n_tok == len(tok_rows) and sorted(names) == wavs and all(
+        len(audio[a]) >= len(audio[b]) for a, b in zip(names, names[1:])),
+        f"stage 1 wrote {len(feat_rows)} and stage 2 {len(tok_rows)} lines for {len(wavs)} "
+        f"WAV files (one line a file, longest first)")
+    # the direct call on the same batches: the CLI's order, 8 files zero-padded
+    # to their longest (HuBERT masks no padding, so a file's units depend on
+    # its batch)
+    tok = tokeniser_factory(compose(str(ROOT / "config"), "extract_features",
+                                    [f"data_path={wav_dir}", "out_path=-", *fe_args]).tokeniser,
+                            device=dev)
+    direct = []
+    for start in range(0, len(names), 8):
+        group = [audio[n] for n in names[start:start + 8]]
+        lens = np.array([len(w) for w in group])
+        padded = np.zeros((len(group), int(lens.max())), np.float32)
+        for i, w in enumerate(group):
+            padded[i, :len(w)] = w
+        direct += tok.audio_represent(padded, lens)
+    stage_ok = all(f["units"] == d["units"] and f["duration"] == d["duration"]
+                   and t["file_name"] == f["file_name"]
+                   and t["audio_repr"] == tok.stringify_representation([d])[0]
+                   for f, t, d in zip(feat_rows, tok_rows, direct))
+    n_units = sum(len(r["units"]) for r in feat_rows)
+    print(f"stage 1 (cli.extract_features ext=wav): {n_feat} files, {n_units} units, "
+          f"{stage1_s:.3f} s; stage 2 (cli.prepare_tokens): {n_tok} lines, {stage2_s:.3f} s; "
+          f"every line equals a direct audio_represent of its batch: {stage_ok}; on {smi}",
+          flush=True)
+    _require(stage_ok, "stage 1 or 2 disagrees with a direct audio_represent")
+    del tok
+
+    # ---- preference stage 1 -------------------------------------------------
+    triples = write_triples(work / "triples", n_triples, prompt_s=triple_seconds[0],
+                            completion_s=triple_seconds[1])
+    t0 = time.perf_counter()
+    n_pref = cli_pref_fe.extract_features([f"data_path={triples}",
+                                           f"out_path={work / 'pref_features.jsonl'}",
+                                           "batch_size=8", *fe_args])
+    _sync(dev)
+    pref_s = time.perf_counter() - t0
+    pref_rows = [json.loads(line) for line in
+                 (work / "pref_features.jsonl").read_text().splitlines()]
+    pref_ok = n_pref == len(pref_rows) == n_triples and all(
+        len(r[k]["units"]) == len(r[k]["duration"]) > 0
+        for r in pref_rows for k in ("prompt", "chosen", "rejected"))
+    print(f"preference stage 1 (cli.preference_alignment_feature_extractor): "
+          f"{len(pref_rows)} triples, units of the first prompts "
+          f"{[len(r['prompt']['units']) for r in pref_rows[:4]]}, {pref_s:.3f} s; rows well "
+          f"formed: {pref_ok}", flush=True)
+    _require(pref_ok, f"the preference extractor wrote {len(pref_rows)} rows, not "
+             f"{n_triples} with prompt, chosen and rejected units")
+
+    # ---- DPO through the command line ---------------------------------------
+    ckpt = work / "cli_run" / "checkpoint-2"
+    write_preference_rows(work / "pref_train.jsonl", n_train, prompt_len, completion_len)
+    write_preference_rows(work / "pref_val.jsonl", n_val, prompt_len, completion_len, seed=1)
+    common = [f"model.pretrained_model={ckpt}", f"data.train_path={work / 'pref_train.jsonl'}",
+              f"data.val_path={work / 'pref_val.jsonl'}", f"training_args.max_steps={steps}",
+              f"training_args.save_steps={steps - 1}",
+              f"training_args.per_device_train_batch_size={batch}",
+              "training_args.logging_steps=1",
+              *([] if on_card else ["training_args.use_cpu=true",
+                                    "model.config_args.torch_dtype=float32"])]
+    seen = {}
+    train_step = SLAMDPOTrainer._train_step
+
+    def timed_step(self, rows):
+        seen["trainer"] = self
+        before = (flash_attention_fwd.launches, flash_attention_bwd.launches)
+        metrics = train_step(self, rows)
+        _sync(dev)
+        seen["marks"].append(time.perf_counter())
+        seen["launches"].append((flash_attention_fwd.launches - before[0],
+                                 flash_attention_bwd.launches - before[1]))
+        seen["tokens"].append(int((self._collate(rows)["segment_ids"] >= 0).sum()))
+        return metrics
+
+    def dpo_run(args):
+        print(f"cli.preference_alignment_train {' '.join(args)}", flush=True)
+        seen.update(marks=[], launches=[], tokens=[])
+        SLAMDPOTrainer._train_step = timed_step
+        flash_attention_fwd.launches = flash_attention_bwd.launches = 0  # the main path's count
+        try:
+            t0 = time.perf_counter()
+            state = cli_dpo.train(args)
+            _sync(dev)
+        finally:
+            SLAMDPOTrainer._train_step = train_step
+        launches = {"flash_fwd": flash_attention_fwd.launches,
+                    "flash_bwd": flash_attention_bwd.launches}
+        tr = seen.pop("trainer")
+        dcfg = tr.model.decoder.cfg
+        return state, time.perf_counter() - t0, launches, int(tr.max_len), (dcfg.remat,
+                                                                             dcfg.num_layers)
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    out = work / "dpo_run"
+    state, dpo_s, launches, max_len, (remat, n_layers) = dpo_run(
+        common + [f"training_args.output_dir={out}"])
+    peak_mem = torch.cuda.max_memory_allocated(dev) if on_card else None
+    logs = [r for r in state.log_history if "loss" in r]
+    losses = [r["loss"] for r in logs]
+    accs = [r["rewards/accuracies"] for r in logs]
+    evals = [r for r in state.log_history if "eval_loss" in r]
+    n_eval_batches = -(-n_val // batch)
+    per_step = (n_layers * (2 + int(remat)), n_layers) if on_card else (0, 0)
+    want = {"flash_fwd": steps * per_step[0] + n_eval_batches * 2 * per_step[1],
+            "flash_bwd": steps * per_step[1]}
+    step_s = [b - a for a, b in zip(seen["marks"], seen["marks"][1:])]
+    tokens_per_s = [n / s for n, s in zip(seen["tokens"][1:], step_s)]
+    shape = [2 * batch, max_len]
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    print(f"cli.preference_alignment_train: {state.global_step} steps of {shape} from "
+          f"{ckpt.name}, remat {remat} ({per_step[0]} flash_fwd and {per_step[1]} flash_bwd "
+          f"a step, {2 * per_step[1]} flash_fwd an eval batch), losses {losses}, "
+          f"rewards/accuracies {accs}, eval {evals[-1] if evals else None}; seconds a step "
+          f"for steps 2-{steps} {step_s} ({tokens_per_s} chosen+rejected non-pad tokens/s), "
+          f"{dpo_s:.1f} s the whole call; launches {launches} (a step {seen['launches']}; "
+          f"expected {want}); max_memory_allocated {peak_mem} B; on {smi}", flush=True)
+    _require(state.global_step == steps and len(losses) == steps and all(
+        math.isfinite(x) for x in losses), f"DPO did not take {steps} finite logged steps")
+    _require(abs(losses[0] - math.log(2)) <= 1e-4, f"DPO step 1's loss {losses[0]} is not "
+             f"ln 2 within 1e-4 (the policy is the reference)")
+    _require(launches == want and all(x == per_step for x in seen["launches"]),
+             f"DPO launched {launches} ({seen['launches']} a step), expected {want}")
+    _require(len(evals) == 1 and math.isfinite(evals[0]["eval_loss"]),
+             "the DPO run's final evaluation is missing")
+    launches_per_step = seen["launches"]
+
+    # resume from the save a step before the end: step `steps` again
+    resumed, _, resumed_launches, _, _ = dpo_run(
+        common + [f"training_args.output_dir={work / 'dpo_resumed'}",
+                  f"cont_training={out / f'checkpoint-{steps - 1}'}"])
+    again = [r["loss"] for r in resumed.log_history if "loss" in r][-1]
+    resume_err = abs(again - losses[-1])
+    want_resumed = {"flash_fwd": per_step[0] + n_eval_batches * 2 * per_step[1],
+                    "flash_bwd": per_step[1]}
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    print(f"DPO resume from checkpoint-{steps - 1}: step {steps} loss {again} against "
+          f"{losses[-1]} |d|={resume_err:.3e} (<= {RESUME_BOUND}); launches "
+          f"{resumed_launches} (expected {want_resumed})", flush=True)
+    _require(resumed.global_step == steps and resume_err <= RESUME_BOUND,
+             "the resumed DPO run does not repeat the uninterrupted run's last step")
+    _require(resumed_launches == want_resumed, f"the resumed DPO run launched "
+             f"{resumed_launches}, expected {want_resumed}")
+
+    export = UnitLM.from_pretrained(str(out / f"checkpoint-{steps}"), device=dev)
+    ll = export.log_likelihood(tokenise_units(_unit_strings(np.random.default_rng(6),
+                                                            [150, 90])))
+    _require(tuple(ll.shape) == (2,) and bool(torch.isfinite(ll).all()),
+             f"the DPO export does not score: {ll}")
+    print(f"DPO export checkpoint-{steps} reloads with UnitLM.from_pretrained, scores "
+          f"{ll.tolist()}", flush=True)
+    del export
+    gc.collect()
+
+    # one [2 x 2, T] batch of the training set, card against CPU
+    with open(work / "pref_train.jsonl") as f:
+        rows = [tokenize_row(json.loads(next(f)), UnitTokeniser(), None, None, False)
+                for _ in range(2)]
+    check = check_dpo_card_vs_cpu(dev, ckpt, rows, beta=0.1)
+    if on_card:
+        torch.cuda.empty_cache()
+    return dict(stage1_files=n_feat, stage1_units=n_units, stage1_seconds=stage1_s,
+                stage2_lines=n_tok, stage2_seconds=stage2_s, pref_rows=len(pref_rows),
+                pref_seconds=pref_s, dpo_shape=shape, remat=remat, losses=losses,
+                rewards_accuracies=accs, eval=evals[-1], step_seconds=step_s,
+                tokens_per_s=tokens_per_s, dpo_seconds=dpo_s, launches=launches,
+                launches_per_step=launches_per_step, expected_launches=want,
+                resumed_launches=resumed_launches, max_memory_allocated=peak_mem,
+                resume_loss=again, resume_err=resume_err, export_ll=ll.tolist(),
+                card_vs_cpu=check)
+
+
 def main() -> int:
     if not (ROOT / "slamkit_tpu_torch" / "ops" / "csrc" / "flash_fwd.cu").is_file():
         print("chip_smoke: run from a checkout of the repository (slamkit_tpu_torch/ "
@@ -1570,6 +1941,8 @@ def main() -> int:
         speech_result = run_speech(dev, smi, pathlib.Path(work))
         torch.cuda.empty_cache()
         cli_result = run_cli(dev, smi, pathlib.Path(work))
+        torch.cuda.empty_cache()
+        dpo_result = run_dpo(dev, smi, pathlib.Path(work))
     speech_runs = speech_result["runs"]
 
     score = next(r for r in kernel_rows if r["name"] == "score_ctx1024")
@@ -1584,7 +1957,7 @@ def main() -> int:
                       "dq_shapes": dq_rows, "probe": probe_result,
                       "slice": slice_result, "training": train_result,
                       "card_vs_cpu": cpu_result, "speech": speech_result,
-                      "cli": cli_result}), flush=True)
+                      "cli": cli_result, "dpo": dpo_result}), flush=True)
     print(nvidia_smi(), flush=True)
 
     print(json.dumps({"kernels": [
@@ -1592,13 +1965,15 @@ def main() -> int:
                    "slamkit_tpu/ops/flash_attention.py:124", ["flash_fwd_kernel"],
                    slice_result["launches"] + train_result["launches"]["flash_fwd"]
                    + sum(r["launches"]["flash_fwd"] for r in speech_runs.values())
-                   + cli_result["train_launches"]["flash_fwd"] + cli_result["eval_launches"],
+                   + cli_result["train_launches"]["flash_fwd"] + cli_result["eval_launches"]
+                   + dpo_result["launches"]["flash_fwd"],
                    max(r["max_abs_err_out"] for r in kernel_rows), score),
         kernel_row("flash_bwd", "slamkit_tpu_torch/ops/csrc/flash_bwd.cu",
                    "slamkit_tpu/ops/flash_attention.py:247",
                    ["flash_bwd_prep_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"],
                    train_result["launches"]["flash_bwd"]
-                   + cli_result["train_launches"]["flash_bwd"],
+                   + cli_result["train_launches"]["flash_bwd"]
+                   + dpo_result["launches"]["flash_bwd"],
                    max(max(r["max_abs_err"].values()) for r in backward_rows), bwd),
         dict(kernel_row("dq_matmul", "slamkit_tpu_torch/ops/csrc/dq_matmul.cu",
                         "slamkit_tpu/ops/quant.py:43", ["dq_gemv_kernel | dq_gemm_kernel"],

@@ -4,7 +4,7 @@ A copy of `slamkit_tpu/tokeniser/unit_tokeniser.py`: `UnitVocab` (:27), the
 vocabulary that `text_tokeniser` holds and whose length `cli/train.py` reads
 for `vocab_size: -1`; the string side
 (`pad_token_batch` :60, `_encode_one` :103, `string_tokenise` :107,
-`prepare_batch` :137) and the audio side over a feature extractor
+`__call__` :121, `prepare_batch` :137) and the audio side over a feature extractor
 (`tokenise` :126, `build_prompt` :129, `decode_sample` :141,
 `get_ignore_tokens` :146, `fe_sample_rate` :151), copied because the JAX
 package's tokeniser module cannot be imported without jax.
@@ -93,7 +93,7 @@ class UnitTokeniser(AudioTokeniser):
         return [self.bos_token_id] + ids + [self.eos_token_id]
 
     def string_tokenise(self, audio_repr: Union[str, List[str]], padding: bool = False,
-                        add_special_tokens: bool = True) -> dict:
+                        add_special_tokens: bool = True, **kwargs) -> dict:
         if isinstance(audio_repr, str):
             audio_repr = [audio_repr]
         if add_special_tokens:
@@ -103,6 +103,13 @@ class UnitTokeniser(AudioTokeniser):
         if padding:
             return pad_token_batch(seqs, self.pad_token_id, "right")
         return {"input_ids": seqs, "attention_mask": [[1] * len(s) for s in seqs]}
+
+    def __call__(self, sample: Union[Dict, str, List[str]], **kwargs) -> dict:
+        """A representation dict, a `<UnN>` string or a list of them to ids
+        (DPO's `tokenize_row` calls it with add_special_tokens=False)."""
+        if isinstance(sample, dict):
+            sample = self.stringify_representation([sample])[0]
+        return self.string_tokenise(sample, **kwargs)
 
     def prompt_tokenise(self, audio_repr: List[str]) -> dict:
         """Prompts as `build_prompt` makes them: no trailing <S>, left pads."""

@@ -5,6 +5,8 @@
     config/training_args/default.yaml + pretrain_training_args.yaml with the
     Slam recipe, cut to a 4-step schedule;
   * `write_markov_corpus(path, n_rows)` — a seeded synthetic tokens.jsonl;
+  * `write_preference_rows(path, n_rows)` — a seeded synthetic preference
+    jsonl for DPO;
   * `nvidia_smi()` — the card's name and power limit, to print beside every
     measurement.
 """
@@ -62,6 +64,32 @@ def write_markov_corpus(path: pathlib.Path, n_rows: int, lengths=(100, 1001),
         for r in range(n_rows):
             f.write(json.dumps({"file_name": f"m{r}", "audio_repr": "".join(
                 f"<Un{u}>" for u in units[r, :lens[r]])}) + "\n")
+
+
+def write_preference_rows(path: pathlib.Path, n_rows: int, prompt_len: int = 100,
+                          completion_len: int = 50, seed: int = 0, n_units: int = 500):
+    """A preference jsonl as scripts/rehearse_dpo.py::gen_rows builds it: the
+    chosen completion continues the prompt through a first-order Markov chain
+    (4 successors a unit), the rejected one is uniform random units; unit
+    dicts as the preference extractor writes them, and prompt_text /
+    chosen_text of distinct words, which the default repetition filter
+    keeps."""
+    rng = np.random.default_rng(seed)
+    succ = rng.integers(0, n_units, size=(n_units, 4))
+    with open(path, "w") as f:
+        for _ in range(n_rows):
+            s = int(rng.integers(0, n_units))
+            seq = [s]
+            for _ in range(prompt_len + completion_len - 1):
+                s = int(succ[s, rng.integers(0, 4)])
+                seq.append(s)
+            parts = {"prompt": seq[:prompt_len], "chosen": seq[prompt_len:],
+                     "rejected": rng.integers(0, n_units, completion_len).tolist()}
+            row = {k: {"units": v, "duration": [1] * len(v)} for k, v in parts.items()}
+            words = rng.choice(100000, 16, replace=False)
+            row.update(prompt_text=" ".join(f"w{w}" for w in words[:8]),
+                       chosen_text=" ".join(f"w{w}" for w in words[8:]))
+            f.write(json.dumps(row) + "\n")
 
 
 def nvidia_smi() -> str:

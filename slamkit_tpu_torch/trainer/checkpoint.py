@@ -115,6 +115,25 @@ def load_state(path: str, device) -> dict:
                       weights_only=True)
 
 
+def train_state(model, optimizer) -> dict:
+    """The live state a checkpoint holds: the decoder's parameters by name,
+    the AdamW moments and step count."""
+    return {"params": dict(model.decoder.named_parameters()), **optimizer.state_dict()}
+
+
+@torch.no_grad()
+def restore(path: str, model, optimizer):
+    """Load `path`'s train state into the model's parameters and the
+    optimizer, in place."""
+    state = load_state(path, model.device)
+    params = dict(model.decoder.named_parameters())
+    if sorted(state["params"]) != sorted(params):
+        raise ValueError(f"{path} holds other parameters than this model")
+    for name, p in params.items():
+        p.copy_(state["params"][name])
+    optimizer.load_state_dict(state)
+
+
 def save_host_artifacts(path: str, trainer_json: dict, model, train_state: dict):
     """The model export from the state's parameters, then trainer_state.json
     by rename, last: the marker never points at a half-written export. Runs

@@ -184,12 +184,6 @@ class SLAMTrainer:
     # ------------------------------------------------------------------ #
     # checkpointing
     # ------------------------------------------------------------------ #
-    def train_state(self) -> dict:
-        """The live state a checkpoint holds: parameters by name, the AdamW
-        moments and step count."""
-        return {"params": dict(self.model.decoder.named_parameters()),
-                **self.optimizer.state_dict()}
-
     def save_checkpoint(self):
         path = os.path.abspath(checkpoint.ckpt_dir(self.args["output_dir"],
                                                    self.state.global_step))
@@ -207,7 +201,7 @@ class SLAMTrainer:
             "num_input_tokens_seen": self.state.num_input_tokens_seen,
             "log_history": self.state.log_history[-50:]}
         self._saver.wait()
-        state = self.train_state()
+        state = checkpoint.train_state(self.model, self.optimizer)
         if self._async_save:
             state = checkpoint.snapshot(state)
         output_dir, limit = self.args["output_dir"], self.args.get("save_total_limit", None)
@@ -223,7 +217,6 @@ class SLAMTrainer:
         else:
             write()
 
-    @torch.no_grad()
     def load_checkpoint(self, path: str):
         self._saver.wait()   # never restore past an in-flight save
         with open(os.path.join(path, "trainer_state.json")) as f:
@@ -237,13 +230,7 @@ class SLAMTrainer:
                 f"fast-forward would replay a different batch stream (skipped or "
                 f"duplicated data). Set data.packing_strategy={saved_strategy} to "
                 f"continue this run.")
-        state = checkpoint.load_state(path, self.device)
-        params = dict(self.model.decoder.named_parameters())
-        if sorted(state["params"]) != sorted(params):
-            raise ValueError(f"{path} holds other parameters than this model")
-        for name, p in params.items():
-            p.copy_(state["params"][name])
-        self.optimizer.load_state_dict(state)
+        checkpoint.restore(path, self.model, self.optimizer)
         self.state.global_step = st["global_step"]
         self.state.epoch = st["epoch"]
         self.state.num_input_tokens_seen = st["num_input_tokens_seen"]

@@ -1,9 +1,11 @@
 """Likelihood and loss helpers (counterpart of
 `slamkit_tpu/utils/calculation_utils.py` `token_nll`, `calc_nll` and
-`cross_entropy_loss`)."""
+`cross_entropy_loss`), and copies of its text-repetition measures
+`calc_ngram` and `calc_auto_bleu` (:58-72), which the DPO data's repetition
+filter reads."""
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import List, Optional, Union
 
 import torch
 
@@ -49,3 +51,19 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     if num_items_in_batch is not None:
         return nll / num_items_in_batch
     return nll / valid.sum().clamp(min=1)
+
+
+def calc_ngram(text: str, tokenizer, n: int) -> List[str]:
+    tokens = tokenizer.tokenize(text) if hasattr(tokenizer, "tokenize") else text.split()
+    return [" ".join(tokens[i:i + n]) for i in range(len(tokens) - n + 1)]
+
+
+def calc_auto_bleu(text: str, tokenizer, n: int) -> float:
+    """Fraction of n-grams repeated elsewhere in the same text."""
+    ngrams = calc_ngram(text, tokenizer, n)
+    if len(ngrams) == 0:
+        return 0
+    counts = {}
+    for g in ngrams:
+        counts[g] = counts.get(g, 0) + 1
+    return sum(1 for g in ngrams if counts[g] > 1) / len(ngrams)

@@ -63,6 +63,8 @@ def _segments(kind, b, t, seed=0):
             pass
         elif kind == "pad_tail":  # one segment, then a -1 tail
             seg[r, t - int(rng.integers(1, max(2, t // 3))):] = -1
+        elif kind == "dpo":  # DPO's rows: one segment of 110..T tokens, a -1 tail
+            seg[r, int(rng.integers(min(110, t), t + 1)):] = -1
         else:  # left padded
             seg[r, :int(rng.integers(0, t))] = -1
     return torch.from_numpy(seg)
@@ -116,6 +118,17 @@ def test_kernel_matches_plain(dev, b, h, hkv, t, d, causal, kind):
 @pytest.mark.parametrize("kind", ["segments16", "one", "pad_tail", "left_padded"])
 def test_kernel_matches_plain_at_segment_layouts(dev, b, h, hkv, t, d, causal, kind):
     _compare(dev, b, h, hkv, t, d, causal, kind)
+
+
+# DPO's batch at the Slam shape: 2 x 8 rows (chosen over rejected) of prompt
+# 101 + completion 51 = 152 tokens, each one segment and a -1 tail
+@pytest.mark.cuda
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+def test_kernels_match_plain_at_dpo_rows(dev, direction):
+    if direction == "forward":
+        _compare(dev, 16, 14, 2, 152, 64, True, "dpo")
+    else:
+        _compare_bwd(dev, 16, 14, 2, 152, 64, True, "dpo")
 
 
 @pytest.mark.cuda

@@ -2,8 +2,10 @@
 card's host has none of them): serving, training two steps with a save,
 speech continuation dense and int8, the benchmark tools, and the command
 line (composing train.yaml with model=slam, two training steps through
-`cli.train`, one sBLIMP pair through `cli.eval`); and `chip_smoke.py`
-refuses to run without a card: no CPU fallback can pass for a GPU run."""
+`cli.train`, one sBLIMP pair through `cli.eval`, then `cli.extract_features`,
+`cli.prepare_tokens`, the preference extractor and two DPO steps through
+`cli.preference_alignment_train`); and `chip_smoke.py` refuses to run
+without a card: no CPU fallback can pass for a GPU run."""
 import json
 import os
 import pathlib
@@ -145,6 +147,37 @@ with tempfile.TemporaryDirectory() as d:
                               "tokeniser.feature_extractor.layer=1", "device=cpu",
                               "num_workers=1"])
     assert res["sBLIMP"] in (0.0, 0.5, 1.0), res
+
+    # data preparation and DPO: stage 1 and 2 over the pair, the preference
+    # extractor over one triple, two DPO steps from the checkpoint
+    from slamkit_tpu_torch.cli import extract_features as cli_extract
+    from slamkit_tpu_torch.cli import preference_alignment_feature_extractor as cli_pref_fe
+    from slamkit_tpu_torch.cli import preference_alignment_train as cli_dpo
+    from slamkit_tpu_torch.cli import prepare_tokens as cli_prepare
+    from slamkit_tpu_torch.tools.slam_recipe import write_preference_rows
+
+    fe = [f"tokeniser.feature_extractor.pretrained_model={d}/hubert",
+          f"tokeniser.feature_extractor.kmeans_path={d}/km.npy",
+          "tokeniser.feature_extractor.layer=1", "device=cpu"]
+    assert cli_extract.extract_features([f"data_path={d}/pair", "ext=wav", "num_workers=1",
+                                         f"out_path={d}/features.jsonl", *fe]) == 2
+    assert cli_prepare.prepare_tokens([f"data_path={d}/features.jsonl", "+device=cpu",
+                                       f"out_path={d}/tokens.jsonl", "n_threads=2"]) == 2
+    wavs = [os.path.join(d, "pair", f"{i}+x.wav") for i in range(2)]
+    with open(os.path.join(d, "triples.jsonl"), "w") as f:
+        f.write(json.dumps({"prompt_path": wavs[0], "chosen_path": wavs[1],
+                            "rejected_path": wavs[0]}) + "\n")
+    assert cli_pref_fe.extract_features([f"data_path={d}/triples.jsonl",
+                                         f"out_path={d}/pref_features.jsonl", *fe]) == 1
+    write_preference_rows(os.path.join(d, "pref.jsonl"), 4, prompt_len=8, completion_len=4)
+    state = cli_dpo.train([f"model.pretrained_model={d}/run/checkpoint-2",
+                           f"data.train_path={d}/pref.jsonl", f"data.val_path={d}/pref.jsonl",
+                           f"training_args.output_dir={d}/dpo", "training_args.max_steps=2",
+                           "training_args.per_device_train_batch_size=2",
+                           "training_args.logging_steps=1", "training_args.use_cpu=true",
+                           "model.config_args.torch_dtype=float32"])
+    assert state.global_step == 2, state
+    assert os.path.isfile(os.path.join(d, "dpo", "checkpoint-2", "params.npz"))
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 print("LOADED", bad)
 """
@@ -165,9 +198,16 @@ def test_port_imports_and_runs_without_jax():
 
 def test_port_sources_never_import_jax():
     """No import of jax, the JAX package, PyYAML, transformers or safetensors
-    anywhere in the port or in chip_smoke.py."""
+    anywhere in the port or in chip_smoke.py; the scan covers every module,
+    the DPO and data-preparation ones included."""
     banned = ("jax", "slamkit_tpu", "yaml", "transformers", "safetensors")
-    for path in [*(ROOT / "slamkit_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py"]:
+    paths = [*(ROOT / "slamkit_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py"]
+    scanned = {str(p.relative_to(ROOT)) for p in paths}
+    assert {f"slamkit_tpu_torch/{m}.py" for m in (
+        "cli/extract_features", "cli/prepare_tokens", "cli/preference_alignment_train",
+        "cli/preference_alignment_feature_extractor", "trainer/slam_dpo_trainer",
+        "data/preference", "data/prepare", "utils/calculation_utils")} <= scanned
+    for path in paths:
         for line in path.read_text().splitlines():
             words = line.split()
             assert not (words[:1] in (["import"], ["from"]) and len(words) > 1
@@ -336,6 +376,42 @@ def test_chip_smoke_cli_rehearsal_on_cpu(chip_smoke, tmp_path, capsys):
     assert len(result["losses"]) == 2 and result["trace_bytes"] > 0
     json.dumps(result)
     assert "cli.eval: sBLIMP" in capsys.readouterr().out
+
+
+def test_chip_smoke_dpo_rehearsal_on_cpu(chip_smoke, tmp_path, capsys):
+    """The smoke's phase 10 end to end on the CPU at narrow widths, in phase
+    9's work directory (phase 9 at its rehearsal's widths first): stage 1
+    and 2 held to direct audio_represent calls, the preference extractor,
+    4 DPO steps from phase 9's checkpoint with a step-1 loss of ln 2, the
+    resumed run repeating step 4 exactly, the export, and the card-vs-CPU
+    check (here CPU against CPU, so exact); no kernel launch is counted."""
+    import torch
+
+    from slamkit_tpu_torch.feature_extractor import HubertConfig
+
+    narrow = ["model.config_args.torch_dtype=float32"] + [
+        f"+model.config_args.{k}={v}" for k, v in dict(
+            num_hidden_layers=2, hidden_size=64, num_attention_heads=4, num_key_value_heads=2,
+            head_dim=16, intermediate_size=128).items()]
+    hubert_cfg = HubertConfig(conv_dim=(32,) * 3, conv_kernel=(10, 3, 2), conv_stride=(5, 2, 2),
+                              hidden_size=32, num_hidden_layers=3, num_attention_heads=2,
+                              intermediate_size=64, num_conv_pos_embeddings=8,
+                              num_conv_pos_embedding_groups=4)
+    cpu = torch.device("cpu")
+    chip_smoke.run_cli(cpu, "cpu rehearsal", tmp_path, model_overrides=narrow,
+                       hubert_cfg=hubert_cfg, n_rows=48, lengths=(10, 60), context=64, batch=2,
+                       accum=2, n_pairs=4, seconds=(0.2, 0.4))
+    result = chip_smoke.run_dpo(cpu, "cpu rehearsal", tmp_path, hubert_cfg=hubert_cfg,
+                                n_triples=3, triple_seconds=(0.4, (0.2, 0.3)), n_train=8,
+                                n_val=3, batch=2, prompt_len=20, completion_len=10)
+    assert result["stage1_files"] == result["stage2_lines"] == 8 and result["pref_rows"] == 3
+    assert result["dpo_shape"] == [4, 32] and result["remat"]
+    assert result["launches"] == result["resumed_launches"] == {"flash_fwd": 0, "flash_bwd": 0}
+    assert abs(result["losses"][0] - np.log(2)) < 1e-6 and result["resume_err"] == 0.0
+    check = result["card_vs_cpu"]
+    assert check["loss_err"] == 0.0 and check["min_grad_cosine"] > 0.9999
+    json.dumps(result)
+    assert "DPO resume from checkpoint-3" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("causal", [True, False])
