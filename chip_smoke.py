@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, speech-continuation and DPO
-slices and its command line once on an NVIDIA GPU.
+"""Drive the PyTorch port's serving, training, speech-continuation, DPO and
+interleaved speech-text (SIMS) slices and its command line once on an
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -95,9 +96,31 @@ the sm_90a kernels). Phases, in order; any failure exits non-zero:
                resumed from that save must repeat step 4; the export reloads
                and scores; one [2 x 2, 152] batch in bf16 on the card against
                float32 on the CPU (loss, rewards, every gradient).
+  11. SIMS   — in phase 9's work directory (its HuBERT directory and
+               centroids, phase 10's features.jsonl, phase 8's CodeHiFiGAN
+               widths): a base directory with a Qwen2.5-0.5B config.json and
+               a WordLevel tokenizer.json of Qwen2.5's 151665 entries (plain
+               JSON, no tokenizers package), so the interleaved vocabulary is
+               152167 ids; seeded alignment JSONs for the features, then
+               `cli.prepare_tokens tokeniser=interleaved_hubert_25
+               meta_path=... +tokeniser.params.interleave_seed=0`, every line
+               held to a direct `stringify_representation(mode="train")`;
+               seeded Markov text-only, interleaved and speech-only corpora
+               (stage 2's rows join the interleaved one); `cli.train
+               --config-name train_inter_scale` at context 2048, 2 steps of
+               4 x 2 with remat and bf16 moments and a save at step 2; then
+               `cli.eval metric=cm_ms_tsc` (TEXT prompt, SPEECH
+               continuations) over 16 seeded triples, 4 triples' scores held
+               against float32 on the CPU; `cli.eval metric=cm_generate`
+               TEXT->SPEECH through vocoder=vocoder_hubert_25 (4 prompts, 40
+               new tokens, WAVs written) and SPEECH->TEXT on 4 of phase 9's
+               WAVs (.txt written), every new token inside its modality.
 
 Phases 3 and 3b also hold the kernels at DPO's shape (`dpo_T152`: [16, 14/2,
-152, 64], one segment of 110-152 tokens a row and a -1 tail).
+152, 64], one segment of 110-152 tokens a row and a -1 tail) and at SIMS's
+(`sims_T2048`: [4, 14/2, 2048, 64], rows packed from segments of mixed
+length, stage 2's short interleaved rows among text and speech rows of
+300-700 tokens, and a -1 tail).
 
 Each main path runs with the launch counters zeroed just before it and read
 just after: every scoring forward and every generation prefill launches the
@@ -110,7 +133,9 @@ per layer (phase 8); the command line's training launches them as phase 6
 does, and its scoring the forward once per layer a call (phase 9); every
 DPO step launches the forward once per layer for the reference and 1 +
 remat times for the policy, and the backward once per layer, and every DPO
-evaluation batch the forward twice per layer (phase 10); the probe's entry
+evaluation batch the forward twice per layer (phase 10); SIMS training
+launches them as phase 6 does, its scoring the forward once per layer a
+call and its generation once per layer a prefill (phase 11); the probe's entry
 point launches its kernel 7 times a shape (phase 3d). A flash backward call
 counts one, though it launches three kernels (the delta / segment-range
 pre-pass, dK/dV, dQ). The last lines are a JSON object with every measurement, the card's name and power limit, a
@@ -160,6 +185,11 @@ BWD_REL_BOUND = 1e-2
 BWD_ROW_RTOL, BWD_ROW_ATOL = 2e-2, 1e-3
 # bf16 card vs float32 CPU on the same weights, mean NLL per row (~6.2 nats)
 NLL_BOUND = 2e-2
+# phase 11: cm_ms_tsc's mean NLL, bf16 card vs float32 CPU on the same
+# checkpoint. A random model over the 152167-id interleaved vocabulary sits
+# near ln 152167 = 11.9 nats a token, twice phase 9's ~6.2, so the bound is
+# twice NLL_BOUND
+SIMS_LL_BOUND = 4e-2
 # training: the resumed run's step-4 loss against the uninterrupted run's.
 # Both runs execute the same deterministic kernels (no atomics in the flash
 # backward, the same cuBLAS calls) on the same restored state and the same
@@ -299,6 +329,26 @@ def _packed_segments(rng, b, t, n_seg):
         cuts = np.sort(rng.choice(np.arange(1, used), n_seg - 1, replace=False))
         for s, (lo, hi) in enumerate(zip(np.r_[0, cuts], np.r_[cuts, used])):
             seg[r, lo:hi] = s
+    return seg
+
+
+def _mixed_segments(rng, b, t):
+    """[b, t] ids as best-fit packing of phase 11's corpora lays them out:
+    each row holds segments of mixed length (stage 2's interleaved rows of
+    40-160 tokens among text and speech rows of 300-700), the last cut
+    short, and ends in a -1 tail of 1-39 tokens."""
+    seg = np.full((b, t), -1, np.int32)
+    for r in range(b):
+        col, s = 0, 0
+        while True:
+            n = int(rng.integers(40, 160) if rng.random() < 0.4 else rng.integers(300, 700))
+            if col + n > t:   # a last, shorter segment, then a tail of 1-39
+                n = t - col - int(rng.integers(1, 40))
+                if n > 0:
+                    seg[r, col:col + n] = s
+                break
+            seg[r, col:col + n] = s
+            col, s = col + n, s + 1
     return seg
 
 
@@ -474,6 +524,7 @@ def check_kernels(dev) -> list[dict]:
         ("noncausal_T1000", (2, 14, 2, 1000, 64), False, _packed_segments(rng, 2, 1000, 4)),
         ("dead_rows", (2, 14, 2, 256, 64), True, None),
         ("dpo_T152", (16, 14, 2, 152, 64), True, _right_padded(rng, 16, 152, lo=110)),
+        ("sims_T2048", (4, 14, 2, 2048, 64), True, _mixed_segments(rng, 4, 2048)),
     ]
     results = []
     for name, (b, h, hkv, t, d), causal, seg in cases:
@@ -585,7 +636,8 @@ def check_backward_kernels(dev) -> list[dict]:
     training shapes: the Slam batch (8 packed segments and a -1 tail), a
     ragged T, d = 128 (config/model/slam_dh128.yaml), the SIMS context 2048
     (config/train_inter_scale.yaml), dead rows, and DPO's [2 x 8, 152] batch
-    (one segment of 110-152 tokens a row, then a -1 tail)."""
+    (one segment of 110-152 tokens a row, then a -1 tail), and SIMS's rows
+    packed from segments of mixed length."""
     import torch
 
     from slamkit_tpu_torch.ops import flash_attention_bwd, flash_attention_fwd, mha_reference_bwd
@@ -598,6 +650,7 @@ def check_backward_kernels(dev) -> list[dict]:
         ("sims_ctx2048", (4, 14, 2, 2048, 64), _packed_segments(rng, 4, 2048, 8)),
         ("dead_rows", (2, 14, 2, 256, 64), None),
         ("dpo_T152", (16, 14, 2, 152, 64), _right_padded(rng, 16, 152, lo=110)),
+        ("sims_T2048", (4, 14, 2, 2048, 64), _mixed_segments(rng, 4, 2048)),
     ]
     results = []
     for name, (b, h, hkv, t, d), seg in cases:
@@ -1884,6 +1937,286 @@ def run_dpo(dev, smi: str, work: pathlib.Path, hubert_cfg=None, n_triples: int =
                 card_vs_cpu=check)
 
 
+def run_sims(dev, smi: str, work: pathlib.Path, tiny: bool = False, n_entries=None,
+             hubert_cfg=None, voc_cfg=None, n_rows: int = 48, lengths=(300, 700),
+             context: int = 2048, batch: int = 4, accum: int = 2, steps: int = 2,
+             n_triples: int = 16, triple_seconds=(1.0, 2.0), n_prompts: int = 4,
+             max_new_tokens: int = 40) -> dict:
+    """Phase 11, in phase 9's work directory (its HuBERT directory, centroids
+    and WAV pairs, phase 10's features.jsonl): the SIMS recipe through the
+    port's command line. Stage 2 with the interleaving tokeniser and seeded
+    alignments, held line by line to a direct call; `cli.train --config-name
+    train_inter_scale` over a text-only, an interleaved and a speech-only
+    corpus (`steps` steps of `batch` x `accum` at `context`, a save at the
+    last); `cli.eval metric=cm_ms_tsc` on the checkpoint, a few scores held
+    against float32 on the CPU; `cli.eval metric=cm_generate` TEXT->SPEECH
+    with the vocoder and SPEECH->TEXT. On the card every training microbatch
+    must launch the forward kernel twice per layer (remat) and the backward
+    once, every scoring call and every generation prefill the forward once
+    per layer; on the CPU (a rehearsal at narrow widths, `tiny`) no launch
+    may be counted."""
+    import gc
+
+    import torch
+
+    from slamkit_tpu_torch.cli import eval as cli_eval
+    from slamkit_tpu_torch.cli import prepare_tokens as cli_prepare
+    from slamkit_tpu_torch.cli import train as cli_train
+    from slamkit_tpu_torch.config import compose
+    from slamkit_tpu_torch.feature_extractor import HUBERT_CONFIG_PRESETS, HubertConfig
+    from slamkit_tpu_torch.models import UnitLM
+    from slamkit_tpu_torch.ops import flash_attention_bwd, flash_attention_fwd
+    from slamkit_tpu_torch.tokeniser import tokeniser_factory
+    from slamkit_tpu_torch.tools import sims_recipe
+    from slamkit_tpu_torch.trainer import SLAMTrainer
+    from slamkit_tpu_torch.vocoder.checkpoint_manager import CHECKPOINT_MANAGER
+
+    on_card = dev.type == "cuda"
+    root = work / "sims"
+    base = sims_recipe.write_base_dir(root, tiny=tiny,
+                                      n_entries=n_entries or sims_recipe.QWEN25_VOCAB)
+    hubert_cfg = hubert_cfg or HubertConfig(**HUBERT_CONFIG_PRESETS["slprl/mhubert-base-25hz"])
+    tok_args = ["tokeniser=interleaved_hubert_25", f"tokeniser.params.text_tokeniser_path={base}"]
+    seed_arg = "+tokeniser.params.interleave_seed=0"
+
+    # ---- stage 2 with alignments --------------------------------------------
+    tok = tokeniser_factory(compose(str(ROOT / "config"), "prepare_tokens",
+                                    [*tok_args, seed_arg, "data_path=-", "out_path=-"]).tokeniser,
+                            device=dev)
+    vocab = len(tok.text_tokeniser)
+    features = work / "stage1_features.jsonl"
+    align = sims_recipe.write_alignments(root / "align", features,
+                                         tok.speech_fe.get_unit_duration())
+    stage2 = root / "inter_stage2.jsonl"
+    t0 = time.perf_counter()
+    n_lines = cli_prepare.prepare_tokens([f"data_path={features}", f"out_path={stage2}",
+                                          *tok_args, f"meta_path={align}", seed_arg,
+                                          *([] if on_card else ["+device=cpu"])])
+    stage2_s = time.perf_counter() - t0
+    feat_rows = [json.loads(line) for line in features.read_text().splitlines()]
+    tok_rows = [json.loads(line) for line in stage2.read_text().splitlines()]
+    direct = []
+    for row in feat_rows:
+        stem = pathlib.Path(row["file_name"]).stem
+        meta = json.loads((pathlib.Path(align) / f"{stem}.json").read_text())
+        direct.append(tok.stringify_representation([{**row, **meta}], mode="train")[0])
+    stage_ok = n_lines == len(feat_rows) == len(tok_rows) and all(
+        t["file_name"] == f["file_name"] and t["audio_repr"] == d
+        for f, t, d in zip(feat_rows, tok_rows, direct))
+    mixed = sum("<speech>" in d and "<text>" in d for d in direct)
+    print(f"SIMS stage 2 (cli.prepare_tokens tokeniser=interleaved_hubert_25 meta_path): "
+          f"{n_lines} lines in {stage2_s:.3f} s, {mixed} of them mixing speech and text; "
+          f"every line equals a direct stringify_representation(mode='train'): {stage_ok}; "
+          f"vocabulary {vocab} ids", flush=True)
+    _require(stage_ok and mixed > 0, "SIMS stage 2 disagrees with a direct "
+             "stringify_representation, or interleaves nothing")
+
+    # ---- cli.train --config-name train_inter_scale --------------------------
+    text, _, speech = sims_recipe.write_corpora(root, n_rows, lengths)
+    out = root / "run"
+    train_args = ["--config-name", "train_inter_scale",
+                  f"model.config_args.base_model_name={base}",
+                  "model.config_args.twist_init=false",
+                  f"data.train_path=[{text},{root / 'inter*.jsonl'},{speech}]",
+                  "data.val_path=null", f"model.context_len={context}", "logger=print",
+                  f"training_args.output_dir={out}", f"training_args.max_steps={steps}",
+                  f"training_args.per_device_train_batch_size={batch}",
+                  f"training_args.gradient_accumulation_steps={accum}",
+                  f"training_args.save_steps={steps}", "training_args.logging_steps=1",
+                  "training_args.remat=true", "training_args.optim_state_dtype=bfloat16",
+                  *([] if on_card else ["training_args.use_cpu=true",
+                                        "model.config_args.torch_dtype=float32"])]
+    print(f"cli.train {' '.join(train_args)}", flush=True)
+    seen = dict(marks=[], launches=[], tokens=[])
+    train_step = SLAMTrainer._train_step
+
+    def timed_step(self, group):
+        seen["trainer"] = self
+        before = (flash_attention_fwd.launches, flash_attention_bwd.launches)
+        result = train_step(self, group)
+        _sync(dev)
+        seen["marks"].append(time.perf_counter())
+        seen["launches"].append((flash_attention_fwd.launches - before[0],
+                                 flash_attention_bwd.launches - before[1]))
+        seen["tokens"].append(int(sum((b["segment_ids"] >= 0).sum() for b in group)))
+        return result
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    SLAMTrainer._train_step = timed_step
+    flash_attention_fwd.launches = flash_attention_bwd.launches = 0    # the main path's count
+    try:
+        t0 = time.perf_counter()
+        seen["start"] = t0
+        state = cli_train.train(train_args)
+        _sync(dev)
+        train_s = time.perf_counter() - t0
+    finally:
+        SLAMTrainer._train_step = train_step
+    train_launches = {"flash_fwd": flash_attention_fwd.launches,
+                      "flash_bwd": flash_attention_bwd.launches}
+    peak_mem = torch.cuda.max_memory_allocated(dev) if on_card else None
+    trainer = seen.pop("trainer")
+    dcfg = trainer.model.decoder.cfg
+    n_layers, n_params = dcfg.num_layers, sum(p.numel() for p in trainer.model.parameters())
+    n_rows_mixed = len(trainer.train_batcher.ds)
+    del trainer
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    losses = [r["loss"] for r in state.log_history if "loss" in r]
+    first_s = seen["marks"][0] - seen["start"]
+    step_s = [b - a for a, b in zip(seen["marks"], seen["marks"][1:])]
+    tokens_per_s = [n / x for n, x in zip(seen["tokens"][1:], step_s)]
+    per_step = (2 * n_layers * accum, n_layers * accum) if on_card else (0, 0)
+    want = {"flash_fwd": steps * per_step[0], "flash_bwd": steps * per_step[1]}
+    print(f"cli.train --config-name train_inter_scale: {state.global_step} steps of {batch} x "
+          f"{accum} at {context} over {n_rows_mixed} mixed rows, vocab {dcfg.vocab_size}, "
+          f"{n_params} parameters, remat {dcfg.remat}; losses {losses}; {first_s:.3f} s from "
+          f"the call's start to the end of step 1 (set-up included), seconds a step for steps "
+          f"2-{steps} {step_s}, non-pad tokens a step {seen['tokens']}, non-pad tokens/s for "
+          f"steps 2-{steps} {tokens_per_s}; {train_s:.1f} s the whole call; launches "
+          f"{train_launches} "
+          f"(a step {seen['launches']}; predicted {want}: {2 * n_layers} flash_fwd and "
+          f"{n_layers} flash_bwd a microbatch); max_memory_allocated {peak_mem} B; on {smi}",
+          flush=True)
+    _require(state.global_step == steps and len(losses) == steps
+             and all(math.isfinite(x) for x in losses), f"SIMS training did not take {steps} "
+             f"finite logged steps: {losses}")
+    _require(dcfg.vocab_size == vocab, f"vocab_size -1 resolved to {dcfg.vocab_size}, not the "
+             f"interleaved vocabulary's {vocab}")
+    _require(train_launches == want and all(x == per_step for x in seen["launches"]),
+             f"SIMS training launched {train_launches} ({seen['launches']} a step), "
+             f"predicted {want}")
+    ckpt = out / f"checkpoint-{steps}"
+
+    # ---- cli.eval metric=cm_ms_tsc ----------------------------------------------
+    fe_args = [f"tokeniser.feature_extractor.pretrained_model={work / 'hubert'}",
+               f"tokeniser.feature_extractor.kmeans_path={work / 'km.npy'}",
+               f"tokeniser.feature_extractor.layer={hubert_cfg.num_hidden_layers - 1}"]
+    common = [f"model.pretrained_model={ckpt}", *tok_args, *fe_args, "batch_size=8",
+              "num_workers=8",
+              *([] if on_card else ["device=cpu", "model.config_args.torch_dtype=float32"])]
+    triples = sims_recipe.write_cm_triples(root / "cm", n_triples, seconds=triple_seconds)
+    calls = []
+    score = UnitLM.log_likelihood
+
+    def recorded(self, tokens, mean_nll=True, ignore_tokens=None):
+        ll = score(self, tokens, mean_nll, ignore_tokens)
+        calls.append((np.array(tokens), ll.float().cpu().numpy(), ignore_tokens))
+        return ll
+
+    UnitLM.log_likelihood = recorded
+    flash_attention_fwd.launches = 0                                    # the main path's count
+    try:
+        t0 = time.perf_counter()
+        res = cli_eval.eval_main(common + ["metric=cm_ms_tsc", f"metric.data_path={triples}",
+                                           "metric.subfolder=false",
+                                           "metric.prompt_modality=TEXT",
+                                           "metric.cont_modality=SPEECH"])
+        cm_s = time.perf_counter() - t0
+    finally:
+        UnitLM.log_likelihood = score
+    cm_launches, storycloze = flash_attention_fwd.launches, res["StoryCloze"]
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    n_scored = sum(len(ll) for _, ll, _ in calls)
+    widths = [c[0].shape[1] for c in calls]
+    print(f"cli.eval metric=cm_ms_tsc: StoryCloze {res['StoryCloze']} over {n_triples} triples "
+          f"(TEXT prompt, SPEECH continuations), {len(calls)} scoring calls of widths {widths}, "
+          f"{cm_s:.1f} s with the loads, launches {cm_launches} on {smi}", flush=True)
+    _require(n_scored == 2 * n_triples and 0.0 <= res["StoryCloze"] <= 1.0 and all(
+        np.isfinite(ll).all() for _, ll, _ in calls), f"cm_ms_tsc scored {n_scored} sides, not "
+             f"{2 * n_triples} finite ones: {res}")
+    _require(cm_launches == (len(calls) * n_layers if on_card else 0),
+             f"cm_ms_tsc launched the flash forward {cm_launches} times, not "
+             f"{len(calls) * n_layers if on_card else 0}")
+    tokens, card_ll, ignore = calls[0][0][:4], calls[0][1][:4], calls[0][2]
+    cpu_lm = UnitLM.from_pretrained(str(ckpt), device="cpu", torch_dtype="float32")
+    cpu_ll = cpu_lm.log_likelihood(tokens, ignore_tokens=ignore).numpy()
+    del cpu_lm
+    gc.collect()
+    ll_err = float(np.abs(card_ll - cpu_ll).max())
+    print(f"cm_ms_tsc card vs float32 CPU on {len(tokens)} triples' correct sides: "
+          f"{card_ll.tolist()} vs {cpu_ll.tolist()} |d|={ll_err:.3e} (<= {SIMS_LL_BOUND})",
+          flush=True)
+    _require(ll_err <= SIMS_LL_BOUND, "cm_ms_tsc's scores on the card disagree with the "
+             "float32 CPU run")
+
+    # ---- cli.eval metric=cm_generate, TEXT->SPEECH and SPEECH->TEXT --------------
+    textless_root = CHECKPOINT_MANAGER.disk_root
+    CHECKPOINT_MANAGER.set_root(sims_recipe.write_textless_vocoder(root / "textless",
+                                                                   voc_cfg or CODEHIFIGAN_CFG))
+    prompts = sims_recipe.write_text_prompts(root / "prompts", n_prompts)
+    gen = {}
+    generate = UnitLM.generate
+
+    def recorded_generate(self, input_ids, *args, **kwargs):
+        ids = generate(self, input_ids, *args, **kwargs)
+        gen["ids"].append(ids.cpu().numpy())
+        return ids
+
+    for prompt_mod, cont_mod, data in (("TEXT", "SPEECH", f"{prompts}/*.txt"),
+                                       ("SPEECH", "TEXT", f"{work / 'sblimp'}/*.wav")):
+        folder = root / f"generated_{cont_mod.lower()}"
+        args = common + ["metric=cm_generate", "vocoder=vocoder_hubert_25",
+                         f"metric.data_path={data}", f"metric.prompt_modality={prompt_mod}",
+                         f"metric.cont_modality={cont_mod}", f"metric.num_files={n_prompts}",
+                         f"metric.generate_kwargs.max_new_tokens={max_new_tokens}",
+                         "+metric.generate_kwargs.seed=0", "metric.ext=wav",
+                         f"metric.out_path={folder}"]
+        gen.update(ids=[])
+        UnitLM.generate = recorded_generate
+        flash_attention_fwd.launches = 0                                # the main path's count
+        try:
+            t0 = time.perf_counter()
+            outputs = cli_eval.eval_main(args)["generate"]
+            gen_s = time.perf_counter() - t0
+        finally:
+            UnitLM.generate = generate
+        launches = flash_attention_fwd.launches
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        new = np.concatenate([ids[:, -max_new_tokens:] for ids in gen["ids"]])
+        banned = np.asarray(tok.get_ignore_tokens(cont_mod))
+        in_modality = bool((~np.isin(new, banned) | (new == tok.pad_token_id)).all())
+        written = sorted(p.name for p in folder.iterdir()) if folder.is_dir() else []
+        if cont_mod == "SPEECH":
+            made = sum(np.size(w) > 0 for w in outputs)
+            files_ok = len(written) == made > 0 and all(n.endswith(".wav") for n in written)
+            sizes = [int(np.size(w)) for w in outputs]
+        else:
+            files_ok = len(written) == len(outputs) == n_prompts and all(
+                n.endswith(".txt") for n in written)
+            sizes = [len(t.split()) for t in outputs]
+        gen[cont_mod] = dict(seconds=gen_s, launches=launches, calls=len(gen["ids"]),
+                             in_modality=in_modality, files=written, sizes=sizes)
+        print(f"cli.eval metric=cm_generate {prompt_mod}->{cont_mod}: {len(outputs)} prompts, "
+              f"{max_new_tokens} new tokens (seeded sampling, cm_generate.yaml's kwargs), "
+              f"{len(gen['ids'])} generate calls, {gen_s:.1f} s with the loads; every new token "
+              f"inside {cont_mod}'s ids: {in_modality}; outputs {sizes} "
+              f"({'samples' if cont_mod == 'SPEECH' else 'words'}), files {written}; launches "
+              f"{launches} on {smi}", flush=True)
+        _require(in_modality, f"cm_generate {prompt_mod}->{cont_mod} emitted a token of the "
+                 f"other modality")
+        _require(files_ok, f"cm_generate {prompt_mod}->{cont_mod} wrote {written}")
+        _require(launches == (len(gen["ids"]) * n_layers if on_card else 0),
+                 f"cm_generate launched the flash forward {launches} times, not "
+                 f"{len(gen['ids']) * n_layers if on_card else 0}")
+    CHECKPOINT_MANAGER.set_root(textless_root)
+    return dict(vocab=vocab, params=n_params, stage2_lines=n_lines, stage2_seconds=stage2_s,
+                stage2_mixed=mixed, mixed_rows=n_rows_mixed, losses=losses,
+                first_step_seconds=first_s, step_seconds=step_s, tokens_a_step=seen["tokens"], tokens_per_s=tokens_per_s,
+                train_seconds=train_s, train_launches=train_launches,
+                launches_per_step=seen["launches"], expected_launches=want,
+                max_memory_allocated=peak_mem, storycloze=storycloze,
+                cm_calls=len(calls), cm_widths=widths, cm_seconds=cm_s,
+                cm_launches=cm_launches, card_vs_cpu_ll_err=ll_err,
+                generate={k: gen[k] for k in ("SPEECH", "TEXT")})
+
+
 def main() -> int:
     if not (ROOT / "slamkit_tpu_torch" / "ops" / "csrc" / "flash_fwd.cu").is_file():
         print("chip_smoke: run from a checkout of the repository (slamkit_tpu_torch/ "
@@ -1943,6 +2276,8 @@ def main() -> int:
         cli_result = run_cli(dev, smi, pathlib.Path(work))
         torch.cuda.empty_cache()
         dpo_result = run_dpo(dev, smi, pathlib.Path(work))
+        torch.cuda.empty_cache()
+        sims_result = run_sims(dev, smi, pathlib.Path(work))
     speech_runs = speech_result["runs"]
 
     score = next(r for r in kernel_rows if r["name"] == "score_ctx1024")
@@ -1957,7 +2292,7 @@ def main() -> int:
                       "dq_shapes": dq_rows, "probe": probe_result,
                       "slice": slice_result, "training": train_result,
                       "card_vs_cpu": cpu_result, "speech": speech_result,
-                      "cli": cli_result, "dpo": dpo_result}), flush=True)
+                      "cli": cli_result, "dpo": dpo_result, "sims": sims_result}), flush=True)
     print(nvidia_smi(), flush=True)
 
     print(json.dumps({"kernels": [
@@ -1966,14 +2301,17 @@ def main() -> int:
                    slice_result["launches"] + train_result["launches"]["flash_fwd"]
                    + sum(r["launches"]["flash_fwd"] for r in speech_runs.values())
                    + cli_result["train_launches"]["flash_fwd"] + cli_result["eval_launches"]
-                   + dpo_result["launches"]["flash_fwd"],
+                   + dpo_result["launches"]["flash_fwd"]
+                   + sims_result["train_launches"]["flash_fwd"] + sims_result["cm_launches"]
+                   + sum(g["launches"] for g in sims_result["generate"].values()),
                    max(r["max_abs_err_out"] for r in kernel_rows), score),
         kernel_row("flash_bwd", "slamkit_tpu_torch/ops/csrc/flash_bwd.cu",
                    "slamkit_tpu/ops/flash_attention.py:247",
                    ["flash_bwd_prep_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"],
                    train_result["launches"]["flash_bwd"]
                    + cli_result["train_launches"]["flash_bwd"]
-                   + dpo_result["launches"]["flash_bwd"],
+                   + dpo_result["launches"]["flash_bwd"]
+                   + sims_result["train_launches"]["flash_bwd"],
                    max(max(r["max_abs_err"].values()) for r in backward_rows), bwd),
         dict(kernel_row("dq_matmul", "slamkit_tpu_torch/ops/csrc/dq_matmul.cu",
                         "slamkit_tpu/ops/quant.py:43", ["dq_gemv_kernel | dq_gemm_kernel"],

@@ -4,13 +4,19 @@
         metric.data_path=<dir> tokeniser.feature_extractor.pretrained_model=<HuBERT dir> \
         tokeniser.feature_extractor.kmeans_path=<centroids.npy> [device=cpu] [overrides ...]
 
-The counterpart of `cli/eval.py`'s speech branch, on the repo's `config/`
-tree (eval.yaml): the modelling metrics (swuggy, sblimp, storycloze, salmon,
-with `metric.joint_pairs`) print their scores, and `metric_type: generate`
-continues WAV prompts through `metric/generative_metric.generate`. Every
-`device` but `cpu` (eval.yaml's `tpu` included) runs on the CUDA card.
+The counterpart of `cli/eval.py`, on the repo's `config/` tree (eval.yaml):
+the modelling metrics (swuggy, sblimp, storycloze, salmon, with
+`metric.joint_pairs`) print their scores, and `metric_type: generate`
+continues WAV prompts through `metric/generative_metric.generate`. With
+`metric.cross_modal: true` (cm_ms_tsc, cm_generate; the interleaved
+tokeniser, e.g. `tokeniser=interleaved_hubert_25`) storycloze scores
+`metric.prompt_modality` prompts against `metric.cont_modality`
+continuations and generate continues them in `metric.cont_modality`. With
+`metric.out_path` and a vocoder, generated waveforms are written as
+`<metric_type>_<i>.<ext>` and generated text as `<metric_type>_<i>.txt`.
+Every `device` but `cpu` (eval.yaml's `tpu` included) runs on the CUDA card.
 Not ported: asr_perplexity and llm_as_judge (ROADMAP queue 1 item 13),
-cross-modal metrics (item 19), eval_mesh > 1 (item 14); they raise.
+eval_mesh > 1 (item 14); they raise.
 """
 import logging
 import os
@@ -35,9 +41,7 @@ def eval_main(cfg):
     from ..vocoder.audio_vocoder import vocoder_factory
 
     mt = cfg.metric.metric_type
-    if cfg.metric.get("cross_modal", False):
-        raise NotImplementedError(f"cross-modal metric {mt!r}: not ported yet (ROADMAP "
-                                  f"queue 1 item 19)")
+    cross_modal = bool(cfg.metric.get("cross_modal", False))
     if mt in ("asr_perplexity", "llm_as_judge"):
         raise NotImplementedError(f"metric {mt!r}: the Whisper and text-LM backends are not "
                                   f"ported yet (ROADMAP queue 1 item 13)")
@@ -63,7 +67,23 @@ def eval_main(cfg):
 
     # joint_pairs scores (pos, neg) in one [2B] call (metric.joint_pairs)
     jp = bool(cfg.metric.get("joint_pairs", False))
-    if mt == "swuggy":
+    if cross_modal:
+        from ..metric.cross_modal_generation import generate as cm_generate
+        from ..metric.cross_modal_metric import cm_storycloze
+
+        if mt == "storycloze":
+            res = cm_storycloze(model, path, cfg.metric.prompt_modality,
+                                cfg.metric.cont_modality, used_token_modality, mean_nll,
+                                cfg.batch_size, cfg.num_workers, cfg.pin_memory,
+                                cfg.metric.get("subfolder", False))
+        elif mt == "generate":
+            res = cm_generate(model, path, cfg.batch_size, cfg.metric.prompt_modality,
+                              cfg.metric.get("cont_modality", None), cfg.metric.prompt_length,
+                              tokeniser.fe_sample_rate, cfg.metric.num_files,
+                              cfg.num_workers, cfg.pin_memory, **gen_kwargs)
+        else:
+            raise ValueError(f"Unknown cross-modal metric: {mt}")
+    elif mt == "swuggy":
         res = swuggy(model, path, used_token_modality, mean_nll, cfg.batch_size,
                      cfg.num_workers, cfg.pin_memory, cfg.metric.get("subfolder", False),
                      joint_pairs=jp)
@@ -93,6 +113,8 @@ def eval_main(cfg):
 
     if mt != "generate":
         for key, val in res.items():
+            if key in ("generate", "prompts"):
+                continue
             if isinstance(val, list):
                 print(f"{key}:")
                 for i, v in enumerate(val):
@@ -109,11 +131,13 @@ def eval_main(cfg):
             if i == cfg.metric.get("num_log", -1):
                 print(f"Only saving first {i} samples")
                 break
-            if np.size(gen) == 0:
-                continue
-            save_wav(os.path.join(cfg.metric.out_path,
-                                  f"{cfg.metric.metric_type}_{i}.{cfg.metric.ext}"),
-                     np.asarray(gen).ravel(), tokeniser.fe_sample_rate)
+            stem = os.path.join(cfg.metric.out_path, f"{mt}_{i}")
+            if isinstance(gen, str):
+                with open(stem + ".txt", "w") as f:
+                    f.write(gen)
+            elif np.size(gen):
+                save_wav(f"{stem}.{cfg.metric.ext}", np.asarray(gen).ravel(),
+                         tokeniser.fe_sample_rate)
 
     if cfg.logger.report_to == "wandb":
         import wandb

@@ -5,10 +5,13 @@
 
 The counterpart of `cli/train.py`, on the repo's `config/` tree (train.yaml)
 and its override grammar, with its rules line for line:
-  * an interleave tokeniser's text tokeniser follows the model's base (the
-    port's tokeniser_factory then refuses the interleaving tokeniser);
+  * an interleave tokeniser's text tokeniser follows the model's base (a
+    local directory with tokenizer.json, read without transformers), so
+    `--config-name train_inter_scale` trains the SIMS recipe on a list of
+    corpora mixed by `data.train_ratios`;
   * num_train_epochs = train_max_tokens / ds_token_size x 1.01;
-  * vocab_size = -1 takes the tokeniser's vocabulary size;
+  * vocab_size = -1 takes the tokeniser's vocabulary size (the interleaved
+    one: the text tokeniser's length with the units, <speech> and <text>);
   * training_args.remat or gradient_checkpointing turns on the decoder's
     activation checkpointing;
   * report_to=wandb logs through wandb where it is installed;

@@ -1,12 +1,13 @@
 """Token dataset: jsonl -> flat id buffer -> packed [B, T] batches (numpy only).
 
-A copy of the single-corpus path of `slamkit_tpu/data/dataset.py`
-(`TokenDataset` :74, `load_token_dataset` :297, `parse_single_dataset` :477,
-`_bestfit_slabs` :582, `_pack_bestfit` :617, `pack_into_rows` :675,
-`pad_into_rows` :772, `Batcher` :804) and the single-corpus case of
-`init_dataset` :502, copied because the JAX package's data module cannot be
-imported without jax. `tests/test_torch_data.py` holds its
-batches equal to the original's bit for bit.
+A copy of `slamkit_tpu/data/dataset.py` (`TokenDataset` :74 with `repeat`
+:172 and `concatenate` :153, `load_token_dataset` :297, multi-corpus
+`_materialize_picks` :326 and `interleave` :381, `parse_single_dataset`
+:477, `init_dataset` :502, `_bestfit_slabs` :582, `_pack_bestfit` :617,
+`pack_into_rows` :675, `pad_into_rows` :772, `Batcher` :804), copied because
+the JAX package's data module cannot be imported without jax.
+`tests/test_torch_data.py` and `tests/test_torch_sims.py` hold its datasets
+and batches equal to the original's bit for bit.
 
   * storage is one flat int32 buffer plus per-sequence (starts, lengths)
     views; filter and chunk never copy the token buffer;
@@ -17,9 +18,13 @@ batches equal to the original's bit for bit.
   * the stream is a deterministic function of (seed, epoch), so a resume can
     fast-forward by batch index.
 
-Not ported yet (ROADMAP queue 1 item 18): multi-corpus `interleave`, the disk
-spill of `TokenWriter` (the buffer stays in RAM) and the `saved_ds_path`
-cache; `init_dataset` raises on a list of train paths or a saved_ds_path.
+  * several corpora mix as HF `interleave_datasets(probabilities,
+    stopping_strategy, seed=0)` does, each repeated `repetitions` times
+    first.
+
+Not ported yet (ROADMAP queue 1 item 18): the disk spill of `TokenWriter`
+and of the mixed corpus (the buffers stay in RAM) and the `saved_ds_path`
+cache; `init_dataset` raises on a saved_ds_path.
 """
 from __future__ import annotations
 
@@ -51,6 +56,14 @@ def _ranges(lens: np.ndarray) -> np.ndarray:
         return np.empty(0, np.int64)
     out_starts = np.cumsum(lens) - lens
     return np.arange(total, dtype=np.int64) - np.repeat(out_starts, lens)
+
+
+def _gather_ragged(tokens: np.ndarray, starts: np.ndarray, lens: np.ndarray) -> np.ndarray:
+    """tokens[starts[i]:starts[i] + lens[i]] for all i, concatenated."""
+    if len(starts) == 0:
+        return np.empty(0, np.int32)
+    idx = np.repeat(np.asarray(starts, np.int64), lens) + _ranges(lens)
+    return np.asarray(tokens[idx], dtype=np.int32)
 
 
 @dataclasses.dataclass
@@ -107,6 +120,29 @@ class TokenDataset:
         return TokenDataset(self.tokens, rep_starts + k * c,
                             np.minimum(c, rep_lens - k * c))
 
+    @staticmethod
+    def concatenate(parts: Sequence["TokenDataset"]) -> "TokenDataset":
+        """The rows of every part in order (views of one shared buffer stay
+        views; otherwise the tokens are gathered into a new buffer)."""
+        parts = list(parts)
+        if not parts:
+            return TokenDataset(np.empty(0, np.int32), np.empty(0, np.int64),
+                                np.empty(0, np.int64))
+        first = parts[0].tokens
+        if all(p.tokens is first for p in parts):
+            return TokenDataset(first, np.concatenate([p.starts for p in parts]),
+                                np.concatenate([p.lengths for p in parts]))
+        tokens = np.concatenate([_gather_ragged(p.tokens, p.starts, p.lengths) for p in parts])
+        lens = np.concatenate([p.lengths for p in parts])
+        return TokenDataset(tokens, np.cumsum(lens) - lens, lens)
+
+    def repeat(self, n: int) -> "TokenDataset":
+        """n copies of the rows in order (a corpus's `repetitions`): a tiled
+        view, the buffer is shared."""
+        if n <= 1:
+            return self
+        return TokenDataset(self.tokens, np.tile(self.starts, n), np.tile(self.lengths, n))
+
     def token_stats(self) -> dict:
         lens = self.lengths
         return {"sum": int(lens.sum()), "len_ds": len(self),
@@ -143,6 +179,105 @@ def load_token_dataset(path_glob: str, tokeniser) -> TokenDataset:
     return TokenDataset.from_lists(seqs)
 
 
+# --------------------------------------------------------------------------- #
+# multi-corpus mixing
+# --------------------------------------------------------------------------- #
+def _materialize_picks(datasets: Sequence[TokenDataset], src: np.ndarray,
+                       idx: np.ndarray) -> TokenDataset:
+    """One contiguous dataset of the (source, row) picks, gathered per source
+    and scattered to the picks' places in a new buffer (in RAM)."""
+    n = len(src)
+    lens = np.empty(n, dtype=np.int64)
+    for s, d in enumerate(datasets):
+        m = src == s
+        if m.any():
+            lens[m] = d.lengths[idx[m]]
+    out_starts = np.cumsum(lens) - lens
+    tokens = np.empty(int(lens.sum()), dtype=np.int32)
+    for s, d in enumerate(datasets):
+        m = src == s
+        if not m.any():
+            continue
+        r = _ranges(lens[m])
+        src_idx = np.repeat(d.starts[idx[m]], lens[m]) + r
+        tokens[np.repeat(out_starts[m], lens[m]) + r] = d.tokens[src_idx]
+    return TokenDataset(tokens, out_starts, lens)
+
+
+def _occurrences(draws: np.ndarray, n_src: int) -> np.ndarray:
+    """Each draw's 0-based occurrence number within its source."""
+    order = np.argsort(draws, kind="stable")
+    counts = np.bincount(draws[order], minlength=n_src)
+    occ = np.empty(len(draws), dtype=np.int64)
+    occ[order] = _ranges(counts[counts > 0])
+    return occ
+
+
+def interleave(datasets: Sequence[TokenDataset], probabilities: Sequence[float],
+               stopping_strategy: str = "first_exhausted", seed: int = 0) -> TokenDataset:
+    """Mix corpora as HF `interleave_datasets(probabilities, seed=seed)`: draw a
+    source per output row (numpy's Generator, blocks of max(4096, rows)
+    draws) and take its next row, until the first source runs out
+    (`first_exhausted`) or, with sources restarting from their first row,
+    until the last one has been through all of its rows (`all_exhausted`);
+    the draw that finds a source exhausted is not taken."""
+    if len(datasets) != len(probabilities):
+        raise ValueError("Number of train paths should match number of train ratios")
+    rng = np.random.default_rng(seed)
+    p = np.asarray(probabilities, dtype=np.float64)
+    p = p / p.sum()
+    n_src = len(datasets)
+    sizes = np.array([len(d) for d in datasets], dtype=np.int64)
+    block = int(max(4096, sizes.sum()))
+
+    if stopping_strategy == "first_exhausted":
+        base = np.zeros(n_src, dtype=np.int64)
+        src_parts, idx_parts = [], []
+        while True:
+            draws = rng.choice(n_src, size=block, p=p)
+            idx = base[draws] + _occurrences(draws, n_src)
+            over = idx >= sizes[draws]
+            if over.any():
+                stop = int(np.argmax(over))
+                src_parts.append(draws[:stop])
+                idx_parts.append(idx[:stop])
+                break
+            src_parts.append(draws)
+            idx_parts.append(idx)
+            base += np.bincount(draws, minlength=n_src)
+        return _materialize_picks(datasets, np.concatenate(src_parts),
+                                  np.concatenate(idx_parts))
+    if stopping_strategy != "all_exhausted":
+        raise ValueError(f"unknown stopping_strategy: {stopping_strategy!r}")
+    # a source's pick is (its occurrence number) % size; it is exhausted at
+    # its (size + 1)-th draw, and the stream stops at the latest such draw
+    # over the sources that can be drawn
+    active = (p > 0) & (sizes > 0)
+    if not active.any():
+        return _materialize_picks(datasets, np.empty(0, np.int64), np.empty(0, np.int64))
+    counts = np.zeros(n_src, dtype=np.int64)
+    pos_exhaust = np.full(n_src, -1, dtype=np.int64)
+    pos_base = 0
+    draw_parts, occ_parts = [], []
+    while ((pos_exhaust < 0) & active).any():
+        draws = rng.choice(n_src, size=block, p=p)
+        occ = counts[draws] + _occurrences(draws, n_src)
+        for s in np.nonzero(active & (pos_exhaust < 0))[0]:
+            hit = np.nonzero((draws == s) & (occ == sizes[s]))[0]
+            if hit.size:
+                pos_exhaust[s] = pos_base + int(hit[0])
+        draw_parts.append(draws)
+        occ_parts.append(occ)
+        counts += np.bincount(draws, minlength=n_src)
+        pos_base += block
+    stop = int(pos_exhaust[active].max())
+    draws = np.concatenate(draw_parts)[:stop]
+    occs = np.concatenate(occ_parts)[:stop]
+    keep = sizes[draws] > 0
+    src = draws[keep]
+    return _materialize_picks(datasets, src, occs[keep] % sizes[src])
+
+
 def parse_single_dataset(cfg, tokeniser, train_path: str,
                          val_path: Optional[str] = None) -> Dict[str, TokenDataset]:
     """{'train', 'validation'?} from one corpus, with the composed config's
@@ -164,22 +299,43 @@ def parse_single_dataset(cfg, tokeniser, train_path: str,
 
 
 def init_dataset(cfg, tokeniser) -> Dict[str, TokenDataset]:
-    """{'train', 'validation'?} from the composed config (`data.train_path`,
-    `data.val_path`, the length filters and `model.context_len`), as the JAX
-    package's `init_dataset` builds them for one corpus. A list of train
-    paths (multi-corpus interleaving) and a `data.saved_ds_path` cache raise
-    rather than being ignored."""
+    """{'train', 'validation'?} from the composed config, as the JAX package's
+    `init_dataset` builds them: one corpus (`data.train_path` a path or
+    glob), or several (a list, with `data.train_ratios`, optional
+    `data.repetitions`, `data.stopping_strategy` and a `data.val_path` list
+    whose corpora are concatenated) mixed by `interleave` with seed 0. A
+    `data.saved_ds_path` cache raises rather than being ignored."""
     data = cfg["data"]
     if data.get("saved_ds_path", None):
         raise NotImplementedError(
             f"data.saved_ds_path={data.get('saved_ds_path')!r}: the dataset cache is not "
             f"ported yet (ROADMAP queue 1 item 18)")
     train_path = data["train_path"]
-    if not isinstance(train_path, str):
-        raise NotImplementedError(
-            f"data.train_path={list(train_path)!r}: multi-corpus interleaving is not "
-            f"ported yet (ROADMAP queue 1 item 18); give one path or glob")
-    return parse_single_dataset(cfg, tokeniser, train_path, data.get("val_path", None))
+    if isinstance(train_path, str):
+        return parse_single_dataset(cfg, tokeniser, train_path, data.get("val_path", None))
+    train_paths = list(train_path)
+    ratios = list(data["train_ratios"])
+    if len(train_paths) != len(ratios):
+        raise ValueError("Number of train paths should match number of train ratios")
+    val_paths = data.get("val_path", None)
+    if isinstance(val_paths, str):
+        val_paths = [val_paths]
+    val_paths = list(val_paths or []) + [None] * (len(train_paths) - len(val_paths or []))
+    reps = data.get("repetitions", None)
+    if reps and len(reps) != len(train_paths):
+        raise ValueError(f"Number of repetitions ({len(reps)}) should match number of "
+                         f"train paths ({len(train_paths)})")
+    trains, vals = [], []
+    for i, (tp, vp) in enumerate(zip(train_paths, val_paths)):
+        logger.info("Parsing datasets %s and %s", tp, vp)
+        ds = parse_single_dataset(cfg, tokeniser, tp, vp)
+        trains.append(ds["train"].repeat(reps[i]) if reps else ds["train"])
+        if "validation" in ds:
+            vals.append(ds["validation"])
+    return {"train": interleave(trains, ratios,
+                                stopping_strategy=data.get("stopping_strategy",
+                                                           "first_exhausted"), seed=0),
+            "validation": TokenDataset.concatenate(vals)}
 
 
 # --------------------------------------------------------------------------- #

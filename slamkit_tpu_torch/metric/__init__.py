@@ -1,6 +1,10 @@
+from .cross_modal_generation import CrossModalPromptDataset
+from .cross_modal_generation import generate as cm_generate
+from .cross_modal_metric import CrossModalMetricDataset, cm_storycloze
 from .generative_metric import PromptDataset, generate
 from .modelling_metric import (ModellingMetricDataset, SalmonDataset, salmon, sblimp,
                                storycloze, swuggy)
 
-__all__ = ["PromptDataset", "generate", "ModellingMetricDataset", "SalmonDataset", "salmon",
-           "sblimp", "storycloze", "swuggy"]
+__all__ = ["CrossModalPromptDataset", "cm_generate", "CrossModalMetricDataset",
+           "cm_storycloze", "PromptDataset", "generate", "ModellingMetricDataset",
+           "SalmonDataset", "salmon", "sblimp", "storycloze", "swuggy"]

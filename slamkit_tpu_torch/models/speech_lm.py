@@ -1,10 +1,13 @@
 """SpeechLM: a unit LM composed with an audio tokeniser and a vocoder.
 
 Counterpart of `slamkit_tpu/models/speech_lm.py`: `log_likelihood` tokenises
-wavs with right pads and scores them; `generate` builds left-padded prompts
-(the port's `UnitTokeniser.build_prompt`), turns ignore tokens into unigram
-bad words, brings the continuations back to the host, decodes each to units
-and, for SPEECH output, vocodes them in one `vocode_batch` call.
+wavs, or lists of `GenerationInput` for the interleaving tokeniser, with
+right pads and scores them; `generate` builds left-padded prompts (the
+tokeniser's `build_prompt`, which ends an interleaved prompt with the output
+modality's token and drops a trailing eos), turns ignore tokens into unigram
+bad words (the modality mask), brings the continuations back to the host,
+decodes each to units or text and, for SPEECH output, vocodes them in one
+`vocode_batch` call.
 `generate_kwargs` (temperature, top_k, max_new_tokens, weight_quant, ...)
 reach `UnitLM.generate` unchanged.
 
@@ -35,7 +38,8 @@ class SpeechLM:
         self.tokeniser = tokeniser
         self.vocoder = vocoder
         self.device = _device_of(model)
-        for name, part in (("feature extractor", getattr(tokeniser, "model", None)),
+        fe = getattr(tokeniser, "model", None) or getattr(tokeniser, "speech_fe", None)
+        for name, part in (("feature extractor", fe),
                            ("vocoder", vocoder)):
             dev = _device_of(part) if part is not None else None
             if dev is not None and self.device is not None and dev != self.device:
@@ -44,7 +48,8 @@ class SpeechLM:
 
     def log_likelihood(self, wavs, lens=None, mean_nll: bool = True,
                        used_token_modality: Optional[str] = None) -> torch.Tensor:
-        """wavs [B, L] zero-padded + lens -> per-sample log likelihood [B]."""
+        """wavs [B, L] zero-padded + lens, or a list of GenerationInput lists,
+        -> per-sample log likelihood [B]."""
         tokens = self.tokeniser.tokenise(wavs, lens)["input_ids"]
         ignore_tokens = self.tokeniser.get_ignore_tokens(used_token_modality)
         return self.model.log_likelihood(tokens, mean_nll, ignore_tokens)

@@ -113,6 +113,20 @@ def _is_noop(value, noop: tuple) -> bool:
                for n in noop)
 
 
+def bad_words_mask(bad_words_ids: Optional[list], vocab_size: int,
+                   device: Union[str, torch.device] = "cpu") -> Optional[torch.Tensor]:
+    """[vocab_size] bool mask of the unigram bans in `bad_words_ids` (lists of
+    one id, or bare ids; longer sequences are not bans, as in the JAX
+    package), set with one index operation; None without bans."""
+    if not bad_words_ids:
+        return None
+    ids = [w if not isinstance(w, (list, tuple)) else w[0] for w in bad_words_ids
+           if not isinstance(w, (list, tuple)) or len(w) == 1]
+    mask = torch.zeros(vocab_size, dtype=torch.bool, device=device)
+    mask[torch.as_tensor(np.asarray(ids, dtype=np.int64), device=device)] = True
+    return mask
+
+
 class UnitLM:
     def __init__(self, config: UnitLMConfig, params: Optional[dict] = None,
                  seed: int = 0, device: Union[str, torch.device] = DEFAULT_DEVICE,
@@ -222,14 +236,7 @@ class UnitLM:
         if rem:
             input_ids = torch.nn.functional.pad(input_ids, (rem, 0), value=pad)
             attention_mask = torch.nn.functional.pad(attention_mask, (rem, 0))
-        bad_mask = None
-        if bad_words_ids:
-            bad_mask = torch.zeros(self.decoder.cfg.vocab_size, dtype=torch.bool,
-                                   device=self.device)
-            for ids in bad_words_ids:
-                ids = ids if isinstance(ids, (list, tuple)) else [ids]
-                if len(ids) == 1:  # only unigram bans exist in the pipeline
-                    bad_mask[int(ids[0])] = True
+        bad_mask = bad_words_mask(bad_words_ids, self.decoder.cfg.vocab_size, self.device)
         if generator is None:
             generator = torch.Generator(device=self.device)
             if seed is None:

@@ -5,8 +5,8 @@ feature-extractor-to-representation step `_represent` with run-length dedup
 (:69) and `tokeniser_factory` (:94), which copies the feature extractor's
 `num_units` into the tokeniser's params. The factory takes the composed
 tokeniser config as nested mappings (or a node with `to_container`) and the
-device the feature extractor runs on. Only the unit tokeniser is ported; the
-interleaving one raises.
+device the feature extractor runs on; `tokeniser_type` picks the unit or
+the interleaving tokeniser.
 """
 from __future__ import annotations
 
@@ -91,5 +91,7 @@ def tokeniser_factory(cfg, device=DEFAULT_DEVICE) -> AudioTokeniser:
 
         return UnitTokeniser(feature_extractor, **params)
     if cfg["tokeniser_type"] == "interleave":
-        raise NotImplementedError("the interleaving tokeniser is not ported yet")
+        from .interleaving_tokeniser import InterleavingTokeniser
+
+        return InterleavingTokeniser(feature_extractor, **params)
     raise ValueError(f"Unknown tokeniser type: {cfg['tokeniser_type']}")

@@ -146,8 +146,8 @@ class SLAMDPOTrainer:
         self._async_save = bool(args.get("async_save", True))
         self._saver = checkpoint.AsyncSaver()
 
-        # the unit tokeniser carries bos / eos and __call__ itself (the
-        # interleaving one, with a text tokeniser, is not ported)
+        # the unit tokeniser carries bos / eos and __call__ itself (DPO
+        # refuses the interleaving one, as the JAX CLI does)
         tok_kwargs = dict(processing_class=tokenizer,
                           max_prompt_length=args.get("max_prompt_length", None),
                           max_completion_length=args.get("max_completion_length", None),

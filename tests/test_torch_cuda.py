@@ -65,6 +65,17 @@ def _segments(kind, b, t, seed=0):
             seg[r, t - int(rng.integers(1, max(2, t // 3))):] = -1
         elif kind == "dpo":  # DPO's rows: one segment of 110..T tokens, a -1 tail
             seg[r, int(rng.integers(min(110, t), t + 1)):] = -1
+        elif kind == "sims":  # SIMS's packed rows: segments of 40-160 and 300-700 tokens
+            seg[r], col, s = -1, 0, 0
+            while True:
+                n = int(rng.integers(40, 160) if rng.random() < 0.4 else rng.integers(300, 700))
+                if col + n > t:   # a last, shorter segment, then a tail of 1-39
+                    n = t - col - int(rng.integers(1, 40))
+                    if n > 0:
+                        seg[r, col:col + n] = s
+                    break
+                seg[r, col:col + n] = s
+                col, s = col + n, s + 1
         else:  # left padded
             seg[r, :int(rng.integers(0, t))] = -1
     return torch.from_numpy(seg)
@@ -129,6 +140,27 @@ def test_kernels_match_plain_at_dpo_rows(dev, direction):
         _compare(dev, 16, 14, 2, 152, 64, True, "dpo")
     else:
         _compare_bwd(dev, 16, 14, 2, 152, 64, True, "dpo")
+
+
+# SIMS's training batch (config/train_inter_scale.yaml): [4, 14/2, 2048, 64],
+# rows best-fit packed from stage 2's short interleaved rows among text and
+# speech rows of 300-700 tokens, then a -1 tail; each kernel twice, bitwise
+@pytest.mark.cuda
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+def test_kernels_match_plain_at_sims_rows(dev, direction):
+    if direction == "forward":
+        first = _compare(dev, 4, 14, 2, 2048, 64, True, "sims")
+        again = _compare(dev, 4, 14, 2, 2048, 64, True, "sims")
+        assert torch.equal(first, again)
+        q, k, v = _inputs(dev, 4, 14, 2, 2048, 64, seed=2048 + 64)
+        seg = _segments("sims", 4, 2048, seed=2048).to(dev)
+        a = flash_attention_fwd(q, k, v, segment_ids=seg)
+        b = flash_attention_fwd(q, k, v, segment_ids=seg)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    else:
+        got = _compare_bwd(dev, 4, 14, 2, 2048, 64, True, "sims")
+        again = _compare_bwd(dev, 4, 14, 2, 2048, 64, True, "sims")
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
 
 
 @pytest.mark.cuda

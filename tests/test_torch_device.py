@@ -39,10 +39,14 @@ def no_card():
 
 @pytest.fixture(scope="module")
 def files(tmp_path_factory):
-    """A UnitLM checkpoint and a CodeHiFiGAN checkpoint with its config."""
+    """A UnitLM checkpoint, a CodeHiFiGAN checkpoint with its config and a
+    text tokenizer directory."""
     import json
 
+    from slamkit_tpu_torch.tools.sims_recipe import write_wordlevel_tokenizer
+
     root = tmp_path_factory.mktemp("entry_points")
+    write_wordlevel_tokenizer(root / "text", 16)
     UnitLM(UnitLMConfig(**TINY_LM), device="cpu").save_pretrained(str(root / "lm"))
     sd = hifigan.random_state_dict(TINY_VOC, seed=0)
     torch.save({"generator": {k: torch.from_numpy(np.asarray(v)) for k, v in sd.items()}},
@@ -79,6 +83,11 @@ ENTRY_POINTS = {
          "config_path": str(f / "config.json")}),
     "tokeniser_factory": lambda f: tokeniser_factory(
         {"tokeniser_type": "unit", "feature_extractor_type": "hubert",
+         "feature_extractor": {"pretrained_model": "slprl/mhubert-base-25hz",
+                               "load_config_only": True, "num_units": 500}}),
+    "tokeniser_factory(interleave)": lambda f: tokeniser_factory(
+        {"tokeniser_type": "interleave", "feature_extractor_type": "hubert",
+         "params": {"text_tokeniser_path": str(f / "text")},
          "feature_extractor": {"pretrained_model": "slprl/mhubert-base-25hz",
                                "load_config_only": True, "num_units": 500}}),
 }

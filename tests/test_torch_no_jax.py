@@ -1,11 +1,14 @@
-"""The port stands without JAX, PyYAML, transformers and safetensors (the
-card's host has none of them): serving, training two steps with a save,
-speech continuation dense and int8, the benchmark tools, and the command
-line (composing train.yaml with model=slam, two training steps through
+"""The port stands without JAX, PyYAML, transformers, tokenizers and
+safetensors (the card's host has none of them): serving, training two steps
+with a save, speech continuation dense and int8, the benchmark tools, and the
+command line (composing train.yaml with model=slam, two training steps through
 `cli.train`, one sBLIMP pair through `cli.eval`, then `cli.extract_features`,
 `cli.prepare_tokens`, the preference extractor and two DPO steps through
-`cli.preference_alignment_train`); and `chip_smoke.py` refuses to run
-without a card: no CPU fallback can pass for a GPU run."""
+`cli.preference_alignment_train`); the SIMS path (the smoke's phases 9-11 at
+tiny widths: the tokenizer.json reader, interleaved stage 2, `cli.train
+--config-name train_inter_scale`, cm_ms_tsc and cm_generate); and
+`chip_smoke.py` refuses to run without a card: no CPU fallback can pass for a
+GPU run."""
 import json
 import os
 import pathlib
@@ -18,10 +21,10 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
-_NO_JAX = r"""
+_BLOCKER = r"""
 import importlib.abc, json, os, sys, tempfile
 
-BLOCKED = ("jax", "slamkit_tpu", "yaml", "transformers", "safetensors")
+BLOCKED = ("jax", "slamkit_tpu", "yaml", "transformers", "tokenizers", "safetensors")
 
 
 class Blocker(importlib.abc.MetaPathFinder):
@@ -32,6 +35,9 @@ class Blocker(importlib.abc.MetaPathFinder):
 
 
 sys.meta_path.insert(0, Blocker())
+"""
+
+_NO_JAX = _BLOCKER + r"""
 import torch
 import slamkit_tpu_torch
 import slamkit_tpu_torch.ops
@@ -182,6 +188,48 @@ bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 print("LOADED", bad)
 """
 
+# the smoke's phases 9-11 at tiny widths: phase 11 reads phase 9's HuBERT
+# directory and WAVs and phase 10's features
+_NO_JAX_SIMS = _BLOCKER + r"""
+import pathlib
+import torch
+sys.path.insert(0, os.getcwd())
+import chip_smoke
+from slamkit_tpu_torch.feature_extractor import HubertConfig
+
+torch.set_num_threads(1)
+narrow = ["model.config_args.torch_dtype=float32"] + [
+    f"+model.config_args.{k}={v}" for k, v in dict(
+        num_hidden_layers=2, hidden_size=64, num_attention_heads=4, num_key_value_heads=2,
+        head_dim=16, intermediate_size=128).items()]
+hcfg = HubertConfig(conv_dim=(32,) * 3, conv_kernel=(10, 3, 2), conv_stride=(5, 2, 2),
+                    hidden_size=32, num_hidden_layers=3, num_attention_heads=2,
+                    intermediate_size=64, num_conv_pos_embeddings=8,
+                    num_conv_pos_embedding_groups=4)
+vcfg = {**chip_smoke.CODEHIFIGAN_CFG, "model_in_dim": 16, "embedding_dim": 16,
+        "upsample_initial_channel": 16, "upsample_rates": [4, 2],
+        "upsample_kernel_sizes": [8, 4], "resblock_kernel_sizes": [3, 5],
+        "resblock_dilation_sizes": [[1, 3], [1, 3]],
+        "dur_predictor_params": {"encoder_embed_dim": 16, "var_pred_hidden_dim": 16,
+                                 "var_pred_kernel_size": 3}}
+cpu = torch.device("cpu")
+with tempfile.TemporaryDirectory() as d:
+    d = pathlib.Path(d)
+    chip_smoke.run_cli(cpu, "cpu", d, model_overrides=narrow, hubert_cfg=hcfg, n_rows=24,
+                       lengths=(10, 40), context=64, batch=2, accum=1, n_pairs=2,
+                       seconds=(0.3, 0.5))
+    chip_smoke.run_dpo(cpu, "cpu", d, hubert_cfg=hcfg, n_triples=1,
+                       triple_seconds=(0.3, (0.2, 0.3)), n_train=2, n_val=1, batch=1,
+                       prompt_len=10, completion_len=5, steps=2)
+    result = chip_smoke.run_sims(cpu, "cpu", d, tiny=True, n_entries=804, hubert_cfg=hcfg,
+                                 voc_cfg=vcfg, n_rows=8, lengths=(30, 90), context=64,
+                                 batch=2, accum=1, n_triples=2, triple_seconds=(0.3, 0.4),
+                                 n_prompts=1, max_new_tokens=3)
+    assert result["generate"]["TEXT"]["files"] == ["generate_0.txt"], result
+bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+print("LOADED", bad)
+"""
+
 
 def _run(args, cwd, timeout=120):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -196,17 +244,27 @@ def test_port_imports_and_runs_without_jax():
     assert "LOADED []" in proc.stdout, proc.stdout
 
 
+def test_sims_path_runs_without_jax_transformers_or_tokenizers():
+    proc = _run([sys.executable, "-c", _NO_JAX_SIMS], cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "LOADED []" in proc.stdout, proc.stdout[-2000:]
+    assert "cli.eval metric=cm_ms_tsc: StoryCloze" in proc.stdout
+
+
 def test_port_sources_never_import_jax():
-    """No import of jax, the JAX package, PyYAML, transformers or safetensors
-    anywhere in the port or in chip_smoke.py; the scan covers every module,
-    the DPO and data-preparation ones included."""
-    banned = ("jax", "slamkit_tpu", "yaml", "transformers", "safetensors")
+    """No import of jax, the JAX package, PyYAML, transformers, tokenizers or
+    safetensors anywhere in the port or in chip_smoke.py; the scan covers
+    every module, the DPO, data-preparation and SIMS ones included."""
+    banned = ("jax", "slamkit_tpu", "yaml", "transformers", "tokenizers", "safetensors")
     paths = [*(ROOT / "slamkit_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py"]
     scanned = {str(p.relative_to(ROOT)) for p in paths}
     assert {f"slamkit_tpu_torch/{m}.py" for m in (
         "cli/extract_features", "cli/prepare_tokens", "cli/preference_alignment_train",
         "cli/preference_alignment_feature_extractor", "trainer/slam_dpo_trainer",
-        "data/preference", "data/prepare", "utils/calculation_utils")} <= scanned
+        "data/preference", "data/prepare", "utils/calculation_utils",
+        "tokeniser/text_tokeniser", "tokeniser/interleaving_tokeniser",
+        "metric/cross_modal_metric", "metric/cross_modal_generation", "models/token_lm",
+        "tools/sims_recipe")} <= scanned
     for path in paths:
         for line in path.read_text().splitlines():
             words = line.split()
@@ -412,6 +470,56 @@ def test_chip_smoke_dpo_rehearsal_on_cpu(chip_smoke, tmp_path, capsys):
     assert check["loss_err"] == 0.0 and check["min_grad_cosine"] > 0.9999
     json.dumps(result)
     assert "DPO resume from checkpoint-3" in capsys.readouterr().out
+
+
+def test_chip_smoke_sims_rehearsal_on_cpu(chip_smoke, tmp_path, capsys):
+    """The smoke's phase 11 end to end on the CPU at tiny widths, in the work
+    directory of phases 9 and 10 (run first at their rehearsal's widths):
+    stage 2 with the interleaving tokeniser held to direct calls, cli.train
+    --config-name train_inter_scale on the 4-layer base, cm_ms_tsc with its
+    CPU check (here CPU against CPU, so exact), cm_generate both ways with
+    the vocoder's WAVs and the text files; no kernel launch is counted."""
+    import torch
+
+    from slamkit_tpu_torch.feature_extractor import HubertConfig
+
+    narrow = ["model.config_args.torch_dtype=float32"] + [
+        f"+model.config_args.{k}={v}" for k, v in dict(
+            num_hidden_layers=2, hidden_size=64, num_attention_heads=4, num_key_value_heads=2,
+            head_dim=16, intermediate_size=128).items()]
+    hubert_cfg = HubertConfig(conv_dim=(32,) * 3, conv_kernel=(10, 3, 2), conv_stride=(5, 2, 2),
+                              hidden_size=32, num_hidden_layers=3, num_attention_heads=2,
+                              intermediate_size=64, num_conv_pos_embeddings=8,
+                              num_conv_pos_embedding_groups=4)
+    voc_cfg = {**chip_smoke.CODEHIFIGAN_CFG, "model_in_dim": 16, "embedding_dim": 16,
+               "upsample_initial_channel": 16, "upsample_rates": [4, 2],
+               "upsample_kernel_sizes": [8, 4], "resblock_kernel_sizes": [3, 5],
+               "resblock_dilation_sizes": [[1, 3], [1, 3]],
+               "dur_predictor_params": {"encoder_embed_dim": 16, "var_pred_hidden_dim": 16,
+                                        "var_pred_kernel_size": 3, "var_pred_dropout": 0.5}}
+    cpu = torch.device("cpu")
+    chip_smoke.run_cli(cpu, "cpu rehearsal", tmp_path, model_overrides=narrow,
+                       hubert_cfg=hubert_cfg, n_rows=48, lengths=(10, 60), context=64, batch=2,
+                       accum=2, n_pairs=4, seconds=(0.4, 0.8))
+    chip_smoke.run_dpo(cpu, "cpu rehearsal", tmp_path, hubert_cfg=hubert_cfg, n_triples=2,
+                       triple_seconds=(0.4, (0.2, 0.3)), n_train=4, n_val=2, batch=2,
+                       prompt_len=20, completion_len=10, steps=2)
+    result = chip_smoke.run_sims(cpu, "cpu rehearsal", tmp_path, tiny=True, n_entries=804,
+                                 hubert_cfg=hubert_cfg, voc_cfg=voc_cfg, n_rows=12,
+                                 lengths=(40, 120), context=128, batch=2, accum=2,
+                                 n_triples=3, triple_seconds=(0.3, 0.5), n_prompts=2,
+                                 max_new_tokens=5)
+    assert result["vocab"] == 804 + 502 and result["stage2_lines"] == 8
+    assert result["train_launches"] == {"flash_fwd": 0, "flash_bwd": 0}
+    assert len(result["losses"]) == 2 and result["cm_calls"] == 2        # correct, incorrect
+    assert result["cm_launches"] == 0 and result["card_vs_cpu_ll_err"] == 0.0
+    assert 0.0 <= result["storycloze"] <= 1.0
+    for mod in ("SPEECH", "TEXT"):
+        run = result["generate"][mod]
+        assert run["in_modality"] and run["launches"] == 0 and run["calls"] == 1
+    assert all(f.endswith(".txt") for f in result["generate"]["TEXT"]["files"])
+    json.dumps(result)
+    assert "cli.eval metric=cm_generate SPEECH->TEXT" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("causal", [True, False])
