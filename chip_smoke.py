@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, speech-continuation, DPO and
-interleaved speech-text (SIMS) slices and its command line once on an
-NVIDIA GPU.
+"""Drive the PyTorch port's serving, training, speech-continuation, DPO,
+interleaved speech-text (SIMS) and generation-metric (GenPPL, LLM judge)
+slices and its command line once on an NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -10,8 +10,9 @@ the sm_90a kernels). Phases, in order; any failure exits non-zero:
 
   1. device  — require CUDA; print the card, its power limit and versions;
                switch TF32 off for float32 matmuls and cuDNN.
-  2. build   — compile the four CUDA kernels from `slamkit_tpu_torch/ops/csrc`,
-               one nvcc per source, all started together.
+  2. build   — compile the five CUDA kernel libraries from
+               `slamkit_tpu_torch/ops/csrc`, one nvcc per source, all
+               started together.
   3. kernels — the flash-attention forward kernel against its plain PyTorch
                version (float32 from the same bf16 inputs) at the slices'
                shapes, each timed twice between CUDA events: as eager calls,
@@ -38,6 +39,18 @@ the sm_90a kernels). Phases, in order; any failure exits non-zero:
                four shapes, the K=64/K=128 and N=64/N=128 time ratios, then
                its entry point `tools/bench_flash.py --matmul-probe` (no
                single PyTorch call computes the probe: no library time).
+  3e. float32 forward — the float32 flash forward (flash_fwd_f32.cu)
+               against its plain version on the same float32 inputs at the
+               text LM's shapes (`llama1b_f32`: [8, 32/8, 512, 64] with
+               log_likelihood's right pads; d = 128; packed rows) and at
+               phase 12's own (`genppl_score`: [8, 32/8, 3584, 64], rows of
+               1700-3584 tokens and a -1 tail; `judge_prefill`: [8, 32/8,
+               7680, 64], left-padded; the plain version there batch rows
+               at a time), each call repeated bitwise, timed as phase 3
+               times the bf16
+               forward; bound by bytes over 3.35 TB/s or FLOPs over the
+               H100's float32 CUDA-core 67 TFLOP/s; library call SDPA in
+               float32 on the same masked inputs.
   4. scoring — a Slam-width UnitLM (Qwen2.5-0.5B decoder, 502 units, bf16,
                random init from a seed) saved and reloaded with
                save_pretrained / from_pretrained, scoring 8 unit-token
@@ -115,6 +128,27 @@ the sm_90a kernels). Phases, in order; any failure exits non-zero:
                TEXT->SPEECH through vocoder=vocoder_hubert_25 (4 prompts, 40
                new tokens, WAVs written) and SPEECH->TEXT on 4 of phase 9's
                WAVs (.txt written), every new token inside its modality.
+  12. GenPPL and the LLM judge — in phase 9's work directory:
+               `tools/genppl_recipe.py` writes a whisper-large-v3-turbo-shaped
+               checkpoint (d_model 1280, 32 + 4 layers, 128 mel bins, vocab
+               51866, the real special-token ids and suppress lists) and a
+               Llama-3.2-1B-shaped text LM (16 layers, hidden 2048, 32/8
+               heads, vocab 128256, tied), random F16 weights; then
+               `cli.eval metric=asr_perplexity` over 8 of phase 9's WAVs
+               (batch 8) from phase 9's checkpoint with vocoder_hubert_25 at
+               phase 8's widths and asr_perplexity.yaml's generate_kwargs
+               (seeded), and `cli.eval metric=llm_as_judge` over the same
+               WAVs with seeded alignments and the Llama directory as the
+               judge; each stage timed (generate, vocode, transcribe, score,
+               judge, loads) with `max_memory_allocated`; each metric's
+               last float32 flash launch (the last layer of the scoring
+               batch, of the judge prefill) held against the plain version
+               on that launch's q, k, v and both against float64; the
+               text LM's logits and token log-probabilities over a whole
+               transcript of the scoring batch, and one Whisper window (its
+               encoder output and the
+               decoder teacher-forced on the CPU's greedy tokens), held
+               against float32 CPU runs.
 
 Phases 3 and 3b also hold the kernels at DPO's shape (`dpo_T152`: [16, 14/2,
 152, 64], one segment of 110-152 tokens a row and a -1 tail) and at SIMS's
@@ -135,7 +169,10 @@ DPO step launches the forward once per layer for the reference and 1 +
 remat times for the policy, and the backward once per layer, and every DPO
 evaluation batch the forward twice per layer (phase 10); SIMS training
 launches them as phase 6 does, its scoring the forward once per layer a
-call and its generation once per layer a prefill (phase 11); the probe's entry
+call and its generation once per layer a prefill (phase 11); GenPPL's
+generation launches the bf16 forward once per layer a prefill, and its
+text-LM scoring and the judge's prefill the float32 forward once per
+text-LM layer a batch (phase 12); the probe's entry
 point launches its kernel 7 times a shape (phase 3d). A flash backward call
 counts one, though it launches three kernels (the delta / segment-range
 pre-pass, dK/dV, dQ). The last lines are a JSON object with every measurement, the card's name and power limit, a
@@ -170,6 +207,11 @@ PAD, BOS_EOS = 0, 1   # the unit tokeniser's special ids
 # kernel-vs-plain bounds: bf16 probabilities and a bf16 output (|out| < 4:
 # 2 * 4 * 2^-8 = 3e-2); LSE comes from float32 scores of bf16 inputs
 OUT_BOUND, LSE_BOUND = 3e-2, 2e-3
+# the float32 forward against the same plain version on float32 inputs: both
+# compute in float32 (CUDA-core FMAs and expf; float32 einsums with TF32
+# off) and differ by summation order alone, ~1e-6 relative on |out| < 4 and
+# LSE < 12; a bf16 or TF32 rounding anywhere would sit near 1e-3
+F32_OUT_BOUND, F32_LSE_BOUND = 1e-4, 1e-4
 # backward: max |kernel - plain| of each of dq, dk, dv within 1e-2 of that
 # gradient's max |plain| (+1e-5 for gradients that cancel to ~0): the kernel
 # rounds P and dS to bf16 for its products (2^-9 relative each) and stores
@@ -209,6 +251,24 @@ TRAIN_LOSS_BOUND, GRAD_COSINE_FLOOR = 2e-2, 0.99
 # difference of two rewards, within twice that; and the sign of a margin
 # agrees wherever the CPU's margin is further than its bound from 0
 DPO_TOKEN_BOUND = 2e-2
+# phase 12's own float32 flash launches, on the model's activations, are held
+# against the plain version and both against float64: float32 error grows
+# with the keys a row sums where their terms agree (a judge prefill's left
+# pads share one v, over up to ~2000 keys), in the plain version and the
+# kernel alike, so no fixed bound fits every T. The kernel's error against
+# float64 may be twice the plain float32 version's, and no less than phase
+# 3e's bounds; a TF32 or bf16 product (2^-11 or 2^-8 a rounding, against
+# float32's 2^-24) would sit far above both
+F32_YARDSTICK_FACTOR = 2.0
+# phase 12, card against float32 CPU on the same weights and inputs, float32
+# on both sides (TF32 off), so they differ by summation order alone (~1e-6
+# relative), where a TF32 or bf16 path would sit at 1e-3 or more. The text
+# LM over a whole transcript: its logits at every scored position,
+# ||card - cpu|| / ||cpu|| <= 1e-4, and each scored token's log-probability
+# (logits of a few units: ~1e-5 nats of float32 noise) within 1e-4 nats.
+# Whisper's encoder output over its 32 layers and the teacher-forced decoder
+# logits: ||card - cpu|| / ||cpu|| <= 1e-4, as HuBERT's
+GENPPL_LOGIT_REL_BOUND, GENPPL_LOGP_BOUND, WHISPER_REL_BOUND = 1e-4, 1e-4, 1e-4
 # the Slam decoder's (K, N) projection shapes: q/o 896x896, k/v 896x128,
 # up/gate 896x4864, down 4864x896
 SLAM_KN = ((896, 896), (896, 128), (896, 4864), (4864, 896))
@@ -248,6 +308,9 @@ GENERATE_KWARGS = dict(temperature=0.8, top_k=25, max_new_tokens=150, do_sample=
 # the bound of a kernel: the H100 SXM's memory rate and dense bf16 tensor-core
 # rate (NVIDIA data sheet), against which every roofline share is stated
 HBM_BYTES_PER_S, BF16_FLOPS_PER_S = 3.35e12, 989e12
+# ... and its float32 rate outside the tensor cores (NVIDIA data sheet, SXM),
+# the bound of the float32 flash forward, whose products are CUDA-core FMAs
+FP32_FLOPS_PER_S = 67e12
 # published dense bf16 tensor-core peaks (NVIDIA data sheets), by card name
 BF16_PEAK_FLOPS = (("H100 PCIe", 756e12), ("H100 NVL", 835e12), ("H100", 989e12),
                    ("H200", 989e12))
@@ -361,19 +424,23 @@ def _right_padded(rng, b, t, lo=100):
     return seg
 
 
-def _left_padded(rng, b, t):
+def _left_padded(rng, b, t, most=None):
+    """[b, t] ids as generate's prefill builds them: -1 on each row's left
+    pads (fewer than `most`, by default 2 t / 3), 0 on its prompt."""
     seg = np.zeros((b, t), np.int32)
     for r in range(b):
-        seg[r, :int(rng.integers(0, t * 2 // 3))] = -1
+        seg[r, :int(rng.integers(0, t * 2 // 3 if most is None else most))] = -1
     return seg
 
 
-def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, flops: float, flops_per_s: float = BF16_FLOPS_PER_S
+             ) -> tuple[float, str]:
     """The least time the card could take (ms) and what sets it: the bytes
     moved (each input read once, each output written once) over the memory
-    rate, or the operations over the bf16 tensor-core rate."""
+    rate, or the operations over the rate of their type (the bf16 tensor-core
+    rate unless `flops_per_s` names another: FP32_FLOPS_PER_S for float32)."""
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    by_flops = flops / BF16_FLOPS_PER_S * 1e3
+    by_flops = flops / flops_per_s * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_flops else (by_flops, "operations")
 
 
@@ -393,15 +460,18 @@ def visible_pairs(seg: np.ndarray, kv_seg, causal: bool) -> int:
     return pairs
 
 
-def flash_cost(shape, seg, kv_seg, causal: bool, backward: bool) -> tuple[float, float]:
+def flash_cost(shape, seg, kv_seg, causal: bool, backward: bool, elt_bytes: int = 2
+               ) -> tuple[float, float]:
     """(bytes, FLOPs) of the flash forward or backward at [B, H / Hkv, T, D]
-    from this case's own segment ids. Forward: q, k, v and the ids read, out
-    (bf16) and LSE (f32) written; 4 D FLOPs a visible pair and head (Q K^T,
-    P V). Backward: q, k, v, out, dO, LSE and the ids read, dq, dk, dv
-    written; 10 D FLOPs a visible pair and head (S, dP, dV, dK, dQ)."""
+    from this case's own segment ids, with q, k, v and out of `elt_bytes`
+    bytes an element (bf16: 2, float32: 4). Forward: q, k, v and the ids
+    read, out and LSE (f32) written; 4 D FLOPs a visible pair and head
+    (Q K^T, P V). Backward: q, k, v, out, dO, LSE and the ids read, dq, dk,
+    dv written; 10 D FLOPs a visible pair and head (S, dP, dV, dK, dQ)."""
     b, h, hkv, t, d = shape
     ids = b * t * 4 * (1 if kv_seg is None else 2)
-    q_bytes, kv_bytes, rows = b * h * t * d * 2, b * hkv * t * d * 2, b * h * t
+    q_bytes, kv_bytes, rows = (b * h * t * d * elt_bytes, b * hkv * t * d * elt_bytes,
+                               b * h * t)
     pairs = h * (visible_pairs(seg, kv_seg, causal) if seg is not None
                  else b * (t * (t + 1) // 2 if causal else t * t))
     if backward:
@@ -506,16 +576,70 @@ def _sdpa_library(q, k, v, seg, kv_seg, causal: bool):
 
 NO_SDPA = "none: no fused scaled_dot_product_attention backend took the inputs"
 
+# the plain version's [rows, H, T, T] float32 scores are kept under this many
+# bytes a call (it runs batch rows at a time above it: T ~ 5000 at 32 heads
+# is 3.2 GB a row)
+PLAIN_SCORE_BYTES = 4 << 30
 
-def check_kernels(dev) -> list[dict]:
-    """Phase 3: the kernel against the plain version at the slice's shapes."""
+
+def _plain_fwd(q, k, v, seg, kv_seg, causal: bool, sm_scale=None):
+    """`mha_reference` on float32 copies of q, k, v, in chunks of batch rows
+    whose scores fit PLAIN_SCORE_BYTES. Returns (out, lse, chunks)."""
     import torch
 
-    from slamkit_tpu_torch.ops import flash_attention_fwd, mha_reference
+    from slamkit_tpu_torch.ops import mha_reference
 
-    rng = np.random.default_rng(0)
-    # name, (B, H, Hkv, T, D), causal, segment ids
+    b, h, t, _ = q.shape
+    step = max(1, PLAIN_SCORE_BYTES // (h * t * t * 4))
+    rows = lambda x, i: None if x is None else x[i:i + step]
+    parts = [mha_reference(q[i:i + step].float(), k[i:i + step].float(),
+                           v[i:i + step].float(), segment_ids=rows(seg, i), causal=causal,
+                           sm_scale=sm_scale, kv_segment_ids=rows(kv_seg, i))
+             for i in range(0, b, step)]
+    if len(parts) == 1:
+        return (*parts[0], 1)
+    return torch.cat([o for o, _ in parts]), torch.cat([l for _, l in parts]), len(parts)
+
+
+def _held_errors(out, lse, ref, ref_lse) -> tuple:
+    """A flash forward's (out, lse) against its plain version's: max |d| of
+    out and of LSE over the rows that see a key, the dead rows' count, and
+    whether the kernel's dead rows are exactly the plain version's, with
+    out 0 and LSE 1e30."""
+    import torch
+
+    dead = ref_lse == 1e30
+    alive = ~dead
+    err_out = (out.float() - ref)[alive].abs().max().item()
+    err_lse = (lse - ref_lse)[alive].abs().max().item()
+    dead_ok = bool((lse[dead] == 1e30).all().item() and (out[dead] == 0).all().item()
+                   and torch.equal(lse == 1e30, dead))
+    return err_out, err_lse, int(dead.sum().item()), dead_ok
+
+
+def check_kernels(dev, f32: bool = False) -> list[dict]:
+    """Phase 3: the bf16 forward kernel (flash_fwd.cu) against its plain
+    version at the slices' shapes. Phase 3e (`f32`): the float32 forward
+    (flash_fwd_f32.cu) against the same plain version on float32 inputs at
+    the text LM's shapes (Llama-3.2-1B: 32 q heads over 8 kv heads of 64),
+    its bound taking the operations at the float32 CUDA-core rate. Among
+    them, phase 12's own shapes: a scoring batch (8 transcripts of ~1700-3530
+    tokens, padded right to a multiple of 64 with a -1 tail, as
+    log_likelihood pads them) and a judge prefill (8 instructions of
+    ~5700-7680 tokens, left-padded as judge_text pads them)."""
+    import torch
+
+    from slamkit_tpu_torch.ops import flash_attention_fwd
+
+    rng = np.random.default_rng(12 if f32 else 0)
+    # name, (B, H, Hkv, T, D), causal, segment ids (None: the dead-rows case)
     cases = [
+        ("llama1b_f32", (8, 32, 8, 512, 64), True, _right_padded(rng, 8, 512, lo=40)),
+        ("f32_d128", (4, 16, 4, 512, 128), True, _right_padded(rng, 4, 512, lo=40)),
+        ("f32_packed", (4, 32, 8, 1024, 64), True, _packed_segments(rng, 4, 1024, 4)),
+        ("genppl_score", (8, 32, 8, 3584, 64), True, _right_padded(rng, 8, 3584, lo=1700)),
+        ("judge_prefill", (8, 32, 8, 7680, 64), True, _left_padded(rng, 8, 7680, most=2000)),
+    ] if f32 else [
         ("score_ctx1024", (8, 14, 2, 1024, 64), True, _packed_segments(rng, 8, 1024, 8)),
         ("score_requests", (8, 14, 2, 1024, 64), True, _right_padded(rng, 8, 1024)),
         ("prefill_128", (8, 14, 2, 128, 64), True, _left_padded(rng, 8, 128)),
@@ -526,39 +650,45 @@ def check_kernels(dev) -> list[dict]:
         ("dpo_T152", (16, 14, 2, 152, 64), True, _right_padded(rng, 16, 152, lo=110)),
         ("sims_T2048", (4, 14, 2, 2048, 64), True, _mixed_segments(rng, 4, 2048)),
     ]
+    dtype, counter = (torch.float32, "f32_launches") if f32 else (torch.bfloat16, "launches")
+    out_bound, lse_bound = (F32_OUT_BOUND, F32_LSE_BOUND) if f32 else (OUT_BOUND, LSE_BOUND)
     results = []
     for name, (b, h, hkv, t, d), causal, seg in cases:
-        g = torch.Generator(device=dev).manual_seed(len(results))
-        mk = lambda hh: torch.randn((b, hh, t, d), generator=g, device=dev).to(torch.bfloat16)
+        g = torch.Generator(device=dev).manual_seed((100 if f32 else 0) + len(results))
+        mk = lambda hh: torch.randn((b, hh, t, d), generator=g, device=dev).to(dtype)
         q, k, v = mk(h), mk(hkv), mk(hkv)
         kv_seg = None
         if seg is None:   # query ids 7 never appear among the keys: dead rows
             seg = np.zeros((b, t), np.int32)
             seg[:, 100:140] = 7
             kv_seg = torch.zeros((b, t), dtype=torch.int32, device=dev)
-        bound, bound_by = bound_ms(*flash_cost((b, h, hkv, t, d), seg, None if kv_seg is None
-                                               else kv_seg.cpu().numpy(), causal, backward=False))
+        cost = flash_cost((b, h, hkv, t, d), seg, None if kv_seg is None
+                          else kv_seg.cpu().numpy(), causal, backward=False,
+                          elt_bytes=4 if f32 else 2)
+        bound, bound_by = bound_ms(*cost, flops_per_s=FP32_FLOPS_PER_S if f32
+                                   else BF16_FLOPS_PER_S)
         seg = torch.from_numpy(seg).to(dev)
         run = lambda: flash_attention_fwd(q, k, v, segment_ids=seg, causal=causal,
                                           kv_segment_ids=kv_seg)
-        plain = lambda: mha_reference(q.float(), k.float(), v.float(), segment_ids=seg,
-                                      causal=causal, kv_segment_ids=kv_seg)
+        plain = lambda: _plain_fwd(q, k, v, seg, kv_seg, causal)
+        before = getattr(flash_attention_fwd, counter)
         out, lse = run()
-        ref, ref_lse = plain()
+        _require(getattr(flash_attention_fwd, counter) == before + 1 and out.dtype == dtype,
+                 f"a {dtype} call did not launch its kernel or returned {out.dtype}")
+        ref, ref_lse, chunks = plain()
         torch.cuda.synchronize()
-        dead = ref_lse == 1e30
-        alive = ~dead
-        err_out = (out.float() - ref)[alive].abs().max().item()
-        err_lse = (lse - ref_lse)[alive].abs().max().item()
-        n_dead = int(dead.sum().item())
-        dead_ok = bool((lse[dead] == 1e30).all().item() and (out[dead] == 0).all().item()
-                       and torch.equal(lse == 1e30, dead))
+        err_out, err_lse, n_dead, dead_ok = _held_errors(out, lse, ref, ref_lse)
+        del ref, ref_lse
         again = run()
         deterministic = torch.equal(out, again[0]) and torch.equal(lse, again[1])
-        del again
+        del again, out, lse
         ms = _cuda_ms(run, warmup=3, iters=20)
         plain_ms = _cuda_ms(plain, warmup=1, iters=5)
-        device_ms, plain_device_ms = _graph_ms(run, 20), _graph_ms(plain, 3)
+        # a plain version run in chunks is not captured: the graph would keep
+        # every chunk's scores at once, and at ~250 ms a call its eager time
+        # is its device time
+        device_ms = _graph_ms(run, 20)
+        plain_device_ms = _graph_ms(plain, 3) if chunks == 1 else None
         sdpa = _sdpa_library(q, k, v, seg, kv_seg, causal)
         if sdpa is None:
             library_ms, timed = None, NO_SDPA
@@ -566,26 +696,27 @@ def check_kernels(dev) -> list[dict]:
             library_ms, timed = _library_ms(sdpa[0], 20)
             timed = f"sdpa {sdpa[4]}, {timed}"
         share, vs_library = _ratios(device_ms, bound, library_ms)
-        ok = err_out <= OUT_BOUND and err_lse <= LSE_BOUND and dead_ok and deterministic
+        ok = err_out <= out_bound and err_lse <= lse_bound and dead_ok and deterministic
         if name == "dead_rows":
             ok = ok and n_dead == b * h * 40
+        tflops = cost[1] / device_ms / 1e9
         results.append(dict(name=name, shape=[b, h, hkv, t, d], causal=causal,
-                            max_abs_err_out=err_out, max_abs_err_lse=err_lse,
-                            dead_rows=n_dead, deterministic=deterministic, ms=ms,
-                            plain_ms=plain_ms,
+                            dtype=str(dtype)[6:], max_abs_err_out=err_out,
+                            max_abs_err_lse=err_lse, dead_rows=n_dead,
+                            deterministic=deterministic, ms=ms, plain_ms=plain_ms,
                             device_ms=device_ms, plain_device_ms=plain_device_ms,
                             library_ms=library_ms, library=timed,
                             bound_ms=bound, bound_by=bound_by, roofline_share=share,
-                            vs_library=vs_library, ok=ok))
-        print(f"kernel {name:16s} [{b},{h}/{hkv},{t},{d}] causal={causal}: "
-              f"|dout|={err_out:.3e} (<= {OUT_BOUND}) |dlse|={err_lse:.3e} "
-              f"(<= {LSE_BOUND}) dead={n_dead} dead_ok={dead_ok} bitwise-repeatable={deterministic}"
-              f"  eager: kernel "
-              f"{ms:.4f} ms plain {plain_ms:.4f} ms; graph: kernel {device_ms:.4f} ms "
-              f"plain {plain_device_ms:.4f} ms {_library_text(library_ms, timed, vs_library)}; "
-              f"bound {bound:.4f} ms by {bound_by}, roofline_share {share:.3f}  "
-              f"{'ok' if ok else 'FAIL'}", flush=True)
-        _require(ok, f"the flash kernel disagrees with the plain version at {name}")
+                            vs_library=vs_library, tflops=tflops, ok=ok))
+        print(f"kernel{' f32' if f32 else ''} {name:16s} [{b},{h}/{hkv},{t},{d}] "
+              f"causal={causal}: |dout|={err_out:.3e} (<= {out_bound}) |dlse|={err_lse:.3e} "
+              f"(<= {lse_bound}) dead={n_dead} dead_ok={dead_ok} bitwise-repeatable="
+              f"{deterministic}  eager: kernel {ms:.4f} ms plain {plain_ms:.4f} ms; graph: "
+              f"kernel {device_ms:.4f} ms ({tflops:.1f} TFLOP/s) plain "
+              f"{f'{plain_device_ms:.4f} ms' if chunks == 1 else f'not captured ({chunks} chunks)'} "
+              f"{_library_text(library_ms, timed, vs_library)}; bound {bound:.4f} ms by "
+              f"{bound_by}, roofline_share {share:.3f}  {'ok' if ok else 'FAIL'}", flush=True)
+        _require(ok, f"the {dtype} flash kernel disagrees with the plain version at {name}")
     return results
 
 
@@ -2217,11 +2348,389 @@ def run_sims(dev, smi: str, work: pathlib.Path, tiny: bool = False, n_entries=No
                 generate={k: gen[k] for k in ("SPEECH", "TEXT")})
 
 
+def _f64_fwd(q, k, v, seg, kv_seg, causal: bool, sm_scale=None):
+    """The flash forward's function in float64, a batch row and kv head at
+    a time: (out, lse), dead rows 0 and 1e30 as the kernels give them."""
+    import torch
+
+    from slamkit_tpu_torch.ops import attention_mask
+
+    b, h, t, d = q.shape
+    g = h // k.shape[1]
+    scale = d ** -0.5 if sm_scale is None else sm_scale
+    out = torch.zeros((b, h, t, d), dtype=torch.float64, device=q.device)
+    lse = torch.full((b, h, t), 1e30, dtype=torch.float64, device=q.device)
+    for r in range(b):
+        rows = lambda x: None if x is None else x[r:r + 1]
+        mask = attention_mask(t, t, causal=causal, q_segment_ids=rows(seg),
+                              k_segment_ids=rows(seg if kv_seg is None else kv_seg),
+                              device=q.device)
+        mask = (torch.ones((t, t), dtype=torch.bool, device=q.device) if mask is None
+                else mask.reshape(t, t))
+        alive = mask.any(-1)
+        for j in range(k.shape[1]):
+            heads = slice(j * g, (j + 1) * g)
+            s = torch.einsum("gqd,td->gqt", q[r, heads].double(), k[r, j].double()) * scale
+            s = s.masked_fill(~mask, float("-inf"))
+            lse_j = torch.logsumexp(s, -1)
+            p = torch.exp(s - lse_j[..., None]).nan_to_num(0.0)   # dead rows: -inf - -inf
+            out[r, heads] = torch.einsum("gqt,td->gqd", p, v[r, j].double())
+            lse[r, heads] = torch.where(alive, lse_j, 1e30)
+            del s, p
+    return out, lse
+
+
+def hold_launch(args, out) -> dict:
+    """One float32 flash launch of the main path, its inputs `args` (as
+    `_launch` takes them) and its (out, lse), against the plain version on
+    the same q, k, v, and both against float64: the kernel's error may be
+    F32_YARDSTICK_FACTOR times the plain version's, and no less than phase
+    3e's bounds."""
+    q, k, v, q_seg, k_seg, causal, sm_scale = args
+    ref, ref_lse, chunks = _plain_fwd(q, k, v, q_seg, k_seg, causal, sm_scale)
+    err_out, err_lse, n_dead, dead_ok = _held_errors(*out, ref, ref_lse)
+    exact, exact_lse = _f64_fwd(q, k, v, q_seg, k_seg, causal, sm_scale)
+    alive = ref_lse != 1e30
+    off = lambda o, lse: ((o.double() - exact)[alive].abs().max().item(),
+                          (lse.double() - exact_lse)[alive].abs().max().item())
+    (k_out, k_lse), (p_out, p_lse) = off(*out), off(ref, ref_lse)
+    del exact, exact_lse, ref, ref_lse
+    out_bound = max(F32_OUT_BOUND, F32_YARDSTICK_FACTOR * p_out)
+    lse_bound = max(F32_LSE_BOUND, F32_YARDSTICK_FACTOR * p_lse)
+    pads = (q_seg == -1) if q_seg is not None else None
+    return dict(shape=list(q.shape[:2]) + [k.shape[1]] + list(q.shape[2:]), causal=causal,
+                pads=None if pads is None else pads.sum(1).tolist(),
+                left_padded=None if pads is None else bool(pads[:, 0].any().item()),
+                max_abs_err_out=err_out, max_abs_err_lse=err_lse,
+                f64_err_out=k_out, f64_err_lse=k_lse, plain_f64_err_out=p_out,
+                plain_f64_err_lse=p_lse, out_bound=out_bound, lse_bound=lse_bound,
+                dead_rows=n_dead, plain_chunks=chunks,
+                ok=k_out <= out_bound and k_lse <= lse_bound and dead_ok)
+
+
+def lm_scores(model, tokeniser, texts) -> tuple:
+    """The text LM's logits [N, V] at every scored position of `texts` and
+    each scored token's log-probability [N], padded and masked as
+    `UnitLM.log_likelihood` pads and masks them, on the CPU, with the
+    scored tokens' count of each text."""
+    import torch
+
+    pad = model.config.pad_token_id
+    ids = torch.as_tensor(tokeniser(texts, padding=True, return_tensors="np")["input_ids"],
+                          dtype=torch.long, device=model.device)
+    ids = torch.nn.functional.pad(ids, (0, (-ids.shape[1]) % 64), value=pad)
+    with torch.inference_mode():
+        logits, _ = model.decoder(ids, segment_ids=torch.where(ids == pad, -1, 0).int())
+        target = ids[:, 1:]
+        keep = target != pad
+        logits = logits[:, :-1][keep]
+        logp = torch.log_softmax(logits, -1).gather(-1, target[keep][:, None])[:, 0]
+    return logits.cpu(), logp.cpu(), keep.sum(1).tolist()
+
+
+def run_genppl(dev, smi: str, work: pathlib.Path, tiny: bool = False, hubert_cfg=None,
+               voc_cfg=None, n_files: int = 8, batch: int = 8, max_new_tokens=None) -> dict:
+    """Phase 12, in phase 9's work directory (its checkpoint-2, HuBERT
+    directory, centroids and WAVs): GenPPL and the LLM judge through the
+    port's command line. `tools/genppl_recipe.py` writes a
+    whisper-large-v3-turbo-shaped checkpoint and a Llama-3.2-1B-shaped text
+    LM (random F16 weights; `tiny` for the CPU rehearsal's widths), then
+    `cli.eval metric=asr_perplexity` and `metric=llm_as_judge` (alignment
+    prompts) run over `n_files` of phase 9's WAVs with vocoder_hubert_25 at
+    phase 8's CodeHiFiGAN widths, each stage timed. On the card every
+    generate call launches the bf16 forward once per SLM layer (its
+    prefill), every text-LM scoring call and every judge prefill the float32
+    forward once per text-LM layer; the last float32 launch of each run (the
+    last layer of a scoring batch, of a judge prefill) is held against the
+    plain version and float64 on its own q, k, v, and a whole transcript of
+    the first scoring batch and one Whisper window against float32 CPU runs.
+    On the CPU no launch may be counted."""
+    import gc
+    import importlib
+    import shutil
+
+    import torch
+
+    from slamkit_tpu_torch.cli import eval as cli_eval
+    from slamkit_tpu_torch.feature_extractor import HUBERT_CONFIG_PRESETS, HubertConfig
+    from slamkit_tpu_torch.metric import generative_metric as gm
+    from slamkit_tpu_torch.metric import metric_utils
+    from slamkit_tpu_torch.metric.whisper import WhisperPipeline
+    from slamkit_tpu_torch.models import SpeechLM, UnitLMConfig
+    from slamkit_tpu_torch.ops import flash_attention_fwd
+    from slamkit_tpu_torch.tools import genppl_recipe, sims_recipe
+    from slamkit_tpu_torch.utils.audio import audio_info
+    from slamkit_tpu_torch.vocoder import HiFiGANVocoder
+    from slamkit_tpu_torch.vocoder.checkpoint_manager import CHECKPOINT_MANAGER
+
+    fa_module = importlib.import_module("slamkit_tpu_torch.ops.flash_attention")
+    on_card = dev.type == "cuda"
+    root = work / "genppl"
+    t0 = phase_start = time.perf_counter()
+    whisper_dir = genppl_recipe.write_whisper_dir(root / "whisper", tiny=tiny)
+    llama_dir = genppl_recipe.write_llama_dir(root / "llama", tiny=tiny)
+    write_s = time.perf_counter() - t0
+    with open(pathlib.Path(whisper_dir) / "config.json") as f:
+        w_cfg = json.load(f)
+    with open(pathlib.Path(llama_dir) / "config.json") as f:
+        l_cfg = json.load(f)
+    sizes = {d: sum(p.stat().st_size for p in pathlib.Path(d).iterdir())
+             for d in (whisper_dir, llama_dir)}
+    print(f"GenPPL directories in {write_s:.1f} s: Whisper d_model {w_cfg['d_model']}, "
+          f"{w_cfg['encoder_layers']} + {w_cfg['decoder_layers']} layers, vocab "
+          f"{w_cfg['vocab_size']} ({sizes[whisper_dir]} B); Llama hidden {l_cfg['hidden_size']}, "
+          f"{l_cfg['num_hidden_layers']} layers, {l_cfg['num_attention_heads']}/"
+          f"{l_cfg['num_key_value_heads']} heads, vocab {l_cfg['vocab_size']} "
+          f"({sizes[llama_dir]} B)", flush=True)
+    prompts = root / "prompts"
+    prompts.mkdir(parents=True, exist_ok=True)
+    wavs = sorted((work / "sblimp").glob("*.wav"))[:n_files]
+    for w in wavs:
+        shutil.copy(w, prompts / w.name)
+    wavs = sorted(prompts.glob("*.wav"))
+    seconds = [n / sr for n, sr in map(audio_info, map(str, wavs))]
+    align = genppl_recipe.write_alignments(root / "align", [str(w) for w in wavs], seconds)
+    textless_root = CHECKPOINT_MANAGER.disk_root
+    CHECKPOINT_MANAGER.set_root(sims_recipe.write_textless_vocoder(root / "textless",
+                                                                   voc_cfg or CODEHIFIGAN_CFG))
+    hubert_cfg = hubert_cfg or HubertConfig(**HUBERT_CONFIG_PRESETS["slprl/mhubert-base-25hz"])
+    ckpt = work / "cli_run" / "checkpoint-2"
+    with open(ckpt / "unit_lm_config.json") as f:
+        slm_layers = UnitLMConfig.from_dict(json.load(f)).decoder_config().num_layers
+    common = [f"model.pretrained_model={ckpt}",
+              f"tokeniser.feature_extractor.pretrained_model={work / 'hubert'}",
+              f"tokeniser.feature_extractor.kmeans_path={work / 'km.npy'}",
+              f"tokeniser.feature_extractor.layer={hubert_cfg.num_hidden_layers - 1}",
+              "vocoder=vocoder_hubert_25", f"batch_size={batch}", "num_workers=8",
+              f"metric.data_path={prompts}/*.wav", f"metric.num_files={n_files}",
+              f"metric.whisper_model={whisper_dir}", f"metric.llm_name_or_path={llama_dir}",
+              "+metric.generate_kwargs.seed=0",
+              *([f"metric.generate_kwargs.max_new_tokens={max_new_tokens}"]
+                if max_new_tokens else []),
+              *([] if on_card else ["device=cpu", "model.config_args.torch_dtype=float32"])]
+
+    # ---- the stages, timed; what they saw, kept -----------------------------
+    seen = {}
+    patched = []
+
+    def wrap(owner, name, label, keep=False):
+        fn = getattr(owner, name)
+
+        def timed(*args, **kwargs):
+            _sync(dev)
+            before = (flash_attention_fwd.launches, flash_attention_fwd.f32_launches)
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            _sync(dev)
+            seen.setdefault(label, []).append(dict(
+                seconds=time.perf_counter() - t0,
+                bf16=flash_attention_fwd.launches - before[0],
+                f32=flash_attention_fwd.f32_launches - before[1],
+                **(dict(args=args, out=out) if keep else {})))
+            return out
+
+        patched.append((owner, name, fn))
+        setattr(owner, name, timed)
+
+    last_f32 = {}
+
+    def keep_last_f32(launch):
+        """`_launch`, keeping a copy of the inputs and outputs of its last
+        float32 call in `last_f32`."""
+        def kept(*args):
+            out = launch(*args)
+            if args[0].dtype == torch.float32:
+                last_f32.update(args=tuple(a.clone() if torch.is_tensor(a) else a for a in args),
+                                out=tuple(o.clone() for o in out))
+            return out
+
+        patched.append((fa_module, "_launch", launch))
+        fa_module._launch = kept
+
+    def unwrap():
+        while patched:
+            owner, name, fn = patched.pop()
+            setattr(owner, name, fn)
+
+    def stage(label):
+        return [round(r["seconds"], 4) for r in seen.get(label, [])]
+
+    runs, held = {}, {}
+    for metric in ("asr_perplexity", "llm_as_judge"):
+        extra = ([f"metric.alignment_folder={align}", "metric.min_file_length=0.1"]
+                 if metric == "llm_as_judge" else [])
+        args = [*common, f"metric={metric}", *extra]
+        print(f"cli.eval {' '.join(args)}", flush=True)
+        seen.clear()
+        for owner, name, label, keep in (
+                (SpeechLM, "generate", "generate", False),
+                (HiFiGANVocoder, "vocode_batch", "vocode", False),
+                (WhisperPipeline, "__call__", "transcribe", True),
+                (gm, "get_llm_perplexity", "score", True),
+                (metric_utils.LLMJudge, "__call__", "judge", True),
+                (metric_utils, "judge_text", "judge_batch", False),
+                (gm, "get_whisper_pipeline", "load_whisper", True),
+                (gm, "get_llm", "load_llm", True), (gm, "get_judge", "load_judge", True)):
+            wrap(owner, name, label, keep)
+        keep_last_f32(fa_module._launch)
+        last_f32.clear()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        flash_attention_fwd.launches = flash_attention_fwd.f32_launches = 0  # the main path's
+        try:
+            t0 = time.perf_counter()
+            res = cli_eval.eval_main(args)
+            _sync(dev)
+            total = time.perf_counter() - t0
+        finally:
+            unwrap()
+        launches = {"flash_fwd": flash_attention_fwd.launches,
+                    "flash_fwd_f32": flash_attention_fwd.f32_launches}
+        peak = torch.cuda.max_memory_allocated(dev) if on_card else None
+        gen_calls, vocode_s = len(seen.get("generate", [])), sum(stage("vocode"))
+        f32_calls = len(seen.get("score" if metric == "asr_perplexity" else "judge_batch", []))
+        run = dict(seconds=total, launches=launches, max_memory_allocated=peak,
+                   generate_seconds=[g - v for g, v in zip(stage("generate"),
+                                                           stage("vocode") or [0] * gen_calls)],
+                   vocode_seconds=stage("vocode"), transcribe_seconds=stage("transcribe"),
+                   score_seconds=stage("score"), judge_seconds=stage("judge"),
+                   load_seconds={k: stage(k) for k in ("load_whisper", "load_llm",
+                                                        "load_judge") if k in seen},
+                   generate_calls=gen_calls, f32_calls=f32_calls)
+        if metric == "asr_perplexity":
+            ppl, bleu = res["asr_perplexity"], res["auto-belu-2"]
+            texts = [t for r in seen["score"] for t in r["args"][2]]
+            run.update(asr_perplexity=ppl, auto_bleu=bleu, transcripts=len(texts),
+                       transcript_chars=[len(t) for t in texts])
+            print(f"cli.eval metric=asr_perplexity: asr_perplexity {ppl}, auto-BLEU-2 {bleu} "
+                  f"over {len(texts)} transcripts of {run['transcript_chars']} characters; "
+                  f"{total:.1f} s in all", flush=True)
+            _require(math.isfinite(ppl) and ppl > 0 and 0.0 <= bleu <= 1.0
+                     and len(texts) == n_files, f"asr_perplexity gave {ppl}, auto-BLEU {bleu} "
+                     f"over {len(texts)} transcripts")
+        else:
+            judged = [t for r in seen["judge"] for t in r["args"][1]]
+            pairs = res["audio_transcription"]
+            run.update(llm_as_judge=res["llm_as_judge"], judged=len(judged),
+                       scores=[r["out"] for r in seen["judge"]])
+            print(f"cli.eval metric=llm_as_judge: llm_as_judge {res['llm_as_judge']} (a random "
+                  f"judge rarely writes \\boxed{{n}}: nan when it never does) over "
+                  f"{len(judged)} instructions of {[len(t) for t in judged]} characters; "
+                  f"scores {run['scores']}; {total:.1f} s in all", flush=True)
+            _require(len(judged) == len(pairs) == n_files and all(
+                p in t and g in t for t, (p, g) in zip(judged, pairs)),
+                "the judge's instructions do not hold the transcripts")
+        want = {"flash_fwd": gen_calls * slm_layers,
+                "flash_fwd_f32": f32_calls * l_cfg["num_hidden_layers"]} if on_card else {
+            "flash_fwd": 0, "flash_fwd_f32": 0}
+        print(f"{metric} stages (s): generate {run['generate_seconds']}, vocode "
+              f"{run['vocode_seconds']}, transcribe {run['transcribe_seconds']}, score "
+              f"{run['score_seconds']}, judge {run['judge_seconds']}, loads "
+              f"{run['load_seconds']}; launches {launches} (predicted {want}); "
+              f"max_memory_allocated {peak} B; on {smi}", flush=True)
+        _require(launches == want and gen_calls >= 1 and f32_calls >= 1,
+                 f"{metric} launched {launches}, predicted {want}")
+        runs[metric] = run
+        if metric == "asr_perplexity":
+            card_pipe = seen["load_whisper"][0]["out"]
+            card_lm, card_tok = seen["load_llm"][0]["out"]
+            score_texts = seen["score"][0]["args"][2]
+            window = next(w for r in seen["transcribe"] for w in r["args"][1])
+        seen.clear()
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        # the run's last float32 launch against the plain version
+        _require(bool(last_f32) == on_card, f"{metric}: float32 launches kept "
+                 f"{len(last_f32) // 2}, on the card: {on_card}")
+        if on_card:
+            held[metric] = hold_launch(last_f32["args"], last_f32["out"])
+            last_f32.clear()
+            torch.cuda.empty_cache()
+            h = held[metric]
+            print(f"{metric}'s last float32 flash launch {h['shape']} "
+                  f"({'left' if h['left_padded'] else 'right'}-padded, pads {h['pads']}) on its "
+                  f"q, k, v: against the plain version |dout|={h['max_abs_err_out']:.3e} "
+                  f"|dlse|={h['max_abs_err_lse']:.3e}; against float64 |dout|="
+                  f"{h['f64_err_out']:.3e} (<= {h['out_bound']:.3e}; plain "
+                  f"{h['plain_f64_err_out']:.3e}) |dlse|={h['f64_err_lse']:.3e} (<= "
+                  f"{h['lse_bound']:.3e}; plain {h['plain_f64_err_lse']:.3e}) dead="
+                  f"{h['dead_rows']}  {'ok' if h['ok'] else 'FAIL'}", flush=True)
+            _require(h["ok"], f"{metric}'s float32 flash launch disagrees with the plain version")
+    CHECKPOINT_MANAGER.set_root(textless_root)
+
+    # ---- the card against float32 CPU runs ----------------------------------
+    # text LM: the shortest transcript of the first scoring batch, whole
+    # (the CPU's float32 forward is the slow side), through the card's model
+    # and a CPU one
+    t0 = time.perf_counter()
+    texts = [min(score_texts, key=len)]
+    card_logits, card_logp, counts = lm_scores(card_lm, card_tok, texts)
+    del card_lm
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    cpu_lm, cpu_tok = metric_utils.get_llm(llama_dir, device="cpu")
+    cpu_logits, cpu_logp, _ = lm_scores(cpu_lm, cpu_tok, texts)
+    del cpu_lm
+    logit_err = float((card_logits - cpu_logits).norm() / cpu_logits.norm())
+    logp_err = float((card_logp - cpu_logp).abs().max())
+    del card_logits, cpu_logits
+    gc.collect()
+    lm_check_s = time.perf_counter() - t0
+    nll = lambda logp: [round(-float(x.mean()), 6) for x in logp.split(counts)]
+    print(f"text LM card vs float32 CPU on {len(texts)} whole transcript "
+          f"({[len(t) for t in texts]} characters, {counts} scored tokens): logits "
+          f"||d||/||cpu|| {logit_err:.3e} (<= {GENPPL_LOGIT_REL_BOUND}), token log-probabilities "
+          f"max |d| {logp_err:.3e} (<= {GENPPL_LOGP_BOUND}); mean NLL {nll(card_logp)} vs "
+          f"{nll(cpu_logp)}; {lm_check_s:.1f} s", flush=True)
+    _require(logit_err <= GENPPL_LOGIT_REL_BOUND and logp_err <= GENPPL_LOGP_BOUND,
+             "the text LM on the card disagrees with the float32 CPU run")
+    # Whisper: one window's encoder output, then the decoder teacher-forced
+    # on the CPU's greedy tokens, step by step on both
+    cpu_pipe = WhisperPipeline(whisper_dir, device="cpu")
+    enc_card = card_pipe.model.encode(card_pipe.features([window]))
+    enc_cpu = cpu_pipe.model.encode(cpu_pipe.features([window]))
+    enc_err = float((enc_card.cpu() - enc_cpu).norm() / enc_cpu.norm())
+    forced = cpu_pipe.forced_ids
+    max_new = cpu_pipe.cfg.max_target_positions - len(forced)
+    toks = cpu_pipe.model.greedy_decode(enc_cpu, forced, max_new, cpu_pipe.suppress,
+                                        cpu_pipe.begin_suppress)
+    card_toks = card_pipe.model.greedy_decode(enc_card, forced, max_new, card_pipe.suppress,
+                                              card_pipe.begin_suppress).cpu()
+    caches = (card_pipe.model.new_cache(1, toks.shape[1]), cpu_pipe.model.new_cache(1, toks.shape[1]))
+    xkv = (card_pipe.model.cross_kv(enc_card), cpu_pipe.model.cross_kv(enc_cpu))
+    step_err = 0.0
+    for i in range(toks.shape[1] - 1):
+        a = card_pipe.model.decoder_step(toks[:, i].to(dev), i, caches[0], xkv[0]).cpu()
+        b = cpu_pipe.model.decoder_step(toks[:, i], i, caches[1], xkv[1])
+        step_err = max(step_err, float((a - b).norm() / b.norm()))
+    same = float((card_toks == toks).float().mean())
+    del cpu_pipe, card_pipe, caches, xkv
+    gc.collect()
+    print(f"Whisper card vs float32 CPU on one window: encoder ||d||/||cpu|| {enc_err:.3e} "
+          f"(<= {WHISPER_REL_BOUND}), teacher-forced logits over {toks.shape[1] - 1} steps worst "
+          f"||d||/||cpu|| {step_err:.3e} (<= {WHISPER_REL_BOUND}); greedy tokens equal to the "
+          f"CPU's: {same:.4f}", flush=True)
+    _require(enc_err <= WHISPER_REL_BOUND and step_err <= WHISPER_REL_BOUND,
+             "Whisper on the card disagrees with the float32 CPU run")
+    if on_card:
+        torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - phase_start
+    print(f"phase 12: {phase_s:.1f} s in all", flush=True)
+    return dict(write_seconds=write_s, dir_bytes=list(sizes.values()), runs=runs,
+                seconds=phase_s, f32_held=held, card_vs_cpu_logit_rel_err=logit_err,
+                card_vs_cpu_logp_err=logp_err, lm_check_seconds=lm_check_s,
+                whisper_encoder_rel_err=enc_err,
+                whisper_logit_rel_err=step_err, whisper_tokens_equal=same)
+
+
 def main() -> int:
     if not (ROOT / "slamkit_tpu_torch" / "ops" / "csrc" / "flash_fwd.cu").is_file():
         print("chip_smoke: run from a checkout of the repository (slamkit_tpu_torch/ "
               "is missing beside this script)", file=sys.stderr)
         return 2
+    start = time.perf_counter()
     sys.path.insert(0, str(ROOT))
     import torch
 
@@ -2244,12 +2753,12 @@ def main() -> int:
 
     # ---- phase 2: build, one nvcc per source, all at once -------------------
     from slamkit_tpu_torch.ops import _build
-    from slamkit_tpu_torch.ops.flash_attention import KERNEL, KERNEL_BWD
+    from slamkit_tpu_torch.ops.flash_attention import KERNEL, KERNEL_BWD, KERNEL_F32
     from slamkit_tpu_torch.ops.matmul_probe import KERNEL as PROBE_KERNEL
     from slamkit_tpu_torch.ops.quant import KERNEL as DQ_KERNEL
 
     t0 = time.perf_counter()
-    names = (KERNEL, KERNEL_BWD, DQ_KERNEL, PROBE_KERNEL)
+    names = (KERNEL, KERNEL_BWD, DQ_KERNEL, PROBE_KERNEL, KERNEL_F32)
     with ThreadPoolExecutor(len(names)) as pool:
         libs = list(pool.map(_build.build, names))
     print(f"built {', '.join(str(lib.relative_to(ROOT)) for lib in libs)} in "
@@ -2262,6 +2771,7 @@ def main() -> int:
         backward_rows = check_backward_kernels(dev)
         dq_rows = check_dq_kernels(dev)
         probe_result = check_probe(dev)
+        f32_rows = check_kernels(dev, f32=True)
     torch.cuda.empty_cache()
     slice_result = run_slice(dev, smi)
     _require(slice_result["launches"] > 0, "the main path never launched the flash kernel")
@@ -2278,6 +2788,10 @@ def main() -> int:
         dpo_result = run_dpo(dev, smi, pathlib.Path(work))
         torch.cuda.empty_cache()
         sims_result = run_sims(dev, smi, pathlib.Path(work))
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        genppl_result = run_genppl(dev, smi, pathlib.Path(work))
+        print(f"phases 1-11: {t0 - start:.1f} s", flush=True)
     speech_runs = speech_result["runs"]
 
     score = next(r for r in kernel_rows if r["name"] == "score_ctx1024")
@@ -2288,11 +2802,16 @@ def main() -> int:
     # ... and the prefill GEMM (M > 16), a kernel of its own, at M = 1024 up / gate
     dq_prefill = next(r for r in dq_rows if (r["m"], r["k"], r["n"]) == (1024, 896, 4864))
     probe = next(r for r in probe_result["shapes"] if r["k"] == 128)
+    # ... and the float32 forward at phase 12's scoring batch
+    f32 = next(r for r in f32_rows if r["name"] == "genppl_score")
+    genppl_runs = genppl_result["runs"].values()
     print(json.dumps({"shapes": kernel_rows, "backward_shapes": backward_rows,
-                      "dq_shapes": dq_rows, "probe": probe_result,
+                      "dq_shapes": dq_rows, "probe": probe_result, "f32_shapes": f32_rows,
                       "slice": slice_result, "training": train_result,
                       "card_vs_cpu": cpu_result, "speech": speech_result,
-                      "cli": cli_result, "dpo": dpo_result, "sims": sims_result}), flush=True)
+                      "cli": cli_result, "dpo": dpo_result, "sims": sims_result,
+                      "genppl": genppl_result}), flush=True)
+    print(f"the whole run: {time.perf_counter() - start:.1f} s", flush=True)
     print(nvidia_smi(), flush=True)
 
     print(json.dumps({"kernels": [
@@ -2303,7 +2822,8 @@ def main() -> int:
                    + cli_result["train_launches"]["flash_fwd"] + cli_result["eval_launches"]
                    + dpo_result["launches"]["flash_fwd"]
                    + sims_result["train_launches"]["flash_fwd"] + sims_result["cm_launches"]
-                   + sum(g["launches"] for g in sims_result["generate"].values()),
+                   + sum(g["launches"] for g in sims_result["generate"].values())
+                   + sum(r["launches"]["flash_fwd"] for r in genppl_runs),
                    max(r["max_abs_err_out"] for r in kernel_rows), score),
         kernel_row("flash_bwd", "slamkit_tpu_torch/ops/csrc/flash_bwd.cu",
                    "slamkit_tpu/ops/flash_attention.py:247",
@@ -2321,7 +2841,11 @@ def main() -> int:
         kernel_row("matmul_probe", "slamkit_tpu_torch/ops/csrc/matmul_probe.cu",
                    "scripts/bench_flash.py:98", ["matmul_probe_kernel"],
                    probe_result["launches"],
-                   max(r["max_abs_err"] for r in probe_result["shapes"]), probe)]}), flush=True)
+                   max(r["max_abs_err"] for r in probe_result["shapes"]), probe),
+        kernel_row("flash_fwd_f32", "slamkit_tpu_torch/ops/csrc/flash_fwd_f32.cu",
+                   "slamkit_tpu/ops/flash_attention.py:124", ["flash_fwd_f32_kernel"],
+                   sum(r["launches"]["flash_fwd_f32"] for r in genppl_runs),
+                   max(r["max_abs_err_out"] for r in f32_rows), f32)]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

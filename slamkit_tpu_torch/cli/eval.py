@@ -14,9 +14,15 @@ tokeniser, e.g. `tokeniser=interleaved_hubert_25`) storycloze scores
 continuations and generate continues them in `metric.cont_modality`. With
 `metric.out_path` and a vocoder, generated waveforms are written as
 `<metric_type>_<i>.<ext>` and generated text as `<metric_type>_<i>.txt`.
-Every `device` but `cpu` (eval.yaml's `tpu` included) runs on the CUDA card.
-Not ported: asr_perplexity and llm_as_judge (ROADMAP queue 1 item 13),
-eval_mesh > 1 (item 14); they raise.
+`metric=asr_perplexity` (GenPPL) and `metric=llm_as_judge` transcribe with
+the port's Whisper (`metric.whisper_model`, a local checkpoint directory) and
+score or judge with a float32 text LM (`metric.llm_name_or_path`, a local HF
+directory; OpenAI names need the openai package); `metric.asr_backend` /
+`metric.llm_backend` (`torch` or `jax`: both the port's own),
+`metric.asr_dtype` and `metric.torch_device` (default: the eval's device)
+are read as `cli/eval.py` reads them. Every `device` but `cpu` (eval.yaml's
+`tpu` included) runs on the CUDA card. Not ported: eval_mesh > 1 (ROADMAP
+queue 1 item 14); it raises.
 """
 import logging
 import os
@@ -32,7 +38,8 @@ def eval_main(cfg):
     logging.basicConfig(level=logging.INFO)
     import numpy as np
 
-    from ..metric.generative_metric import generate
+    from ..metric.generative_metric import asr_perplexity, generate, llm_as_judge
+    from ..metric.metric_utils import check_backend
     from ..metric.modelling_metric import salmon, sblimp, storycloze, swuggy
     from ..models.speech_lm import SpeechLM
     from ..models.unit_lm import tlm_factory
@@ -43,8 +50,8 @@ def eval_main(cfg):
     mt = cfg.metric.metric_type
     cross_modal = bool(cfg.metric.get("cross_modal", False))
     if mt in ("asr_perplexity", "llm_as_judge"):
-        raise NotImplementedError(f"metric {mt!r}: the Whisper and text-LM backends are not "
-                                  f"ported yet (ROADMAP queue 1 item 13)")
+        check_backend("asr_backend", cfg.metric.get("asr_backend", "torch"))
+        check_backend("llm_backend", cfg.metric.get("llm_backend", "torch"))
     if int(cfg.get("eval_mesh", 0) or 0) > 1:
         raise NotImplementedError(f"eval_mesh={cfg.eval_mesh}: sharded evaluation is not "
                                   f"ported yet (ROADMAP queue 1 item 14)")
@@ -108,6 +115,29 @@ def eval_main(cfg):
                        cfg.metric.get("use_alignment", False),
                        tokeniser.fe_sample_rate, cfg.metric.num_files,
                        cfg.num_workers, cfg.pin_memory, **gen_kwargs)
+    elif mt == "asr_perplexity":
+        res = asr_perplexity(model, path, cfg.batch_size, cfg.metric.whisper_model,
+                             cfg.metric.llm_name_or_path, used_token_modality,
+                             cfg.metric.prompt_length, cfg.metric.get("min_file_length", None),
+                             cfg.metric.get("alignment_folder", None),
+                             cfg.metric.get("use_alignment", False),
+                             cfg.metric.auto_bleu_n, tokeniser.fe_sample_rate,
+                             cfg.metric.get("num_files", None), cfg.num_workers, cfg.pin_memory,
+                             cfg.metric.get("torch_device", None) or device,
+                             asr_backend=cfg.metric.get("asr_backend", "torch"),
+                             asr_dtype=cfg.metric.get("asr_dtype", "float32"),
+                             llm_backend=cfg.metric.get("llm_backend", "torch"), **gen_kwargs)
+    elif mt == "llm_as_judge":
+        res = llm_as_judge(model, path, cfg.batch_size, cfg.metric.whisper_model,
+                           cfg.metric.llm_name_or_path, cfg.metric.instruction,
+                           used_token_modality, cfg.metric.prompt_length,
+                           cfg.metric.min_file_length, cfg.metric.get("alignment_folder", None),
+                           cfg.metric.get("use_alignment", False), tokeniser.fe_sample_rate,
+                           cfg.metric.get("num_files", None), cfg.num_workers, cfg.pin_memory,
+                           cfg.metric.get("torch_device", None) or device,
+                           asr_backend=cfg.metric.get("asr_backend", "torch"),
+                           asr_dtype=cfg.metric.get("asr_dtype", "float32"),
+                           llm_backend=cfg.metric.get("llm_backend", "torch"), **gen_kwargs)
     else:
         raise ValueError(f"Unknown metric type: {mt}")
 

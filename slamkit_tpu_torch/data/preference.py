@@ -5,9 +5,10 @@ A copy of `slamkit_tpu/data/preference.py` (`get_repetition_filter_fn`,
 data package imports jax; `tests/test_torch_dpo.py` holds the two equal. Rows
 load from jsonl; with `repetition_filter` a row whose prompt_text +
 chosen_text repeats itself (auto-BLEU >= max_auto_bleu) is dropped. The words
-come from NLTK's word tokenizer where nltk imports, and from a whitespace
-split where it does not, as in the JAX package, so both take the same branch
-on the same host.
+come from the port's copy of NLTK's word tokenizer (`utils/word_tokenize.py`)
+on every host: the JAX package takes nltk's and falls back to a whitespace
+split where nltk is missing, which the card's host is, and that split keeps
+and drops other rows.
 """
 from __future__ import annotations
 
@@ -15,24 +16,15 @@ import logging
 from typing import Dict, List
 
 from ..utils.calculation_utils import calc_auto_bleu
+from ..utils.word_tokenize import NLTKWordTokenizer
 from .dataset import load_jsonl_rows
 
 logger = logging.getLogger(__name__)
 
 
-class _WhitespaceTokenizer:
-    def tokenize(self, text):
-        return text.split()
-
-
 def get_repetition_filter_fn(auto_bleu_n: int, max_auto_bleu: float):
-    """A row filter: True keeps the row (NLTK word tokenizer when available)."""
-    try:
-        from nltk.tokenize import NLTKWordTokenizer
-
-        tokenizer = NLTKWordTokenizer()
-    except ImportError:
-        tokenizer = _WhitespaceTokenizer()
+    """A row filter: True keeps the row (words from NLTK's word tokenizer)."""
+    tokenizer = NLTKWordTokenizer()
 
     def filter_fn(x):
         text = x["prompt_text"] + " " + x["chosen_text"]

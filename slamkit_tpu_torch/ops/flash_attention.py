@@ -4,16 +4,21 @@ the plain versions for CPU tensors.
 Counterpart of `slamkit_tpu/ops/flash_attention.py` (`flash_attention` :495,
 `_fwd` :198 with kernel `_fwd_kernel` :124; `_bwd` :340 with kernel
 `_bwd_kernel` :247; the `_flash` custom VJP :431-448). The kernels are
-`ops/csrc/flash_fwd.cu` and `ops/csrc/flash_bwd.cu`, built with nvcc on first
-use (`ops/_build.py`) and called through ctypes on PyTorch's current stream.
-Dispatch is by the device of the tensors and nothing else: a CPU tensor runs
-`mha_reference` / `mha_reference_bwd`, a CUDA tensor launches the kernel or
-raises. `FlashAttentionFunction` carries the gradient; `flash_attention`
-routes through it when autograd is recording.
+`ops/csrc/flash_fwd.cu` (bf16), `ops/csrc/flash_fwd_f32.cu` (float32: the
+Pallas forward runs in its inputs' dtype, and the JAX package scores text
+with a float32 LM) and `ops/csrc/flash_bwd.cu` (bf16), built with nvcc on
+first use (`ops/_build.py`) and called through ctypes on PyTorch's current
+stream. Dispatch is by the device of the tensors, then by their dtype: a CPU
+tensor runs `mha_reference` / `mha_reference_bwd`, a CUDA tensor launches the
+kernel of its dtype or raises (float16, mixed dtypes, and a float32 gradient:
+the float32 backward is not ported, ROADMAP queue 2).
+`FlashAttentionFunction` carries the gradient; `flash_attention` routes
+through it when autograd is recording.
 
-`flash_attention_fwd.launches` and `flash_attention_bwd.launches` count
-kernel launches (never plain-version calls), so a caller can show that its
-path went through the kernels.
+`flash_attention_fwd.launches` (the bf16 forward),
+`flash_attention_fwd.f32_launches` (the float32 forward) and
+`flash_attention_bwd.launches` count kernel launches (never plain-version
+calls), so a caller can show that its path went through the kernels.
 """
 from __future__ import annotations
 
@@ -27,15 +32,20 @@ from . import _build
 from .attention_ref import mha_reference, mha_reference_bwd
 
 KERNEL = "flash_fwd"
+KERNEL_F32 = "flash_fwd_f32"
 KERNEL_BWD = "flash_bwd"
 
 
-def _kernel_fn():
-    fn = _build.load(KERNEL).slamkit_flash_fwd_bf16
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float, i, p]
-        fn.restype = i
+_ENTRY = {KERNEL: "slamkit_flash_fwd_bf16", KERNEL_F32: "slamkit_flash_fwd_f32"}
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_fn(name: str):
+    """The forward's C entry of library `name` (bf16 or float32: one signature)."""
+    fn = getattr(_build.load(name), _ENTRY[name])
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float, i, p]
+    fn.restype = i
     return fn
 
 
@@ -78,12 +88,15 @@ def _segments(segment_ids, kv_segment_ids):
     return segment_ids, kv_segment_ids
 
 
-def _check_kernel_inputs(what: str, **tensors):
-    """What both CUDA kernels take: bf16, contiguous, 16-byte aligned, d 64/128."""
+def _check_kernel_inputs(what: str, dtypes=(torch.bfloat16,), **tensors):
+    """What the CUDA kernels take: tensors of one dtype among `dtypes` (bf16;
+    the forward also float32), contiguous, 16-byte aligned, d 64/128."""
+    got = {x.dtype for x in tensors.values()}
+    if len(got) != 1 or not got <= set(dtypes):
+        raise TypeError(f"the CUDA flash {what} takes "
+                        f"{' or '.join(str(d)[6:] for d in dtypes)} tensors of one dtype; got "
+                        + ", ".join(f"{name} {x.dtype}" for name, x in tensors.items()))
     for name, x in tensors.items():
-        if x.dtype != torch.bfloat16:
-            raise TypeError(f"the CUDA flash {what} kernel takes bfloat16; got "
-                            f"{name} {x.dtype}")
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     d = tensors["q"].shape[-1]
@@ -100,20 +113,26 @@ def _seg_ptrs(q_seg, k_seg):
 
 
 def _launch(q, k, v, q_seg, k_seg, causal: bool, sm_scale: float):
-    _check_kernel_inputs("forward", q=q, k=k, v=v)
+    """The bf16 kernel for bf16 inputs, the float32 one for float32 inputs."""
+    _check_kernel_inputs("forward", (torch.bfloat16, torch.float32), q=q, k=k, v=v)
+    f32 = q.dtype == torch.float32
     b, h, t, d = q.shape
     q_ptr, k_ptr, _keep = _seg_ptrs(q_seg, k_seg)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    name = KERNEL_F32 if f32 else KERNEL
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _kernel_fn()(
+        err = _kernel_fn(name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q_ptr, k_ptr,
             out.data_ptr(), lse.data_ptr(),
             b, h, k.shape[1], t, d, float(sm_scale), int(causal), stream)
     if err != 0:
-        raise RuntimeError(f"flash_fwd launch failed: CUDA error {err}")
-    flash_attention_fwd.launches += 1
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    if f32:
+        flash_attention_fwd.f32_launches += 1
+    else:
+        flash_attention_fwd.launches += 1
     return out, lse
 
 
@@ -128,7 +147,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     head h // (H // Hkv)); segment_ids [B, T] for the queries, kv_segment_ids
     for the keys (default: the same ids; -1 marks pads, which attend to other
     pads). Returns (out [B, H, T, D] in q's dtype, lse [B, H, T] float32); a
-    row with no visible key gets out 0 and lse +1e30.
+    row with no visible key gets out 0 and lse +1e30. On the card bf16 and
+    float32 inputs each have their kernel.
     """
     _check(q, k, v, segment_ids, kv_segment_ids)
     if sm_scale is None:
@@ -143,6 +163,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.f32_launches = 0
 
 
 def _launch_bwd(q, k, v, out, lse, do, q_seg, k_seg, causal: bool, sm_scale: float):
@@ -232,9 +253,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     sm_scale: Optional[float] = None) -> torch.Tensor:
     """Flash attention over [B, H, T, D] with optional [B, T] segment ids
     (the JAX package's public entry); returns the output only. Under autograd
-    it goes through `FlashAttentionFunction`, so the backward kernel runs."""
+    it goes through `FlashAttentionFunction`, so the backward kernel runs;
+    float32 CUDA inputs that need a gradient raise, since the float32 backward
+    is not ported (ROADMAP queue 2)."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
+        if q.device.type == "cuda" and q.dtype == torch.float32:
+            raise NotImplementedError(
+                "flash attention on float32 CUDA tensors that need a gradient: the float32 "
+                "backward kernel is not ported yet (ROADMAP queue 2); score under no_grad / "
+                "inference_mode, or train in bfloat16")
         return FlashAttentionFunction.apply(q, k, v, segment_ids, None, causal,
                                             sm_scale)[0]
     return flash_attention_fwd(q, k, v, segment_ids=segment_ids, causal=causal,

@@ -8,7 +8,8 @@ has neither transformers nor tokenizers, so the port reads the directory's
 where present) itself and gives exactly the surface the interleaving
 tokeniser uses: `add_tokens`, `convert_tokens_to_ids`, `len`, the pad / bos /
 eos ids, `__call__` over a list of strings (right or left pads,
-`return_tensors="np"`) and `decode`.
+`return_tensors="np"`), `decode` and `batch_decode`; the generative metrics
+read Whisper's and the text LM's tokenizers with it too.
 
 Encoding follows the tokenizers library's pipeline: added tokens are split out
 first (those with `normalized: false` on the raw text, then the others on the
@@ -597,3 +598,9 @@ class TextTokeniser:
         clean = (self.clean_up_tokenization_spaces if clean_up_tokenization_spaces is None
                  else clean_up_tokenization_spaces)
         return clean_up_tokenization(text) if clean else text
+
+    def batch_decode(self, sequences, skip_special_tokens: bool = False,
+                     clean_up_tokenization_spaces: Optional[bool] = None) -> List[str]:
+        """`decode` of each row of `sequences`."""
+        return [self.decode(s, skip_special_tokens, clean_up_tokenization_spaces)
+                for s in sequences]

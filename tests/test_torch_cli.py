@@ -303,8 +303,8 @@ def test_eval_cli_generate_branch_matches_jax(eval_files, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["metric=asr_perplexity"], "item 13"),
-    (["metric=llm_as_judge"], "item 13"),
+    (["metric=asr_perplexity", "+metric.asr_backend=onnx"], "asr_backend='onnx'"),
+    (["metric=llm_as_judge", "+metric.llm_backend=vllm"], "llm_backend='vllm'"),
     (["metric=sblimp", "eval_mesh=2"], "item 14"),
 ])
 def test_eval_cli_refuses_what_is_not_ported(extra, match):

@@ -9,6 +9,9 @@ import torch
 from slamkit_tpu.config.node import ConfigNode
 from slamkit_tpu_torch.feature_extractor import HubertConfig, HubertFeatureExtractor
 from slamkit_tpu_torch.feature_extractor import hubert
+from slamkit_tpu_torch.metric import metric_utils
+from slamkit_tpu_torch.metric.whisper import WhisperPipeline
+from slamkit_tpu_torch.metric.whisper_features import WhisperFeatures
 from slamkit_tpu_torch.models import UnitLM, UnitLMConfig, tlm_factory
 from slamkit_tpu_torch.tokeniser import tokeniser_factory
 from slamkit_tpu_torch.utils.device import resolve_device
@@ -39,14 +42,17 @@ def no_card():
 
 @pytest.fixture(scope="module")
 def files(tmp_path_factory):
-    """A UnitLM checkpoint, a CodeHiFiGAN checkpoint with its config and a
-    text tokenizer directory."""
+    """A UnitLM checkpoint, a CodeHiFiGAN checkpoint with its config, a
+    text tokenizer directory, and tiny Whisper and Llama directories."""
     import json
 
+    from slamkit_tpu_torch.tools import genppl_recipe
     from slamkit_tpu_torch.tools.sims_recipe import write_wordlevel_tokenizer
 
     root = tmp_path_factory.mktemp("entry_points")
     write_wordlevel_tokenizer(root / "text", 16)
+    genppl_recipe.write_whisper_dir(root / "whisper", tiny=True)
+    genppl_recipe.write_llama_dir(root / "llama", tiny=True)
     UnitLM(UnitLMConfig(**TINY_LM), device="cpu").save_pretrained(str(root / "lm"))
     sd = hifigan.random_state_dict(TINY_VOC, seed=0)
     torch.save({"generator": {k: torch.from_numpy(np.asarray(v)) for k, v in sd.items()}},
@@ -90,6 +96,10 @@ ENTRY_POINTS = {
          "params": {"text_tokeniser_path": str(f / "text")},
          "feature_extractor": {"pretrained_model": "slprl/mhubert-base-25hz",
                                "load_config_only": True, "num_units": 500}}),
+    "WhisperFeatures": lambda f: WhisperFeatures.from_pretrained(str(f / "whisper")),
+    "WhisperPipeline": lambda f: WhisperPipeline(str(f / "whisper")),
+    "get_whisper_pipeline": lambda f: metric_utils.get_whisper_pipeline(str(f / "whisper")),
+    "get_llm": lambda f: metric_utils.get_llm(str(f / "llama")),
 }
 
 
@@ -117,3 +127,7 @@ def test_explicit_cpu_runs(files):
                                             np.zeros((500, 16), np.float32), layer=1,
                                             device="cpu")
     assert fe.device == torch.device("cpu")
+    pipe = WhisperPipeline(str(files / "whisper"), device="cpu")
+    assert pipe.model.device == pipe.features.device == torch.device("cpu")
+    lm, _ = metric_utils.get_llm(str(files / "llama"), device="cpu")
+    assert lm.device == torch.device("cpu") and lm.decoder.cfg.dtype == "float32"

@@ -137,26 +137,30 @@ FILTER_ROWS = [("hi, there,", "hi, you"), ("a b c", "d e f"),
                ("a b a b", "a b a b a b"), ("x, y. x, y.", "z, z.")]
 
 
+# The port splits words with its copy of NLTK's tokenizer on every host; the
+# JAX package falls back to a whitespace split where nltk is missing. The
+# branch names the host: "whitespace" blocks nltk on both sides, and the port
+# must still give the JAX filter's verdicts with nltk installed (computed
+# before the block), not the fallback's.
 @pytest.mark.parametrize("branch", ["nltk", "whitespace"])
 def test_repetition_filter_equals_jax_on_both_branches(monkeypatch, branch):
-    if branch == "whitespace":
-        _block_nltk(monkeypatch)
-    else:
-        pytest.importorskip("nltk")
+    pytest.importorskip("nltk")
     rows = [{"prompt_text": p, "chosen_text": c} for p, c in FILTER_ROWS]
-    got = [preference.get_repetition_filter_fn(2, 0.3)(r) for r in rows]
     want = [jax_preference.get_repetition_filter_fn(2, 0.3)(r) for r in rows]
+    if branch == "whitespace":
+        fallback = jax_preference._WhitespaceTokenizer()
+        assert calc_auto_bleu("hi, there, hi, you", fallback, 2) < 0.3 <= \
+            calc_auto_bleu("hi, there, hi, you", preference.NLTKWordTokenizer(), 2)
+        _block_nltk(monkeypatch)
+    got = [preference.get_repetition_filter_fn(2, 0.3)(r) for r in rows]
     assert got == want
-    # the branch shows: the first row passes a whitespace split only
-    assert got[:3] == ([False, True, False] if branch == "nltk" else [True, True, False])
+    # NLTK's verdicts on either host: the first row repeats "hi ,"
+    assert got[:3] == [False, True, False]
 
 
 @pytest.mark.parametrize("branch", ["nltk", "whitespace"])
 def test_init_preference_dataset_equals_jax(tmp_path, monkeypatch, branch):
-    if branch == "whitespace":
-        _block_nltk(monkeypatch)
-    else:
-        pytest.importorskip("nltk")
+    pytest.importorskip("nltk")
     rows = pref_rows(len(FILTER_ROWS), seed=2, as_dicts=True)
     for r, (p, c) in zip(rows, FILTER_ROWS):
         r.update(prompt_text=p, chosen_text=c, extra=1)
@@ -164,12 +168,14 @@ def test_init_preference_dataset_equals_jax(tmp_path, monkeypatch, branch):
         for r in rows:
             f.write(json.dumps(r) + "\n")
     ov = [f"data.train_path={tmp_path}/p.jsonl", f"data.val_path={tmp_path}/p.jsonl"]
-    got = preference.init_preference_optimization_dataset(
-        compose(str(REPO_ROOT / "config"), "preference_alignment_train", ov).data)
     want = jax_preference.init_preference_optimization_dataset(
         jax_compose(str(REPO_ROOT / "config"), "preference_alignment_train", ov).data)
+    if branch == "whitespace":
+        _block_nltk(monkeypatch)
+    got = preference.init_preference_optimization_dataset(
+        compose(str(REPO_ROOT / "config"), "preference_alignment_train", ov).data)
     assert got == want
-    assert len(got["train"]) == (1 if branch == "nltk" else 2)
+    assert len(got["train"]) == 1
     assert set(got["validation"][0]) == {"prompt", "chosen", "rejected"}
 
 

@@ -152,9 +152,37 @@ def test_dead_rows_zero_output_and_sentinel_lse(causal):
 
 def test_cpu_path_does_not_count_launches():
     q, k, v = (torch.from_numpy(x) for x in _qkv(3, 1, 2, 1, 64, 64))
-    before = flash_attention_fwd.launches
+    before = flash_attention_fwd.launches, flash_attention_fwd.f32_launches
     flash_attention(q, k, v, causal=True)
-    assert flash_attention_fwd.launches == before
+    assert (flash_attention_fwd.launches, flash_attention_fwd.f32_launches) == before
+
+
+def _right_padded(b, t, seed=0):
+    """[b, t] ids as `UnitLM.log_likelihood` builds them for padded text:
+    0 on each row's first 40..t tokens, -1 on its right pads."""
+    rng = np.random.default_rng(seed)
+    seg = np.full((b, t), -1, np.int32)
+    for r in range(b):
+        seg[r, :int(rng.integers(40, t + 1))] = 0
+    return seg
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("kind", ["packed", "right_padded"])
+def test_f32_forward_at_the_text_lm_rows_matches_pallas(d, kind):
+    """The float32 forward's plain version (what the CUDA float32 kernel is
+    held to on the card) against the Pallas `_fwd` run on float32 inputs in
+    interpret mode, at the text LM's pattern: GQA 4 (8 q heads over 2 kv
+    heads, Llama-3.2-1B's 32/8), causal, rows right-padded with -1 or packed;
+    float32 in, float32 out."""
+    b, h, hkv, t = 2, 8, 2, 160
+    q, k, v = _qkv(d + len(kind), b, h, hkv, t, d)
+    seg = _right_padded(b, t) if kind == "right_padded" else _segments("packed", b, t)
+    want_out, want_lse = _jax_fwd(q, k, v, seg, seg, True, d ** -0.5)
+    out, lse = _port(q, k, v, seg, True)
+    assert out.dtype == np.float32 and lse.dtype == np.float32
+    np.testing.assert_allclose(out, want_out, **TOL)
+    np.testing.assert_allclose(lse, want_lse, **TOL)
 
 
 def test_gqa_matches_repeated_heads():
@@ -177,3 +205,25 @@ def test_shape_checks(shapes, match):
     with pytest.raises(ValueError, match=match):
         flash_attention(q, k, k)
 
+
+
+@pytest.mark.parametrize("what,dtypes,given,ok", [
+    ("forward", (torch.bfloat16, torch.float32), (torch.bfloat16,) * 3, True),
+    ("forward", (torch.bfloat16, torch.float32), (torch.float32,) * 3, True),
+    ("forward", (torch.bfloat16, torch.float32), (torch.float16,) * 3, False),
+    ("forward", (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16,
+                                                  torch.bfloat16), False),
+    ("backward", (torch.bfloat16,), (torch.float32,) * 3, False),
+])
+def test_kernel_dtype_check(what, dtypes, given, ok):
+    """The one dtype check before a kernel launch, on CPU tensors (it reads
+    dtypes only): q, k and v of one dtype among the kernel's, else a
+    TypeError naming what it takes."""
+    from slamkit_tpu_torch.ops.flash_attention import _check_kernel_inputs
+
+    q, k, v = (torch.zeros((1, 2, 64, 64), dtype=dt) for dt in given)
+    if ok:
+        _check_kernel_inputs(what, dtypes, q=q, k=k, v=v)
+    else:
+        with pytest.raises(TypeError, match="bfloat16"):
+            _check_kernel_inputs(what, dtypes, q=q, k=k, v=v)
