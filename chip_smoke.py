@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, speech-continuation, DPO,
-interleaved speech-text (SIMS) and generation-metric (GenPPL, LLM judge)
-slices and its command line once on an NVIDIA GPU.
+interleaved speech-text (SIMS), generation-metric (GenPPL, LLM judge) and
+float32-training slices and its command line once on an NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -10,7 +10,7 @@ the sm_90a kernels). Phases, in order; any failure exits non-zero:
 
   1. device  — require CUDA; print the card, its power limit and versions;
                switch TF32 off for float32 matmuls and cuDNN.
-  2. build   — compile the five CUDA kernel libraries from
+  2. build   — compile the six CUDA kernel libraries from
                `slamkit_tpu_torch/ops/csrc`, one nvcc per source, all
                started together.
   3. kernels — the flash-attention forward kernel against its plain PyTorch
@@ -46,11 +46,22 @@ the sm_90a kernels). Phases, in order; any failure exits non-zero:
                phase 12's own (`genppl_score`: [8, 32/8, 3584, 64], rows of
                1700-3584 tokens and a -1 tail; `judge_prefill`: [8, 32/8,
                7680, 64], left-padded; the plain version there batch rows
-               at a time), each call repeated bitwise, timed as phase 3
+               at a time) and phase 13's training batches (`twist_f32`:
+               [8, 12/12, 512, 64], `slam_f32`: [8, 14/2, 1024, 64], packed),
+               each call repeated bitwise, timed as phase 3
                times the bf16
                forward; bound by bytes over 3.35 TB/s or FLOPs over the
                H100's float32 CUDA-core 67 TFLOP/s; library call SDPA in
                float32 on the same masked inputs.
+  3f. float32 backward — the float32 flash backward (flash_bwd_f32.cu)
+               against its plain version on the same float32 inputs, O and
+               LSE at phase 13's shapes (`twist_f32`: [8, 12/12, 512, 64]
+               packed; `slam_f32`: [8, 14/2, 1024, 64], 8 packed segments
+               and a -1 tail; `d128_f32`: [8, 7/1, 1024, 128]; a ragged T of
+               1000; `dpo_f32`: [16, 14/2, 152, 64] with -1 tails; dead
+               rows), each call repeated bitwise, timed as phase 3b times the
+               bf16 backward; bound by bytes over 3.35 TB/s or FLOPs over 67
+               TFLOP/s; library call SDPA's float32 backward.
   4. scoring — a Slam-width UnitLM (Qwen2.5-0.5B decoder, 502 units, bf16,
                random init from a seed) saved and reloaded with
                save_pretrained / from_pretrained, scoring 8 unit-token
@@ -149,6 +160,23 @@ the sm_90a kernels). Phases, in order; any failure exits non-zero:
                encoder output and the
                decoder teacher-forced on the CPU's greedy tokens), held
                against float32 CPU runs.
+  13. float32 training — in phase 9's work directory, on phase 9's Markov
+               corpus: `cli.train` with train.yaml's defaults (model=twist,
+               OPT-125m at its published widths, context 512; TWIST falls
+               back to random init) and model.config_args.torch_dtype=float32,
+               2 steps of 4 x 8 with a save every step, and a run resumed
+               from checkpoint-1 whose step-2 loss, eval loss and exported
+               weights equal the uninterrupted run's bit for bit; the same
+               with model=slam (full width and depth, context 1024, full
+               remat); one microbatch of each (its first 2 rows at 512, its
+               first row at 1024) on the card against float32 on the CPU
+               from the run's last checkpoint, the loss and every parameter
+               gradient; `cli.preference_alignment_train` in float32 from
+               the Slam run's checkpoint (dpo_training_args, 4 steps of [16,
+               152], a save at step 3, step 1 at ln 2) and a run resumed from
+               that save, exact as above. Params, gradients, AdamW moments
+               and compute are float32; seconds a step, non-pad tokens/s and
+               `max_memory_allocated` for each run.
 
 Phases 3 and 3b also hold the kernels at DPO's shape (`dpo_T152`: [16, 14/2,
 152, 64], one segment of 110-152 tokens a row and a -1 tail) and at SIMS's
@@ -172,7 +200,11 @@ launches them as phase 6 does, its scoring the forward once per layer a
 call and its generation once per layer a prefill (phase 11); GenPPL's
 generation launches the bf16 forward once per layer a prefill, and its
 text-LM scoring and the judge's prefill the float32 forward once per
-text-LM layer a batch (phase 12); the probe's entry
+text-LM layer a batch (phase 12); float32 training launches the float32
+forward (1 + remat) times a layer a microbatch and once a layer an eval
+batch, and the float32 backward once a layer a microbatch, DPO's float32
+steps and eval batches as phase 10's, and no bf16 kernel (phase 13); the
+probe's entry
 point launches its kernel 7 times a shape (phase 3d). A flash backward call
 counts one, though it launches three kernels (the delta / segment-range
 pre-pass, dK/dV, dQ). The last lines are a JSON object with every measurement, the card's name and power limit, a
@@ -225,6 +257,15 @@ BWD_REL_BOUND = 1e-2
 # itself: dS = P (dP - delta) cancels to float32 noise, ~1e-5), against row
 # norms of ~1 at these shapes
 BWD_ROW_RTOL, BWD_ROW_ATOL = 2e-2, 1e-3
+# the float32 backward against the same plain version on float32 inputs:
+# both compute in float32 (CUDA-core FMAs and expf; float32 einsums with TF32
+# off) and differ by summation order alone. dK and dV sum G x T terms (dQ
+# sums T), so the bound grows with G T: max |kernel - plain| of each of dq,
+# dk, dv within 16 eps32 sqrt(G T) of that gradient's max |plain| (2.1e-5
+# at G T = 512, 8.1e-5 at 7 x 1024), a random walk of float32 roundings
+# with room for the worst of them; a TF32 or bf16 product anywhere (2^-11 or
+# 2^-8 a rounding) would sit above 1e-3
+F32_EPS, F32_BWD_FACTOR = 2.0 ** -23, 16.0
 # bf16 card vs float32 CPU on the same weights, mean NLL per row (~6.2 nats)
 NLL_BOUND = 2e-2
 # phase 11: cm_ms_tsc's mean NLL, bf16 card vs float32 CPU on the same
@@ -269,6 +310,20 @@ F32_YARDSTICK_FACTOR = 2.0
 # Whisper's encoder output over its 32 layers and the teacher-forced decoder
 # logits: ||card - cpu|| / ||cpu|| <= 1e-4, as HuBERT's
 GENPPL_LOGIT_REL_BOUND, GENPPL_LOGP_BOUND, WHISPER_REL_BOUND = 1e-4, 1e-4, 1e-4
+# phase 13, float32 training: one microbatch's loss and every parameter
+# gradient on the card against float32 on the CPU, on the same weights and
+# batch. Both sides compute in float32 (TF32 off; CUDA-core flash kernels)
+# and differ by summation order alone (~1e-6 relative through the layers),
+# where a TF32 or bf16 product would sit at 1e-3 or more. The loss within
+# 1e-5 of |cpu|; each tensor's max |card - cpu| within 1e-4 of its own max
+# |cpu|, or of 1e-2 of the largest gradient's where its own is smaller: OPT's
+# k bias has a gradient of exactly 0 (softmax ignores a shift every score of
+# a row shares), so both sides hold only float32 noise there. OPT's ReLU has
+# a kink: a pre-activation within float32 noise of 0 may fall on either
+# side, and one such flip moves a column of up_w's gradient by ~1e-2 of its
+# largest entry. So the CPU takes the card's ReLU masks (both sides then
+# differentiate one piecewise-linear function) and the flips are counted
+F32_LOSS_REL_BOUND, F32_GRAD_REL_BOUND, F32_GRAD_FLOOR = 1e-5, 1e-4, 1e-2
 # the Slam decoder's (K, N) projection shapes: q/o 896x896, k/v 896x128,
 # up/gate 896x4864, down 4864x896
 SLAM_KN = ((896, 896), (896, 128), (896, 4864), (4864, 896))
@@ -342,6 +397,21 @@ def _sync(dev):
 
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def _drop(*dirs):
+    """Delete a phase's checkpoint directories once its checks are done and
+    no later phase reads them, and print the disk's use before and after:
+    every full-depth save is 4-6 GB, and kept to the end of the run they
+    would pass 60 GiB, where one phase's at a time stay under 30 GiB."""
+    import shutil
+
+    disk = pathlib.Path(dirs[0]).parent
+    used = shutil.disk_usage(disk).used
+    for d in dirs:
+        shutil.rmtree(d)
+    print(f"disk: {used / 2**30:.1f} GiB used, {shutil.disk_usage(disk).used / 2**30:.1f} "
+          f"GiB after dropping {', '.join(pathlib.Path(d).name for d in dirs)}", flush=True)
 
 
 def _cuda_ms(fn, warmup: int, iters: int) -> float:
@@ -626,7 +696,8 @@ def check_kernels(dev, f32: bool = False) -> list[dict]:
     them, phase 12's own shapes: a scoring batch (8 transcripts of ~1700-3530
     tokens, padded right to a multiple of 64 with a -1 tail, as
     log_likelihood pads them) and a judge prefill (8 instructions of
-    ~5700-7680 tokens, left-padded as judge_text pads them)."""
+    ~5700-7680 tokens, left-padded as judge_text pads them), and phase 13's
+    training batches (OPT-125m's 12/12 heads at 512, the Slam batch)."""
     import torch
 
     from slamkit_tpu_torch.ops import flash_attention_fwd
@@ -639,6 +710,8 @@ def check_kernels(dev, f32: bool = False) -> list[dict]:
         ("f32_packed", (4, 32, 8, 1024, 64), True, _packed_segments(rng, 4, 1024, 4)),
         ("genppl_score", (8, 32, 8, 3584, 64), True, _right_padded(rng, 8, 3584, lo=1700)),
         ("judge_prefill", (8, 32, 8, 7680, 64), True, _left_padded(rng, 8, 7680, most=2000)),
+        ("twist_f32", (8, 12, 12, 512, 64), True, _packed_segments(rng, 8, 512, 4)),
+        ("slam_f32", (8, 14, 2, 1024, 64), True, _packed_segments(rng, 8, 1024, 8)),
     ] if f32 else [
         ("score_ctx1024", (8, 14, 2, 1024, 64), True, _packed_segments(rng, 8, 1024, 8)),
         ("score_requests", (8, 14, 2, 1024, 64), True, _right_padded(rng, 8, 1024)),
@@ -720,14 +793,21 @@ def check_kernels(dev, f32: bool = False) -> list[dict]:
     return results
 
 
-def _grad_errors(got, want) -> list[tuple]:
+def _grad_errors(got, want, f32_terms: int = 0) -> list[tuple]:
     """(name, max |kernel - plain|, its bound, worst row's error over its
-    row bound) for each of dq, dk, dv; the last must be <= 1."""
+    row bound) for each of dq, dk, dv; the last must be <= 1. With
+    `f32_terms` (G T: the float32 kernel) the bound is F32_BWD_FACTOR eps32
+    sqrt(G T) of max |plain| and the row check is left out (0)."""
     rows = []
     for name, a, w in zip(("dq", "dk", "dv"), got, want):
         diff = a.float() - w
+        top = w.abs().max().item()
+        if f32_terms:
+            rows.append((name, diff.abs().max().item(),
+                         F32_BWD_FACTOR * F32_EPS * math.sqrt(f32_terms) * top, 0.0))
+            continue
         row_bound = BWD_ROW_RTOL * w.norm(dim=-1) + BWD_ROW_ATOL
-        rows.append((name, diff.abs().max().item(), BWD_REL_BOUND * w.abs().max().item() + 1e-5,
+        rows.append((name, diff.abs().max().item(), BWD_REL_BOUND * top + 1e-5,
                      (diff.norm(dim=-1) / row_bound).max().item()))
     return rows
 
@@ -762,19 +842,31 @@ def _sdpa_backward_ms(q, k, v, do, seg, kv_seg):
     return ms, f"sdpa backward {backend}, {timed}"
 
 
-def check_backward_kernels(dev) -> list[dict]:
+def check_backward_kernels(dev, f32: bool = False) -> list[dict]:
     """Phase 3b: the backward kernel against the plain backward at the
     training shapes: the Slam batch (8 packed segments and a -1 tail), a
     ragged T, d = 128 (config/model/slam_dh128.yaml), the SIMS context 2048
     (config/train_inter_scale.yaml), dead rows, and DPO's [2 x 8, 152] batch
     (one segment of 110-152 tokens a row, then a -1 tail), and SIMS's rows
-    packed from segments of mixed length."""
+    packed from segments of mixed length. Phase 3f (`f32`): the float32
+    backward (flash_bwd_f32.cu) against the same plain version on float32
+    inputs at phase 13's shapes: train.yaml's default model (OPT-125m, 12/12
+    heads, G = 1, context 512), the Slam batch (G = 7), slam_dh128, a ragged
+    T, DPO's rows and dead rows; its bound takes the operations at the
+    float32 CUDA-core rate."""
     import torch
 
     from slamkit_tpu_torch.ops import flash_attention_bwd, flash_attention_fwd, mha_reference_bwd
 
-    rng = np.random.default_rng(2)
+    rng = np.random.default_rng(13 if f32 else 2)
     cases = [
+        ("twist_f32", (8, 12, 12, 512, 64), _packed_segments(rng, 8, 512, 4)),
+        ("slam_f32", (8, 14, 2, 1024, 64), _packed_segments(rng, 8, 1024, 8)),
+        ("d128_f32", (8, 7, 1, 1024, 128), _packed_segments(rng, 8, 1024, 8)),
+        ("odd_T1000", (8, 14, 2, 1000, 64), _packed_segments(rng, 8, 1000, 8)),
+        ("dpo_f32", (16, 14, 2, 152, 64), _right_padded(rng, 16, 152, lo=110)),
+        ("dead_rows", (2, 14, 2, 256, 64), None),
+    ] if f32 else [
         ("slam_ctx1024", (8, 14, 2, 1024, 64), _packed_segments(rng, 8, 1024, 8)),
         ("odd_T1000", (8, 14, 2, 1000, 64), _packed_segments(rng, 8, 1000, 8)),
         ("d128_ctx1024", (8, 7, 1, 1024, 128), _packed_segments(rng, 8, 1024, 8)),
@@ -783,27 +875,37 @@ def check_backward_kernels(dev) -> list[dict]:
         ("dpo_T152", (16, 14, 2, 152, 64), _right_padded(rng, 16, 152, lo=110)),
         ("sims_T2048", (4, 14, 2, 2048, 64), _mixed_segments(rng, 4, 2048)),
     ]
+    dtype, counter = (torch.float32, "f32_launches") if f32 else (torch.bfloat16, "launches")
     results = []
     for name, (b, h, hkv, t, d), seg in cases:
-        g = torch.Generator(device=dev).manual_seed(100 + len(results))
-        mk = lambda hh: torch.randn((b, hh, t, d), generator=g, device=dev).to(torch.bfloat16)
+        g = torch.Generator(device=dev).manual_seed((200 if f32 else 100) + len(results))
+        mk = lambda hh: torch.randn((b, hh, t, d), generator=g, device=dev).to(dtype)
         q, k, v, do = mk(h), mk(hkv), mk(hkv), mk(h)
         kv_seg = None
         if seg is None:   # query ids 7 never appear among the keys: dead rows
             seg = np.zeros((b, t), np.int32)
             seg[:, 100:140] = 7
             kv_seg = torch.zeros((b, t), dtype=torch.int32, device=dev)
-        bound, bound_by = bound_ms(*flash_cost((b, h, hkv, t, d), seg, None if kv_seg is None
-                                               else kv_seg.cpu().numpy(), True, backward=True))
+        cost = flash_cost((b, h, hkv, t, d), seg, None if kv_seg is None
+                          else kv_seg.cpu().numpy(), True, backward=True,
+                          elt_bytes=4 if f32 else 2)
+        bound, bound_by = bound_ms(*cost, flops_per_s=FP32_FLOPS_PER_S if f32
+                                   else BF16_FLOPS_PER_S)
         seg = torch.from_numpy(seg).to(dev)
         out, lse = flash_attention_fwd(q, k, v, segment_ids=seg, kv_segment_ids=kv_seg)
         run = lambda: flash_attention_bwd(q, k, v, out, lse, do, segment_ids=seg,
                                           kv_segment_ids=kv_seg)
         plain = lambda: mha_reference_bwd(q.float(), k.float(), v.float(), seg, kv_seg,
                                           out.float(), lse, do.float())
-        got, want = run(), plain()
+        before = getattr(flash_attention_bwd, counter)
+        got = run()
+        _require(getattr(flash_attention_bwd, counter) == before + 1
+                 and all(x.dtype == dtype for x in got),
+                 f"a {dtype} backward call did not launch its kernel or returned "
+                 f"{[x.dtype for x in got]}")
+        want = plain()
         torch.cuda.synchronize()
-        errs = _grad_errors(got, want)
+        errs = _grad_errors(got, want, f32_terms=(h // hkv) * t if f32 else 0)
         dead_ok = True
         if name == "dead_rows":
             dead_ok = bool((got[0][:, :, 100:140] == 0).all().item())
@@ -816,7 +918,8 @@ def check_backward_kernels(dev) -> list[dict]:
         share, vs_library = _ratios(device_ms, bound, library_ms)
         ok = all(e <= bd and row <= 1 for _, e, bd, row in errs) and dead_ok and all(
             bool(torch.isfinite(x).all().item()) for x in got) and deterministic
-        results.append(dict(name=name, shape=[b, h, hkv, t, d],
+        tflops = cost[1] / device_ms / 1e9
+        results.append(dict(name=name, shape=[b, h, hkv, t, d], dtype=str(dtype)[6:],
                             max_abs_err={n: e for n, e, _, _ in errs},
                             bound={n: bd for n, _, bd, _ in errs},
                             worst_row_over_bound={n: r for n, _, _, r in errs},
@@ -824,17 +927,21 @@ def check_backward_kernels(dev) -> list[dict]:
                             ms=ms, plain_ms=plain_ms, device_ms=device_ms,
                             plain_device_ms=plain_device_ms, library_ms=library_ms,
                             library=timed, bound_ms=bound, bound_by=bound_by,
-                            roofline_share=share, vs_library=vs_library, ok=ok))
-        print(f"backward {name:14s} [{b},{h}/{hkv},{t},{d}]: "
-              + " ".join(f"|{n}|={e:.3e} (<= {bd:.3e}) row {r:.3f} (<= 1)"
+                            roofline_share=share, vs_library=vs_library, tflops=tflops,
+                            ok=ok))
+        print(f"backward{' f32' if f32 else ''} {name:14s} [{b},{h}/{hkv},{t},{d}]: "
+              + " ".join(f"|{n}|={e:.3e} (<= {bd:.3e})" + ("" if f32 else
+                                                          f" row {r:.3f} (<= 1)")
                          for n, e, bd, r in errs)
               + f" dead_ok={dead_ok} bitwise-repeatable={deterministic}  eager: kernel "
-              f"{ms:.4f} ms plain {plain_ms:.4f} ms; graph: kernel {device_ms:.4f} ms plain "
+              f"{ms:.4f} ms plain {plain_ms:.4f} ms; graph: kernel {device_ms:.4f} ms "
+              f"({tflops:.1f} TFLOP/s) plain "
               f"{plain_device_ms:.4f} ms {_library_text(library_ms, timed, vs_library)}; "
               f"bound {bound:.4f} ms by {bound_by}, roofline_share {share:.3f}  "
               f"{'ok' if ok else 'FAIL'}", flush=True)
         del got, want, again
-        _require(ok, f"the flash backward kernel disagrees with the plain version at {name}")
+        _require(ok, f"the {dtype} flash backward kernel disagrees with the plain version "
+                 f"at {name}")
     return results
 
 
@@ -1217,6 +1324,7 @@ def run_training(dev, smi: str, cfg=None, work: pathlib.Path = None, n_rows: int
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     result.update(resume_loss=again, resume_err=resume_err, export_ll=ll.tolist())
+    _drop(work / "run", work / "resumed")
     return result
 
 
@@ -1257,6 +1365,7 @@ def check_card_vs_cpu(dev, work: pathlib.Path, cfg=None, batch=2, context=256) -
     _require(loss_err <= TRAIN_LOSS_BOUND, "the card's loss disagrees with the CPU's")
     _require(cos[worst] >= GRAD_COSINE_FLOOR, f"the gradient of {worst} disagrees with "
              f"the CPU's (cosine {cos[worst]})")
+    _drop(work / "card_vs_cpu")
     return dict(loss_card=loss_card.item(), loss_cpu=loss_cpu.item(), loss_err=loss_err,
                 min_grad_cosine=cos[worst], min_grad_cosine_tensor=worst)
 
@@ -2057,6 +2166,7 @@ def run_dpo(dev, smi: str, work: pathlib.Path, hubert_cfg=None, n_triples: int =
     check = check_dpo_card_vs_cpu(dev, ckpt, rows, beta=0.1)
     if on_card:
         torch.cuda.empty_cache()
+    _drop(out, work / "dpo_resumed")
     return dict(stage1_files=n_feat, stage1_units=n_units, stage1_seconds=stage1_s,
                 stage2_lines=n_tok, stage2_seconds=stage2_s, pref_rows=len(pref_rows),
                 pref_seconds=pref_s, dpo_shape=shape, remat=remat, losses=losses,
@@ -2337,6 +2447,7 @@ def run_sims(dev, smi: str, work: pathlib.Path, tiny: bool = False, n_entries=No
                  f"cm_generate launched the flash forward {launches} times, not "
                  f"{len(gen['ids']) * n_layers if on_card else 0}")
     CHECKPOINT_MANAGER.set_root(textless_root)
+    _drop(out)
     return dict(vocab=vocab, params=n_params, stage2_lines=n_lines, stage2_seconds=stage2_s,
                 stage2_mixed=mixed, mixed_rows=n_rows_mixed, losses=losses,
                 first_step_seconds=first_s, step_seconds=step_s, tokens_a_step=seen["tokens"], tokens_per_s=tokens_per_s,
@@ -2716,6 +2827,7 @@ def run_genppl(dev, smi: str, work: pathlib.Path, tiny: bool = False, hubert_cfg
              "Whisper on the card disagrees with the float32 CPU run")
     if on_card:
         torch.cuda.empty_cache()
+    _drop(whisper_dir, llama_dir)
     phase_s = time.perf_counter() - phase_start
     print(f"phase 12: {phase_s:.1f} s in all", flush=True)
     return dict(write_seconds=write_s, dir_bytes=list(sizes.values()), runs=runs,
@@ -2723,6 +2835,291 @@ def run_genppl(dev, smi: str, work: pathlib.Path, tiny: bool = False, hubert_cfg
                 card_vs_cpu_logp_err=logp_err, lm_check_seconds=lm_check_s,
                 whisper_encoder_rel_err=enc_err,
                 whisper_logit_rel_err=step_err, whisper_tokens_equal=same)
+
+
+def _bytes_equal(a: pathlib.Path, b: pathlib.Path) -> bool:
+    """Whether two checkpoints' exported parameters (params.npz) are bitwise
+    equal."""
+    with np.load(a / "params.npz") as x, np.load(b / "params.npz") as y:
+        return sorted(x.files) == sorted(y.files) and all(
+            x[k].dtype == y[k].dtype and x[k].tobytes() == y[k].tobytes() for k in x.files)
+
+
+def _f32_card_vs_cpu(dev, ckpt: pathlib.Path, batch: dict) -> dict:
+    """Phase 13 (c): one microbatch's loss and every parameter gradient from
+    checkpoint `ckpt` in float32 on the card against float32 on the CPU. The
+    card's ReLU masks are recorded, in call order, and the CPU's ReLUs take
+    them (see F32_GRAD_REL_BOUND); the pre-activations whose sign differs
+    are counted."""
+    import torch
+    import torch.nn.functional as F
+
+    from slamkit_tpu_torch.models import UnitLM, grads_to_flat
+
+    relu, masks, flips = F.relu, [], [0]
+
+    def recording(x, inplace=False):
+        masks.append((x > 0).cpu())
+        return relu(x)
+
+    def replaying(x, inplace=False):
+        mask = masks.pop(0)
+        flips[0] += int(((x > 0) != mask).sum())
+        return torch.where(mask, x, torch.zeros((), dtype=x.dtype))
+
+    got = {}
+    for where, patch in ((dev, recording), (torch.device("cpu"), replaying)):
+        lm = UnitLM.from_pretrained(str(ckpt), device=where, torch_dtype="float32",
+                                    remat=False)
+        F.relu = patch
+        try:
+            loss = lm.loss_fn({k: torch.from_numpy(v).to(where) for k, v in batch.items()})
+            loss.backward()
+        finally:
+            F.relu = relu
+        got[where.type] = (loss.item(), grads_to_flat(lm.decoder))
+        del lm, loss
+    _require(not masks, f"{len(masks)} ReLU masks of the card were not replayed")
+    (loss_card, card), (loss_cpu, cpu) = got[dev.type], got["cpu"]
+    top = max(float(np.abs(w).max()) for w in cpu.values())
+    rel = {k: float(np.abs(card[k].astype(np.float64) - w).max()
+                    / max(float(np.abs(w).max()), F32_GRAD_FLOOR * top)) for k, w in cpu.items()}
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    shape = list(batch["input_ids"].shape)
+    top3 = sorted(rel.items(), key=lambda kv: -kv[1])[:3]
+    print(f"float32 card vs CPU on one {shape} microbatch of {ckpt.parent.name}: loss "
+          f"{loss_card} vs {loss_cpu}, relative {loss_rel:.3e} (<= {F32_LOSS_REL_BOUND}); "
+          f"largest relative gradient errors {', '.join(f'{k} {v:.3e}' for k, v in top3)} "
+          f"(<= {F32_GRAD_REL_BOUND}) over {len(rel)} tensors; ReLU pre-activations of "
+          f"another sign on the CPU: {flips[0]}", flush=True)
+    _require(loss_rel <= F32_LOSS_REL_BOUND, "the card's float32 loss disagrees with the CPU's")
+    _require(rel[worst] <= F32_GRAD_REL_BOUND, f"the float32 gradient of {worst} disagrees "
+             f"with the CPU's (relative error {rel[worst]})")
+    return dict(shape=shape, loss_card=loss_card, loss_cpu=loss_cpu, loss_rel_err=loss_rel,
+                max_grad_rel_err=rel[worst], max_grad_rel_err_tensor=worst,
+                relu_sign_flips=flips[0])
+
+
+def run_f32_training(dev, smi: str, work: pathlib.Path, twist_overrides=(), slam_overrides=(),
+                     n_rows: int = 400, lengths=(100, 1001), batch: int = 8, accum: int = 4,
+                     steps: int = 2, cpu_rows=(2, 1), n_pref: int = 64, n_pref_val: int = 16,
+                     dpo_batch: int = 8, dpo_steps: int = 4, prompt_len: int = 100,
+                     completion_len: int = 50) -> dict:
+    """Phase 13: float32 training through the command line. (a) `cli.train`
+    with train.yaml's defaults (model=twist: OPT-125m, context 512, no
+    remat) and model.config_args.torch_dtype=float32, `steps` steps of
+    `accum` x `batch` on phase 9's Markov corpus with a save every step, then
+    a run resumed from checkpoint-1 whose last loss, final eval loss and
+    exported weights equal the uninterrupted run's bit for bit; (b) the same
+    with model=slam and full remat; (c) the first `cpu_rows` rows of each
+    run's first microbatch on the card against float32 on the CPU, from its
+    last checkpoint; (d) `cli.preference_alignment_train` in float32 from
+    (b)'s last checkpoint (dpo_training_args, `dpo_steps` steps of 2 x
+    `dpo_batch` rows, a save a step before the end, step 1 at ln 2) and a
+    run resumed from that save, exact as above. Params, gradients, AdamW
+    moments and compute are float32. On the card every training microbatch
+    launches the float32 forward (1 + remat) x layers times and the float32
+    backward once a layer, every DPO step the forward (2 + remat) x layers
+    times and the backward once a layer, every evaluation batch the forward
+    once a layer (DPO: twice), and the bf16 kernels never; on the CPU (a
+    rehearsal at narrow widths, `*_overrides`) no launch may be counted."""
+    import gc
+
+    import torch
+
+    from slamkit_tpu_torch.cli import preference_alignment_train as cli_dpo
+    from slamkit_tpu_torch.cli import train as cli_train
+    from slamkit_tpu_torch.ops import flash_attention_bwd, flash_attention_fwd
+    from slamkit_tpu_torch.tools.slam_recipe import write_markov_corpus, write_preference_rows
+    from slamkit_tpu_torch.trainer import SLAMDPOTrainer, SLAMTrainer
+    from slamkit_tpu_torch.trainer.slam_trainer import BATCH_KEYS
+
+    on_card = dev.type == "cuda"
+    counters = ((flash_attention_fwd, "f32_launches"), (flash_attention_bwd, "f32_launches"),
+                (flash_attention_fwd, "launches"), (flash_attention_bwd, "launches"))
+    counts = lambda: tuple(getattr(f, c) for f, c in counters)
+
+    def free():
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+    def cli_run(main, cls, args, tokens):
+        """One entry point's call with `cls._train_step` timed: per step the
+        seconds between two synchronizes, the launches (float32 forward and
+        backward, bf16 forward and backward) and the non-pad tokens."""
+        rec = dict(seconds=[], step_launches=[], tokens=[])
+        inner = cls._train_step
+
+        def step(tr, group):
+            rec["trainer"] = tr
+            _sync(dev)
+            c0, t0 = counts(), time.perf_counter()
+            out = inner(tr, group)
+            _sync(dev)
+            rec["seconds"].append(time.perf_counter() - t0)
+            rec["step_launches"].append(tuple(b - a for a, b in zip(c0, counts())))
+            rec["tokens"].append(tokens(tr, group))
+            return out
+
+        print(f"{main.__module__.rsplit('.', 1)[-1]} {' '.join(args)}", flush=True)
+        free()
+        if on_card:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        cls._train_step = step
+        for f, c in counters:   # the main path's count
+            setattr(f, c, 0)
+        try:
+            t0 = time.perf_counter()
+            with _LogLines("slamkit_tpu_torch.models.hf_convert") as twist_log:
+                state = main(args)
+            _sync(dev)
+        finally:
+            cls._train_step = inner
+        tr = rec.pop("trainer")
+        dcfg = tr.model.decoder.cfg
+        rec.update(state=state, launches=counts(), wall_s=time.perf_counter() - t0,
+                   n_layers=dcfg.num_layers, remat=bool(dcfg.remat),
+                   dtype=str(dcfg.compute_dtype)[6:], twist=twist_log[:1],
+                   max_memory_allocated=torch.cuda.max_memory_allocated(dev) if on_card else None,
+                   tokens_per_s=[n / t for n, t in zip(rec["tokens"], rec["seconds"])])
+        if isinstance(tr, SLAMTrainer):
+            rec["eval_batches"] = (len(list(tr.eval_batcher.epoch(0)))
+                                   if tr.eval_batcher is not None else 0)
+            rec["first_microbatch"] = next(iter(tr.train_batcher.epoch(0)))
+        else:
+            rec["eval_batches"] = -(-len(tr.eval_rows) // tr.batch_size) if tr.eval_rows else 0
+        del tr
+        free()
+        return rec
+
+    def logged(state, key):
+        return [r[key] for r in state.log_history if key in r]
+
+    def check_run(what, rec, last, n_steps, per_step, per_eval):
+        """The run took `n_steps` finite steps up to step `last`, each
+        launching `per_step` (float32 forward, float32 backward), and
+        `per_eval` forwards an eval batch: nothing else, and no bf16 kernel."""
+        state, eval_b = rec["state"], rec["eval_batches"]
+        want_step = per_step + (0, 0) if on_card else (0, 0, 0, 0)
+        want = ((n_steps * per_step[0] + eval_b * per_eval, n_steps * per_step[1], 0, 0)
+                if on_card else (0, 0, 0, 0))
+        losses = logged(state, "loss")
+        print(f"{what}: {state.global_step} steps ({rec['dtype']}, {rec['n_layers']} layers, "
+              f"remat {rec['remat']}), losses {losses}, eval {logged(state, 'eval_loss')}; "
+              f"seconds a step {rec['seconds']}, non-pad tokens/s {rec['tokens_per_s']}, "
+              f"{rec['wall_s']:.1f} s the whole call; launches (f32 fwd, f32 bwd, bf16 fwd, "
+              f"bf16 bwd) {rec['launches']} (a step {rec['step_launches']}; expected {want}, "
+              f"{eval_b} eval batches); max_memory_allocated {rec['max_memory_allocated']} B; "
+              f"on {smi}", flush=True)
+        _require(state.global_step == last and len(rec["seconds"]) == n_steps
+                 and all(math.isfinite(x) for x in losses) and rec["dtype"] == "float32",
+                 f"{what} did not take {n_steps} finite float32 steps: {losses}")
+        _require(rec["launches"] == want and all(x == want_step for x in rec["step_launches"]),
+                 f"{what} launched {rec['launches']} ({rec['step_launches']} a step), expected "
+                 f"{want} ({want_step} a step)")
+        return losses
+
+    def check_resume(what, first, again, out, resumed, step):
+        """The resumed run repeats the uninterrupted run's last step bit for
+        bit: its loss, its final eval loss and checkpoint-`step`'s weights."""
+        pairs = {k: (logged(first["state"], k)[-1:], logged(again["state"], k)[-1:])
+                 for k in ("loss", "eval_loss")}
+        same_w = _bytes_equal(out / f"checkpoint-{step}", resumed / f"checkpoint-{step}")
+        print(f"{what} resumed: step {step} " + ", ".join(f"{k} {b} against {a}" for k, (a, b)
+                                                        in pairs.items())
+              + f"; checkpoint-{step} weights bitwise equal: {same_w}", flush=True)
+        _require(all(a == b and a for a, b in pairs.values()) and same_w,
+                 f"the resumed {what} run does not repeat step {step} bit for bit")
+        return same_w
+
+    # ---- (a) and (b): cli.train in float32, twist then slam ------------------
+    train_path, val_path = work / "f32_tokens.jsonl", work / "f32_val.jsonl"
+    write_markov_corpus(train_path, n_rows, lengths)        # phase 9's corpus
+    write_markov_corpus(val_path, 16, lengths, seed=1)
+    common = [f"data.train_path={train_path}", f"data.val_path={val_path}", "data.packing=true",
+              "model.config_args.torch_dtype=float32", f"training_args.max_steps={steps}",
+              f"training_args.per_device_train_batch_size={batch}",
+              f"training_args.per_device_eval_batch_size={batch}",
+              f"training_args.gradient_accumulation_steps={accum}",
+              "training_args.save_steps=1", "training_args.logging_steps=1",
+              *([] if on_card else ["training_args.use_cpu=true"])]
+    nonpad = lambda tr, group: sum(int((mb["segment_ids"] >= 0).sum()) for mb in group)
+    result, f32_launches = {}, [0, 0]
+    for name, extra, rows in (("twist", list(twist_overrides), cpu_rows[0]),
+                              ("slam", ["model=slam", "training_args.remat=true",
+                                        *slam_overrides], cpu_rows[1])):
+        out, resumed = work / f"f32_{name}", work / f"f32_{name}_resumed"
+        first = cli_run(cli_train.train, SLAMTrainer,
+                        [*extra, *common, f"training_args.output_dir={out}"], nonpad)
+        L, fwd_mb = first["n_layers"], first["n_layers"] * (1 + first["remat"])
+        losses = check_run(name, first, steps, steps, (accum * fwd_mb, accum * L), L)
+        again = cli_run(cli_train.train, SLAMTrainer,
+                        [*extra, *common, f"training_args.output_dir={resumed}",
+                         f"cont_training={out / 'checkpoint-1'}"], nonpad)
+        check_run(f"{name} resumed", again, steps, steps - 1, (accum * fwd_mb, accum * L), L)
+        check_resume(name, first, again, out, resumed, steps)
+        mb = first.pop("first_microbatch")
+        again.pop("first_microbatch")
+        check = _f32_card_vs_cpu(dev, out / f"checkpoint-{steps}",
+                                 {k: mb[k][:rows] for k in BATCH_KEYS})
+        for rec in (first, again):
+            f32_launches[0] += rec["launches"][0]
+            f32_launches[1] += rec["launches"][1]
+        result[name] = dict(
+            losses=losses, eval_loss=logged(first["state"], "eval_loss"),
+            step_seconds=first["seconds"], tokens_per_s=first["tokens_per_s"],
+            wall_s=first["wall_s"], resumed_wall_s=again["wall_s"], launches=first["launches"],
+            resumed_launches=again["launches"], eval_batches=first["eval_batches"],
+            max_memory_allocated=first["max_memory_allocated"], layers=L,
+            remat=first["remat"], twist=first["twist"], card_vs_cpu=check)
+        _drop(resumed, out / "checkpoint-1")
+        if name == "twist":
+            _drop(out)
+        free()
+
+    # ---- (d): DPO in float32 from (b)'s last checkpoint ----------------------
+    pref_train, pref_val = work / "f32_pref_train.jsonl", work / "f32_pref_val.jsonl"
+    write_preference_rows(pref_train, n_pref, prompt_len, completion_len)
+    write_preference_rows(pref_val, n_pref_val, prompt_len, completion_len, seed=1)
+    slam_ckpt = work / "f32_slam" / f"checkpoint-{steps}"
+    dpo_common = [f"model.pretrained_model={slam_ckpt}", "model.config_args.torch_dtype=float32",
+                  f"data.train_path={pref_train}", f"data.val_path={pref_val}",
+                  f"training_args.max_steps={dpo_steps}",
+                  f"training_args.save_steps={dpo_steps - 1}",
+                  f"training_args.per_device_train_batch_size={dpo_batch}",
+                  "training_args.logging_steps=1",
+                  *([] if on_card else ["training_args.use_cpu=true"])]
+    dpo_tokens = lambda tr, rows: int((tr._collate(rows)["segment_ids"] >= 0).sum())
+    out, resumed = work / "f32_dpo", work / "f32_dpo_resumed"
+    first = cli_run(cli_dpo.train, SLAMDPOTrainer,
+                    [*dpo_common, f"training_args.output_dir={out}"], dpo_tokens)
+    L = first["n_layers"]
+    per_step = (L * (2 + first["remat"]), L)
+    losses = check_run("dpo", first, dpo_steps, dpo_steps, per_step, 2 * L)
+    _require(abs(losses[0] - math.log(2)) <= 1e-6, f"float32 DPO step 1's loss {losses[0]} is "
+             f"not ln 2 within 1e-6 (the policy is the reference)")
+    again = cli_run(cli_dpo.train, SLAMDPOTrainer,
+                    [*dpo_common, f"training_args.output_dir={resumed}",
+                     f"cont_training={out / f'checkpoint-{dpo_steps - 1}'}"], dpo_tokens)
+    check_run("dpo resumed", again, dpo_steps, 1, per_step, 2 * L)
+    check_resume("dpo", first, again, out, resumed, dpo_steps)
+    for rec in (first, again):
+        f32_launches[0] += rec["launches"][0]
+        f32_launches[1] += rec["launches"][1]
+    result["dpo"] = dict(losses=losses, eval_loss=logged(first["state"], "eval_loss"),
+                         step_seconds=first["seconds"], tokens_per_s=first["tokens_per_s"],
+                         wall_s=first["wall_s"], resumed_wall_s=again["wall_s"],
+                         launches=first["launches"], resumed_launches=again["launches"],
+                         eval_batches=first["eval_batches"],
+                         max_memory_allocated=first["max_memory_allocated"], layers=L,
+                         remat=first["remat"])
+    _drop(out, resumed, work / "f32_slam")
+    free()
+    result["launches"] = {"flash_fwd_f32": f32_launches[0], "flash_bwd_f32": f32_launches[1]}
+    return result
 
 
 def main() -> int:
@@ -2753,12 +3150,13 @@ def main() -> int:
 
     # ---- phase 2: build, one nvcc per source, all at once -------------------
     from slamkit_tpu_torch.ops import _build
-    from slamkit_tpu_torch.ops.flash_attention import KERNEL, KERNEL_BWD, KERNEL_F32
+    from slamkit_tpu_torch.ops.flash_attention import (KERNEL, KERNEL_BWD, KERNEL_BWD_F32,
+                                                       KERNEL_F32)
     from slamkit_tpu_torch.ops.matmul_probe import KERNEL as PROBE_KERNEL
     from slamkit_tpu_torch.ops.quant import KERNEL as DQ_KERNEL
 
     t0 = time.perf_counter()
-    names = (KERNEL, KERNEL_BWD, DQ_KERNEL, PROBE_KERNEL, KERNEL_F32)
+    names = (KERNEL, KERNEL_BWD, DQ_KERNEL, PROBE_KERNEL, KERNEL_F32, KERNEL_BWD_F32)
     with ThreadPoolExecutor(len(names)) as pool:
         libs = list(pool.map(_build.build, names))
     print(f"built {', '.join(str(lib.relative_to(ROOT)) for lib in libs)} in "
@@ -2772,6 +3170,7 @@ def main() -> int:
         dq_rows = check_dq_kernels(dev)
         probe_result = check_probe(dev)
         f32_rows = check_kernels(dev, f32=True)
+        f32_bwd_rows = check_backward_kernels(dev, f32=True)
     torch.cuda.empty_cache()
     slice_result = run_slice(dev, smi)
     _require(slice_result["launches"] > 0, "the main path never launched the flash kernel")
@@ -2792,6 +3191,10 @@ def main() -> int:
         t0 = time.perf_counter()
         genppl_result = run_genppl(dev, smi, pathlib.Path(work))
         print(f"phases 1-11: {t0 - start:.1f} s", flush=True)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        f32_train_result = run_f32_training(dev, smi, pathlib.Path(work))
+        print(f"phase 13: {time.perf_counter() - t0:.1f} s", flush=True)
     speech_runs = speech_result["runs"]
 
     score = next(r for r in kernel_rows if r["name"] == "score_ctx1024")
@@ -2804,13 +3207,17 @@ def main() -> int:
     probe = next(r for r in probe_result["shapes"] if r["k"] == 128)
     # ... and the float32 forward at phase 12's scoring batch
     f32 = next(r for r in f32_rows if r["name"] == "genppl_score")
+    # ... and the float32 backward at phase 13's Slam batch
+    f32_bwd = next(r for r in f32_bwd_rows if r["name"] == "slam_f32")
     genppl_runs = genppl_result["runs"].values()
+    f32_launches = f32_train_result["launches"]
     print(json.dumps({"shapes": kernel_rows, "backward_shapes": backward_rows,
                       "dq_shapes": dq_rows, "probe": probe_result, "f32_shapes": f32_rows,
                       "slice": slice_result, "training": train_result,
                       "card_vs_cpu": cpu_result, "speech": speech_result,
                       "cli": cli_result, "dpo": dpo_result, "sims": sims_result,
-                      "genppl": genppl_result}), flush=True)
+                      "genppl": genppl_result, "f32_backward_shapes": f32_bwd_rows,
+                      "f32_training": f32_train_result}), flush=True)
     print(f"the whole run: {time.perf_counter() - start:.1f} s", flush=True)
     print(nvidia_smi(), flush=True)
 
@@ -2844,8 +3251,15 @@ def main() -> int:
                    max(r["max_abs_err"] for r in probe_result["shapes"]), probe),
         kernel_row("flash_fwd_f32", "slamkit_tpu_torch/ops/csrc/flash_fwd_f32.cu",
                    "slamkit_tpu/ops/flash_attention.py:124", ["flash_fwd_f32_kernel"],
-                   sum(r["launches"]["flash_fwd_f32"] for r in genppl_runs),
-                   max(r["max_abs_err_out"] for r in f32_rows), f32)]}), flush=True)
+                   sum(r["launches"]["flash_fwd_f32"] for r in genppl_runs)
+                   + f32_launches["flash_fwd_f32"],
+                   max(r["max_abs_err_out"] for r in f32_rows), f32),
+        kernel_row("flash_bwd_f32", "slamkit_tpu_torch/ops/csrc/flash_bwd_f32.cu",
+                   "slamkit_tpu/ops/flash_attention.py:247",
+                   ["flash_bwd_f32_prep_kernel", "flash_bwd_f32_dkdv_kernel",
+                    "flash_bwd_f32_dq_kernel"], f32_launches["flash_bwd_f32"],
+                   max(max(r["max_abs_err"].values()) for r in f32_bwd_rows), f32_bwd)]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -42,11 +42,14 @@
 #include <cmath>
 #include <stdint.h>
 
+#include "f32_tiles.cuh"
 #include "hopper.cuh"
 
 namespace {
 
 using namespace hopper;
+using f32_tiles::load_rows;
+using f32_tiles::load_transposed;
 
 constexpr int kTile = 64;        // q rows per CTA, keys per k tile
 constexpr int kThreads = 256;    // 16 x 16 threads, a 4 x 4 block each
@@ -85,36 +88,6 @@ __device__ __forceinline__ float group16_sum(float x) {
 #pragma unroll
   for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
-}
-
-// a [64][D] row-major slab (rows past T read as 0) into smem as [D][64]
-template <int D>
-__device__ __forceinline__ void load_transposed(float* dst, const float* src, int row0, int T,
-                                                int tid) {
-  constexpr int kVecs = kTile * D / 4;
-#pragma unroll 4
-  for (int i = tid; i < kVecs; i += kThreads) {
-    const int r = i % kTile, c = i / kTile;          // neighbouring threads: neighbouring rows
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < T) x = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * D + 4 * c);
-    dst[(4 * c + 0) * kTile + r] = x.x;
-    dst[(4 * c + 1) * kTile + r] = x.y;
-    dst[(4 * c + 2) * kTile + r] = x.z;
-    dst[(4 * c + 3) * kTile + r] = x.w;
-  }
-}
-
-// a [64][D] row-major slab into smem as it is
-template <int D>
-__device__ __forceinline__ void load_rows(float* dst, const float* src, int row0, int T, int tid) {
-  constexpr int kVecs = kTile * D / 4;
-#pragma unroll 4
-  for (int i = tid; i < kVecs; i += kThreads) {
-    const int r = i / (D / 4), c = i % (D / 4);
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < T) x = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * D + 4 * c);
-    *reinterpret_cast<float4*>(dst + r * D + 4 * c) = x;
-  }
 }
 
 template <int D>

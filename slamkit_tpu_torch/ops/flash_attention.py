@@ -3,22 +3,22 @@ the plain versions for CPU tensors.
 
 Counterpart of `slamkit_tpu/ops/flash_attention.py` (`flash_attention` :495,
 `_fwd` :198 with kernel `_fwd_kernel` :124; `_bwd` :340 with kernel
-`_bwd_kernel` :247; the `_flash` custom VJP :431-448). The kernels are
-`ops/csrc/flash_fwd.cu` (bf16), `ops/csrc/flash_fwd_f32.cu` (float32: the
-Pallas forward runs in its inputs' dtype, and the JAX package scores text
-with a float32 LM) and `ops/csrc/flash_bwd.cu` (bf16), built with nvcc on
-first use (`ops/_build.py`) and called through ctypes on PyTorch's current
-stream. Dispatch is by the device of the tensors, then by their dtype: a CPU
-tensor runs `mha_reference` / `mha_reference_bwd`, a CUDA tensor launches the
-kernel of its dtype or raises (float16, mixed dtypes, and a float32 gradient:
-the float32 backward is not ported, ROADMAP queue 2).
-`FlashAttentionFunction` carries the gradient; `flash_attention` routes
-through it when autograd is recording.
+`_bwd_kernel` :247; the `_flash` custom VJP :431-448). The Pallas kernels run
+in their inputs' dtype, and the JAX package both trains and scores in
+float32 where the model's torch_dtype says so, so each has a kernel per
+dtype: `ops/csrc/flash_fwd.cu` and `flash_bwd.cu` (bf16),
+`ops/csrc/flash_fwd_f32.cu` and `flash_bwd_f32.cu` (float32), built with
+nvcc on first use (`ops/_build.py`) and called through ctypes on PyTorch's
+current stream. Dispatch is by the device of the tensors, then by their
+dtype: a CPU tensor runs `mha_reference` / `mha_reference_bwd`, a CUDA
+tensor launches the kernel of its dtype or raises (float16 and mixed
+dtypes). `FlashAttentionFunction` carries the gradient; `flash_attention`
+routes through it when autograd is recording.
 
-`flash_attention_fwd.launches` (the bf16 forward),
-`flash_attention_fwd.f32_launches` (the float32 forward) and
-`flash_attention_bwd.launches` count kernel launches (never plain-version
-calls), so a caller can show that its path went through the kernels.
+`flash_attention_fwd.launches` / `.f32_launches` and
+`flash_attention_bwd.launches` / `.f32_launches` count kernel launches of
+the bf16 and float32 kernels (never plain-version calls), so a caller can
+show that its path went through the kernels.
 """
 from __future__ import annotations
 
@@ -34,9 +34,13 @@ from .attention_ref import mha_reference, mha_reference_bwd
 KERNEL = "flash_fwd"
 KERNEL_F32 = "flash_fwd_f32"
 KERNEL_BWD = "flash_bwd"
+KERNEL_BWD_F32 = "flash_bwd_f32"
 
 
 _ENTRY = {KERNEL: "slamkit_flash_fwd_bf16", KERNEL_F32: "slamkit_flash_fwd_f32"}
+# the backward libraries' (launch, scratch size) entries
+_BWD_ENTRY = {KERNEL_BWD: ("slamkit_flash_bwd_bf16", "slamkit_flash_bwd_scratch_floats"),
+              KERNEL_BWD_F32: ("slamkit_flash_bwd_f32", "slamkit_flash_bwd_f32_scratch_floats")}
 
 
 @functools.lru_cache(maxsize=None)
@@ -50,14 +54,16 @@ def _kernel_fn(name: str):
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_bwd_fns():
-    """(the launch, the scratch size) of the backward library."""
-    lib = _build.load(KERNEL_BWD)
+def _kernel_bwd_fns(name: str):
+    """(the launch, the scratch size) of backward library `name` (bf16 or
+    float32: one signature)."""
+    lib = _build.load(name)
+    launch, scratch = _BWD_ENTRY[name]
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn = lib.slamkit_flash_bwd_bf16
+    fn = getattr(lib, launch)
     fn.argtypes = [p] * 12 + [i, i, i, i, i, ctypes.c_float, i, p]
     fn.restype = i
-    scratch = lib.slamkit_flash_bwd_scratch_floats
+    scratch = getattr(lib, scratch)
     scratch.argtypes = [i, i, i]
     scratch.restype = ctypes.c_longlong
     return fn, scratch
@@ -88,9 +94,10 @@ def _segments(segment_ids, kv_segment_ids):
     return segment_ids, kv_segment_ids
 
 
-def _check_kernel_inputs(what: str, dtypes=(torch.bfloat16,), **tensors):
-    """What the CUDA kernels take: tensors of one dtype among `dtypes` (bf16;
-    the forward also float32), contiguous, 16-byte aligned, d 64/128."""
+def _check_kernel_inputs(what: str, **tensors):
+    """What the CUDA kernels take: tensors of one dtype, bf16 or float32,
+    contiguous, 16-byte aligned, d 64/128."""
+    dtypes = (torch.bfloat16, torch.float32)
     got = {x.dtype for x in tensors.values()}
     if len(got) != 1 or not got <= set(dtypes):
         raise TypeError(f"the CUDA flash {what} takes "
@@ -114,7 +121,7 @@ def _seg_ptrs(q_seg, k_seg):
 
 def _launch(q, k, v, q_seg, k_seg, causal: bool, sm_scale: float):
     """The bf16 kernel for bf16 inputs, the float32 one for float32 inputs."""
-    _check_kernel_inputs("forward", (torch.bfloat16, torch.float32), q=q, k=k, v=v)
+    _check_kernel_inputs("forward", q=q, k=k, v=v)
     f32 = q.dtype == torch.float32
     b, h, t, d = q.shape
     q_ptr, k_ptr, _keep = _seg_ptrs(q_seg, k_seg)
@@ -167,17 +174,21 @@ flash_attention_fwd.f32_launches = 0
 
 
 def _launch_bwd(q, k, v, out, lse, do, q_seg, k_seg, causal: bool, sm_scale: float):
+    """The bf16 kernel for bf16 inputs, the float32 one for float32 inputs."""
     _check_kernel_inputs("backward", q=q, k=k, v=v, out=out, do=do)
+    f32 = q.dtype == torch.float32
+    name = KERNEL_BWD_F32 if f32 else KERNEL_BWD
     b, h, t, d = q.shape
     if tuple(lse.shape) != (b, h, t):
         raise ValueError(f"lse must be [B, H, T] = {(b, h, t)}; got {tuple(lse.shape)}")
     lse = lse.float().contiguous()
     q_ptr, k_ptr, _keep = _seg_ptrs(q_seg, k_seg)
-    launch, scratch_floats = _kernel_bwd_fns()
+    launch, scratch_floats = _kernel_bwd_fns(name)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     # delta = rowsum(dO o O) of the O the forward returned (outside the
     # kernel proper, as in the JAX package, flash_attention.py:345) is the
-    # kernel's pre-pass; it and the segment-range tables live in `scratch`
+    # kernels' pre-pass; it (and the bf16 kernel's segment-range tables)
+    # live in `scratch`
     scratch = torch.empty(scratch_floats(b, h, t), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -186,8 +197,11 @@ def _launch_bwd(q, k, v, out, lse, do, q_seg, k_seg, causal: bool, sm_scale: flo
             lse.data_ptr(), q_ptr, k_ptr, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             scratch.data_ptr(), b, h, k.shape[1], t, d, float(sm_scale), int(causal), stream)
     if err != 0:
-        raise RuntimeError(f"flash_bwd launch failed: CUDA error {err}")
-    flash_attention_bwd.launches += 1
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    if f32:
+        flash_attention_bwd.f32_launches += 1
+    else:
+        flash_attention_bwd.launches += 1
     return dq, dk, dv
 
 
@@ -221,6 +235,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.f32_launches = 0
 
 
 class FlashAttentionFunction(torch.autograd.Function):
@@ -253,16 +268,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     sm_scale: Optional[float] = None) -> torch.Tensor:
     """Flash attention over [B, H, T, D] with optional [B, T] segment ids
     (the JAX package's public entry); returns the output only. Under autograd
-    it goes through `FlashAttentionFunction`, so the backward kernel runs;
-    float32 CUDA inputs that need a gradient raise, since the float32 backward
-    is not ported (ROADMAP queue 2)."""
+    it goes through `FlashAttentionFunction`, so the backward kernel of the
+    inputs' dtype runs."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        if q.device.type == "cuda" and q.dtype == torch.float32:
-            raise NotImplementedError(
-                "flash attention on float32 CUDA tensors that need a gradient: the float32 "
-                "backward kernel is not ported yet (ROADMAP queue 2); score under no_grad / "
-                "inference_mode, or train in bfloat16")
         return FlashAttentionFunction.apply(q, k, v, segment_ids, None, causal,
                                             sm_scale)[0]
     return flash_attention_fwd(q, k, v, segment_ids=segment_ids, causal=causal,

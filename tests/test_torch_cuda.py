@@ -26,7 +26,18 @@ float32 (FMAs on the card's CUDA cores, expf; the plain version's float32
 einsums with TF32 off) and differ by summation order alone, ~1e-6 relative
 on |out| < 4 and LSE < 12; a bf16 or TF32 rounding anywhere would sit near
 1e-3.
+
+The float32 backward (flash_bwd_f32.cu) against the same plain version on
+the same float32 inputs, O and LSE: max |kernel - plain| of each of dq, dk,
+dv within 16 eps32 sqrt(G T) of that gradient's max |plain|, plus 1e-5 for
+gradients that cancel to ~0 (T = 1). Both sides compute in float32 and
+differ by summation order alone; dK and dV sum G x T terms, so the bound
+grows with G T (2.1e-5 relative at G T = 512); a TF32 or bf16 product
+would sit above 1e-3. Each call is repeated and must give bitwise the same
+gradients.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -38,6 +49,7 @@ OUT_BOUND, LSE_BOUND = 3e-2, 2e-3
 F32_OUT_BOUND, F32_LSE_BOUND = 1e-4, 1e-4
 BWD_REL_BOUND = 1e-2
 BWD_ROW_RTOL, BWD_ROW_ATOL = 2e-2, 1e-3
+F32_EPS, F32_BWD_FACTOR = 2.0 ** -23, 16.0
 
 
 @pytest.fixture
@@ -253,7 +265,8 @@ def test_f32_kernel_matches_plain_noncausal(dev, kind):
 @pytest.mark.cuda
 def test_f32_kernel_dead_rows_and_gradient_refusal(dev):
     """Query ids 7 never appear among the keys: out 0 and LSE +1e30; a
-    float32 input that needs a gradient raises (no float32 backward)."""
+    float16 input that needs a gradient raises (no float16 kernel), where a
+    float32 one now takes the float32 backward."""
     b, t = 2, 256
     seg = torch.zeros((b, t), dtype=torch.int32, device=dev)
     seg[:, 100:140] = 7
@@ -262,8 +275,8 @@ def test_f32_kernel_dead_rows_and_gradient_refusal(dev):
                                    kv_segment_ids=torch.zeros_like(seg))
     assert bool((out[:, :, 100:140] == 0).all()) and bool((lse[:, :, 100:140] == 1e30).all())
     assert bool((lse[:, :, :100] < 1e30).all())
-    with pytest.raises(NotImplementedError, match="float32 backward"):
-        flash_attention(q.requires_grad_(), k, v)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        flash_attention(q.half().requires_grad_(), k.half(), v.half())
 
 
 @pytest.mark.cuda
@@ -390,7 +403,9 @@ def test_backward_kernel_refuses_what_it_does_not_take(dev):
     q, k, v = _inputs(dev, 1, 2, 1, 64, 64)
     out, lse = flash_attention_fwd(q, k, v)
     with pytest.raises(TypeError, match="bfloat16"):
-        flash_attention_bwd(q.float(), k.float(), v.float(), out.float(), lse, out.float())
+        flash_attention_bwd(q.half(), k.half(), v.half(), out.half(), lse, out.half())
+    with pytest.raises(TypeError, match="bfloat16"):
+        flash_attention_bwd(q.float(), k, v, out, lse, out)
     with pytest.raises(ValueError, match="head dim"):
         s = lambda x: x[..., :32].contiguous()
         flash_attention_bwd(s(q), s(k), s(v), s(out), lse, s(out))
@@ -404,6 +419,102 @@ def test_backward_kernel_refuses_what_it_does_not_take(dev):
         flash_attention_bwd(q, k, v, out[:, :, :32].contiguous(), lse, out)
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention_bwd(q, k, v, out, lse, out.transpose(2, 3).contiguous().transpose(2, 3))
+
+
+def _f32_grad_bound(got, want, g, t):
+    """Each of dq, dk, dv: float32, finite, within the float32 bound."""
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.float32 and a.shape == w.shape, name
+        assert bool(torch.isfinite(a).all()), name
+        bound = F32_BWD_FACTOR * F32_EPS * math.sqrt(g * t) * w.abs().max().item() + 1e-5
+        err = (a - w).abs().max().item()
+        assert err <= bound, (name, err, bound)
+
+
+def _compare_bwd_f32(dev, b, h, hkv, t, d, causal, kind, kv_seg=None, seg=None):
+    """The float32 backward against the plain version on the same O and LSE,
+    each call repeated bitwise; returns (dq, dk, dv)."""
+    q, k, v = (x.float() for x in _inputs(dev, b, h, hkv, t, d, seed=5 * t + d))
+    do = torch.randn((b, h, t, d), generator=torch.Generator(device=dev).manual_seed(t + 2),
+                     device=dev)
+    if seg is None:
+        seg = _segments(kind, b, t, seed=t + 3)
+        seg = None if seg is None else seg.to(dev)
+    out, lse = flash_attention_fwd(q, k, v, segment_ids=seg, causal=causal,
+                                   kv_segment_ids=kv_seg)
+    before = flash_attention_bwd.f32_launches, flash_attention_bwd.launches
+    run = lambda: flash_attention_bwd(q, k, v, out, lse, do, segment_ids=seg,
+                                      kv_segment_ids=kv_seg, causal=causal)
+    got = run()
+    assert (flash_attention_bwd.f32_launches, flash_attention_bwd.launches) == (
+        before[0] + 1, before[1])
+    want = mha_reference_bwd(q, k, v, seg, kv_seg, out, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    _f32_grad_bound(got, want, h // hkv, t)
+    again = run()
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    return got
+
+
+# G = H / Hkv: 1 (OPT-125m, train.yaml's default model: 12/12 heads), 4, 7
+# (Slam, slam_dh128) and 8; d = 64 and 128; T off the tile size and T = 1
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,hkv,t,d", [
+    (2, 12, 12, 512, 64), (2, 4, 4, 300, 64), (2, 8, 2, 200, 128), (2, 14, 2, 1000, 64),
+    (2, 7, 1, 1024, 128), (1, 8, 1, 129, 64), (1, 4, 4, 1, 64), (2, 4, 1, 65, 128),
+])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("kind", [None, "packed", "left_padded"])
+def test_f32_backward_kernel_matches_plain(dev, b, h, hkv, t, d, causal, kind):
+    _compare_bwd_f32(dev, b, h, hkv, t, d, causal, kind)
+
+
+# the training rows of phase 13: packed rows with a -1 tail at the twist and
+# Slam shapes, DPO's [2 x 8, 152] rows of one segment and a -1 tail,
+# 16-token segments (every tile masked), and dead rows
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,hkv,t,d,kind", [
+    (8, 12, 12, 512, 64, "pad_tail"), (8, 14, 2, 1024, 64, "packed"),
+    (16, 14, 2, 152, 64, "dpo"), (2, 7, 1, 1024, 128, "segments16"),
+    (2, 14, 2, 1024, 64, "sims"),
+])
+def test_f32_backward_kernel_at_training_rows(dev, b, h, hkv, t, d, kind):
+    _compare_bwd_f32(dev, b, h, hkv, t, d, True, kind)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_f32_backward_dead_rows(dev, causal):
+    """Query ids 7 never appear among the keys: those rows' P is exactly 0, so
+    their dq is exactly 0, and they add nothing to dk and dv."""
+    b, t = 2, 256
+    seg = torch.zeros((b, t), dtype=torch.int32, device=dev)
+    seg[:, 100:140] = 7
+    dq, _, _ = _compare_bwd_f32(dev, b, 14, 2, t, 64, causal, None,
+                                kv_seg=torch.zeros_like(seg), seg=seg)
+    assert bool((dq[:, :, 100:140] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_f32_autograd_function_runs_both_f32_kernels(dev, d):
+    """Float32 gradients through `flash_attention` under autograd come from
+    the float32 kernels, one launch each, and match autograd through the
+    plain version; the bf16 counters do not move."""
+    b, h, hkv, t = 2, 14, 2, 300
+    q, k, v = (x.float().requires_grad_() for x in _inputs(dev, b, h, hkv, t, d, seed=9))
+    seg = _segments("packed", b, t, seed=10).to(dev)
+    w = torch.linspace(-1, 1, d, device=dev)
+    before = (flash_attention_fwd.f32_launches, flash_attention_bwd.f32_launches,
+              flash_attention_fwd.launches, flash_attention_bwd.launches)
+    (flash_attention(q, k, v, segment_ids=seg) * w).sum().backward()
+    assert (flash_attention_fwd.f32_launches, flash_attention_bwd.f32_launches,
+            flash_attention_fwd.launches, flash_attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1, before[2], before[3])
+    qf, kf, vf = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    (mha_reference(qf, kf, vf, segment_ids=seg)[0] * w).sum().backward()
+    torch.cuda.synchronize()
+    _f32_grad_bound((q.grad, k.grad, v.grad), (qf.grad, kf.grad, vf.grad), h // hkv, t)
 
 
 # --------------------------------------------------------------------------- #
