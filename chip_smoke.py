@@ -51,7 +51,9 @@ the sm_90a kernels). Phases, in order; any failure exits non-zero:
                each call repeated bitwise, timed as phase 3
                times the bf16
                forward; bound by bytes over 3.35 TB/s or FLOPs over the
-               H100's float32 CUDA-core 67 TFLOP/s; library call SDPA in
+               float32 rate of 3xTF32 on the H100's tensor cores (495 / 3
+               TFLOP/s; the CUDA-core 67 TFLOP/s bound printed beside it);
+               library call SDPA in
                float32 on the same masked inputs.
   3f. float32 backward — the float32 flash backward (flash_bwd_f32.cu)
                against its plain version on the same float32 inputs, O and
@@ -60,8 +62,8 @@ the sm_90a kernels). Phases, in order; any failure exits non-zero:
                and a -1 tail; `d128_f32`: [8, 7/1, 1024, 128]; a ragged T of
                1000; `dpo_f32`: [16, 14/2, 152, 64] with -1 tails; dead
                rows), each call repeated bitwise, timed as phase 3b times the
-               bf16 backward; bound by bytes over 3.35 TB/s or FLOPs over 67
-               TFLOP/s; library call SDPA's float32 backward.
+               bf16 backward; bound by bytes over 3.35 TB/s or FLOPs over 165
+               TFLOP/s (67 beside it); library call SDPA's float32 backward.
   4. scoring — a Slam-width UnitLM (Qwen2.5-0.5B decoder, 502 units, bf16,
                random init from a seed) saved and reloaded with
                save_pretrained / from_pretrained, scoring 8 unit-token
@@ -135,7 +137,9 @@ the sm_90a kernels). Phases, in order; any failure exits non-zero:
                4 x 2 with remat and bf16 moments and a save at step 2; then
                `cli.eval metric=cm_ms_tsc` (TEXT prompt, SPEECH
                continuations) over 16 seeded triples, 4 triples' scores held
-               against float32 on the CPU; `cli.eval metric=cm_generate`
+               against float32 on the CPU; `cli.eval metric=sblimp
+               metric.used_token_modality=SPEECH` over phase 9's WAV pairs,
+               every log-likelihood finite; `cli.eval metric=cm_generate`
                TEXT->SPEECH through vocoder=vocoder_hubert_25 (4 prompts, 40
                new tokens, WAVs written) and SPEECH->TEXT on 4 of phase 9's
                WAVs (.txt written), every new token inside its modality.
@@ -218,7 +222,8 @@ why it has no time (`library_ms` is then null: a library call whose graph
 capture fails is not timed another way). The dq_matmul entry is timed at
 a decode shape (the GEMV, M <= 16) and carries the prefill GEMM's own times
 (M > 16) at M = 1024, up / gate, under `prefill`, beside the dense path's
-`dense_graph_ms`.
+`dense_graph_ms`; the two float32 entries carry `cuda_core_bound_ms`, their
+FLOPs at the CUDA cores' 67 TFLOP/s, beside `bound_ms` at 3xTF32's rate.
 """
 from __future__ import annotations
 
@@ -239,10 +244,10 @@ PAD, BOS_EOS = 0, 1   # the unit tokeniser's special ids
 # kernel-vs-plain bounds: bf16 probabilities and a bf16 output (|out| < 4:
 # 2 * 4 * 2^-8 = 3e-2); LSE comes from float32 scores of bf16 inputs
 OUT_BOUND, LSE_BOUND = 3e-2, 2e-3
-# the float32 forward against the same plain version on float32 inputs: both
-# compute in float32 (CUDA-core FMAs and expf; float32 einsums with TF32
-# off) and differ by summation order alone, ~1e-6 relative on |out| < 4 and
-# LSE < 12; a bf16 or TF32 rounding anywhere would sit near 1e-3
+# the float32 forward against the same plain version on float32 inputs: the
+# kernel's 3xTF32 products (~2^-22 of each product lost) and the plain
+# version's float32 einsums (TF32 off) differ by ~1e-6 relative on |out| < 4
+# and LSE < 12; one bf16 or TF32 rounding of a product would sit near 1e-3
 F32_OUT_BOUND, F32_LSE_BOUND = 1e-4, 1e-4
 # backward: max |kernel - plain| of each of dq, dk, dv within 1e-2 of that
 # gradient's max |plain| (+1e-5 for gradients that cancel to ~0): the kernel
@@ -258,8 +263,8 @@ BWD_REL_BOUND = 1e-2
 # norms of ~1 at these shapes
 BWD_ROW_RTOL, BWD_ROW_ATOL = 2e-2, 1e-3
 # the float32 backward against the same plain version on float32 inputs:
-# both compute in float32 (CUDA-core FMAs and expf; float32 einsums with TF32
-# off) and differ by summation order alone. dK and dV sum G x T terms (dQ
+# the kernel's 3xTF32 products and the plain version's float32 einsums (TF32
+# off) differ by float32 noise. dK and dV sum G x T terms (dQ
 # sums T), so the bound grows with G T: max |kernel - plain| of each of dq,
 # dk, dv within 16 eps32 sqrt(G T) of that gradient's max |plain| (2.1e-5
 # at G T = 512, 8.1e-5 at 7 x 1024), a random walk of float32 roundings
@@ -312,7 +317,7 @@ F32_YARDSTICK_FACTOR = 2.0
 GENPPL_LOGIT_REL_BOUND, GENPPL_LOGP_BOUND, WHISPER_REL_BOUND = 1e-4, 1e-4, 1e-4
 # phase 13, float32 training: one microbatch's loss and every parameter
 # gradient on the card against float32 on the CPU, on the same weights and
-# batch. Both sides compute in float32 (TF32 off; CUDA-core flash kernels)
+# batch. Both sides compute in float32 (TF32 off; 3xTF32 flash kernels)
 # and differ by summation order alone (~1e-6 relative through the layers),
 # where a TF32 or bf16 product would sit at 1e-3 or more. The loss within
 # 1e-5 of |cpu|; each tensor's max |card - cpu| within 1e-4 of its own max
@@ -363,9 +368,15 @@ GENERATE_KWARGS = dict(temperature=0.8, top_k=25, max_new_tokens=150, do_sample=
 # the bound of a kernel: the H100 SXM's memory rate and dense bf16 tensor-core
 # rate (NVIDIA data sheet), against which every roofline share is stated
 HBM_BYTES_PER_S, BF16_FLOPS_PER_S = 3.35e12, 989e12
-# ... and its float32 rate outside the tensor cores (NVIDIA data sheet, SXM),
-# the bound of the float32 flash forward, whose products are CUDA-core FMAs
+# ... its float32 rate outside the tensor cores (NVIDIA data sheet, SXM), and
+# the float32 rate of 3xTF32 on the tensor cores: three TF32 products (495
+# TFLOP/s dense) for each float32 one, which holds every float32 bound of
+# phases 3e, 3f, 12 and 13 (tests/test_torch_tf32_split.py emulates it). The
+# float32 flash kernels' bound is their FLOPs at the 3xTF32 rate; the
+# CUDA-core bound (the basis of the CUDA-core kernels' shares) is printed
+# beside it
 FP32_FLOPS_PER_S = 67e12
+FP32_3XTF32_FLOPS_PER_S = 495e12 / 3
 # published dense bf16 tensor-core peaks (NVIDIA data sheets), by card name
 BF16_PEAK_FLOPS = (("H100 PCIe", 756e12), ("H100 NVL", 835e12), ("H100", 989e12),
                    ("H200", 989e12))
@@ -508,7 +519,8 @@ def bound_ms(n_bytes: float, flops: float, flops_per_s: float = BF16_FLOPS_PER_S
     """The least time the card could take (ms) and what sets it: the bytes
     moved (each input read once, each output written once) over the memory
     rate, or the operations over the rate of their type (the bf16 tensor-core
-    rate unless `flops_per_s` names another: FP32_FLOPS_PER_S for float32)."""
+    rate unless `flops_per_s` names another: FP32_3XTF32_FLOPS_PER_S for
+    float32)."""
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     by_flops = flops / flops_per_s * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_flops else (by_flops, "operations")
@@ -547,6 +559,11 @@ def flash_cost(shape, seg, kv_seg, causal: bool, backward: bool, elt_bytes: int 
     if backward:
         return 3 * q_bytes + 2 * kv_bytes + rows * 4 + ids + q_bytes + 2 * kv_bytes, 10 * d * pairs
     return 2 * q_bytes + 2 * kv_bytes + rows * 4 + ids, 4 * d * pairs
+
+
+def _cores_text(cores_bound) -> str:
+    """The float32 kernels' bound at the CUDA-core rate, beside the 3xTF32 one."""
+    return "" if cores_bound is None else f" (at 67 TFLOP/s of CUDA cores {cores_bound:.4f} ms)"
 
 
 def _ratios(device_ms: float, bound: float, library_ms):
@@ -692,7 +709,7 @@ def check_kernels(dev, f32: bool = False) -> list[dict]:
     version at the slices' shapes. Phase 3e (`f32`): the float32 forward
     (flash_fwd_f32.cu) against the same plain version on float32 inputs at
     the text LM's shapes (Llama-3.2-1B: 32 q heads over 8 kv heads of 64),
-    its bound taking the operations at the float32 CUDA-core rate. Among
+    its bound taking the operations at the float32 rate of 3xTF32. Among
     them, phase 12's own shapes: a scoring batch (8 transcripts of ~1700-3530
     tokens, padded right to a multiple of 64 with a -1 tail, as
     log_likelihood pads them) and a judge prefill (8 instructions of
@@ -738,8 +755,9 @@ def check_kernels(dev, f32: bool = False) -> list[dict]:
         cost = flash_cost((b, h, hkv, t, d), seg, None if kv_seg is None
                           else kv_seg.cpu().numpy(), causal, backward=False,
                           elt_bytes=4 if f32 else 2)
-        bound, bound_by = bound_ms(*cost, flops_per_s=FP32_FLOPS_PER_S if f32
+        bound, bound_by = bound_ms(*cost, flops_per_s=FP32_3XTF32_FLOPS_PER_S if f32
                                    else BF16_FLOPS_PER_S)
+        cores_bound = bound_ms(*cost, flops_per_s=FP32_FLOPS_PER_S)[0] if f32 else None
         seg = torch.from_numpy(seg).to(dev)
         run = lambda: flash_attention_fwd(q, k, v, segment_ids=seg, causal=causal,
                                           kv_segment_ids=kv_seg)
@@ -780,7 +798,8 @@ def check_kernels(dev, f32: bool = False) -> list[dict]:
                             device_ms=device_ms, plain_device_ms=plain_device_ms,
                             library_ms=library_ms, library=timed,
                             bound_ms=bound, bound_by=bound_by, roofline_share=share,
-                            vs_library=vs_library, tflops=tflops, ok=ok))
+                            cuda_core_bound_ms=cores_bound, vs_library=vs_library,
+                            tflops=tflops, ok=ok))
         print(f"kernel{' f32' if f32 else ''} {name:16s} [{b},{h}/{hkv},{t},{d}] "
               f"causal={causal}: |dout|={err_out:.3e} (<= {out_bound}) |dlse|={err_lse:.3e} "
               f"(<= {lse_bound}) dead={n_dead} dead_ok={dead_ok} bitwise-repeatable="
@@ -788,7 +807,8 @@ def check_kernels(dev, f32: bool = False) -> list[dict]:
               f"kernel {device_ms:.4f} ms ({tflops:.1f} TFLOP/s) plain "
               f"{f'{plain_device_ms:.4f} ms' if chunks == 1 else f'not captured ({chunks} chunks)'} "
               f"{_library_text(library_ms, timed, vs_library)}; bound {bound:.4f} ms by "
-              f"{bound_by}, roofline_share {share:.3f}  {'ok' if ok else 'FAIL'}", flush=True)
+              f"{bound_by}{_cores_text(cores_bound)}, roofline_share {share:.3f}  "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
         _require(ok, f"the {dtype} flash kernel disagrees with the plain version at {name}")
     return results
 
@@ -853,7 +873,7 @@ def check_backward_kernels(dev, f32: bool = False) -> list[dict]:
     inputs at phase 13's shapes: train.yaml's default model (OPT-125m, 12/12
     heads, G = 1, context 512), the Slam batch (G = 7), slam_dh128, a ragged
     T, DPO's rows and dead rows; its bound takes the operations at the
-    float32 CUDA-core rate."""
+    float32 rate of 3xTF32."""
     import torch
 
     from slamkit_tpu_torch.ops import flash_attention_bwd, flash_attention_fwd, mha_reference_bwd
@@ -889,8 +909,9 @@ def check_backward_kernels(dev, f32: bool = False) -> list[dict]:
         cost = flash_cost((b, h, hkv, t, d), seg, None if kv_seg is None
                           else kv_seg.cpu().numpy(), True, backward=True,
                           elt_bytes=4 if f32 else 2)
-        bound, bound_by = bound_ms(*cost, flops_per_s=FP32_FLOPS_PER_S if f32
+        bound, bound_by = bound_ms(*cost, flops_per_s=FP32_3XTF32_FLOPS_PER_S if f32
                                    else BF16_FLOPS_PER_S)
+        cores_bound = bound_ms(*cost, flops_per_s=FP32_FLOPS_PER_S)[0] if f32 else None
         seg = torch.from_numpy(seg).to(dev)
         out, lse = flash_attention_fwd(q, k, v, segment_ids=seg, kv_segment_ids=kv_seg)
         run = lambda: flash_attention_bwd(q, k, v, out, lse, do, segment_ids=seg,
@@ -927,8 +948,8 @@ def check_backward_kernels(dev, f32: bool = False) -> list[dict]:
                             ms=ms, plain_ms=plain_ms, device_ms=device_ms,
                             plain_device_ms=plain_device_ms, library_ms=library_ms,
                             library=timed, bound_ms=bound, bound_by=bound_by,
-                            roofline_share=share, vs_library=vs_library, tflops=tflops,
-                            ok=ok))
+                            roofline_share=share, cuda_core_bound_ms=cores_bound,
+                            vs_library=vs_library, tflops=tflops, ok=ok))
         print(f"backward{' f32' if f32 else ''} {name:14s} [{b},{h}/{hkv},{t},{d}]: "
               + " ".join(f"|{n}|={e:.3e} (<= {bd:.3e})" + ("" if f32 else
                                                           f" row {r:.3f} (<= 1)")
@@ -937,8 +958,8 @@ def check_backward_kernels(dev, f32: bool = False) -> list[dict]:
               f"{ms:.4f} ms plain {plain_ms:.4f} ms; graph: kernel {device_ms:.4f} ms "
               f"({tflops:.1f} TFLOP/s) plain "
               f"{plain_device_ms:.4f} ms {_library_text(library_ms, timed, vs_library)}; "
-              f"bound {bound:.4f} ms by {bound_by}, roofline_share {share:.3f}  "
-              f"{'ok' if ok else 'FAIL'}", flush=True)
+              f"bound {bound:.4f} ms by {bound_by}{_cores_text(cores_bound)}, "
+              f"roofline_share {share:.3f}  {'ok' if ok else 'FAIL'}", flush=True)
         del got, want, again
         _require(ok, f"the {dtype} flash backward kernel disagrees with the plain version "
                  f"at {name}")
@@ -2190,7 +2211,9 @@ def run_sims(dev, smi: str, work: pathlib.Path, tiny: bool = False, n_entries=No
     train_inter_scale` over a text-only, an interleaved and a speech-only
     corpus (`steps` steps of `batch` x `accum` at `context`, a save at the
     last); `cli.eval metric=cm_ms_tsc` on the checkpoint, a few scores held
-    against float32 on the CPU; `cli.eval metric=cm_generate` TEXT->SPEECH
+    against float32 on the CPU; `cli.eval metric=sblimp` with
+    `used_token_modality=SPEECH` (a -inf pad logit that the masked NLL must
+    drop), every log-likelihood finite; `cli.eval metric=cm_generate` TEXT->SPEECH
     with the vocoder and SPEECH->TEXT. On the card every training microbatch
     must launch the forward kernel twice per layer (remat) and the backward
     once, every scoring call and every generation prefill the forward once
@@ -2385,6 +2408,32 @@ def run_sims(dev, smi: str, work: pathlib.Path, tiny: bool = False, n_entries=No
     _require(ll_err <= SIMS_LL_BOUND, "cm_ms_tsc's scores on the card disagree with the "
              "float32 CPU run")
 
+    # ---- cli.eval metric=sblimp used_token_modality=SPEECH ----------------------
+    # every text id but bos / eos, the pad among them, gets a -inf logit: a
+    # pad target's NLL is +inf, which the masked sum must drop, not turn NaN
+    cm_calls = len(calls)
+    calls.clear()
+    UnitLM.log_likelihood = recorded
+    flash_attention_fwd.launches = 0                                    # the main path's count
+    try:
+        t0 = time.perf_counter()
+        res = cli_eval.eval_main(common + ["metric=sblimp", f"metric.data_path={work / 'sblimp'}",
+                                           "metric.subfolder=false",
+                                           "metric.used_token_modality=SPEECH"])
+        speech_s = time.perf_counter() - t0
+    finally:
+        UnitLM.log_likelihood = score
+    speech_launches, speech_sblimp = flash_attention_fwd.launches, res["sBLIMP"]
+    speech_finite = all(np.isfinite(ll).all() for _, ll, _ in calls)
+    print(f"cli.eval metric=sblimp used_token_modality=SPEECH: sBLIMP {speech_sblimp}, "
+          f"{len(calls)} scoring calls, every log-likelihood finite: {speech_finite}, "
+          f"{speech_s:.1f} s with the loads, launches {speech_launches} on {smi}", flush=True)
+    _require(speech_finite and calls and 0.0 <= speech_sblimp <= 1.0,
+             f"sblimp with used_token_modality=SPEECH scored {res}")
+    _require(speech_launches == (len(calls) * n_layers if on_card else 0),
+             f"sblimp launched the flash forward {speech_launches} times, not "
+             f"{len(calls) * n_layers if on_card else 0}")
+
     # ---- cli.eval metric=cm_generate, TEXT->SPEECH and SPEECH->TEXT --------------
     textless_root = CHECKPOINT_MANAGER.disk_root
     CHECKPOINT_MANAGER.set_root(sims_recipe.write_textless_vocoder(root / "textless",
@@ -2454,8 +2503,10 @@ def run_sims(dev, smi: str, work: pathlib.Path, tiny: bool = False, n_entries=No
                 train_seconds=train_s, train_launches=train_launches,
                 launches_per_step=seen["launches"], expected_launches=want,
                 max_memory_allocated=peak_mem, storycloze=storycloze,
-                cm_calls=len(calls), cm_widths=widths, cm_seconds=cm_s,
+                cm_calls=cm_calls, cm_widths=widths, cm_seconds=cm_s,
                 cm_launches=cm_launches, card_vs_cpu_ll_err=ll_err,
+                speech_sblimp=speech_sblimp, speech_sblimp_calls=len(calls),
+                speech_sblimp_seconds=speech_s, speech_sblimp_launches=speech_launches,
                 generate={k: gen[k] for k in ("SPEECH", "TEXT")})
 
 
@@ -3249,16 +3300,18 @@ def main() -> int:
                    "scripts/bench_flash.py:98", ["matmul_probe_kernel"],
                    probe_result["launches"],
                    max(r["max_abs_err"] for r in probe_result["shapes"]), probe),
-        kernel_row("flash_fwd_f32", "slamkit_tpu_torch/ops/csrc/flash_fwd_f32.cu",
-                   "slamkit_tpu/ops/flash_attention.py:124", ["flash_fwd_f32_kernel"],
-                   sum(r["launches"]["flash_fwd_f32"] for r in genppl_runs)
-                   + f32_launches["flash_fwd_f32"],
-                   max(r["max_abs_err_out"] for r in f32_rows), f32),
-        kernel_row("flash_bwd_f32", "slamkit_tpu_torch/ops/csrc/flash_bwd_f32.cu",
-                   "slamkit_tpu/ops/flash_attention.py:247",
-                   ["flash_bwd_f32_prep_kernel", "flash_bwd_f32_dkdv_kernel",
-                    "flash_bwd_f32_dq_kernel"], f32_launches["flash_bwd_f32"],
-                   max(max(r["max_abs_err"].values()) for r in f32_bwd_rows), f32_bwd)]}),
+        dict(kernel_row("flash_fwd_f32", "slamkit_tpu_torch/ops/csrc/flash_fwd_f32.cu",
+                        "slamkit_tpu/ops/flash_attention.py:124", ["flash_fwd_f32_kernel"],
+                        sum(r["launches"]["flash_fwd_f32"] for r in genppl_runs)
+                        + f32_launches["flash_fwd_f32"],
+                        max(r["max_abs_err_out"] for r in f32_rows), f32),
+             cuda_core_bound_ms=f32["cuda_core_bound_ms"]),
+        dict(kernel_row("flash_bwd_f32", "slamkit_tpu_torch/ops/csrc/flash_bwd_f32.cu",
+                        "slamkit_tpu/ops/flash_attention.py:247",
+                        ["flash_bwd_f32_prep_kernel", "flash_bwd_f32_dkdv_kernel",
+                         "flash_bwd_f32_dq_kernel"], f32_launches["flash_bwd_f32"],
+                        max(max(r["max_abs_err"].values()) for r in f32_bwd_rows), f32_bwd),
+             cuda_core_bound_ms=f32_bwd["cuda_core_bound_ms"])]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

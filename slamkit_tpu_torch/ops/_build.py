@@ -3,9 +3,11 @@
 Each `csrc/<name>.cu` becomes `lib<name>.so`, compiled for sm_90a into
 `<repo>/build/torch_kernels/<name>-<hash>/` (git-ignored) at first use. The
 hash covers the sources and the flags, so an edited kernel rebuilds and an
-unchanged one loads from disk. The build writes to a temporary file and
-renames it into place, so an interrupted build never leaves a truncated
-library behind.
+unchanged one loads from disk. A build with preprocessor `defines` (the
+CTA clock stamps of `tools/cta_clocks.py`) is a library of its own name,
+`lib<name>_<defines>.so`, which the main path never loads. The build
+writes to a temporary file and renames it into place, so an interrupted
+build never leaves a truncated library behind.
 
 A missing nvcc or a failed build raises: there is no fallback.
 """
@@ -45,26 +47,32 @@ def _sources(name: str) -> list[pathlib.Path]:
     return [main] + sorted(CSRC.glob("*.cuh"))
 
 
-def library_path(name: str) -> pathlib.Path:
-    """Where `lib<name>.so` lives for the current sources and flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _flags(defines: tuple[str, ...]) -> tuple[str, ...]:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def library_path(name: str, defines: tuple[str, ...] = ()) -> pathlib.Path:
+    """Where `lib<name>.so` (with `defines`: `lib<name>_<defines>.so`) lives
+    for the current sources and flags."""
+    h = hashlib.sha256(" ".join(_flags(defines)).encode())
     for src in _sources(name):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_ROOT / f"{name}-{h.hexdigest()[:16]}" / f"lib{name}.so"
+    stem = "_".join((name, *defines)).lower()
+    return BUILD_ROOT / f"{stem}-{h.hexdigest()[:16]}" / f"lib{stem}.so"
 
 
-def build(name: str) -> pathlib.Path:
-    """Compile `csrc/<name>.cu` unless the library for these sources exists.
-    The compiler's output (ptxas register / shared-memory report) is kept in
-    `build.log` beside the library."""
-    lib = library_path(name)
+def build(name: str, defines: tuple[str, ...] = ()) -> pathlib.Path:
+    """Compile `csrc/<name>.cu` (with `-D` of each of `defines`) unless the
+    library for these sources exists. The compiler's output (ptxas register
+    / shared-memory report) is kept in `build.log` beside the library."""
+    lib = library_path(name, defines)
     if lib.is_file():
         return lib
     lib.parent.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib.parent)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *_flags(defines), "-o", tmp, str(CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     (lib.parent / "build.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
     if proc.returncode != 0:
@@ -76,6 +84,7 @@ def build(name: str) -> pathlib.Path:
 
 
 @functools.lru_cache(maxsize=None)
-def load(name: str) -> ctypes.CDLL:
-    """Build if needed, then load `lib<name>.so` once per process."""
-    return ctypes.CDLL(str(build(name)))
+def load(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """Build if needed, then load `lib<name>.so` (or its build with
+    `defines`) once per process."""
+    return ctypes.CDLL(str(build(name, defines)))

@@ -85,7 +85,6 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kTile = 64;                 // keys per dkdv CTA, q rows per dq CTA
 constexpr int kBlock = 32;                // rows per entry of the segment-range table
 constexpr int kStages = 3;                // depth of the cp.async rings
-constexpr int kMaxCluster = 8;            // the portable cluster size
 constexpr float kLog2e = 1.4426950408889634f;
 
 // ---------------------------------------------------------------- helpers --
@@ -762,14 +761,6 @@ flash_bwd_dq_kernel(const BwdArgs a) {
 }
 
 // ----------------------------------------------------------------- launch --
-
-// The largest cluster size <= 8 that divides G (G itself for every preset).
-int cluster_size(int G) {
-  for (int c = G < kMaxCluster ? G : kMaxCluster; c > 1; --c) {
-    if (G % c == 0) return c;
-  }
-  return 1;
-}
 
 template <int D, int BQ, bool kWgmma, int BN>
 cudaError_t launch(const BwdArgs& a, const __nv_bfloat16* out, float* delta, cudaStream_t s) {

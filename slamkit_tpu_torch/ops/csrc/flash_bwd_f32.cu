@@ -1,5 +1,6 @@
-// Flash-attention backward for Hopper (sm_90a) in float32: float32 in, float32
-// arithmetic on the CUDA cores, float32 gradients out.
+// Flash-attention backward for Hopper (sm_90a) in float32: float32 in,
+// float32 gradients out, float32 accuracy from 3xTF32 products on the
+// tensor cores.
 //
 // Replaces: slamkit_tpu/ops/flash_attention.py::_bwd_kernel (launched by
 // _bwd_call through _bwd, the backward rule of the _flash custom VJP) where
@@ -14,44 +15,65 @@
 // with delta = rowsum(dO o O) of the external O. q heads are kv-major (head h
 // reads kv head h / G); dK and dV sum over the G heads of a kv group.
 //
-// Every product is an FMA in float32 (no TF32, no bf16 rounding of P or dS):
-// the kernel is held to the float32 plain version within float32 summation
-// noise. The LSE comes from flash_fwd_f32.cu, and the tiles a pass visits
-// are the forward's: a (q tile, k tile) pair is skipped only where the mask
-// zeroes all of it.
-//
-// What bounds it on the H100: float32 off the tensor cores, 67 TFLOP/s. At
-// the Slam shape ([8, 14/2, 1024, 64], 8 packed segments) the visible
-// pairs' 10 D FLOPs (S, dP, dV, dK, dQ) take ~0.07 ms and the bytes (q, k,
-// v, O, dO, LSE read; dq, dk, dv written; ~44 MB) ~0.013 ms: operations
-// bound it. A CUDA-core kernel can at best approach that rate.
-// What the design does (a simple kernel first, on flash_fwd_f32.cu's plan):
-//   * three launches, no atomics, so dQ, dK and dV are bitwise
-//     deterministic (a float32 resume repeats a step exactly):
+// What bounds it on the H100: the visible pairs' 10 D FLOPs (S, dP, dV, dK,
+// dQ) in float32: 67 TFLOP/s on the CUDA cores, 165 TFLOP/s of float32 work
+// as 3xTF32 on the tensor cores (495 TFLOP/s of TF32, three products each).
+// At the Slam shape ([8, 14/2, 1024, 64], 8 packed segments) that is ~0.05
+// ms against ~0.013 ms of bytes (q, k, v, O, dO, LSE read; dq, dk, dv
+// written): operations bound it. What held the CUDA-core version back
+// (tools/cta_clocks.py on an H100, before the redesign) was its fill as
+// much as its rate: one CTA per (key tile, kv head, batch row) walked all G
+// heads of the group, 96 CTAs on 132 SMs at DPO's [16, 14/2, 152, 64], each
+// ~310k cycles of tiles in sequence, and every tile waited on its loads.
+// What the design does:
+//   * three launches, no atomics, so dQ, dK and dV are bitwise deterministic
+//     (a float32 resume repeats a step exactly):
 //       - prep: delta = rowsum(dO o O) in float32, D / 4 lanes a row with
 //         one float4 each and a fixed shuffle tree;
-//       - dkdv: one CTA of 256 threads per (64-key tile, kv head, batch
-//         row), which walks the G q heads of its group in order, and for
-//         each the listed q tiles in order, as the Pallas kernel folds the G
-//         heads into one panel. dK and dV stay in registers (thread (ty, tx)
-//         owns keys 4 ty .. 4 ty + 3 and columns 4 tx + 64 c .. + 3) and are
-//         written once;
-//       - dq: one CTA per (64-row q tile, q head, batch row), over the listed
-//         k tiles, dQ in registers;
-//   * each CTA lists the tiles it must visit before loading any: under
-//     causality k tile <= q tile; with segment ids only tiles whose id
-//     ranges meet (hopper.cuh's ranges, pads kept apart);
-//   * products register-blocked as the forward's: the operands of S and dP
-//     in shared memory as [D][64] (transposed on the store, so that a thread
-//     reads four rows or keys as one float4), 16 FMAs per two float4 reads;
-//     P and dS go to shared memory, the same Q / dO (dkdv) or K (dq) tile is
-//     then reloaded as [64][D] into the buffer the transposed one used, and
-//     the gradient products read it row by row;
-//   * dynamic shared memory (about 100 KB at d = 64, 165 KB at d = 128).
-// Left for later work: cp.async double buffering, wider register blocks, a
-// split of D for the accumulators, 3xTF32 tensor-core products held to the
-// same bound.
+//       - dkdv: the G q heads of a kv group are split over the C CTAs of a
+//         thread-block cluster (C the largest divisor of G up to 8; rank r
+//         walks heads r G / C .. (r + 1) G / C - 1 in order, each head's
+//         listed q tiles in order), one CTA of 4 warps per (64-key tile,
+//         rank, kv head, batch row): 672 CTAs at DPO's shape, 1792 at the
+//         Slam batch. A warp owns 16 keys and keeps their dK and dV in
+//         registers; at the end each CTA sends its rows through distributed
+//         shared memory to the cluster CTA that owns them, and every owner
+//         sums its rows' C parts in rank order, so the sum is the same on
+//         every run;
+//       - dq: one CTA of 4 warps per (64-row q tile, q head, batch row), over
+//         the listed k tiles, a warp's 16 rows of dQ in registers;
+//   * products on the tensor cores in 3xTF32 (hopper.cuh: mma.sync m16n8k8,
+//     each float32 operand split into TF32 hi and lo parts as its fragment
+//     is read, lo_a hi_b + hi_a lo_b + hi_a hi_b accumulated in float32),
+//     ~2^-22 of each product lost where one TF32 product loses ~2^-11;
+//     tests/test_torch_tf32_split.py emulates both on the CPU. P and dS are
+//     split as float32 and go from the S^T / dP^T (S / dP) accumulators
+//     straight into the A fragments of the gradient products, the k order of
+//     a step permuted to the accumulator's (f32_tiles.cuh);
+//   * the tensor cores add each product to their float32 accumulator
+//     without rounding to nearest, a bias that grows with the number of adds,
+//     and dK, dV (dQ) sum over every visited tile and head: each tile's
+//     gradient product starts from zero and is added to them in float32;
+//   * loads through 2-stage cp.async rings of [rows][D + 4] tiles (the pad
+//     spreads every fragment read over the 32 banks): Q, dO, LSE, delta and
+//     the q ids in the dK/dV pass, K, V and the k ids in the dQ pass, the
+//     next tile loading while this one multiplies;
+//   * each CTA lists the tiles it must visit before loading any, all four
+//     warps at once from one coalesced read of the ids (issued before the
+//     tile copies, so it does not queue behind them): under causality only
+//     tiles on the seen side of the diagonal, with segment ids only tiles
+//     whose ids meet (hopper.cuh's ranges, pads kept apart), each marked
+//     interior when it needs no mask;
+//   * P on the SFU (ex2.approx in the base-2 domain, ~2^-22 relative).
+// At d = 128 the dK/dV pass takes q tiles of 32 rows, so that dK, dV, S^T
+// and dP^T fit one thread's registers. Shared memory: 106 KB (dkdv) and 105
+// KB (dq) at d = 64, 136 KB and 203 KB at d = 128.
+// Left for later work: a warp of the dQ and dK/dV passes owns 16 rows, so
+// each fragment it splits serves one product (the forward's 32-row warps
+// halve that), and the cluster sum waits for the slowest CTA of the cluster
+// (~10k cycles a CTA at the Slam and DPO shapes on an H100).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <climits>
 #include <cmath>
@@ -60,15 +82,16 @@
 #include "f32_tiles.cuh"
 #include "hopper.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 using namespace hopper;
-using f32_tiles::kTile;
-using f32_tiles::load_rows;
-using f32_tiles::load_transposed;
+using namespace f32_tiles;
 
-constexpr int kThreads = 256;      // 16 x 16 threads, a 4 x 4 block each
-constexpr float kLseSentinel = 1e30f;
+constexpr int kWarps = 4, kThreads = 32 * kWarps;
+constexpr int kStages = 2;
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct BwdArgs {
   const float* q;
@@ -82,7 +105,7 @@ struct BwdArgs {
   float* dq;
   float* dk;
   float* dv;
-  int H, Hkv, T, causal;
+  int H, Hkv, T, causal, walk;
   float scale;
 };
 
@@ -107,380 +130,442 @@ flash_bwd_f32_prep_kernel(const float* __restrict__ out, const float* __restrict
   if (row < rows && l == 0) delta[row] = acc;
 }
 
-// ------------------------------------------------------------ tile lists --
-
-// the id range of rows [r0, r0 + 64) (those < T) of one batch row, in every lane
-__device__ __forceinline__ int4 tile_range(const int* ids, int r0, int T, int lane) {
-  int4 r = empty_range();
-  for (int c = lane; c < kTile; c += 32) {
-    if (r0 + c < T) r = join(r, range_of(ids[r0 + c]));
-  }
-  return warp_join(r);
-}
-
-// One warp: the tiles t in [t0, t1) whose ids (`ids`, null without segment
-// ids) meet `mine`, in increasing order, into `list`; returns how many.
-__device__ int list_tiles(int* list, const int* ids, int4 mine, int t0, int t1, int T,
-                          int lane) {
-  int n = 0;
-  for (int t = t0; t < t1; ++t) {
-    if (ids == nullptr || meet(mine, tile_range(ids, t * kTile, T, lane))) {
-      if (lane == 0) list[n] = t;
-      ++n;
+// The two products of a pass that share their A rows: c1 += A1 B1 and
+// c2 += A2 B2 over D (A: 16 rows of a [.][D + 4] tile; B: N tiles of 8 of
+// a tile whose rows are the products' n), all in 3xTF32
+template <int D, int N>
+__device__ __forceinline__ void two_products_nrows(float (&c1)[N][4], float (&c2)[N][4],
+                                                   const float* a1, const float* a2, int ar,
+                                                   const float* b1, const float* b2, int g,
+                                                   int t4) {
+#pragma unroll 2
+  for (int kk = 0; kk < D / 8; ++kk) {
+#pragma unroll
+    for (int which = 0; which < 2; ++which) {
+      float x[4];
+      uint32_t a_hi[4], a_lo[4], b_hi[N][2], b_lo[N][2];
+      frag_a<D>(x, which ? a2 : a1, ar, 8 * kk, g, t4);
+      split_tf32(x, a_hi, a_lo);
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        float y[2];
+        frag_b_nrows<D>(y, which ? b2 : b1, 8 * kk, 8 * n, g, t4);
+        split_tf32(y, b_hi[n], b_lo[n]);
+      }
+      mma_3xtf32(which ? c2 : c1, a_hi, a_lo, b_hi, b_lo);
     }
   }
-  return n;
 }
 
-__device__ __forceinline__ void as4(float (&dst)[4], const float* src) {
-  const float4 x = *reinterpret_cast<const float4*>(src);
-  dst[0] = x.x;
-  dst[1] = x.y;
-  dst[2] = x.z;
-  dst[3] = x.w;
+// acc[D / 8] += P (16 x 8 J, from accumulators) B (8 J rows of a [.][D + 4]
+// tile), 3xTF32. The tensor cores add a product to their accumulator without
+// rounding to nearest, a bias that grows with the adds, so this tile's
+// product starts from zero, 32 columns at a time, and is added to acc in
+// float32: acc sums over every visited tile (and head)
+template <int D, int J>
+__device__ __forceinline__ void product_from_acc(float (&acc)[D / 8][4], const float (&p)[J][4],
+                                                 const float* bt, int g, int t4) {
+#pragma unroll
+  for (int c = 0; c < D / 32; ++c) {
+    float part[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      float x[4];
+      uint32_t a_hi[4], a_lo[4], b_hi[4][2], b_lo[4][2];
+      frag_a_from_acc(x, p[j]);
+      split_tf32(x, a_hi, a_lo);
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        float y[2];
+        frag_b_krows<D>(y, bt, 8 * j, 32 * c + 8 * n, g, t4);
+        split_tf32(y, b_hi[n], b_lo[n]);
+      }
+      mma_3xtf32(part, a_hi, a_lo, b_hi, b_lo);
+    }
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[4 * c + n][e] += part[n][e];
+    }
+  }
 }
 
 // ------------------------------------------------------------------ dkdv --
 
-// Shared memory in floats: K^T, V^T [D][64]; the q tile's Q and dO buffers
-// ([D][64], then [64][D]); P and dS [64 rows][64 keys]; per q row its LSE,
-// delta and id; the keys' ids; the list's length and the list.
-template <int D>
+// Shared memory in floats: K, V [64][D + 4] and the keys' ids [64];
+// kStages x (Q, dO [BQ][D + 4], LSE, delta, q ids [BQ]); the list's length;
+// flags and list (n_q each). After the loop the cluster's gather,
+// [C][ceil(128 / C)][D + 4], reuses the front.
+template <int D, int BQ>
 struct KvSmem {
-  static constexpr int kK = 0, kV = D * kTile, kQ = 2 * D * kTile, kDO = 3 * D * kTile;
-  static constexpr int kP = 4 * D * kTile, kDS = kP + kTile * kTile;
-  static constexpr int kLse = kDS + kTile * kTile, kDelta = kLse + kTile;
-  static constexpr int kQseg = kDelta + kTile, kKseg = kQseg + kTile;
-  static constexpr int kCount = kKseg + kTile, kList = kCount + 4;
-  static size_t bytes(int T) { return 4 * ((size_t)kList + (T + kTile - 1) / kTile); }
+  static constexpr int kTileKV = kTile * Ld<D>::value, kTileQ = BQ * Ld<D>::value;
+  static constexpr int kK = 0, kV = kTileKV, kKseg = 2 * kTileKV;
+  static constexpr int kStage = kKseg + kTile;
+  static constexpr int kStageF = 2 * kTileQ + 3 * BQ;
+  static constexpr int kCount = kStage + kStages * kStageF, kFlags = kCount + 4;
+  static constexpr int kGatherF = (2 * kTile + kMaxCluster) * Ld<D>::value;
+  static_assert(kGatherF <= kCount, "the gather must fit the tiles");
+  static size_t bytes(int T) { return 4 * ((size_t)kFlags + 2 * ((T + BQ - 1) / BQ)); }
 };
 
-template <int D>
+// One CTA per (64-key tile, rank, kv head, batch row); the grid's x is Hkv * C
+// in clusters of C, the CTA of rank r walking heads hk G + r walk + [0, walk).
+template <int D, int BQ>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_f32_dkdv_kernel(const BwdArgs a) {
-  using L = KvSmem<D>;
-  constexpr int NC = D / 64;                     // 4-column groups of dK / dV a thread holds
+  using L = KvSmem<D, BQ>;
+  constexpr int NC = D / 8, NQ = BQ / 8;
   extern __shared__ float smem[];
-  float* Kt = smem + L::kK;
-  float* Vt = smem + L::kV;
-  float* Qb = smem + L::kQ;
-  float* dOb = smem + L::kDO;
-  float* Ps = smem + L::kP;
-  float* dSs = smem + L::kDS;
-  float* lse_s = smem + L::kLse;
-  float* delta_s = smem + L::kDelta;
-  int* qseg_s = reinterpret_cast<int*>(smem + L::kQseg);
+  float* Ks = smem + L::kK;
+  float* Vs = smem + L::kV;
   int* kseg_s = reinterpret_cast<int*>(smem + L::kKseg);
   int* count_s = reinterpret_cast<int*>(smem + L::kCount);
-  int* list = reinterpret_cast<int*>(smem + L::kList);
+  auto Qs = [&](int st) { return smem + L::kStage + st * L::kStageF; };
+  auto dOs = [&](int st) { return Qs(st) + L::kTileQ; };
+  auto lses = [&](int st) { return Qs(st) + 2 * L::kTileQ; };
+  auto deltas = [&](int st) { return lses(st) + BQ; };
+  auto qsegs = [&](int st) { return reinterpret_cast<int*>(lses(st) + 2 * BQ); };
 
-  const int T = a.T, n_t = (T + kTile - 1) / kTile;
-  const int k_tile = blockIdx.z, k0 = k_tile * kTile;   // z = 0 first: it sees the most q tiles
-  const int hk = blockIdx.x, b = blockIdx.y, G = a.H / a.Hkv;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = cluster.num_blocks(), rank = cluster.block_rank();
+  const int T = a.T, n_q = (T + BQ - 1) / BQ, G = a.H / a.Hkv;
+  int* flags = reinterpret_cast<int*>(smem + L::kFlags);
+  int* list = flags + n_q;
+  const int k0 = blockIdx.z * kTile;             // z = 0 first: under causality it sees the most
+  const int hk = blockIdx.x / C, b = blockIdx.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int ty = tid >> 4, tx = tid & 15;        // keys 4 ty + i; q rows / columns 4 tx + j
+  const int g = lane >> 2, t4 = lane & 3;
   const bool has_seg = a.q_seg != nullptr;
-  const float* kp = a.k + ((size_t)b * a.Hkv + hk) * T * D;
-  const float* vp = a.v + ((size_t)b * a.Hkv + hk) * T * D;
+  const size_t kv_base = ((size_t)b * a.Hkv + hk) * T * D;
+  const int* qs_row = has_seg ? a.q_seg + (size_t)b * T : nullptr;
+  CTA_STAMP(0, kMarkEntry);
 
-  load_transposed<D>(Kt, kp, k0, T, tid);
-  load_transposed<D>(Vt, vp, k0, T, tid);
-  if (has_seg && tid < kTile) {
-    kseg_s[tid] = k0 + tid < T ? a.k_seg[(size_t)b * T + k0 + tid] : 0;
-  }
-  // ---- the q tiles these keys can see, in order
-  if (warp == 0) {
-    const int4 kr = has_seg ? tile_range(a.k_seg + (size_t)b * T, k0, T, lane) : empty_range();
-    const int n = list_tiles(list, has_seg ? a.q_seg + (size_t)b * T : nullptr, kr,
-                             a.causal ? k_tile : 0, n_t, T, lane);
-    if (lane == 0) *count_s = n;
-  }
-  __syncthreads();
-  const int n_list = *count_s;
-
-  int kseg[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) kseg[i] = has_seg ? kseg_s[4 * ty + i] : 0;
-
-  float dk[4][4 * NC], dv[4][4 * NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int c = 0; c < 4 * NC; ++c) dk[i][c] = dv[i][c] = 0.f;
-  }
-
-  for (int gi = 0; gi < G; ++gi) {
-    const int h = hk * G + gi;
+  const int h0 = hk * G + rank * a.walk;
+  auto load_tile = [&](int st, int h, int qt) {
     const size_t row_base = ((size_t)b * a.H + h) * T;
-    const float* qp = a.q + row_base * D;
-    const float* dop = a.dout + row_base * D;
-    for (int it = 0; it < n_list; ++it) {
-      const int q0 = list[it] * kTile;
-      __syncthreads();                           // the last tile's Q, dO, P and dS are read
-      load_transposed<D>(Qb, qp, q0, T, tid);
-      load_transposed<D>(dOb, dop, q0, T, tid);
-      if (tid < kTile) {
-        const bool in = q0 + tid < T;            // rows past T: P = 0
-        lse_s[tid] = in ? a.lse[row_base + q0 + tid] : kLseSentinel;
-        delta_s[tid] = in ? a.delta[row_base + q0 + tid] : 0.f;
-        if (has_seg) qseg_s[tid] = in ? a.q_seg[(size_t)b * T + q0 + tid] : 0;
-      }
-      __syncthreads();
+    cp_rows<BQ, D, kThreads>(Qs(st), a.q + row_base * D, qt * BQ, T, tid);
+    cp_rows<BQ, D, kThreads>(dOs(st), a.dout + row_base * D, qt * BQ, T, tid);
+    cp_vals<BQ>(lses(st), a.lse + row_base, qt * BQ, T, tid);
+    cp_vals<BQ>(deltas(st), a.delta + row_base, qt * BQ, T, tid);
+    if (has_seg) cp_vals<BQ>(qsegs(st), qs_row, qt * BQ, T, tid);
+  };
 
-      // S^T = K Q^T and dP^T = V dO^T: keys 4 ty + i, q rows 4 tx + j
-      float s[4][4], dp[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-      }
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) {
-        float ka[4], qa[4], va[4], oa[4];
-        as4(ka, Kt + d * kTile + 4 * ty);
-        as4(qa, Qb + d * kTile + 4 * tx);
-        as4(va, Vt + d * kTile + 4 * ty);
-        as4(oa, dOb + d * kTile + 4 * tx);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            s[i][j] = fmaf(qa[j], ka[i], s[i][j]);
-            dp[i][j] = fmaf(oa[j], va[i], dp[i][j]);
-          }
-        }
-      }
+  // ---- the q tiles these keys can see, in order; listed before any tile
+  // is loaded, so that the ids' reads do not queue behind the tile copies
+  const int qt_start = a.causal ? k0 / BQ : 0;
+  bool k_one = true;
+  int uk = 0;
+  int4 kr = empty_range();
+  if (has_seg) kr = rows_range<kTile>(a.k_seg + (size_t)b * T, k0, T, lane, k_one, uk);
+  auto corner_free = [&](int qt) {               // rows before T, keys before T, (causal) seen
+    return qt * BQ + BQ <= T && k0 + kTile <= T && (!a.causal || k0 + kTile - 1 <= qt * BQ);
+  };
+  const int n_list = list_tiles<BQ, kWarps>(flags, list, count_s, qs_row, kr, k_one,
+                                            uk, qt_start, n_q, T, tid, corner_free);
+  CTA_STAMP(0, kMarkListed);
+  const int iters = a.walk * n_list;
+  CTA_TILES(0, iters);
+  auto load_stage = [&](int it) {
+    load_tile(it % kStages, h0 + it / n_list, list[it % n_list] & (kInterior - 1));
+  };
 
-      // P and dS, masked exactly to 0; stored as [row][key]
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int rc = 4 * tx + j, row = q0 + rc;
-        const float lse = lse_s[rc], delta = delta_s[rc];
-        const int qseg = has_seg ? qseg_s[rc] : 0;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int key = k0 + 4 * ty + i;
-          bool ok = key < T && row < T && (!a.causal || key <= row);
-          if (has_seg) ok = ok && kseg[i] == qseg;
-          const float p = ok ? expf(s[i][j] * a.scale - lse) : 0.f;
-          s[i][j] = p;
-          dp[i][j] = p * (dp[i][j] - delta) * a.scale;
-        }
-        *reinterpret_cast<float4*>(Ps + rc * kTile + 4 * ty) =
-            make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-        *reinterpret_cast<float4*>(dSs + rc * kTile + 4 * ty) =
-            make_float4(dp[0][j], dp[1][j], dp[2][j], dp[3][j]);
-      }
-      __syncthreads();                           // Q^T and dO^T are read; P and dS written
-      load_rows<D>(Qb, qp, q0, T, tid);
-      load_rows<D>(dOb, dop, q0, T, tid);
-      __syncthreads();
+  // K, V, the keys' ids and the first q tile: group 0
+  cp_rows<kTile, D, kThreads>(Ks, a.k + kv_base, k0, T, tid);
+  cp_rows<kTile, D, kThreads>(Vs, a.v + kv_base, k0, T, tid);
+  if (has_seg) cp_vals<kTile>(kseg_s, a.k_seg + (size_t)b * T, k0, T, tid);
+  if (iters > 0) load_stage(0);
+  cp_async_commit();
 
-      // dV += P^T dO, dK += dS^T Q: keys 4 ty + i, columns 64 c + 4 tx + e
-#pragma unroll 4
-      for (int r = 0; r < kTile; ++r) {
-        float pa[4], sa[4];
-        as4(pa, Ps + r * kTile + 4 * ty);
-        as4(sa, dSs + r * kTile + 4 * ty);
+  const int kr0 = warp * 16;                     // this warp's keys in the tile
+  const int key0 = k0 + kr0 + g, key1 = key0 + 8;
+  const float scale_log2 = a.scale * kLog2e;
+  float dk[NC][4], dv[NC][4];
 #pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          float oa[4], qa[4];
-          as4(oa, dOb + r * D + 64 * c + 4 * tx);
-          as4(qa, Qb + r * D + 64 * c + 4 * tx);
+  for (int n = 0; n < NC; ++n) {
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+  }
+
+  for (int it = 0; it < iters; ++it) {
+    cp_async_wait<kStages - 2>();                // this tile (and K, V) have landed
+    __syncthreads();                             // ... for every thread; the last stage is free
+    if (it + kStages - 1 < iters) load_stage(it + kStages - 1);
+    cp_async_commit();
+    if (it == 0) CTA_STAMP(0, kMarkFirstTile);
+    const int st = it % kStages, entry = list[it % n_list];
+    const int q0 = (entry & (kInterior - 1)) * BQ;
+    const float* Qt = Qs(st);
+    const float* dOt = dOs(st);
+
+    // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x BQ queries
+    float s[NQ][4], dp[NQ][4];
 #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              dv[i][4 * c + e] = fmaf(pa[i], oa[e], dv[i][4 * c + e]);
-              dk[i][4 * c + e] = fmaf(sa[i], qa[e], dk[i][4 * c + e]);
-            }
-          }
+    for (int n = 0; n < NQ; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    }
+    two_products_nrows<D, NQ>(s, dp, Ks, Vs, kr0, Qt, dOt, g, t4);
+
+    // P^T (0 off the mask and on dead rows) and dS^T = P^T (dP^T - delta) scale
+    const bool interior = entry & kInterior;
+    const int kseg0 = has_seg ? kseg_s[kr0 + g] : 0, kseg1 = has_seg ? kseg_s[kr0 + g + 8] : 0;
+    const float* lse_t = lses(st);
+    const float* delta_t = deltas(st);
+    const int* qseg_t = qsegs(st);
+#pragma unroll
+    for (int n = 0; n < NQ; ++n) {
+      const int qi = 8 * n + 2 * t4;             // this thread's two queries of tile n
+      const float2 lse2 = *reinterpret_cast<const float2*>(lse_t + qi);
+      const float2 dl2 = *reinterpret_cast<const float2*>(delta_t + qi);
+      const int2 qs2 = has_seg ? *reinterpret_cast<const int2*>(qseg_t + qi) : make_int2(0, 0);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = e & 1, qpos = q0 + qi + c, key = e < 2 ? key0 : key1;
+        float x = fmaf(s[n][e], scale_log2, -(c ? lse2.y : lse2.x) * kLog2e);
+        if (!interior) {
+          bool ok = key < T && qpos < T && (!a.causal || key <= qpos);
+          if (has_seg) ok = ok && (c ? qs2.y : qs2.x) == (e < 2 ? kseg0 : kseg1);
+          x = ok ? x : -INFINITY;
         }
+        const float p = fast_exp2(x);            // no branch: 2^-inf = 0
+        s[n][e] = p;
+        dp[n][e] = p * (dp[n][e] - (c ? dl2.y : dl2.x)) * a.scale;
       }
     }
+
+    // dV += P^T dO and dK += dS^T Q: the k index is the query
+    product_from_acc<D, NQ>(dv, s, dOt, g, t4);
+    product_from_acc<D, NQ>(dk, dp, Qt, g, t4);
   }
+  cp_async_wait<0>();
+  CTA_STAMP(0, kMarkLoopEnd);
 
   // epilogue: this tile's keys (a tile no q tile sees writes zeros)
+  if (C == 1) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + 4 * ty + i;
-    if (key >= T) continue;
-    const size_t at = (((size_t)b * a.Hkv + hk) * T + key) * D;
+    for (int n = 0; n < NC; ++n) {
+      const int col = 8 * n + 2 * t4;
+      if (key0 < T) {
+        *reinterpret_cast<float2*>(a.dk + kv_base + (size_t)key0 * D + col) = make_float2(dk[n][0], dk[n][1]);
+        *reinterpret_cast<float2*>(a.dv + kv_base + (size_t)key0 * D + col) = make_float2(dv[n][0], dv[n][1]);
+      }
+      if (key1 < T) {
+        *reinterpret_cast<float2*>(a.dk + kv_base + (size_t)key1 * D + col) = make_float2(dk[n][2], dk[n][3]);
+        *reinterpret_cast<float2*>(a.dv + kv_base + (size_t)key1 * D + col) = make_float2(dv[n][2], dv[n][3]);
+      }
+    }
+    CTA_STAMP(0, kMarkEnd);
+    return;
+  }
+  // The tile's 128 rows (dK's, then dV's) go straight from the registers to
+  // the CTA that owns them (rows [o per, (o + 1) per) to rank o), into its
+  // slot for this rank; after one more cluster barrier every owner sums its
+  // rows' C slots in rank order and writes them. Every key row < T is
+  // written, zeros included.
+  constexpr int kRS = Ld<D>::value;
+  const int per = (2 * kTile + C - 1) / C;
+  float* gather = smem;                          // [C][per][kRS], over the tiles
+  cluster.sync();                                // every CTA of the cluster is done with its tiles
+  auto put = [&](int row, int col, float x, float y) {
+    const int owner = row / per;
+    float* dst = cluster.map_shared_rank(gather, owner) + (rank * per + row - owner * per) * kRS + col;
+    *reinterpret_cast<float2*>(dst) = make_float2(x, y);
+  };
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      *reinterpret_cast<float4*>(a.dk + at + 64 * c + 4 * tx) =
-          make_float4(dk[i][4 * c], dk[i][4 * c + 1], dk[i][4 * c + 2], dk[i][4 * c + 3]);
-      *reinterpret_cast<float4*>(a.dv + at + 64 * c + 4 * tx) =
-          make_float4(dv[i][4 * c], dv[i][4 * c + 1], dv[i][4 * c + 2], dv[i][4 * c + 3]);
+  for (int n = 0; n < NC; ++n) {
+    const int col = 8 * n + 2 * t4;
+    put(kr0 + g, col, dk[n][0], dk[n][1]);
+    put(kr0 + g + 8, col, dk[n][2], dk[n][3]);
+    put(kTile + kr0 + g, col, dv[n][0], dv[n][1]);
+    put(kTile + kr0 + g + 8, col, dv[n][2], dv[n][3]);
+  }
+  cluster.sync();
+  const int row0 = rank * per, rows = min(2 * kTile, row0 + per) - row0;
+  for (int idx = tid; idx < rows * (D / 4); idx += kThreads) {
+    const int lr = idx / (D / 4), col = (idx - lr * (D / 4)) * 4;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r) {
+      if (r < C) {
+        const float4 p = *reinterpret_cast<const float4*>(gather + (r * per + lr) * kRS + col);
+        acc.x += p.x;
+        acc.y += p.y;
+        acc.z += p.z;
+        acc.w += p.w;
+      }
+    }
+    const int row = row0 + lr, key = k0 + row % kTile;
+    if (key < T) {
+      float* dst = (row < kTile ? a.dk : a.dv) + kv_base + (size_t)key * D + col;
+      *reinterpret_cast<float4*>(dst) = acc;
     }
   }
+  CTA_STAMP(0, kMarkEnd);
 }
 
 // -------------------------------------------------------------------- dq --
 
-// Shared memory in floats: Q^T, dO^T [D][64]; the k tile's K buffer ([D][64],
-// then [64][D]) and V^T [D][64]; dS^T [64 keys][64 rows]; the q rows' ids,
-// the keys' ids, the list's length and the list.
+// Shared memory in floats: Q, dO [64][D + 4]; kStages x (K, V [64][D + 4],
+// the keys' ids [64]); the list's length; flags and list.
 template <int D>
 struct QSmem {
-  static constexpr int kQ = 0, kDO = D * kTile, kK = 2 * D * kTile, kV = 3 * D * kTile;
-  static constexpr int kDS = 4 * D * kTile, kQseg = kDS + kTile * kTile;
-  static constexpr int kKseg = kQseg + kTile, kCount = kKseg + kTile, kList = kCount + 4;
-  static size_t bytes(int T) { return 4 * ((size_t)kList + (T + kTile - 1) / kTile); }
+  static constexpr int kTileF = kTile * Ld<D>::value;
+  static constexpr int kQ = 0, kDO = kTileF, kStage = 2 * kTileF;
+  static constexpr int kStageF = 2 * kTileF + kTile;
+  static constexpr int kCount = kStage + kStages * kStageF, kFlags = kCount + 4;
+  static size_t bytes(int T) { return 4 * ((size_t)kFlags + 2 * ((T + kTile - 1) / kTile)); }
 };
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_f32_dq_kernel(const BwdArgs a) {
   using L = QSmem<D>;
-  constexpr int NC = D / 64;                     // 4-column groups of dQ a thread holds
+  constexpr int NC = D / 8;
   extern __shared__ float smem[];
-  float* Qt = smem + L::kQ;
-  float* dOt = smem + L::kDO;
-  float* Kb = smem + L::kK;
-  float* Vt = smem + L::kV;
-  float* dSt = smem + L::kDS;
-  int* qseg_s = reinterpret_cast<int*>(smem + L::kQseg);
-  int* kseg_s = reinterpret_cast<int*>(smem + L::kKseg);
+  float* Qs = smem + L::kQ;
+  float* dOs = smem + L::kDO;
   int* count_s = reinterpret_cast<int*>(smem + L::kCount);
-  int* list = reinterpret_cast<int*>(smem + L::kList);
+  auto Ks = [&](int st) { return smem + L::kStage + st * L::kStageF; };
+  auto Vs = [&](int st) { return Ks(st) + L::kTileF; };
+  auto ksegs = [&](int st) { return reinterpret_cast<int*>(Ks(st) + 2 * L::kTileF); };
 
   const int T = a.T, n_t = (T + kTile - 1) / kTile;
+  int* flags = reinterpret_cast<int*>(smem + L::kFlags);
+  int* list = flags + n_t;
   const int q_tile = n_t - 1 - (int)blockIdx.z;  // the last first: it sees the most keys
   const int q0 = q_tile * kTile;
   const int h = blockIdx.x, hk = h / (a.H / a.Hkv), b = blockIdx.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int ty = tid >> 4, tx = tid & 15;        // q rows 4 ty + i; keys / columns 4 tx + j
+  const int g = lane >> 2, t4 = lane & 3;
   const bool has_seg = a.q_seg != nullptr;
   const size_t row_base = ((size_t)b * a.H + h) * T;
   const float* kp = a.k + ((size_t)b * a.Hkv + hk) * T * D;
   const float* vp = a.v + ((size_t)b * a.Hkv + hk) * T * D;
+  const int* ks_row = has_seg ? a.k_seg + (size_t)b * T : nullptr;
+  CTA_STAMP(1, kMarkEntry);
 
-  load_transposed<D>(Qt, a.q + row_base * D, q0, T, tid);
-  load_transposed<D>(dOt, a.dout + row_base * D, q0, T, tid);
-  if (has_seg && tid < kTile) {
-    qseg_s[tid] = q0 + tid < T ? a.q_seg[(size_t)b * T + q0 + tid] : 0;
-  }
-  // ---- the k tiles these rows can see, in order
-  if (warp == 0) {
-    const int4 qr = has_seg ? tile_range(a.q_seg + (size_t)b * T, q0, T, lane) : empty_range();
-    const int k_end = a.causal ? q_tile + 1 : n_t;
-    const int n = list_tiles(list, has_seg ? a.k_seg + (size_t)b * T : nullptr, qr, 0, k_end,
-                             T, lane);
-    if (lane == 0) *count_s = n;
-  }
-  __syncthreads();
-  const int n_list = *count_s;
+  auto load_tile = [&](int st, int kt) {
+    cp_rows<kTile, D, kThreads>(Ks(st), kp, kt * kTile, T, tid);
+    cp_rows<kTile, D, kThreads>(Vs(st), vp, kt * kTile, T, tid);
+    if (has_seg) cp_vals<kTile>(ksegs(st), ks_row, kt * kTile, T, tid);
+  };
+  auto load_stage = [&](int it) { load_tile(it % kStages, list[it] & (kInterior - 1)); };
 
-  float lse[4], delta[4];
-  int qseg[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
-    lse[i] = row < T ? a.lse[row_base + row] : kLseSentinel;
-    delta[i] = row < T ? a.delta[row_base + row] : 0.f;
-    qseg[i] = has_seg ? qseg_s[4 * ty + i] : 0;
-  }
+  // ---- the k tiles these rows can see, listed before any tile is
+  // loaded, so that the ids' reads do not queue behind the copies
+  const int k_end = a.causal ? q_tile + 1 : n_t;
+  bool q_one = true;
+  int uq = 0;
+  int4 qr = empty_range();
+  if (has_seg) qr = rows_range<kTile>(a.q_seg + (size_t)b * T, q0, T, lane, q_one, uq);
+  auto corner_free = [&](int kt) {               // rows and keys before T, (causal) seen
+    return q0 + kTile <= T && kt * kTile + kTile <= T &&
+           (!a.causal || kt * kTile + kTile - 1 <= q0);
+  };
+  const int n_list = list_tiles<kTile, kWarps>(flags, list, count_s, ks_row, qr, q_one,
+                                               uq, 0, k_end, T, tid, corner_free);
+  CTA_STAMP(1, kMarkListed);
+  CTA_TILES(1, n_list);
 
-  float dq[4][4 * NC];
+  // Q, dO and the first k tile: group 0
+  cp_rows<kTile, D, kThreads>(Qs, a.q + row_base * D, q0, T, tid);
+  cp_rows<kTile, D, kThreads>(dOs, a.dout + row_base * D, q0, T, tid);
+  if (n_list > 0) load_stage(0);
+  cp_async_commit();
+
+  const int wr = warp * 16;                      // this warp's rows in the tile
+  const int row0 = q0 + wr + g, row1 = row0 + 8;
+  const float scale_log2 = a.scale * kLog2e;
+  float lse[2], delta[2];
+  int qseg[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int half = 0; half < 2; ++half) {
+    const int row = half ? row1 : row0;
+    lse[half] = row < T ? a.lse[row_base + row] * kLog2e : INFINITY;   // rows past T: P = 0
+    delta[half] = row < T ? a.delta[row_base + row] : 0.f;
+    qseg[half] = has_seg && row < T ? a.q_seg[(size_t)b * T + row] : 0;
+  }
+  float dq[NC][4];
 #pragma unroll
-    for (int c = 0; c < 4 * NC; ++c) dq[i][c] = 0.f;
+  for (int n = 0; n < NC; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
   }
 
   for (int it = 0; it < n_list; ++it) {
-    const int k0 = list[it] * kTile;
-    __syncthreads();                             // the last tile's K and dS^T are read
-    load_transposed<D>(Kb, kp, k0, T, tid);
-    load_transposed<D>(Vt, vp, k0, T, tid);
-    if (has_seg && tid < kTile) {
-      kseg_s[tid] = k0 + tid < T ? a.k_seg[(size_t)b * T + k0 + tid] : 0;
-    }
-    __syncthreads();
+    cp_async_wait<kStages - 2>();                // this tile (and Q, dO) have landed
+    __syncthreads();                             // ... for every thread; the last stage is free
+    if (it + kStages - 1 < n_list) load_stage(it + kStages - 1);
+    cp_async_commit();
+    if (it == 0) CTA_STAMP(1, kMarkFirstTile);
+    const int st = it % kStages, entry = list[it];
+    const int k0 = (entry & (kInterior - 1)) * kTile;
+    const float* Kt = Ks(st);
 
-    // S = Q K^T and dP = dO V^T: q rows 4 ty + i, keys 4 tx + j
-    float s[4][4], dp[4][4];
+    // S = Q K^T and dP = dO V^T: this warp's 16 rows x 64 keys
+    float s[8][4], dp[8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int n = 0; n < 8; ++n) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
     }
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qa[4], ka[4], oa[4], va[4];
-      as4(qa, Qt + d * kTile + 4 * ty);
-      as4(ka, Kb + d * kTile + 4 * tx);
-      as4(oa, dOt + d * kTile + 4 * ty);
-      as4(va, Vt + d * kTile + 4 * tx);
+    two_products_nrows<D, 8>(s, dp, Qs, dOs, wr, Kt, Vs(st), g, t4);
+
+    // dS = P (dP - delta) scale, P exactly 0 off the mask
+    const bool interior = entry & kInterior;
+    const int* kseg_t = ksegs(st);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+    for (int n = 0; n < 8; ++n) {
+      const int kc = 8 * n + 2 * t4;
+      const int2 ks2 = has_seg ? *reinterpret_cast<const int2*>(kseg_t + kc) : make_int2(0, 0);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qa[i], ka[j], s[i][j]);
-          dp[i][j] = fmaf(oa[i], va[j], dp[i][j]);
+      for (int e = 0; e < 4; ++e) {
+        const int c = e & 1, half = e >> 1, key = k0 + kc + c, row = half ? row1 : row0;
+        float x = fmaf(s[n][e], scale_log2, -lse[half]);
+        if (!interior) {
+          bool ok = key < T && row < T && (!a.causal || key <= row);
+          if (has_seg) ok = ok && (c ? ks2.y : ks2.x) == qseg[half];
+          x = ok ? x : -INFINITY;
         }
+        const float p = fast_exp2(x);
+        dp[n][e] = p * (dp[n][e] - delta[half]) * a.scale;
       }
     }
 
-    // dS, masked exactly to 0; stored as [key][row]
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int kc = 4 * tx + j, key = k0 + kc;
-      const int kseg = has_seg ? kseg_s[kc] : 0;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = q0 + 4 * ty + i;
-        bool ok = key < T && row < T && (!a.causal || key <= row);
-        if (has_seg) ok = ok && kseg == qseg[i];
-        const float p = ok ? expf(s[i][j] * a.scale - lse[i]) : 0.f;
-        dp[i][j] = p * (dp[i][j] - delta[i]) * a.scale;
-      }
-      *reinterpret_cast<float4*>(dSt + kc * kTile + 4 * ty) =
-          make_float4(dp[0][j], dp[1][j], dp[2][j], dp[3][j]);
-    }
-    __syncthreads();                             // K^T is read; dS^T is written
-    load_rows<D>(Kb, kp, k0, T, tid);
-    __syncthreads();
-
-    // dQ += dS K: q rows 4 ty + i, columns 64 c + 4 tx + e
-#pragma unroll 4
-    for (int kc = 0; kc < kTile; ++kc) {
-      float sa[4];
-      as4(sa, dSt + kc * kTile + 4 * ty);
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        float ka[4];
-        as4(ka, Kb + kc * D + 64 * c + 4 * tx);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) dq[i][4 * c + e] = fmaf(sa[i], ka[e], dq[i][4 * c + e]);
-        }
-      }
-    }
+    // dQ += dS K: the k index is the key
+    product_from_acc<D, 8>(dq, dp, Kt, g, t4);
   }
+  cp_async_wait<0>();                            // no copy outlives the CTA
+  CTA_STAMP(1, kMarkLoopEnd);
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
+  for (int half = 0; half < 2; ++half) {
+    const int row = half ? row1 : row0;
     if (row >= T) continue;
     float* drow = a.dq + (row_base + row) * D;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      *reinterpret_cast<float4*>(drow + 64 * c + 4 * tx) =
-          make_float4(dq[i][4 * c], dq[i][4 * c + 1], dq[i][4 * c + 2], dq[i][4 * c + 3]);
+    for (int n = 0; n < NC; ++n) {
+      *reinterpret_cast<float2*>(drow + 8 * n + 2 * t4) =
+          make_float2(dq[n][2 * half], dq[n][2 * half + 1]);
     }
   }
+  CTA_STAMP(1, kMarkEnd);
 }
 
-template <int D>
+// ----------------------------------------------------------------- launch --
+
+template <int D, int BQ>
 cudaError_t launch(const BwdArgs& a, int B, const float* out, float* delta, cudaStream_t s) {
   static unsigned long long kv_configured = 0, q_configured = 0;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  err = allow_smem(flash_bwd_f32_dkdv_kernel<D>, kv_configured, dev);
+  err = allow_smem(flash_bwd_f32_dkdv_kernel<D, BQ>, kv_configured, dev);
   if (err != cudaSuccess) return err;
   err = allow_smem(flash_bwd_f32_dq_kernel<D>, q_configured, dev);
   if (err != cudaSuccess) return err;
@@ -490,10 +575,24 @@ cudaError_t launch(const BwdArgs& a, int B, const float* out, float* delta, cuda
       out, a.dout, delta, rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int n_t = (a.T + kTile - 1) / kTile;
-  flash_bwd_f32_dkdv_kernel<D><<<dim3(a.Hkv, B, n_t), kThreads, KvSmem<D>::bytes(a.T), s>>>(a);
-  err = cudaGetLastError();
+
+  // dkdv: clusters of C CTAs along x
+  const int n_t = (a.T + kTile - 1) / kTile, C = a.H / a.Hkv / a.walk;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.Hkv * C, B, n_t);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = KvSmem<D, BQ>::bytes(a.T);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, flash_bwd_f32_dkdv_kernel<D, BQ>, a);
   if (err != cudaSuccess) return err;
+
   flash_bwd_f32_dq_kernel<D><<<dim3(a.H, B, n_t), kThreads, QSmem<D>::bytes(a.T), s>>>(a);
   return cudaGetLastError();
 }
@@ -534,9 +633,11 @@ extern "C" int slamkit_flash_bwd_f32(const float* q, const float* k, const float
   a.Hkv = Hkv;
   a.T = T;
   a.causal = causal;
+  a.walk = (H / Hkv) / cluster_size(H / Hkv);
   a.scale = sm_scale;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (D == 64) return (int)launch<64>(a, B, out, scratch, s);
-  if (D == 128) return (int)launch<128>(a, B, out, scratch, s);
+  if (D == 64) return (int)launch<64, 64>(a, B, out, scratch, s);
+  // half-height q tiles keep dK, dV, S^T and dP^T within one thread's registers
+  if (D == 128) return (int)launch<128, 32>(a, B, out, scratch, s);
   return (int)cudaErrorInvalidValue;
 }

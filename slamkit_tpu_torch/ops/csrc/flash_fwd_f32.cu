@@ -1,41 +1,67 @@
 // Flash-attention forward for Hopper (sm_90a) in float32: float32 in, float32
-// arithmetic on the CUDA cores, float32 out.
+// out, float32 accuracy from 3xTF32 products on the tensor cores.
 //
 // Replaces: slamkit_tpu/ops/flash_attention.py::_fwd_kernel (launched by _fwd,
 // public entry flash_attention) where it is given float32 inputs: the Pallas
 // kernel runs in its inputs' dtype, and the JAX package scores text with a
 // float32 UnitLM (metric/metric_utils.py::get_llm, the GenPPL text LM and
-// the LLM judge). Same result as the bf16 kernel (flash_fwd.cu): O =
+// the LLM judge) and trains in float32 when model.config_args.torch_dtype
+// says so. Same result as the bf16 kernel (flash_fwd.cu): O =
 // softmax(scale * Q K^T + mask) V and the row log-sum-exp, the mask causal
 // (q_pos >= k_pos) AND equal segment ids (pads, id < 0, see other pads), keys
 // at or past T masked; a row with no unmasked key outputs exactly 0 with LSE
 // = +1e30. q heads are kv-major: q head h reads kv head h / (H / Hkv).
 //
-// Every product is an FMA in float32 (no TF32, no bf16 rounding of P): the
-// kernel is held to the float32 plain version within float32 summation noise.
-//
-// What bounds it on the H100: float32 off the tensor cores, 67 TFLOP/s. At
-// the text LM's shape ([8, 32/8, 512, 64], right-padded rows) the visible
-// pairs' 4 D FLOPs take ~0.1 ms and the bytes (~84 MB) ~0.025 ms: operations
-// bound it, and a CUDA-core kernel can at best approach that rate.
-// What the design does (a simple kernel first; PR 9):
-//   * one CTA of 256 threads per (64-row q tile, q head, batch row), the
-//     last q tiles (the heaviest under causality) launched first;
-//   * before the loop the CTA lists the k tiles its rows can see: up to the
-//     diagonal, and, with segment ids, only tiles whose ids meet the q
-//     tile's (hopper.cuh's segment ranges, pads kept apart);
-//   * Q^T and each K^T tile in shared memory as [D][64] (transposed on the
-//     store, so a thread reads four rows or four keys as one float4), V as
-//     [64][D]; P as [64 keys][64 rows];
-//   * S = Q K^T register-blocked: thread (ty, tx) owns rows 4 ty .. 4 ty + 3
-//     and keys 4 tx .. 4 tx + 3, 16 FMAs per two float4 reads; the online
-//     softmax in the natural-log domain with expf, the running max floored at
-//     -1e25 so a row that has seen nothing stays 0; row max and sum across
-//     the 16 lanes of a row group by shuffles;
-//   * O += P V with the same row block and columns 4 tx + 64 c;
+// What bounds it on the H100: the visible pairs' 4 D FLOPs in float32. The
+// CUDA cores give 67 TFLOP/s; TF32 on the tensor cores gives 495, and
+// 3xTF32 takes three TF32 products for each float32 one, so 165 TFLOP/s of
+// float32 work. At the text LM's scoring batch ([8, 32/8, 3584, 64], rows of
+// 1700-3584 tokens) that is ~1.7 ms against ~0.1 ms of bytes: operations
+// bound it.
+// What held the CUDA-core version back (tools/cta_clocks.py on an H100,
+// before the redesign): a 64 x 64 tile took ~27k cycles of FMAs, and
+// building the tile list one tile at a time in one warp took 14-22k cycles
+// a CTA at the packed training shapes, 74-143k at GenPPL's and the judge's
+// long rows.
+// What the design does:
+//   * products on the tensor cores in 3xTF32 (hopper.cuh: mma.sync
+//     m16n8k8, each float32 operand split into a TF32 hi and lo part as its
+//     fragment is read, lo_a hi_b + hi_a lo_b + hi_a hi_b accumulated in
+//     float32): ~2^-22 of each product is lost, where one TF32 product would
+//     lose ~2^-11, so the kernel stays within the float32 version's bounds
+//     (tests/test_torch_tf32_split.py emulates both on the CPU). P is split
+//     as float32, never rounded to bf16;
+//   * one CTA of 4 warps per (64-row q tile, q head, batch row), the last q
+//     tiles (the heaviest under causality) launched first. A warp owns 16 q
+//     rows, so the online softmax's row max and sum stay in its registers
+//     (four threads a row, two quad shuffles), and P goes from the S
+//     accumulators straight into the A fragments of P V: the key order of a
+//     k step is permuted to the accumulator's, and V's rows are read in the
+//     same order (f32_tiles.cuh);
+//   * the tile list first, built by all four warps at once from one
+//     coalesced read of the ids, before any tile is loaded: the k tiles the q
+//     tile can see, each marked interior when it needs no mask (below the
+//     diagonal, before T, one segment over both tiles). A block's pads (id <
+//     0) keep a range of their own;
+//   * the tensor cores add each product to their float32 accumulator
+//     without rounding to nearest, a bias that grows with the number of adds
+//     (on an H100, over GenPPL's 3584 keys, 1.3e-4 of |O| on a real model's
+//     activations, where the float32 version's error was 9e-6): a tile's
+//     P V starts from zero (24 adds) and is added to O in float32;
+//   * loads: Q once, K, V and the keys' ids through a 2-stage cp.async ring
+//     of [64][D + 4] tiles (the pad spreads every fragment read over the 32
+//     banks), the next tile loading while this one multiplies;
+//   * softmax in the base-2 domain on the SFU (ex2.approx, ~2^-22
+//     relative), the running max floored at -1e25 so a row that has seen
+//     nothing stays 0;
 //   * no atomics and no split of the keys: bitwise deterministic.
-// Left for later work: double-buffered K/V loads (cp.async), wider register
-// blocks, and 3xTF32 tensor-core products held to the same bound.
+// Shared memory: 87 KB at d = 64 (two CTAs an SM), 169 KB at d = 128.
+// Left for later work: mma.sync holds the tensor cores to about a third of
+// their TF32 rate here; wgmma on TF32 with the tiles in swizzled shared
+// memory is the next step. A warp of 32 q rows (two m16 tiles sharing each
+// split K or V fragment, 128-row q tiles) ran GenPPL's rows ~15% faster and
+// the packed training rows ~10% slower on the H100, and spilled once each
+// tile's P V took a fresh accumulator.
 
 #include <cuda_runtime.h>
 #include <climits>
@@ -48,13 +74,13 @@
 namespace {
 
 using namespace hopper;
-using f32_tiles::load_rows;
-using f32_tiles::load_transposed;
+using namespace f32_tiles;
 
-constexpr int kTile = 64;        // q rows per CTA, keys per k tile
-constexpr int kThreads = 256;    // 16 x 16 threads, a 4 x 4 block each
+constexpr int kWarps = 4, kThreads = 32 * kWarps;
+constexpr int kStages = 2;
 constexpr float kMClamp = -1e25f;
 constexpr float kLseSentinel = 1e30f;
+constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
 
 struct F32Args {
   const float* q;
@@ -68,206 +94,222 @@ struct F32Args {
   float scale;
 };
 
-// Shared memory in floats: Q^T [D][64], K^T [D][64], V [64][D], P^T [64][64],
-// then the q rows' ids, the keys' ids, the list's length and the list.
+// Shared memory in floats: Q [64][D + 4]; kStages x (K, V [64][D + 4], the
+// keys' ids [64]); the list's length; the flags and the list (n_k each).
 template <int D>
-struct F32Smem {
-  static constexpr int kQ = 0, kK = D * kTile, kV = 2 * D * kTile, kP = 3 * D * kTile;
-  static constexpr int kQseg = kP + kTile * kTile, kKseg = kQseg + kTile;
-  static constexpr int kCount = kKseg + kTile, kList = kCount + 4;
-  static size_t bytes(int T) { return 4 * ((size_t)kList + (T + kTile - 1) / kTile); }
+struct Smem {
+  static constexpr int kTileF = kTile * Ld<D>::value;
+  static constexpr int kQ = 0, kStage = kQ + kTileF;
+  static constexpr int kStageF = 2 * kTileF + kTile;
+  static constexpr int kCount = kStage + kStages * kStageF, kFlags = kCount + 4;
+  static size_t bytes(int T) { return 4 * ((size_t)kFlags + 2 * ((T + kTile - 1) / kTile)); }
 };
 
-__device__ __forceinline__ float group16_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float group16_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_f32_kernel(const F32Args a) {
-  using L = F32Smem<D>;
-  constexpr int NC = D / 64;                     // 4-column groups of O a thread holds
+  using L = Smem<D>;
+  constexpr int NO = D / 8;                      // 8-column tiles of O a warp holds
   extern __shared__ float smem[];
-  float* Qt = smem + L::kQ;
-  float* Kt = smem + L::kK;
-  float* Vs = smem + L::kV;
-  float* Pt = smem + L::kP;
-  int* qseg_s = reinterpret_cast<int*>(smem + L::kQseg);
-  int* kseg_s = reinterpret_cast<int*>(smem + L::kKseg);
+  float* Qs = smem + L::kQ;
   int* count_s = reinterpret_cast<int*>(smem + L::kCount);
-  int* list = reinterpret_cast<int*>(smem + L::kList);
+  auto Ks = [&](int st) { return smem + L::kStage + st * L::kStageF; };
+  auto Vs = [&](int st) { return Ks(st) + L::kTileF; };
+  auto ksegs = [&](int st) { return reinterpret_cast<int*>(Ks(st) + 2 * L::kTileF); };
 
   const int T = a.T, n_k = (T + kTile - 1) / kTile;
+  int* flags = reinterpret_cast<int*>(smem + L::kFlags);
+  int* list = flags + n_k;
   const int q_tile = n_k - 1 - (int)blockIdx.z;  // the last first: it sees the most keys
   const int q0 = q_tile * kTile;
   const int h = blockIdx.x, hk = h / (a.H / a.Hkv), b = blockIdx.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int ty = tid >> 4, tx = tid & 15;        // rows 4 ty + i, keys / columns 4 tx + j
+  const int g = lane >> 2, t4 = lane & 3;
   const bool has_seg = a.q_seg != nullptr;
   const float* qp = a.q + ((size_t)b * a.H + h) * T * D;
   const float* kp = a.k + ((size_t)b * a.Hkv + hk) * T * D;
   const float* vp = a.v + ((size_t)b * a.Hkv + hk) * T * D;
+  const int* ks_row = has_seg ? a.k_seg + (size_t)b * T : nullptr;
+  CTA_STAMP(0, kMarkEntry);
 
-  load_transposed<D>(Qt, qp, q0, T, tid);
-  if (has_seg && tid < kTile) {
-    qseg_s[tid] = q0 + tid < T ? a.q_seg[(size_t)b * T + q0 + tid] : 0;
-  }
-
-  // ---- the k tiles these rows can see, in order
+  // ---- the k tiles these rows can see, marked interior or not; listed
+  // before any tile is loaded, so that the ids' reads do not queue behind
+  // the first wave's tile copies
   const int k_end = a.causal ? min(n_k, q_tile + 1) : n_k;
-  if (warp == 0) {
-    int4 qr = empty_range();
-    if (has_seg) {
-      const int* qs = a.q_seg + (size_t)b * T;
-      for (int r = lane; r < kTile; r += 32) {
-        if (q0 + r < T) qr = join(qr, range_of(qs[q0 + r]));
-      }
-      qr = warp_join(qr);
-    }
-    int n = 0;
-    for (int kt = 0; kt < k_end; ++kt) {
-      bool need = true;
-      if (has_seg) {
-        const int* ks = a.k_seg + (size_t)b * T + kt * kTile;
-        int4 kr = empty_range();
-        for (int c = lane; c < kTile; c += 32) {
-          if (kt * kTile + c < T) kr = join(kr, range_of(ks[c]));
-        }
-        need = meet(qr, warp_join(kr));
-      }
-      if (need) {
-        if (lane == 0) list[n] = kt;
-        ++n;
-      }
-    }
-    if (lane == 0) *count_s = n;
-  }
-  __syncthreads();
-  const int n_list = *count_s;
+  bool q_one = true;
+  int uq = 0;
+  int4 qr = empty_range();
+  if (has_seg) qr = rows_range<kTile>(a.q_seg + (size_t)b * T, q0, T, lane, q_one, uq);
+  auto corner_free = [&](int kt) {               // before T, and (causal) below the diagonal
+    return kt * kTile + kTile <= T && (!a.causal || kt * kTile + kTile - 1 <= q0);
+  };
+  const int n_list = list_tiles<kTile, kWarps>(flags, list, count_s, ks_row, qr, q_one, uq, 0,
+                                               k_end, T, tid, corner_free);
+  CTA_STAMP(0, kMarkListed);
+  CTA_TILES(0, n_list);
 
-  int rseg[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) rseg[i] = has_seg ? qseg_s[4 * ty + i] : 0;
+  auto load_stage = [&](int it) {
+    const int k0 = (list[it] & (kInterior - 1)) * kTile, st = it % kStages;
+    cp_rows<kTile, D, kThreads>(Ks(st), kp, k0, T, tid);
+    cp_rows<kTile, D, kThreads>(Vs(st), vp, k0, T, tid);
+    if (has_seg) cp_vals<kTile>(ksegs(st), ks_row, k0, T, tid);
+  };
+  cp_rows<kTile, D, kThreads>(Qs, qp, q0, T, tid);
+  if (n_list > 0) load_stage(0);
+  cp_async_commit();                             // group 0: Q and stage 0
 
-  float o[4][4 * NC];
+  const int wr = warp * 16;                      // this warp's rows in the tile
+  const int row0 = q0 + wr + g, row1 = row0 + 8;
+  const int qseg0 = has_seg && row0 < T ? a.q_seg[(size_t)b * T + row0] : 0;
+  const int qseg1 = has_seg && row1 < T ? a.q_seg[(size_t)b * T + row1] : 0;
+  const float scale_log2 = a.scale * kLog2e;
+
+  float o[NO][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int n = 0; n < NO; ++n) {
 #pragma unroll
-    for (int c = 0; c < 4 * NC; ++c) o[i][c] = 0.f;
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
   }
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kMClamp;
-    l[i] = 0.f;
-  }
+  float m[2] = {kMClamp, kMClamp}, l[2] = {0.f, 0.f};   // rows g, g + 8 (l: this thread's part)
 
   for (int it = 0; it < n_list; ++it) {
-    const int k0 = list[it] * kTile;
-    __syncthreads();                             // the last tile's K, V and P are read
-    load_transposed<D>(Kt, kp, k0, T, tid);
-    load_rows<D>(Vs, vp, k0, T, tid);
-    if (has_seg && tid < kTile) {
-      kseg_s[tid] = k0 + tid < T ? a.k_seg[(size_t)b * T + k0 + tid] : 0;
-    }
-    __syncthreads();
+    cp_async_wait<kStages - 2>();                // this tile (and Q) have landed
+    __syncthreads();                             // ... for every thread; the last stage is free
+    if (it + kStages - 1 < n_list) load_stage(it + kStages - 1);
+    cp_async_commit();
+    if (it == 0) CTA_STAMP(0, kMarkFirstTile);
+    const int st = it % kStages, entry = list[it];
+    const int k0 = (entry & (kInterior - 1)) * kTile;
+    const float* Kt = Ks(st);
+    const float* Vt = Vs(st);
 
-    // S = Q K^T, a 4 x 4 block a thread
-    float s[4][4];
+    // S = Q K^T: this warp's 16 rows x 64 keys, 8 tiles of 8 keys
+    float s[8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int n = 0; n < 8; ++n) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
     }
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float4 qv = *reinterpret_cast<const float4*>(Qt + d * kTile + 4 * ty);
-      const float4 kv = *reinterpret_cast<const float4*>(Kt + d * kTile + 4 * tx);
-      const float qa[4] = {qv.x, qv.y, qv.z, qv.w};
-      const float ka[4] = {kv.x, kv.y, kv.z, kv.w};
+#pragma unroll 2
+    for (int kk = 0; kk < D / 8; ++kk) {
+      float x[4];
+      uint32_t a_hi[4], a_lo[4], b_hi[8][2], b_lo[8][2];
+      frag_a<D>(x, Qs, wr, 8 * kk, g, t4);
+      split_tf32(x, a_hi, a_lo);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qa[i], ka[j], s[i][j]);
+      for (int n = 0; n < 8; ++n) {
+        float y[2];
+        frag_b_nrows<D>(y, Kt, 8 * kk, 8 * n, g, t4);
+        split_tf32(y, b_hi[n], b_lo[n]);
       }
+      mma_3xtf32(s, a_hi, a_lo, b_hi, b_lo);
     }
 
-    // scale, mask (-inf), online softmax
+    // scale (base 2), mask (-inf), online softmax; P back into s
+    const bool interior = entry & kInterior;
+    const int* kseg_t = ksegs(st);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + 4 * ty + i;
+    for (int half = 0; half < 2; ++half) {
+      const int row = half ? row1 : row0, qseg = half ? qseg1 : qseg0;
       float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kc = 4 * tx + j, key = k0 + kc;
-        bool ok = key < T && (!a.causal || key <= row);
-        if (has_seg) ok = ok && kseg_s[kc] == rseg[i];
-        s[i][j] = ok ? s[i][j] * a.scale : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float mn = fmaxf(m[i], group16_max(mx));
-      const float corr = expf(m[i] - mn);
-      m[i] = mn;
-      float ps = 0.f;
+      for (int n = 0; n < 8; ++n) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - mn);
-        ps += s[i][j];
-      }
-      l[i] = l[i] * corr + group16_sum(ps);
-#pragma unroll
-      for (int c = 0; c < 4 * NC; ++c) o[i][c] *= corr;
-    }
-    // P^T [key][row]: a thread's four rows of one key as one float4
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      *reinterpret_cast<float4*>(Pt + (4 * tx + j) * kTile + 4 * ty) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    }
-    __syncthreads();
-
-    // O += P V: rows 4 ty + i, columns 4 tx + 64 c + e
-#pragma unroll 4
-    for (int kc = 0; kc < kTile; ++kc) {
-      const float4 pv = *reinterpret_cast<const float4*>(Pt + kc * kTile + 4 * ty);
-      const float pa[4] = {pv.x, pv.y, pv.z, pv.w};
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const float4 vv = *reinterpret_cast<const float4*>(Vs + kc * D + 64 * c + 4 * tx);
-        const float va[4] = {vv.x, vv.y, vv.z, vv.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) o[i][4 * c + e] = fmaf(pa[i], va[e], o[i][4 * c + e]);
+        for (int e = 0; e < 2; ++e) {
+          float x = s[n][2 * half + e] * scale_log2;
+          if (!interior) {
+            const int kc = 8 * n + 2 * t4 + e, key = k0 + kc;
+            bool ok = key < T && (!a.causal || key <= row);
+            if (has_seg) ok = ok && kseg_t[kc] == qseg;
+            x = ok ? x : -INFINITY;
+          }
+          s[n][2 * half + e] = x;
+          mx = fmaxf(mx, x);
         }
       }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float mn = fmaxf(m[half], mx);
+      const float corr = fast_exp2(m[half] - mn);
+      m[half] = mn;
+      float ps = 0.f;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = fast_exp2(s[n][2 * half + e] - mn);
+          s[n][2 * half + e] = p;
+          ps += p;
+        }
+      }
+      l[half] = l[half] * corr + ps;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        o[n][2 * half] *= corr;
+        o[n][2 * half + 1] *= corr;
+      }
+    }
+
+    // O += P V: k steps of 8 keys, P from the accumulators, V's rows permuted
+    // alike. The tensor cores add a product to their accumulator without
+    // rounding to nearest (a bias that grows with the adds: over thousands
+    // of keys, 1.3e-4 of |O| on a real model's activations), so
+    // each tile's P V starts from zero, 64 columns at a time, and is added
+    // to O in float32
+#pragma unroll
+    for (int c = 0; c < NO / 8; ++c) {
+      float part[8][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float x[4];
+        uint32_t a_hi[4], a_lo[4], b_hi[8][2], b_lo[8][2];
+        frag_a_from_acc(x, s[j]);
+        split_tf32(x, a_hi, a_lo);
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          float y[2];
+          frag_b_krows<D>(y, Vt, 8 * j, 64 * c + 8 * n, g, t4);
+          split_tf32(y, b_hi[n], b_lo[n]);
+        }
+        mma_3xtf32(part, a_hi, a_lo, b_hi, b_lo);
+      }
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[8 * c + n][e] += part[n][e];
+      }
     }
   }
+  cp_async_wait<0>();                            // no copy outlives the CTA
+  CTA_STAMP(0, kMarkLoopEnd);
 
-  // epilogue: normalise, zero dead rows, store O and LSE
+  // epilogue: the row sums over the quad, normalise, zero dead rows, store
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
+  for (int half = 0; half < 2; ++half) {
+    float sum = l[half];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const int row = half ? row1 : row0;
     if (row >= T) continue;
-    const bool alive = l[i] > 0.f;
-    const float inv = alive ? 1.f / l[i] : 0.f;
+    const bool alive = sum > 0.f;
+    const float inv = alive ? 1.f / sum : 0.f;
     float* orow = a.out + (((size_t)b * a.H + h) * T + row) * D;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      *reinterpret_cast<float4*>(orow + 64 * c + 4 * tx) =
-          make_float4(o[i][4 * c] * inv, o[i][4 * c + 1] * inv, o[i][4 * c + 2] * inv,
-                      o[i][4 * c + 3] * inv);
+    for (int n = 0; n < NO; ++n) {
+      *reinterpret_cast<float2*>(orow + 8 * n + 2 * t4) =
+          make_float2(o[n][2 * half] * inv, o[n][2 * half + 1] * inv);
     }
-    if (tx == 0) a.lse[((size_t)b * a.H + h) * T + row] = alive ? m[i] + logf(l[i]) : kLseSentinel;
+    if (t4 == 0) {
+      a.lse[((size_t)b * a.H + h) * T + row] =
+          alive ? (m[half] + log2f(sum)) * kLn2 : kLseSentinel;
+    }
   }
+  CTA_STAMP(0, kMarkEnd);
 }
 
 template <int D>
@@ -279,7 +321,7 @@ cudaError_t launch(const F32Args& a, int B, cudaStream_t s) {
   err = allow_smem(flash_fwd_f32_kernel<D>, configured, dev);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.H, B, (a.T + kTile - 1) / kTile);
-  flash_fwd_f32_kernel<D><<<grid, kThreads, F32Smem<D>::bytes(a.T), s>>>(a);
+  flash_fwd_f32_kernel<D><<<grid, kThreads, Smem<D>::bytes(a.T), s>>>(a);
   return cudaGetLastError();
 }
 

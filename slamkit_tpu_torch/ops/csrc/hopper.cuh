@@ -1,17 +1,22 @@
 // Building blocks shared by the Hopper (sm_90a) kernels of this package:
-// flash_fwd.cu, flash_bwd.cu and dq_matmul.cu.
+// flash_fwd.cu, flash_bwd.cu, dq_matmul.cu and the float32 flash kernels.
 //
 //   * bf16 packing and the branch-free SFU exp2;
 //   * cp.async (global -> shared, zero-filling what is out of range) and its
 //     groups; 128-byte-swizzled tile loads in the layout wgmma reads;
-//   * ldmatrix and mma.sync m16n8k16;
+//   * ldmatrix and mma.sync m16n8k16; mma.sync m16n8k8 on TF32 and the
+//     3xTF32 split that keeps float32 accuracy on the tensor cores;
 //   * wgmma (bf16 in, f32 accumulate): m64n64k16 with both operands from
 //     shared memory, or A from registers and B MN-major or K-major; m64n128k16
 //     with A from registers and B K-major;
 //   * mbarriers and TMA tile loads, with the tensor maps they read;
-//   * the named barrier of one warpgroup; the split cluster barrier;
+//   * the named barrier of one warpgroup; the split cluster barrier and the
+//     flash backward kernels' cluster size;
 //   * segment-id ranges that keep a block's pads (id < 0) apart;
-//   * the once-per-device opt-in to more than 48 KB of dynamic shared memory.
+//   * the once-per-device opt-in to more than 48 KB of dynamic shared memory;
+//   * per-CTA clock64 stamps of a kernel's phases, compiled in only under
+//     -DSLAMKIT_CTA_CLOCKS (tools/cta_clocks.py builds such a library of its
+//     own name; the main path's libraries hold no stamp).
 #pragma once
 
 #include <cuda.h>   // CUtensorMap and its enums; libcuda's functions are looked up at run time
@@ -171,6 +176,58 @@ __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// D (16x8, f32) += A (16x8, tf32, row) * B (8x8, tf32, col). Fragments, with
+// g = lane / 4 and t = lane % 4: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4),
+// a3 (g + 8, t + 4); b0 (k = t, n = g), b1 (k = t + 4, n = g); c0, c1 (g,
+// 2 t + {0, 1}), c2, c3 (g + 8, 2 t + {0, 1}).
+__device__ __forceinline__ void mma_1688_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                              const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// 3xTF32: a float32 x as hi = tf32(x) and lo = tf32(x - hi), each rounded to
+// nearest with ties away from zero (cvt.rna); a product a b is then
+// lo_a hi_b + hi_a lo_b + hi_a hi_b, summed in that order into float32
+// accumulators (CUTLASS's OpMultiplyAddFastF32). Each product of two TF32
+// values is exact in float32; only lo_a lo_b and the roundings of the lo
+// parts are lost, ~2^-22 of |a b|, where one TF32 product loses ~2^-11.
+// The rounding is cvt.rna.tf32.f32's for a finite x, taken in integer
+// operations: add half of the 13 dropped bits' unit to the magnitude bits
+// (a carry into the exponent is the round up), then clear them. cvt.rna
+// itself compiles on sm_90a to a sequence guarded for inf and NaN, four
+// instructions where this takes two. The tensor cores read a TF32 operand's
+// top 19 bits and ignore the rest, so lo is passed with its bits uncleared.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
+}
+template <int N>
+__device__ __forceinline__ void split_tf32(const float (&x)[N], uint32_t (&hi)[N],
+                                           uint32_t (&lo)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) split_tf32(x[i], hi[i], lo[i]);
+}
+// c[n] += A B[n] for n < N in 3xTF32, A and every B[n] already split; the
+// three passes each run over all N independent accumulators, so that the
+// products of one pass are in flight together
+template <int N>
+__device__ __forceinline__ void mma_3xtf32(float (&c)[N][4], const uint32_t (&a_hi)[4],
+                                           const uint32_t (&a_lo)[4], const uint32_t (&b_hi)[N][2],
+                                           const uint32_t (&b_lo)[N][2]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_1688_tf32(c[n], a_lo, b_hi[n]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_1688_tf32(c[n], a_hi, b_lo[n]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_1688_tf32(c[n], a_hi, b_hi[n]);
 }
 
 // four 8 x 8 bf16 matrices from shared memory, lane l giving row l % 8 of
@@ -336,7 +393,49 @@ __device__ __forceinline__ int4 block_range(const int4* table, int blk0, int blk
   return r;
 }
 
+// ---------------------------------------------------------- CTA clocks --
+
+// Under SLAMKIT_CTA_CLOCKS, thread 0 of every CTA writes clock64() at each of
+// a kernel's marks (kMarkEntry .. kMarkEnd) into the buffer of its slot (one
+// slot per kernel of a call), [CTAs in launch order][kClockWords], and the
+// tiles it visited into the last word; a null slot writes nothing. The host
+// sets a slot with slamkit_cta_clocks(slot, buffer). Without the macro the
+// stamps compile to nothing.
+enum { kMarkEntry = 0, kMarkListed = 1, kMarkFirstTile = 2, kMarkLoopEnd = 3, kMarkEnd = 4,
+       kClockWords = 6 };
+#ifdef SLAMKIT_CTA_CLOCKS
+__device__ unsigned long long* g_cta_clocks[2];
+__device__ __forceinline__ unsigned long long* cta_clock_row(int slot) {
+  unsigned long long* buf = g_cta_clocks[slot];
+  if (buf == nullptr || threadIdx.x != 0) return nullptr;
+  const size_t cta = blockIdx.x + (size_t)gridDim.x * (blockIdx.y + (size_t)gridDim.y * blockIdx.z);
+  return buf + cta * kClockWords;
+}
+__device__ __forceinline__ void cta_stamp(int slot, int mark) {
+  if (unsigned long long* row = cta_clock_row(slot)) row[mark] = clock64();
+}
+__device__ __forceinline__ void cta_tiles(int slot, int tiles) {
+  if (unsigned long long* row = cta_clock_row(slot)) row[kClockWords - 1] = (unsigned)tiles;
+}
+#define CTA_STAMP(slot, mark) hopper::cta_stamp(slot, mark)
+#define CTA_TILES(slot, tiles) hopper::cta_tiles(slot, tiles)
+#else
+#define CTA_STAMP(slot, mark) ((void)0)
+#define CTA_TILES(slot, tiles) ((void)0)
+#endif
+
 // ---------------------------------------------------------------- host --
+
+// The portable cluster size, and the largest size up to it that divides G:
+// the flash backward kernels spread a kv group's G heads over that many CTAs
+// (G itself for every preset: G = 1, 3, 4, 6, 7 or 8)
+constexpr int kMaxCluster = 8;
+inline int cluster_size(int G) {
+  for (int c = G < kMaxCluster ? G : kMaxCluster; c > 1; --c) {
+    if (G % c == 0) return c;
+  }
+  return 1;
+}
 
 // once per device, on the first (eager) call, not inside a graph capture:
 // allow a kernel the card's whole opt-in shared memory
@@ -400,3 +499,13 @@ inline cudaError_t tmap_bf16_sw128(CUtensorMap* map, const void* base, int rows,
 }
 
 }  // namespace hopper
+
+#ifdef SLAMKIT_CTA_CLOCKS
+// points slot `slot` (0 or 1) of the stamps at `buffer` (device memory, or
+// null to stop stamping)
+extern "C" int slamkit_cta_clocks(int slot, void* buffer) {
+  if (slot < 0 || slot > 1) return (int)cudaErrorInvalidValue;
+  return (int)cudaMemcpyToSymbol(hopper::g_cta_clocks, &buffer, sizeof(buffer),
+                                 slot * sizeof(buffer));
+}
+#endif

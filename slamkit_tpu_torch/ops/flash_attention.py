@@ -44,9 +44,10 @@ _BWD_ENTRY = {KERNEL_BWD: ("slamkit_flash_bwd_bf16", "slamkit_flash_bwd_scratch_
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_fn(name: str):
-    """The forward's C entry of library `name` (bf16 or float32: one signature)."""
-    fn = getattr(_build.load(name), _ENTRY[name])
+def _kernel_fn(name: str, defines: tuple[str, ...] = ()):
+    """The forward's C entry of library `name` (bf16 or float32: one
+    signature), built with `defines` (none on the main path)."""
+    fn = getattr(_build.load(name, defines), _ENTRY[name])
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float, i, p]
     fn.restype = i
@@ -54,10 +55,10 @@ def _kernel_fn(name: str):
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_bwd_fns(name: str):
+def _kernel_bwd_fns(name: str, defines: tuple[str, ...] = ()):
     """(the launch, the scratch size) of backward library `name` (bf16 or
-    float32: one signature)."""
-    lib = _build.load(name)
+    float32: one signature), built with `defines` (none on the main path)."""
+    lib = _build.load(name, defines)
     launch, scratch = _BWD_ENTRY[name]
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = getattr(lib, launch)
@@ -119,8 +120,10 @@ def _seg_ptrs(q_seg, k_seg):
     return q_seg.data_ptr(), k_seg.data_ptr(), (q_seg, k_seg)
 
 
-def _launch(q, k, v, q_seg, k_seg, causal: bool, sm_scale: float):
-    """The bf16 kernel for bf16 inputs, the float32 one for float32 inputs."""
+def _launch(q, k, v, q_seg, k_seg, causal: bool, sm_scale: float,
+            defines: tuple[str, ...] = ()):
+    """The bf16 kernel for bf16 inputs, the float32 one for float32 inputs
+    (from the library built with `defines`)."""
     _check_kernel_inputs("forward", q=q, k=k, v=v)
     f32 = q.dtype == torch.float32
     b, h, t, d = q.shape
@@ -130,7 +133,7 @@ def _launch(q, k, v, q_seg, k_seg, causal: bool, sm_scale: float):
     name = KERNEL_F32 if f32 else KERNEL
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _kernel_fn(name)(
+        err = _kernel_fn(name, defines)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q_ptr, k_ptr,
             out.data_ptr(), lse.data_ptr(),
             b, h, k.shape[1], t, d, float(sm_scale), int(causal), stream)
@@ -173,8 +176,10 @@ flash_attention_fwd.launches = 0
 flash_attention_fwd.f32_launches = 0
 
 
-def _launch_bwd(q, k, v, out, lse, do, q_seg, k_seg, causal: bool, sm_scale: float):
-    """The bf16 kernel for bf16 inputs, the float32 one for float32 inputs."""
+def _launch_bwd(q, k, v, out, lse, do, q_seg, k_seg, causal: bool, sm_scale: float,
+                defines: tuple[str, ...] = ()):
+    """The bf16 kernel for bf16 inputs, the float32 one for float32 inputs
+    (from the library built with `defines`)."""
     _check_kernel_inputs("backward", q=q, k=k, v=v, out=out, do=do)
     f32 = q.dtype == torch.float32
     name = KERNEL_BWD_F32 if f32 else KERNEL_BWD
@@ -183,7 +188,7 @@ def _launch_bwd(q, k, v, out, lse, do, q_seg, k_seg, causal: bool, sm_scale: flo
         raise ValueError(f"lse must be [B, H, T] = {(b, h, t)}; got {tuple(lse.shape)}")
     lse = lse.float().contiguous()
     q_ptr, k_ptr, _keep = _seg_ptrs(q_seg, k_seg)
-    launch, scratch_floats = _kernel_bwd_fns(name)
+    launch, scratch_floats = _kernel_bwd_fns(name, defines)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     # delta = rowsum(dO o O) of the O the forward returned (outside the
     # kernel proper, as in the JAX package, flash_attention.py:345) is the

@@ -42,7 +42,7 @@ import torch
 from torch.profiler import record_function
 
 from ..data.dataset import IGNORE_INDEX, Batcher, TokenDataset
-from ..utils.calculation_utils import token_nll
+from ..utils.calculation_utils import masked_sum, token_nll
 from . import checkpoint
 from .callbacks import TrainerCallback, TrainerControl, TrainerState
 from .optim import make_optimizer
@@ -174,7 +174,7 @@ class SLAMTrainer:
                                            segment_ids=b["segment_ids"])
             labels = b["labels"][..., 1:]
             valid = labels != IGNORE_INDEX
-            total_nll += (token_nll(logits[..., :-1, :], labels) * valid).sum()
+            total_nll += masked_sum(token_nll(logits[..., :-1, :], labels), valid)
             total_tokens += int((batch["labels"][..., 1:] != IGNORE_INDEX).sum())
         loss = float(total_nll) / max(total_tokens, 1)
         metrics = {"eval_loss": loss, "eval_ppl": float(np.exp(min(loss, 30.0)))}

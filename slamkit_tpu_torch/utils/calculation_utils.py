@@ -23,13 +23,21 @@ def token_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     return logz - gold
 
 
+def masked_sum(x: torch.Tensor, mask: torch.Tensor, dim=None) -> torch.Tensor:
+    """The sum of x * mask over `dim` (all dims if None), where a masked-out
+    entry adds exactly 0 whatever x holds there: an ignored vocab id's -inf
+    logit makes its target's NLL +inf, and +inf * 0 would be NaN. (XLA
+    rewrites the JAX package's product by a boolean mask as this select.)"""
+    picked = torch.where(mask.to(torch.bool), x * mask, 0.0)
+    return picked.sum() if dim is None else picked.sum(dim=dim)
+
+
 def calc_nll(logits: torch.Tensor, target: torch.Tensor, mask: torch.Tensor,
              len_norm: bool = True) -> torch.Tensor:
     """Masked per-sequence NLL, mean (len_norm) or sum over tokens."""
-    mask = mask.to(logits.dtype)
-    ll = (token_nll(logits, target) * mask).sum(dim=-1)
+    ll = masked_sum(token_nll(logits, target), mask, dim=-1)
     if len_norm:
-        return ll / mask.sum(dim=-1).clamp(min=1)
+        return ll / mask.to(logits.dtype).sum(dim=-1).clamp(min=1)
     return ll
 
 
@@ -47,7 +55,7 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     else:
         shift_logits, shift_labels = logits[..., :-1, :], labels[..., 1:]
     valid = shift_labels != ignore_index
-    nll = (token_nll(shift_logits, shift_labels) * valid).sum()
+    nll = masked_sum(token_nll(shift_logits, shift_labels), valid)
     if num_items_in_batch is not None:
         return nll / num_items_in_batch
     return nll / valid.sum().clamp(min=1)

@@ -21,20 +21,20 @@ and head (the same roundings give ~2^-9 relative per row; 1e-3 covers rows
 whose exact gradient cancels to 0).
 
 The float32 forward (flash_fwd_f32.cu) against the same plain version on the
-same float32 inputs: out and LSE within 1e-4 absolute. Both compute in
-float32 (FMAs on the card's CUDA cores, expf; the plain version's float32
-einsums with TF32 off) and differ by summation order alone, ~1e-6 relative
-on |out| < 4 and LSE < 12; a bf16 or TF32 rounding anywhere would sit near
-1e-3.
+same float32 inputs: out and LSE within 1e-4 absolute. The kernel takes its
+products in 3xTF32 on the tensor cores (~2^-22 of each product lost), the
+plain version in float32 einsums with TF32 off: they differ by ~1e-6 on
+|out| < 4 and LSE < 12, where one bf16 or TF32 rounding of a product would
+sit near 1e-3 (tests/test_torch_tf32_split.py emulates both on the CPU).
 
 The float32 backward (flash_bwd_f32.cu) against the same plain version on
 the same float32 inputs, O and LSE: max |kernel - plain| of each of dq, dk,
 dv within 16 eps32 sqrt(G T) of that gradient's max |plain|, plus 1e-5 for
-gradients that cancel to ~0 (T = 1). Both sides compute in float32 and
-differ by summation order alone; dK and dV sum G x T terms, so the bound
-grows with G T (2.1e-5 relative at G T = 512); a TF32 or bf16 product
-would sit above 1e-3. Each call is repeated and must give bitwise the same
-gradients.
+gradients that cancel to ~0 (T = 1). The kernel's 3xTF32 products and the
+plain version's float32 einsums differ by float32 noise; dK and dV sum
+G x T terms, so the bound grows with G T (4.3e-5 relative at G T = 512); a
+TF32 or bf16 product would sit above 1e-3. Each call is repeated and must
+give bitwise the same gradients.
 """
 import math
 
@@ -245,11 +245,12 @@ def _compare_f32(dev, b, h, hkv, t, d, kind, causal=True):
 
 # the text LM's scoring and the judge's prefill (Llama-3.2-1B, 32/8 heads of
 # 64, float32): right-padded rows as log_likelihood pads them, left-padded
-# prompts, packed rows, d = 128 with G = 4, T off the tile size
+# prompts, packed rows, d = 128 with G = 4, T off the tile size; float32
+# DPO's [2 x 8, 152] rows at G = 7
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,hkv,t,d", [
     (8, 32, 8, 512, 64), (2, 32, 8, 130, 64), (2, 8, 2, 512, 128), (1, 4, 1, 1, 64),
-    (2, 8, 2, 65, 128),
+    (2, 8, 2, 65, 128), (16, 14, 2, 152, 64),
 ])
 @pytest.mark.parametrize("kind", [None, "packed", "pad_tail", "left_padded"])
 def test_f32_kernel_matches_plain(dev, b, h, hkv, t, d, kind):
@@ -470,13 +471,14 @@ def test_f32_backward_kernel_matches_plain(dev, b, h, hkv, t, d, causal, kind):
 
 
 # the training rows of phase 13: packed rows with a -1 tail at the twist and
-# Slam shapes, DPO's [2 x 8, 152] rows of one segment and a -1 tail,
-# 16-token segments (every tile masked), and dead rows
+# Slam shapes, DPO's [2 x 8, 152] rows of one segment and a -1 tail (G = 7,
+# clusters of 7), 16-token segments (every tile masked), and dead rows; the
+# Llama-3.2-1B shape's G = 4 (clusters of 4)
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,hkv,t,d,kind", [
     (8, 12, 12, 512, 64, "pad_tail"), (8, 14, 2, 1024, 64, "packed"),
     (16, 14, 2, 152, 64, "dpo"), (2, 7, 1, 1024, 128, "segments16"),
-    (2, 14, 2, 1024, 64, "sims"),
+    (2, 14, 2, 1024, 64, "sims"), (8, 32, 8, 512, 64, "pad_tail"),
 ])
 def test_f32_backward_kernel_at_training_rows(dev, b, h, hkv, t, d, kind):
     _compare_bwd_f32(dev, b, h, hkv, t, d, True, kind)

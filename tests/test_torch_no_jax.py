@@ -578,6 +578,10 @@ def test_chip_smoke_sims_rehearsal_on_cpu(chip_smoke, tmp_path, capsys):
     assert len(result["losses"]) == 2 and result["cm_calls"] == 2        # correct, incorrect
     assert result["cm_launches"] == 0 and result["card_vs_cpu_ll_err"] == 0.0
     assert 0.0 <= result["storycloze"] <= 1.0
+    # sblimp over phase 9's 4 pairs with used_token_modality=SPEECH: one call
+    # a side, finite (checked inside), no launch on the CPU
+    assert result["speech_sblimp_calls"] == 2 and result["speech_sblimp_launches"] == 0
+    assert 0.0 <= result["speech_sblimp"] <= 1.0
     for mod in ("SPEECH", "TEXT"):
         run = result["generate"][mod]
         assert run["in_modality"] and run["launches"] == 0 and run["calls"] == 1
@@ -630,16 +634,21 @@ def test_chip_smoke_bound_takes_the_larger_time(chip_smoke):
 
 def test_chip_smoke_f32_bound_counts_float32_bytes_at_the_fp32_rate(chip_smoke):
     """Phase 3e's bound: q, k, v and out of 4 bytes an element, and the
-    operations at the float32 CUDA-core rate (67 TFLOP/s), not the bf16
-    tensor cores'."""
+    operations at the float32 rate of 3xTF32 on the tensor cores (495 / 3
+    TFLOP/s), not the bf16 tensor cores'; the CUDA-core rate (67 TFLOP/s)
+    is kept to print beside it."""
     seg = np.zeros((2, 64), np.int32)
     n16, f16 = chip_smoke.flash_cost((2, 4, 2, 64, 16), seg, None, True, backward=False)
     n32, f32 = chip_smoke.flash_cost((2, 4, 2, 64, 16), seg, None, True, backward=False,
                                      elt_bytes=4)
     elems = 2 * (2 * 4 * 64 * 16) + 2 * (2 * 2 * 64 * 16)
     assert f16 == f32 and n32 - n16 == 2 * elems
+    ms, by = chip_smoke.bound_ms(1.0, 165e9, flops_per_s=chip_smoke.FP32_3XTF32_FLOPS_PER_S)
+    assert by == "operations" and abs(ms - 1.0) < 1e-12
     ms, by = chip_smoke.bound_ms(1.0, 67e9, flops_per_s=chip_smoke.FP32_FLOPS_PER_S)
     assert by == "operations" and abs(ms - 1.0) < 1e-12
+    assert chip_smoke._cores_text(None) == ""
+    assert "0.0901 ms" in chip_smoke._cores_text(0.0901)
 
 
 @pytest.mark.parametrize("left", [False, True])

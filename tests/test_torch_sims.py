@@ -336,6 +336,57 @@ def test_eval_cli_cm_storycloze_matches_jax(eval_files, monkeypatch, capsys):
     assert 0.0 <= res["StoryCloze"] <= 1.0
 
 
+@pytest.fixture(scope="module")
+def modelling_files(eval_files):
+    """Eight WAVs of 0.3-0.7 s in each modelling metric's layout: sWUGGY's
+    `<i>_w.wav` and sBLIMP's `<i>+p.wav` (consecutive files pair up), and
+    one SALMon part of `s_<idx>_<j>.wav` pairs."""
+    rng = np.random.default_rng(11)
+    layout = {"swuggy": lambda i: f"swuggy/{i}_w.wav", "sblimp": lambda i: f"sblimp/{i}+p.wav",
+              "salmon": lambda i: f"salmon/gender_consistency/s_{i // 2}_{i % 2}.wav"}
+    for name in layout.values():
+        for i in range(8):
+            path = eval_files / "modelling" / name(i)
+            path.parent.mkdir(parents=True, exist_ok=True)
+            sims_recipe._write_wav(path, rng, float(rng.uniform(0.3, 0.7)))
+    return eval_files
+
+
+# the non-cross-modal metrics through the interleaving tokeniser: with
+# used_token_modality=SPEECH every text id but bos / eos gets a -inf logit,
+# the pad among them, so a pad target's NLL is +inf and only a masked sum
+# that selects (as XLA does for the JAX package) keeps a row finite
+@pytest.mark.parametrize("modality", [None, "SPEECH"])
+@pytest.mark.parametrize("metric,extra", [
+    ("swuggy_inter", ("metric.data_path={d}/swuggy", "metric.subfolder=false")),
+    ("sblimp", ("metric.data_path={d}/sblimp", "metric.subfolder=false")),
+    ("salmon", ("metric.data_path={d}/salmon", "metric.parts=[gender_consistency/]")),
+])
+def test_eval_cli_modelling_metrics_interleaved_match_jax(modelling_files, monkeypatch, capsys,
+                                                          metric, extra, modality):
+    from slamkit_tpu.models.unit_lm import UnitLM as JaxUnitLM
+    from slamkit_tpu_torch.cli import eval as port_eval
+    from slamkit_tpu_torch.models import UnitLM
+
+    d = modelling_files / "modelling"
+    ov = _eval_overrides(modelling_files, f"metric={metric}", *(e.format(d=d) for e in extra),
+                         f"metric.used_token_modality={modality or 'null'}")
+    got, want = [], []
+    _recording(monkeypatch, UnitLM, "log_likelihood", got)
+    _recording(monkeypatch, JaxUnitLM, "log_likelihood", want)
+    capsys.readouterr()
+    res = port_eval.eval_main(ov)
+    port_out = capsys.readouterr().out
+    _jax_cli("eval").eval_main(ov)
+    jax_out = capsys.readouterr().out
+    assert len(got) == len(want) == 4                 # 2 batches x (pos, neg)
+    for a, b in zip(got, want):
+        assert np.isfinite(a).all() and np.isfinite(b).all()
+        np.testing.assert_allclose(a, b, atol=1e-4)
+    lines = lambda out: [ln for ln in out.splitlines() if ln.split(":")[0] in res]
+    assert lines(port_out) == lines(jax_out) == [f"{k}: {v}" for k, v in res.items()]
+
+
 @pytest.mark.parametrize("prompt,cont,glob", [("TEXT", "SPEECH", "prompts/*.txt"),
                                               ("SPEECH", "TEXT", "cm/*_correct.wav")])
 def test_eval_cli_cm_generate_matches_jax(eval_files, monkeypatch, prompt, cont, glob):

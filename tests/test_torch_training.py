@@ -129,6 +129,29 @@ def test_cross_entropy_matches_jax(num_items, pre_shifted):
     np.testing.assert_allclose(got.item(), float(want), rtol=1e-6)
 
 
+@pytest.mark.parametrize("len_norm", [True, False])
+def test_calc_nll_drops_an_infinite_masked_target_like_jax(len_norm):
+    """log_likelihood's case: an ignored vocab id (the pad, under
+    used_token_modality=SPEECH) has a -inf logit, so a pad target's NLL is
+    +inf; its boolean mask must drop it to 0, as the JAX calc_nll does
+    (XLA selects where the mask is False), never +inf * 0 = NaN."""
+    from slamkit_tpu.utils.calculation_utils import calc_nll as jax_calc_nll
+    from slamkit_tpu_torch.utils.calculation_utils import calc_nll
+
+    rng = np.random.default_rng(4)
+    logits = rng.standard_normal((2, 6, 11)).astype(np.float32)
+    logits[..., 0] = -np.inf                      # the pad id, ignored
+    target = rng.integers(1, 11, (2, 6)).astype(np.int32)
+    target[0, 4:] = 0                             # row 0 ends in pads
+    mask = target != 0
+    want = np.asarray(jax_calc_nll(jnp.asarray(logits), jnp.asarray(target),
+                                   jnp.asarray(mask), len_norm))
+    got = calc_nll(torch.from_numpy(logits), torch.from_numpy(target),
+                   torch.from_numpy(mask), len_norm).numpy()
+    assert np.isfinite(want).all() and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+
+
 def test_training_refuses_unported_knobs():
     for knob in (dict(dropout=0.1), dict(layerdrop=0.1), dict(attention_dropout=0.1),
                  dict(remat=True, remat_policy="qkv")):
