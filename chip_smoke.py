@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, speech-continuation, DPO,
-interleaved speech-text (SIMS), generation-metric (GenPPL, LLM judge) and
-float32-training slices and its command line once on an NVIDIA GPU.
+interleaved speech-text (SIMS), generation-metric (GenPPL, LLM judge),
+float32-training and data-preparation slices and its command line once on
+an NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -181,6 +182,30 @@ the sm_90a kernels). Phases, in order; any failure exits non-zero:
                that save, exact as above. Params, gradients, AdamW moments
                and compute are float32; seconds a step, non-pad tokens/s and
                `max_memory_allocated` for each run.
+  14. the data path — in a work directory of its own beside phase 9's,
+               with phase 9's HuBERT directory (mhubert-base-25hz widths):
+               (a) g++'s and libav's versions; the native packer and codec
+               must load, and the libav audio decoder wherever libav is
+               present (where it is absent a line says so: FLAC is then
+               held only by the CPU tests, must raise here, and (b) and (d)
+               read WAV twins of the same PCM); (b) 64 seeded files of 2-16
+               s, 16 kHz mono (equal to PCM / 32768 bit for bit) and 44.1
+               kHz stereo (downmixed and resampled), decode and audio
+               seconds; (c) `kmeans_fit` on the card, K = 500 over a 3.2 GB
+               memmap of 1048576 x 768 separated clusters, 25 iterations in
+               batches of 65536, a second fit bitwise equal, the clusters'
+               centres recovered, the CPU's fit on 65536 rows x 5 iterations
+               within KMEANS_REL_BOUND, seconds and fitted rows/s, then 500
+               centroids on (b)'s HuBERT features as km.npy; (d)
+               `cli.extract_features` with the YAML's default ext=flac and
+               km.npy, each line equal to a direct `audio_represent`, and
+               `cli.prepare_tokens`; (e) `cli.train` model=slam, 2 steps of 8
+               x 1024, on two seeded 8M-token unit corpora mixed 0.5 / 0.5
+               with data.spill_tokens=2097152 and a fresh data.saved_ds_path,
+               then again from the cache: both runs' batches and step-1
+               losses equal bit for bit, the spilled batches equal an
+               in-RAM build's; `init_dataset`'s host seconds with and
+               without the cache, the resident set, the disk.
 
 Phases 3 and 3b also hold the kernels at DPO's shape (`dpo_T152`: [16, 14/2,
 152, 64], one segment of 110-152 tokens a row and a -1 tail) and at SIMS's
@@ -208,6 +233,7 @@ text-LM layer a batch (phase 12); float32 training launches the float32
 forward (1 + remat) times a layer a microbatch and once a layer an eval
 batch, and the float32 backward once a layer a microbatch, DPO's float32
 steps and eval batches as phase 10's, and no bf16 kernel (phase 13); the
+data path's two training runs as phase 6's microbatches (phase 14); the
 probe's entry
 point launches its kernel 7 times a shape (phase 3d). A flash backward call
 counts one, though it launches three kernels (the delta / segment-range
@@ -377,6 +403,11 @@ HBM_BYTES_PER_S, BF16_FLOPS_PER_S = 3.35e12, 989e12
 # beside it
 FP32_FLOPS_PER_S = 67e12
 FP32_3XTF32_FLOPS_PER_S = 495e12 / 3
+# phase 14, k-means on the card against the CPU: on clusters that Lloyd's
+# resolves exactly (see `_cluster_memmap`) both fits take the same rows into
+# each centroid and differ only in the order of their float32 sums (~1e-7 a
+# term over ~130 rows a cluster): max |card - cpu| / max |cpu| <= 1e-5
+KMEANS_REL_BOUND = 1e-5
 # published dense bf16 tensor-core peaks (NVIDIA data sheets), by card name
 BF16_PEAK_FLOPS = (("H100 PCIe", 756e12), ("H100 NVL", 835e12), ("H100", 989e12),
                    ("H200", 989e12))
@@ -3173,6 +3204,454 @@ def run_f32_training(dev, smi: str, work: pathlib.Path, twist_overrides=(), slam
     return result
 
 
+def _gxx_version() -> str:
+    import shutil
+    import subprocess
+
+    gxx = shutil.which("g++")
+    if gxx is None:
+        return "absent"
+    return subprocess.run([gxx, "--version"], capture_output=True, text=True).stdout.split("\n")[0]
+
+
+def _libav_versions():
+    """pkg-config's versions of the four libav libraries the decoder links,
+    or None where pkg-config or one of them is missing."""
+    import subprocess
+
+    names = ("libavformat", "libavcodec", "libavutil", "libswresample")
+    try:
+        proc = subprocess.run(["pkg-config", "--modversion", *names], capture_output=True,
+                              text=True)
+    except FileNotFoundError:
+        return None
+    return dict(zip(names, proc.stdout.split())) if proc.returncode == 0 else None
+
+
+def _rss() -> tuple:
+    """(current, peak) resident set of the process in bytes: /proc/self/statm
+    (None where it cannot be read) and getrusage's ru_maxrss (the peak since
+    the process started: the card's machine offers no way to reset it)."""
+    import os
+    import resource
+
+    try:
+        current = int(pathlib.Path("/proc/self/statm").read_text().split()[1]) * os.sysconf(
+            "SC_PAGE_SIZE")
+    except (OSError, IndexError, ValueError):
+        current = None
+    return current, resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def _cluster_memmap(path: pathlib.Path, rows: int, dim: int, k: int, subset: int,
+                    spread: float = 4.0, noise: float = 1.0, seed: int = 14):
+    """A float32 np.memmap [rows, dim] of k seeded Gaussian clusters (centres
+    ~spread x sqrt(2 dim) apart, noise per coordinate), the centres and the
+    labels.
+    The rows that `kmeans_fit(seed=0)`'s Forgy start draws, from the whole
+    array and from its first `subset` rows, are labelled one to a cluster:
+    Lloyd's then converges to the clusters' means, no row lies near a
+    boundary, and a card and a CPU fit can differ only by summation order.
+    (A start that split a cluster would put rows on a boundary, where a
+    rounding flip moves a centroid by ~1e-3 of its norm.)"""
+    rng = np.random.default_rng(seed)
+    centres = (spread * rng.standard_normal((k, dim))).astype(np.float32)
+    labels = rng.integers(0, k, rows)
+    labels[np.random.default_rng(0).choice(rows, k, replace=False)] = np.arange(k)
+    sub_picks = np.random.default_rng(0).choice(subset, k, replace=False)
+    fixed = np.isin(sub_picks, np.random.default_rng(0).choice(rows, k, replace=False))
+    free = np.setdiff1d(np.arange(k), labels[sub_picks[fixed]])
+    labels[sub_picks[~fixed]] = free
+    # one block of noise rows serves every block of labels (drawing 3.2 GB of
+    # normals would take longer than the fits)
+    block = min(rows, 1 << 16)
+    draws = noise * rng.standard_normal((block, dim), dtype=np.float32)
+    x = np.memmap(path, dtype=np.float32, mode="w+", shape=(rows, dim))
+    for lo in range(0, rows, block):
+        hi = min(lo + block, rows)
+        x[lo:hi] = centres[labels[lo:hi]] + draws[:hi - lo]
+    x.flush()
+    del x
+    return np.memmap(path, dtype=np.float32, mode="r", shape=(rows, dim)), centres, labels
+
+
+def run_data_path(dev, smi: str, work: pathlib.Path, hubert_cfg=None, model_overrides=(),
+                  n_files: int = 64, seconds=(2.0, 16.0), fit_rows: int = 1 << 20,
+                  fit_dim: int = 768, k: int = 500, fit_iters: int = 25,
+                  fit_batch: int = 1 << 16, subset_rows: int = 1 << 16, subset_iters: int = 5,
+                  corpus_tokens: int = 8 << 20, spill_tokens: int = 2 << 20,
+                  lengths=(100, 1001), context: int = 1024, batch: int = 8,
+                  steps: int = 2) -> dict:
+    """Phase 14, the data path, in a work directory of its own beside phase
+    9's (whose HuBERT directory it reads):
+    (a) the native builds: g++'s and libav's versions; the packer and the
+        codec must load, and the audio decoder wherever libav is present;
+        where it is absent, a line says so and FLAC is held only by the CPU
+        tests (`tests/test_torch_audio.py`): FLAC must then raise, and (b)
+        and (d) read the same PCM from WAV twins, said so on their lines;
+    (b) `n_files` seeded files of `seconds`, 16 kHz mono and 44.1 kHz stereo
+        (16-bit), decoded by `utils/audio.load_audio`: the 16 kHz ones equal
+        PCM / 32768 bit for bit, the 44.1 kHz ones their WAV twins' decode,
+        resampled to the 16 kHz length; decode and audio seconds;
+    (c) `kmeans_fit` on the card, K = k over a seeded memmap of `fit_rows` x
+        `fit_dim` float32 clusters, `fit_iters` iterations in `fit_batch`
+        rows: a second fit repeats it bit for bit and both recover the
+        clusters' centres; on the first `subset_rows` rows for `subset_iters`
+        iterations the card matches a CPU fit within KMEANS_REL_BOUND;
+        seconds and fitted rows a second; then k centroids fitted on the
+        HuBERT features of (b)'s files, written as km.npy;
+    (d) `cli.extract_features` with the YAML's default ext=flac and that
+        km.npy over (b)'s files, every line held to a direct
+        `audio_represent` of its batch, then `cli.prepare_tokens`;
+    (e) two seeded corpora of `corpus_tokens` unit tokens, `cli.train`
+        model=slam for `steps` steps on both mixed by data.train_ratios with
+        data.spill_tokens=`spill_tokens` (each load and the mix spill to
+        data.spill_dir) and a fresh data.saved_ds_path (written), then again
+        from the cache: the two runs' batches and step-1 losses equal bit
+        for bit, and the spilled batches equal an in-RAM build's;
+        `init_dataset`'s host seconds with and without the cache, the
+        process's resident set (current and peak) around each run, the disk. On the card every training microbatch
+        launches the flash backward once a layer and the forward (1 + remat)
+        times; on the CPU (a rehearsal at narrow widths) no launch."""
+    import gc
+    import shutil
+
+    import torch
+
+    from slamkit_tpu_torch.cli import extract_features as cli_extract
+    from slamkit_tpu_torch.cli import prepare_tokens as cli_prepare
+    from slamkit_tpu_torch.cli import train as cli_train
+    from slamkit_tpu_torch.config import compose
+    from slamkit_tpu_torch.data import dataset as data_mod
+    from slamkit_tpu_torch.feature_extractor import (HUBERT_CONFIG_PRESETS, HubertConfig,
+                                                     HubertFeatureExtractor, kmeans_fit,
+                                                     save_kmeans_centroids)
+    from slamkit_tpu_torch.feature_extractor.hubert import load_hubert
+    from slamkit_tpu_torch.native import bindings, codec, pack
+    from slamkit_tpu_torch.ops import flash_attention_bwd, flash_attention_fwd
+    from slamkit_tpu_torch.tokeniser import tokeniser_factory
+    from slamkit_tpu_torch.tools import data_recipe
+    from slamkit_tpu_torch.trainer import slam_trainer
+    from slamkit_tpu_torch.utils.audio import load_audio
+
+    on_card = dev.type == "cuda"
+    phase_t0 = time.perf_counter()
+    hubert_cfg = hubert_cfg or HubertConfig(**HUBERT_CONFIG_PRESETS["slprl/mhubert-base-25hz"])
+    data_work = work / "data_path"
+    data_work.mkdir()
+    result = {}
+
+    # ---- (a) the native builds ----------------------------------------------
+    versions = _libav_versions()
+    for lib in (pack, codec):
+        try:
+            lib._lib()
+        except lib.NativeUnavailable as e:
+            raise SystemExit(f"chip_smoke: the native {lib.__name__} did not load: {e}")
+    try:
+        bindings._lib()
+        flac, audio_error = True, None
+    except bindings.NativeUnavailable as e:
+        flac, audio_error = False, str(e).splitlines()[0]
+    print(f"native: g++ {_gxx_version()}; libav {versions or 'absent (pkg-config finds none)'};"
+          f" libpack and libcodec loaded; the audio decoder "
+          f"{'loaded' if flac else f'did not build: {audio_error}'}", flush=True)
+    _require(flac or versions is None, f"libav is present ({versions}) but the native audio "
+             f"decoder did not build: {audio_error}")
+    if not flac:
+        print("libav: absent on this host, so the native audio decoder cannot be built here: "
+              "FLAC decoding is held only by the CPU tests (tests/test_torch_audio.py); (b) "
+              "and (d) below read the same PCM from WAV twins, not FLAC", flush=True)
+    result["native"] = dict(gxx=_gxx_version(), libav=versions, audio_decoder=flac,
+                            audio_error=audio_error)
+
+    # ---- (b) decoding -------------------------------------------------------
+    audio_dir = data_work / "audio"
+    files = data_recipe.write_audio_set(audio_dir, n_files, seconds, seed=14,
+                                        kinds=((16000, 1, 16), (44100, 2, 16)))
+    if not flac:
+        try:
+            load_audio(str(files[0][0]))
+            raise SystemExit("chip_smoke: FLAC decoded without the native decoder")
+        except IOError as e:
+            _require("libav" in str(e), f"FLAC without libav raised without naming it: {e}")
+    t0 = time.perf_counter()
+    decoded = [load_audio(str(f if flac else w)) for f, w, *_ in files]
+    decode_s = time.perf_counter() - t0
+    audio_s = sum(len(pcm) / sr for _, _, pcm, sr, _ in files)
+    exact = resampled = 0
+    for (f, w, pcm, sr, _), wav in zip(files, decoded):
+        if sr == 16000:
+            _require(np.array_equal(wav, (pcm[:, 0] / 32768.0).astype(np.float32)),
+                     f"{f.name if flac else w.name} does not decode to its PCM / 32768")
+            exact += 1
+        else:
+            _require(abs(len(wav) - len(pcm) * 16000 / sr) <= 1 and np.isfinite(wav).all(),
+                     f"{f.name} decoded to {len(wav)} samples, not {len(pcm) * 16000 / sr:.0f}")
+            if flac:
+                _require(np.array_equal(wav, load_audio(str(w))), f"{f.name} and its WAV "
+                         f"twin decode differently")
+            resampled += 1
+    print(f"(b) decoded {n_files} {'FLAC' if flac else 'WAV (libav absent)'} files, "
+          f"{audio_s:.1f} s of audio in {decode_s:.3f} s ({decode_s / audio_s:.2e} s a second "
+          f"of audio): {exact} at 16 kHz equal PCM / 32768 bit for bit, {resampled} at 44.1 "
+          f"kHz stereo downmixed and resampled to 16 kHz{', equal to their WAV twins' if flac else ''}",
+          flush=True)
+    result["decode"] = dict(format="flac" if flac else "wav", files=n_files,
+                            audio_seconds=audio_s, decode_seconds=decode_s)
+
+    # ---- (c) fitting on the card --------------------------------------------
+    t0 = time.perf_counter()
+    x, centres, labels = _cluster_memmap(data_work / "fit.f32", fit_rows, fit_dim, k, subset_rows)
+    make_s = time.perf_counter() - t0
+    fits, fit_s = [], []
+    for _ in range(2):
+        _sync(dev)
+        t0 = time.perf_counter()
+        fits.append(kmeans_fit(x, k, iters=fit_iters, seed=0, batch=fit_batch, device=dev))
+        _sync(dev)
+        fit_s.append(time.perf_counter() - t0)
+    counts = np.bincount(labels, minlength=k)
+    centre_err = float(np.abs(fits[0] - centres).max())
+    centre_bound = 8.0 / math.sqrt(counts.min())        # 8 sd of a cluster's mean (noise 1)
+    repeat = bool(np.array_equal(fits[0], fits[1]))
+    sub = np.asarray(x[:subset_rows])
+    card_sub = kmeans_fit(sub, k, iters=subset_iters, seed=0, batch=fit_batch, device=dev)
+    t0 = time.perf_counter()
+    cpu_sub = kmeans_fit(sub, k, iters=subset_iters, seed=0, batch=fit_batch, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    sub_err = float(np.abs(card_sub - cpu_sub).max() / np.abs(cpu_sub).max())
+    rows_per_s = [fit_rows * fit_iters / s for s in fit_s]
+    print(f"(c) kmeans_fit on {dev}: K={k} over a memmap of {fit_rows} x {fit_dim} float32 "
+          f"({x.nbytes / 1e9:.2f} GB, made in {make_s:.1f} s), {fit_iters} iterations in batches "
+          f"of {fit_batch}: {fit_s[0]:.3f} and {fit_s[1]:.3f} s ({rows_per_s[0]:.4g} and "
+          f"{rows_per_s[1]:.4g} fitted rows/s); the second fit bitwise equal: {repeat}; max "
+          f"|centroid - cluster centre| {centre_err:.3e} (<= {centre_bound:.3e}); on "
+          f"{subset_rows} rows x {subset_iters} iterations the card against the CPU "
+          f"({cpu_s:.2f} s): {sub_err:.3e} relative (<= {KMEANS_REL_BOUND}); on {smi}", flush=True)
+    _require(repeat, "a second kmeans_fit did not repeat the first bit for bit")
+    _require(centre_err <= centre_bound, "kmeans_fit did not recover the clusters' centres")
+    _require(sub_err <= KMEANS_REL_BOUND, "kmeans_fit on the card disagrees with the CPU")
+    del x, sub
+    (data_work / "fit.f32").unlink()
+    # k centroids on the HuBERT features of (b)'s files (phase 9's random HuBERT)
+    params, cfg = load_hubert(str(work / "hubert"), "cpu")     # from_params moves them
+    tap = hubert_cfg.num_hidden_layers - 1
+    fe = HubertFeatureExtractor.from_params(params, cfg, np.zeros((k, cfg.hidden_size),
+                                                                  np.float32), layer=tap,
+                                            device=dev)
+    with torch.inference_mode():
+        frames = np.concatenate([fe.features(torch.from_numpy(w)[None].to(dev))[0].cpu().numpy()
+                                 for w in decoded])
+    del fe, params
+    t0 = time.perf_counter()
+    km = kmeans_fit(frames, k, iters=fit_iters, seed=0, batch=fit_batch, device=dev)
+    km_s = time.perf_counter() - t0
+    save_kmeans_centroids(str(data_work / "km.npy"), km)
+    print(f"(c) {k} centroids fitted on {len(frames)} HuBERT frames of (b)'s files in "
+          f"{km_s:.3f} s, written to km.npy", flush=True)
+    result["kmeans"] = dict(rows=fit_rows, dim=fit_dim, k=k, iters=fit_iters,
+                            fit_seconds=fit_s, fitted_rows_per_s=rows_per_s,
+                            repeat_bitwise=repeat, centre_err=centre_err,
+                            card_vs_cpu_rel_err=sub_err, hubert_frames=len(frames),
+                            hubert_fit_seconds=km_s)
+
+    # ---- (d) stage 1 and 2 --------------------------------------------------
+    fe_args = [f"tokeniser.feature_extractor.pretrained_model={work / 'hubert'}",
+               f"tokeniser.feature_extractor.kmeans_path={data_work / 'km.npy'}",
+               f"tokeniser.feature_extractor.layer={tap}", *([] if on_card else ["device=cpu"])]
+    features, tokens = data_work / "features.jsonl", data_work / "tokens.jsonl"
+    source = [f"data_path={audio_dir}"] if flac else [f"data_path={audio_dir / 'wav'}", "ext=wav"]
+    if not flac:
+        try:
+            cli_extract.extract_features([f"data_path={audio_dir}",
+                                          f"out_path={data_work / 'no.jsonl'}", *fe_args])
+            raise SystemExit("chip_smoke: cli.extract_features ext=flac ran without libav")
+        except IOError as e:
+            _require("libav" in str(e), f"ext=flac without libav raised without naming it: {e}")
+    t0 = time.perf_counter()
+    n_feat = cli_extract.extract_features([*source, f"out_path={features}", "batch_size=8",
+                                           "num_workers=8", *fe_args])
+    _sync(dev)
+    stage1_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n_tok = cli_prepare.prepare_tokens([f"data_path={features}", f"out_path={tokens}",
+                                        *([] if on_card else ["+device=cpu"])])
+    stage2_s = time.perf_counter() - t0
+    feat_rows = [json.loads(line) for line in features.read_text().splitlines()]
+    tok_rows = [json.loads(line) for line in tokens.read_text().splitlines()]
+    by_name = {str(f if flac else w): wav for (f, w, *_), wav in zip(files, decoded)}
+    names = [r["file_name"] for r in feat_rows]
+    _require(n_feat == n_tok == len(tok_rows) == n_files and sorted(names) == sorted(by_name),
+             f"stage 1 wrote {n_feat} and stage 2 {n_tok} lines for {n_files} files")
+    tok = tokeniser_factory(compose(str(ROOT / "config"), "extract_features",
+                                    [*source, "out_path=-", *fe_args]).tokeniser, device=dev)
+    direct = []
+    for start in range(0, len(names), 8):                  # the CLI's batches, zero-padded
+        group = [by_name[n] for n in names[start:start + 8]]
+        lens = np.array([len(w) for w in group])
+        padded = np.zeros((len(group), int(lens.max())), np.float32)
+        for i, w in enumerate(group):
+            padded[i, :len(w)] = w
+        direct += tok.audio_represent(padded, lens)
+    stage_ok = all(f["units"] == d["units"] and f["duration"] == d["duration"]
+                   and t["file_name"] == f["file_name"]
+                   and t["audio_repr"] == tok.stringify_representation([d])[0]
+                   for f, t, d in zip(feat_rows, tok_rows, direct))
+    del tok
+    n_units = sum(len(r["units"]) for r in feat_rows)
+    distinct = len({u for r in feat_rows for u in r["units"]})
+    print(f"(d) stage 1 (cli.extract_features, {'the default ext=flac' if flac else 'ext=wav: libav absent'}, "
+          f"km.npy of (c)): {n_feat} files, {n_units} units ({distinct} distinct), "
+          f"{stage1_s:.3f} s; stage 2: {n_tok} lines, {stage2_s:.3f} s; every line equals a "
+          f"direct audio_represent of its batch: {stage_ok}; on {smi}", flush=True)
+    _require(stage_ok, "stage 1 or 2 disagrees with a direct audio_represent")
+    result["stages"] = dict(files=n_feat, units=n_units, distinct_units=distinct,
+                            stage1_seconds=stage1_s, stage2_seconds=stage2_s)
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # ---- (e) the spill and the cache at corpus scale ------------------------
+    t0 = time.perf_counter()
+    corpora = [data_work / f"corpus{i}.jsonl" for i in range(2)]
+    n_tokens = [data_recipe.write_unit_corpus(c, corpus_tokens, seed=i, lengths=lengths)
+                for i, c in enumerate(corpora)]
+    write_s = time.perf_counter() - t0
+    spill_dir, cache = data_work / "spill", data_work / "ds_cache"
+    model_data = ["model=slam", f"model.context_len={context}", *model_overrides,
+                  f"data.train_path=[{','.join(str(c) for c in corpora)}]",
+                  "data.train_ratios=[0.5,0.5]", "data.val_path=null", "data.packing=true"]
+    train_args = [*model_data, f"data.spill_tokens={spill_tokens}", f"data.spill_dir={spill_dir}",
+                  f"data.saved_ds_path={cache}", f"training_args.max_steps={steps}",
+                  f"training_args.per_device_train_batch_size={batch}",
+                  "training_args.gradient_accumulation_steps=1", "training_args.remat=true",
+                  "training_args.optim_state_dtype=bfloat16", "training_args.logging_steps=1",
+                  "training_args.save_steps=0", *([] if on_card else ["training_args.use_cpu=true"])]
+    real_init, real_batcher = cli_train.init_dataset, slam_trainer.Batcher
+    real_factory = cli_train.tlm_factory
+
+    def run(name):
+        """cli.train with init_dataset timed and the train batches kept."""
+        rec = {"batches": [], "batcher_args": None}
+
+        def timed_init(cfg, tokeniser):
+            t0 = time.perf_counter()
+            ds = real_init(cfg, tokeniser)
+            rec["init_s"] = time.perf_counter() - t0
+            rec["train_memmap"] = isinstance(ds["train"].tokens, np.memmap)
+            rec["train_tokens"] = ds["train"].num_tokens
+            return ds
+
+        def counted_factory(*args, **kwargs):
+            model = real_factory(*args, **kwargs)
+            rec["layers"] = model.decoder.cfg.num_layers
+            return model
+
+        class KeptBatcher(real_batcher):
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                if rec["batcher_args"] is None:      # the trainer's first is the train one
+                    rec["batcher_args"] = (args[1:], kwargs)
+                    self.keep = rec["batches"]
+
+            def epoch(self, *args, **kwargs):
+                for b in super().epoch(*args, **kwargs):
+                    if hasattr(self, "keep"):
+                        self.keep.append({key: np.array(v) for key, v in b.items()})
+                    yield b
+
+        cli_train.init_dataset, slam_trainer.Batcher = timed_init, KeptBatcher
+        cli_train.tlm_factory = counted_factory
+        flash_attention_fwd.launches = flash_attention_bwd.launches = 0  # the main path's count
+        rec["rss_before"] = _rss()
+        used = shutil.disk_usage(data_work).used
+        try:
+            t0 = time.perf_counter()
+            state = cli_train.train([*train_args, f"training_args.output_dir={data_work / name}"])
+            _sync(dev)
+            rec["wall_s"] = time.perf_counter() - t0
+        finally:
+            cli_train.init_dataset, slam_trainer.Batcher = real_init, real_batcher
+            cli_train.tlm_factory = real_factory
+        rec["launches"] = {"flash_fwd": flash_attention_fwd.launches,
+                           "flash_bwd": flash_attention_bwd.launches}
+        rec["rss_after"] = _rss()
+        rec["disk_delta"] = shutil.disk_usage(data_work).used - used
+        rec["losses"] = [r["loss"] for r in state.log_history if "loss" in r]
+        rec["steps"] = state.global_step
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        return rec
+
+    first = run("run_build")
+    cache_bytes = sum(p.stat().st_size for p in cache.rglob("*") if p.is_file())
+    again = run("run_cached")
+    # the in-RAM build of the same config: spill_tokens above the corpus, no cache
+    cfg = compose(str(ROOT / "config"), "train", [*model_data, f"data.spill_tokens={1 << 40}"])
+    t0 = time.perf_counter()
+    in_ram = data_mod.init_dataset(cfg, tokeniser_factory(cfg.tokeniser, device=dev))
+    ram_s = time.perf_counter() - t0
+    args, kwargs = first["batcher_args"]
+    ram_batches = []
+    for b in real_batcher(in_ram["train"], *args, **kwargs).epoch(0):
+        ram_batches.append(b)
+        if len(ram_batches) == len(first["batches"]):
+            break
+    same = lambda a, b: len(a) == len(b) > 0 and all(
+        sorted(x) == sorted(y) and all(np.array_equal(x[k2], y[k2]) for k2 in x)
+        for x, y in zip(a, b))
+    cached_same, ram_same = same(first["batches"], again["batches"]), same(first["batches"],
+                                                                           ram_batches)
+    rss = lambda r: (f"{r['rss_before'][0]} -> {r['rss_after'][0]} B, the process's peak "
+                     f"{r['rss_before'][1]} -> {r['rss_after'][1]} B")
+    print(f"(e) two corpora of {n_tokens} unit tokens written in {write_s:.1f} s; cli.train "
+          f"model=slam, {steps} steps of {batch} x {context}, mixed 0.5 / 0.5 with "
+          f"spill_tokens={spill_tokens}: init_dataset {first['init_s']:.3f} s building "
+          f"{first['train_tokens']} train tokens (spilled memmap: {first['train_memmap']}) and "
+          f"writing the cache ({cache_bytes} B), {again['init_s']:.3f} s from the cache "
+          f"(memmap: {again['train_memmap']}), {ram_s:.3f} s in RAM; RSS over the runs "
+          f"{rss(first)} and {rss(again)}; disk {first['disk_delta']} and "
+          f"{again['disk_delta']} B more after each run; losses {first['losses']} and "
+          f"{again['losses']}; {len(first['batches'])} batches bitwise equal from the cache: "
+          f"{cached_same}, spilled vs in RAM: {ram_same}; launches {first['launches']} and "
+          f"{again['launches']}; {first['wall_s']:.1f} and {again['wall_s']:.1f} s the calls; "
+          f"on {smi}", flush=True)
+    _require(first["steps"] == again["steps"] == steps and len(first["losses"]) == steps
+             and all(math.isfinite(v) for v in first["losses"]),
+             f"cli.train did not take {steps} finite logged steps: {first['losses']}")
+    _require(first["train_memmap"] and again["train_memmap"]
+             and not isinstance(in_ram["train"].tokens, np.memmap),
+             "the mixed corpus did not spill, or the cache did not load as a memmap")
+    _require(cached_same and first["losses"][0] == again["losses"][0],
+             "the run from the cache does not repeat the run that wrote it bit for bit")
+    _require(ram_same, "the spilled corpus's batches differ from the in-RAM build's")
+    for rec in (first, again):
+        mb = rec["launches"]
+        want_bwd = steps * rec["layers"] if on_card else 0
+        _require(mb["flash_bwd"] == want_bwd and (mb["flash_fwd"] >= 2 * want_bwd if on_card
+                                                  else mb["flash_fwd"] == 0),
+                 f"cli.train launched {mb}: expected {want_bwd} backward calls and at least "
+                 f"twice as many forward ones")
+    result["spill_cache"] = dict(
+        corpus_tokens=n_tokens, spill_tokens=spill_tokens, train_tokens=first["train_tokens"],
+        init_seconds_build=first["init_s"], init_seconds_cached=again["init_s"],
+        init_seconds_in_ram=ram_s, rss=[[first["rss_before"], first["rss_after"]],
+                                        [again["rss_before"], again["rss_after"]]],
+        disk_delta=[first["disk_delta"], again["disk_delta"]], cache_bytes=cache_bytes,
+        losses=[first["losses"], again["losses"]], batches=len(first["batches"]),
+        wall_seconds=[first["wall_s"], again["wall_s"]])
+    result["launches"] = {key: first["launches"][key] + again["launches"][key]
+                          for key in first["launches"]}
+    del in_ram, ram_batches, first, again
+    gc.collect()
+    _drop(data_work)
+    result["seconds"] = time.perf_counter() - phase_t0
+    print(f"phase 14: {result['seconds']:.1f} s", flush=True)
+    return result
+
+
 def main() -> int:
     if not (ROOT / "slamkit_tpu_torch" / "ops" / "csrc" / "flash_fwd.cu").is_file():
         print("chip_smoke: run from a checkout of the repository (slamkit_tpu_torch/ "
@@ -3246,6 +3725,8 @@ def main() -> int:
         t0 = time.perf_counter()
         f32_train_result = run_f32_training(dev, smi, pathlib.Path(work))
         print(f"phase 13: {time.perf_counter() - t0:.1f} s", flush=True)
+        torch.cuda.empty_cache()
+        data_result = run_data_path(dev, smi, pathlib.Path(work))
     speech_runs = speech_result["runs"]
 
     score = next(r for r in kernel_rows if r["name"] == "score_ctx1024")
@@ -3268,7 +3749,7 @@ def main() -> int:
                       "card_vs_cpu": cpu_result, "speech": speech_result,
                       "cli": cli_result, "dpo": dpo_result, "sims": sims_result,
                       "genppl": genppl_result, "f32_backward_shapes": f32_bwd_rows,
-                      "f32_training": f32_train_result}), flush=True)
+                      "f32_training": f32_train_result, "data_path": data_result}), flush=True)
     print(f"the whole run: {time.perf_counter() - start:.1f} s", flush=True)
     print(nvidia_smi(), flush=True)
 
@@ -3281,7 +3762,8 @@ def main() -> int:
                    + dpo_result["launches"]["flash_fwd"]
                    + sims_result["train_launches"]["flash_fwd"] + sims_result["cm_launches"]
                    + sum(g["launches"] for g in sims_result["generate"].values())
-                   + sum(r["launches"]["flash_fwd"] for r in genppl_runs),
+                   + sum(r["launches"]["flash_fwd"] for r in genppl_runs)
+                   + data_result["launches"]["flash_fwd"],
                    max(r["max_abs_err_out"] for r in kernel_rows), score),
         kernel_row("flash_bwd", "slamkit_tpu_torch/ops/csrc/flash_bwd.cu",
                    "slamkit_tpu/ops/flash_attention.py:247",
@@ -3289,7 +3771,8 @@ def main() -> int:
                    train_result["launches"]["flash_bwd"]
                    + cli_result["train_launches"]["flash_bwd"]
                    + dpo_result["launches"]["flash_bwd"]
-                   + sims_result["train_launches"]["flash_bwd"],
+                   + sims_result["train_launches"]["flash_bwd"]
+                   + data_result["launches"]["flash_bwd"],
                    max(max(r["max_abs_err"].values()) for r in backward_rows), bwd),
         dict(kernel_row("dq_matmul", "slamkit_tpu_torch/ops/csrc/dq_matmul.cu",
                         "slamkit_tpu/ops/quant.py:43", ["dq_gemv_kernel | dq_gemm_kernel"],

@@ -1,6 +1,6 @@
-"""Stage 1 on the port: WAV files -> features jsonl {units, duration, file_name}.
+"""Stage 1 on the port: audio files -> features jsonl {units, duration, file_name}.
 
-    python -m slamkit_tpu_torch.cli.extract_features data_path=<wav dir> ext=wav \
+    python -m slamkit_tpu_torch.cli.extract_features data_path=<audio dir> [ext=flac] \
         out_path=<features.jsonl> tokeniser.feature_extractor.pretrained_model=<HuBERT dir> \
         tokeniser.feature_extractor.kmeans_path=<centroids.npy> [device=cpu]
 
@@ -10,9 +10,10 @@ duration, longest first (a batch that does not fit fails at once), an
 optional pickle cache of that list under `cache_path`, data_skip /
 data_take, decoding on a thread pool with a bounded prefetch of about two
 batches, batched `audio_represent`, lines appended to out_path. Every
-`device` but `cpu` (the YAML's `tpu` included) runs on the CUDA card. The
-port reads WAV only: any other `ext` (the YAML's default is flac) raises
-before the first file is read.
+`device` but `cpu` (the YAML's `tpu` included) runs on the CUDA card. Audio
+is read by `utils/audio.py`: the native libav decoder reads the YAML's
+default `ext: flac` and every other format libav reads; where it cannot be
+built, WAV alone is read.
 """
 import json
 import logging
@@ -32,14 +33,10 @@ logger = logging.getLogger(__name__)
 
 
 class WavDataset:
-    """A folder's WAV files, longest first."""
+    """A folder's audio files of one extension, longest first."""
 
-    def __init__(self, data_path: str, ext: str = "wav", cache_path: Optional[str] = None,
+    def __init__(self, data_path: str, ext: str = "flac", cache_path: Optional[str] = None,
                  sample_rate: int = 16000, n_workers: int = 16):
-        if str(ext).lower() != "wav":
-            raise NotImplementedError(
-                f"ext={ext!r}: the port reads WAV only (ext=wav); decoding other audio "
-                f"formats is not ported yet (ROADMAP queue 1 item 11)")
         self.sample_rate = sample_rate
         save_path = None
         if cache_path is not None:

@@ -1,16 +1,26 @@
-"""Token dataset: jsonl -> flat id buffer -> packed [B, T] batches (numpy only).
+"""Token dataset: jsonl -> flat id buffer (RAM or memmap) -> packed [B, T] batches.
 
 A copy of `slamkit_tpu/data/dataset.py` (`TokenDataset` :74 with `repeat`
-:172 and `concatenate` :153, `load_token_dataset` :297, multi-corpus
+:172, `concatenate` :153 and the cache's `save` / `load` :180-202,
+`TokenWriter` :215, `load_token_dataset` :297, multi-corpus
 `_materialize_picks` :326 and `interleave` :381, `parse_single_dataset`
 :477, `init_dataset` :502, `_bestfit_slabs` :582, `_pack_bestfit` :617,
 `pack_into_rows` :675, `pad_into_rows` :772, `Batcher` :804), copied because
 the JAX package's data module cannot be imported without jax.
-`tests/test_torch_data.py` and `tests/test_torch_sims.py` hold its datasets
-and batches equal to the original's bit for bit.
+`tests/test_torch_data.py`, `tests/test_torch_spill.py` and
+`tests/test_torch_sims.py` hold its datasets and batches equal to the
+original's bit for bit.
 
   * storage is one flat int32 buffer plus per-sequence (starts, lengths)
-    views; filter and chunk never copy the token buffer;
+    views; filter, chunk and repeat never copy the token buffer;
+  * past `data.spill_tokens` (default 67108864) the buffer of a loaded
+    corpus (`TokenWriter`) and of a mixed one (`_materialize_picks`) is an
+    np.memmap of a file in `data.spill_dir` (default: the system's temp
+    directory), unlinked once mapped, so its disk frees with the process;
+  * `data.saved_ds_path` caches the built datasets, one directory a split
+    of raw int32 `tokens.bin` (memmapped on load) and `offsets.npy`, the
+    JAX package's format (its round-1 `token_dataset.npz` loads too): the
+    first run writes it, later runs load it and skip the jsonl;
   * batches have static shapes [B, context_len];
   * packing fills rows with whole sequences and emits segment_ids (-1 on
     pads) and per-segment positions for the segment-aware flash kernels;
@@ -21,16 +31,14 @@ and batches equal to the original's bit for bit.
   * several corpora mix as HF `interleave_datasets(probabilities,
     stopping_strategy, seed=0)` does, each repeated `repetitions` times
     first.
-
-Not ported yet (ROADMAP queue 1 item 18): the disk spill of `TokenWriter`
-and of the mixed corpus (the buffers stay in RAM) and the `saved_ds_path`
-cache; `init_dataset` raises on a saved_ds_path.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import logging
+import os
+import tempfile
 from glob import glob
 from typing import Dict, Iterator, List, Optional, Sequence
 
@@ -42,8 +50,10 @@ logger = logging.getLogger(__name__)
 
 IGNORE_INDEX = -100
 
-# sequences processed per vectorized slab in the batchers
+# sequences processed per vectorized slab in the batchers and the cache's writer
 _SLAB = 1 << 18
+# load_token_dataset spills the token buffer to disk past this many tokens
+DEFAULT_SPILL_TOKENS = 64 << 20  # 256 MB of int32
 # rows per prepare_batch call during jsonl loading
 TOKENISE_CHUNK_ROWS = 2048
 
@@ -69,14 +79,16 @@ def _gather_ragged(tokens: np.ndarray, starts: np.ndarray, lens: np.ndarray) -> 
 @dataclasses.dataclass
 class TokenDataset:
     """Ragged token-id sequences as (starts, lengths) views over one flat
-    buffer; view-producing ops only touch the O(rows) view arrays."""
+    buffer, which may be an np.memmap; view-producing ops only touch the
+    O(rows) view arrays."""
 
     tokens: np.ndarray
     starts: np.ndarray
     lengths: np.ndarray
 
     def __post_init__(self):
-        self.tokens = np.ascontiguousarray(self.tokens, dtype=np.int32)
+        if not isinstance(self.tokens, np.memmap):
+            self.tokens = np.ascontiguousarray(self.tokens, dtype=np.int32)
         self.starts = np.ascontiguousarray(self.starts, dtype=np.int64)
         self.lengths = np.ascontiguousarray(self.lengths, dtype=np.int64)
 
@@ -86,6 +98,13 @@ class TokenDataset:
     def __getitem__(self, i: int) -> np.ndarray:
         s = self.starts[i]
         return np.asarray(self.tokens[s:s + self.lengths[i]], dtype=np.int32)
+
+    @property
+    def offsets(self) -> np.ndarray:
+        """Offsets of the compacted view: [0, l0, l0 + l1, ...]."""
+        off = np.zeros(len(self) + 1, dtype=np.int64)
+        np.cumsum(self.lengths, out=off[1:])
+        return off
 
     @property
     def num_tokens(self) -> int:
@@ -100,6 +119,11 @@ class TokenDataset:
         for i, s in enumerate(seqs):
             tokens[offsets[i]:offsets[i + 1]] = s
         return cls(tokens, offsets[:-1], lens)
+
+    @classmethod
+    def from_offsets(cls, tokens: np.ndarray, offsets: np.ndarray) -> "TokenDataset":
+        offsets = np.asarray(offsets, dtype=np.int64)
+        return cls(tokens, offsets[:-1], np.diff(offsets))
 
     def filter_by_length(self, min_len: Optional[int] = None,
                          max_len: Optional[int] = None) -> "TokenDataset":
@@ -143,11 +167,101 @@ class TokenDataset:
             return self
         return TokenDataset(self.tokens, np.tile(self.starts, n), np.tile(self.lengths, n))
 
+    def save(self, path: str):
+        """Write the compacted view: raw int32 `tokens.bin` and `offsets.npy`,
+        gathered slab by slab so a large view never sits in RAM whole."""
+        os.makedirs(path, exist_ok=True)
+        with open(os.path.join(path, "tokens.bin"), "wb") as f:
+            for lo in range(0, len(self), _SLAB):
+                sl = slice(lo, lo + _SLAB)
+                f.write(_gather_ragged(self.tokens, self.starts[sl], self.lengths[sl]).tobytes())
+        np.save(os.path.join(path, "offsets.npy"), self.offsets)
+
+    @classmethod
+    def load(cls, path: str) -> "TokenDataset":
+        """A saved dataset, its tokens memmapped; a round-1 `token_dataset.npz`
+        loads into RAM."""
+        legacy = os.path.join(path, "token_dataset.npz")
+        if os.path.exists(legacy):
+            with np.load(legacy) as z:
+                return cls.from_offsets(z["tokens"], z["offsets"])
+        offsets = np.load(os.path.join(path, "offsets.npy"))
+        n = int(offsets[-1]) if len(offsets) else 0
+        tokens = (np.memmap(os.path.join(path, "tokens.bin"), dtype=np.int32, mode="r",
+                            shape=(n,)) if n else np.empty(0, np.int32))
+        return cls.from_offsets(tokens, offsets)
+
     def token_stats(self) -> dict:
         lens = self.lengths
         return {"sum": int(lens.sum()), "len_ds": len(self),
                 "mean": float(lens.mean()) if len(self) else 0.0,
                 "var": float(lens.var()) if len(self) else 0.0}
+
+
+# --------------------------------------------------------------------------- #
+# streaming construction
+# --------------------------------------------------------------------------- #
+def _spill_file(spill_dir: Optional[str]) -> str:
+    if spill_dir:
+        os.makedirs(spill_dir, exist_ok=True)
+    fd, path = tempfile.mkstemp(suffix=".tokens.bin", dir=spill_dir)
+    os.close(fd)
+    return path
+
+
+class TokenWriter:
+    """Appends token sequences; past `spill_tokens` the buffer moves to a file
+    in `spill_dir` and the finished dataset memmaps it. The file is unlinked
+    once mapped, so its space frees with the process."""
+
+    def __init__(self, spill_tokens: int = DEFAULT_SPILL_TOKENS,
+                 spill_dir: Optional[str] = None):
+        self.spill_tokens = int(spill_tokens)
+        self.spill_dir = spill_dir
+        self._parts: List[np.ndarray] = []
+        self._buffered = 0
+        self._total = 0
+        self._lens: List[int] = []
+        self._file = None
+        self._path: Optional[str] = None
+
+    def append(self, seq) -> None:
+        a = np.asarray(seq, dtype=np.int32).ravel()
+        self._lens.append(int(a.size))
+        self._parts.append(a)
+        self._buffered += a.size
+        self._total += a.size
+        if self._file is None:
+            if self._total > self.spill_tokens:
+                self._path = _spill_file(self.spill_dir)
+                self._file = open(self._path, "wb")
+                logger.info("Token buffer passed %d tokens; spilling to %s",
+                            self.spill_tokens, self._path)
+                self._flush()
+        elif self._buffered >= (8 << 20):
+            self._flush()
+
+    def _flush(self) -> None:
+        for part in self._parts:
+            self._file.write(part.tobytes())
+        self._parts = []
+        self._buffered = 0
+
+    def finish(self) -> TokenDataset:
+        lens = np.asarray(self._lens, dtype=np.int64)
+        starts = np.cumsum(lens) - lens
+        if self._file is not None:
+            self._flush()
+            self._file.close()
+            tokens = np.memmap(self._path, dtype=np.int32, mode="r",
+                               shape=(self._total,)) if self._total else np.empty(0, np.int32)
+            os.unlink(self._path)  # the mapping stays valid; the space frees on exit
+        elif self._parts:
+            tokens = np.concatenate(self._parts)
+        else:
+            tokens = np.empty(0, np.int32)
+        self._parts, self._file = [], None
+        return TokenDataset(tokens, starts, lens)
 
 
 # --------------------------------------------------------------------------- #
@@ -165,43 +279,70 @@ def load_jsonl_rows(path_glob: str) -> Iterator[dict]:
                     yield json.loads(line)
 
 
-def load_token_dataset(path_glob: str, tokeniser) -> TokenDataset:
-    """jsonl rows -> tokeniser.prepare_batch (in chunks) -> TokenDataset."""
-    seqs: List[List[int]] = []
+def load_token_dataset(path_glob: str, tokeniser, spill_tokens: int = DEFAULT_SPILL_TOKENS,
+                       spill_dir: Optional[str] = None) -> TokenDataset:
+    """jsonl rows -> tokeniser.prepare_batch (in chunks) -> a TokenWriter, which
+    spills past spill_tokens."""
+    writer = TokenWriter(spill_tokens=spill_tokens, spill_dir=spill_dir)
     chunk: List[dict] = []
+
+    def flush():
+        for ids in tokeniser.prepare_batch(chunk):
+            writer.append(ids)
+        chunk.clear()
+
     for row in load_jsonl_rows(path_glob):
         chunk.append(row)
         if len(chunk) >= TOKENISE_CHUNK_ROWS:
-            seqs.extend(tokeniser.prepare_batch(chunk))
-            chunk.clear()
+            flush()
     if chunk:
-        seqs.extend(tokeniser.prepare_batch(chunk))
-    return TokenDataset.from_lists(seqs)
+        flush()
+    return writer.finish()
 
 
 # --------------------------------------------------------------------------- #
 # multi-corpus mixing
 # --------------------------------------------------------------------------- #
-def _materialize_picks(datasets: Sequence[TokenDataset], src: np.ndarray,
-                       idx: np.ndarray) -> TokenDataset:
+def _materialize_picks(datasets: Sequence[TokenDataset], src: np.ndarray, idx: np.ndarray,
+                       spill_tokens: int = DEFAULT_SPILL_TOKENS,
+                       spill_dir: Optional[str] = None,
+                       slab_tokens: int = 32 << 20) -> TokenDataset:
     """One contiguous dataset of the (source, row) picks, gathered per source
-    and scattered to the picks' places in a new buffer (in RAM)."""
+    and scattered to the picks' places in a new buffer: in RAM, or past
+    spill_tokens a memmap of a file in spill_dir, unlinked once mapped. The
+    gather runs in slabs of about slab_tokens, which bounds its 16 B a token
+    of index arrays."""
     n = len(src)
     lens = np.empty(n, dtype=np.int64)
     for s, d in enumerate(datasets):
         m = src == s
         if m.any():
             lens[m] = d.lengths[idx[m]]
-    out_starts = np.cumsum(lens) - lens
-    tokens = np.empty(int(lens.sum()), dtype=np.int32)
-    for s, d in enumerate(datasets):
-        m = src == s
-        if not m.any():
-            continue
-        r = _ranges(lens[m])
-        src_idx = np.repeat(d.starts[idx[m]], lens[m]) + r
-        tokens[np.repeat(out_starts[m], lens[m]) + r] = d.tokens[src_idx]
-    return TokenDataset(tokens, out_starts, lens)
+    out_offsets = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(lens, out=out_offsets[1:])
+    total = int(out_offsets[-1])
+    if total > int(spill_tokens):
+        path = _spill_file(spill_dir)
+        logger.info("Interleaved corpus is %d tokens; memmapping via %s", total, path)
+        tokens = np.memmap(path, dtype=np.int32, mode="w+", shape=(total,))
+        os.unlink(path)  # the mapping stays valid; the space frees on exit
+    else:
+        tokens = np.empty(total, dtype=np.int32)
+    lo = 0
+    while lo < n:
+        hi = int(np.searchsorted(out_offsets, out_offsets[lo] + slab_tokens, side="left"))
+        hi = min(max(hi, lo + 1), n)
+        sl = slice(lo, hi)
+        for s, d in enumerate(datasets):
+            m = src[sl] == s
+            if not m.any():
+                continue
+            seq_lens = lens[sl][m]
+            r = _ranges(seq_lens)
+            src_idx = np.repeat(d.starts[idx[sl][m]], seq_lens) + r
+            tokens[np.repeat(out_offsets[lo:hi][m], seq_lens) + r] = d.tokens[src_idx]
+        lo = hi
+    return TokenDataset(tokens, out_offsets[:-1], lens)
 
 
 def _occurrences(draws: np.ndarray, n_src: int) -> np.ndarray:
@@ -214,13 +355,17 @@ def _occurrences(draws: np.ndarray, n_src: int) -> np.ndarray:
 
 
 def interleave(datasets: Sequence[TokenDataset], probabilities: Sequence[float],
-               stopping_strategy: str = "first_exhausted", seed: int = 0) -> TokenDataset:
+               stopping_strategy: str = "first_exhausted", seed: int = 0,
+               spill_tokens: int = DEFAULT_SPILL_TOKENS,
+               spill_dir: Optional[str] = None) -> TokenDataset:
     """Mix corpora as HF `interleave_datasets(probabilities, seed=seed)`: draw a
     source per output row (numpy's Generator, blocks of max(4096, rows)
     draws) and take its next row, until the first source runs out
     (`first_exhausted`) or, with sources restarting from their first row,
     until the last one has been through all of its rows (`all_exhausted`);
-    the draw that finds a source exhausted is not taken."""
+    the draw that finds a source exhausted is not taken. The mixed buffer
+    spills past spill_tokens, as `_materialize_picks` says."""
+    spill = dict(spill_tokens=spill_tokens, spill_dir=spill_dir)
     if len(datasets) != len(probabilities):
         raise ValueError("Number of train paths should match number of train ratios")
     rng = np.random.default_rng(seed)
@@ -246,7 +391,7 @@ def interleave(datasets: Sequence[TokenDataset], probabilities: Sequence[float],
             idx_parts.append(idx)
             base += np.bincount(draws, minlength=n_src)
         return _materialize_picks(datasets, np.concatenate(src_parts),
-                                  np.concatenate(idx_parts))
+                                  np.concatenate(idx_parts), **spill)
     if stopping_strategy != "all_exhausted":
         raise ValueError(f"unknown stopping_strategy: {stopping_strategy!r}")
     # a source's pick is (its occurrence number) % size; it is exhausted at
@@ -254,7 +399,8 @@ def interleave(datasets: Sequence[TokenDataset], probabilities: Sequence[float],
     # over the sources that can be drawn
     active = (p > 0) & (sizes > 0)
     if not active.any():
-        return _materialize_picks(datasets, np.empty(0, np.int64), np.empty(0, np.int64))
+        return _materialize_picks(datasets, np.empty(0, np.int64), np.empty(0, np.int64),
+                                  **spill)
     counts = np.zeros(n_src, dtype=np.int64)
     pos_exhaust = np.full(n_src, -1, dtype=np.int64)
     pos_base = 0
@@ -275,18 +421,19 @@ def interleave(datasets: Sequence[TokenDataset], probabilities: Sequence[float],
     occs = np.concatenate(occ_parts)[:stop]
     keep = sizes[draws] > 0
     src = draws[keep]
-    return _materialize_picks(datasets, src, occs[keep] % sizes[src])
+    return _materialize_picks(datasets, src, occs[keep] % sizes[src], **spill)
 
 
 def parse_single_dataset(cfg, tokeniser, train_path: str,
                          val_path: Optional[str] = None) -> Dict[str, TokenDataset]:
     """{'train', 'validation'?} from one corpus, with the composed config's
-    length filter and chunking (`cfg['data']`, `cfg['model']['context_len']`;
-    a dict or the config node)."""
+    spill, length filter and chunking (`cfg['data']`,
+    `cfg['model']['context_len']`; a dict or the config node)."""
     data = cfg["data"]
-    ds = {"train": load_token_dataset(train_path, tokeniser)}
+    spill = _spill_args(data)
+    ds = {"train": load_token_dataset(train_path, tokeniser, **spill)}
     if val_path is not None:
-        ds["validation"] = load_token_dataset(val_path, tokeniser)
+        ds["validation"] = load_token_dataset(val_path, tokeniser, **spill)
     if data.get("sample_units_max_length", None):
         ds["train"] = ds["train"].filter_by_length(max_len=data["sample_units_max_length"])
     context_len = cfg["model"].get("context_len", None)
@@ -298,18 +445,36 @@ def parse_single_dataset(cfg, tokeniser, train_path: str,
     return ds
 
 
+def _spill_args(data) -> dict:
+    return dict(spill_tokens=int(data.get("spill_tokens", None) or DEFAULT_SPILL_TOKENS),
+                spill_dir=data.get("spill_dir", None))
+
+
 def init_dataset(cfg, tokeniser) -> Dict[str, TokenDataset]:
     """{'train', 'validation'?} from the composed config, as the JAX package's
     `init_dataset` builds them: one corpus (`data.train_path` a path or
     glob), or several (a list, with `data.train_ratios`, optional
     `data.repetitions`, `data.stopping_strategy` and a `data.val_path` list
-    whose corpora are concatenated) mixed by `interleave` with seed 0. A
-    `data.saved_ds_path` cache raises rather than being ignored."""
+    whose corpora are concatenated) mixed by `interleave` with seed 0. With
+    `data.saved_ds_path`, an existing directory is loaded instead (a
+    subdirectory a split), and a missing one is written after the build."""
     data = cfg["data"]
-    if data.get("saved_ds_path", None):
-        raise NotImplementedError(
-            f"data.saved_ds_path={data.get('saved_ds_path')!r}: the dataset cache is not "
-            f"ported yet (ROADMAP queue 1 item 18)")
+    saved = data.get("saved_ds_path", None)
+    if saved and os.path.isdir(saved):
+        logger.info("Loading dataset from %s", saved)
+        return {name: TokenDataset.load(os.path.join(saved, name))
+                for name in sorted(os.listdir(saved))
+                if os.path.isdir(os.path.join(saved, name))}
+    dataset = _build_dataset(cfg, tokeniser)
+    if saved:
+        logger.info("Saving dataset to %s", saved)
+        for name, ds in dataset.items():
+            ds.save(os.path.join(saved, name))
+    return dataset
+
+
+def _build_dataset(cfg, tokeniser) -> Dict[str, TokenDataset]:
+    data = cfg["data"]
     train_path = data["train_path"]
     if isinstance(train_path, str):
         return parse_single_dataset(cfg, tokeniser, train_path, data.get("val_path", None))
@@ -334,7 +499,8 @@ def init_dataset(cfg, tokeniser) -> Dict[str, TokenDataset]:
             vals.append(ds["validation"])
     return {"train": interleave(trains, ratios,
                                 stopping_strategy=data.get("stopping_strategy",
-                                                           "first_exhausted"), seed=0),
+                                                           "first_exhausted"), seed=0,
+                                **_spill_args(data)),
             "validation": TokenDataset.concatenate(vals)}
 
 

@@ -1,18 +1,38 @@
 """Row assignment for packing whole sequences into fixed-length rows.
 
-A copy of the pure-Python paths of `slamkit_tpu/native/pack.py`
-(`greedy_pack` :60, `bestfit_pack` :89, `greedy_pack_count` :138), whose
-tie-breaking matches the package's C++ packer (`native/pack.cpp`) bit for
-bit; `tests/test_torch_data.py` holds them equal. The C++ build is not
-ported: the loops here run at the host's pace, enough for the batches a
-training step consumes.
+A copy of `slamkit_tpu/native/pack.py` (`greedy_pack` :60, `bestfit_pack`
+:89, `greedy_pack_count` :138): each takes the C++ recurrence
+(`native/pack.cpp`) where g++ builds it, and otherwise the Python loop here,
+whose tie-breaking matches the C++ multimap bit for bit (logged once);
+`tests/test_torch_native.py` holds both paths equal to each other and to the
+JAX package's.
 """
 from __future__ import annotations
 
 import bisect
+import logging
 from typing import Tuple
 
 import numpy as np
+
+logger = logging.getLogger(__name__)
+
+_native = None
+
+
+def _get_native():
+    """The native packer module, or False where it does not build."""
+    global _native
+    if _native is None:
+        from ..native import pack
+
+        try:
+            pack._lib()
+            _native = pack
+        except pack.NativeUnavailable as e:
+            logger.info("native packer unavailable, using the Python path: %s", e)
+            _native = False
+    return _native
 
 
 def greedy_pack(lens: np.ndarray, context_len: int, row0: int = 0,
@@ -20,6 +40,8 @@ def greedy_pack(lens: np.ndarray, context_len: int, row0: int = 0,
     """In-order (row, col) per sequence: a sequence that does not fit the
     current row opens the next one. Returns (rows, cols, row, col), the last
     two being the carry into the next slab."""
+    if _get_native():
+        return _native.greedy_pack(lens, context_len, row0, col0)
     lens = np.ascontiguousarray(lens, dtype=np.int64)
     n = lens.size
     rows = np.empty(n, dtype=np.int64)
@@ -40,6 +62,8 @@ def bestfit_pack(lens: np.ndarray, context_len: int) -> Tuple[np.ndarray, np.nda
     """Best-fit-decreasing: (rows, cols, n_rows) per original sequence index.
     Longest first (stable), each into the open row with the least room that
     still fits it; among equal rooms the earliest-opened row wins."""
+    if _get_native():
+        return _native.bestfit_pack(lens, context_len)
     lens = np.ascontiguousarray(lens, dtype=np.int64)
     n = lens.size
     rows = np.empty(n, dtype=np.int64)
@@ -70,6 +94,8 @@ def bestfit_pack(lens: np.ndarray, context_len: int) -> Tuple[np.ndarray, np.nda
 
 def greedy_pack_count(lens: np.ndarray, context_len: int) -> int:
     """Number of rows the greedy rule makes (no assembly)."""
+    if _get_native():
+        return _native.greedy_pack_count(lens, context_len)
     lens = np.ascontiguousarray(lens, dtype=np.int64)
     lens = lens[lens > 0]
     if lens.size == 0:

@@ -1,27 +1,47 @@
-"""Host-side audio I/O: WAV read and write, resampling with scipy.
+"""Host-side audio I/O: the native libav decoder, a WAV reader where it
+cannot be built, WAV writing, resampling with scipy.
 
-The WAV half of `slamkit_tpu/utils/audio.py` (`_wav_load`, `save_wav`,
-`_resample_poly`). The JAX package decodes other formats (FLAC, ...) with its
-native libav decoder, which is not ported: anything but a WAV raises.
+The counterpart of `slamkit_tpu/utils/audio.py` (`audio_info` :50,
+`load_audio` :76, `_wav_load` :22, `save_wav` :62, `_resample_poly` :42), in
+its order: the native decoder (`native/bindings.py`, built by g++ against
+the system's libav at first use) reads every format libav reads, FLAC
+included. Where it cannot be built (no g++, no libav), a WAV is read by the
+Python reader below, which is logged once, and any other format raises with
+the build's own error.
 """
 from __future__ import annotations
 
+import logging
 import wave
 from math import gcd
 from typing import Tuple
 
 import numpy as np
 
+from ..native import bindings
+from ..native.bindings import NativeUnavailable
 
-def _check_wav(path: str):
+logger = logging.getLogger(__name__)
+_fallback_logged = False
+
+
+def _native_unavailable(path: str, e: NativeUnavailable):
+    """Log once that the WAV reader stands in; raise for any other format."""
+    global _fallback_logged
     if not path.lower().endswith(".wav"):
-        raise IOError(f"Cannot decode {path}: the port reads WAV only (the native "
-                      f"decoder for other formats is not ported)")
+        raise IOError(f"Cannot decode {path}: the native libav decoder is unavailable "
+                      f"and only WAV has a Python reader ({e})") from e
+    if not _fallback_logged:
+        _fallback_logged = True
+        logger.warning("native libav decoder unavailable, reading WAV in Python: %s", e)
 
 
 def audio_info(path: str) -> Tuple[int, int]:
     """(num_frames at the native rate, sample_rate)."""
-    _check_wav(path)
+    try:
+        return bindings.audio_info(path)
+    except NativeUnavailable as e:
+        _native_unavailable(path, e)
     with wave.open(path, "rb") as w:
         return w.getnframes(), w.getframerate()
 
@@ -52,7 +72,10 @@ def resample_poly(wav: np.ndarray, sr: int, target_sr: int) -> np.ndarray:
 
 def load_audio(path: str, target_sr: int = 16000) -> np.ndarray:
     """Mono float32 at target_sr (decode, downmix, resample)."""
-    _check_wav(path)
+    try:
+        return bindings.decode_audio(path, target_sr)
+    except NativeUnavailable as e:
+        _native_unavailable(path, e)
     wav, sr = _wav_load(path)
     return resample_poly(wav, sr, target_sr) if sr != target_sr else wav
 

@@ -15,7 +15,8 @@ process and in float32 on the CPU, on the repo's `config/` tree.
     own features, with and without `metric.joint_pairs`: every
     log-likelihood call agrees and the printed scores are equal; the
     generate branch continues the same prompts to the same greedy units.
-  * the rules and refusals the CLIs add on the way.
+  * the rules and refusals the CLIs add on the way, and `data.saved_ds_path`:
+    a cached run repeats the run that wrote the cache bit for bit.
 
 Tolerances: losses and the eval loss 1e-4 relative (float32 forward,
 backward and AdamW whose sums run in another order), learning rates 1e-6;
@@ -122,13 +123,54 @@ def test_train_cli_matches_jax_and_resumes(work):
                                _pick(got, "loss")[-1], rtol=1e-6)
 
 
+def _cached_runs_match(work, tmp_path, mixed):
+    """data.saved_ds_path (one corpus or a mixed list): a first run builds
+    the dataset (spilled past 500 tokens) and writes the cache, a second
+    loads it, and both take the same steps bit for bit; the cache holds the
+    JAX package's rows and loads in the JAX package."""
+    from slamkit_tpu.data import dataset as jax_dataset
+    from slamkit_tpu.tokeniser.unit_tokeniser import UnitTokeniser as JaxUnitTokeniser
+
+    train = (f"[{work / 'train.jsonl'},{work / 'val.jsonl'}]" if mixed
+             else work / "train.jsonl")
+    data = {"data.train_path": train, "data.saved_ds_path": tmp_path / "cache",
+            "data.spill_tokens": 500, "data.spill_dir": tmp_path / "spill",
+            **({"data.train_ratios": "[0.7,0.3]"} if mixed else {})}
+    runs = []
+    for run in ("first", "cached"):
+        port_train.train(_train_overrides(work, tmp_path / run, 8, **{
+            "training_args.use_cpu": "true", "training_args.max_steps": 2,
+            "training_args.save_steps": 2, "training_args.eval_steps": 2, **data}))
+        runs.append(_history(tmp_path / run, 2))
+        assert sorted(p.name for p in (tmp_path / "cache").iterdir()) == ["train", "validation"]
+    assert _pick(runs[0], "loss") == _pick(runs[1], "loss") and len(_pick(runs[0], "loss")) == 2
+    assert _pick(runs[0], "eval_loss") == _pick(runs[1], "eval_loss")
+    assert not list((tmp_path / "spill").iterdir())
+    node = type("Node", (dict,), {"__getattr__": dict.__getitem__})
+    jdata = node({"train_path": [str(work / "train.jsonl"), str(work / "val.jsonl")]
+                  if mixed else str(work / "train.jsonl"), "val_path": str(work / "val.jsonl"),
+                  "train_ratios": [0.7, 0.3]})
+    want = jax_dataset.init_dataset(node(data=jdata, model=node(context_len=64)),
+                                    JaxUnitTokeniser(load_fe=False))
+    for split in ("train", "validation"):
+        got = jax_dataset.TokenDataset.load(str(tmp_path / "cache" / split))
+        assert len(got) == len(want[split]) > 0
+        for i in range(len(got)):
+            np.testing.assert_array_equal(got[i], want[split][i])
+
+
 @pytest.mark.parametrize("overrides,match", [
     (["training_args.multihost=true"], "item 14"),
-    (["data.train_path=[/a.jsonl,/b.jsonl]", "data.saved_ds_path=/tmp/ds"], "item 18"),
-    (["data.saved_ds_path=/tmp/ds"], "item 18"),
+    (["data.train_path=[/a.jsonl,/b.jsonl]", "data.saved_ds_path=/tmp/ds"], None),
+    (["data.saved_ds_path=/tmp/ds"], None),
     (["training_args.fsdp=true"], "item 14"),
-])
+], ids=["overrides0-item 14", "overrides1-item 18", "overrides2-item 18", "overrides3-item 14"])
 def test_train_cli_refuses_what_is_not_ported(work, tmp_path, overrides, match):
+    """What is not ported raises; data.saved_ds_path (match None), ported
+    since, caches the dataset instead: see _cached_runs_match."""
+    if match is None:
+        _cached_runs_match(work, tmp_path, mixed=overrides[0].startswith("data.train_path=["))
+        return
     base = [f"data.train_path={work / 'train.jsonl'}", f"data.val_path={work / 'val.jsonl'}",
             f"training_args.output_dir={tmp_path}", "training_args.use_cpu=true"]
     with pytest.raises(NotImplementedError, match=match):

@@ -9,7 +9,10 @@ tiny widths: the tokenizer.json reader, interleaved stage 2, `cli.train
 --config-name train_inter_scale`, cm_ms_tsc and cm_generate); GenPPL and the
 LLM judge (the smoke's phases 9 and 12 at tiny widths: `cli.eval
 metric=asr_perplexity` and `metric=llm_as_judge` through the port's Whisper
-and text LM); and
+and text LM); the data path (the smoke's phase 14 at tiny widths: FLAC
+through `cli.extract_features ext=flac`, `kmeans_fit`, `cli.train` with the
+token spill and the `saved_ds_path` cache, then as on a host without libav);
+and
 `chip_smoke.py` refuses to run without a card: no CPU fallback can pass for a
 GPU run."""
 import json
@@ -275,6 +278,53 @@ print("LOADED", bad)
 """
 
 
+# the smoke's phase 14 at tiny widths: FLAC through the native decoder into
+# cli.extract_features (ext=flac), kmeans_fit, cli.train on two corpora with
+# the spill and the saved_ds_path cache; then again as on a host without
+# libav, where FLAC must raise and the WAV twins stand in, said so
+_NO_JAX_DATA = _BLOCKER + r"""
+import pathlib
+import torch
+sys.path.insert(0, os.getcwd())
+import chip_smoke
+from slamkit_tpu_torch.feature_extractor import HubertConfig
+from slamkit_tpu_torch.feature_extractor.hubert import random_params, save_hf_dir
+from slamkit_tpu_torch.native import _build, bindings
+
+torch.set_num_threads(1)
+narrow = ["model.config_args.torch_dtype=float32"] + [
+    f"+model.config_args.{k}={v}" for k, v in dict(
+        num_hidden_layers=2, hidden_size=64, num_attention_heads=4, num_key_value_heads=2,
+        head_dim=16, intermediate_size=128).items()]
+hcfg = HubertConfig(conv_dim=(32,) * 3, conv_kernel=(10, 3, 2), conv_stride=(5, 2, 2),
+                    hidden_size=32, num_hidden_layers=3, num_attention_heads=2,
+                    intermediate_size=64, num_conv_pos_embeddings=8,
+                    num_conv_pos_embedding_groups=4)
+cpu = torch.device("cpu")
+tiny = dict(hubert_cfg=hcfg, model_overrides=narrow, n_files=4, seconds=(0.3, 0.6),
+            fit_rows=3000, fit_dim=32, k=12, fit_iters=3, fit_batch=700, subset_rows=1000,
+            subset_iters=2, corpus_tokens=12000, spill_tokens=3000, lengths=(10, 60),
+            context=64, batch=2, steps=2)
+results = []
+with tempfile.TemporaryDirectory() as d:
+    d = pathlib.Path(d)
+    save_hf_dir(str(d / "hubert"), random_params(hcfg, seed=3), hcfg)
+    results.append(chip_smoke.run_data_path(cpu, "cpu", d, **tiny))
+
+    def no_libav():
+        raise _build.NativeUnavailable("g++ failed building libaudio.so: no libav headers")
+
+    bindings._lib, chip_smoke._libav_versions = no_libav, lambda: None
+    results.append(chip_smoke.run_data_path(cpu, "cpu", d, **tiny))
+assert [r["decode"]["format"] for r in results] == ["flac", "wav"], results
+for r in results:
+    assert r["kmeans"]["repeat_bitwise"] and r["spill_cache"]["batches"] == 2, r
+    assert r["launches"] == {"flash_fwd": 0, "flash_bwd": 0}, r
+bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+print("LOADED", bad)
+"""
+
+
 def _run(args, cwd, timeout=120):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["OMP_NUM_THREADS"] = "1"   # one thread beside the gate's other workers
@@ -303,6 +353,16 @@ def test_genppl_path_runs_without_jax_transformers_nltk_or_openai():
     assert "cli.eval metric=llm_as_judge: llm_as_judge" in proc.stdout
 
 
+def test_data_path_runs_without_jax():
+    proc = _run([sys.executable, "-c", _NO_JAX_DATA], cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "LOADED []" in proc.stdout, proc.stdout[-2000:]
+    out = proc.stdout
+    assert "(d) stage 1 (cli.extract_features, the default ext=flac" in out
+    assert "libav: absent on this host" in out and "ext=wav: libav absent" in out
+    assert out.count("2 batches bitwise equal from the cache: True, spilled vs in RAM: True") == 2
+
+
 def test_port_sources_never_import_jax():
     """No import of jax, the JAX package, PyYAML, transformers, tokenizers,
     safetensors, nltk or openai anywhere in the port or in chip_smoke.py; the
@@ -322,7 +382,9 @@ def test_port_sources_never_import_jax():
         "metric/cross_modal_metric", "metric/cross_modal_generation", "models/token_lm",
         "tools/sims_recipe", "tools/genppl_recipe", "metric/whisper",
         "metric/whisper_features", "metric/metric_utils", "metric/generative_metric",
-        "utils/word_tokenize")} <= scanned
+        "utils/word_tokenize", "native/_build", "native/bindings", "native/codec",
+        "native/pack", "utils/data_prep", "utils/tts_utils", "tools/data_recipe",
+        "feature_extractor/kmeans")} <= scanned
     seen_allowed = set()
     for path in paths:
         rel = str(path.relative_to(ROOT))

@@ -3,8 +3,9 @@ package's `cli/` scripts, in process and in float32 on the CPU, on the repo's
 `config/` tree:
 
   * `extract_features` (ext=wav) over a nested folder of seeded WAVs, with
-    and without the file-list cache and data_skip / data_take: the same
-    lines (file, units, durations) in the same order;
+    and without the file-list cache and data_skip / data_take, and with the
+    YAML's default ext=flac over seeded FLAC files: the same lines (file,
+    units, durations) in the same order;
   * `prepare_tokens` on one features.jsonl (a failing line included): a
     byte-identical tokens.jsonl;
   * `preference_alignment_feature_extractor` over WAV triples: the same rows;
@@ -15,8 +16,7 @@ package's `cli/` scripts, in process and in float32 on the CPU, on the repo's
     for bit. The JAX CLI runs on the suite's 8 virtual CPU devices, whose
     data axis multiplies the per-device batch: it gets a per-device batch of
     1 where the port (one device) gets 8, the same global batch;
-  * the refusals: ext=flac names WAV, an interleave tokeniser, the unported
-    training knobs.
+  * the refusals: an interleave tokeniser, the unported training knobs.
 
 Fixtures: a tiny random HuBERT written by `feature_extractor/hubert.py::
 save_hf_dir`, and 500 k-means centroids drawn from its own features of the
@@ -39,6 +39,7 @@ from slamkit_tpu_torch.cli import preference_alignment_train as port_dpo
 from slamkit_tpu_torch.cli import prepare_tokens as port_prepare
 from slamkit_tpu_torch.feature_extractor import HubertConfig
 from slamkit_tpu_torch.feature_extractor.hubert import forward, random_params, save_hf_dir
+from slamkit_tpu_torch.tools import data_recipe
 from slamkit_tpu_torch.utils.audio import load_audio, save_wav
 from slamkit_tpu_torch.utils.tree import to_torch
 
@@ -132,12 +133,25 @@ def test_extract_features_equals_jax(files, tmp_path, extra):
 
 
 def test_extract_features_reads_wav_only(files, tmp_path):
-    """The YAML's default ext=flac raises before any file or weight is read
-    (the HuBERT named here does not exist)."""
-    with pytest.raises(NotImplementedError, match=r"WAV only \(ext=wav\).*item 11"):
-        port_extract.extract_features([f"data_path={files / 'wavs'}", "device=cpu",
-                                       f"out_path={tmp_path / 'f.jsonl'}"])
-    assert not (tmp_path / "f.jsonl").exists()
+    """Now FLAC as well: with the YAML's default ext=flac, over seeded FLAC
+    files (16 and 24 bits, 16 kHz mono and 44.1 kHz stereo, nested), the
+    port writes the JAX CLI's lines; the WAVs beside them are skipped."""
+    flacs = tmp_path / "flacs"
+    kinds = ((16000, 1, 16), (44100, 2, 16), (16000, 1, 24), (44100, 1, 24))
+    for i, (flac, *_) in enumerate(data_recipe.write_audio_set(
+            flacs, 6, seconds=(0.25, 0.6), seed=5, kinds=kinds)):
+        if i % 2:
+            (flacs / f"d{i}").mkdir()
+            flac.rename(flacs / f"d{i}" / flac.name)
+    common = [f"data_path={flacs}", "batch_size=2", "num_workers=2"]
+    n = port_extract.extract_features(_fe_overrides(
+        files, *common, f"out_path={tmp_path / 'port.jsonl'}"))
+    _jax_cli("extract_features").extract_features(_fe_overrides(
+        files, *common, f"out_path={tmp_path / 'jax.jsonl'}"))
+    got, want = _lines(tmp_path / "port.jsonl"), _lines(tmp_path / "jax.jsonl")
+    assert n == len(got) == len(want) == 6
+    assert got == want
+    assert all(r["file_name"].endswith(".flac") for r in got)
 
 
 def test_prepare_tokens_byte_identical_to_jax(files, tmp_path):
