@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, speech-continuation, DPO,
 interleaved speech-text (SIMS), generation-metric (GenPPL, LLM judge),
-float32-training and data-preparation slices and its command line once on
-an NVIDIA GPU.
+float32-training, data-preparation and training-settings (dropout,
+layerdrop, qkv remat, Adafactor) slices and its command line once on an
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -206,6 +207,24 @@ the sm_90a kernels). Phases, in order; any failure exits non-zero:
                losses equal bit for bit, the spilled batches equal an
                in-RAM build's; `init_dataset`'s host seconds with and
                without the cache, the resident set, the disk.
+  15. training settings — in phase 9's work directory: (a) `cli.train
+               model=slam` at dropout 0.1, layerdrop 0.1, remat qkv and
+               optim=adafactor (full width and depth, context 1024), 2 steps
+               of 4 x 8 with a save every step, and a run resumed from
+               checkpoint-1 whose step-2 loss, layerdrop decisions and
+               exported weights equal the uninterrupted run's bit for bit;
+               (b) one [2, 1024] microbatch of its stream at a fixed dropout
+               seed: gradients under no remat, "full" and "qkv" bitwise
+               equal and each policy's launches, then seconds a step,
+               non-pad tokens/s and `max_memory_allocated` of 4 x [8, 1024]
+               Adafactor steps under each, and Adafactor's state bytes
+               against AdamW's; (c) mask statistics on the card; (d)
+               model=twist with attn_implementation=xla and
+               attention_dropout 0.1: 2 steps, no flash launch, an exact
+               resume, and the flash path's refusal; (e)
+               `cli.preference_alignment_train` from (a)'s checkpoint with
+               its dropout, twice bit for bit, against the rates at 0; (f)
+               Adafactor on the card against the CPU on Slam-shaped tensors.
 
 Phases 3 and 3b also hold the kernels at DPO's shape (`dpo_T152`: [16, 14/2,
 152, 64], one segment of 110-152 tokens a row and a -1 tail) and at SIMS's
@@ -233,7 +252,11 @@ text-LM layer a batch (phase 12); float32 training launches the float32
 forward (1 + remat) times a layer a microbatch and once a layer an eval
 batch, and the float32 backward once a layer a microbatch, DPO's float32
 steps and eval batches as phase 10's, and no bf16 kernel (phase 13); the
-data path's two training runs as phase 6's microbatches (phase 14); the
+data path's two training runs as phase 6's microbatches (phase 14); under
+remat_policy=qkv a training microbatch launches the forward and the
+backward once per layer that layerdrop keeps (no remat: the same; full:
+the forward twice), and the plain attention (attn_implementation=xla)
+launches nothing (phase 15); the
 probe's entry
 point launches its kernel 7 times a shape (phase 3d). A flash backward call
 counts one, though it launches three kernels (the delta / segment-range
@@ -408,6 +431,19 @@ FP32_3XTF32_FLOPS_PER_S = 495e12 / 3
 # each centroid and differ only in the order of their float32 sums (~1e-7 a
 # term over ~130 rows a cluster): max |card - cpu| / max |cpu| <= 1e-5
 KMEANS_REL_BOUND = 1e-5
+# phase 15 (f), Adafactor on the card against the CPU on the same parameters
+# and gradients: float32 on both, the row / column means, the global norm and
+# each parameter's RMS summed in another order (~1e-7 relative each). An
+# update of ~1e-3 x rms(p) a step lands on p rounded to p's float32 ulp, so
+# a rounding flip moves the two runs' parameters apart by ~eps32 |p| (~1e-4
+# of the updates themselves). Each tensor's max |card - cpu| must stay
+# within 1e-5 of its largest update plus one eps32 of its largest entry a
+# step (a wrong axis or factor would sit near the updates' size)
+ADAFACTOR_REL_BOUND = 1e-5
+# the slice's overrides of `cli.train model=slam` (phase 15)
+SETTINGS = ("model.config_args.dropout=0.1", "model.config_args.layerdrop=0.1",
+            "model.config_args.remat=true", "model.config_args.remat_policy=qkv",
+            "training_args.optim=adafactor")
 # published dense bf16 tensor-core peaks (NVIDIA data sheets), by card name
 BF16_PEAK_FLOPS = (("H100 PCIe", 756e12), ("H100 NVL", 835e12), ("H100", 989e12),
                    ("H200", 989e12))
@@ -2983,6 +3019,76 @@ def _f32_card_vs_cpu(dev, ckpt: pathlib.Path, batch: dict) -> dict:
                 relu_sign_flips=flips[0])
 
 
+def _free(dev):
+    import gc
+
+    import torch
+
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _cli_run(dev, main, cls, args, tokens, counters) -> dict:
+    """One entry point's call (`main(args)`) with `cls._train_step` timed:
+    per step the seconds between two synchronizes, the launches read from
+    `counters` ((function, attribute) pairs, zeroed before the call: the
+    main path's count) and `tokens(trainer, group)`; the call's wall
+    seconds, state, peak memory and its trainer's facts."""
+    import torch
+
+    from slamkit_tpu_torch.trainer import SLAMTrainer
+
+    on_card = dev.type == "cuda"
+    counts = lambda: tuple(getattr(f, c) for f, c in counters)
+    rec = dict(seconds=[], step_launches=[], tokens=[])
+    inner = cls._train_step
+
+    def step(tr, group):
+        rec["trainer"] = tr
+        _sync(dev)
+        c0, t0 = counts(), time.perf_counter()
+        out = inner(tr, group)
+        _sync(dev)
+        rec["seconds"].append(time.perf_counter() - t0)
+        rec["step_launches"].append(tuple(b - a for a, b in zip(c0, counts())))
+        rec["tokens"].append(tokens(tr, group))
+        return out
+
+    print(f"{main.__module__.rsplit('.', 1)[-1]} {' '.join(args)}", flush=True)
+    _free(dev)
+    if on_card:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    cls._train_step = step
+    for f, c in counters:   # the main path's count
+        setattr(f, c, 0)
+    try:
+        t0 = time.perf_counter()
+        with _LogLines("slamkit_tpu_torch.models.hf_convert") as twist_log:
+            state = main(args)
+        _sync(dev)
+    finally:
+        cls._train_step = inner
+    tr = rec.pop("trainer")
+    dcfg = tr.model.decoder.cfg
+    rec.update(state=state, launches=counts(), wall_s=time.perf_counter() - t0,
+               n_layers=dcfg.num_layers, remat=bool(dcfg.remat),
+               remat_policy=dcfg.remat_policy, dtype=str(dcfg.compute_dtype)[6:],
+               twist=twist_log[:1], optimizer=tr.optimizer.kind,
+               max_memory_allocated=torch.cuda.max_memory_allocated(dev) if on_card else None,
+               tokens_per_s=[n / t for n, t in zip(rec["tokens"], rec["seconds"])])
+    if isinstance(tr, SLAMTrainer):
+        rec["eval_batches"] = (len(list(tr.eval_batcher.epoch(0)))
+                               if tr.eval_batcher is not None else 0)
+        rec["first_microbatch"] = next(iter(tr.train_batcher.epoch(0)))
+    else:
+        rec["eval_batches"] = -(-len(tr.eval_rows) // tr.batch_size) if tr.eval_rows else 0
+    del tr
+    _free(dev)
+    return rec
+
+
 def run_f32_training(dev, smi: str, work: pathlib.Path, twist_overrides=(), slam_overrides=(),
                      n_rows: int = 400, lengths=(100, 1001), batch: int = 8, accum: int = 4,
                      steps: int = 2, cpu_rows=(2, 1), n_pref: int = 64, n_pref_val: int = 16,
@@ -3006,10 +3112,6 @@ def run_f32_training(dev, smi: str, work: pathlib.Path, twist_overrides=(), slam
     times and the backward once a layer, every evaluation batch the forward
     once a layer (DPO: twice), and the bf16 kernels never; on the CPU (a
     rehearsal at narrow widths, `*_overrides`) no launch may be counted."""
-    import gc
-
-    import torch
-
     from slamkit_tpu_torch.cli import preference_alignment_train as cli_dpo
     from slamkit_tpu_torch.cli import train as cli_train
     from slamkit_tpu_torch.ops import flash_attention_bwd, flash_attention_fwd
@@ -3020,62 +3122,8 @@ def run_f32_training(dev, smi: str, work: pathlib.Path, twist_overrides=(), slam
     on_card = dev.type == "cuda"
     counters = ((flash_attention_fwd, "f32_launches"), (flash_attention_bwd, "f32_launches"),
                 (flash_attention_fwd, "launches"), (flash_attention_bwd, "launches"))
-    counts = lambda: tuple(getattr(f, c) for f, c in counters)
-
-    def free():
-        gc.collect()
-        if on_card:
-            torch.cuda.empty_cache()
-
-    def cli_run(main, cls, args, tokens):
-        """One entry point's call with `cls._train_step` timed: per step the
-        seconds between two synchronizes, the launches (float32 forward and
-        backward, bf16 forward and backward) and the non-pad tokens."""
-        rec = dict(seconds=[], step_launches=[], tokens=[])
-        inner = cls._train_step
-
-        def step(tr, group):
-            rec["trainer"] = tr
-            _sync(dev)
-            c0, t0 = counts(), time.perf_counter()
-            out = inner(tr, group)
-            _sync(dev)
-            rec["seconds"].append(time.perf_counter() - t0)
-            rec["step_launches"].append(tuple(b - a for a, b in zip(c0, counts())))
-            rec["tokens"].append(tokens(tr, group))
-            return out
-
-        print(f"{main.__module__.rsplit('.', 1)[-1]} {' '.join(args)}", flush=True)
-        free()
-        if on_card:
-            torch.cuda.synchronize(dev)
-            torch.cuda.reset_peak_memory_stats(dev)
-        cls._train_step = step
-        for f, c in counters:   # the main path's count
-            setattr(f, c, 0)
-        try:
-            t0 = time.perf_counter()
-            with _LogLines("slamkit_tpu_torch.models.hf_convert") as twist_log:
-                state = main(args)
-            _sync(dev)
-        finally:
-            cls._train_step = inner
-        tr = rec.pop("trainer")
-        dcfg = tr.model.decoder.cfg
-        rec.update(state=state, launches=counts(), wall_s=time.perf_counter() - t0,
-                   n_layers=dcfg.num_layers, remat=bool(dcfg.remat),
-                   dtype=str(dcfg.compute_dtype)[6:], twist=twist_log[:1],
-                   max_memory_allocated=torch.cuda.max_memory_allocated(dev) if on_card else None,
-                   tokens_per_s=[n / t for n, t in zip(rec["tokens"], rec["seconds"])])
-        if isinstance(tr, SLAMTrainer):
-            rec["eval_batches"] = (len(list(tr.eval_batcher.epoch(0)))
-                                   if tr.eval_batcher is not None else 0)
-            rec["first_microbatch"] = next(iter(tr.train_batcher.epoch(0)))
-        else:
-            rec["eval_batches"] = -(-len(tr.eval_rows) // tr.batch_size) if tr.eval_rows else 0
-        del tr
-        free()
-        return rec
+    free = lambda: _free(dev)
+    cli_run = lambda main, cls, args, tokens: _cli_run(dev, main, cls, args, tokens, counters)
 
     def logged(state, key):
         return [r[key] for r in state.log_history if key in r]
@@ -3652,6 +3700,379 @@ def run_data_path(dev, smi: str, work: pathlib.Path, hubert_cfg=None, model_over
     return result
 
 
+def _dropout_seed(num_layers: int, rate: float, lo: int = 1, hi: int = 3) -> int:
+    """The first dropout seed whose layerdrop skips between lo and hi layers,
+    so that a fixed-seed check runs a skipped layer and most layers."""
+    from slamkit_tpu_torch.models.transformer import _layer_drops
+
+    return next(s for s in range(1000)
+                if lo <= sum(_layer_drops(s, num_layers, rate)) <= min(hi, num_layers - 1))
+
+
+def run_training_settings(dev, smi: str, work: pathlib.Path, slam_overrides=(),
+                          twist_overrides=(), n_rows: int = 400, lengths=(100, 1001),
+                          batch: int = 8, accum: int = 4, steps: int = 2, grad_rows: int = 2,
+                          timed_steps: int = 2, mask_shape=(8, 1024, 896), n_pref: int = 32,
+                          dpo_batch: int = 8, dpo_steps: int = 2, prompt_len: int = 100,
+                          completion_len: int = 50, adafactor_scale: int = 1) -> dict:
+    """Phase 15: the decoder's training settings and Adafactor, in phase 9's
+    work directory. (a) `cli.train model=slam` at `SETTINGS` (dropout 0.1,
+    layerdrop 0.1, remat qkv, Adafactor), `steps` steps of `accum` x `batch`
+    with a save every step, and a run resumed from checkpoint-1 whose last
+    loss and exported weights equal the uninterrupted run's bit for bit;
+    every microbatch launches the flash forward and backward once a layer
+    that layerdrop keeps. (b) One [`grad_rows`, T] microbatch of (a)'s stream
+    from its last checkpoint with a fixed dropout seed: the gradients under
+    no remat, "full" and "qkv" bitwise equal, the flash forward launched
+    once a kept layer (twice under "full"); then seconds a step, non-pad
+    tokens/s and `max_memory_allocated` of `timed_steps` Adafactor steps of
+    `accum` x (a)'s first microbatch under each policy, and Adafactor's
+    state bytes against AdamW's. (c) Mask statistics on the card: the kept
+    share of a `mask_shape` mask within 5 sigma, the repeat bitwise, another
+    seed or site another mask; layerdrop's share over 10000 host draws. (d)
+    `cli.train` (model=twist) with the plain attention and
+    attention_dropout 0.1: `steps` finite steps, an exact resume, no flash
+    launch; the same setting on the flash path raises. (e)
+    `cli.preference_alignment_train` from (a)'s checkpoint (its dropout and
+    layerdrop; Adafactor), two runs bit for bit equal, and a run from the
+    same weights with the rates at 0 whose losses differ after step 1 (step
+    1 at ln 2). (f) Adafactor on the card against the CPU from the same
+    parameters and gradients of one Slam layer and the embedding (shapes
+    divided by `adafactor_scale` in a rehearsal), 3 steps, within
+    ADAFACTOR_REL_BOUND. On the CPU (a rehearsal at narrow widths,
+    `*_overrides`) no launch may be counted."""
+    import dataclasses
+    import os
+
+    import torch
+
+    from slamkit_tpu_torch.cli import preference_alignment_train as cli_dpo
+    from slamkit_tpu_torch.cli import train as cli_train
+    from slamkit_tpu_torch.models import UnitLM, grads_to_flat
+    from slamkit_tpu_torch.models import transformer
+    from slamkit_tpu_torch.ops import flash_attention_bwd, flash_attention_fwd
+    from slamkit_tpu_torch.tools.slam_recipe import write_markov_corpus, write_preference_rows
+    from slamkit_tpu_torch.trainer import SLAMDPOTrainer, SLAMTrainer
+    from slamkit_tpu_torch.trainer.optim import Adafactor, make_optimizer
+    from slamkit_tpu_torch.trainer.slam_trainer import BATCH_KEYS
+
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    counters = ((flash_attention_fwd, "launches"), (flash_attention_bwd, "launches"))
+    counts = lambda: tuple(getattr(f, c) for f, c in counters)
+    nonpad = lambda tr, group: sum(int((mb["segment_ids"] >= 0).sum()) for mb in group)
+    logged = lambda state, key: [r[key] for r in state.log_history if key in r]
+    # layerdrop's decisions, recorded as the runs draw them
+    drops, real_drops = [], transformer._layer_drops
+
+    def recording_drops(seed, n, rate):
+        drops.append(real_drops(seed, n, rate))
+        return drops[-1]
+
+    def cli_run(main, cls, args, tokens):
+        drops.clear()
+        transformer._layer_drops = recording_drops
+        try:
+            rec = _cli_run(dev, main, cls, args, tokens, counters)
+        finally:
+            transformer._layer_drops = real_drops
+        rec["kept_layers"] = [len(d) - sum(d) for d in drops]
+        return rec
+
+    def check_resume(what, first, again, out, resumed, step):
+        pair = (logged(first["state"], "loss")[-1], logged(again["state"], "loss")[-1])
+        same_w = _bytes_equal(out / f"checkpoint-{step}", resumed / f"checkpoint-{step}")
+        print(f"{what} resumed: step {step} loss {pair[1]} against {pair[0]}; "
+              f"checkpoint-{step} weights bitwise equal: {same_w}", flush=True)
+        _require(pair[0] == pair[1] and same_w,
+                 f"the resumed {what} run does not repeat step {step} bit for bit")
+
+    # ---- (a) cli.train model=slam at the slice's settings --------------------
+    train_path, val_path = work / "settings_tokens.jsonl", work / "settings_val.jsonl"
+    write_markov_corpus(train_path, n_rows, lengths, seed=2)
+    write_markov_corpus(val_path, 16, lengths, seed=3)
+    common = [f"data.train_path={train_path}", f"data.val_path={val_path}", "data.packing=true",
+              f"training_args.max_steps={steps}",
+              f"training_args.per_device_train_batch_size={batch}",
+              f"training_args.per_device_eval_batch_size={batch}",
+              f"training_args.gradient_accumulation_steps={accum}",
+              "training_args.save_steps=1", "training_args.logging_steps=1",
+              *([] if on_card else ["training_args.use_cpu=true"])]
+    slam_args = ["model=slam", *SETTINGS, *slam_overrides, *common]
+    out, resumed = work / "settings_slam", work / "settings_slam_resumed"
+    first = cli_run(cli_train.train, SLAMTrainer,
+                    [*slam_args, f"training_args.output_dir={out}"], nonpad)
+    again = cli_run(cli_train.train, SLAMTrainer,
+                    [*slam_args, f"training_args.output_dir={resumed}",
+                     f"cont_training={out / 'checkpoint-1'}"], nonpad)
+    L = first["n_layers"]
+    for what, rec, n_steps in (("slam", first, steps), ("slam resumed", again, steps - 1)):
+        state, kept = rec["state"], rec["kept_layers"]
+        per_step = [sum(kept[i * accum:(i + 1) * accum]) for i in range(n_steps)]
+        want = (sum(per_step) + rec["eval_batches"] * L, sum(per_step)) if on_card else (0, 0)
+        want_steps = [(k, k) if on_card else (0, 0) for k in per_step]
+        losses = logged(state, "loss")
+        print(f"{what} (cli.train {' '.join(SETTINGS)}): {state.global_step} steps of {accum} x "
+              f"{batch} ({rec['dtype']}, {L} layers, remat {rec['remat_policy']}, "
+              f"{rec['optimizer']}), losses {losses}, eval {logged(state, 'eval_loss')}; layers "
+              f"kept a microbatch {kept}; seconds a step {rec['seconds']}, non-pad tokens/s "
+              f"{rec['tokens_per_s']}, {rec['wall_s']:.1f} s the whole call; launches (fwd, "
+              f"bwd) {rec['launches']} (a step {rec['step_launches']}; expected {want}, "
+              f"{rec['eval_batches']} eval batches); max_memory_allocated "
+              f"{rec['max_memory_allocated']} B; on {smi}", flush=True)
+        _require(state.global_step == steps and len(rec["seconds"]) == n_steps
+                 and all(math.isfinite(x) for x in losses)
+                 and (rec["remat_policy"], rec["optimizer"]) == ("qkv", "adafactor"),
+                 f"{what} did not take {n_steps} finite qkv / Adafactor steps: {losses}")
+        _require(len(kept) == n_steps * accum and rec["launches"] == want
+                 and rec["step_launches"] == want_steps,
+                 f"{what} launched {rec['launches']} ({rec['step_launches']} a step), expected "
+                 f"{want} ({want_steps} a step): the flash forward once a kept layer under qkv")
+    _require(again["kept_layers"] == first["kept_layers"][accum:],
+             "the resumed run's layerdrop decisions are not the uninterrupted run's")
+    check_resume("slam", first, again, out, resumed, steps)
+    mb = first.pop("first_microbatch")
+    again.pop("first_microbatch")
+    result = {"slam": dict(
+        losses=logged(first["state"], "loss"), eval_loss=logged(first["state"], "eval_loss"),
+        step_seconds=first["seconds"], tokens_per_s=first["tokens_per_s"],
+        wall_s=first["wall_s"], resumed_wall_s=again["wall_s"], launches=first["launches"],
+        step_launches=first["step_launches"], resumed_launches=again["launches"],
+        kept_layers=first["kept_layers"], layers=L, eval_batches=first["eval_batches"],
+        max_memory_allocated=first["max_memory_allocated"])}
+    _drop(resumed, out / "checkpoint-1")
+    _free(dev)
+
+    # ---- (b) one microbatch under each remat policy ---------------------------
+    ckpt = out / f"checkpoint-{steps}"
+    lm = UnitLM.from_pretrained(str(ckpt), device=dev)
+    cfg = lm.decoder.cfg
+    seed = _dropout_seed(L, cfg.layerdrop)
+    kept = L - sum(real_drops(seed, L, cfg.layerdrop))
+    policies = {"none": dict(remat=False), "full": dict(remat=True, remat_policy="full"),
+                "qkv": dict(remat=True, remat_policy="qkv")}
+    want_launches = {"none": (kept, kept), "full": (2 * kept, kept), "qkv": (kept, kept)}
+    small = {k: torch.from_numpy(mb[k][:grad_rows]).to(dev) for k in BATCH_KEYS}
+    grads, policy_launches = {}, {}
+    for name, knobs in policies.items():
+        lm.decoder.cfg = dataclasses.replace(cfg, **knobs)
+        for p in lm.parameters():
+            p.grad = None
+        c0 = counts()
+        lm.loss_fn(small, dropout_seed=seed).backward()
+        _sync(dev)
+        policy_launches[name] = tuple(b - a for a, b in zip(c0, counts()))
+        grads[name] = {k: p.grad.detach().clone() for k, p in lm.decoder.named_parameters()}
+    differ = {name: sorted(k for k in grads["none"] if not torch.equal(g[k], grads["none"][k]))
+              for name, g in grads.items()}
+    want_pl = want_launches if on_card else {k: (0, 0) for k in policies}
+    print(f"remat policies on one {list(small['input_ids'].shape)} microbatch at dropout "
+          f"{cfg.dropout}, layerdrop {cfg.layerdrop}, seed {seed} ({kept} of {L} layers kept): "
+          f"launches (fwd, bwd) {policy_launches} (expected {want_pl}); tensors whose gradient "
+          f"differs from no remat's: {differ}", flush=True)
+    _require(policy_launches == want_pl, f"the remat policies launched {policy_launches}, "
+             f"expected {want_pl}")
+    _require(not any(differ.values()), f"the remat policies' gradients differ: {differ}")
+    del grads
+    for p in lm.parameters():
+        p.grad = None
+    _free(dev)
+    # ... and seconds a step under each, at (a)'s microbatch
+    full_mb = {k: torch.from_numpy(mb[k]).to(dev) for k in BATCH_KEYS}
+    tokens = accum * int((mb["segment_ids"] >= 0).sum())
+    num_items = accum * int((mb["labels"] != -100).sum())
+    n_params = sum(p.numel() for p in lm.parameters())
+    opt = Adafactor(lm.parameters(), lambda step: 1e-5, max_grad_norm=0.5)
+    state_bytes = sum(t.numel() * t.element_size() for key in ("v_row", "v_col", "v")
+                      for t in getattr(opt, key) if t is not None)
+    timing = {}
+    for name, knobs in policies.items():
+        lm.decoder.cfg = dataclasses.replace(cfg, **knobs)
+        _free(dev)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        secs, launches = [], []
+        for i in range(1 + timed_steps):
+            _sync(dev)
+            c0, t0 = counts(), time.perf_counter()
+            for j in range(accum):
+                lm.loss_fn({**full_mb, "num_items_in_batch": num_items},
+                           dropout_seed=1000 * i + j).backward()
+            opt.step()
+            opt.zero_grad()
+            _sync(dev)
+            if i:   # the first step warms up
+                secs.append(time.perf_counter() - t0)
+                launches.append(tuple(b - a for a, b in zip(c0, counts())))
+        timing[name] = dict(
+            step_seconds=secs, tokens_per_s=[tokens / t for t in secs], step_launches=launches,
+            max_memory_allocated=torch.cuda.max_memory_allocated(dev) if on_card else None)
+    print(f"a step of {accum} x {list(full_mb['input_ids'].shape)} ({tokens} non-pad tokens), "
+          f"Adafactor, dropout live, per remat policy: "
+          + "; ".join(f"{k}: seconds {v['step_seconds']}, non-pad tokens/s "
+                      f"{v['tokens_per_s']}, launches (fwd, bwd) {v['step_launches']}, "
+                      f"max_memory_allocated {v['max_memory_allocated']} B"
+                      for k, v in timing.items())
+          + f"; Adafactor state {state_bytes} B against AdamW's {8 * n_params} B (float32 "
+          f"moments) over {n_params} parameters; on {smi}", flush=True)
+    result["remat"] = dict(shape=list(small["input_ids"].shape), seed=seed, kept_layers=kept,
+                           launches=policy_launches, timing=timing,
+                           adafactor_state_bytes=state_bytes,
+                           adamw_state_bytes=8 * n_params, params=n_params)
+    del lm, opt, full_mb, small
+    _free(dev)
+
+    # ---- (c) mask statistics on the card -------------------------------------
+    rate = 0.1
+    _sync(dev)
+    t0 = time.perf_counter()
+    keep = transformer._keep_mask(7, (transformer.ATTN_RES, 3), mask_shape, rate, dev)
+    _sync(dev)
+    mask_s = time.perf_counter() - t0
+    n = keep.numel()
+    kept_share = float(keep.sum()) / n
+    sigmas = abs(kept_share - (1 - rate)) * n / math.sqrt(n * rate * (1 - rate))
+    same = torch.equal(keep, transformer._keep_mask(7, (transformer.ATTN_RES, 3), mask_shape,
+                                                    rate, dev))
+    other = [not torch.equal(keep, transformer._keep_mask(sd, site, mask_shape, rate, dev))
+             for sd, site in ((8, (transformer.ATTN_RES, 3)), (7, (transformer.MLP_RES, 3)))]
+    layer_share = float(np.mean([real_drops(sd, L, rate) for sd in range(10000)]))
+    layer_sigmas = abs(layer_share - rate) / math.sqrt(rate * (1 - rate) / (10000 * L))
+    print(f"masks on {dev.type}: kept share {kept_share} of {n} at rate {rate} ({sigmas:.2f} "
+          f"sigma), repeat bitwise {same}, another seed / site another mask {other}, "
+          f"{mask_s * 1e3:.3f} ms a draw (the first); layerdrop's share {layer_share} over "
+          f"10000 x {L} host draws ({layer_sigmas:.2f} sigma)", flush=True)
+    _require(n >= 10 ** 6 or not on_card, f"the mask check holds only {n} elements")
+    _require(sigmas <= 5 and layer_sigmas <= 5 and same and all(other),
+             "the dropout masks fail their statistics")
+    result["masks"] = dict(shape=list(mask_shape), kept_share=kept_share, sigmas=sigmas,
+                           repeat_bitwise=same, first_draw_ms=mask_s * 1e3,
+                           layerdrop_share=layer_share, layerdrop_sigmas=layer_sigmas)
+    del keep
+
+    # ---- (d) model=twist with the plain attention and attention dropout ------
+    plain = ["model.config_args.attn_implementation=xla",
+             "model.config_args.attention_dropout=0.1", *twist_overrides, *common]
+    t_out, t_resumed = work / "settings_twist", work / "settings_twist_resumed"
+    tw = cli_run(cli_train.train, SLAMTrainer, [*plain, f"training_args.output_dir={t_out}"],
+                 nonpad)
+    tw_again = cli_run(cli_train.train, SLAMTrainer,
+                       [*plain, f"training_args.output_dir={t_resumed}",
+                        f"cont_training={t_out / 'checkpoint-1'}"], nonpad)
+    tw.pop("first_microbatch")
+    tw_again.pop("first_microbatch")
+    losses = logged(tw["state"], "loss")
+    print(f"twist (cli.train attn_implementation=xla attention_dropout=0.1): "
+          f"{tw['state'].global_step} steps ({tw['dtype']}, {tw['n_layers']} layers), losses "
+          f"{losses}; seconds a step {tw['seconds']}, non-pad tokens/s {tw['tokens_per_s']}; "
+          f"flash launches (fwd, bwd) {tw['launches']} and resumed {tw_again['launches']} "
+          f"(the plain attention: none); max_memory_allocated {tw['max_memory_allocated']} B",
+          flush=True)
+    _require(tw["state"].global_step == steps and all(math.isfinite(x) for x in losses)
+             and tw["launches"] == tw_again["launches"] == (0, 0),
+             f"twist on the plain attention: losses {losses}, launches {tw['launches']}")
+    check_resume("twist", tw, tw_again, t_out, t_resumed, steps)
+    refusal = None
+    try:
+        cli_train.train([*plain, "model.config_args.attn_implementation=flash_attention_2",
+                         "training_args.max_steps=1",
+                         f"training_args.output_dir={work / 'settings_twist_flash'}"])
+    except ValueError as e:
+        refusal = str(e)
+    print(f"twist on the flash path with attention_dropout=0.1 raises: {refusal}", flush=True)
+    _require(refusal is not None and "attention_dropout" in refusal,
+             "attention_dropout on the flash path did not raise")
+    result["twist"] = dict(losses=losses, step_seconds=tw["seconds"],
+                           tokens_per_s=tw["tokens_per_s"], launches=tw["launches"],
+                           max_memory_allocated=tw["max_memory_allocated"], layers=tw["n_layers"])
+    _drop(t_out, t_resumed, *[p for p in [work / "settings_twist_flash"] if p.exists()])
+    _free(dev)
+
+    # ---- (e) DPO with dropout from (a)'s checkpoint ---------------------------
+    pref = work / "settings_pref.jsonl"
+    write_preference_rows(pref, n_pref, prompt_len, completion_len, seed=4)
+    # the same weights with the rates at 0 (a fine-tune's config_args do not
+    # override a checkpoint's, in either package)
+    nodrop = work / "settings_nodrop"
+    nodrop.mkdir()
+    os.link(ckpt / "params.npz", nodrop / "params.npz")
+    saved = json.loads((ckpt / "unit_lm_config.json").read_text())
+    (nodrop / "unit_lm_config.json").write_text(json.dumps(
+        {**saved, "dropout": 0.0, "attention_dropout": 0.0, "layerdrop": 0.0}))
+    dpo_args = [f"data.train_path={pref}", f"data.val_path={pref}",
+                f"training_args.max_steps={dpo_steps}", "training_args.save_steps=0",
+                f"training_args.per_device_train_batch_size={dpo_batch}",
+                "training_args.logging_steps=1", "training_args.optim=adafactor",
+                *([] if on_card else ["training_args.use_cpu=true"])]
+    dpo_tokens = lambda tr, rows: int((tr._collate(rows)["segment_ids"] >= 0).sum())
+    dpo = {}
+    for name, model_dir in (("a", ckpt), ("b", ckpt), ("no_dropout", nodrop)):
+        rec = cli_run(cli_dpo.train, SLAMDPOTrainer,
+                      [f"model.pretrained_model={model_dir}", *dpo_args,
+                       f"training_args.output_dir={work / f'settings_dpo_{name}'}"], dpo_tokens)
+        dpo[name] = dict(losses=logged(rec["state"], "loss"), step_seconds=rec["seconds"],
+                         launches=rec["launches"], kept_layers=rec["kept_layers"])
+    print(f"DPO from {ckpt.name} ({dpo_steps} steps of 2 x {dpo_batch} rows, Adafactor): with "
+          f"its dropout {dpo['a']['losses']} and again {dpo['b']['losses']} (layers kept a step "
+          f"{dpo['a']['kept_layers']}); the rates at 0 {dpo['no_dropout']['losses']}; "
+          f"launches (fwd, bwd) {dpo['a']['launches']}; seconds a step "
+          f"{dpo['a']['step_seconds']}", flush=True)
+    _require(dpo["a"]["losses"] == dpo["b"]["losses"] and all(map(math.isfinite,
+                                                                 dpo["a"]["losses"])),
+             "two same-seed DPO runs with dropout differ")
+    _require(all(a != b for a, b in zip(dpo["a"]["losses"][1:], dpo["no_dropout"]["losses"][1:]))
+             and abs(dpo["no_dropout"]["losses"][0] - math.log(2)) <= 1e-6,
+             "DPO with dropout does not differ from DPO without it after step 1")
+    result["dpo"] = dpo
+    _drop(out, nodrop, *[work / f"settings_dpo_{name}" for name in dpo])
+    _free(dev)
+
+    # ---- (f) Adafactor, card against CPU --------------------------------------
+    rng = np.random.default_rng(5)
+    shapes = [(502, 896), (896, 896), (896, 128), (896, 128), (896, 896), (896, 4864),
+              (896, 4864), (4864, 896), (896,), (128,), (896,)]
+    shapes = [tuple(max(n // adafactor_scale, 1) for n in sh) for sh in shapes]
+    init = [(0.02 * rng.standard_normal(sh)).astype(np.float32) for sh in shapes]
+    grads_np = [[rng.standard_normal(sh).astype(np.float32) for sh in shapes] for _ in range(3)]
+    args = {"learning_rate": 1e-3, "lr_scheduler_type": "cosine_with_min_lr",
+            "lr_scheduler_kwargs": {"min_lr": 5e-5}, "warmup_steps": 1,
+            "max_grad_norm": 0.5, "weight_decay": 0.1, "optim": "adafactor"}
+    final = {}
+    for where in (dev, torch.device("cpu")):
+        params = [torch.nn.Parameter(torch.tensor(x, device=where)) for x in init]
+        opt, _ = make_optimizer(args, params, 10)
+        for gs in grads_np:
+            for p, g in zip(params, gs):
+                p.grad = torch.from_numpy(g).to(where)
+            opt.step()
+        final[where.type] = [p.detach().cpu().numpy().astype(np.float64) for p in params]
+    eps32 = float(np.finfo(np.float32).eps)
+    rel = [float(np.abs(a - b).max()
+                 / (np.abs(b - x).max() + len(grads_np) * eps32 * np.abs(b).max()
+                    / ADAFACTOR_REL_BOUND))
+           for a, b, x in zip(final[dev.type], final["cpu"], init)]
+    factored = sum(d is not None for d in opt.dims)
+    print(f"Adafactor on {dev.type} against the CPU, {len(grads_np)} steps of {len(shapes)} "
+          f"Slam-shaped tensors ({factored} factored): max |card - cpu| over (the largest "
+          f"update + {len(grads_np)} eps32 of the largest entry / {ADAFACTOR_REL_BOUND}), "
+          f"the worst tensor's: {max(rel):.3e} (<= {ADAFACTOR_REL_BOUND})", flush=True)
+    _require(max(rel) <= ADAFACTOR_REL_BOUND, f"Adafactor on the card disagrees with the CPU: "
+             f"{rel}")
+    result["adafactor"] = dict(max_rel_err=max(rel), tensors=len(shapes), factored=factored)
+    result["launches"] = {
+        "flash_fwd": sum(r["launches"][0] for r in (first, again))
+        + sum(policy_launches[k][0] for k in policies)
+        + sum(sum(t[0] for t in timing[k]["step_launches"]) for k in policies)
+        + sum(d["launches"][0] for d in dpo.values()),
+        "flash_bwd": sum(r["launches"][1] for r in (first, again))
+        + sum(policy_launches[k][1] for k in policies)
+        + sum(sum(t[1] for t in timing[k]["step_launches"]) for k in policies)
+        + sum(d["launches"][1] for d in dpo.values())}
+    result["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 15: {result['seconds']:.1f} s", flush=True)
+    return result
+
+
 def main() -> int:
     if not (ROOT / "slamkit_tpu_torch" / "ops" / "csrc" / "flash_fwd.cu").is_file():
         print("chip_smoke: run from a checkout of the repository (slamkit_tpu_torch/ "
@@ -3727,6 +4148,8 @@ def main() -> int:
         print(f"phase 13: {time.perf_counter() - t0:.1f} s", flush=True)
         torch.cuda.empty_cache()
         data_result = run_data_path(dev, smi, pathlib.Path(work))
+        torch.cuda.empty_cache()
+        settings_result = run_training_settings(dev, smi, pathlib.Path(work))
     speech_runs = speech_result["runs"]
 
     score = next(r for r in kernel_rows if r["name"] == "score_ctx1024")
@@ -3749,7 +4172,8 @@ def main() -> int:
                       "card_vs_cpu": cpu_result, "speech": speech_result,
                       "cli": cli_result, "dpo": dpo_result, "sims": sims_result,
                       "genppl": genppl_result, "f32_backward_shapes": f32_bwd_rows,
-                      "f32_training": f32_train_result, "data_path": data_result}), flush=True)
+                      "f32_training": f32_train_result, "data_path": data_result,
+                      "training_settings": settings_result}), flush=True)
     print(f"the whole run: {time.perf_counter() - start:.1f} s", flush=True)
     print(nvidia_smi(), flush=True)
 
@@ -3763,7 +4187,8 @@ def main() -> int:
                    + sims_result["train_launches"]["flash_fwd"] + sims_result["cm_launches"]
                    + sum(g["launches"] for g in sims_result["generate"].values())
                    + sum(r["launches"]["flash_fwd"] for r in genppl_runs)
-                   + data_result["launches"]["flash_fwd"],
+                   + data_result["launches"]["flash_fwd"]
+                   + settings_result["launches"]["flash_fwd"],
                    max(r["max_abs_err_out"] for r in kernel_rows), score),
         kernel_row("flash_bwd", "slamkit_tpu_torch/ops/csrc/flash_bwd.cu",
                    "slamkit_tpu/ops/flash_attention.py:247",
@@ -3772,7 +4197,8 @@ def main() -> int:
                    + cli_result["train_launches"]["flash_bwd"]
                    + dpo_result["launches"]["flash_bwd"]
                    + sims_result["train_launches"]["flash_bwd"]
-                   + data_result["launches"]["flash_bwd"],
+                   + data_result["launches"]["flash_bwd"]
+                   + settings_result["launches"]["flash_bwd"],
                    max(max(r["max_abs_err"].values()) for r in backward_rows), bwd),
         dict(kernel_row("dq_matmul", "slamkit_tpu_torch/ops/csrc/dq_matmul.cu",
                         "slamkit_tpu/ops/quant.py:43", ["dq_gemv_kernel | dq_gemm_kernel"],

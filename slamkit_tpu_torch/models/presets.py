@@ -45,18 +45,18 @@ class DecoderConfig:
     tie_word_embeddings: bool = True
     norm_eps: float = 1e-6
     initializer_range: float = 0.02
-    # training-time knobs: kept so a JAX config round-trips; the port's
-    # forward is eval-only and Decoder raises when they are set
-    dropout: float = 0.0
-    attention_dropout: float = 0.0
-    layerdrop: float = 0.0
+    # training-time regularisation, live only in a forward given a
+    # dropout_seed (eval and generation stay deterministic)
+    dropout: float = 0.0             # embeddings + residual branches
+    attention_dropout: float = 0.0   # attention probabilities (plain path only)
+    layerdrop: float = 0.0           # skip whole layers with prob p (OPT)
     dtype: str = "bfloat16"          # compute dtype
-    # TPU execution knobs: the port dispatches attention by device and tiles
-    # its own kernel, so it does not read these
-    attn_impl: str = "auto"
+    attn_impl: str = "auto"          # auto | flash | xla (the plain attention)
     remat: bool = False
-    remat_policy: str = "full"
+    remat_policy: str = "full"       # full | qkv (keep the attention's q/k/v/out)
     remat_layers: int = -1
+    # the Pallas kernel's tile sizes: the CUDA kernels tile themselves, so
+    # the port does not read these
     flash_block_q: int = 0
     flash_block_k: int = 0
 

@@ -11,18 +11,37 @@ Parameters keep the JAX package's names and [in, out] matrix layout, one
 `models/convert.py` maps `params.npz` onto the module by stacking. They are
 stored float32 and cast to the compute dtype where they are used.
 
-Full-sequence attention (training, scoring, generation prefill) goes through
-`ops.flash_attention`: the CUDA kernels on the card, the plain versions on
-the CPU; under autograd its gradient is the flash backward. The single-token
+Full-sequence attention (training, scoring, generation prefill) follows
+`cfg.attn_impl` as the JAX package's `_use_flash` reads it: "flash" runs
+`ops.flash_attention` (the CUDA kernels on the card, their plain versions on
+the CPU; under autograd its gradient is the flash backward), "xla" the plain
+attention (`ops.mha_reference` under autograd, on any device), "auto" the
+kernels on the card and the plain attention on the CPU. On a CPU tensor
+without probability dropout `flash_attention` is that same plain forward
+(with its explicit backward), so the CPU takes it there. The single-token
 decode step attends over the KV cache with plain einsums, as the JAX package
 does. The KV cache is updated in place.
 
 Training: the parameters take gradients (serving runs under
-`torch.inference_mode`). `cfg.remat` checkpoints the first `remat_layers`
-layers (all when -1) with `torch.utils.checkpoint`, the JAX package's
-`jax.checkpoint` of the layer scan: the backward recomputes each layer's
-forward, flash kernel included. Dropout, attention dropout, layerdrop and the
-"qkv" remat policy are not ported; a config that sets them raises.
+`torch.inference_mode`). A forward given a `dropout_seed` applies the
+config's dropout (embeddings after the positions, the attention and MLP
+residual branches in all three block layouts), attention dropout (the
+probabilities of the plain attention; the flash path raises, as in JAX) and
+layerdrop (whole layers skipped, no rescale); without a seed it is
+deterministic. Each mask is a function of (seed, site, layer) alone, drawn
+inside the layer from a generator seeded with them (`_keep_mask`), so a
+checkpointed layer's recompute draws the same mask and no draw touches the
+global RNG; layerdrop's decisions are drawn on the host (`_layer_drops`).
+`cfg.remat` checkpoints the first `remat_layers` layers (all when -1) with
+`torch.utils.checkpoint`, the JAX package's `jax.checkpoint` of the layer
+scan. Under `remat_policy="full"` the backward recomputes each layer's
+forward, flash kernel included; under "qkv" the parts before the attention
+(norm, q/k/v projections, rope) and after it (o projection, residuals, norm,
+MLP) are checkpointed apart and the attention between them is not, so
+`FlashAttentionFunction`'s saved q, k, v, out and LSE feed the flash
+backward without a second forward launch (JAX's `save_only_these_names`
+policy; the plain attention is checkpointed on its own, as JAX recomputes
+it).
 
 int8 decode: a layer's seven projection weights may be int8 dicts instead of
 parameters (`_proj`); `models/generate.py` builds such a copy for
@@ -38,22 +57,89 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops import dq_matmul, flash_attention
+from ..ops import dq_matmul, flash_attention, mha_reference
 from .presets import DecoderConfig
 
 NEG_INF = -1e30
 
 
+_REMAT_POLICIES = ("full", "qkv")
+_ATTN_IMPLS = ("auto", "flash", "xla")
+
+
 def _check_supported(cfg: DecoderConfig):
-    """Refuse what the port does not implement yet (ROADMAP queue 1 item 6)."""
+    """Refuse settings that neither package implements."""
     for name in ("dropout", "attention_dropout", "layerdrop"):
-        if getattr(cfg, name) > 0.0:
-            raise ValueError(f"{name}={getattr(cfg, name)}: the port's decoder does not "
-                             f"implement dropout or layerdrop yet (ROADMAP queue 1 item 6)")
-    if cfg.remat_policy != "full":
-        raise ValueError(f"remat_policy={cfg.remat_policy!r}: the port checkpoints whole "
-                         f"layers only (\"full\"); the qkv policy waits (ROADMAP queue 1 "
-                         f"item 6)")
+        if not 0.0 <= getattr(cfg, name) < 1.0:
+            raise ValueError(f"{name}={getattr(cfg, name)}: a rate in [0, 1)")
+    if cfg.remat_policy not in _REMAT_POLICIES:
+        raise ValueError(f"remat_policy={cfg.remat_policy!r}: one of {_REMAT_POLICIES}")
+    if cfg.attn_impl not in _ATTN_IMPLS:
+        raise ValueError(f"attn_impl={cfg.attn_impl!r}: one of {_ATTN_IMPLS}")
+
+
+# --------------------------------------------------------------------------- #
+# dropout masks
+# --------------------------------------------------------------------------- #
+# the sites a mask is drawn for; a layer's site is (site, layer)
+EMBED, ATTN_PROBS, ATTN_RES, MLP_RES, LAYERDROP = range(5)
+_M64 = (1 << 64) - 1
+
+
+def _mix(*words: int) -> int:
+    """splitmix64 folded over `words`: one generator seed in [0, 2^63)."""
+    h = 0
+    for w in words:
+        h = (h ^ (int(w) & _M64)) + 0x9E3779B97F4A7C15 & _M64
+        h = ((h ^ (h >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+        h = ((h ^ (h >> 27)) * 0x94D049BB133111EB) & _M64
+        h ^= h >> 31
+    return h >> 1
+
+
+def _keep_mask(seed: int, site: tuple, shape, rate: float, device) -> torch.Tensor:
+    """Boolean keep mask of one dropout site, True with probability 1 - rate:
+    uniforms from a generator on `device` seeded with (seed, *site) at every
+    call. `torch.utils.checkpoint` replays only the default generators, so
+    this is what makes a recompute draw the forward's mask."""
+    gen = torch.Generator(device=device).manual_seed(_mix(seed, *site))
+    return torch.rand(shape, generator=gen, device=device) < 1.0 - rate
+
+
+def _layer_drops(seed: int, num_layers: int, rate: float) -> list:
+    """Which layers layerdrop skips in the forward of `seed`, drawn on the
+    host (a decision on the card would cost a synchronisation a layer)."""
+    gen = torch.Generator().manual_seed(_mix(seed, LAYERDROP))
+    return (torch.rand(num_layers, generator=gen) < rate).tolist()
+
+
+def _dropout(x, rate: float, seed: Optional[int], site: tuple):
+    """Inverted dropout as JAX's `_dropout`: where(keep, x / (1 - rate), 0)
+    in x's dtype, 1 - rate rounded to that dtype first as JAX rounds a
+    Python scalar (in bf16 both then divide by 0.8984375 at rate 0.1); the
+    identity without a seed or at rate 0."""
+    if seed is None or rate <= 0.0:
+        return x
+    keep = _keep_mask(seed, site, x.shape, rate, x.device)
+    divisor = float(torch.tensor(1.0 - rate, dtype=x.dtype))
+    return torch.where(keep, x / divisor, x.new_zeros(()))
+
+
+class _SkippedLayer(torch.autograd.Function):
+    """The residual stream past a layer that layerdrop skips, giving the
+    layer's parameters zero gradients: JAX computes a dropped layer and
+    selects the carry, so its gradients are zeros, not absent, and the
+    optimizer's moments and weight decay go on as for any other layer."""
+
+    @staticmethod
+    def forward(ctx, x, *params):
+        ctx.params = [(p.shape, p.dtype, p.device) for p in params]
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g, *(torch.zeros(s, dtype=d, device=dev) if need else None
+                     for (s, d, dev), need in zip(ctx.params, ctx.needs_input_grad[1:])))
 
 
 def _param(*shape, device, fill: Optional[float] = None) -> nn.Parameter:
@@ -189,11 +275,24 @@ def _decode_attention(q, k, v, segment_ids, cache_index: int, cfg: DecoderConfig
     return attn.reshape(b, cfg.num_heads, 1, dh)
 
 
-def _layer(x, lp: DecoderLayer, rope, segment_ids, cfg: DecoderConfig,
-           cache_kv=None, cache_index: Optional[int] = None):
-    """One decoder block. rope: (cos, sin) from `_rope_angles`, or None for
-    learned positions. cache_kv: optional (k, v) [B, Hkv, Tmax, Dh] views,
-    written in place at cache_index."""
+def _use_flash(cfg: DecoderConfig, device) -> bool:
+    """JAX's `_use_flash`: "flash" and "xla" say which path runs; "auto" is
+    the kernels on the card and the plain attention on the CPU."""
+    if cfg.attn_impl in ("flash", "xla"):
+        return cfg.attn_impl == "flash"
+    return torch.device(device).type != "cpu"
+
+
+def _flash_route(cfg: DecoderConfig, device, probs_dropout: bool) -> bool:
+    """Whether full-sequence attention goes through `flash_attention`: on
+    the flash path, and on a CPU tensor without probability dropout, where
+    `flash_attention` runs the plain attention itself."""
+    return _use_flash(cfg, device) or (torch.device(device).type == "cpu"
+                                       and not probs_dropout)
+
+
+def _pre_attention(x, lp: DecoderLayer, rope, cfg: DecoderConfig):
+    """Norm (pre-norm), q/k/v projections and rope: (q, k, v)."""
     dt = x.dtype
     h = _norm(x, lp.attn_norm_scale, lp.attn_norm_bias, cfg) if cfg.pre_norm else x
     q = _split_heads(_proj(h, lp.q_w, lp.q_b, dt), cfg.num_heads, cfg.head_dim)
@@ -202,7 +301,52 @@ def _layer(x, lp: DecoderLayer, rope, segment_ids, cfg: DecoderConfig,
     if rope is not None:
         q = _rope(q, *rope)
         k = _rope(k, *rope)
+    return q, k, v
 
+
+def _attention(q, k, v, segment_ids, cfg: DecoderConfig, seed: Optional[int], layer: int):
+    """Full-sequence causal attention (scoring, training, a prefill's window)
+    on the route `_flash_route` picks, with probability dropout on the plain
+    attention when `seed` is given."""
+    rate = cfg.attention_dropout if seed is not None else 0.0
+    if _flash_route(cfg, q.device, rate > 0.0):
+        return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                               segment_ids=segment_ids, causal=True,
+                               sm_scale=cfg.head_dim ** -0.5)
+    keep = lambda shape: _keep_mask(seed, (ATTN_PROBS, layer), shape, rate, q.device)
+    return mha_reference(q, k, v, segment_ids=segment_ids, causal=True,
+                         sm_scale=cfg.head_dim ** -0.5, dropout_rate=rate,
+                         dropout_keep=keep)[0]
+
+
+def _post_attention(x, attn, lp: DecoderLayer, cfg: DecoderConfig, seed: Optional[int],
+                    layer: int):
+    """The o projection, the residuals and the MLP of the block's layout,
+    with residual-branch dropout (HF hidden dropout) when `seed` is given."""
+    dt = x.dtype
+    attn_out = _dropout(_proj(_merge_heads(attn), lp.o_w, lp.o_b, dt), cfg.dropout, seed,
+                        (ATTN_RES, layer))
+    mlp = lambda h: _dropout(_mlp(h, lp, cfg), cfg.dropout, seed, (MLP_RES, layer))
+    if cfg.parallel_residual:
+        h2 = _norm(x, lp.mlp_norm_scale, lp.mlp_norm_bias, cfg)
+        return x + attn_out + mlp(h2)
+    if cfg.pre_norm:
+        x = x + attn_out
+        h2 = _norm(x, lp.mlp_norm_scale, lp.mlp_norm_bias, cfg)
+        return x + mlp(h2)
+    # post-LN (OPT-350m): norm(x + attn), then norm(x + mlp)
+    x = _norm(x + attn_out, lp.attn_norm_scale, lp.attn_norm_bias, cfg)
+    return _norm(x + mlp(x), lp.mlp_norm_scale, lp.mlp_norm_bias, cfg)
+
+
+def _layer(x, lp: DecoderLayer, rope, segment_ids, cfg: DecoderConfig,
+           cache_kv=None, cache_index: Optional[int] = None,
+           seed: Optional[int] = None, layer: int = 0):
+    """One decoder block. rope: (cos, sin) from `_rope_angles`, or None for
+    learned positions. cache_kv: optional (k, v) [B, Hkv, Tmax, Dh] views,
+    written in place at cache_index. seed: the forward's dropout seed
+    (training), layer: this block's index among the masks' sites."""
+    q, k, v = _pre_attention(x, lp, rope, cfg)
     decode = cache_kv is not None and q.shape[2] == 1
     if cache_kv is not None:
         ck, cv = cache_kv
@@ -210,27 +354,30 @@ def _layer(x, lp: DecoderLayer, rope, segment_ids, cfg: DecoderConfig,
         ck[:, :, cache_index:cache_index + t] = k.to(ck.dtype)
         cv[:, :, cache_index:cache_index + t] = v.to(cv.dtype)
         if decode:
-            k, v = ck.to(dt), cv.to(dt)
+            k, v = ck.to(x.dtype), cv.to(x.dtype)
 
     if decode:
         attn = _decode_attention(q, k, v, segment_ids, cache_index, cfg)
     else:
-        # scoring, or prefill attending within the current window
-        attn = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                               segment_ids=segment_ids, causal=True,
-                               sm_scale=cfg.head_dim ** -0.5)
-    attn_out = _proj(_merge_heads(attn), lp.o_w, lp.o_b, dt)
+        attn = _attention(q, k, v, segment_ids, cfg, seed, layer)
+    return _post_attention(x, attn, lp, cfg, seed, layer)
 
-    if cfg.parallel_residual:
-        h2 = _norm(x, lp.mlp_norm_scale, lp.mlp_norm_bias, cfg)
-        return x + attn_out + _mlp(h2, lp, cfg)
-    if cfg.pre_norm:
-        x = x + attn_out
-        h2 = _norm(x, lp.mlp_norm_scale, lp.mlp_norm_bias, cfg)
-        return x + _mlp(h2, lp, cfg)
-    # post-LN (OPT-350m): norm(x + attn), then norm(x + mlp)
-    x = _norm(x + attn_out, lp.attn_norm_scale, lp.attn_norm_bias, cfg)
-    return _norm(x + _mlp(x, lp, cfg), lp.mlp_norm_scale, lp.mlp_norm_bias, cfg)
+
+def _qkv_remat_layer(x, lp: DecoderLayer, rope, segment_ids, cfg: DecoderConfig,
+                     seed: Optional[int], layer: int):
+    """`_layer` under remat_policy="qkv": the parts before and after the
+    attention are checkpointed apart; the flash attention between them saves
+    its q, k, v, out and LSE, so the backward never runs its forward again.
+    The plain attention (which would keep the probabilities) is checkpointed
+    on its own."""
+    q, k, v = checkpoint(_pre_attention, x, lp, rope, cfg, use_reentrant=False)
+    rate = cfg.attention_dropout if seed is not None else 0.0
+    if _flash_route(cfg, x.device, rate > 0.0):
+        attn = _attention(q, k, v, segment_ids, cfg, seed, layer)
+    else:
+        attn = checkpoint(_attention, q, k, v, segment_ids, cfg, seed, layer,
+                          use_reentrant=False)
+    return checkpoint(_post_attention, x, attn, lp, cfg, seed, layer, use_reentrant=False)
 
 
 class Decoder(nn.Module):
@@ -277,16 +424,30 @@ class Decoder(nn.Module):
                 positions: Optional[torch.Tensor] = None,
                 segment_ids: Optional[torch.Tensor] = None,
                 cache: Optional[tuple] = None,
-                cache_index: Optional[int] = None):
+                cache_index: Optional[int] = None,
+                dropout_seed: Optional[int] = None):
         """Returns (logits float32 [B, T, V], cache).
 
         positions default to 0..T-1; pass explicit positions for left-padded
         prompts. segment_ids [B, T]: -1 marks padding. cache: (k, v) tensors
         [L, B, Hkv, Tmax, Dh] from `init_cache`, updated in place at
-        cache_index; a one-token input with a cache runs the decode step."""
+        cache_index; a one-token input with a cache runs the decode step.
+        dropout_seed (an int) turns on the config's dropout, attention
+        dropout and layerdrop for this forward (training; never with a
+        cache); without it the forward is deterministic."""
         cfg = self.cfg
         dt = cfg.compute_dtype
         b, t = input_ids.shape
+        seed = dropout_seed if cache is None and (
+            cfg.dropout > 0.0 or cfg.attention_dropout > 0.0 or cfg.layerdrop > 0.0) else None
+        if seed is not None and cfg.attention_dropout > 0.0 and \
+                _use_flash(cfg, input_ids.device):
+            # the flash kernels never hold the probabilities to mask
+            raise ValueError(
+                "attention_dropout > 0 requires attn_implementation='xla' (the "
+                "flash kernel does not support probability dropout); set "
+                "model.config_args.attn_implementation=xla or use dropout/layerdrop "
+                "instead")
         if positions is None:
             positions = torch.arange(t, device=input_ids.device).expand(b, t)
 
@@ -302,19 +463,30 @@ class Decoder(nn.Module):
             # clamp like JAX's gather, which never raises on an index
             idx = (positions + cfg.learned_pos_offset).clamp(max=self.pos_embed.shape[0] - 1)
             x = x + F.embedding(idx, self.pos_embed).to(dt)
+        x = _dropout(x, cfg.dropout, seed, (EMBED,))
 
         rope = _rope_angles(positions, cfg) if cfg.pos == "rope" else None
         n_remat = 0
         if cfg.remat and cache is None and torch.is_grad_enabled():
             n_remat = cfg.num_layers if cfg.remat_layers < 0 else \
                 min(cfg.remat_layers, cfg.num_layers)
+        skipped = (_layer_drops(seed, cfg.num_layers, cfg.layerdrop)
+                   if seed is not None and cfg.layerdrop > 0.0 else [False] * cfg.num_layers)
         for i, lp in enumerate(self.layers):
-            if i < n_remat:
-                x = checkpoint(_layer, x, lp, rope, segment_ids, cfg, use_reentrant=False)
+            if skipped[i]:
+                # HF layerdrop: the whole layer is skipped, no rescale
+                if torch.is_grad_enabled():
+                    x = _SkippedLayer.apply(x, *lp.parameters())
                 continue
-            kv = None if cache is None else (cache[0][i], cache[1][i])
-            x = _layer(x, lp, rope, segment_ids, cfg, cache_kv=kv,
-                       cache_index=cache_index)
+            if i < n_remat and cfg.remat_policy == "qkv":
+                x = _qkv_remat_layer(x, lp, rope, segment_ids, cfg, seed, i)
+            elif i < n_remat:
+                x = checkpoint(_layer, x, lp, rope, segment_ids, cfg, seed=seed, layer=i,
+                               use_reentrant=False)
+            else:
+                kv = None if cache is None else (cache[0][i], cache[1][i])
+                x = _layer(x, lp, rope, segment_ids, cfg, cache_kv=kv,
+                           cache_index=cache_index, seed=seed, layer=i)
 
         if cfg.pre_norm:
             x = _norm(x, self.final_norm_scale, self.final_norm_bias, cfg)

@@ -16,7 +16,7 @@ Softmax and every product run in float32 whatever the input dtype.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -45,9 +45,18 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   segment_ids: Optional[torch.Tensor] = None,
                   causal: bool = True,
                   sm_scale: Optional[float] = None,
-                  kv_segment_ids: Optional[torch.Tensor] = None):
+                  kv_segment_ids: Optional[torch.Tensor] = None,
+                  dropout_rate: float = 0.0,
+                  dropout_keep: Optional[Callable[[tuple], torch.Tensor]] = None):
     """q [B, H, T, D], k/v [B, Hkv, T, D] (H % Hkv == 0), segment_ids [B, T]
     (query side; kv_segment_ids defaults to them).
+
+    dropout_rate / dropout_keep: inverted dropout on the float32
+    probabilities before the product with v (the JAX reference's
+    `attention_ref.py:62-66`, HF attention_dropout); `dropout_keep(shape)`
+    returns the boolean keep mask of the [B, H, T, Tk] probabilities. The
+    LSE is that of the undropped scores. Without a mask source or at rate 0
+    nothing is drawn.
 
     Returns (out [B, H, T, D] in q's dtype, lse [B, H, T] float32)."""
     b, h, t, d = q.shape
@@ -73,6 +82,9 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       torch.full((), LSE_SENTINEL, device=q.device))
     # masked scores and dead rows (lse = sentinel) both underflow to 0
     p = torch.exp(s - lse[..., None])
+    if dropout_keep is not None and dropout_rate > 0.0:
+        keep = dropout_keep((b, h, t, k.shape[2])).reshape(p.shape)
+        p = torch.where(keep, p / (1.0 - dropout_rate), torch.zeros((), device=p.device))
     out = torch.einsum("bkgqt,bktd->bkgqd", p, v.float())
     return out.reshape(b, h, t, d).to(q.dtype), lse.reshape(b, h, t)
 

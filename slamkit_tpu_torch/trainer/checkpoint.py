@@ -4,7 +4,8 @@ Counterpart of `slamkit_tpu/trainer/checkpoint.py`. A checkpoint is
 `<output_dir>/checkpoint-<step>/` holding
 
   * `state/train_state.pt`: `torch.save` of the train state (parameters by
-    name, the AdamW moments and step count), written into a temporary
+    name, the optimizer's kind, state and step count, the dropout stream's
+    state where the model uses dropout), written into a temporary
     directory and renamed into place (orbax, which the JAX package uses, is
     not on the card's host);
   * `unit_lm_config.json` + `params.npz`: the model export through
@@ -115,16 +116,22 @@ def load_state(path: str, device) -> dict:
                       weights_only=True)
 
 
-def train_state(model, optimizer) -> dict:
+def train_state(model, optimizer, dropout_stream: Optional[torch.Generator] = None) -> dict:
     """The live state a checkpoint holds: the decoder's parameters by name,
-    the AdamW moments and step count."""
-    return {"params": dict(model.decoder.named_parameters()), **optimizer.state_dict()}
+    the optimizer's kind, state and step count, and the dropout stream's
+    state where the model uses dropout (so a resume repeats the masks)."""
+    state = {"params": dict(model.decoder.named_parameters()), **optimizer.state_dict()}
+    if dropout_stream is not None:
+        state["dropout_rng"] = dropout_stream.get_state()
+    return state
 
 
 @torch.no_grad()
-def restore(path: str, model, optimizer):
-    """Load `path`'s train state into the model's parameters and the
-    optimizer, in place."""
+def restore(path: str, model, optimizer,
+            dropout_stream: Optional[torch.Generator] = None):
+    """Load `path`'s train state into the model's parameters, the optimizer
+    and the dropout stream, in place. A checkpoint without a stream (written
+    by a run without dropout) leaves `dropout_stream` as seeded."""
     state = load_state(path, model.device)
     params = dict(model.decoder.named_parameters())
     if sorted(state["params"]) != sorted(params):
@@ -132,6 +139,12 @@ def restore(path: str, model, optimizer):
     for name, p in params.items():
         p.copy_(state["params"][name])
     optimizer.load_state_dict(state)
+    if dropout_stream is not None:
+        if "dropout_rng" in state:
+            dropout_stream.set_state(state["dropout_rng"].cpu())
+        else:
+            logger.warning("%s holds no dropout stream: the masks restart from the seed",
+                           path)
 
 
 def save_host_artifacts(path: str, trainer_json: dict, model, train_state: dict):

@@ -25,11 +25,16 @@ composed config node).
     save, whose export `cli.eval` and either package's `from_pretrained`
     load.
 
-The attention of every forward (policy, reference, evaluation) goes through
-`ops.flash_attention`, and the policy's backward through the flash backward.
-The loop runs synchronously on the model's device. Knobs of the JAX trainer
-that the port does not implement (fsdp, a multi-device mesh, a 'seq' axis,
-multihost) raise, and a model with dropout is refused by the decoder.
+The attention of every forward (policy, reference, evaluation) follows the
+model's attn_implementation (`models/transformer.py`), and the policy's
+backward on the flash path is the flash backward. A model with dropout
+(dropout, attention_dropout, layerdrop) draws one dropout seed a step for
+the policy's forward from a stream seeded by `seed`, whose state rides in
+the checkpoint (exact resume); the reference and evaluation forwards stay
+deterministic, as trl keeps the reference in eval mode. The loop runs
+synchronously on the model's device. Knobs of the JAX trainer that the port
+does not implement (fsdp, a multi-device mesh, a 'seq' axis, multihost)
+raise.
 """
 from __future__ import annotations
 
@@ -47,7 +52,7 @@ from ..utils.calculation_utils import token_nll
 from . import checkpoint
 from .callbacks import TrainerCallback, TrainerControl, TrainerState
 from .optim import make_optimizer
-from .slam_trainer import _refuse_unported
+from .slam_trainer import _refuse_unported, dropout_stream, next_seed
 
 logger = logging.getLogger(__name__)
 
@@ -107,10 +112,13 @@ def collate(rows: List[dict], bucket_lens: List[int], pad_id: int) -> Dict[str, 
     return {"input_ids": ids, "completion_mask": comp, "segment_ids": seg}
 
 
-def sequence_logps(decoder, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+def sequence_logps(decoder, batch: Dict[str, torch.Tensor],
+                   dropout_seed: Optional[int] = None) -> torch.Tensor:
     """[2B] float32: each row's summed log-probability of its completion
-    tokens (the targets under `completion_mask`)."""
-    logits, _ = decoder(batch["input_ids"], segment_ids=batch["segment_ids"])
+    tokens (the targets under `completion_mask`); dropout_seed turns on the
+    decoder's dropout rates."""
+    logits, _ = decoder(batch["input_ids"], segment_ids=batch["segment_ids"],
+                        dropout_seed=dropout_seed)
     lp = -token_nll(logits[:, :-1], batch["input_ids"][:, 1:])
     return (lp * batch["completion_mask"][:, 1:]).sum(-1)
 
@@ -169,6 +177,7 @@ class SLAMDPOTrainer:
         self.state.max_steps = self.total_steps
         self.optimizer, self.schedule = make_optimizer(args, model.parameters(),
                                                        self.total_steps)
+        self.dropout_stream = dropout_stream(model, args)
         # the frozen reference: the policy as built, before any step
         self.ref_decoder = copy.deepcopy(model.decoder).requires_grad_(False).eval()
 
@@ -195,16 +204,18 @@ class SLAMDPOTrainer:
     # ------------------------------------------------------------------ #
     # compute
     # ------------------------------------------------------------------ #
-    def dpo_loss(self, batch: Dict[str, torch.Tensor]):
-        """(loss, metrics) of one device batch: the policy under autograd,
-        the reference without."""
-        lp = sequence_logps(self.model.decoder, batch)
+    def dpo_loss(self, batch: Dict[str, torch.Tensor], dropout_seed: Optional[int] = None):
+        """(loss, metrics) of one device batch: the policy under autograd
+        (with dropout when `dropout_seed` is given), the reference without
+        either."""
+        lp = sequence_logps(self.model.decoder, batch, dropout_seed)
         with torch.no_grad():
             ref_lp = sequence_logps(self.ref_decoder, batch)
         return dpo_objective(lp, ref_lp, self.beta)
 
     def _train_step(self, rows: List[dict]) -> Dict[str, torch.Tensor]:
-        loss, metrics = self.dpo_loss(self._to_device(self._collate(rows)))
+        loss, metrics = self.dpo_loss(self._to_device(self._collate(rows)),
+                                      next_seed(self.dropout_stream))
         loss.backward()
         self.optimizer.step()
         self.optimizer.zero_grad()
@@ -240,7 +251,7 @@ class SLAMDPOTrainer:
         trainer_json = {"global_step": self.state.global_step, "epoch": self.state.epoch,
                         "log_history": self.state.log_history[-50:]}
         self._saver.wait()
-        state = checkpoint.train_state(self.model, self.optimizer)
+        state = checkpoint.train_state(self.model, self.optimizer, self.dropout_stream)
         if self._async_save:
             state = checkpoint.snapshot(state)
         output_dir, limit = self.args["output_dir"], self.args.get("save_total_limit", None)
@@ -257,9 +268,10 @@ class SLAMDPOTrainer:
             write()
 
     def load_checkpoint(self, path: str):
-        """The policy and the optimizer from `path`; the reference stays."""
+        """The policy, the optimizer and the dropout stream from `path`; the
+        reference stays."""
         self._saver.wait()   # never restore past an in-flight save
-        checkpoint.restore(path, self.model, self.optimizer)
+        checkpoint.restore(path, self.model, self.optimizer, self.dropout_stream)
         with open(os.path.join(path, "trainer_state.json")) as f:
             st = json.load(f)
         self.state.global_step = st["global_step"]

@@ -16,6 +16,10 @@ eval_dataset, callbacks, packing, context_len, packing_strategy).train()`.
     eval_steps / save_steps, also after an off-grid resume;
   * checkpoints save the exact data-stream position (`data_pos`), resume
     replays from it, and a changed packing strategy is refused;
+  * a model with dropout draws one dropout seed a microbatch from a stream
+    seeded by `seed` (`dropout_stream`); the stream's state rides in the
+    checkpoint, so a resumed run repeats the uninterrupted run's masks, and
+    evaluation draws none;
   * `max_steps` or `num_train_epochs` sets the schedule's length; the run
     ends with a final eval and save;
   * `profile_steps` > 0 traces steps [profile_start, profile_start +
@@ -72,6 +76,22 @@ def _refuse_unported(args):
         bad("multihost", "multi-host training", "queue 1 item 14")
 
 
+def dropout_stream(model, args) -> Optional[torch.Generator]:
+    """The trainer's dropout stream where the model uses dropout (JAX: the
+    `rng` of the train state): a CPU generator seeded from
+    training_args.seed; its state rides in the checkpoint."""
+    if not getattr(model, "uses_dropout", False):
+        return None
+    return torch.Generator().manual_seed(int(args.get("seed", 0) or 0))
+
+
+def next_seed(stream: Optional[torch.Generator]) -> Optional[int]:
+    """One microbatch's dropout seed from the stream (None without one)."""
+    if stream is None:
+        return None
+    return int(torch.randint(1 << 62, (), generator=stream))
+
+
 class SLAMTrainer:
     def __init__(self, model, args, train_dataset: TokenDataset,
                  eval_dataset: Optional[TokenDataset] = None,
@@ -125,6 +145,7 @@ class SLAMTrainer:
         self.state.max_steps = self.total_steps
         self.optimizer, self.schedule = make_optimizer(args, model.parameters(),
                                                        self.total_steps)
+        self.dropout_stream = dropout_stream(model, args)
 
     # ------------------------------------------------------------------ #
     # compute
@@ -153,7 +174,8 @@ class SLAMTrainer:
         for mb in group:
             with record_function("train/forward"):
                 loss = self.model.loss_fn({**self._to_device(mb),
-                                           "num_items_in_batch": num_items})
+                                           "num_items_in_batch": num_items},
+                                          dropout_seed=next_seed(self.dropout_stream))
             with record_function("train/backward"):
                 loss.backward()
             loss_sum += loss.detach()
@@ -201,7 +223,7 @@ class SLAMTrainer:
             "num_input_tokens_seen": self.state.num_input_tokens_seen,
             "log_history": self.state.log_history[-50:]}
         self._saver.wait()
-        state = checkpoint.train_state(self.model, self.optimizer)
+        state = checkpoint.train_state(self.model, self.optimizer, self.dropout_stream)
         if self._async_save:
             state = checkpoint.snapshot(state)
         output_dir, limit = self.args["output_dir"], self.args.get("save_total_limit", None)
@@ -230,7 +252,7 @@ class SLAMTrainer:
                 f"fast-forward would replay a different batch stream (skipped or "
                 f"duplicated data). Set data.packing_strategy={saved_strategy} to "
                 f"continue this run.")
-        checkpoint.restore(path, self.model, self.optimizer)
+        checkpoint.restore(path, self.model, self.optimizer, self.dropout_stream)
         self.state.global_step = st["global_step"]
         self.state.epoch = st["epoch"]
         self.state.num_input_tokens_seen = st["num_input_tokens_seen"]

@@ -372,6 +372,28 @@ def test_refuses_what_is_not_ported(tmp_path, flat, override, match):
                        args_for(tmp_path, **override), pref_rows(4, seed=0))
 
 
-def test_refuses_a_model_with_dropout():
-    with pytest.raises(ValueError, match="item 6"):
-        UnitLM(UnitLMConfig(**{**TINY, "dropout": 0.1}), device="cpu")
+def test_refuses_a_model_with_dropout(tmp_path, flat, monkeypatch):
+    """A model with dropout is no longer refused: the trainer carries a
+    dropout stream, the policy's forward takes a seed and its loss moves off
+    ln 2 (policy = reference at step 0), the same seed repeats it bit for
+    bit, and the reference (and the evaluation) never draws a mask."""
+    from slamkit_tpu_torch.trainer import slam_dpo_trainer
+
+    model = UnitLM(UnitLMConfig(**{**TINY, "dropout": 0.1, "layerdrop": 0.3}), params=flat,
+                   device="cpu")
+    tr = SLAMDPOTrainer(model, UnitTokeniser(num_units=60), args_for(tmp_path),
+                        pref_rows(4, seed=0))
+    assert tr.dropout_stream is not None and model.uses_dropout
+    seeds = []
+    real = slam_dpo_trainer.sequence_logps
+    monkeypatch.setattr(slam_dpo_trainer, "sequence_logps",
+                        lambda dec, b, seed=None: seeds.append((dec is tr.ref_decoder, seed))
+                        or real(dec, b, seed))
+    batch = tr._to_device(tr._collate(tr.train_rows))
+    with torch.no_grad():
+        plain = tr.dpo_loss(batch)[0].item()
+        live = [tr.dpo_loss(batch, s)[0].item() for s in (11, 11, 12)]
+    assert plain == pytest.approx(np.log(2), abs=1e-6)
+    assert live[0] == live[1] and live[0] != live[2] and plain not in live
+    assert [s for is_ref, s in seeds if is_ref] == [None] * 4
+    assert [s for is_ref, s in seeds if not is_ref] == [None, 11, 11, 12]

@@ -77,6 +77,16 @@ with tempfile.TemporaryDirectory() as d:
     assert os.path.isfile(os.path.join(d, "out", "checkpoint-2", "trainer_state.json"))
     assert os.path.isfile(os.path.join(d, "out", "checkpoint-2", "state", "train_state.pt"))
     UnitLM.from_pretrained(os.path.join(d, "out", "checkpoint-2"), device="cpu")
+    # dropout, attention dropout on the plain attention, layerdrop, qkv remat
+    # and Adafactor
+    drop_lm = UnitLM(UnitLMConfig(base_model_name="EleutherAI/pythia-14m", vocab_size=502,
+                                  twist_init=False, torch_dtype="float32", remat=True,
+                                  remat_policy="qkv", dropout=0.1, attention_dropout=0.1,
+                                  layerdrop=0.1, attn_implementation="xla"), device="cpu")
+    state = SLAMTrainer(drop_lm, {**args, "optim": "adafactor",
+                                  "output_dir": os.path.join(d, "drop")},
+                        ds, packing=True, context_len=64).train()
+    assert state.global_step == 2, state
 
 # the speech path: WAV prompts -> HuBERT + k-means -> int8 and dense decoding
 # -> CodeHiFiGAN, at tiny widths with seeded random weights

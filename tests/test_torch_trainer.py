@@ -299,7 +299,7 @@ def test_save_host_artifacts_atomic_and_nonmutating(tmp_path):
 
 @pytest.mark.parametrize("knob", [dict(fsdp="true"), dict(mesh_shape="[4,2]"),
                                   dict(mesh_axes="[data,seq]"), dict(cp_schedule="zigzag"),
-                                  dict(multihost="true"), dict(optim="adafactor")])
+                                  dict(multihost="true"), dict(mesh_shape="[1,2]")])
 def test_unported_knobs_raise(tmp_path, knob):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SLAMTrainer(tiny_model(), train_args(tmp_path, **knob), tiny_dataset(), context_len=32)

@@ -153,10 +153,19 @@ def test_calc_nll_drops_an_infinite_masked_target_like_jax(len_norm):
 
 
 def test_training_refuses_unported_knobs():
+    """The regularisation and remat knobs build (they are ported); values
+    that neither package implements raise."""
+    base = UnitLMConfig(**SMALL_QWEN)
     for knob in (dict(dropout=0.1), dict(layerdrop=0.1), dict(attention_dropout=0.1),
                  dict(remat=True, remat_policy="qkv")):
-        with pytest.raises(ValueError, match="ROADMAP"):
-            UnitLM(dataclasses.replace(UnitLMConfig(**SMALL_QWEN), **knob), device="cpu")
+        assert UnitLM(dataclasses.replace(base, **knob), device="cpu").uses_dropout == \
+            ("remat" not in knob)
+    for knob, match in ((dict(dropout=1.0), "dropout"), (dict(layerdrop=-0.1), "layerdrop"),
+                        (dict(attention_dropout=1.5), "attention_dropout"),
+                        (dict(remat=True, remat_policy="dots"), "remat_policy"),
+                        (dict(attn_implementation="sdpa"), "attn_impl")):
+        with pytest.raises(ValueError, match=match):
+            UnitLM(dataclasses.replace(base, **knob), device="cpu")
 
 
 def _unflatten(flat):

@@ -172,12 +172,20 @@ def test_learned_pos_overflow_raises():
         dec(torch.zeros((1, cfg.max_position_embeddings + 1), dtype=torch.long))
 
 
-@pytest.mark.parametrize("knob", [dict(dropout=0.1), dict(attention_dropout=0.1),
-                                  dict(layerdrop=0.1), dict(remat=True, remat_policy="qkv")])
+@pytest.mark.parametrize("knob", [dict(dropout=1.0), dict(attention_dropout=-0.1),
+                                  dict(layerdrop=1.5), dict(remat=True, remat_policy="dots"),
+                                  dict(attn_impl="sdpa")])
 def test_training_knobs_raise(knob):
+    """Rates outside [0, 1), a remat policy other than full / qkv and an
+    attention path other than auto / flash / xla raise; at valid values the
+    same knobs build (they are ported)."""
     cfg = dataclasses.replace(_configs("qwen2")[0], **knob)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match=next(iter(knob)) if "remat" not in knob
+                       else "remat_policy"):
         Decoder(cfg)
+    valid = {"dropout": 0.1, "attention_dropout": 0.1, "layerdrop": 0.1,
+             "remat_policy": "qkv", "attn_impl": "xla"}
+    Decoder(dataclasses.replace(cfg, **{k: valid[k] for k in knob if k in valid}))
 
 
 def test_reset_parameters_is_seeded():
