@@ -2,8 +2,8 @@
 """Drive the PyTorch port's serving, training, speech-continuation, DPO,
 interleaved speech-text (SIMS), generation-metric (GenPPL, LLM judge),
 float32-training, data-preparation and training-settings (dropout,
-layerdrop, qkv remat, Adafactor) slices and its command line once on an
-NVIDIA GPU.
+layerdrop, qkv remat, Adafactor) slices, SIMS at its shipped defaults and
+its command line once on an NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -226,11 +226,44 @@ the sm_90a kernels). Phases, in order; any failure exits non-zero:
                its dropout, twice bit for bit, against the rates at 0; (f)
                Adafactor on the card against the CPU on Slam-shaped tensors.
 
+  16. SIMS at its shipped defaults — in phase 9's work directory (its
+               HuBERT directory, centroids and WAVs, phase 10's features):
+               (b) `cli.train --config-name train_inter_scale` at its stock
+               settings (B=8 at 2048, accumulation 1, no remat, bf16,
+               flash_attention_2) on pythia-14m's base directory
+               (`tools/sims_recipe.py::write_pythia14m_base`: its config.json
+               and a GPT-NeoX-shaped tokenizer.json; TWIST falls back to
+               random init), 2 steps with a save a step and a run resumed
+               from checkpoint-1 that repeats step 2 bit for bit, then the
+               same in float32; (c) float32 SIMS at phase 11's base
+               (Qwen2.5-0.5B's widths, 151665 entries; 4 x 2 at 2048, remat,
+               bf16 moments) with one [1, 256] slice against float32 on the
+               CPU; (d) stage 2 through the shipped default text tokeniser's
+               layout (`write_gpt2_bpe_files`: OPT-125m's vocab.json +
+               merges.txt of 50265 ids, no tokenizer.json) on phase 11's
+               seeded alignments, every line held to a direct call; (e)
+               `cli.eval` through the interleaving tokeniser on (b)'s
+               checkpoint: metric=sstorycloze over 16 seeded pairs,
+               metric=generate with used_token_modality null, SPEECH and TEXT,
+               and metric=asr_perplexity through genppl_recipe's Whisper and
+               Llama directories at whisper-large-v3-turbo's and
+               Llama-3.2-1B's widths (4 encoder and 4 text-LM layers), every
+               score finite. Each run prints
+               its launches, seconds a step, non-pad tokens/s and
+               `max_memory_allocated`.
+
 Phases 3 and 3b also hold the kernels at DPO's shape (`dpo_T152`: [16, 14/2,
 152, 64], one segment of 110-152 tokens a row and a -1 tail) and at SIMS's
 (`sims_T2048`: [4, 14/2, 2048, 64], rows packed from segments of mixed
 length, stage 2's short interleaved rows among text and speech rows of
-300-700 tokens, and a -1 tail).
+300-700 tokens, and a -1 tail). Phases 3, 3b, 3e and 3f hold them at head
+dims the kernels are not built for, zero-padded to 64 or 128 around the
+launch (`ops/flash_attention.py::_launch` / `_launch_bwd`): at
+pythia-14m's SIMS batch (`pythia14m_sims`: [8, 4/4, 2048, 32], rows packed
+as SIMS's) and at d = 80 (`d80`: [4, 8/2, 1024, 80], 4 packed segments),
+their bounds on the original d. Phases 3e and 3f also hold the float32
+kernels at float32 SIMS's shape (`sims_f32`: [4, 14/2, 2048, 64], rows
+packed as `sims_T2048`'s), which phase 16 (c) runs.
 
 Each main path runs with the launch counters zeroed just before it and read
 just after: every scoring forward and every generation prefill launches the
@@ -256,7 +289,11 @@ data path's two training runs as phase 6's microbatches (phase 14); under
 remat_policy=qkv a training microbatch launches the forward and the
 backward once per layer that layerdrop keeps (no remat: the same; full:
 the forward twice), and the plain attention (attn_implementation=xla)
-launches nothing (phase 15); the
+launches nothing (phase 15); the stock SIMS run launches the forward and
+the backward of its dtype once per layer a microbatch, float32 SIMS the
+float32 forward twice and the backward once, its scoring the forward once
+per layer a call, its generation once per layer a prefill, and the text LM
+of GenPPL the float32 forward once per text-LM layer a call (phase 16); the
 probe's entry
 point launches its kernel 7 times a shape (phase 3d). A flash backward call
 counts one, though it launches three kernels (the delta / segment-range
@@ -444,6 +481,10 @@ ADAFACTOR_REL_BOUND = 1e-5
 SETTINGS = ("model.config_args.dropout=0.1", "model.config_args.layerdrop=0.1",
             "model.config_args.remat=true", "model.config_args.remat_policy=qkv",
             "training_args.optim=adafactor")
+# phase 16 (e)'s asr_perplexity models on the card: whisper-large-v3-turbo
+# (encoder cut from 32 layers) and Llama-3.2-1B (cut from 16) at their
+# published widths, the text LM's heads of 64 as llama1b_f32's
+ASR_ENCODER_LAYERS, TEXT_LM_LAYERS = 4, 4
 # published dense bf16 tensor-core peaks (NVIDIA data sheets), by card name
 BF16_PEAK_FLOPS = (("H100 PCIe", 756e12), ("H100 NVL", 835e12), ("H100", 989e12),
                    ("H200", 989e12))
@@ -796,6 +837,9 @@ def check_kernels(dev, f32: bool = False) -> list[dict]:
         ("judge_prefill", (8, 32, 8, 7680, 64), True, _left_padded(rng, 8, 7680, most=2000)),
         ("twist_f32", (8, 12, 12, 512, 64), True, _packed_segments(rng, 8, 512, 4)),
         ("slam_f32", (8, 14, 2, 1024, 64), True, _packed_segments(rng, 8, 1024, 8)),
+        ("pythia14m_sims", (8, 4, 4, 2048, 32), True, _mixed_segments(rng, 8, 2048)),
+        ("d80", (4, 8, 2, 1024, 80), True, _packed_segments(rng, 4, 1024, 4)),
+        ("sims_f32", (4, 14, 2, 2048, 64), True, _mixed_segments(rng, 4, 2048)),
     ] if f32 else [
         ("score_ctx1024", (8, 14, 2, 1024, 64), True, _packed_segments(rng, 8, 1024, 8)),
         ("score_requests", (8, 14, 2, 1024, 64), True, _right_padded(rng, 8, 1024)),
@@ -806,6 +850,8 @@ def check_kernels(dev, f32: bool = False) -> list[dict]:
         ("dead_rows", (2, 14, 2, 256, 64), True, None),
         ("dpo_T152", (16, 14, 2, 152, 64), True, _right_padded(rng, 16, 152, lo=110)),
         ("sims_T2048", (4, 14, 2, 2048, 64), True, _mixed_segments(rng, 4, 2048)),
+        ("pythia14m_sims", (8, 4, 4, 2048, 32), True, _mixed_segments(rng, 8, 2048)),
+        ("d80", (4, 8, 2, 1024, 80), True, _packed_segments(rng, 4, 1024, 4)),
     ]
     dtype, counter = (torch.float32, "f32_launches") if f32 else (torch.bfloat16, "launches")
     out_bound, lse_bound = (F32_OUT_BOUND, F32_LSE_BOUND) if f32 else (OUT_BOUND, LSE_BOUND)
@@ -953,6 +999,9 @@ def check_backward_kernels(dev, f32: bool = False) -> list[dict]:
         ("odd_T1000", (8, 14, 2, 1000, 64), _packed_segments(rng, 8, 1000, 8)),
         ("dpo_f32", (16, 14, 2, 152, 64), _right_padded(rng, 16, 152, lo=110)),
         ("dead_rows", (2, 14, 2, 256, 64), None),
+        ("pythia14m_sims", (8, 4, 4, 2048, 32), _mixed_segments(rng, 8, 2048)),
+        ("d80", (4, 8, 2, 1024, 80), _packed_segments(rng, 4, 1024, 4)),
+        ("sims_f32", (4, 14, 2, 2048, 64), _mixed_segments(rng, 4, 2048)),
     ] if f32 else [
         ("slam_ctx1024", (8, 14, 2, 1024, 64), _packed_segments(rng, 8, 1024, 8)),
         ("odd_T1000", (8, 14, 2, 1000, 64), _packed_segments(rng, 8, 1000, 8)),
@@ -961,6 +1010,8 @@ def check_backward_kernels(dev, f32: bool = False) -> list[dict]:
         ("dead_rows", (2, 14, 2, 256, 64), None),
         ("dpo_T152", (16, 14, 2, 152, 64), _right_padded(rng, 16, 152, lo=110)),
         ("sims_T2048", (4, 14, 2, 2048, 64), _mixed_segments(rng, 4, 2048)),
+        ("pythia14m_sims", (8, 4, 4, 2048, 32), _mixed_segments(rng, 8, 2048)),
+        ("d80", (4, 8, 2, 1024, 80), _packed_segments(rng, 4, 1024, 4)),
     ]
     dtype, counter = (torch.float32, "f32_launches") if f32 else (torch.bfloat16, "launches")
     results = []
@@ -1740,16 +1791,18 @@ class _LogLines:
         self.logger.setLevel(self.level)
 
 
-def write_pairs(folder: pathlib.Path, n_pairs: int, seconds=(1.0, 3.0), seed: int = 9) -> str:
+def write_pairs(folder: pathlib.Path, n_pairs: int, seconds=(1.0, 3.0), seed: int = 9,
+                sep: str = "+") -> str:
     """An sBLIMP layout of n_pairs seeded 16 kHz WAV pairs, `<i>+<p|n>.wav`
     in one folder (metric.subfolder=false), each a gliding tone in noise of
-    a length drawn from `seconds`."""
+    a length drawn from `seconds`; `sep="_"` gives sWUGGY's and
+    StoryCloze's `<i>_<p|n>.wav`."""
     from slamkit_tpu_torch.utils.audio import save_wav
 
     rng = np.random.default_rng(seed)
     folder.mkdir(parents=True, exist_ok=True)
     for i in range(2 * n_pairs):
-        save_wav(str(folder / f"{i}+{'pn'[i % 2]}.wav"), _tone(rng, rng.uniform(*seconds)))
+        save_wav(str(folder / f"{i}{sep}{'pn'[i % 2]}.wav"), _tone(rng, rng.uniform(*seconds)))
     return str(folder)
 
 
@@ -3034,7 +3087,8 @@ def _cli_run(dev, main, cls, args, tokens, counters) -> dict:
     per step the seconds between two synchronizes, the launches read from
     `counters` ((function, attribute) pairs, zeroed before the call: the
     main path's count) and `tokens(trainer, group)`; the call's wall
-    seconds, state, peak memory and its trainer's facts."""
+    seconds, state, peak memory (with what was allocated before the call,
+    which earlier phases may leave) and its trainer's facts."""
     import torch
 
     from slamkit_tpu_torch.trainer import SLAMTrainer
@@ -3060,6 +3114,7 @@ def _cli_run(dev, main, cls, args, tokens, counters) -> dict:
     if on_card:
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev) if on_card else None
     cls._train_step = step
     for f, c in counters:   # the main path's count
         setattr(f, c, 0)
@@ -3077,6 +3132,7 @@ def _cli_run(dev, main, cls, args, tokens, counters) -> dict:
                remat_policy=dcfg.remat_policy, dtype=str(dcfg.compute_dtype)[6:],
                twist=twist_log[:1], optimizer=tr.optimizer.kind,
                max_memory_allocated=torch.cuda.max_memory_allocated(dev) if on_card else None,
+               allocated_before=before,
                tokens_per_s=[n / t for n, t in zip(rec["tokens"], rec["seconds"])])
     if isinstance(tr, SLAMTrainer):
         rec["eval_batches"] = (len(list(tr.eval_batcher.epoch(0)))
@@ -4073,6 +4129,312 @@ def run_training_settings(dev, smi: str, work: pathlib.Path, slam_overrides=(),
     return result
 
 
+def run_sims_defaults(dev, smi: str, work: pathlib.Path, tiny: bool = False, n_rows: int = 96,
+                      lengths=(300, 700), context: int = 2048, batch: int = 8, steps: int = 2,
+                      qwen_entries=None, qwen_batch: int = 4, qwen_accum: int = 2,
+                      cpu_tokens: int = 256, hubert_cfg=None, voc_cfg=None, n_stories: int = 16,
+                      story_seconds=(1.0, 2.0), n_prompts: int = 4,
+                      max_new_tokens: int = 40) -> dict:
+    """Phase 16, in phase 9's work directory (its HuBERT directory, centroids
+    and WAV pairs, phase 10's features.jsonl): SIMS at its shipped defaults.
+    (b) `cli.train --config-name train_inter_scale` on its stock settings
+    (per-device batch `batch`, accumulation 1, context `context`, remat off,
+    bf16, flash_attention_2) over pythia-14m's base directory
+    (`sims_recipe.write_pythia14m_base`: its config.json and GPT-NeoX
+    tokenizer, no weights, so TWIST falls back to random init), `steps`
+    steps with a save every step, a run resumed from checkpoint-1 that must
+    repeat the last step bit for bit, then the same in float32; (c) float32
+    SIMS at phase 11's base (Qwen2.5-0.5B's widths, its 151665-entry
+    vocabulary; `tiny`: the 4-layer base), `qwen_batch` x `qwen_accum` at
+    `context`, remat, bf16 moments, and one row's first `cpu_tokens` tokens
+    of its first microbatch on the card against float32 on the CPU; (d)
+    stage 2 (`cli.prepare_tokens tokeniser=interleaved_hubert_25`) through
+    the shipped default text tokeniser's layout (`write_gpt2_bpe_files`:
+    vocab.json + merges.txt, no tokenizer.json) with phase 11's seeded
+    alignments, every line held to a direct `stringify_representation`;
+    (e) `cli.eval` through the interleaving tokeniser on (b)'s checkpoint:
+    `metric=sstorycloze` over `n_stories` seeded pairs, `metric=generate`
+    with used_token_modality null, SPEECH and TEXT, and
+    `metric=asr_perplexity` through `tools/genppl_recipe.py`'s Whisper and
+    Llama directories (on the card whisper-large-v3-turbo's and
+    Llama-3.2-1B's widths cut to ASR_ENCODER_LAYERS and TEXT_LM_LAYERS
+    layers; `tiny`: the tiny ones), over `n_prompts` of phase 9's WAVs. On the card
+    every microbatch of (b) launches the forward and the backward once per
+    layer in its dtype, every microbatch of (c) the float32 forward twice
+    and the backward once per layer, every scoring call and generation
+    prefill of (e) the forward once per layer and every text-LM scoring call
+    the float32 forward once per text-LM layer; on the CPU (a rehearsal at
+    narrow widths) no launch may be counted."""
+    from slamkit_tpu_torch.cli import eval as cli_eval
+    from slamkit_tpu_torch.cli import prepare_tokens as cli_prepare
+    from slamkit_tpu_torch.cli import train as cli_train
+    from slamkit_tpu_torch.config import compose
+    from slamkit_tpu_torch.feature_extractor import HUBERT_CONFIG_PRESETS, HubertConfig
+    from slamkit_tpu_torch.metric import generative_metric as gm
+    from slamkit_tpu_torch.models import UnitLM
+    from slamkit_tpu_torch.ops import flash_attention_bwd, flash_attention_fwd
+    from slamkit_tpu_torch.tokeniser import tokeniser_factory
+    from slamkit_tpu_torch.tools import genppl_recipe, sims_recipe
+    from slamkit_tpu_torch.trainer import SLAMTrainer
+    from slamkit_tpu_torch.trainer.slam_trainer import BATCH_KEYS
+    from slamkit_tpu_torch.vocoder.checkpoint_manager import CHECKPOINT_MANAGER
+
+    on_card = dev.type == "cuda"
+    phase_start = time.perf_counter()
+    root = work / "sims_defaults"
+    counters = ((flash_attention_fwd, "launches"), (flash_attention_bwd, "launches"),
+                (flash_attention_fwd, "f32_launches"), (flash_attention_bwd, "f32_launches"))
+    nonpad = lambda tr, group: sum(int((mb["segment_ids"] >= 0).sum()) for mb in group)
+    logged = lambda state, key: [r[key] for r in state.log_history if key in r]
+    launches = dict.fromkeys(("flash_fwd", "flash_bwd", "flash_fwd_f32", "flash_bwd_f32"), 0)
+
+    def count(got):
+        for key, n in zip(launches, got):
+            launches[key] += n
+
+    def check_train(what, rec, n_steps, per_step):
+        """`n_steps` finite steps of `rec["dtype"]`, each launching `per_step`
+        (bf16 fwd, bf16 bwd, f32 fwd, f32 bwd) on the card, nothing on the
+        CPU."""
+        want_step = per_step if on_card else (0, 0, 0, 0)
+        want = tuple(n_steps * n for n in want_step)
+        losses = logged(rec["state"], "loss")
+        step_s, tps = rec["seconds"], rec["tokens_per_s"]
+        print(f"{what}: {rec['state'].global_step} steps ({rec['dtype']}, {rec['n_layers']} "
+              f"layers, remat {rec['remat']}), losses {losses}; seconds a step {step_s}, "
+              f"non-pad tokens a step {rec['tokens']}, non-pad tokens/s {tps}; "
+              f"{rec['wall_s']:.1f} s the whole call; launches (bf16 fwd, bf16 bwd, f32 fwd, "
+              f"f32 bwd) {rec['launches']} (a step {rec['step_launches']}; predicted {want}); "
+              f"max_memory_allocated {rec['max_memory_allocated']} B ({rec['allocated_before']} B "
+              f"allocated before the call); {rec['twist']}; on {smi}",
+              flush=True)
+        _require(len(step_s) == n_steps and rec["state"].global_step == steps
+                 and len(losses) == steps and all(math.isfinite(x) for x in losses),
+                 f"{what} did not take {n_steps} finite logged steps to step {steps}: {losses}")
+        _require(rec["launches"] == want and all(x == want_step for x in rec["step_launches"]),
+                 f"{what} launched {rec['launches']} ({rec['step_launches']} a step), "
+                 f"predicted {want}")
+        count(rec["launches"])
+        return losses
+
+    # ---- (b) the stock train_inter_scale run on pythia-14m -------------------
+    pythia = sims_recipe.write_pythia14m_base(root / "pythia14m")
+    text, inter, speech = sims_recipe.write_corpora(root, n_rows, lengths)
+    data = [f"data.train_path=[{text},{inter},{speech}]", "data.val_path=null",
+            f"model.context_len={context}", "logger=print"]
+    stock = ["--config-name", "train_inter_scale", f"model.config_args.base_model_name={pythia}",
+             *data,
+             f"training_args.per_device_train_batch_size={batch}",
+             f"training_args.max_steps={steps}", "training_args.save_steps=1",
+             "training_args.logging_steps=1"]
+    result = {}
+    for dtype in ("bfloat16", "float32"):
+        out = root / f"stock_{dtype}"
+        extra = [] if on_card else ["training_args.use_cpu=true"]
+        if dtype == "float32" or not on_card:
+            extra.append("model.config_args.torch_dtype=float32")
+        rec = _cli_run(dev, cli_train.train, SLAMTrainer,
+                       [*stock, *extra, f"training_args.output_dir={out}"], nonpad, counters)
+        L = rec["n_layers"]
+        _require(not rec["remat"] and L == 6 and (rec["dtype"] == dtype or not on_card),
+                 f"the stock run took remat {rec['remat']}, {L} layers, {rec['dtype']}")
+        per_mb = (L, L, 0, 0) if dtype == "bfloat16" else (0, 0, L, L)
+        losses = check_train(f"train_inter_scale on pythia-14m, {dtype}", rec, steps, per_mb)
+        result[dtype] = dict(losses=losses, step_seconds=rec["seconds"],
+                             tokens_a_step=rec["tokens"], tokens_per_s=rec["tokens_per_s"],
+                             wall_s=rec["wall_s"], launches=rec["launches"],
+                             step_launches=rec["step_launches"],
+                             max_memory_allocated=rec["max_memory_allocated"],
+                             allocated_before=rec["allocated_before"],
+                             twist=rec["twist"], layers=L)
+        if dtype == "bfloat16":
+            ckpt = out / f"checkpoint-{steps}"
+            resumed = root / "stock_resumed"
+            again = _cli_run(dev, cli_train.train, SLAMTrainer,
+                             [*stock, *extra, f"training_args.output_dir={resumed}",
+                              f"cont_training={out / 'checkpoint-1'}"], nonpad, counters)
+            check_train("train_inter_scale on pythia-14m, bfloat16, resumed", again, steps - 1,
+                        per_mb)
+            last, last_again = losses[-1], logged(again["state"], "loss")[-1]
+            same_w = _bytes_equal(ckpt, resumed / f"checkpoint-{steps}")
+            print(f"train_inter_scale resumed from checkpoint-1: step {steps} loss {last_again} "
+                  f"against {last}; checkpoint-{steps} weights bitwise equal: {same_w}",
+                  flush=True)
+            _require(last == last_again and same_w, "the resumed stock run does not repeat "
+                     f"step {steps} bit for bit")
+            result["resume_exact"] = same_w
+            _drop(resumed, out / "checkpoint-1")
+        else:
+            _drop(out)
+
+    # ---- (c) float32 SIMS at Qwen2.5-0.5B's widths ---------------------------
+    qbase = sims_recipe.write_base_dir(root / "qwen", tiny=tiny,
+                                       n_entries=qwen_entries or sims_recipe.QWEN25_VOCAB)
+    out = root / "qwen_f32"
+    rec = _cli_run(dev, cli_train.train, SLAMTrainer,
+                   ["--config-name", "train_inter_scale",
+                    f"model.config_args.base_model_name={qbase}",
+                    "model.config_args.twist_init=false", *data,
+                    f"training_args.output_dir={out}", f"training_args.max_steps={steps}",
+                    f"training_args.per_device_train_batch_size={qwen_batch}",
+                    f"training_args.gradient_accumulation_steps={qwen_accum}",
+                    f"training_args.save_steps={steps}", "training_args.logging_steps=1",
+                    "training_args.remat=true", "training_args.optim_state_dtype=bfloat16",
+                    "model.config_args.torch_dtype=float32",
+                    *([] if on_card else ["training_args.use_cpu=true"])], nonpad, counters)
+    L = rec["n_layers"]
+    _require(rec["remat"] and rec["dtype"] == "float32", "float32 SIMS did not take remat and "
+             "float32")
+    losses = check_train("float32 SIMS at Qwen2.5-0.5B's widths", rec, steps,
+                         (0, 0, 2 * L * qwen_accum, L * qwen_accum))
+    mb = rec["first_microbatch"]
+    check = _f32_card_vs_cpu(dev, out / f"checkpoint-{steps}",
+                             {k: mb[k][:1, :cpu_tokens] for k in BATCH_KEYS})
+    result["qwen_f32"] = dict(losses=losses, step_seconds=rec["seconds"],
+                              tokens_per_s=rec["tokens_per_s"], wall_s=rec["wall_s"],
+                              launches=rec["launches"], step_launches=rec["step_launches"],
+                              max_memory_allocated=rec["max_memory_allocated"],
+                              allocated_before=rec["allocated_before"], layers=L,
+                              card_vs_cpu=check)
+    _drop(out)
+
+    # ---- (d) stage 2 through GPT-2 vocab.json + merges.txt -------------------
+    bpe = sims_recipe.write_gpt2_bpe_files(root / "opt_tokeniser")
+    tok_args = ["tokeniser=interleaved_hubert_25", f"tokeniser.params.text_tokeniser_path={bpe}"]
+    seed_arg = "+tokeniser.params.interleave_seed=0"
+    tok = tokeniser_factory(compose(str(ROOT / "config"), "prepare_tokens",
+                                    [*tok_args, seed_arg, "data_path=-", "out_path=-"]).tokeniser,
+                            device=dev)
+    features = work / "stage1_features.jsonl"
+    align = sims_recipe.write_alignments(root / "align", features,
+                                         tok.speech_fe.get_unit_duration())   # phase 11's
+    stage2 = root / "inter_bpe.jsonl"
+    t0 = time.perf_counter()
+    n_lines = cli_prepare.prepare_tokens([f"data_path={features}", f"out_path={stage2}",
+                                          *tok_args, f"meta_path={align}", seed_arg,
+                                          *([] if on_card else ["+device=cpu"])])
+    stage2_s = time.perf_counter() - t0
+    feat_rows = [json.loads(line) for line in features.read_text().splitlines()]
+    tok_rows = [json.loads(line) for line in stage2.read_text().splitlines()]
+    direct = []
+    for row in feat_rows:
+        meta = json.loads((pathlib.Path(align) / f"{pathlib.Path(row['file_name']).stem}.json")
+                          .read_text())
+        direct.append(tok.stringify_representation([{**row, **meta}], mode="train")[0])
+    stage_ok = n_lines == len(feat_rows) == len(tok_rows) and all(
+        t["file_name"] == f["file_name"] and t["audio_repr"] == d
+        for f, t, d in zip(feat_rows, tok_rows, direct))
+    text_ids = sum(len(tok.text_tokeniser(d, add_special_tokens=False)["input_ids"])
+                   for d in direct)
+    print(f"stage 2 through vocab.json + merges.txt ({len(tok.text_tokeniser)} ids with the "
+          f"units): {n_lines} lines in {stage2_s:.3f} s ({n_lines / stage2_s:.1f} lines/s), "
+          f"{text_ids} ids in all; every line equals a direct "
+          f"stringify_representation(mode='train'): {stage_ok}", flush=True)
+    _require(stage_ok and any("<text>" in d and "<speech>" in d for d in direct),
+             "stage 2 through the GPT-2 files disagrees with a direct stringify_representation, "
+             "or interleaves nothing")
+    result["stage2"] = dict(lines=n_lines, seconds=stage2_s, lines_per_s=n_lines / stage2_s,
+                            ids=text_ids, vocab=len(tok.text_tokeniser))
+
+    # ---- (e) the metrics through the interleaving tokeniser ------------------
+    hubert_cfg = hubert_cfg or HubertConfig(**HUBERT_CONFIG_PRESETS["slprl/mhubert-base-25hz"])
+    n_layers = result["bfloat16"]["layers"]
+    common = [f"model.pretrained_model={ckpt}", "tokeniser=interleaved_hubert_25",
+              f"tokeniser.params.text_tokeniser_path={pythia}",
+              f"tokeniser.feature_extractor.pretrained_model={work / 'hubert'}",
+              f"tokeniser.feature_extractor.kmeans_path={work / 'km.npy'}",
+              f"tokeniser.feature_extractor.layer={hubert_cfg.num_hidden_layers - 1}",
+              "batch_size=8", "num_workers=8",
+              *([] if on_card else ["device=cpu", "model.config_args.torch_dtype=float32"])]
+    stories = write_pairs(root / "sSC", n_stories, story_seconds, seed=16, sep="_")
+    textless_root = CHECKPOINT_MANAGER.disk_root
+    CHECKPOINT_MANAGER.set_root(sims_recipe.write_textless_vocoder(root / "textless",
+                                                                   voc_cfg or CODEHIFIGAN_CFG))
+    # on the card whisper-large-v3-turbo's and Llama-3.2-1B's widths, cut in
+    # depth (ASR_ENCODER_LAYERS, TEXT_LM_LAYERS); on the CPU the tiny ones
+    whisper = genppl_recipe.write_whisper_dir(
+        root / "whisper", tiny=tiny, encoder_layers=None if tiny else ASR_ENCODER_LAYERS)
+    llm_layers = genppl_recipe.LLAMA_TINY["num_hidden_layers"] if tiny else TEXT_LM_LAYERS
+    llama = genppl_recipe.write_llama_dir(root / "llama", tiny=tiny, num_layers=llm_layers)
+    gen_kw = [f"metric.generate_kwargs.max_new_tokens={max_new_tokens}",
+              "+metric.generate_kwargs.seed=0"]
+    prompts = f"{work / 'sblimp'}/*.wav"
+    runs = {
+        "sstorycloze": ["metric=sstorycloze", f"metric.data_path={stories}"],
+        **{f"generate_{m or 'null'}": [
+            "metric=generate", "vocoder=vocoder_hubert_25", f"metric.data_path={prompts}",
+            f"metric.used_token_modality={m or 'null'}", f"metric.num_files={n_prompts}",
+            *gen_kw, f"metric.out_path={root / ('generated_' + (m or 'null'))}"]
+           for m in (None, "SPEECH", "TEXT")},
+        "asr_perplexity": ["metric=asr_perplexity", "vocoder=vocoder_hubert_25",
+                           f"metric.data_path={prompts}", f"metric.num_files={n_prompts}",
+                           f"metric.whisper_model={whisper}", f"metric.llm_name_or_path={llama}",
+                           *gen_kw, "metric.out_path=null"]}
+    calls = {}
+    patched = [(UnitLM, "log_likelihood"), (UnitLM, "generate"), (gm, "get_llm_perplexity")]
+    originals = [getattr(o, n) for o, n in patched]
+
+    def recorder(fn, label):
+        def recorded(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            calls.setdefault(label, []).append(out)
+            return out
+        return recorded
+
+    metrics = {}
+    for name, args in runs.items():
+        calls.clear()
+        for (owner, attr), fn in zip(patched, originals):
+            setattr(owner, attr, recorder(fn, attr))
+        for f, c in counters:      # the main path's count
+            setattr(f, c, 0)
+        try:
+            t0 = time.perf_counter()
+            res = cli_eval.eval_main([*common, *args])
+            _sync(dev)
+            seconds = time.perf_counter() - t0
+        finally:
+            for (owner, attr), fn in zip(patched, originals):
+                setattr(owner, attr, fn)
+        got = tuple(getattr(f, c) for f, c in counters)
+        # the text LM scores through UnitLM.log_likelihood too, once a call
+        n_text = len(calls.get("get_llm_perplexity", []))
+        n_score = len(calls.get("log_likelihood", [])) - n_text
+        n_gen = len(calls.get("generate", []))
+        want = (n_layers * (n_score + n_gen), 0, llm_layers * n_text, 0) if on_card \
+            else (0, 0, 0, 0)
+        if name == "sstorycloze":
+            lls = [x.float().cpu().numpy() for x in calls["log_likelihood"]]
+            score, finite = res["StoryCloze"], all(np.isfinite(x).all() for x in lls)
+            ok = finite and 0.0 <= score <= 1.0 and sum(x.size for x in lls) == 2 * n_stories
+        elif name == "asr_perplexity":
+            nll = [np.asarray(x) for x in calls["get_llm_perplexity"]]
+            score = res["asr_perplexity"]
+            finite = math.isfinite(score) and all(np.isfinite(x).all() for x in nll)
+            ok = finite and score > 0 and sum(x.size for x in nll) == n_prompts
+        else:
+            outs = res["generate"]
+            score = [len(g.split()) if isinstance(g, str) else int(np.size(g)) for g in outs]
+            finite = all(isinstance(g, str) or np.isfinite(g).all() for g in outs)
+            ok = finite and len(outs) == n_prompts and all(
+                isinstance(g, str) == name.endswith("TEXT") for g in outs)
+        metrics[name] = dict(score=score, finite=finite, seconds=seconds, launches=got,
+                             scoring_calls=n_score, generate_calls=n_gen, text_lm_calls=n_text)
+        print(f"cli.eval {name} through the interleaving tokeniser on the stock checkpoint: "
+              f"{score}; every score finite: {finite}; {n_score} scoring, {n_gen} generate, "
+              f"{n_text} text-LM calls; {seconds:.1f} s with the loads; launches (bf16 fwd, bf16 "
+              f"bwd, f32 fwd, f32 bwd) {got} (predicted {want}) on {smi}", flush=True)
+        _require(ok, f"cli.eval {name} gave {score} (finite: {finite})")
+        _require(got == want and n_score + n_gen >= 1,
+                 f"cli.eval {name} launched {got}, predicted {want}")
+        count(got)
+    CHECKPOINT_MANAGER.set_root(textless_root)
+    _drop(root)
+    seconds = time.perf_counter() - phase_start
+    print(f"phase 16: {seconds:.1f} s in all; launches {launches}", flush=True)
+    return dict(result, metrics=metrics, launches=launches, seconds=seconds)
+
+
 def main() -> int:
     if not (ROOT / "slamkit_tpu_torch" / "ops" / "csrc" / "flash_fwd.cu").is_file():
         print("chip_smoke: run from a checkout of the repository (slamkit_tpu_torch/ "
@@ -4150,7 +4512,10 @@ def main() -> int:
         data_result = run_data_path(dev, smi, pathlib.Path(work))
         torch.cuda.empty_cache()
         settings_result = run_training_settings(dev, smi, pathlib.Path(work))
+        torch.cuda.empty_cache()
+        defaults_result = run_sims_defaults(dev, smi, pathlib.Path(work))
     speech_runs = speech_result["runs"]
+    defaults_launches = defaults_result["launches"]
 
     score = next(r for r in kernel_rows if r["name"] == "score_ctx1024")
     bwd = next(r for r in backward_rows if r["name"] == "slam_ctx1024")
@@ -4173,7 +4538,8 @@ def main() -> int:
                       "cli": cli_result, "dpo": dpo_result, "sims": sims_result,
                       "genppl": genppl_result, "f32_backward_shapes": f32_bwd_rows,
                       "f32_training": f32_train_result, "data_path": data_result,
-                      "training_settings": settings_result}), flush=True)
+                      "training_settings": settings_result,
+                      "sims_defaults": defaults_result}), flush=True)
     print(f"the whole run: {time.perf_counter() - start:.1f} s", flush=True)
     print(nvidia_smi(), flush=True)
 
@@ -4188,7 +4554,7 @@ def main() -> int:
                    + sum(g["launches"] for g in sims_result["generate"].values())
                    + sum(r["launches"]["flash_fwd"] for r in genppl_runs)
                    + data_result["launches"]["flash_fwd"]
-                   + settings_result["launches"]["flash_fwd"],
+                   + settings_result["launches"]["flash_fwd"] + defaults_launches["flash_fwd"],
                    max(r["max_abs_err_out"] for r in kernel_rows), score),
         kernel_row("flash_bwd", "slamkit_tpu_torch/ops/csrc/flash_bwd.cu",
                    "slamkit_tpu/ops/flash_attention.py:247",
@@ -4198,7 +4564,7 @@ def main() -> int:
                    + dpo_result["launches"]["flash_bwd"]
                    + sims_result["train_launches"]["flash_bwd"]
                    + data_result["launches"]["flash_bwd"]
-                   + settings_result["launches"]["flash_bwd"],
+                   + settings_result["launches"]["flash_bwd"] + defaults_launches["flash_bwd"],
                    max(max(r["max_abs_err"].values()) for r in backward_rows), bwd),
         dict(kernel_row("dq_matmul", "slamkit_tpu_torch/ops/csrc/dq_matmul.cu",
                         "slamkit_tpu/ops/quant.py:43", ["dq_gemv_kernel | dq_gemm_kernel"],
@@ -4212,13 +4578,14 @@ def main() -> int:
         dict(kernel_row("flash_fwd_f32", "slamkit_tpu_torch/ops/csrc/flash_fwd_f32.cu",
                         "slamkit_tpu/ops/flash_attention.py:124", ["flash_fwd_f32_kernel"],
                         sum(r["launches"]["flash_fwd_f32"] for r in genppl_runs)
-                        + f32_launches["flash_fwd_f32"],
+                        + f32_launches["flash_fwd_f32"] + defaults_launches["flash_fwd_f32"],
                         max(r["max_abs_err_out"] for r in f32_rows), f32),
              cuda_core_bound_ms=f32["cuda_core_bound_ms"]),
         dict(kernel_row("flash_bwd_f32", "slamkit_tpu_torch/ops/csrc/flash_bwd_f32.cu",
                         "slamkit_tpu/ops/flash_attention.py:247",
                         ["flash_bwd_f32_prep_kernel", "flash_bwd_f32_dkdv_kernel",
-                         "flash_bwd_f32_dq_kernel"], f32_launches["flash_bwd_f32"],
+                         "flash_bwd_f32_dq_kernel"],
+                        f32_launches["flash_bwd_f32"] + defaults_launches["flash_bwd_f32"],
                         max(max(r["max_abs_err"].values()) for r in f32_bwd_rows), f32_bwd),
              cuda_core_bound_ms=f32_bwd["cuda_core_bound_ms"])]}),
           flush=True)

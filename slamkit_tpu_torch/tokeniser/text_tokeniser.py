@@ -1,12 +1,18 @@
-"""A text tokeniser read from a local HF `tokenizer.json`, without transformers.
+"""A text tokeniser read from a local HF `tokenizer.json`, or from a GPT-2
+`vocab.json` + `merges.txt` pair, without transformers.
 
 The interleaving tokeniser of the JAX package wraps
 `transformers.AutoTokenizer.from_pretrained(text_tokeniser_path)`
 (`slamkit_tpu/tokeniser/interleaving_tokeniser.py:116-125`). The card's host
 has neither transformers nor tokenizers, so the port reads the directory's
 `tokenizer.json` (plus `tokenizer_config.json` and `special_tokens_map.json`
-where present) itself and gives exactly the surface the interleaving
-tokeniser uses: `add_tokens`, `convert_tokens_to_ids`, `len`, the pad / bos /
+where present) itself. A directory without `tokenizer.json` but with
+`vocab.json` and `merges.txt` (a GPT-2 slow tokenizer, as `facebook/opt-125m`,
+the shipped default of config/tokeniser/interleaved_hubert_25.yaml, ships)
+is converted as transformers' `GPT2Converter` converts it (`_gpt2_spec`), and
+then read as that tokenizer.json would be. Either way it gives exactly the
+surface the interleaving tokeniser uses: `add_tokens`,
+`convert_tokens_to_ids`, `len`, the pad / bos /
 eos ids, `__call__` over a list of strings (right or left pads,
 `return_tensors="np"`), `decode` and `batch_decode`; the generative metrics
 read Whisper's and the text LM's tokenizers with it too.
@@ -45,8 +51,9 @@ import numpy as np
 #: model_input_names of transformers' generic fast tokenizer; the named
 #: classes below return no token_type_ids
 _DEFAULT_INPUT_NAMES = ("input_ids", "token_type_ids", "attention_mask")
-_NO_TYPE_IDS_CLASSES = ("GPT2Tokenizer", "GPT2TokenizerFast", "Qwen2Tokenizer",
-                        "Qwen2TokenizerFast", "LlamaTokenizer", "LlamaTokenizerFast")
+_NO_TYPE_IDS_CLASSES = ("GPT2Tokenizer", "GPT2TokenizerFast", "GPTNeoXTokenizer",
+                        "GPTNeoXTokenizerFast", "Qwen2Tokenizer", "Qwen2TokenizerFast",
+                        "LlamaTokenizer", "LlamaTokenizerFast")
 
 #: the GPT-2 pre-tokenizer regex of the ByteLevel pre-tokenizer
 _GPT2_PATTERN = r"""'s|'t|'re|'ve|'m|'ll|'d| ?\p{L}+| ?\p{N}+| ?[^\s\p{L}\p{N}]+|\s+(?!\S)|\s+"""
@@ -390,6 +397,87 @@ def _token_content(value) -> Optional[str]:
     return value
 
 
+#: GPT2Tokenizer's special-token attributes, in the order transformers adds
+#: the ones missing from the vocabulary (ids after it, in this order)
+_SPECIAL_KEYS = ("bos_token", "eos_token", "unk_token", "sep_token", "pad_token",
+                 "cls_token", "mask_token")
+#: GPT2Tokenizer's defaults for the tokens its config leaves out
+_GPT2_DEFAULTS = {"bos_token": "<|endoftext|>", "eos_token": "<|endoftext|>",
+                  "unk_token": "<|endoftext|>", "tokenizer_class": "GPT2Tokenizer"}
+
+
+def _gpt2_spec(folder: str, config: dict) -> dict:
+    """The tokenizer.json that transformers builds from a GPT-2 slow
+    tokenizer's files (`GPT2Tokenizer` read by `GPT2Converter`): a byte-level
+    BPE over vocab.json with merges.txt's merges in file order (its first
+    line, the `#version` header, and its last, empty after the final
+    newline, dropped as `GPT2Tokenizer` drops them), no unk token; the
+    ByteLevel pre-tokenizer with the GPT-2 regex and the config's
+    `add_prefix_space`; the ByteLevel decoder; a post-processor prepending
+    the bos token when `add_bos_token` is true, else ByteLevel's. Added
+    tokens, in transformers' order: added_tokens.json's (non-special), then
+    the special tokens (those of `_SPECIAL_KEYS`, then
+    `additional_special_tokens`) where not yet added, each at its vocabulary
+    id or else at the next id. A special token given as a string is
+    normalized unless it is an additional one; one given as a dict keeps its
+    own flags. Fills `config` with GPT2Tokenizer's defaults for what it
+    leaves out."""
+    for k, v in _GPT2_DEFAULTS.items():
+        config.setdefault(k, v)
+    with open(os.path.join(folder, "vocab.json"), encoding="utf-8") as f:
+        vocab: Dict[str, int] = json.load(f)
+    with open(os.path.join(folder, "merges.txt"), encoding="utf-8") as f:
+        lines = f.read().split("\n")[1:-1]
+    merges = [m.split() for m in lines if m.split()]
+    added: Dict[str, dict] = {}
+    next_id = max(vocab.values(), default=-1) + 1
+
+    def add(content: str, special: bool, normalized: bool, token_id: Optional[int] = None,
+            flags: Optional[dict] = None):
+        nonlocal next_id
+        if content in added:
+            return
+        if token_id is None:
+            token_id = vocab.get(content, next_id)
+        next_id = max(next_id, token_id + 1)
+        entry = {"id": int(token_id), "content": content, "single_word": False,
+                 "lstrip": False, "rstrip": False, "normalized": normalized,
+                 "special": special}
+        entry.update({k: v for k, v in (flags or {}).items() if k in entry and k != "id"})
+        added[content] = entry
+
+    added_json = os.path.join(folder, "added_tokens.json")
+    if os.path.isfile(added_json):
+        with open(added_json, encoding="utf-8") as f:
+            for content, token_id in sorted(json.load(f).items(), key=lambda kv: kv[1]):
+                add(content, False, True, token_id)
+    specials = [(config.get(k), True) for k in _SPECIAL_KEYS]
+    specials += [(t, False) for t in config.get("additional_special_tokens", [])]
+    for tok, named in specials:
+        if tok is None:
+            continue
+        if isinstance(tok, dict):
+            add(tok["content"], True, bool(tok.get("normalized", named)), flags=tok)
+        else:
+            add(tok, True, named)
+    bos = _token_content(config["bos_token"])
+    if config.get("add_bos_token", False):
+        post = {"type": "TemplateProcessing",
+                "single": [{"SpecialToken": {"id": bos, "type_id": 0}},
+                           {"Sequence": {"id": "A", "type_id": 0}}],
+                "special_tokens": {bos: {"id": bos, "ids": [added[bos]["id"]],
+                                         "tokens": [bos]}}}
+    else:
+        post = {"type": "ByteLevel", "trim_offsets": False}
+    return {"added_tokens": sorted(added.values(), key=lambda a: a["id"]),
+            "normalizer": None,
+            "pre_tokenizer": {"type": "ByteLevel",
+                              "add_prefix_space": bool(config.get("add_prefix_space", False)),
+                              "use_regex": True},
+            "post_processor": post, "decoder": {"type": "ByteLevel"},
+            "model": {"type": "BPE", "vocab": vocab, "merges": merges, "unk_token": None}}
+
+
 class TextTokeniser:
     """A tokenizer.json with the part of the transformers tokenizer surface
     the interleaving tokeniser uses."""
@@ -425,21 +513,26 @@ class TextTokeniser:
 
     @classmethod
     def from_pretrained(cls, path: str) -> "TextTokeniser":
-        """Read a local directory (or a tokenizer.json file)."""
+        """Read a local directory (or a tokenizer.json file): its
+        tokenizer.json, or else its GPT-2 vocab.json + merges.txt."""
         tok_file = path if os.path.isfile(path) else os.path.join(path, "tokenizer.json")
-        if not os.path.isfile(tok_file):
-            raise FileNotFoundError(
-                f"no tokenizer.json at {path!r}: the text tokeniser is read from a local "
-                f"directory holding tokenizer.json (nothing is downloaded)")
-        with open(tok_file, encoding="utf-8") as f:
-            spec = json.load(f)
-        config: dict = {}
         folder = os.path.dirname(tok_file)
+        config: dict = {}
         for name in ("tokenizer_config.json", "special_tokens_map.json"):
             p = os.path.join(folder, name)
             if os.path.isfile(p):
                 with open(p, encoding="utf-8") as f:
                     config.update({k: v for k, v in json.load(f).items() if v is not None})
+        if os.path.isfile(tok_file):
+            with open(tok_file, encoding="utf-8") as f:
+                spec = json.load(f)
+        elif all(os.path.isfile(os.path.join(folder, n)) for n in ("vocab.json", "merges.txt")):
+            spec = _gpt2_spec(folder, config)
+        else:
+            raise FileNotFoundError(
+                f"no tokenizer.json, and no vocab.json + merges.txt, at {path!r}: the text "
+                f"tokeniser is read from a local directory holding tokenizer.json or a GPT-2 "
+                f"vocab.json and merges.txt (nothing is downloaded)")
         return cls(spec, config)
 
     # -- vocabulary ---------------------------------------------------------------

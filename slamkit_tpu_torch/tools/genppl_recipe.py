@@ -192,11 +192,15 @@ def whisper_state_dict(arch: dict, vocab: int = WHISPER_VOCAB, seed: int = 0
     return sd
 
 
-def write_whisper_dir(folder, tiny: bool = False, seed: int = 0) -> str:
-    """The Whisper checkpoint directory (see the module's docstring)."""
+def write_whisper_dir(folder, tiny: bool = False, seed: int = 0,
+                      encoder_layers: int = None) -> str:
+    """The Whisper checkpoint directory (see the module's docstring);
+    `encoder_layers` cuts the encoder's depth and keeps every width."""
     folder = pathlib.Path(folder)
     folder.mkdir(parents=True, exist_ok=True)
-    arch = WHISPER_TINY if tiny else WHISPER_TURBO
+    arch = dict(WHISPER_TINY if tiny else WHISPER_TURBO)
+    if encoder_layers is not None:
+        arch["encoder_layers"] = encoder_layers
     eos, start = 50257, 50258
     config = {"architectures": ["WhisperForConditionalGeneration"], "model_type": "whisper",
               "activation_function": "gelu", "vocab_size": WHISPER_VOCAB,
@@ -290,11 +294,14 @@ def llama_state_dict(arch: dict, vocab: int = LLAMA_VOCAB, seed: int = 1
     return sd
 
 
-def write_llama_dir(folder, tiny: bool = False, seed: int = 1) -> str:
-    """The text LM's directory (see the module's docstring)."""
+def write_llama_dir(folder, tiny: bool = False, seed: int = 1, num_layers: int = None) -> str:
+    """The text LM's directory (see the module's docstring); `num_layers`
+    cuts the depth and keeps every width."""
     folder = pathlib.Path(folder)
     folder.mkdir(parents=True, exist_ok=True)
-    arch = LLAMA_TINY if tiny else LLAMA_1B
+    arch = dict(LLAMA_TINY if tiny else LLAMA_1B)
+    if num_layers is not None:
+        arch["num_hidden_layers"] = num_layers
     config = {"architectures": ["LlamaForCausalLM"], "model_type": "llama",
               "attention_bias": False, "attention_dropout": 0.0, "bos_token_id": LLAMA_BPE,
               "eos_token_id": LLAMA_BPE + 1, "hidden_act": "silu", "initializer_range": 0.02,

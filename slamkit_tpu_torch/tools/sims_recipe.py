@@ -19,7 +19,22 @@
   * `write_text_prompts(folder, n)` — single-line `.txt` prompts;
   * `write_textless_vocoder(root, cfg)` — `vocoder=vocoder_hubert_25`'s two
     files (a CodeHiFiGAN of `cfg`'s widths, seeded random weights, in the
-    textless layout) for $TEXTLESS_CHECKPOINT_ROOT.
+    textless layout) for $TEXTLESS_CHECKPOINT_ROOT;
+  * `write_gpt2_bpe_files(folder)` — the shipped default text tokeniser's
+    layout (`facebook/opt-125m`, config/tokeniser/interleaved_hubert_25.yaml):
+    a GPT-2 `vocab.json` of 50265 ids (`<s>`, `<pad>`, `</s>`, `<unk>` at
+    0-3, then a seeded byte-level BPE) with its `merges.txt`, OPT's
+    `tokenizer_config.json` (GPT2Tokenizer, add_bos_token) and
+    `special_tokens_map.json`, and no tokenizer.json;
+  * `write_opt125m_base(folder)` — those files beside facebook/opt-125m's
+    config.json (config/model/default.yaml's base): `cli.train` reads the
+    interleaving text tokeniser from the base model's directory;
+  * `write_pythia14m_base(folder)` — config/train_inter_scale.yaml's base,
+    `EleutherAI/pythia-14m`: its config.json from the preset's published
+    widths and a GPT-NeoX-shaped byte-level tokenizer.json of 50277 ids.
+
+Neither BPE needs the tokenizers package: the vocabularies and merges come
+from `genppl_recipe.random_bpe` (real sizes and ids, random strings).
 """
 from __future__ import annotations
 
@@ -29,7 +44,42 @@ import pathlib
 
 import numpy as np
 
+from ..models.presets import PRESETS
+
 SPECIALS = ("<pad>", "<s>", "</s>", "<unk>")
+#: OPT-125m's vocab.json: its four specials, then 50261 byte-level BPE entries
+OPT_SPECIALS = ("<s>", "<pad>", "</s>", "<unk>")
+OPT_VOCAB = 50265
+#: GPT-NeoX-20B's tokenizer (pythia's): 50254 BPE entries (two specials
+#: among them) and 23 added runs of 24 down to 2 spaces
+NEOX_BPE, NEOX_VOCAB = 50254, 50277
+
+
+_OPT, _PYTHIA = PRESETS["facebook/opt-125m"], PRESETS["EleutherAI/pythia-14m"]
+
+
+def _hf_widths(p: dict, ffn_key: str = "intermediate_size") -> dict:
+    """config.json's width fields of a preset (models/presets.py)."""
+    return {"hidden_size": p["hidden_size"], "num_hidden_layers": p["num_layers"],
+            "num_attention_heads": p["num_heads"], ffn_key: p["intermediate_size"],
+            "vocab_size": p["vocab_size"],
+            "max_position_embeddings": p["max_position_embeddings"],
+            "tie_word_embeddings": p["tie_word_embeddings"]}
+
+
+#: facebook/opt-125m's config.json (the preset's published widths)
+OPT125M_CONFIG = dict(model_type="opt", architectures=["OPTForCausalLM"],
+                      **_hf_widths(_OPT, ffn_key="ffn_dim"), do_layer_norm_before=True,
+                      word_embed_proj_dim=_OPT["hidden_size"], activation_function="relu",
+                      enable_bias=True, pad_token_id=1, bos_token_id=2, eos_token_id=2,
+                      torch_dtype="float16")
+#: EleutherAI/pythia-14m's config.json (the preset's published widths)
+PYTHIA14M_CONFIG = dict(model_type="gpt_neox", architectures=["GPTNeoXForCausalLM"],
+                        **_hf_widths(_PYTHIA), hidden_act="gelu",
+                        rotary_pct=_PYTHIA["rotary_pct"], rotary_emb_base=10000,
+                        use_parallel_residual=_PYTHIA["parallel_residual"],
+                        layer_norm_eps=_PYTHIA["norm_eps"], bos_token_id=0, eos_token_id=0,
+                        initializer_range=0.02, torch_dtype="float16")
 #: Qwen2.5's tokenizer length: 151643 BPE entries and 22 added tokens
 QWEN25_VOCAB = 151665
 N_UNITS = 500
@@ -217,3 +267,93 @@ def write_textless_vocoder(root, cfg: dict, seed: int = 2) -> str:
     with open(root / CHECKPOINTS[f"{name}-config"], "w") as f:
         json.dump(cfg, f)
     return str(root)
+
+
+def _shifted_bpe(first_id: int, n_entries: int, seed: int) -> tuple:
+    """`random_bpe`'s vocabulary of `n_entries` ids moved up to start at
+    `first_id`, and its merges as pairs."""
+    from .genppl_recipe import random_bpe
+
+    vocab, merges = random_bpe(n_entries, seed)
+    return ({t: first_id + i for t, i in vocab.items()},
+            [m.split(" ") for m in merges])
+
+
+def write_gpt2_bpe_files(folder, n_merges: int = OPT_VOCAB - len(OPT_SPECIALS) - 256,
+                         seed: int = 0) -> str:
+    """folder/vocab.json, merges.txt, tokenizer_config.json and
+    special_tokens_map.json as facebook/opt-125m ships them: `<s>`, `<pad>`,
+    `</s>`, `<unk>` at ids 0-3, the 256 byte symbols, `n_merges` seeded
+    merges (their parts already in the vocabulary), then where n_merges is
+    smaller unreachable entries up to 50265 ids; GPT2Tokenizer with
+    bos / eos / unk `</s>`, pad `<pad>`, add_bos_token true and
+    add_prefix_space false. No tokenizer.json."""
+    folder = pathlib.Path(folder)
+    folder.mkdir(parents=True, exist_ok=True)
+    vocab, merges = _shifted_bpe(len(OPT_SPECIALS), 256 + n_merges, seed)
+    vocab.update({t: i for i, t in enumerate(OPT_SPECIALS)})
+    for i in range(len(vocab), OPT_VOCAB):
+        vocab[f"<fill{i}>"] = i
+    assert len(vocab) == OPT_VOCAB == max(vocab.values()) + 1
+    with open(folder / "vocab.json", "w", encoding="utf-8") as f:
+        json.dump(vocab, f, ensure_ascii=False)
+    with open(folder / "merges.txt", "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+    special = {"bos_token": "</s>", "eos_token": "</s>", "unk_token": "</s>",
+               "pad_token": "<pad>"}
+    with open(folder / "tokenizer_config.json", "w") as f:
+        json.dump({"errors": "replace", **special, "add_prefix_space": False,
+                   "add_bos_token": True, "model_max_length": 1000000000000000019884624838656,
+                   "tokenizer_class": "GPT2Tokenizer"}, f, indent=2)
+    with open(folder / "special_tokens_map.json", "w") as f:
+        json.dump(special, f, indent=2)
+    return str(folder)
+
+
+def write_opt125m_base(folder, seed: int = 0) -> str:
+    """folder/config.json of facebook/opt-125m (`OPT125M_CONFIG`) beside
+    `write_gpt2_bpe_files`' tokenizer files."""
+    write_gpt2_bpe_files(folder, seed=seed)
+    with open(pathlib.Path(folder) / "config.json", "w") as f:
+        json.dump(OPT125M_CONFIG, f, indent=2)
+    return str(folder)
+
+
+def write_pythia14m_base(folder, seed: int = 4) -> str:
+    """folder/config.json of EleutherAI/pythia-14m (`PYTHIA14M_CONFIG`) and
+    its GPT-NeoX-shaped tokenizer: a tokenizer.json of `<|endoftext|>` and
+    `<|padding|>` at ids 0-1, a seeded byte-level BPE up to 50254 ids and
+    23 added runs of 24 down to 2 spaces (50254-50276); NFC, ByteLevel
+    pre-tokenizer, post-processor and decoder; bos / eos / unk
+    `<|endoftext|>`, no pad; GPTNeoXTokenizer (no token_type_ids)."""
+    folder = pathlib.Path(folder)
+    folder.mkdir(parents=True, exist_ok=True)
+    specials = ["<|endoftext|>", "<|padding|>"]
+    vocab, merges = _shifted_bpe(len(specials), NEOX_BPE - len(specials), seed)
+    vocab.update({t: i for i, t in enumerate(specials)})
+    added = [{"id": i, "content": t, "single_word": False, "lstrip": False, "rstrip": False,
+              "normalized": False, "special": True} for i, t in enumerate(specials)]
+    added += [{"id": NEOX_BPE + i, "content": " " * (24 - i), "single_word": False,
+               "lstrip": False, "rstrip": False, "normalized": True, "special": False}
+              for i in range(NEOX_VOCAB - NEOX_BPE)]
+    byte_level = {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True,
+                  "use_regex": True}
+    spec = {"version": "1.0", "truncation": None, "padding": None, "added_tokens": added,
+            "normalizer": {"type": "NFC"}, "pre_tokenizer": byte_level,
+            "post_processor": byte_level, "decoder": byte_level,
+            "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                      "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                      "fuse_unk": False, "byte_fallback": False,
+                      "vocab": vocab, "merges": [f"{a} {b}" for a, b in merges]}}
+    with open(folder / "tokenizer.json", "w", encoding="utf-8") as f:
+        json.dump(spec, f, ensure_ascii=False)
+    special = {k: "<|endoftext|>" for k in ("bos_token", "eos_token", "unk_token")}
+    with open(folder / "tokenizer_config.json", "w") as f:
+        json.dump({**special, "add_prefix_space": False, "clean_up_tokenization_spaces": False,
+                   "model_max_length": 1000000000000000019884624838656,
+                   "tokenizer_class": "GPTNeoXTokenizer"}, f, indent=2)
+    with open(folder / "special_tokens_map.json", "w") as f:
+        json.dump(special, f, indent=2)
+    with open(folder / "config.json", "w") as f:
+        json.dump(PYTHIA14M_CONFIG, f, indent=2)
+    return str(folder)

@@ -183,6 +183,28 @@ def test_kernels_match_plain_at_sims_rows(dev, direction):
         assert all(torch.equal(x, y) for x, y in zip(got, again))
 
 
+# head dims the kernels are not built for run zero-padded to 64 or 128:
+# pythia-14m's 4 heads of 32 (config/train_inter_scale.yaml) at its context
+# 2048, and d = 80; all four kernels, each against its plain version under
+# its own bounds, and each call repeated bitwise
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,hkv,t,d", [(8, 4, 4, 2048, 32), (2, 8, 2, 300, 80)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_padded_head_dims_match_plain(dev, b, h, hkv, t, d, causal):
+    _compare(dev, b, h, hkv, t, d, causal, "sims")
+    q, k, v = _inputs(dev, b, h, hkv, t, d, seed=t + d)
+    seg = _segments("sims", b, t, seed=t).to(dev)
+    first = flash_attention_fwd(q, k, v, segment_ids=seg, causal=causal)
+    again = flash_attention_fwd(q, k, v, segment_ids=seg, causal=causal)
+    assert first[0].shape == q.shape and first[0].is_contiguous()
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+    got = _compare_bwd(dev, b, h, hkv, t, d, causal, "sims")
+    assert all(torch.equal(x, y) for x, y in zip(got, _compare_bwd(dev, b, h, hkv, t, d,
+                                                                    causal, "sims")))
+    _compare_f32(dev, b, h, hkv, t, d, "sims", causal=causal)
+    _compare_bwd_f32(dev, b, h, hkv, t, d, causal, "sims")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,hkv,t,d", [(8, 14, 2, 1024, 64), (8, 7, 1, 1024, 128)])
 def test_kernel_is_deterministic(dev, b, h, hkv, t, d):
@@ -287,9 +309,9 @@ def test_kernel_refuses_what_it_does_not_take(dev):
         flash_attention(q.half(), k.half(), v.half())
     with pytest.raises(TypeError, match="bfloat16"):
         flash_attention(q.float(), k, v)
-    with pytest.raises(ValueError, match="head dim"):
-        flash_attention(q[..., :32].contiguous(), k[..., :32].contiguous(),
-                        v[..., :32].contiguous())
+    with pytest.raises(ValueError, match="up to 128"):   # zero-padded up to 128, no further
+        wide = lambda x: torch.cat([x, x, x[..., :32]], -1)
+        flash_attention(wide(q), wide(k), wide(v))
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
 
@@ -407,8 +429,8 @@ def test_backward_kernel_refuses_what_it_does_not_take(dev):
         flash_attention_bwd(q.half(), k.half(), v.half(), out.half(), lse, out.half())
     with pytest.raises(TypeError, match="bfloat16"):
         flash_attention_bwd(q.float(), k, v, out, lse, out)
-    with pytest.raises(ValueError, match="head dim"):
-        s = lambda x: x[..., :32].contiguous()
+    with pytest.raises(ValueError, match="up to 128"):   # zero-padded up to 128, no further
+        s = lambda x: torch.cat([x, x, x[..., :32]], -1)
         flash_attention_bwd(s(q), s(k), s(v), s(out), lse, s(out))
     with pytest.raises(ValueError, match="must be on"):
         flash_attention_bwd(q, k, v, out, lse.cpu(), out)

@@ -16,6 +16,7 @@ instruction texts and scores exactly.
 """
 import json
 import os
+import pathlib
 
 import numpy as np
 import pytest
@@ -79,6 +80,31 @@ def test_llm_config_is_llama_1b_at_full_width(tmp_path):
     for k in ("hidden_size", "num_layers", "num_heads", "num_kv_heads", "head_dim",
               "intermediate_size", "vocab_size", "rope_theta", "tie_word_embeddings"):
         assert getattr(got, k) == want[k], k
+
+
+def test_depth_cut_keeps_the_widths(tmp_path):
+    """`encoder_layers` / `num_layers` cut only the depth (phase 16 writes
+    whisper-large-v3-turbo and Llama-3.2-1B so): every other config field
+    and every weight shape stay the uncut directory's."""
+    from slamkit_tpu_torch.utils.safetensors import read_safetensors
+
+    def written(write, name, **cut):
+        folder = pathlib.Path(write(tmp_path / name, tiny=True, **cut))
+        return (json.loads((folder / "config.json").read_text()),
+                {k: v.shape for k, v in
+                 read_safetensors(str(folder / "model.safetensors")).items()})
+
+    for write, key, cut, layer in (
+            (genppl_recipe.write_whisper_dir, "encoder_layers", "encoder_layers",
+             "model.encoder.layers."),
+            (genppl_recipe.write_llama_dir, "num_hidden_layers", "num_layers",
+             "model.layers.")):
+        full_cfg, full = written(write, f"{key}_full")
+        cfg, got = written(write, f"{key}_cut", **{cut: 1})
+        assert full_cfg[key] == 2 and cfg[key] == 1
+        assert {k: v for k, v in cfg.items() if v != full_cfg[k]} == {
+            k: 1 for k in (key, "num_hidden_layers")}
+        assert got == {k: v for k, v in full.items() if not k.startswith(layer + "1.")}
 
 
 def test_get_llm_raises_without_weights(dirs, tmp_path):

@@ -10,7 +10,12 @@ text-tokeniser directory and the same seeds, on the CPU.
   * `tokenise` of GenerationInput lists whose speech segments of mixed
     lengths go through a tiny HuBERT carried across as
     `tests/test_torch_hubert.py` carries it: unit strings and ids equal;
-  * the factory builds it from `config/tokeniser/interleaved_hubert_25.yaml`.
+  * the factory builds it from `config/tokeniser/interleaved_hubert_25.yaml`;
+  * on GPT-2 `vocab.json` + `merges.txt` directories (facebook/opt-125m's
+    layout, the YAML's default; test_torch_text_tokeniser.py's trained BPE
+    both ways of add_bos_token / add_prefix_space, and
+    `sims_recipe.write_gpt2_bpe_files`' 50265 ids): train-mode strings,
+    their ids, `tokenise`, `build_prompt` and the ignore lists.
 Everything is compared exactly: the same numpy draws, the same strings and
 the same ids.
 """
@@ -205,3 +210,38 @@ def test_factory_builds_it_from_the_config(base):
                                                                                  0.3)
     assert tok.num_units == 500 and len(tok.text_tokeniser) == N_WORDS + 4 + 502
     assert tok.speech_fe.get_unit_duration() == 0.04
+
+
+@pytest.mark.parametrize("kind", ["gpt2_files", "gpt2_files_prefix", "gpt2_written"])
+def test_bpe_files_directory_equals_jax(tmp_path, kind):
+    from test_torch_text_tokeniser import _build
+
+    path = _build(kind, tmp_path)
+    port, ref = _pair(path, interleave_method="poisson", interleave_span=4,
+                      interleave_prob=0.3, interleave_seed=7)
+    assert len(port.text_tokeniser) == len(ref.text_tokeniser)
+    assert port.pad_token_id == 0 == ref.text_tokeniser.pad_token_id
+    reps = _reps(seed=4)
+    got = port.stringify_representation(reps, mode="train")
+    assert got == ref.stringify_representation(reps, mode="train")
+    assert any("<speech>" in s and "<text>" in s for s in got)
+    assert port.prepare_batch([{"audio_repr": s} for s in got]) == \
+        ref.prepare_batch([{"audio_repr": s} for s in got])
+    for mod in ("SPEECH", "TEXT", None):
+        assert port.get_ignore_tokens(mod) == ref.get_ignore_tokens(mod)
+    rng = np.random.default_rng(8)
+    wav = rng.standard_normal((2, 32000)).astype(np.float32)
+    lens = np.array([32000, 16000])
+    g, w = port.tokenise(wav, lens), ref.tokenise(wav, lens)
+    for key in ("input_ids", "attention_mask"):
+        np.testing.assert_array_equal(g[key], w[key], err_msg=key)
+    inputs = [[("TEXT", "w1 w22, naïve café 3,000"), ("SPEECH", wav[0, :9600])],
+              [("SPEECH", wav[1]), ("TEXT", "w9!")]]
+    ref.text_tokeniser.padding_side = "left"      # as the JAX SpeechLM sets it
+    for mod in ("SPEECH", "TEXT", None):
+        g, w = port.build_prompt(inputs, output_modality=mod), \
+            ref.build_prompt(inputs, output_modality=mod)
+        for key in g:
+            np.testing.assert_array_equal(g[key], w[key], err_msg=f"{mod} {key}")
+    ids = rng.integers(0, len(ref.text_tokeniser), 40)
+    assert port.decode_sample(ids, "TEXT") == ref.decode_sample(ids, "TEXT")

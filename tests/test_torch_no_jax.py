@@ -248,6 +248,61 @@ print("LOADED", bad)
 """
 
 
+# the smoke's phases 9, 10 and 16 at tiny widths, phase 16 at the shipped
+# bases' own widths where the CPU takes them: train_inter_scale on pythia-14m
+# (6 x 128, 4 heads of 32) through its tokenizer.json, bf16 settings resumed
+# bit for bit and float32; float32 SIMS on the tiny Qwen2 base; stage 2
+# through GPT-2 vocab.json + merges.txt; sstorycloze, generate (null, SPEECH,
+# TEXT) and asr_perplexity through the interleaving tokeniser
+_NO_JAX_SIMS_DEFAULTS = _BLOCKER + r"""
+import pathlib
+import torch
+sys.path.insert(0, os.getcwd())
+import chip_smoke
+from slamkit_tpu_torch.feature_extractor import HubertConfig
+
+torch.set_num_threads(1)
+narrow = ["model.config_args.torch_dtype=float32"] + [
+    f"+model.config_args.{k}={v}" for k, v in dict(
+        num_hidden_layers=2, hidden_size=64, num_attention_heads=4, num_key_value_heads=2,
+        head_dim=16, intermediate_size=128).items()]
+hcfg = HubertConfig(conv_dim=(32,) * 3, conv_kernel=(10, 3, 2), conv_stride=(5, 2, 2),
+                    hidden_size=32, num_hidden_layers=3, num_attention_heads=2,
+                    intermediate_size=64, num_conv_pos_embeddings=8,
+                    num_conv_pos_embedding_groups=4)
+vcfg = {**chip_smoke.CODEHIFIGAN_CFG, "model_in_dim": 16, "embedding_dim": 16,
+        "upsample_initial_channel": 16, "upsample_rates": [4, 2],
+        "upsample_kernel_sizes": [8, 4], "resblock_kernel_sizes": [3, 5],
+        "resblock_dilation_sizes": [[1, 3], [1, 3]],
+        "dur_predictor_params": {"encoder_embed_dim": 16, "var_pred_hidden_dim": 16,
+                                 "var_pred_kernel_size": 3}}
+cpu = torch.device("cpu")
+with tempfile.TemporaryDirectory() as d:
+    d = pathlib.Path(d)
+    chip_smoke.run_cli(cpu, "cpu", d, model_overrides=narrow, hubert_cfg=hcfg, n_rows=24,
+                       lengths=(10, 40), context=64, batch=2, accum=1, n_pairs=2,
+                       seconds=(0.3, 0.5))
+    chip_smoke.run_dpo(cpu, "cpu", d, hubert_cfg=hcfg, n_triples=1,
+                       triple_seconds=(0.3, (0.2, 0.3)), n_train=2, n_val=1, batch=1,
+                       prompt_len=10, completion_len=5, steps=2)
+    r = chip_smoke.run_sims_defaults(cpu, "cpu", d, tiny=True, n_rows=12, lengths=(30, 90),
+                                     context=128, batch=2, qwen_entries=804, qwen_batch=2,
+                                     qwen_accum=2, cpu_tokens=32, hubert_cfg=hcfg,
+                                     voc_cfg=vcfg, n_stories=2, story_seconds=(0.3, 0.4),
+                                     n_prompts=2, max_new_tokens=3)
+    assert r["resume_exact"] and r["bfloat16"]["layers"] == 6, r
+    assert r["launches"] == dict.fromkeys(r["launches"], 0), r
+    assert r["qwen_f32"]["card_vs_cpu"]["loss_rel_err"] == 0.0, r
+    assert r["stage2"]["vocab"] == 50265 + 502 and r["stage2"]["lines"] == 4, r
+    assert sorted(r["metrics"]) == ["asr_perplexity", "generate_SPEECH", "generate_TEXT",
+                                    "generate_null", "sstorycloze"], r
+    assert all(m["finite"] for m in r["metrics"].values()), r
+    assert not (d / "sims_defaults").exists()
+bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+print("LOADED", bad)
+"""
+
+
 # the smoke's phases 9 and 12 at tiny widths: GenPPL and the judge through
 # cli.eval, on phase 9's checkpoint, HuBERT directory and WAVs
 _NO_JAX_GENPPL = _BLOCKER + r"""
@@ -353,6 +408,16 @@ def test_sims_path_runs_without_jax_transformers_or_tokenizers():
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "LOADED []" in proc.stdout, proc.stdout[-2000:]
     assert "cli.eval metric=cm_ms_tsc: StoryCloze" in proc.stdout
+
+
+def test_sims_defaults_run_without_jax_transformers_or_tokenizers():
+    proc = _run([sys.executable, "-c", _NO_JAX_SIMS_DEFAULTS], cwd=ROOT, timeout=400)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "LOADED []" in proc.stdout, proc.stdout[-2000:]
+    out = proc.stdout
+    assert "train_inter_scale resumed from checkpoint-1" in out
+    assert "stage 2 through vocab.json + merges.txt" in out
+    assert "cli.eval asr_perplexity through the interleaving tokeniser" in out
 
 
 def test_genppl_path_runs_without_jax_transformers_nltk_or_openai():

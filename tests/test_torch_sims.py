@@ -19,7 +19,17 @@ tokenizer of 64 entries written by `tools/sims_recipe.py`).
     `metric=cm_generate`, greedy, TEXT->SPEECH through
     `vocoder=vocoder_hubert_25` and SPEECH->TEXT with `.txt` outputs: every
     log-likelihood within 1e-4 absolute, the printed score equal, every
-    generated id equal, the waveforms within 1e-4 and the text files equal.
+    generated id equal, the waveforms within 1e-4 and the text files equal;
+  * the non-cross-modal metrics through the interleaving tokeniser, as the
+    JAX eval CLI sends every one of them through the tokeniser the config
+    names: swuggy_inter, sblimp, salmon, sstorycloze and tstorycloze with
+    `used_token_modality` null and SPEECH (every log-likelihood finite and
+    within 1e-4, the printed scores equal); `metric=generate` with null,
+    SPEECH and TEXT (greedy: the same ids, waveforms within 1e-4, text
+    files equal); `metric=asr_perplexity` through `tools/genppl_recipe.py`'s
+    tiny Whisper and Llama directories on both packages' own stacks (the
+    same ids and transcripts, every text NLL within 1e-5, the printed
+    perplexity within 1e-4 relative, auto-BLEU equal).
 """
 import importlib.util
 import json
@@ -339,11 +349,13 @@ def test_eval_cli_cm_storycloze_matches_jax(eval_files, monkeypatch, capsys):
 @pytest.fixture(scope="module")
 def modelling_files(eval_files):
     """Eight WAVs of 0.3-0.7 s in each modelling metric's layout: sWUGGY's
-    `<i>_w.wav` and sBLIMP's `<i>+p.wav` (consecutive files pair up), and
-    one SALMon part of `s_<idx>_<j>.wav` pairs."""
+    `<i>_w.wav`, sBLIMP's `<i>+p.wav` and spoken and text StoryCloze's
+    `<i>_s.wav` (consecutive files pair up), and one SALMon part of
+    `s_<idx>_<j>.wav` pairs."""
     rng = np.random.default_rng(11)
     layout = {"swuggy": lambda i: f"swuggy/{i}_w.wav", "sblimp": lambda i: f"sblimp/{i}+p.wav",
-              "salmon": lambda i: f"salmon/gender_consistency/s_{i // 2}_{i % 2}.wav"}
+              "salmon": lambda i: f"salmon/gender_consistency/s_{i // 2}_{i % 2}.wav",
+              "sSC": lambda i: f"sSC/{i}_s.wav", "tSC": lambda i: f"tSC/{i}_s.wav"}
     for name in layout.values():
         for i in range(8):
             path = eval_files / "modelling" / name(i)
@@ -361,6 +373,8 @@ def modelling_files(eval_files):
     ("swuggy_inter", ("metric.data_path={d}/swuggy", "metric.subfolder=false")),
     ("sblimp", ("metric.data_path={d}/sblimp", "metric.subfolder=false")),
     ("salmon", ("metric.data_path={d}/salmon", "metric.parts=[gender_consistency/]")),
+    ("sstorycloze", ("metric.data_path={d}/sSC",)),
+    ("tstorycloze", ("metric.data_path={d}/tSC",)),
 ])
 def test_eval_cli_modelling_metrics_interleaved_match_jax(modelling_files, monkeypatch, capsys,
                                                           metric, extra, modality):
@@ -385,6 +399,137 @@ def test_eval_cli_modelling_metrics_interleaved_match_jax(modelling_files, monke
         np.testing.assert_allclose(a, b, atol=1e-4)
     lines = lambda out: [ln for ln in out.splitlines() if ln.split(":")[0] in res]
     assert lines(port_out) == lines(jax_out) == [f"{k}: {v}" for k, v in res.items()]
+
+
+def _local_vocoder(monkeypatch, root):
+    """Both packages' CHECKPOINT_MANAGER read vocoder_hubert_25's files from
+    `root`; the JAX one may not download."""
+    from slamkit_tpu.vocoder import checkpoint_manager as jax_ckpt
+    from slamkit_tpu_torch.vocoder import checkpoint_manager as port_ckpt
+
+    for mgr in (port_ckpt.CHECKPOINT_MANAGER, jax_ckpt.CHECKPOINT_MANAGER):
+        monkeypatch.setattr(mgr, "disk_root", root.resolve())
+
+    def no_download(*args, **kwargs):
+        raise AssertionError("the vocoder files must be local")
+
+    monkeypatch.setattr(jax_ckpt.CHECKPOINT_MANAGER, "download_by_name", no_download)
+
+
+def _same_outputs(port_dir, jax_dir, n):
+    files = sorted(p.name for p in port_dir.iterdir())
+    assert files == sorted(p.name for p in jax_dir.iterdir()) and len(files) == n
+    for f in files:
+        if f.endswith(".txt"):
+            assert (port_dir / f).read_text() == (jax_dir / f).read_text()
+        else:
+            from slamkit_tpu_torch.utils.audio import load_audio
+
+            np.testing.assert_allclose(load_audio(str(port_dir / f)),
+                                       load_audio(str(jax_dir / f)), atol=1e-4)
+
+
+GREEDY = ("metric.generate_kwargs.max_new_tokens=8", "metric.generate_kwargs.do_sample=false")
+
+
+@pytest.mark.parametrize("modality", [None, "SPEECH", "TEXT"])
+def test_eval_cli_generate_interleaved_matches_jax(modelling_files, monkeypatch, modality):
+    """`metric=generate` (speech prompts) through the interleaving tokeniser:
+    null and SPEECH continue in units and vocode, TEXT continues in text ids
+    and writes `.txt` files; the same greedy ids on both sides."""
+    from slamkit_tpu.models.unit_lm import UnitLM as JaxUnitLM
+    from slamkit_tpu_torch.cli import eval as port_eval
+    from slamkit_tpu_torch.models import UnitLM
+
+    _local_vocoder(monkeypatch, modelling_files / "textless")
+    ids = {"port": [], "jax": []}
+    _recording(monkeypatch, UnitLM, "generate", ids["port"])
+    _recording(monkeypatch, JaxUnitLM, "generate", ids["jax"])
+    outs, results = {}, {}
+    for name, run in (("port", port_eval.eval_main), ("jax", _jax_cli("eval").eval_main)):
+        outs[name] = modelling_files / f"generate_{name}_{modality}"
+        results[name] = run(_eval_overrides(
+            modelling_files, "metric=generate",
+            f"metric.data_path={modelling_files / 'modelling' / 'swuggy'}/*.wav",
+            f"metric.used_token_modality={modality or 'null'}", "metric.num_files=4",
+            "metric.prompt_length=0.3", *GREEDY, f"metric.out_path={outs[name]}",
+            "vocoder=vocoder_hubert_25"))
+    assert len(ids["port"]) == len(ids["jax"]) == 2                  # batches of 3 and 1
+    for a, b in zip(ids["port"], ids["jax"]):
+        np.testing.assert_array_equal(a, b)
+    new = np.concatenate([a[:, -8:].ravel() for a in ids["port"]])
+    units = (new >= N_ENTRIES) & (new < N_ENTRIES + 500)
+    specials = np.isin(new, [0, 1, 2])                              # pad / bos / eos
+    assert (units | specials).all() if modality != "TEXT" else not units.any()
+    gen = results["port"]["generate"]
+    assert len(gen) == 4
+    assert all(isinstance(g, str) for g in gen) == (modality == "TEXT")
+    _same_outputs(outs["port"], outs["jax"], sum(np.size(g) > 0 for g in gen))
+
+
+def test_eval_cli_asr_perplexity_interleaved_matches_jax(modelling_files, monkeypatch, capsys):
+    """`metric=asr_perplexity` through the interleaving tokeniser: SPEECH
+    continuations vocoded, transcribed by the tiny Whisper and scored by the
+    tiny Llama, each package on its own stack (`asr_backend` / `llm_backend`
+    jax: the JAX package's whisper_jax and UnitLM; the port's own)."""
+    pytest.importorskip("nltk")
+    from slamkit_tpu.metric import generative_metric as jax_metric
+    from slamkit_tpu.models.unit_lm import UnitLM as JaxUnitLM
+    from slamkit_tpu_torch.cli import eval as port_eval
+    from slamkit_tpu_torch.metric import generative_metric
+    from slamkit_tpu_torch.models import UnitLM
+    from slamkit_tpu_torch.tools import genppl_recipe
+
+    root = modelling_files / "genppl"
+    whisper = genppl_recipe.write_whisper_dir(root / "whisper", tiny=True)
+    llama = genppl_recipe.write_llama_dir(root / "llama", tiny=True)
+    _local_vocoder(monkeypatch, modelling_files / "textless")
+    ids = {"port": [], "jax": []}
+    _recording(monkeypatch, UnitLM, "generate", ids["port"])
+    _recording(monkeypatch, JaxUnitLM, "generate", ids["jax"])
+    seen = {}
+    for name, module in (("port", generative_metric), ("jax", jax_metric)):
+        rec = seen[name] = {"texts": [], "nll": []}
+        transcribe, ppl = module._transcribe, module.get_llm_perplexity
+
+        def rec_transcribe(*a, _f=transcribe, _r=rec, **k):
+            out = _f(*a, **k)
+            _r["texts"].append(list(out))
+            return out
+
+        def rec_ppl(*a, _f=ppl, _r=rec, **k):
+            out = _f(*a, **k)
+            _r["nll"].append(np.asarray(out))
+            return out
+
+        monkeypatch.setattr(module, "_transcribe", rec_transcribe)
+        monkeypatch.setattr(module, "get_llm_perplexity", rec_ppl)
+    printed, results = {}, {}
+    capsys.readouterr()
+    for name, run in (("port", port_eval.eval_main), ("jax", _jax_cli("eval").eval_main)):
+        results[name] = run(_eval_overrides(
+            modelling_files, "metric=asr_perplexity",
+            f"metric.data_path={modelling_files / 'modelling' / 'sblimp'}/*.wav",
+            f"metric.whisper_model={whisper}", f"metric.llm_name_or_path={llama}",
+            "+metric.asr_backend=jax", "+metric.llm_backend=jax", "+metric.torch_device=cpu",
+            "metric.num_files=4", "metric.prompt_length=0.3", *GREEDY,
+            "vocoder=vocoder_hubert_25", "metric.out_path=null"))
+        printed[name] = {ln.split(": ")[0]: float(ln.split(": ")[1])
+                         for ln in capsys.readouterr().out.splitlines()
+                         if ln.startswith(("asr_perplexity: ", "auto-belu-2: "))}
+    assert len(ids["port"]) == len(ids["jax"]) == 2
+    for a, b in zip(ids["port"], ids["jax"]):
+        np.testing.assert_array_equal(a, b)
+    assert seen["port"]["texts"] == seen["jax"]["texts"]
+    assert sum(map(len, seen["port"]["texts"])) == 4
+    for a, b in zip(seen["port"]["nll"], seen["jax"]["nll"]):
+        assert np.isfinite(a).all()
+        np.testing.assert_allclose(a, b, atol=1e-5, rtol=0)
+    got, want = printed["port"], printed["jax"]
+    assert sorted(got) == sorted(want) == ["asr_perplexity", "auto-belu-2"]
+    assert got["asr_perplexity"] == results["port"]["asr_perplexity"] > 0
+    np.testing.assert_allclose(got["asr_perplexity"], want["asr_perplexity"], rtol=1e-4)
+    assert got["auto-belu-2"] == want["auto-belu-2"]
 
 
 @pytest.mark.parametrize("prompt,cont,glob", [("TEXT", "SPEECH", "prompts/*.txt"),

@@ -11,7 +11,20 @@ fourth is written without it:
   * Qwen2-style: an NFC normalizer, the Split regex, then ByteLevel without
     its regex;
   * the WordLevel tokenizer that `tools/sims_recipe.py` writes as plain JSON
-    (words `w0`, `w1`, ...), as the smoke's base directory holds it.
+    (words `w0`, `w1`, ...), as the smoke's base directory holds it;
+  * GPT-2 slow-tokenizer files without tokenizer.json, as facebook/opt-125m
+    (config/tokeniser/interleaved_hubert_25.yaml's default) ships them: a
+    byte-level BPE trained here and saved by `models.BPE.save` as vocab.json
+    + merges.txt, with OPT's specials (`<s>`, `<pad>`, `</s>`, `<unk>` at
+    0-3; bos / eos / unk `</s>`, pad `<pad>`), an `additional_special_tokens`
+    entry and an added_tokens.json, under OPT's tokenizer_config.json
+    (`add_bos_token` true, `add_prefix_space` false) and its reverse (false,
+    true); transformers converts them with `GPT2Converter`;
+  * what `tools/sims_recipe.py` writes for the smoke's phase 16:
+    `write_gpt2_bpe_files` (OPT-shaped files of 50265 ids; 20000 merges
+    here, the rest of the ids unreachable) and
+    `write_pythia14m_base`'s GPT-NeoX-shaped tokenizer.json (50277 ids,
+    added runs of spaces).
 Both sides then take the interleaving tokeniser's steps (pad id 0, the unit,
 `<speech>` and `<text>` tokens added) and must agree exactly on ids,
 attention masks, right and left padding, `len`, `convert_tokens_to_ids`, the
@@ -78,6 +91,16 @@ def _build(kind, root):
 
         write_wordlevel_tokenizer(root / kind, 300)
         return str(root / kind)
+    if kind == "gpt2_written":     # 20000 merges, then unreachable entries to 50265 ids
+        from slamkit_tpu_torch.tools.sims_recipe import write_gpt2_bpe_files
+
+        return write_gpt2_bpe_files(root / kind, n_merges=20000)
+    if kind == "neox_written":
+        from slamkit_tpu_torch.tools.sims_recipe import write_pythia14m_base
+
+        return write_pythia14m_base(root / kind)
+    if kind.startswith("gpt2_files"):
+        return _gpt2_files(root / kind, corpus, prefix=kind.endswith("prefix"))
     if kind == "wordlevel":
         tok = Tokenizer(models.WordLevel(unk_token="<unk>"))
         tok.pre_tokenizer = pre_tokenizers.Whitespace()
@@ -112,7 +135,39 @@ def _build(kind, root):
     return str(d)
 
 
-@pytest.fixture(scope="module", params=["wordlevel", "opt_bpe", "qwen2_bpe", "written"])
+def _gpt2_files(d, corpus, prefix: bool):
+    """vocab.json + merges.txt of a byte-level BPE trained on `corpus` (no
+    tokenizer.json), OPT's special tokens, one additional special token and
+    two entries of added_tokens.json; `prefix`: add_bos_token false and
+    add_prefix_space true (OPT's are true and false)."""
+    import json
+
+    from tokenizers import Tokenizer, models, pre_tokenizers, trainers
+
+    tok = Tokenizer(models.BPE())
+    tok.pre_tokenizer = pre_tokenizers.ByteLevel(add_prefix_space=prefix)
+    tok.train_from_iterator(corpus, trainers.BpeTrainer(
+        vocab_size=420, special_tokens=["<s>", "<pad>", "</s>", "<unk>"],
+        initial_alphabet=pre_tokenizers.ByteLevel.alphabet()))
+    d.mkdir()
+    tok.model.save(str(d))
+    assert sorted(p.name for p in d.iterdir()) == ["merges.txt", "vocab.json"]
+    n = tok.get_vocab_size()
+    special = dict(bos_token="</s>", eos_token="</s>", unk_token="</s>", pad_token="<pad>")
+    as_added = lambda t: {"content": t, "single_word": False, "lstrip": False,
+                          "rstrip": False, "normalized": True, "__type": "AddedToken"}
+    (d / "tokenizer_config.json").write_text(json.dumps({
+        "errors": "replace", **{k: as_added(v) for k, v in special.items()},
+        "add_prefix_space": prefix, "add_bos_token": not prefix,
+        "additional_special_tokens": ["<extra_id_0>"], "tokenizer_class": "GPT2Tokenizer"}))
+    (d / "special_tokens_map.json").write_text(json.dumps(special))
+    (d / "added_tokens.json").write_text(json.dumps({"<sep>": n, "café!": n + 1}))
+    return str(d)
+
+
+@pytest.fixture(scope="module", params=["wordlevel", "opt_bpe", "qwen2_bpe", "written",
+                                        "gpt2_files", "gpt2_files_prefix", "gpt2_written",
+                                        "neox_written"])
 def pair(request, tmp_path_factory):
     """(port, transformers) on one directory, both extended as the
     interleaving tokeniser extends them."""
@@ -184,6 +239,9 @@ def test_decode(pair, clean):
 
 def test_missing_directory_names_the_file(tmp_path):
     with pytest.raises(FileNotFoundError, match="tokenizer.json"):
+        TextTokeniser.from_pretrained(str(tmp_path))
+    (tmp_path / "vocab.json").write_text("{}")        # merges.txt missing
+    with pytest.raises(FileNotFoundError, match="vocab.json and merges.txt"):
         TextTokeniser.from_pretrained(str(tmp_path))
 
 
