@@ -251,6 +251,19 @@ the sm_90a kernels). Phases, in order; any failure exits non-zero:
                score finite. Each run prints
                its launches, seconds a step, non-pad tokens/s and
                `max_memory_allocated`.
+  17. ring attention — the ring's kernel sequence at the Slam shape
+               ([8, 14/2, 1024, 64], 8 packed segments and a -1 tail) cut
+               into 4 chunks of 256 (zigzag: halves of 128), for both
+               schedules in bf16 and float32: `ops/ring_attention.py::
+               ring_on_one_device` runs every rank's causal diagonal call,
+               non-causal off-diagonal calls (distinct q / k segment ids,
+               dead rows), LSE merges and backward from the global out and
+               LSE, rotating in memory; out, LSE and gradients held to one
+               kernel call over the whole sequence and to the plain
+               version, the launches to the schedule's count; then each of
+               its call shapes timed alone. Where the host has two or more
+               cards, `tools/parallel_smoke.py` on all of them (an even
+               count) under torchrun; on one card a line says it is not run.
 
 Phases 3 and 3b also hold the kernels at DPO's shape (`dpo_T152`: [16, 14/2,
 152, 64], one segment of 110-152 tokens a row and a -1 tail) and at SIMS's
@@ -293,7 +306,9 @@ launches nothing (phase 15); the stock SIMS run launches the forward and
 the backward of its dtype once per layer a microbatch, float32 SIMS the
 float32 forward twice and the backward once, its scoring the forward once
 per layer a call, its generation once per layer a prefill, and the text LM
-of GenPPL the float32 forward once per text-LM layer a call (phase 16); the
+of GenPPL the float32 forward once per text-LM layer a call (phase 16); a
+ring pass of seq rank r of n launches 1 + r calls of each (contiguous) or
+1 + 2 (n - 1) (zigzag), 10 and 28 a pass of all 4 ranks (phase 17); the
 probe's entry
 point launches its kernel 7 times a shape (phase 3d). A flash backward call
 counts one, though it launches three kernels (the delta / segment-range
@@ -945,7 +960,7 @@ def _grad_errors(got, want, f32_terms: int = 0) -> list[tuple]:
     return rows
 
 
-def _sdpa_backward_ms(q, k, v, do, seg, kv_seg):
+def _sdpa_backward_ms(q, k, v, do, seg, kv_seg, causal: bool = True):
     """The backward of phase 3's library call on the same inputs, timed
     alone: the forward runs once outside the window, then
     `torch.autograd.grad(..., retain_graph=True)` is timed. Returns (ms or
@@ -959,7 +974,7 @@ def _sdpa_backward_ms(q, k, v, do, seg, kv_seg):
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream), torch.inference_mode(False), torch.enable_grad():
         qg, kg, vg, dog = (x.clone() for x in (q, k, v, do))
-        sdpa = _sdpa_library(qg, kg, vg, seg, kv_seg, True)
+        sdpa = _sdpa_library(qg, kg, vg, seg, kv_seg, causal)
         if sdpa is None:
             return None, NO_SDPA
         call, kk, vv, _, backend = sdpa
@@ -4435,6 +4450,203 @@ def run_sims_defaults(dev, smi: str, work: pathlib.Path, tiny: bool = False, n_r
     return dict(result, metrics=metrics, launches=launches, seconds=seconds)
 
 
+# phase 17: the ring's 'seq' group as the multi-card leg runs it at N = 4
+RING_N = 4
+
+
+def _ring_errors(got, want, f32: bool, terms: int) -> dict:
+    """max |ring - reference| of out, lse (rows that see a key), dq, dk, dv
+    and each one's bound: the forward's as phase 3 / 3e, the gradients'
+    twice phase 3b / 3f's (the ring adds n partial gradients, each rounded
+    to its dtype by the kernel, where one call rounds once)."""
+    out, lse, *grads = got
+    w_out, w_lse, *w_grads = want
+    alive = w_lse < 1e30
+    errs = {"out": ((out.float() - w_out.float()).abs().max().item(),
+                    F32_OUT_BOUND if f32 else OUT_BOUND),
+            "lse": ((lse - w_lse)[alive].abs().max().item(),
+                    F32_LSE_BOUND if f32 else LSE_BOUND)}
+    for name, a, w in zip(("dq", "dk", "dv"), grads, w_grads):
+        top = w.float().abs().max().item()
+        rel = F32_BWD_FACTOR * F32_EPS * math.sqrt(terms) if f32 else BWD_REL_BOUND
+        errs[name] = ((a.float() - w.float()).abs().max().item(), 2 * rel * top + 1e-5)
+    return errs
+
+
+def run_ring_kernels(dev, shape=(8, 14, 2, 1024, 64)) -> dict:
+    """Phase 17: the ring's kernel sequence (`ops/ring_attention.py`) on this
+    card at the Slam shape, its sequence cut into RING_N = 4 chunks of 256
+    (zigzag: halves of 128): for both schedules, bf16 and float32,
+    `ring_on_one_device` runs every rank's steps (the causal diagonal call;
+    the non-causal off-diagonal calls between a query chunk and an earlier
+    key chunk, with their distinct q / k segment ids and their dead rows;
+    `merge_pair`; the backward of every pair from the global merged out and
+    LSE), rotating in memory instead of over NCCL. Its out, LSE and
+    gradients are held to one kernel call over the whole sequence and to the
+    plain version. Each of the ring's call shapes is then timed alone
+    (graph ms beside its bound, the plain version and SDPA). Where the host
+    has two or more cards, `tools/parallel_smoke.py` runs on all of them
+    (an even count) under torchrun; on one card a line says it is not run.
+    Returns the launches of the ring runs by kernel, the checks, the times
+    and the multi-card leg's result. On the CPU (a rehearsal at a small
+    `shape`) the plain versions run every step, no launch may be counted,
+    and nothing is timed."""
+    import subprocess
+
+    import torch
+
+    from slamkit_tpu_torch.ops import (flash_attention_bwd, flash_attention_fwd, mha_reference,
+                                       mha_reference_bwd)
+    from slamkit_tpu_torch.ops.ring_attention import ring_on_one_device, zigzag_permutation
+
+    t0 = time.perf_counter()
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    b, h, hkv, t, d = shape
+    c = t // RING_N
+    rng = np.random.default_rng(17)
+    seg_np = _packed_segments(rng, b, t, 8)
+    seg = torch.from_numpy(seg_np).to(dev)
+    launches = {"flash_fwd": 0, "flash_bwd": 0, "flash_fwd_f32": 0, "flash_bwd_f32": 0}
+    expect = ({"contiguous": RING_N * (RING_N + 1) // 2, "zigzag": RING_N * (2 * RING_N - 1)}
+              if cuda else {"contiguous": 0, "zigzag": 0})
+    checks, calls = [], []
+    with torch.inference_mode():
+        for f32 in (False, True):
+            dtype = torch.float32 if f32 else torch.bfloat16
+            g = torch.Generator(device=dev).manual_seed(1700 + f32)
+            mk = lambda hh: torch.randn((b, hh, t, d), generator=g, device=dev).to(dtype)
+            q, k, v, do = mk(h), mk(hkv), mk(hkv), mk(h)
+            out, lse = flash_attention_fwd(q, k, v, segment_ids=seg)
+            kernel = (out, lse, *flash_attention_bwd(q, k, v, out, lse, do, segment_ids=seg))
+            p_out, p_lse = mha_reference(q.float(), k.float(), v.float(), segment_ids=seg)
+            plain = (p_out, p_lse, *mha_reference_bwd(q.float(), k.float(), v.float(), seg,
+                                                       None, p_out, p_lse, do.float()))
+            fwd_key, bwd_key = (("flash_fwd_f32", "flash_bwd_f32") if f32
+                                else ("flash_fwd", "flash_bwd"))
+            counter = "f32_launches" if f32 else "launches"
+            for schedule in ("contiguous", "zigzag"):
+                order = zigzag_permutation(t, RING_N) if schedule == "zigzag" else np.arange(t)
+                idx = torch.from_numpy(order).to(dev)
+                perm = lambda x, dim=2: x.index_select(dim, idx).contiguous()
+                args = (perm(q), perm(k), perm(v), perm(seg, 1), perm(do), RING_N, schedule)
+                f0, b0 = getattr(flash_attention_fwd, counter), getattr(flash_attention_bwd,
+                                                                        counter)
+                got = ring_on_one_device(*args)
+                n_fwd = getattr(flash_attention_fwd, counter) - f0
+                n_bwd = getattr(flash_attention_bwd, counter) - b0
+                launches[fwd_key] += n_fwd
+                launches[bwd_key] += n_bwd
+                sync()
+                terms = (h // hkv) * t
+                # every output ([B, H, T, D], LSE [B, H, T]) has time at dim 2
+                vs_kernel = _ring_errors(got, [perm(x) for x in kernel], f32, terms)
+                vs_plain = _ring_errors(got, [perm(x) for x in plain], f32, terms)
+                ms = _cuda_ms(lambda: ring_on_one_device(*args), warmup=1, iters=3) if cuda else 0.0
+                ok = (all(e <= bd for e, bd in (*vs_kernel.values(), *vs_plain.values()))
+                      and n_fwd == n_bwd == expect[schedule]
+                      and all(bool(torch.isfinite(x).all().item()) for x in got))
+                row = dict(dtype=str(dtype)[6:], schedule=schedule, n=RING_N, chunk=c,
+                           launches={"forward": n_fwd, "backward": n_bwd},
+                           expected_launches=expect[schedule], ms=ms,
+                           vs_kernel={k_: e for k_, (e, _) in vs_kernel.items()},
+                           vs_plain={k_: e for k_, (e, _) in vs_plain.items()},
+                           bounds={k_: bd for k_, (_, bd) in vs_plain.items()}, ok=ok)
+                checks.append(row)
+                print(f"ring {row['dtype']} {schedule} n={RING_N} chunk {c}: {n_fwd} forward and "
+                      f"{n_bwd} backward launches (expected {expect[schedule]} each); vs one "
+                      f"kernel call " + " ".join(f"|{k_}|={e:.3e}" for k_, (e, _) in
+                                                 vs_kernel.items())
+                      + "; vs plain " + " ".join(f"|{k_}|={e:.3e} (<= {bd:.3e})" for k_, (e, bd)
+                                                 in vs_plain.items())
+                      + f"; all ranks' forward + backward {ms:.3f} ms eager  "
+                      f"{'ok' if ok else 'FAIL'}", flush=True)
+                _require(ok, f"the {row['dtype']} {schedule} ring disagrees with one call or "
+                         f"the plain version, or launched other kernels than its schedule")
+                del got
+            if not cuda:
+                continue
+            # each of the ring's call shapes alone: the diagonal (causal, chunk
+            # 0), an off-diagonal pair (non-causal, query chunk 1 against key
+            # chunk 0: distinct ids, some dead rows), a zigzag half-pair
+            # (logical halves 1 against 0)
+            for name, (qs, ks), causal in (("diagonal", (slice(0, c), slice(0, c)), True),
+                                           ("off_diagonal", (slice(c, 2 * c), slice(0, c)),
+                                            False),
+                                           ("zigzag_half", (slice(c // 2, c), slice(0, c // 2)),
+                                            False)):
+                qq, kk, vv, dd = (x[:, :, sl].contiguous() for x, sl in
+                                  ((q, qs), (k, ks), (v, ks), (do, qs)))
+                qseg, kseg = seg[:, qs].contiguous(), seg[:, ks].contiguous()
+                tl = qq.shape[2]
+                for backward in (False, True):
+                    o, l = flash_attention_fwd(qq, kk, vv, segment_ids=qseg, causal=causal,
+                                               kv_segment_ids=kseg)
+                    if backward:
+                        run = lambda: flash_attention_bwd(qq, kk, vv, o, l, dd, segment_ids=qseg,
+                                                          kv_segment_ids=kseg, causal=causal)
+                        plain_call = lambda: mha_reference_bwd(
+                            qq.float(), kk.float(), vv.float(), qseg, kseg, o.float(), l,
+                            dd.float(), causal=causal)
+                        library_ms, timed = _sdpa_backward_ms(qq, kk, vv, dd, qseg, kseg,
+                                                              causal)
+                    else:
+                        run = lambda: flash_attention_fwd(qq, kk, vv, segment_ids=qseg,
+                                                          causal=causal, kv_segment_ids=kseg)
+                        plain_call = lambda: mha_reference(
+                            qq.float(), kk.float(), vv.float(), segment_ids=qseg, causal=causal,
+                            kv_segment_ids=kseg)
+                        sdpa = _sdpa_library(qq, kk, vv, qseg, kseg, causal)
+                        library_ms, timed = ((None, NO_SDPA) if sdpa is None else
+                                             _library_ms(lambda: sdpa[0](qq, sdpa[1], sdpa[2]),
+                                                         20))
+                    cost = flash_cost((b, h, hkv, tl, d), qseg.cpu().numpy(),
+                                      kseg.cpu().numpy(), causal, backward=backward,
+                                      elt_bytes=4 if f32 else 2)
+                    bound, bound_by = bound_ms(*cost, flops_per_s=FP32_3XTF32_FLOPS_PER_S
+                                               if f32 else BF16_FLOPS_PER_S)
+                    device_ms, plain_ms = _graph_ms(run, 20), _graph_ms(plain_call, 2)
+                    share, vs_library = _ratios(device_ms, bound, library_ms)
+                    dead = int((l >= 1e30).sum().item())
+                    calls.append(dict(name=name, dtype=str(dtype)[6:], causal=causal,
+                                      backward=backward, shape=[b, h, hkv, tl, d],
+                                      dead_rows=dead, graph_ms=device_ms,
+                                      plain_graph_ms=plain_ms, bound_ms=bound,
+                                      bound_by=bound_by, library_ms=library_ms,
+                                      library=timed, roofline_share=share,
+                                      vs_library=vs_library))
+                    print(f"ring call {name} {str(dtype)[6:]} {'backward' if backward else 'forward'}"
+                          f" [{b},{h}/{hkv},{tl},{d}] causal={causal} ({dead} dead rows of "
+                          f"{b * h * tl}): graph {device_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                          f"{_library_text(library_ms, timed, vs_library)}; bound {bound:.4f} "
+                          f"ms by {bound_by}, roofline_share {share:.3f}", flush=True)
+            del q, k, v, do, kernel, plain
+    seconds = time.perf_counter() - t0
+    print(f"phase 17: the ring's kernels on one device in {seconds:.1f} s; launches "
+          f"{launches}", flush=True)
+    result = {"launches": launches, "checks": checks, "calls": calls, "seconds": seconds}
+    if not cuda:
+        return result
+    torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"phase 17: {cards} card on this host: the multi-card leg "
+              f"(tools/parallel_smoke.py) needs two or more and is not run", flush=True)
+        return result
+    n = cards - cards % 2
+    t1 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+                           str(n), "-m", "slamkit_tpu_torch.tools.parallel_smoke"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=900)
+    print(proc.stdout[-6000:], flush=True)
+    _require(proc.returncode == 0, f"tools/parallel_smoke.py on {n} cards failed "
+             f"({proc.returncode}):\n{proc.stderr[-4000:]}")
+    result["parallel_smoke"] = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"phase 17: tools/parallel_smoke.py on {n} cards in "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
+    return result
+
+
 def main() -> int:
     if not (ROOT / "slamkit_tpu_torch" / "ops" / "csrc" / "flash_fwd.cu").is_file():
         print("chip_smoke: run from a checkout of the repository (slamkit_tpu_torch/ "
@@ -4514,6 +4726,9 @@ def main() -> int:
         settings_result = run_training_settings(dev, smi, pathlib.Path(work))
         torch.cuda.empty_cache()
         defaults_result = run_sims_defaults(dev, smi, pathlib.Path(work))
+    torch.cuda.empty_cache()
+    ring_result = run_ring_kernels(dev)
+    ring_launches = ring_result["launches"]
     speech_runs = speech_result["runs"]
     defaults_launches = defaults_result["launches"]
 
@@ -4539,7 +4754,7 @@ def main() -> int:
                       "genppl": genppl_result, "f32_backward_shapes": f32_bwd_rows,
                       "f32_training": f32_train_result, "data_path": data_result,
                       "training_settings": settings_result,
-                      "sims_defaults": defaults_result}), flush=True)
+                      "sims_defaults": defaults_result, "ring": ring_result}), flush=True)
     print(f"the whole run: {time.perf_counter() - start:.1f} s", flush=True)
     print(nvidia_smi(), flush=True)
 
@@ -4554,7 +4769,8 @@ def main() -> int:
                    + sum(g["launches"] for g in sims_result["generate"].values())
                    + sum(r["launches"]["flash_fwd"] for r in genppl_runs)
                    + data_result["launches"]["flash_fwd"]
-                   + settings_result["launches"]["flash_fwd"] + defaults_launches["flash_fwd"],
+                   + settings_result["launches"]["flash_fwd"] + defaults_launches["flash_fwd"]
+                   + ring_launches["flash_fwd"],
                    max(r["max_abs_err_out"] for r in kernel_rows), score),
         kernel_row("flash_bwd", "slamkit_tpu_torch/ops/csrc/flash_bwd.cu",
                    "slamkit_tpu/ops/flash_attention.py:247",
@@ -4564,7 +4780,8 @@ def main() -> int:
                    + dpo_result["launches"]["flash_bwd"]
                    + sims_result["train_launches"]["flash_bwd"]
                    + data_result["launches"]["flash_bwd"]
-                   + settings_result["launches"]["flash_bwd"] + defaults_launches["flash_bwd"],
+                   + settings_result["launches"]["flash_bwd"] + defaults_launches["flash_bwd"]
+                   + ring_launches["flash_bwd"],
                    max(max(r["max_abs_err"].values()) for r in backward_rows), bwd),
         dict(kernel_row("dq_matmul", "slamkit_tpu_torch/ops/csrc/dq_matmul.cu",
                         "slamkit_tpu/ops/quant.py:43", ["dq_gemv_kernel | dq_gemm_kernel"],
@@ -4578,14 +4795,16 @@ def main() -> int:
         dict(kernel_row("flash_fwd_f32", "slamkit_tpu_torch/ops/csrc/flash_fwd_f32.cu",
                         "slamkit_tpu/ops/flash_attention.py:124", ["flash_fwd_f32_kernel"],
                         sum(r["launches"]["flash_fwd_f32"] for r in genppl_runs)
-                        + f32_launches["flash_fwd_f32"] + defaults_launches["flash_fwd_f32"],
+                        + f32_launches["flash_fwd_f32"] + defaults_launches["flash_fwd_f32"]
+                        + ring_launches["flash_fwd_f32"],
                         max(r["max_abs_err_out"] for r in f32_rows), f32),
              cuda_core_bound_ms=f32["cuda_core_bound_ms"]),
         dict(kernel_row("flash_bwd_f32", "slamkit_tpu_torch/ops/csrc/flash_bwd_f32.cu",
                         "slamkit_tpu/ops/flash_attention.py:247",
                         ["flash_bwd_f32_prep_kernel", "flash_bwd_f32_dkdv_kernel",
                          "flash_bwd_f32_dq_kernel"],
-                        f32_launches["flash_bwd_f32"] + defaults_launches["flash_bwd_f32"],
+                        f32_launches["flash_bwd_f32"] + defaults_launches["flash_bwd_f32"]
+                        + ring_launches["flash_bwd_f32"],
                         max(max(r["max_abs_err"].values()) for r in f32_bwd_rows), f32_bwd),
              cuda_core_bound_ms=f32_bwd["cuda_core_bound_ms"])]}),
           flush=True)

@@ -22,7 +22,7 @@ directory; OpenAI names need the openai package); `metric.asr_backend` /
 `metric.asr_dtype` and `metric.torch_device` (default: the eval's device)
 are read as `cli/eval.py` reads them. Every `device` but `cpu` (eval.yaml's
 `tpu` included) runs on the CUDA card. Not ported: eval_mesh > 1 (ROADMAP
-queue 1 item 14); it raises.
+queue 1 item 25); it raises.
 """
 import logging
 import os
@@ -54,7 +54,10 @@ def eval_main(cfg):
         check_backend("llm_backend", cfg.metric.get("llm_backend", "torch"))
     if int(cfg.get("eval_mesh", 0) or 0) > 1:
         raise NotImplementedError(f"eval_mesh={cfg.eval_mesh}: sharded evaluation is not "
-                                  f"ported yet (ROADMAP queue 1 item 14)")
+                                  f"ported yet (ROADMAP queue 1 item 25)")
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise NotImplementedError(f"WORLD_SIZE={os.environ['WORLD_SIZE']}: evaluation on "
+                                  f"several ranks is not ported yet (ROADMAP queue 1 item 25)")
     device = "cpu" if cfg.get("device", None) == "cpu" else DEFAULT_DEVICE
 
     if not cfg.model.pretrained_model:

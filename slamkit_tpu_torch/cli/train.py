@@ -18,15 +18,25 @@ and its override grammar, with its rules line for line:
   * the run_time and train_max_tokens stoppers;
   * data.packing and data.packing_strategy;
   * resume through cont_training.
-Everything runs on the CUDA card unless training_args.use_cpu=true.
-training_args.multihost=true raises: multi-host training is not ported.
+Everything runs on the CUDA card unless training_args.use_cpu=true. Under
+torchrun (WORLD_SIZE > 1) each process joins the process group on its own
+card (gloo on the CPU) and trains its tile of the mesh that
+training_args.mesh_shape / mesh_axes / cp_schedule describe:
+
+    python -m torch.distributed.run --nproc_per_node 4 -m slamkit_tpu_torch.cli.train \
+        model=slam ... training_args.mesh_shape=[1,4] training_args.mesh_axes=[data,seq]
+
+training_args.multihost=true and fsdp=true raise: they are not ported.
 """
 import logging
 import os
 
+import torch.distributed as dist
+
 from ..config import main
 from ..data.dataset import init_dataset
 from ..models.unit_lm import tlm_factory
+from ..parallel import init_distributed, make_mesh
 from ..tokeniser import tokeniser_factory
 from ..trainer import MaxTokensStopperCallback, RunTimeStopperCallback, SLAMTrainer
 from ..utils.device import DEFAULT_DEVICE
@@ -40,8 +50,20 @@ def train(cfg):
     logging.basicConfig(level=logging.INFO)
     if cfg.training_args.get("multihost", False):
         raise NotImplementedError("training_args.multihost=true: multi-host training is not "
-                                  "ported yet (ROADMAP queue 1 item 14)")
+                                  "ported yet (ROADMAP queue 1 item 26)")
     device = "cpu" if cfg.training_args.get("use_cpu", False) else DEFAULT_DEVICE
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        device = init_distributed(device)
+        try:
+            return _train(cfg, device)
+        finally:
+            dist.destroy_process_group()
+    return _train(cfg, device)
+
+
+def _train(cfg, device):
+    mesh = make_mesh(cfg.training_args.get("mesh_shape", None),
+                     cfg.training_args.get("mesh_axes", None))
     if cfg.tokeniser.tokeniser_type == "interleave":
         # interleaved data: text tokeniser must match the model base
         if cfg.tokeniser.params.text_tokeniser_path != cfg.model.config_args.base_model_name:
@@ -61,7 +83,13 @@ def train(cfg):
     tokeniser = tokeniser_factory(cfg.tokeniser, device=device)
     logger.info("tokeniser inited")
 
+    # rank 0 builds (and, under data.saved_ds_path, caches) the datasets
+    # before the other ranks build or load theirs
+    if mesh.rank:
+        dist.barrier()
     ds = init_dataset(cfg, tokeniser)
+    if mesh.size > 1 and mesh.rank == 0:
+        dist.barrier()
     logger.info("datasets loaded: train=%d rows", len(ds["train"]))
 
     if cfg.model.config_args.vocab_size == -1:
@@ -74,7 +102,7 @@ def train(cfg):
     logger.info("model inited on %s", model.device)
 
     log_fn = None
-    if cfg.logger.report_to == "wandb":
+    if cfg.logger.report_to == "wandb" and mesh.rank == 0:
         run = init_wandb(cfg, os.path.basename(os.path.normpath(cfg.training_args.output_dir)))
         if run is not None:
             log_fn = run.log
@@ -96,6 +124,7 @@ def train(cfg):
         packing_strategy=cfg.data.get("packing_strategy", "bestfit"),
         context_len=cfg.model.context_len,
         log_fn=log_fn,
+        mesh=mesh,
     )
     return trainer.train(resume_from_checkpoint=cfg.get("cont_training", False))
 

@@ -43,6 +43,15 @@ backward without a second forward launch (JAX's `save_only_these_names`
 policy; the plain attention is checkpointed on its own, as JAX recomputes
 it).
 
+Several ranks (`SLAMTrainer` on a mesh): a forward given a `shard`
+(`parallel.Shard`) holds this rank's tile of the global batch. Its dropout
+masks are drawn at the global batch's shape and tiled, so they are the
+one-process run's; under a 'seq' axis of several ranks the flash route
+runs `ops.ring_flash_attention` on the chunk and the plain route gathers k,
+v and the key ids over the group (`ops.all_gather_seq`), the causal mask
+offset by the chunk's first position. A remat recompute replays the ring's
+rotations on every rank in the same order.
+
 int8 decode: a layer's seven projection weights may be int8 dicts instead of
 parameters (`_proj`); `models/generate.py` builds such a copy for
 `generate(weight_quant="int8")`, and its prefill and decode steps then run
@@ -57,7 +66,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops import dq_matmul, flash_attention, mha_reference
+from ..ops import (all_gather_seq, dq_matmul, flash_attention, mha_reference,
+                   ring_flash_attention)
 from .presets import DecoderConfig
 
 NEG_INF = -1e30
@@ -113,14 +123,20 @@ def _layer_drops(seed: int, num_layers: int, rate: float) -> list:
     return (torch.rand(num_layers, generator=gen) < rate).tolist()
 
 
-def _dropout(x, rate: float, seed: Optional[int], site: tuple):
+def _dropout(x, rate: float, seed: Optional[int], site: tuple, shard=None):
     """Inverted dropout as JAX's `_dropout`: where(keep, x / (1 - rate), 0)
     in x's dtype, 1 - rate rounded to that dtype first as JAX rounds a
     Python scalar (in bf16 both then divide by 0.8984375 at rate 0.1); the
-    identity without a seed or at rate 0."""
+    identity without a seed or at rate 0. x [B, T, ...]; under a `shard` the
+    mask is drawn at the global batch's shape and x takes its tile, so
+    every rank applies the one-process run's mask."""
     if seed is None or rate <= 0.0:
         return x
-    keep = _keep_mask(seed, site, x.shape, rate, x.device)
+    if shard is None:
+        keep = _keep_mask(seed, site, x.shape, rate, x.device)
+    else:
+        keep = shard.tile(_keep_mask(seed, site, (shard.batch, shard.time, *x.shape[2:]),
+                                     rate, x.device))
     divisor = float(torch.tensor(1.0 - rate, dtype=x.dtype))
     return torch.where(keep, x / divisor, x.new_zeros(()))
 
@@ -304,29 +320,54 @@ def _pre_attention(x, lp: DecoderLayer, rope, cfg: DecoderConfig):
     return q, k, v
 
 
-def _attention(q, k, v, segment_ids, cfg: DecoderConfig, seed: Optional[int], layer: int):
+def _attention(q, k, v, segment_ids, cfg: DecoderConfig, seed: Optional[int], layer: int,
+               shard=None):
     """Full-sequence causal attention (scoring, training, a prefill's window)
     on the route `_flash_route` picks, with probability dropout on the plain
-    attention when `seed` is given."""
+    attention when `seed` is given.
+
+    Under a `shard` whose 'seq' group has several ranks (context
+    parallelism; q, k, v are this rank's chunk) the flash route runs
+    `ring_flash_attention` (JAX `models/transformer.py:206-222`) and the
+    plain route gathers k, v and the key segment ids over the group, with
+    the causal mask offset by the chunk's first position, as GSPMD does on
+    the JAX package's XLA path."""
     rate = cfg.attention_dropout if seed is not None else 0.0
+    ring = shard is not None and shard.size > 1
     if _flash_route(cfg, q.device, rate > 0.0):
+        if ring:
+            return ring_flash_attention(q, k, v, segment_ids, group=shard.group,
+                                        schedule=shard.schedule,
+                                        sm_scale=cfg.head_dim ** -0.5)
         return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                segment_ids=segment_ids, causal=True,
                                sm_scale=cfg.head_dim ** -0.5)
-    keep = lambda shape: _keep_mask(seed, (ATTN_PROBS, layer), shape, rate, q.device)
+    kv_segment_ids, offset = None, 0
+    if ring:
+        k, v = all_gather_seq(k, shard.group, 2), all_gather_seq(v, shard.group, 2)
+        if segment_ids is not None:
+            kv_segment_ids = all_gather_seq(segment_ids, shard.group, 1)
+        offset = shard.rank * q.shape[2]
+
+    def keep(shape):
+        if shard is None:
+            return _keep_mask(seed, (ATTN_PROBS, layer), shape, rate, q.device)
+        full = (shard.batch, shape[1], shard.time, shard.time)
+        return shard.tile(_keep_mask(seed, (ATTN_PROBS, layer), full, rate, q.device), 2)
+
     return mha_reference(q, k, v, segment_ids=segment_ids, causal=True,
-                         sm_scale=cfg.head_dim ** -0.5, dropout_rate=rate,
-                         dropout_keep=keep)[0]
+                         sm_scale=cfg.head_dim ** -0.5, kv_segment_ids=kv_segment_ids,
+                         dropout_rate=rate, dropout_keep=keep, q_offset=offset)[0]
 
 
 def _post_attention(x, attn, lp: DecoderLayer, cfg: DecoderConfig, seed: Optional[int],
-                    layer: int):
+                    layer: int, shard=None):
     """The o projection, the residuals and the MLP of the block's layout,
     with residual-branch dropout (HF hidden dropout) when `seed` is given."""
     dt = x.dtype
     attn_out = _dropout(_proj(_merge_heads(attn), lp.o_w, lp.o_b, dt), cfg.dropout, seed,
-                        (ATTN_RES, layer))
-    mlp = lambda h: _dropout(_mlp(h, lp, cfg), cfg.dropout, seed, (MLP_RES, layer))
+                        (ATTN_RES, layer), shard)
+    mlp = lambda h: _dropout(_mlp(h, lp, cfg), cfg.dropout, seed, (MLP_RES, layer), shard)
     if cfg.parallel_residual:
         h2 = _norm(x, lp.mlp_norm_scale, lp.mlp_norm_bias, cfg)
         return x + attn_out + mlp(h2)
@@ -341,11 +382,12 @@ def _post_attention(x, attn, lp: DecoderLayer, cfg: DecoderConfig, seed: Optiona
 
 def _layer(x, lp: DecoderLayer, rope, segment_ids, cfg: DecoderConfig,
            cache_kv=None, cache_index: Optional[int] = None,
-           seed: Optional[int] = None, layer: int = 0):
+           seed: Optional[int] = None, layer: int = 0, shard=None):
     """One decoder block. rope: (cos, sin) from `_rope_angles`, or None for
     learned positions. cache_kv: optional (k, v) [B, Hkv, Tmax, Dh] views,
     written in place at cache_index. seed: the forward's dropout seed
-    (training), layer: this block's index among the masks' sites."""
+    (training), layer: this block's index among the masks' sites, shard:
+    this rank's tile of the global batch (`parallel.Shard`) or None."""
     q, k, v = _pre_attention(x, lp, rope, cfg)
     decode = cache_kv is not None and q.shape[2] == 1
     if cache_kv is not None:
@@ -359,12 +401,12 @@ def _layer(x, lp: DecoderLayer, rope, segment_ids, cfg: DecoderConfig,
     if decode:
         attn = _decode_attention(q, k, v, segment_ids, cache_index, cfg)
     else:
-        attn = _attention(q, k, v, segment_ids, cfg, seed, layer)
-    return _post_attention(x, attn, lp, cfg, seed, layer)
+        attn = _attention(q, k, v, segment_ids, cfg, seed, layer, shard)
+    return _post_attention(x, attn, lp, cfg, seed, layer, shard)
 
 
 def _qkv_remat_layer(x, lp: DecoderLayer, rope, segment_ids, cfg: DecoderConfig,
-                     seed: Optional[int], layer: int):
+                     seed: Optional[int], layer: int, shard=None):
     """`_layer` under remat_policy="qkv": the parts before and after the
     attention are checkpointed apart; the flash attention between them saves
     its q, k, v, out and LSE, so the backward never runs its forward again.
@@ -373,11 +415,12 @@ def _qkv_remat_layer(x, lp: DecoderLayer, rope, segment_ids, cfg: DecoderConfig,
     q, k, v = checkpoint(_pre_attention, x, lp, rope, cfg, use_reentrant=False)
     rate = cfg.attention_dropout if seed is not None else 0.0
     if _flash_route(cfg, x.device, rate > 0.0):
-        attn = _attention(q, k, v, segment_ids, cfg, seed, layer)
+        attn = _attention(q, k, v, segment_ids, cfg, seed, layer, shard)
     else:
-        attn = checkpoint(_attention, q, k, v, segment_ids, cfg, seed, layer,
+        attn = checkpoint(_attention, q, k, v, segment_ids, cfg, seed, layer, shard,
                           use_reentrant=False)
-    return checkpoint(_post_attention, x, attn, lp, cfg, seed, layer, use_reentrant=False)
+    return checkpoint(_post_attention, x, attn, lp, cfg, seed, layer, shard,
+                      use_reentrant=False)
 
 
 class Decoder(nn.Module):
@@ -425,7 +468,8 @@ class Decoder(nn.Module):
                 segment_ids: Optional[torch.Tensor] = None,
                 cache: Optional[tuple] = None,
                 cache_index: Optional[int] = None,
-                dropout_seed: Optional[int] = None):
+                dropout_seed: Optional[int] = None,
+                shard=None):
         """Returns (logits float32 [B, T, V], cache).
 
         positions default to 0..T-1; pass explicit positions for left-padded
@@ -434,7 +478,10 @@ class Decoder(nn.Module):
         cache_index; a one-token input with a cache runs the decode step.
         dropout_seed (an int) turns on the config's dropout, attention
         dropout and layerdrop for this forward (training; never with a
-        cache); without it the forward is deterministic."""
+        cache); without it the forward is deterministic. shard: this rank's
+        tile of a global batch (`parallel.Shard`: input_ids and the rest are
+        the tile; the dropout masks are the global batch's, and a 'seq'
+        group of several ranks runs the ring) or None."""
         cfg = self.cfg
         dt = cfg.compute_dtype
         b, t = input_ids.shape
@@ -463,7 +510,7 @@ class Decoder(nn.Module):
             # clamp like JAX's gather, which never raises on an index
             idx = (positions + cfg.learned_pos_offset).clamp(max=self.pos_embed.shape[0] - 1)
             x = x + F.embedding(idx, self.pos_embed).to(dt)
-        x = _dropout(x, cfg.dropout, seed, (EMBED,))
+        x = _dropout(x, cfg.dropout, seed, (EMBED,), shard)
 
         rope = _rope_angles(positions, cfg) if cfg.pos == "rope" else None
         n_remat = 0
@@ -479,14 +526,14 @@ class Decoder(nn.Module):
                     x = _SkippedLayer.apply(x, *lp.parameters())
                 continue
             if i < n_remat and cfg.remat_policy == "qkv":
-                x = _qkv_remat_layer(x, lp, rope, segment_ids, cfg, seed, i)
+                x = _qkv_remat_layer(x, lp, rope, segment_ids, cfg, seed, i, shard)
             elif i < n_remat:
                 x = checkpoint(_layer, x, lp, rope, segment_ids, cfg, seed=seed, layer=i,
-                               use_reentrant=False)
+                               shard=shard, use_reentrant=False)
             else:
                 kv = None if cache is None else (cache[0][i], cache[1][i])
                 x = _layer(x, lp, rope, segment_ids, cfg, cache_kv=kv,
-                           cache_index=cache_index, seed=seed, layer=i)
+                           cache_index=cache_index, seed=seed, layer=i, shard=shard)
 
         if cfg.pre_norm:
             x = _norm(x, self.final_norm_scale, self.final_norm_bias, cfg)

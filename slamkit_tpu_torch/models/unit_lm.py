@@ -164,18 +164,24 @@ class UnitLM:
         """The trainable parameters (the decoder's), in a fixed order."""
         return list(self.decoder.parameters())
 
-    def loss_fn(self, batch: dict, dropout_seed: Optional[int] = None) -> torch.Tensor:
+    def loss_fn(self, batch: dict, dropout_seed: Optional[int] = None,
+                pre_shifted: bool = False, shard=None) -> torch.Tensor:
         """Training loss on {'input_ids', 'labels', 'segment_ids'?,
         'positions'?, 'num_items_in_batch'?}: the shifted cross entropy over
         labels != -100, divided by num_items_in_batch when given (the
         accumulation group's count) and by the batch's own count otherwise.
         The batch's tensors must be on the model's device. dropout_seed (the
         trainer's draw for this microbatch) turns on the config's dropout
-        rates; without it the loss is deterministic."""
+        rates; without it the loss is deterministic. pre_shifted: labels
+        already hold each position's next-token target (context parallelism
+        shifts them over the global row before chunking). shard: this rank's
+        tile of the global batch (`parallel.Shard`), or None."""
         get = lambda key: None if batch.get(key) is None else self._tensor(batch[key])
         logits, _ = self.decoder(get("input_ids"), positions=get("positions"),
-                                 segment_ids=get("segment_ids"), dropout_seed=dropout_seed)
-        return cross_entropy_loss(logits, get("labels"), batch.get("num_items_in_batch"))
+                                 segment_ids=get("segment_ids"), dropout_seed=dropout_seed,
+                                 shard=shard)
+        return cross_entropy_loss(logits, get("labels"), batch.get("num_items_in_batch"),
+                                  pre_shifted=pre_shifted)
 
     @property
     def uses_dropout(self) -> bool:

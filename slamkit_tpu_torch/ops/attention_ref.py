@@ -27,12 +27,13 @@ LSE_SENTINEL = 1e30
 def attention_mask(t_q: int, t_k: int, *, causal: bool,
                    q_segment_ids: Optional[torch.Tensor] = None,
                    k_segment_ids: Optional[torch.Tensor] = None,
-                   device=None) -> Optional[torch.Tensor]:
+                   device=None, q_offset: int = 0) -> Optional[torch.Tensor]:
     """Boolean mask, True = attend: [t_q, t_k] (causal only) or
-    [B, 1, t_q, t_k] when segment ids are given."""
+    [B, 1, t_q, t_k] when segment ids are given. q_offset: the position of
+    the first query among the keys (a chunk of a longer sequence)."""
     mask = None
     if causal:
-        qi = torch.arange(t_q, device=device)
+        qi = torch.arange(t_q, device=device) + q_offset
         ki = torch.arange(t_k, device=device)
         mask = qi[:, None] >= ki[None, :]
     if q_segment_ids is not None:
@@ -47,9 +48,12 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   sm_scale: Optional[float] = None,
                   kv_segment_ids: Optional[torch.Tensor] = None,
                   dropout_rate: float = 0.0,
-                  dropout_keep: Optional[Callable[[tuple], torch.Tensor]] = None):
-    """q [B, H, T, D], k/v [B, Hkv, T, D] (H % Hkv == 0), segment_ids [B, T]
-    (query side; kv_segment_ids defaults to them).
+                  dropout_keep: Optional[Callable[[tuple], torch.Tensor]] = None,
+                  q_offset: int = 0):
+    """q [B, H, T, D], k/v [B, Hkv, Tk, D] (H % Hkv == 0), segment_ids [B, T]
+    (query side; kv_segment_ids [B, Tk] default to them; Tk = T unless the
+    queries are a chunk of the keys' sequence starting at q_offset, as
+    under context parallelism's gathered keys).
 
     dropout_rate / dropout_keep: inverted dropout on the float32
     probabilities before the product with v (the JAX reference's
@@ -70,7 +74,8 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.einsum("bkgqd,bktd->bkgqt", q5, k.float()) * sm_scale
     mask = attention_mask(t, k.shape[2], causal=causal,
                           q_segment_ids=segment_ids,
-                          k_segment_ids=kv_segment_ids, device=q.device)
+                          k_segment_ids=kv_segment_ids, device=q.device,
+                          q_offset=q_offset)
     if mask is not None:
         if mask.dim() == 4:                      # [B, 1, Tq, Tk] -> per group
             mask = mask[:, :, None]

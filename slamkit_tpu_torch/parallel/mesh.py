@@ -1,0 +1,242 @@
+"""The process mesh: several processes, one card each, over NCCL (gloo on the CPU).
+
+Counterpart of `slamkit_tpu/parallel/mesh.py`. The JAX package places one
+global array on a `jax.sharding.Mesh` of devices and lets XLA insert the
+collectives; here every rank is a process that torchrun starts, holds its own
+tile of the global batch and calls the collectives itself:
+
+  * `init_distributed(device)` joins torchrun's process group (`RANK`,
+    `WORLD_SIZE`, `LOCAL_RANK`): NCCL on the rank's card, gloo on the CPU;
+  * `make_mesh(shape, axis_names)` keeps the JAX rules and messages
+    (`mesh.py:28-52`) over the world's ranks, built on
+    `torch.distributed.device_mesh.init_device_mesh` (rank = row-major
+    position in the mesh, as JAX lays devices out);
+  * `local_tile(batch, mesh)` is the slice of a global [B, T] batch that JAX's
+    `shard_batch` / `batch_sharding` (`:60-71`, `:217-236`) place on a device:
+    rows over 'data', the time chunk over 'seq';
+  * `Mesh.shard(...)` describes that tile to the model (`Shard`): the ring's
+    process group and the global shape the dropout masks are drawn at.
+
+A 'model' axis larger than 1 (tensor parallelism) raises; `fsdp_spec` is the
+JAX rule as a plain function, for the fsdp slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+#: Mesh axes the trainers understand: 'data' (the batch axis, always
+#: present), 'model' (tensor parallelism), 'seq' (context parallelism: the
+#: time dim of batches is split over it and attention runs the ring).
+KNOWN_AXES = ("data", "model", "seq")
+
+#: where the port's tensor parallelism over 'model' stands in ROADMAP.md
+MODEL_AXIS_ITEM = "ROADMAP queue 1 item 24"
+
+
+def init_distributed(device, init_method: Optional[str] = None) -> torch.device:
+    """Join the process group of torchrun's `RANK` / `WORLD_SIZE` /
+    `LOCAL_RANK` and return the rank's device: on "cuda" the card
+    `LOCAL_RANK` (made current before any model is built, so the port's
+    `resolve_device("cuda")` finds it) over NCCL, on "cpu" gloo.
+    init_method defaults to torchrun's `env://` (a test passes a
+    `file://` store). A rank without its card, or a failed init, raises."""
+    rank = int(os.environ.get("RANK", "0"))
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    local = int(os.environ.get("LOCAL_RANK", str(rank)))
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if local >= count:
+            raise RuntimeError(f"rank {rank} (local rank {local}) has no CUDA card: "
+                               f"{count} visible on this host")
+        torch.cuda.set_device(local)
+        dev = torch.device("cuda", local)
+        backend = "nccl"
+    elif dev.type == "cpu":
+        backend = "gloo"
+    else:
+        raise ValueError(f"the mesh runs on cuda or cpu, not {dev}")
+    if dist.is_initialized():
+        if dist.get_world_size() != world or dist.get_rank() != rank:
+            raise RuntimeError(f"a process group of rank {dist.get_rank()} / "
+                               f"{dist.get_world_size()} exists; the environment says "
+                               f"{rank} / {world}")
+        return dev
+    # device_id binds NCCL to the card at once, so a failed init raises here
+    dist.init_process_group(backend, init_method=init_method or "env://", rank=rank,
+                            world_size=world,
+                            device_id=dev if backend == "nccl" else None)
+    return dev
+
+
+def world_size() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def check_mesh(shape: Optional[Sequence[int]], axis_names: Optional[Sequence[str]],
+               n_devices: int) -> tuple:
+    """(shape, axis_names) of a mesh over `n_devices` ranks, by the JAX
+    `make_mesh` rules and messages: shape None is every rank on 'data'; the
+    product must be the rank count; the default names are ('data',
+    'model')[:rank]; names come from `KNOWN_AXES` and include 'data'."""
+    if shape is None:
+        shape = (n_devices,)
+    shape = tuple(int(s) for s in shape)
+    if int(np.prod(shape)) != n_devices:
+        raise ValueError(f"mesh shape {shape} != device count {n_devices}")
+    if axis_names is None:
+        axis_names = ("data", "model")[:len(shape)]
+    axis_names = tuple(axis_names)
+    if len(axis_names) != len(shape):
+        raise ValueError(f"mesh_axes {axis_names} rank != mesh shape {shape}")
+    unknown = [a for a in axis_names if a not in KNOWN_AXES]
+    if unknown or "data" not in axis_names:
+        raise ValueError(
+            f"mesh axes must be drawn from {KNOWN_AXES} and include 'data'; "
+            f"got {axis_names}")
+    return shape, axis_names
+
+
+@dataclasses.dataclass(frozen=True)
+class Shard:
+    """What one rank's forward sees of a global [batch, time] batch: its
+    `rows`, the logical position of each of its columns (`cols`: a
+    contiguous chunk, or zigzag's two half-chunks), and the 'seq' group
+    (`group`, this rank's `rank` in it, its `size`) the ring runs over."""
+    batch: int
+    time: int
+    rows: slice
+    cols: np.ndarray
+    group: Optional[object]
+    rank: int
+    size: int
+    schedule: str = "contiguous"
+
+    def tile(self, full: torch.Tensor, time_dim: int = 1) -> torch.Tensor:
+        """This rank's tile of a tensor drawn at the global shape: its rows
+        of dim 0, its columns of dim `time_dim`."""
+        cols = torch.from_numpy(self.cols).to(full.device)
+        return full[self.rows].index_select(time_dim, cols)
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """A mesh of `sizes` over the world's ranks, named `axis_names`; this
+    process is `rank` (row-major over the mesh). `device_mesh` is torch's
+    DeviceMesh where the world has several ranks, else None."""
+    axis_names: tuple
+    sizes: tuple
+    rank: int = 0
+    device_mesh: Optional[object] = None
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.sizes))
+
+    @property
+    def coordinate(self) -> dict:
+        return dict(zip(self.axis_names,
+                        (int(i) for i in np.unravel_index(self.rank, self.sizes))))
+
+    def group(self, axis: str):
+        """The process group of this rank's line along `axis` (None on one rank)."""
+        return None if self.device_mesh is None else self.device_mesh.get_group(axis)
+
+    def shard(self, batch: int, time: int, schedule: str = "contiguous") -> Shard:
+        """The `Shard` of this rank in a global [batch, time] batch; under
+        zigzag the columns are the logical positions of its half-chunks."""
+        from ..ops.ring_attention import zigzag_permutation
+
+        n_data, n_seq = self.shape["data"], seq_axis_size(self)
+        at = self.coordinate
+        rows = batch // n_data
+        chunk = time // n_seq
+        order = (zigzag_permutation(time, n_seq) if schedule == "zigzag" and n_seq > 1
+                 else np.arange(time))
+        r = at.get("seq", 0)
+        return Shard(batch=batch, time=time,
+                     rows=slice(at["data"] * rows, (at["data"] + 1) * rows),
+                     cols=np.ascontiguousarray(order[r * chunk:(r + 1) * chunk]),
+                     group=self.group("seq") if n_seq > 1 else None,
+                     rank=r, size=n_seq, schedule=schedule)
+
+
+def make_mesh(shape: Optional[Sequence[int]] = None,
+              axis_names: Optional[Sequence[str]] = None) -> Mesh:
+    """The mesh over the world's ranks (one, without a process group).
+
+    shape=None -> every rank on a 1-D 'data' axis (data parallelism);
+    shape=[d, s] with axis_names=('data', 'seq') -> context parallelism
+    (the ring over 'seq'). A 'model' axis above 1 raises, and so does a
+    process that torchrun started as one of several ranks before it joined
+    their group (`init_distributed`): it would train alone."""
+    launched = int(os.environ.get("WORLD_SIZE", "1"))
+    if launched > 1 and not dist.is_initialized():
+        raise RuntimeError(f"WORLD_SIZE={launched} but this process has joined no process "
+                           f"group: call parallel.init_distributed first")
+    n = world_size()
+    shape, axis_names = check_mesh(shape, axis_names, n)
+    if dict(zip(axis_names, shape)).get("model", 1) > 1:
+        raise NotImplementedError(
+            f"mesh axis 'model' of size {dict(zip(axis_names, shape))['model']}: tensor "
+            f"parallelism is not ported yet ({MODEL_AXIS_ITEM})")
+    if n == 1:
+        return Mesh(axis_names, shape)
+    from torch.distributed.device_mesh import init_device_mesh
+
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return Mesh(axis_names, shape, dist.get_rank(),
+                init_device_mesh(device_type, shape, mesh_dim_names=axis_names))
+
+
+def seq_axis_size(mesh: Mesh) -> int:
+    """Size of the 'seq' (context-parallel) axis; 1 when absent."""
+    return int(mesh.shape.get("seq", 1))
+
+
+def local_tile(batch: dict, mesh: Mesh) -> dict:
+    """This rank's tile of a global host batch, as JAX's `shard_batch`
+    places it: arrays of rank >= 2 split their leading dim over 'data'; a
+    [B, T] array whose T divides a 'seq' axis also its time dim over 'seq';
+    arrays of rank < 2 stay whole. Works on numpy arrays and tensors."""
+    n_data, n_seq = mesh.shape["data"], seq_axis_size(mesh)
+    at = mesh.coordinate
+    out = {}
+    for key, v in batch.items():
+        if np.ndim(v) < 2:
+            out[key] = v
+            continue
+        if v.shape[0] % n_data:
+            raise ValueError(f"{key}: batch dim {v.shape[0]} does not divide over "
+                             f"'data' = {n_data}")
+        rows = v.shape[0] // n_data
+        x = v[at["data"] * rows:(at["data"] + 1) * rows]
+        if n_seq > 1 and np.ndim(v) == 2 and v.shape[1] % n_seq == 0:
+            chunk = v.shape[1] // n_seq
+            x = x[:, at["seq"] * chunk:(at["seq"] + 1) * chunk]
+        out[key] = x
+    return out
+
+
+def fsdp_spec(shape: Sequence[int], mesh: Mesh, axis: str = "data") -> tuple:
+    """The partition spec (one axis name or None per dim) that shards the
+    largest dim divisible by the axis size (the ZeRO-3 rule of the JAX
+    package); scalars and indivisible arrays stay replicated (())."""
+    n = mesh.shape[axis]
+    dims = list(shape)
+    for i in sorted(range(len(dims)), key=lambda i: -dims[i]):
+        if dims[i] % n == 0 and dims[i] >= n:
+            spec = [None] * len(dims)
+            spec[i] = axis
+            return tuple(spec)
+    return ()

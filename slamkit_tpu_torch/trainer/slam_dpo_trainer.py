@@ -142,7 +142,7 @@ class SLAMDPOTrainer:
     def __init__(self, model, tokenizer, args, train_dataset: List[dict],
                  eval_dataset: Optional[List[dict]] = None,
                  callbacks: Optional[List[TrainerCallback]] = None, log_fn=None):
-        _refuse_unported(args)
+        _refuse_unported(args, dpo=True)
         self.model = model
         self.args = args
         self.device = model.device

@@ -1,4 +1,4 @@
-"""SLAMTrainer: the pretraining loop on one device.
+"""SLAMTrainer: the pretraining loop, on one card or on a mesh of ranks.
 
 Counterpart of `slamkit_tpu/trainer/slam_trainer.py`, the call
 `cli/train.py:90-103` makes: `SLAMTrainer(model, args, train_dataset,
@@ -28,9 +28,30 @@ eval_dataset, callbacks, packing, context_len, packing_strategy).train()`.
     `train/forward`, `train/backward` and `train/optimizer` ranges name the
     step's parts.
 
-The loop runs synchronously on the model's device (no mesh, no upload or
-metrics threads); a checkpoint may be written in the background from a
-snapshot. Knobs of the JAX trainer that the port does not implement raise.
+Under torchrun (`parallel.init_distributed`) the trainer runs on the mesh of
+`training_args.mesh_shape` / `mesh_axes` (JAX `slam_trainer.py:55-70`,
+`:229-284`; `mesh_shape: null` is every rank on 'data'):
+
+  * the global batch is per_device_train_batch_size x the 'data' size;
+    every rank iterates the same seeded stream and keeps its tile
+    (`parallel.local_tile`); num_items comes from the raw global labels;
+  * under a 'seq' axis the labels are shifted over the global row before
+    chunking (a chunk's last position keeps its target), `cp_schedule:
+    zigzag` then permutes every per-token array, and attention runs the
+    ring (`ops/ring_attention.py`) or, on the plain route, gathers k / v;
+  * each rank's loss is its share of the global sum over num_items, so after
+    the accumulation group the gradients get one all-reduce (SUM) over the
+    world, in flat buckets (JAX sums; DistributedDataParallel would
+    average), and clipping sees the global gradient on every rank;
+  * dropout masks are drawn at the global batch's shape and tiled;
+  * the logged loss and the eval sums are all-reduced; rank 0 alone logs,
+    traces and writes checkpoints, and every rank waits for it at a
+    barrier; every rank resumes from the checkpoint.
+
+With one rank (no torchrun) nothing of this runs. The loop runs
+synchronously on the model's device (no upload or metrics threads); a
+checkpoint may be written in the background from a snapshot. Knobs of the
+JAX trainer that the port does not implement raise.
 """
 from __future__ import annotations
 
@@ -43,9 +64,12 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from ..data.dataset import IGNORE_INDEX, Batcher, TokenDataset
+from ..ops.ring_attention import SCHEDULES, check_chunk, zigzag_permutation
+from ..parallel.mesh import Mesh, local_tile, make_mesh, seq_axis_size
 from ..utils.calculation_utils import masked_sum, token_nll
 from . import checkpoint
 from .callbacks import TrainerCallback, TrainerControl, TrainerState
@@ -54,26 +78,36 @@ from .optim import make_optimizer
 logger = logging.getLogger(__name__)
 
 BATCH_KEYS = ("input_ids", "labels", "segment_ids", "positions")
+# gradients all-reduced in flat buckets of at most this many elements
+BUCKET_ELEMENTS = 1 << 26
 
 
-def _refuse_unported(args):
-    """The JAX trainer's mesh and multihost knobs wait for a later ROADMAP
-    item; a non-default value raises rather than being ignored."""
-    def bad(key, what, item):
-        raise NotImplementedError(f"training_args.{key}={args.get(key)!r}: {what} is not "
-                                  f"ported yet (ROADMAP {item})")
+def _refuse(args, key, what: str, item: int):
+    raise NotImplementedError(f"training_args.{key}={args.get(key)!r}: {what} is not "
+                              f"ported yet (ROADMAP queue 1 item {item})")
 
+
+def _refuse_unported(args, dpo: bool = False):
+    """The JAX trainers' knobs that wait for a later ROADMAP item raise
+    rather than being ignored: fsdp (item 23), multihost (item 26) and, for
+    DPO (`dpo=True`), any mesh (item 22). A 'model' axis raises in
+    `parallel.make_mesh` (item 24)."""
     if args.get("fsdp", False):
-        bad("fsdp", "parameter sharding", "queue 1 item 14")
+        _refuse(args, "fsdp", "parameter sharding (fsdp)", 23)
+    if args.get("multihost", False):
+        _refuse(args, "multihost", "multi-host training", 26)
+    if not dpo:
+        return
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise NotImplementedError(f"WORLD_SIZE={os.environ['WORLD_SIZE']}: DPO on several "
+                                  f"ranks is not ported yet (ROADMAP queue 1 item 22)")
     mesh_shape = args.get("mesh_shape", None)
     if mesh_shape is not None and int(np.prod(list(mesh_shape))) != 1:
-        bad("mesh_shape", "a multi-device mesh", "queue 1 item 14")
+        _refuse(args, "mesh_shape", "DPO on a mesh", 22)
     if "seq" in list(args.get("mesh_axes", None) or []):
-        bad("mesh_axes", "context parallelism", "queue 1 item 14")
+        _refuse(args, "mesh_axes", "DPO on a mesh (context parallelism)", 22)
     if (args.get("cp_schedule", "contiguous") or "contiguous") != "contiguous":
-        bad("cp_schedule", "the ring-attention schedule", "queue 1 item 14")
-    if args.get("multihost", False):
-        bad("multihost", "multi-host training", "queue 1 item 14")
+        _refuse(args, "cp_schedule", "DPO on a mesh (the ring schedule)", 22)
 
 
 def dropout_stream(model, args) -> Optional[torch.Generator]:
@@ -97,16 +131,25 @@ class SLAMTrainer:
                  eval_dataset: Optional[TokenDataset] = None,
                  callbacks: Optional[List[TrainerCallback]] = None,
                  packing: bool = False, context_len: Optional[int] = None,
-                 log_fn=None, packing_strategy: str = "bestfit"):
+                 log_fn=None, packing_strategy: str = "bestfit", mesh: Optional[Mesh] = None):
         _refuse_unported(args)
         self.model = model
         self.args = args
         self.device = model.device
         self.callbacks = callbacks or []
         self.log_fn = log_fn
+        self.mesh = mesh or make_mesh(args.get("mesh_shape", None), args.get("mesh_axes", None))
+        self.world = self.mesh.size
+        n_data = self.mesh.shape["data"]
         self.accum = int(args.get("gradient_accumulation_steps", 1) or 1)
-        self.global_batch = int(args["per_device_train_batch_size"])
+        self.global_batch = int(args["per_device_train_batch_size"]) * n_data
         self.context_len = int(context_len or model.decoder.cfg.max_position_embeddings)
+        self._setup_seq_axis()
+        if self.world > 1:
+            # every rank starts from rank 0's weights
+            with torch.no_grad():
+                for p in model.decoder.parameters():
+                    dist.broadcast(p, src=0)
         self.state = TrainerState()
         self.control = TrainerControl()
         self._data_pos = (0, 0)  # (epoch, microbatches consumed in epoch)
@@ -121,9 +164,10 @@ class SLAMTrainer:
                                      packing_strategy=packing_strategy)
         self.eval_batcher = None
         if eval_dataset is not None and len(eval_dataset):
+            per_device = args.get("per_device_eval_batch_size",
+                                  args["per_device_train_batch_size"])
             self.eval_batcher = Batcher(
-                eval_dataset,
-                int(args.get("per_device_eval_batch_size", self.global_batch)),
+                eval_dataset, int(per_device) * n_data,
                 self.context_len, pad_id=pad, packing=packing, shuffle=False,
                 packing_strategy=packing_strategy)
 
@@ -147,6 +191,39 @@ class SLAMTrainer:
                                                        self.total_steps)
         self.dropout_stream = dropout_stream(model, args)
 
+    def _setup_seq_axis(self):
+        """Context parallelism over a 'seq' axis, checked as the JAX trainer
+        checks it (`slam_trainer.py:244-260`): the context divides over the
+        axis; where training or evaluation takes the flash route (the ring)
+        each chunk suits the schedule; zigzag needs the flash route in
+        training."""
+        from ..models.transformer import _flash_route
+
+        self.n_seq = seq_axis_size(self.mesh)
+        self.cp_schedule = str(self.args.get("cp_schedule", "contiguous") or "contiguous")
+        if self.cp_schedule not in SCHEDULES:
+            raise ValueError(f"unknown ring schedule {self.cp_schedule!r}")
+        self._zz_idx = None
+        if self.n_seq == 1:
+            return
+        cfg = self.model.decoder.cfg
+        if self.context_len % self.n_seq:
+            raise ValueError(f"context_len {self.context_len} not divisible by seq axis "
+                             f"{self.n_seq}")
+        train_ring = _flash_route(cfg, self.device, cfg.attention_dropout > 0.0)
+        if train_ring or _flash_route(cfg, self.device, False):
+            try:
+                check_chunk(self.context_len // self.n_seq, self.n_seq, self.cp_schedule)
+            except ValueError as e:
+                raise ValueError(
+                    f"ring-attention context parallelism: {e}; use the plain attention "
+                    f"(model.config_args.attn_implementation=xla) for smaller chunks") from e
+        if not train_ring and self.cp_schedule != "contiguous":
+            raise ValueError("cp_schedule=zigzag needs the flash attention path (ring "
+                             "attention); the XLA CP path has no ring schedule")
+        if self.cp_schedule == "zigzag":
+            self._zz_idx = zigzag_permutation(self.context_len, self.n_seq)
+
     # ------------------------------------------------------------------ #
     # compute
     # ------------------------------------------------------------------ #
@@ -161,24 +238,68 @@ class SLAMTrainer:
         return int(valid.sum())
 
     def _to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(batch[k]).to(self.device, non_blocking=True)
+        return {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(self.device,
+                                                                       non_blocking=True)
                 for k in BATCH_KEYS}
+
+    def _local(self, batch: Dict[str, np.ndarray]):
+        """(this rank's tile of a global host batch on the device, its
+        `parallel.Shard`, whether its labels are pre-shifted). One rank:
+        the batch itself, None, False."""
+        if self.world == 1:
+            return self._to_device(batch), None, False
+        batch = {k: batch[k] for k in BATCH_KEYS}
+        if self.n_seq > 1:
+            # the next-token targets, over the global row, before chunking
+            lab = batch["labels"]
+            batch["labels"] = np.concatenate(
+                [lab[:, 1:], np.full_like(lab[:, :1], IGNORE_INDEX)], axis=1)
+            if self._zz_idx is not None:
+                batch = {k: v[:, self._zz_idx] for k, v in batch.items()}
+        shard = self.mesh.shard(len(batch["input_ids"]), self.context_len, self.cp_schedule)
+        return self._to_device(local_tile(batch, self.mesh)), shard, self.n_seq > 1
+
+    def _all_reduce_grads(self):
+        """Sum every rank's gradients (one all-reduce over the world per flat
+        bucket of one dtype)."""
+        def reduce(bucket):
+            flat = torch.cat([g.reshape(-1) for g in bucket])
+            dist.all_reduce(flat)
+            for g, part in zip(bucket, flat.split([g.numel() for g in bucket])):
+                g.copy_(part.view_as(g))
+
+        grads = [p.grad for p in self.model.decoder.parameters() if p.grad is not None]
+        for dtype in sorted({g.dtype for g in grads}, key=str):
+            bucket, size = [], 0
+            for g in (g for g in grads if g.dtype == dtype):
+                if bucket and size + g.numel() > BUCKET_ELEMENTS:
+                    reduce(bucket)
+                    bucket, size = [], 0
+                bucket.append(g)
+                size += g.numel()
+            reduce(bucket)
 
     def _train_step(self, group: List[Dict[str, np.ndarray]]):
         """Forward and backward over the group's microbatches, then one
         optimizer update; returns (summed loss tensor, tokens counted). The
         three parts are named ranges in a `torch.profiler` trace
-        (`tools/profile_train.py` reads them)."""
+        (`tools/profile_train.py` reads them); on a mesh the gradients' and
+        the loss's all-reduce is `train/all_reduce`."""
         num_items = sum(int((mb["labels"] != IGNORE_INDEX).sum()) for mb in group)
         loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
         for mb in group:
             with record_function("train/forward"):
-                loss = self.model.loss_fn({**self._to_device(mb),
-                                           "num_items_in_batch": num_items},
-                                          dropout_seed=next_seed(self.dropout_stream))
+                batch, shard, pre_shifted = self._local(mb)
+                loss = self.model.loss_fn({**batch, "num_items_in_batch": num_items},
+                                          dropout_seed=next_seed(self.dropout_stream),
+                                          pre_shifted=pre_shifted, shard=shard)
             with record_function("train/backward"):
                 loss.backward()
             loss_sum += loss.detach()
+        if self.world > 1:
+            with record_function("train/all_reduce"):
+                self._all_reduce_grads()
+                dist.all_reduce(loss_sum)
         with record_function("train/optimizer"):
             self.optimizer.step()
             self.optimizer.zero_grad()
@@ -191,13 +312,18 @@ class SLAMTrainer:
         total_nll = torch.zeros((), dtype=torch.float64, device=self.device)
         total_tokens = 0
         for batch in self.eval_batcher.epoch(0):
-            b = self._to_device(batch)
+            b, shard, pre_shifted = self._local(batch)
             logits, _ = self.model.decoder(b["input_ids"], positions=b["positions"],
-                                           segment_ids=b["segment_ids"])
-            labels = b["labels"][..., 1:]
+                                           segment_ids=b["segment_ids"], shard=shard)
+            if pre_shifted:
+                labels = b["labels"]
+            else:
+                logits, labels = logits[..., :-1, :], b["labels"][..., 1:]
             valid = labels != IGNORE_INDEX
-            total_nll += masked_sum(token_nll(logits[..., :-1, :], labels), valid)
+            total_nll += masked_sum(token_nll(logits, labels), valid)
             total_tokens += int((batch["labels"][..., 1:] != IGNORE_INDEX).sum())
+        if self.world > 1:
+            dist.all_reduce(total_nll)
         loss = float(total_nll) / max(total_tokens, 1)
         metrics = {"eval_loss": loss, "eval_ppl": float(np.exp(min(loss, 30.0)))}
         self._log({**metrics, "step": self.state.global_step})
@@ -207,6 +333,14 @@ class SLAMTrainer:
     # checkpointing
     # ------------------------------------------------------------------ #
     def save_checkpoint(self):
+        """Rank 0 writes the checkpoint (in the background under async_save);
+        on a mesh every rank then waits for it at a barrier."""
+        if self.mesh.rank == 0:
+            self._write_checkpoint()
+        if self.world > 1:
+            dist.barrier()
+
+    def _write_checkpoint(self):
         path = os.path.abspath(checkpoint.ckpt_dir(self.args["output_dir"],
                                                    self.state.global_step))
         # resume replays from the oldest consumed-but-unstepped microbatch
@@ -285,9 +419,22 @@ class SLAMTrainer:
     # ------------------------------------------------------------------ #
     def _log(self, record: dict):
         self.state.log_history.append(record)
+        if self.mesh.rank:
+            return
         logger.info("%s", record)
         if self.log_fn is not None:
             self.log_fn(record)
+
+    def _agree(self, control):
+        """On a mesh, a stop, save or eval that any rank's callbacks ask for
+        (a run-time stopper reads its own clock) holds on every rank."""
+        if self.world == 1:
+            return
+        flags = torch.tensor([control.should_training_stop, control.should_save,
+                              control.should_evaluate], dtype=torch.int32, device=self.device)
+        dist.all_reduce(flags, op=dist.ReduceOp.MAX)
+        control.should_training_stop, control.should_save, control.should_evaluate = (
+            bool(f) for f in flags.tolist())
 
     def train(self, resume_from_checkpoint=False):
         args, state, control = self.args, self.state, self.control
@@ -325,7 +472,8 @@ class SLAMTrainer:
             nonlocal last_eval_step, last_save_step, profiler
             for _ in group:
                 self._pending_positions.popleft()
-            if profile_steps and state.global_step == profile_start and profiler is None:
+            if (profile_steps and state.global_step == profile_start and profiler is None
+                    and self.mesh.rank == 0):
                 profiler = self._start_profiler()
             loss_sum, tokens = self._train_step(group)
             if profiler is not None and state.global_step >= profile_start + profile_steps - 1:
@@ -348,6 +496,7 @@ class SLAMTrainer:
                 window_loss, window_t0, window_tokens = [], time.time(), 0
             for cb in self.callbacks:
                 cb.on_step_end(args, state, control)
+            self._agree(control)
             if do_eval and eval_steps and step_no >= eval_due:
                 control.should_evaluate = True
                 eval_due = next_due(step_no, eval_steps)
@@ -398,6 +547,8 @@ class SLAMTrainer:
         if last_save_step != state.global_step:
             self.save_checkpoint()
         self._saver.wait()   # train() returns with the final save on disk
+        if self.world > 1:
+            dist.barrier()
         for cb in self.callbacks:
             cb.on_train_end(args, state, control)
         return state

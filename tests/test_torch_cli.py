@@ -160,10 +160,10 @@ def _cached_runs_match(work, tmp_path, mixed):
 
 
 @pytest.mark.parametrize("overrides,match", [
-    (["training_args.multihost=true"], "item 14"),
+    (["training_args.multihost=true"], "item 26"),
     (["data.train_path=[/a.jsonl,/b.jsonl]", "data.saved_ds_path=/tmp/ds"], None),
     (["data.saved_ds_path=/tmp/ds"], None),
-    (["training_args.fsdp=true"], "item 14"),
+    (["training_args.fsdp=true"], "item 23"),
 ], ids=["overrides0-item 14", "overrides1-item 18", "overrides2-item 18", "overrides3-item 14"])
 def test_train_cli_refuses_what_is_not_ported(work, tmp_path, overrides, match):
     """What is not ported raises; data.saved_ds_path (match None), ported
@@ -347,8 +347,16 @@ def test_eval_cli_generate_branch_matches_jax(eval_files, monkeypatch):
 @pytest.mark.parametrize("extra,match", [
     (["metric=asr_perplexity", "+metric.asr_backend=onnx"], "asr_backend='onnx'"),
     (["metric=llm_as_judge", "+metric.llm_backend=vllm"], "llm_backend='vllm'"),
-    (["metric=sblimp", "eval_mesh=2"], "item 14"),
-])
+    (["metric=sblimp", "eval_mesh=2"], "item 25"),
+], ids=["extra0-asr_backend='onnx'", "extra1-llm_backend='vllm'", "extra2-item 14"])
 def test_eval_cli_refuses_what_is_not_ported(extra, match):
     with pytest.raises(NotImplementedError, match=match):
         port_eval.eval_main(["device=cpu", *extra])
+
+
+def test_eval_cli_refuses_several_ranks(monkeypatch):
+    """Under torchrun's WORLD_SIZE > 1 the eval raises (item 25) rather than
+    evaluating a copy on every rank."""
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    with pytest.raises(NotImplementedError, match="item 25"):
+        port_eval.eval_main(["device=cpu", "metric=sblimp"])

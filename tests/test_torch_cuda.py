@@ -656,3 +656,50 @@ def test_probe_kernel_refuses_what_it_does_not_take(dev):
         matmul_probe(a[:48].contiguous(), a)
     with pytest.raises(ValueError, match="several devices"):
         matmul_probe(a, a.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["contiguous", "zigzag"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_ring_kernel_modes_match_plain(dev, schedule, dtype):
+    """The ring's kernel sequence (`ops/ring_attention.ring_on_one_device`:
+    every rank of a 'seq' group of 4, rotated in memory) at the Slam shape
+    [8, 14/2, 1024, 64] with packed segments and a -1 tail: the causal
+    diagonal calls, the non-causal off-diagonal calls with distinct q / k
+    segment ids (and their dead rows), the LSE merge and the backward from
+    the global merged out and LSE, all launching the kernels of `dtype`,
+    against the plain version over the whole sequence. Bounds: the forward's
+    as above; each gradient's twice the above (the ring adds n partial
+    gradients, each rounded by the kernel)."""
+    from slamkit_tpu_torch.ops.ring_attention import ring_on_one_device, zigzag_permutation
+
+    n, (b, h, hkv, t, d) = 4, (8, 14, 2, 1024, 64)
+    f32 = dtype == torch.float32
+    g = torch.Generator(device=dev).manual_seed(5)
+    mk = lambda hh: torch.randn((b, hh, t, d), generator=g, device=dev).to(dtype)
+    q, k, v, do = mk(h), mk(hkv), mk(hkv), mk(h)
+    seg = _segments("packed", b, t, seed=5).to(dev)
+    order = zigzag_permutation(t, n) if schedule == "zigzag" else np.arange(t)
+    idx = torch.from_numpy(order).to(dev)
+    perm = lambda x, dim=2: x.index_select(dim, idx).contiguous()
+    counter = "f32_launches" if f32 else "launches"
+    before = getattr(flash_attention_fwd, counter), getattr(flash_attention_bwd, counter)
+    out, lse, dq, dk, dv = ring_on_one_device(perm(q), perm(k), perm(v), perm(seg, 1),
+                                              perm(do), n, schedule)
+    calls = n * (n + 1) // 2 if schedule == "contiguous" else n * (2 * n - 1)
+    assert (getattr(flash_attention_fwd, counter) - before[0],
+            getattr(flash_attention_bwd, counter) - before[1]) == (calls, calls)
+    assert out.dtype == dq.dtype == dtype
+    p_out, p_lse = mha_reference(q.float(), k.float(), v.float(), segment_ids=seg)
+    grads = mha_reference_bwd(q.float(), k.float(), v.float(), seg, None, p_out, p_lse,
+                              do.float())
+    alive = perm(p_lse) < 1e30
+    assert (out.float() - perm(p_out)).abs().max().item() <= (F32_OUT_BOUND if f32
+                                                               else OUT_BOUND)
+    assert (lse - perm(p_lse))[alive].abs().max().item() <= (F32_LSE_BOUND if f32
+                                                             else LSE_BOUND)
+    rel = F32_BWD_FACTOR * F32_EPS * math.sqrt((h // hkv) * t) if f32 else BWD_REL_BOUND
+    for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), grads):
+        want = perm(want)
+        err = (got.float() - want).abs().max().item()
+        assert err <= 2 * rel * want.abs().max().item() + 1e-5, (name, err)

@@ -361,15 +361,24 @@ def test_evaluate_wraps_round(tmp_path, flat):
 
 
 @pytest.mark.parametrize("override,match", [
-    (dict(fsdp="true"), "item 14"),
-    (dict(mesh_shape="[2]"), "item 14"),
-    (dict(mesh_axes="[data,seq]"), "item 14"),
-    (dict(multihost="true"), "item 14"),
-])
+    (dict(fsdp="true"), "item 23"),
+    (dict(mesh_shape="[2]"), "item 22"),
+    (dict(mesh_axes="[data,seq]"), "item 22"),
+    (dict(multihost="true"), "item 26"),
+], ids=[f"override{i}-item 14" for i in range(4)])
 def test_refuses_what_is_not_ported(tmp_path, flat, override, match):
     with pytest.raises(NotImplementedError, match=match):
         SLAMDPOTrainer(port_model(flat), UnitTokeniser(num_units=60),
                        args_for(tmp_path, **override), pref_rows(4, seed=0))
+
+
+def test_refuses_several_ranks(tmp_path, flat, monkeypatch):
+    """Under torchrun's WORLD_SIZE > 1 DPO raises (item 22) rather than
+    training a copy on every rank."""
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(NotImplementedError, match="item 22"):
+        SLAMDPOTrainer(port_model(flat), UnitTokeniser(num_units=60), args_for(tmp_path),
+                       pref_rows(4, seed=0))
 
 
 def test_refuses_a_model_with_dropout(tmp_path, flat, monkeypatch):

@@ -459,7 +459,8 @@ def test_port_sources_never_import_jax():
         "metric/whisper_features", "metric/metric_utils", "metric/generative_metric",
         "utils/word_tokenize", "native/_build", "native/bindings", "native/codec",
         "native/pack", "utils/data_prep", "utils/tts_utils", "tools/data_recipe",
-        "feature_extractor/kmeans")} <= scanned
+        "feature_extractor/kmeans", "parallel/__init__", "parallel/mesh",
+        "ops/ring_attention", "tools/parallel_smoke")} <= scanned
     seen_allowed = set()
     for path in paths:
         rel = str(path.relative_to(ROOT))
@@ -471,6 +472,58 @@ def test_port_sources_never_import_jax():
             assert not (words[:1] in (["import"], ["from"]) and len(words) > 1
                         and words[1].split(".")[0] in banned), (path, line)
     assert seen_allowed == allowed
+
+
+def test_parallel_smoke_refuses_one_rank_and_a_cpu_host():
+    """The multi-card leg refuses fewer than two ranks (or an odd count),
+    naming torchrun, and refuses a host without a card."""
+    one = _run([sys.executable, "-m", "slamkit_tpu_torch.tools.parallel_smoke"], cwd=ROOT)
+    assert one.returncode == 2 and "--nproc_per_node N" in one.stderr, one.stderr
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    two = subprocess.run([sys.executable, "-m", "slamkit_tpu_torch.tools.parallel_smoke"],
+                         cwd=ROOT, env={**env, "WORLD_SIZE": "2"}, capture_output=True,
+                         text=True, timeout=120)
+    assert two.returncode == 1 and "cuda" in two.stderr.lower(), two.stderr
+    assert '"ok"' not in one.stdout + two.stdout
+
+
+def test_parallel_smoke_rehearsal_on_gloo_ranks_without_jax(tmp_path):
+    """`tools/parallel_smoke.run` on 2 gloo ranks on the CPU, JAX and the
+    rest blocked, at a 2-layer decoder, 2 rows of 512: the one-process
+    reference, the meshes (DP [2], CP [1, 2] in both schedules, [2, 1]) with
+    their step-1 checks, exact resumes, the ring against one call, and no
+    kernel launch. (The 4-rank meshes of the card run are held on 4 gloo
+    ranks by `test_torch_parallel_training.py` and
+    `test_torch_ring_attention.py`.)"""
+    import torch_mesh_workers
+
+    ranks = torch_mesh_workers.launch("parallel_smoke", 2, tmp_path, timeout=400, block=True,
+                                      context=512, rows=2, n_rows=60, lengths=[100, 1001])
+    assert all(json.loads(str(r["loaded"])) == [] for r in ranks)
+    result = json.loads(str(ranks[0]["result"]))
+    assert result["device"] == "cpu" and result["world"] == 2
+    assert set(result["meshes"]) == {"dp", "cp_contiguous", "cp_zigzag", "dp_cp"}
+    for name, row in result["meshes"].items():
+        assert row["resume_exact"] and len(row["losses"]) == 4, (name, row)
+        assert row["loss_err"] <= 1e-5 and row["grad_norm_rel_err"] <= 1e-5, (name, row)
+        assert row["launches_by_rank"] == [{"flash_fwd": 0, "flash_bwd": 0}] * 2
+        assert ("ring" in row) == (name in ("cp_contiguous", "cp_zigzag"))
+    assert result["dp_scaling_efficiency"] > 0
+
+
+def test_chip_smoke_ring_rehearsal_on_cpu(chip_smoke, capsys):
+    """Phase 17 on the CPU at a small shape: both schedules, float32 and
+    bf16 (the plain versions), every check, no launch and no timing."""
+    import torch
+
+    result = chip_smoke.run_ring_kernels(torch.device("cpu"), shape=(2, 4, 2, 1024, 16))
+    assert result["launches"] == {"flash_fwd": 0, "flash_bwd": 0, "flash_fwd_f32": 0,
+                                  "flash_bwd_f32": 0}
+    assert [(r["dtype"], r["schedule"]) for r in result["checks"]] == [
+        ("bfloat16", "contiguous"), ("bfloat16", "zigzag"), ("float32", "contiguous"),
+        ("float32", "zigzag")]
+    assert all(r["ok"] for r in result["checks"]) and result["calls"] == []
+    assert "phase 17" in capsys.readouterr().out
 
 
 def test_chip_smoke_fails_without_cuda():

@@ -1,0 +1,183 @@
+"""Rank processes for the port's multi-process CPU tests (gloo, no card).
+
+`launch(fn, world, tmp)` starts `world` copies of this file as torchrun
+would (RANK / WORLD_SIZE / LOCAL_RANK in the environment); each joins the
+process group through `parallel.init_distributed("cpu")` over a FileStore
+under `tmp` (so parallel test files never share a port), runs `fn` on its
+rank and saves what it computed to `tmp/<fn>-<rank>.npz`. The test reads
+those files back. Nothing here imports JAX; with `block=True` the ranks
+refuse to import it (and the other packages the card's host lacks).
+"""
+from __future__ import annotations
+
+import importlib.abc
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+
+HERE = pathlib.Path(__file__).resolve().parent
+REPO_ROOT = HERE.parent
+BLOCKED = ("jax", "slamkit_tpu", "yaml", "transformers", "tokenizers", "safetensors", "nltk",
+           "openai")
+
+
+class _Blocker(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"{name} is blocked: the port must run without it")
+        return None
+
+
+def launch(fn: str, world: int, tmp: pathlib.Path, timeout: float = 240.0,
+           block: bool = False, **kwargs):
+    """Run `fn(**kwargs)` on `world` ranks (with `block`, none may import
+    JAX and the rest of `BLOCKED`); returns each rank's saved arrays."""
+    tmp = pathlib.Path(tmp)
+    tmp.mkdir(parents=True, exist_ok=True)
+    (tmp / f"{fn}.json").write_text(json.dumps(kwargs))
+    store = tmp / f"{fn}.store"
+    if store.exists():
+        store.unlink()
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                   OMP_NUM_THREADS="1", PYTHONPATH=str(REPO_ROOT))
+        procs.append(subprocess.Popen([sys.executable, __file__, fn, str(tmp),
+                                       *(["--block"] if block else [])], env=env,
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    outputs = []
+    try:
+        for p in procs:
+            outputs.append(p.communicate(timeout=timeout)[0].decode(errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    failed = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode != 0]
+    if failed:
+        raise RuntimeError(f"ranks {failed} failed:\n" + "\n".join(
+            f"--- rank {r} ---\n{out[-4000:]}" for r, out in enumerate(outputs)))
+    return [dict(np.load(tmp / f"{fn}-{r}.npz")) for r in range(world)]
+
+
+# --------------------------------------------------------------------------- #
+# ring attention
+# --------------------------------------------------------------------------- #
+def ring(tmp, inputs, schedule, dtype="float32"):
+    """This rank's chunk of `inputs` (q, k, v, seg, do: global arrays, the
+    sequence already zigzag-permuted for that schedule) through
+    `ring_flash_attention` over the world as one 'seq' group: out, dq, dk, dv."""
+    import torch
+    import torch.distributed as dist
+
+    from slamkit_tpu_torch.ops.ring_attention import ring_flash_attention
+
+    g = dict(np.load(inputs))
+    n, r = dist.get_world_size(), dist.get_rank()
+    c = g["q"].shape[2] // n
+    part = lambda x, dim: torch.from_numpy(np.ascontiguousarray(
+        np.take(x, np.arange(r * c, (r + 1) * c), axis=dim)))
+    dt = getattr(torch, dtype)
+    q, k, v = (part(g[name], 2).to(dt).requires_grad_() for name in ("q", "k", "v"))
+    out = ring_flash_attention(q, k, v, part(g["seg"], 1), group=dist.group.WORLD,
+                               schedule=schedule, sm_scale=float(g["scale"]))
+    out.backward(part(g["do"], 2).to(dt))
+    return {"out": out.detach().float().numpy(), "dq": q.grad.float().numpy(),
+            "dk": k.grad.float().numpy(), "dv": v.grad.float().numpy()}
+
+
+# --------------------------------------------------------------------------- #
+# the trainer
+# --------------------------------------------------------------------------- #
+def record_grads(trainer) -> list:
+    """Make `trainer` keep a copy of the gradients each optimizer step
+    reads (on a mesh: the all-reduced global gradient); returns the list
+    they are appended to, one {parameter name: array} a step."""
+    steps, step = [], trainer.optimizer.step
+
+    def recording_step(*a, **kw):
+        steps.append({n: p.grad.detach().clone().numpy()
+                      for n, p in trainer.model.decoder.named_parameters()
+                      if p.grad is not None})
+        return step(*a, **kw)
+
+    trainer.optimizer.step = recording_step
+    return steps
+
+
+def train(tmp, config, args, train_seqs, eval_seqs, context_len):
+    """`SLAMTrainer` on the mesh of `args` (training_args as a dict), a fresh
+    `UnitLM(config, seed=0)` and `train_seqs` packed at `context_len`, then
+    a second trainer resuming from the first's checkpoint-1: each run's
+    logged losses and eval losses, the first run's gradients of each step,
+    and each run's final parameters."""
+    from slamkit_tpu_torch.data import TokenDataset
+    from slamkit_tpu_torch.models import UnitLM, UnitLMConfig, to_flat
+    from slamkit_tpu_torch.trainer import SLAMTrainer
+
+    out = {}
+    first = args["output_dir"]
+    for run, resume in (("a", False), ("b", first + "/checkpoint-1")):
+        model = UnitLM(UnitLMConfig(**config), seed=0, device="cpu")
+        tr = SLAMTrainer(model, {**args, "output_dir": first + ("" if run == "a" else "_b")},
+                         TokenDataset.from_lists(train_seqs),
+                         eval_dataset=TokenDataset.from_lists(eval_seqs), packing=True,
+                         context_len=context_len)
+        grads = record_grads(tr)
+        history = tr.train(resume_from_checkpoint=resume).log_history
+        out[f"{run}/loss"] = np.asarray([r["loss"] for r in history if "loss" in r])
+        out[f"{run}/eval_loss"] = np.asarray([r["eval_loss"] for r in history
+                                              if "eval_loss" in r])
+        out.update({f"{run}/param/{k}": v for k, v in to_flat(model.decoder).items()})
+        if run == "a":
+            out.update({f"a/grad{i}/{k}": v for i, g in enumerate(grads) for k, v in g.items()})
+    return out
+
+
+def parallel_smoke(tmp, context, rows, n_rows, lengths):
+    """`tools/parallel_smoke.run` on the CPU at a 2-layer, 64-wide decoder
+    in float32: its result as JSON, and the blocked modules loaded."""
+    import torch
+
+    from slamkit_tpu_torch.models import UnitLMConfig
+    from slamkit_tpu_torch.tools import parallel_smoke as smoke
+
+    cfg = UnitLMConfig(base_model_name="Qwen/Qwen2.5-0.5B", vocab_size=502, twist_init=False,
+                       torch_dtype="float32", rope_theta=10000,
+                       config_overrides=dict(num_hidden_layers=2, hidden_size=64,
+                                             num_attention_heads=4, num_key_value_heads=2,
+                                             head_dim=16, intermediate_size=128))
+    work = tmp / "work"
+    work.mkdir(exist_ok=True)
+    result = smoke.run(torch.device("cpu"), work, cfg=cfg, context=context, rows=rows,
+                       n_rows=n_rows, lengths=tuple(lengths))
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+    return {"result": np.asarray(json.dumps(result)), "loaded": np.asarray(json.dumps(loaded))}
+
+
+def main():
+    fn, tmp = sys.argv[1], pathlib.Path(sys.argv[2])
+    if "--block" in sys.argv[3:]:
+        sys.meta_path.insert(0, _Blocker())
+    import torch
+
+    torch.set_num_threads(1)
+    from slamkit_tpu_torch.parallel import init_distributed
+
+    init_distributed("cpu", init_method=f"file://{tmp / (fn + '.store')}")
+    import torch.distributed as dist
+
+    try:
+        result = globals()[fn](tmp, **json.loads((tmp / f"{fn}.json").read_text()))
+        np.savez(tmp / f"{fn}-{dist.get_rank()}.npz", **result)
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()
