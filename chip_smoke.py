@@ -263,18 +263,21 @@ the sm_90a kernels). Phases, in order; any failure exits non-zero:
                version, the launches to the schedule's count; then each of
                its call shapes timed alone. Where the host has two or more
                cards, `tools/parallel_smoke.py` on all of them (an even
-               count) under torchrun; on one card a line says it is not run.
+               count) under torchrun (pretraining meshes, DPO and the
+               evaluation mesh); on one card a line says it is not run.
 
 Phases 3 and 3b also hold the kernels at DPO's shape (`dpo_T152`: [16, 14/2,
 152, 64], one segment of 110-152 tokens a row and a -1 tail) and at SIMS's
 (`sims_T2048`: [4, 14/2, 2048, 64], rows packed from segments of mixed
 length, stage 2's short interleaved rows among text and speech rows of
 300-700 tokens, and a -1 tail). Phases 3, 3b, 3e and 3f hold them at head
-dims the kernels are not built for, zero-padded to 64 or 128 around the
-launch (`ops/flash_attention.py::_launch` / `_launch_bwd`): at
+dims the kernels are not built for, zero-padded to 64, 128 or 256 around
+the launch (`ops/flash_attention.py::_launch` / `_launch_bwd`): at
 pythia-14m's SIMS batch (`pythia14m_sims`: [8, 4/4, 2048, 32], rows packed
-as SIMS's) and at d = 80 (`d80`: [4, 8/2, 1024, 80], 4 packed segments),
-their bounds on the original d. Phases 3e and 3f also hold the float32
+as SIMS's), at d = 80 (`d80`: [4, 8/2, 1024, 80], 4 packed segments) and at
+d = 160 (`d160`, the same layout), and at d = 256 itself (`d256`), the last
+two causal and not (`_noncausal`), their bounds on the original d; no
+shipped config runs d = 160 or 256. Phases 3e and 3f also hold the float32
 kernels at float32 SIMS's shape (`sims_f32`: [4, 14/2, 2048, 64], rows
 packed as `sims_T2048`'s), which phase 16 (c) runs.
 
@@ -637,6 +640,22 @@ def _left_padded(rng, b, t, most=None):
     return seg
 
 
+def _wide_head_cases(rng, with_causal: bool = False) -> list:
+    """Phases 3, 3b, 3e and 3f at the head dims that run on the d = 256
+    kernels, which no shipped config reaches: d = 256 itself and d = 160
+    (zero-padded to 256), [4, 8/2, 1024, d], 4 packed segments and a -1
+    tail, causal and not. Forward cases carry their causal flag in the
+    tuple's third place (`with_causal`), backward ones last."""
+    cases = []
+    for d in (256, 160):
+        for causal in (True, False):
+            name = f"d{d}" + ("" if causal else "_noncausal")
+            seg = _packed_segments(rng, 4, 1024, 4)
+            cases.append((name, (4, 8, 2, 1024, d), causal, seg) if with_causal
+                         else (name, (4, 8, 2, 1024, d), seg, causal))
+    return cases
+
+
 def bound_ms(n_bytes: float, flops: float, flops_per_s: float = BF16_FLOPS_PER_S
              ) -> tuple[float, str]:
     """The least time the card could take (ms) and what sets it: the bytes
@@ -855,6 +874,7 @@ def check_kernels(dev, f32: bool = False) -> list[dict]:
         ("pythia14m_sims", (8, 4, 4, 2048, 32), True, _mixed_segments(rng, 8, 2048)),
         ("d80", (4, 8, 2, 1024, 80), True, _packed_segments(rng, 4, 1024, 4)),
         ("sims_f32", (4, 14, 2, 2048, 64), True, _mixed_segments(rng, 4, 2048)),
+        *_wide_head_cases(rng, with_causal=True),
     ] if f32 else [
         ("score_ctx1024", (8, 14, 2, 1024, 64), True, _packed_segments(rng, 8, 1024, 8)),
         ("score_requests", (8, 14, 2, 1024, 64), True, _right_padded(rng, 8, 1024)),
@@ -867,6 +887,7 @@ def check_kernels(dev, f32: bool = False) -> list[dict]:
         ("sims_T2048", (4, 14, 2, 2048, 64), True, _mixed_segments(rng, 4, 2048)),
         ("pythia14m_sims", (8, 4, 4, 2048, 32), True, _mixed_segments(rng, 8, 2048)),
         ("d80", (4, 8, 2, 1024, 80), True, _packed_segments(rng, 4, 1024, 4)),
+        *_wide_head_cases(rng, with_causal=True),
     ]
     dtype, counter = (torch.float32, "f32_launches") if f32 else (torch.bfloat16, "launches")
     out_bound, lse_bound = (F32_OUT_BOUND, F32_LSE_BOUND) if f32 else (OUT_BOUND, LSE_BOUND)
@@ -1017,6 +1038,7 @@ def check_backward_kernels(dev, f32: bool = False) -> list[dict]:
         ("pythia14m_sims", (8, 4, 4, 2048, 32), _mixed_segments(rng, 8, 2048)),
         ("d80", (4, 8, 2, 1024, 80), _packed_segments(rng, 4, 1024, 4)),
         ("sims_f32", (4, 14, 2, 2048, 64), _mixed_segments(rng, 4, 2048)),
+        *_wide_head_cases(rng),
     ] if f32 else [
         ("slam_ctx1024", (8, 14, 2, 1024, 64), _packed_segments(rng, 8, 1024, 8)),
         ("odd_T1000", (8, 14, 2, 1000, 64), _packed_segments(rng, 8, 1000, 8)),
@@ -1027,10 +1049,12 @@ def check_backward_kernels(dev, f32: bool = False) -> list[dict]:
         ("sims_T2048", (4, 14, 2, 2048, 64), _mixed_segments(rng, 4, 2048)),
         ("pythia14m_sims", (8, 4, 4, 2048, 32), _mixed_segments(rng, 8, 2048)),
         ("d80", (4, 8, 2, 1024, 80), _packed_segments(rng, 4, 1024, 4)),
+        *_wide_head_cases(rng),
     ]
     dtype, counter = (torch.float32, "f32_launches") if f32 else (torch.bfloat16, "launches")
     results = []
-    for name, (b, h, hkv, t, d), seg in cases:
+    for name, (b, h, hkv, t, d), seg, *flags in cases:
+        causal = flags[0] if flags else True
         g = torch.Generator(device=dev).manual_seed((200 if f32 else 100) + len(results))
         mk = lambda hh: torch.randn((b, hh, t, d), generator=g, device=dev).to(dtype)
         q, k, v, do = mk(h), mk(hkv), mk(hkv), mk(h)
@@ -1040,17 +1064,18 @@ def check_backward_kernels(dev, f32: bool = False) -> list[dict]:
             seg[:, 100:140] = 7
             kv_seg = torch.zeros((b, t), dtype=torch.int32, device=dev)
         cost = flash_cost((b, h, hkv, t, d), seg, None if kv_seg is None
-                          else kv_seg.cpu().numpy(), True, backward=True,
+                          else kv_seg.cpu().numpy(), causal, backward=True,
                           elt_bytes=4 if f32 else 2)
         bound, bound_by = bound_ms(*cost, flops_per_s=FP32_3XTF32_FLOPS_PER_S if f32
                                    else BF16_FLOPS_PER_S)
         cores_bound = bound_ms(*cost, flops_per_s=FP32_FLOPS_PER_S)[0] if f32 else None
         seg = torch.from_numpy(seg).to(dev)
-        out, lse = flash_attention_fwd(q, k, v, segment_ids=seg, kv_segment_ids=kv_seg)
+        out, lse = flash_attention_fwd(q, k, v, segment_ids=seg, kv_segment_ids=kv_seg,
+                                       causal=causal)
         run = lambda: flash_attention_bwd(q, k, v, out, lse, do, segment_ids=seg,
-                                          kv_segment_ids=kv_seg)
+                                          kv_segment_ids=kv_seg, causal=causal)
         plain = lambda: mha_reference_bwd(q.float(), k.float(), v.float(), seg, kv_seg,
-                                          out.float(), lse, do.float())
+                                          out.float(), lse, do.float(), causal=causal)
         before = getattr(flash_attention_bwd, counter)
         got = run()
         _require(getattr(flash_attention_bwd, counter) == before + 1
@@ -1068,13 +1093,13 @@ def check_backward_kernels(dev, f32: bool = False) -> list[dict]:
         device_ms, plain_device_ms = _graph_ms(run, 20), _graph_ms(plain, 2)
         again = run()
         deterministic = all(torch.equal(x, y) for x, y in zip(got, again))
-        library_ms, timed = _sdpa_backward_ms(q, k, v, do, seg, kv_seg)
+        library_ms, timed = _sdpa_backward_ms(q, k, v, do, seg, kv_seg, causal)
         share, vs_library = _ratios(device_ms, bound, library_ms)
         ok = all(e <= bd and row <= 1 for _, e, bd, row in errs) and dead_ok and all(
             bool(torch.isfinite(x).all().item()) for x in got) and deterministic
         tflops = cost[1] / device_ms / 1e9
-        results.append(dict(name=name, shape=[b, h, hkv, t, d], dtype=str(dtype)[6:],
-                            max_abs_err={n: e for n, e, _, _ in errs},
+        results.append(dict(name=name, shape=[b, h, hkv, t, d], causal=causal,
+                            dtype=str(dtype)[6:], max_abs_err={n: e for n, e, _, _ in errs},
                             bound={n: bd for n, _, bd, _ in errs},
                             worst_row_over_bound={n: r for n, _, _, r in errs},
                             deterministic=deterministic,
@@ -1083,7 +1108,8 @@ def check_backward_kernels(dev, f32: bool = False) -> list[dict]:
                             library=timed, bound_ms=bound, bound_by=bound_by,
                             roofline_share=share, cuda_core_bound_ms=cores_bound,
                             vs_library=vs_library, tflops=tflops, ok=ok))
-        print(f"backward{' f32' if f32 else ''} {name:14s} [{b},{h}/{hkv},{t},{d}]: "
+        print(f"backward{' f32' if f32 else ''} {name:14s} [{b},{h}/{hkv},{t},{d}]"
+              f"{'' if causal else ' causal=False'}: "
               + " ".join(f"|{n}|={e:.3e} (<= {bd:.3e})" + ("" if f32 else
                                                           f" row {r:.3f} (<= 1)")
                          for n, e, bd, r in errs)

@@ -21,11 +21,25 @@ directory; OpenAI names need the openai package); `metric.asr_backend` /
 `metric.llm_backend` (`torch` or `jax`: both the port's own),
 `metric.asr_dtype` and `metric.torch_device` (default: the eval's device)
 are read as `cli/eval.py` reads them. Every `device` but `cpu` (eval.yaml's
-`tpu` included) runs on the CUDA card. Not ported: eval_mesh > 1 (ROADMAP
-queue 1 item 25); it raises.
+`tpu` included) runs on the CUDA card.
+
+`eval_mesh=N > 1` spreads every metric batch of the unit LM over N ranks
+under torchrun (WORLD_SIZE must be N; gloo on the CPU), as the JAX CLI
+spreads it over an N-device data mesh (`UnitLM.shard`): each rank scores
+and samples its rows and gathers the rest, so every rank holds the
+one-process scores and generated units. HuBERT, the vocoder, Whisper and
+the judge's LM run whole on every rank, as they run unsharded in JAX. Rank
+0 alone prints, writes `metric.out_path` and logs to wandb:
+
+    python -m torch.distributed.run --nproc_per_node 4 -m slamkit_tpu_torch.cli.eval \
+        metric=sblimp eval_mesh=4 ...
+
+`eval_fsdp=true` (parameter sharding, ROADMAP queue 1 item 23) raises.
 """
 import logging
 import os
+
+import torch.distributed as dist
 
 from ..config import main, to_container
 from ..utils.path_utils import resolve_reference_path
@@ -36,29 +50,47 @@ logger = logging.getLogger(__name__)
 @main(config_name="eval", config_path="../../config")
 def eval_main(cfg):
     logging.basicConfig(level=logging.INFO)
+    from ..metric.metric_utils import check_backend
+    from ..utils.device import DEFAULT_DEVICE
+
+    mt = cfg.metric.metric_type
+    if mt in ("asr_perplexity", "llm_as_judge"):
+        check_backend("asr_backend", cfg.metric.get("asr_backend", "torch"))
+        check_backend("llm_backend", cfg.metric.get("llm_backend", "torch"))
+    n_mesh = int(cfg.get("eval_mesh", 0) or 0)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if n_mesh > 1 and cfg.get("eval_fsdp", False):
+        raise NotImplementedError("eval_fsdp=true: parameter sharding is not ported yet "
+                                  "(ROADMAP queue 1 item 23)")
+    if world != max(n_mesh, 1):
+        raise ValueError(f"eval_mesh={n_mesh} runs on as many ranks (torchrun "
+                         f"--nproc_per_node {max(n_mesh, 1)}); this run has WORLD_SIZE={world}")
+    device = "cpu" if cfg.get("device", None) == "cpu" else DEFAULT_DEVICE
+    if world == 1:
+        return _eval(cfg, device, None)
+    from ..parallel import init_distributed, make_mesh
+
+    device = init_distributed(device)
+    try:
+        return _eval(cfg, device, make_mesh([n_mesh]))
+    finally:
+        dist.destroy_process_group()
+
+
+def _eval(cfg, device, mesh):
+    """The metric on `device`, the unit LM sharded over `mesh` (or None)."""
     import numpy as np
 
     from ..metric.generative_metric import asr_perplexity, generate, llm_as_judge
-    from ..metric.metric_utils import check_backend
     from ..metric.modelling_metric import salmon, sblimp, storycloze, swuggy
     from ..models.speech_lm import SpeechLM
     from ..models.unit_lm import tlm_factory
     from ..tokeniser import tokeniser_factory
-    from ..utils.device import DEFAULT_DEVICE
     from ..vocoder.audio_vocoder import vocoder_factory
 
     mt = cfg.metric.metric_type
     cross_modal = bool(cfg.metric.get("cross_modal", False))
-    if mt in ("asr_perplexity", "llm_as_judge"):
-        check_backend("asr_backend", cfg.metric.get("asr_backend", "torch"))
-        check_backend("llm_backend", cfg.metric.get("llm_backend", "torch"))
-    if int(cfg.get("eval_mesh", 0) or 0) > 1:
-        raise NotImplementedError(f"eval_mesh={cfg.eval_mesh}: sharded evaluation is not "
-                                  f"ported yet (ROADMAP queue 1 item 25)")
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError(f"WORLD_SIZE={os.environ['WORLD_SIZE']}: evaluation on "
-                                  f"several ranks is not ported yet (ROADMAP queue 1 item 25)")
-    device = "cpu" if cfg.get("device", None) == "cpu" else DEFAULT_DEVICE
+    lead = mesh is None or mesh.rank == 0   # prints, writes and logs
 
     if not cfg.model.pretrained_model:
         logger.warning("No pretrained model specified. please specify one with "
@@ -67,6 +99,9 @@ def eval_main(cfg):
     if cfg.model.config_args.vocab_size == -1:
         cfg.model.config_args.vocab_size = len(tokeniser.text_tokeniser)
     tlm = tlm_factory(cfg.model, device=device)
+    if mesh is not None:
+        tlm.shard(mesh)
+        logger.info("eval sharded over a %d-rank data mesh", mesh.size)
     vocoder = vocoder_factory(cfg.vocoder, device=device)
     model = SpeechLM(tlm, tokeniser, vocoder=vocoder)
 
@@ -144,7 +179,7 @@ def eval_main(cfg):
     else:
         raise ValueError(f"Unknown metric type: {mt}")
 
-    if mt != "generate":
+    if mt != "generate" and lead:
         for key, val in res.items():
             if key in ("generate", "prompts"):
                 continue
@@ -155,7 +190,7 @@ def eval_main(cfg):
             else:
                 print(f"{key}: {val}")
 
-    if cfg.metric.get("out_path", False) and "generate" in res and \
+    if lead and cfg.metric.get("out_path", False) and "generate" in res and \
             cfg.vocoder.vocoder_type is not None:
         from ..utils.audio import save_wav
 
@@ -172,7 +207,7 @@ def eval_main(cfg):
                 save_wav(f"{stem}.{cfg.metric.ext}", np.asarray(gen).ravel(),
                          tokeniser.fe_sample_rate)
 
-    if cfg.logger.report_to == "wandb":
+    if lead and cfg.logger.report_to == "wandb":
         import wandb
 
         if cfg.logger.run_id is None:

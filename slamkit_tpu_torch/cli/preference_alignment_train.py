@@ -14,14 +14,25 @@ line for line:
   * run_time sets the wall-clock stopper;
   * resume through cont_training (the reference stays the model built from
     model.pretrained_model).
-Everything runs on the CUDA card unless training_args.use_cpu=true.
+Everything runs on the CUDA card unless training_args.use_cpu=true. Under
+torchrun (WORLD_SIZE > 1) each process joins the process group on its own
+card (gloo on the CPU) and trains its pairs of every global batch on the
+'data' axis of training_args.mesh_shape (null: every rank on 'data'):
+
+    python -m torch.distributed.run --nproc_per_node 4 \
+        -m slamkit_tpu_torch.cli.preference_alignment_train ... training_args.mesh_shape=[4]
+
+A 'seq' axis, training_args.fsdp=true and multihost=true raise.
 """
 import logging
 import os
 
+import torch.distributed as dist
+
 from ..config import main
 from ..data.preference import init_preference_optimization_dataset
 from ..models.unit_lm import tlm_factory
+from ..parallel import init_distributed, make_mesh
 from ..tokeniser import tokeniser_factory
 from ..trainer import RunTimeStopperCallback, SLAMDPOTrainer
 from ..utils.device import DEFAULT_DEVICE
@@ -36,7 +47,18 @@ def train(cfg):
     if cfg.tokeniser.tokeniser_type == "interleave":
         raise ValueError("Interleave tokeniser not supported for Preference Alignment yet")
     device = "cpu" if cfg.training_args.get("use_cpu", False) else DEFAULT_DEVICE
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        device = init_distributed(device)
+        try:
+            return _train(cfg, device)
+        finally:
+            dist.destroy_process_group()
+    return _train(cfg, device)
 
+
+def _train(cfg, device):
+    mesh = make_mesh(cfg.training_args.get("mesh_shape", None),
+                     cfg.training_args.get("mesh_axes", None))
     tokeniser = tokeniser_factory(cfg.tokeniser, device=device)
     logger.info("tokeniser inited")
     ds = init_preference_optimization_dataset(cfg.data)
@@ -48,7 +70,7 @@ def train(cfg):
     logger.info("model inited on %s", model.device)
 
     log_fn = None
-    if cfg.logger.report_to == "wandb":
+    if cfg.logger.report_to == "wandb" and mesh.rank == 0:
         run = init_wandb(cfg, os.path.basename(os.path.normpath(cfg.training_args.output_dir)))
         if run is not None:
             log_fn = run.log
@@ -65,6 +87,7 @@ def train(cfg):
         eval_dataset=ds.get("validation"),
         callbacks=callbacks,
         log_fn=log_fn,
+        mesh=mesh,
     )
     return trainer.train(resume_from_checkpoint=cfg.get("cont_training", None))
 

@@ -11,6 +11,11 @@ logits they are drawn from are the same.
 `weight_quant="int8"` (JAX `generate.py:124`) quantizes the seven projection
 weights of every layer per output channel (`ops/quant.py`) and runs them
 through the dequant-matmul kernel in the prefill and in every decode step.
+
+On a mesh (`UnitLM.shard`) a rank decodes its rows (`parallel.RowTile`); a
+sampled step all-gathers the ranks' masked last-position logits to the
+global [B, V], draws from them and keeps its rows, so the draws are one
+process's. Greedy steps need no gather.
 """
 from __future__ import annotations
 
@@ -143,13 +148,14 @@ def generate(decoder: Decoder, input_ids: torch.Tensor, attention_mask: torch.Te
              eos_token_id: Optional[int] = None, pad_token_id: int = 0,
              repetition_penalty: Optional[float] = None,
              bad_words_mask: Optional[torch.Tensor] = None,
-             weight_quant: Optional[str] = None) -> torch.Tensor:
+             weight_quant: Optional[str] = None, tile=None) -> torch.Tensor:
     """input_ids [B, L0] LEFT-padded, attention_mask [B, L0], both on the
     decoder's device. Returns [B, L0 + max_new_tokens]; positions after eos
     hold pad_token_id. bad_words_mask: bool [V], True = banned id.
     weight_quant="int8" runs every projection of the prefill and of each
     decode step through `dq_matmul` on int8 weights; a decoder that
-    `prepare_int8_decode_params` returned runs as it is."""
+    `prepare_int8_decode_params` returned runs as it is. tile: the
+    `parallel.RowTile` that input_ids are this rank's rows of, or None."""
     b, l0 = input_ids.shape
     if max_new_tokens <= 0:  # HF returns the prompt unchanged
         return input_ids
@@ -186,8 +192,13 @@ def generate(decoder: Decoder, input_ids: torch.Tensor, attention_mask: torch.Te
     seen = torch.zeros((b, cfg.vocab_size), dtype=torch.bool, device=dev)
     seen[rows[:, None].expand(b, l0)[mask > 0], input_ids[mask > 0].long()] = True
 
-    tok = _sample(mask_logits(last_logits, seen), generator, do_sample,
-                  temperature, top_k, top_p)
+    def sample(lg):
+        if tile is None or not do_sample:
+            return _sample(lg, generator, do_sample, temperature, top_k, top_p)
+        drawn = _sample(tile.gather(lg), generator, do_sample, temperature, top_k, top_p)
+        return tile.mine(drawn, pad_token_id)
+
+    tok = sample(mask_logits(last_logits, seen))
     seen[rows, tok] = True
     finished = (tok == eos_token_id) if eos_token_id is not None else \
         torch.zeros(b, dtype=torch.bool, device=dev)
@@ -196,8 +207,7 @@ def generate(decoder: Decoder, input_ids: torch.Tensor, attention_mask: torch.Te
         pos = (prompt_len + i)[:, None]
         logits, cache = dec(tok[:, None], positions=pos, segment_ids=seg_full,
                             cache=cache, cache_index=l0 + i)
-        nxt = _sample(mask_logits(logits[:, -1, :], seen), generator, do_sample,
-                      temperature, top_k, top_p)
+        nxt = sample(mask_logits(logits[:, -1, :], seen))
         nxt = torch.where(finished, torch.full_like(nxt, pad_token_id), nxt)
         seen[rows, nxt] = True
         if eos_token_id is not None:

@@ -5,8 +5,12 @@ with `loss_fn` (training), `log_likelihood` (scoring), `generate` (sampling),
 `save_pretrained` / `from_pretrained` on the JAX package's own files
 (`unit_lm_config.json` + `params.npz`, so checkpoints cross-load both ways)
 and on the reference toolkit's HF checkpoints, `export_hf`, the TWIST warm
-start (`twist_init`, through `models/hf_convert.py`), and `tlm_factory`. Mesh
-placement and `push_to_hub` (it needs the network) are not ported.
+start (`twist_init`, through `models/hf_convert.py`), and `tlm_factory`.
+`shard(mesh)` spreads evaluation over the ranks of a 'data' mesh (JAX
+`unit_lm.py:163-208`): every rank holds every weight, scores and samples
+its rows of each batch, and gathers the rest. fsdp and tensor-parallel
+placement (ROADMAP queue 1 items 23, 24) and `push_to_hub` (it needs the
+network) are not ported.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ from typing import List, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..utils.calculation_utils import calc_nll, cross_entropy_loss
 from ..utils.device import DEFAULT_DEVICE, resolve_device
@@ -151,6 +156,31 @@ class UnitLM:
             self.decoder.reset_parameters(gen)
         logger.info("UnitLM: %s, %.1fM params on %s", config.base_model_name,
                     param_count(self.decoder) / 1e6, self.device)
+        self._mesh = None
+
+    # -- several ranks ----------------------------------------------------------
+    def shard(self, mesh, fsdp: bool = False, tp: bool = False) -> "UnitLM":
+        """Spread evaluation over `mesh` (`parallel.make_mesh`, 'data' only),
+        as the JAX `shard` does: afterwards `log_likelihood` and `generate`
+        pad each batch's rows to a multiple of the 'data' size, run this
+        rank's rows and all-gather the results to every rank, the pad rows
+        dropped. Weights are not sharded: fsdp (item 23) and tp (item 24)
+        raise. Every rank must make the same calls."""
+        if fsdp:
+            raise NotImplementedError("UnitLM.shard(fsdp=True): parameter sharding is not "
+                                      "ported yet (ROADMAP queue 1 item 23)")
+        if tp:
+            raise NotImplementedError("UnitLM.shard(tp=True): tensor parallelism is not "
+                                      "ported yet (ROADMAP queue 1 item 24)")
+        if mesh.size != mesh.shape["data"]:
+            raise ValueError(f"UnitLM.shard takes a mesh of 'data' only; got {mesh.shape}")
+        self._mesh = mesh if mesh.size > 1 else None
+        return self
+
+    def _row_tile(self, rows: int):
+        """This rank's `parallel.RowTile` of a batch of `rows`, or None
+        unsharded."""
+        return None if self._mesh is None else self._mesh.row_tile(rows)
 
     def _tensor(self, x) -> torch.Tensor:
         if isinstance(x, torch.Tensor):
@@ -196,12 +226,17 @@ class UnitLM:
                        ignore_tokens: Optional[List[int]] = None) -> torch.Tensor:
         """Per-sequence log likelihood [B]: pads (pad_token_id) are excluded,
         bos scores as a real token, ignored vocab ids get -inf logits. T is
-        padded up to a multiple of 64 with pads (scores are unchanged)."""
+        padded up to a multiple of 64 with pads (scores are unchanged).
+        Sharded (`shard`), this rank scores its rows and every rank returns
+        all B scores."""
         pad = self.config.pad_token_id
         tokens = self._tensor(tokens)
         rem = (-tokens.shape[-1]) % 64
         if rem:
             tokens = torch.nn.functional.pad(tokens, (0, rem), value=pad)
+        rows = self._row_tile(tokens.shape[0])
+        if rows is not None:
+            tokens = rows.mine(tokens, pad)
         seg = torch.where(tokens == pad, -1, 0).to(torch.int32)
         logits, _ = self.decoder(tokens, segment_ids=seg)
         if ignore_tokens is not None:
@@ -209,7 +244,8 @@ class UnitLM:
             m[torch.as_tensor(list(ignore_tokens), dtype=torch.long, device=self.device)] = True
             logits = logits.masked_fill(m, float("-inf"))
         target = tokens[..., 1:]
-        return -calc_nll(logits[..., :-1, :], target, target != pad, mean_nll)
+        ll = -calc_nll(logits[..., :-1, :], target, target != pad, mean_nll)
+        return ll if rows is None else rows.gather(ll)
 
     # -- generation -----------------------------------------------------------
     def generate(self, input_ids, attention_mask=None, *, max_new_tokens: int = 150,
@@ -225,9 +261,13 @@ class UnitLM:
         [B, L0 + max_new_tokens] on the model's device.
 
         Draws come from `generator` (on the model's device), else from a new
-        one seeded with `seed` (random when None). weight_quant="int8" decodes
-        with int8 projection weights through the dq_matmul kernel. Unsupported
-        HF generate kwargs raise unless passed at their no-op value."""
+        one seeded with `seed` (random when None, rank 0's under `shard`).
+        weight_quant="int8" decodes with int8 projection weights through the
+        dq_matmul kernel. Unsupported HF generate kwargs raise unless passed
+        at their no-op value. Sharded (`shard`), this rank decodes its rows;
+        each sampled step draws from the gathered [B, V] logits, so every
+        rank's generator draws what one process's would, and every rank
+        returns all B rows."""
         for k, v in kwargs.items():
             noop = _NOOP_GENERATE_KWARGS.get(k)
             if noop is not None and _is_noop(v, noop):
@@ -252,8 +292,14 @@ class UnitLM:
             input_ids = torch.nn.functional.pad(input_ids, (rem, 0), value=pad)
             attention_mask = torch.nn.functional.pad(attention_mask, (rem, 0))
         bad_mask = bad_words_mask(bad_words_ids, self.decoder.cfg.vocab_size, self.device)
+        rows = self._row_tile(input_ids.shape[0])
         if generator is None:
             generator = torch.Generator(device=self.device)
+            if seed is None and rows is not None:   # one stream on every rank
+                seed = torch.randint(1 << 62, (), device=self.device)
+                dist.broadcast(seed, src=dist.get_global_rank(rows.group, 0)
+                               if rows.group is not None else 0, group=rows.group)
+                seed = int(seed)
             if seed is None:
                 generator.seed()
             else:
@@ -266,13 +312,17 @@ class UnitLM:
         if repetition_penalty is not None and float(repetition_penalty) == 1.0:
             repetition_penalty = None
         decoder = self._int8_decode_params() if weight_quant == "int8" else self.decoder
-        out = _generate(decoder, input_ids, attention_mask, generator,
+        local_ids, local_mask = ((input_ids, attention_mask) if rows is None else
+                                 (rows.mine(input_ids, pad), rows.mine(attention_mask, 0)))
+        out = _generate(decoder, local_ids, local_mask, generator,
                         max_new_tokens=max_new_tokens, do_sample=do_sample,
                         temperature=temperature, top_k=top_k, top_p=top_p,
                         repetition_penalty=repetition_penalty,
                         eos_token_id=self.config.eos_token_id,
                         pad_token_id=pad, bad_words_mask=bad_mask,
-                        weight_quant=weight_quant)
+                        weight_quant=weight_quant, tile=rows)
+        if rows is not None:
+            out = torch.cat([input_ids, rows.gather(out[:, input_ids.shape[1]:])], dim=1)
         return out[:, rem:] if rem else out
 
     def _int8_decode_params(self):

@@ -18,8 +18,9 @@ namespace f32_tiles {
 
 using namespace hopper;
 
-constexpr int kTile = 64;              // rows of a key tile (and of a q tile but
-                                       // in the d = 128 dK/dV pass)
+constexpr int kTile = 64;              // rows of a tile up to d = 128 (but the
+                                       // q tiles of the d = 128 dK/dV pass);
+                                       // at d = 256 only the forward's q tile
 constexpr int kInterior = 1 << 30;     // a list entry's mark: the pair needs no mask
 
 template <int D>

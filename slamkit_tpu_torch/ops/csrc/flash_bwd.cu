@@ -40,6 +40,13 @@
 //         CTA walking G / C heads in order (none of the presets).
 //       - dq: one CTA per (64-row q tile, q head, batch row): loops over the
 //         listed k tiles and keeps dQ in f32 registers.
+//     At d = 256 a 64-key CTA's dK and dV would be 256 registers a thread,
+//     so its CTA takes 32 keys: warps 0-1 own 16 keys each for columns
+//     0-127 of dK and dV, warps 2-3 the same keys for columns 128-255, each
+//     computing its keys' S^T and dP^T over the whole head dim (the products
+//     of a key pair twice, the registers of d = 128). Its dq CTA reads Q and
+//     dO fragments from padded shared memory instead of holding all of them
+//     in registers.
 //   * loads: the dkdv pass streams Q, dO, LSE, delta (and q segment ids)
 //     through a 3-stage shared-memory ring with cp.async, the dq pass K and V
 //     (and k segment ids); the next two tiles load while this one multiplies.
@@ -48,9 +55,10 @@
 //     dP^T = V dO^T (S = Q K^T and dP = dO V^T) with both operands in
 //     128-byte-swizzled shared memory, dV += P^T dO and dK += dS^T Q (dQ +=
 //     dS K) with P^T, dS^T (dS) packed from the accumulators straight into
-//     A-operand registers and the B tile read MN-major. At d = 128 (dK, dV,
-//     S and dP would not fit one warpgroup's registers) the products stay
-//     mma.sync m16n8k16 from padded shared memory, B fragments by ldmatrix.
+//     A-operand registers and the B tile read MN-major. At d = 128 and 256
+//     (dK, dV, S and dP would not fit one warpgroup's registers) the
+//     products stay mma.sync m16n8k16 from padded shared memory, B fragments
+//     by ldmatrix.
 //   * the mask and exp: each thread reads its query columns' LSE, delta and
 //     segment ids as pairs, and takes 2^x on the SFU for every element (-inf
 //     off the mask), so the warp never branches.
@@ -82,7 +90,7 @@ using namespace hopper;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kTile = 64;                 // keys per dkdv CTA, q rows per dq CTA
+constexpr int kTile = 64;                 // q rows per dq CTA, keys per dkdv CTA (KT) below d = 256
 constexpr int kBlock = 32;                // rows per entry of the segment-range table
 constexpr int kStages = 3;                // depth of the cp.async rings
 constexpr float kLog2e = 1.4426950408889634f;
@@ -255,23 +263,23 @@ struct BwdArgs {
 };
 
 // Shared memory of a dkdv CTA, in bytes from a 1024-aligned base: the K and V
-// tiles, kStages (Q tile, dO tile) stages, per stage BQ LSE, delta and q
-// segment ids, the tile's k segment ids, kWarps counts, the epilogue's f32
-// gather of the cluster's dK / dV rows ([C][ceil(2 kTile / C)][D + 8], at
-// most (2 kTile + 8) rows) and the q-tile list. At d = 128 the gather reuses
-// the tiles instead, so that a CTA stays under 100 KB.
-template <int D, int BQ, bool kWgmma>
+// tiles (KT keys), kStages (Q tile, dO tile) stages, per stage BQ LSE, delta
+// and q segment ids, the tile's k segment ids, kWarps counts, the epilogue's
+// f32 gather of the cluster's dK / dV rows ([C][ceil(2 KT / C)][D + 8], at
+// most (2 KT + 8) rows) and the q-tile list. At d = 128 and 256 the gather
+// reuses the tiles instead, so that a CTA stays under 100 KB at d = 128.
+template <int D, int BQ, bool kWgmma, int KT>
 struct KvSmem {
   static constexpr int kStride = kWgmma ? D : D + 8;       // halves a row
-  static constexpr int kTileKV = kTile * kStride * 2, kTileQ = BQ * kStride * 2;
+  static constexpr int kTileKV = KT * kStride * 2, kTileQ = BQ * kStride * 2;
   static constexpr int kK = 0, kV = kTileKV, kQ = 2 * kTileKV;
   static constexpr int kDO = kQ + kStages * kTileQ;
   static constexpr int kLse = kDO + kStages * kTileQ;
   static constexpr int kDelta = kLse + kStages * BQ * 4;
   static constexpr int kQseg = kDelta + kStages * BQ * 4;
   static constexpr int kKseg = kQseg + kStages * BQ * 4;
-  static constexpr int kCounts = kKseg + kTile * 4;
-  static constexpr int kGatherBytes = (2 * kTile + kMaxCluster) * (D + 8) * 4;
+  static constexpr int kCounts = kKseg + KT * 4;
+  static constexpr int kGatherBytes = (2 * KT + kMaxCluster) * (D + 8) * 4;
   static constexpr int kGather = D == 64 ? kCounts + kWarps * 4 : 0;
   static constexpr int kList = kGather == 0 ? kCounts + kWarps * 4 : kGather + kGatherBytes;
   static_assert(kGather != 0 || kGatherBytes <= kLse, "the gather must fit the tiles");
@@ -279,14 +287,18 @@ struct KvSmem {
   static size_t bytes(int T) { return 1024 + kList + 4 * (size_t)((T + BQ - 1) / BQ); }
 };
 
-// One CTA per (64-key tile, head walk, batch row); the grid's x is Hkv * C in
+// One CTA per (KT-key tile, head walk, batch row); the grid's x is Hkv * C in
 // clusters of C, the CTA of rank r walking heads hk * G + r * walk + [0, walk).
-template <int D, int BQ, bool kWgmma>
+// A warp owns 16 keys and DC columns of their dK and dV.
+template <int D, int BQ, bool kWgmma, int KT>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_bwd_dkdv_kernel(const BwdArgs a) {
-  static_assert(!kWgmma || (D == 64 && BQ == 64), "wgmma takes d = 64, 64 queries a tile");
-  using L = KvSmem<D, BQ, kWgmma>;
+  static_assert(!kWgmma || (D == 64 && BQ == 64 && KT == 64),
+                "wgmma takes d = 64, 64 queries and 64 keys a tile");
+  using L = KvSmem<D, BQ, kWgmma, KT>;
   constexpr int kStride = L::kStride;
+  constexpr int kGroups = KT / 16, DC = D / (kWarps / kGroups);   // key groups; columns a warp
+  static_assert(kWarps % kGroups == 0, "the warps split the keys evenly");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = align1024(smem_raw);
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(sm + L::kK);
@@ -306,16 +318,16 @@ flash_bwd_dkdv_kernel(const BwdArgs a) {
   const int g = lane >> 2, t4 = lane & 3;
   const int T = a.T, G = a.H / a.Hkv;
   const int hk = blockIdx.x / C, b = blockIdx.y;
-  const int k0 = blockIdx.z * kTile;        // z = 0 first: under causality it sees the most
+  const int k0 = blockIdx.z * KT;           // z = 0 first: under causality it sees the most
   const bool has_seg = a.ranges != nullptr;
   const float scale_log2 = a.sm_scale * kLog2e;
   const size_t kv_base = ((size_t)b * a.Hkv + hk) * T * D;
   if constexpr (L::kGather != 0) cluster_arrive_relaxed();   // this CTA has started
 
   // K, V and the keys' segment ids: the first cp.async group
-  cp_tile<kTile, D, kWgmma>(Ks, a.k + kv_base, k0, T, tid);
-  cp_tile<kTile, D, kWgmma>(Vs, a.v + kv_base, k0, T, tid);
-  if (has_seg && tid < kTile) {
+  cp_tile<KT, D, kWgmma>(Ks, a.k + kv_base, k0, T, tid);
+  cp_tile<KT, D, kWgmma>(Vs, a.v + kv_base, k0, T, tid);
+  if (has_seg && tid < KT) {
     const bool ok = k0 + tid < T;
     cp_async4(&kseg_s[tid], a.k_seg + (size_t)b * T + (ok ? k0 + tid : 0), ok);
   }
@@ -326,7 +338,7 @@ flash_bwd_dkdv_kernel(const BwdArgs a) {
   int n_list = n_q - qt_start;
   if (has_seg) {
     const int4 kr = block_range(a.ranges + ((size_t)a.B + b) * a.n_blk, k0 / kBlock,
-                                (k0 + kTile) / kBlock, a.n_blk);
+                                (k0 + KT) / kBlock, a.n_blk);
     n_list = build_list(list, counts, a.ranges + (size_t)b * a.n_blk, a.n_blk, qt_start, n_q,
                         BQ / kBlock, kr, tid);
   }
@@ -346,11 +358,12 @@ flash_bwd_dkdv_kernel(const BwdArgs a) {
     }
   };
 
-  const int kr = warp * 16;                 // this warp's keys within the tile
+  const int kr = (warp % kGroups) * 16;     // this warp's keys within the tile
+  const int c0 = (warp / kGroups) * DC;     // ... and its columns of dK and dV
   const int key0 = k0 + kr + g, key1 = key0 + 8;
-  float dk[D / 8][4], dv[D / 8][4], s[BQ / 8][4], dp[BQ / 8][4];
+  float dk[DC / 8][4], dv[DC / 8][4], s[BQ / 8][4], dp[BQ / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
+  for (int n = 0; n < DC / 8; ++n) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
   }
@@ -468,11 +481,11 @@ flash_bwd_dkdv_kernel(const BwdArgs a) {
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk) {
 #pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
+        for (int n = 0; n < DC / 8; ++n) {
           uint32_t b0, b1;
-          load_b_cols(b0, b1, dOt, kStride, kk * 16, n * 8, g, t4);
+          load_b_cols(b0, b1, dOt, kStride, kk * 16, c0 + n * 8, g, t4);
           mma_16816(dv[n], pa[kk], b0, b1);
-          load_b_cols(b0, b1, Qt, kStride, kk * 16, n * 8, g, t4);
+          load_b_cols(b0, b1, Qt, kStride, kk * 16, c0 + n * 8, g, t4);
           mma_16816(dk[n], da[kk], b0, b1);
         }
       }
@@ -481,13 +494,13 @@ flash_bwd_dkdv_kernel(const BwdArgs a) {
   cp_async_wait<0>();
   __syncthreads();                          // the tiles are free for the sums
 
-  // The tile's 2 kTile f32 rows (dK's, then dV's) go straight from the
+  // The tile's 2 KT f32 rows (dK's, then dV's) go straight from the
   // registers to the CTA that owns them (rows [o per, (o + 1) per) to rank
   // o), into its slot for this rank; after one cluster barrier every owner
   // sums its rows' C slots in rank order and writes them. Every key row < T
   // is written, zeros included.
   constexpr int kRS = D + 8;
-  const int per = (2 * kTile + C - 1) / C;
+  const int per = (2 * KT + C - 1) / C;
   float* gather = reinterpret_cast<float*>(sm + L::kGather);   // [C][per][kRS]
   if constexpr (L::kGather == 0) {
     cluster.sync();                         // the gather reuses the tiles
@@ -500,15 +513,15 @@ flash_bwd_dkdv_kernel(const BwdArgs a) {
     *reinterpret_cast<float2*>(dst) = make_float2(x, y);
   };
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int c = n * 8 + 2 * t4;
+  for (int n = 0; n < DC / 8; ++n) {
+    const int c = c0 + n * 8 + 2 * t4;
     put(kr + g, c, dk[n][0], dk[n][1]);
     put(kr + g + 8, c, dk[n][2], dk[n][3]);
-    put(kTile + kr + g, c, dv[n][0], dv[n][1]);
-    put(kTile + kr + g + 8, c, dv[n][2], dv[n][3]);
+    put(KT + kr + g, c, dv[n][0], dv[n][1]);
+    put(KT + kr + g + 8, c, dv[n][2], dv[n][3]);
   }
   cluster.sync();
-  const int row0 = rank * per, rows = min(2 * kTile, row0 + per) - row0;
+  const int row0 = rank * per, rows = min(2 * KT, row0 + per) - row0;
   for (int idx = tid; idx < rows * (D / 4); idx += kThreads) {
     const int lr = idx / (D / 4), col = (idx - lr * (D / 4)) * 4;
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -519,9 +532,9 @@ flash_bwd_dkdv_kernel(const BwdArgs a) {
         acc.x += p.x; acc.y += p.y; acc.z += p.z; acc.w += p.w;
       }
     }
-    const int row = row0 + lr, key = k0 + row % kTile;
+    const int row = row0 + lr, key = k0 + row % KT;
     if (key < T) {
-      __nv_bfloat16* dst = (row < kTile ? a.dk : a.dv) + kv_base + (size_t)key * D + col;
+      __nv_bfloat16* dst = (row < KT ? a.dk : a.dv) + kv_base + (size_t)key * D + col;
       *reinterpret_cast<uint2*>(dst) = make_uint2(pack_bf16(acc.x, acc.y), pack_bf16(acc.z, acc.w));
     }
   }
@@ -530,14 +543,16 @@ flash_bwd_dkdv_kernel(const BwdArgs a) {
 // --------------------------------------------------------------------- dq --
 
 // Shared memory of a dq CTA, in bytes from a 1024-aligned base: with wgmma
-// the Q and dO tiles (the A operands, 128-byte swizzled), then kStages (K
-// tile, V tile) stages (swizzled, or padded to D + 8 halves a row for
-// mma.sync), per stage BN k segment ids, kWarps counts and the k-tile list.
+// (or at d = 256) the Q and dO tiles (the A operands, 128-byte swizzled, or
+// padded to D + 8 halves a row), then kStages (K tile, V tile) stages
+// (swizzled, or padded for mma.sync), per stage BN k segment ids, kWarps
+// counts and the k-tile list.
 template <int D, int BN, bool kWgmma>
 struct QSmem {
   static constexpr int kStride = kWgmma ? D : D + 8;       // halves a row
   static constexpr int kTileKV = BN * kStride * 2;
-  static constexpr int kQ = 0, kDO = kWgmma ? kTile * D * 2 : 0;
+  static constexpr bool kQInRegs = !kWgmma && D <= 128;    // Q and dO fragments held
+  static constexpr int kQ = 0, kDO = kQInRegs ? 0 : kTile * kStride * 2;
   static constexpr int kK = 2 * kDO;
   static constexpr int kKseg = kK + kStages * 2 * kTileKV;
   static constexpr int kCounts = kKseg + kStages * BN * 4;
@@ -603,6 +618,9 @@ flash_bwd_dq_kernel(const BwdArgs a) {
   if constexpr (kWgmma) {                   // Q and dO: a group before the stages'
     cp_tile_sw128<kTile, kThreads>(Qs, a.q + q_base, 64, q0, T, tid);
     cp_tile_sw128<kTile, kThreads>(dOs, a.dout + q_base, 64, q0, T, tid);
+  } else if constexpr (!L::kQInRegs) {
+    cp_tile_padded<kTile, D>(Qs, a.q + q_base, q0, T, tid);
+    cp_tile_padded<kTile, D>(dOs, a.dout + q_base, q0, T, tid);
   }
   cp_async_commit();
 #pragma unroll
@@ -611,10 +629,10 @@ flash_bwd_dq_kernel(const BwdArgs a) {
     cp_async_commit();
   }
 
-  // with mma.sync, the Q and dO fragments (A operands, row major) are kept
-  // in registers for the whole k loop
-  uint32_t qa[kWgmma ? 1 : D / 16][4], da[kWgmma ? 1 : D / 16][4];
-  if constexpr (!kWgmma) {
+  // with mma.sync up to d = 128, the Q and dO fragments (A operands, row
+  // major) are kept in registers for the whole k loop
+  uint32_t qa[L::kQInRegs ? D / 16 : 1][4], da[L::kQInRegs ? D / 16 : 1][4];
+  if constexpr (L::kQInRegs) {
     const __nv_bfloat16* q_r0 = a.q + q_base + (size_t)r0 * D;
     const __nv_bfloat16* q_r1 = a.q + q_base + (size_t)r1 * D;
     const __nv_bfloat16* d_r0 = a.dout + q_base + (size_t)r0 * D;
@@ -678,6 +696,34 @@ flash_bwd_dq_kernel(const BwdArgs a) {
       wgmma_wait0();
       fence_regs(sf);
       fence_regs(dpf);
+    } else if constexpr (!L::kQInRegs) {
+      // the same products, the A fragments of two k steps read from the
+      // padded Q and dO tiles at a time (the order of each sum unchanged)
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      }
+#pragma unroll 2
+      for (int kk = 0; kk < D / 16; kk += 2) {
+        uint32_t qf[2][4], df[2][4];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          load_a(qf[u], Qs, kStride, warp * 16, (kk + u) * 16, g, t4);
+          load_a(df[u], dOs, kStride, warp * 16, (kk + u) * 16, g, t4);
+        }
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int off = (j * 8 + (lane & 7)) * kStride + kk * 16 + (lane >> 3) * 8;
+          uint32_t kb[4], vb[4];
+          ldsm_x4(kb, Kt + off);
+          ldsm_x4(vb, Vt + off);
+          mma_16816(s[j], qf[0], kb[0], kb[1]);
+          mma_16816(s[j], qf[1], kb[2], kb[3]);
+          mma_16816(dp[j], df[0], vb[0], vb[1]);
+          mma_16816(dp[j], df[1], vb[2], vb[3]);
+        }
+      }
     } else {
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
@@ -762,7 +808,7 @@ flash_bwd_dq_kernel(const BwdArgs a) {
 
 // ----------------------------------------------------------------- launch --
 
-template <int D, int BQ, bool kWgmma, int BN>
+template <int D, int BQ, bool kWgmma, int BN, int KT>
 cudaError_t launch(const BwdArgs& a, const __nv_bfloat16* out, float* delta, cudaStream_t s) {
   using DqKernel = void (*)(BwdArgs);
   constexpr DqKernel dq_kernel = flash_bwd_dq_kernel<D, BN, kWgmma>;
@@ -770,7 +816,7 @@ cudaError_t launch(const BwdArgs& a, const __nv_bfloat16* out, float* delta, cud
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  err = allow_smem(flash_bwd_dkdv_kernel<D, BQ, kWgmma>, kv_configured, dev);
+  err = allow_smem(flash_bwd_dkdv_kernel<D, BQ, kWgmma, KT>, kv_configured, dev);
   if (err != cudaSuccess) return err;
   err = allow_smem(dq_kernel, q_configured, dev);
   if (err != cudaSuccess) return err;
@@ -788,9 +834,9 @@ cudaError_t launch(const BwdArgs& a, const __nv_bfloat16* out, float* delta, cud
   // dkdv: clusters of C CTAs along x
   const int C = a.H / a.Hkv / a.walk;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.Hkv * C, a.B, (a.T + kTile - 1) / kTile);
+  cfg.gridDim = dim3(a.Hkv * C, a.B, (a.T + KT - 1) / KT);
   cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = KvSmem<D, BQ, kWgmma>::bytes(a.T);
+  cfg.dynamicSmemBytes = KvSmem<D, BQ, kWgmma, KT>::bytes(a.T);
   cfg.stream = s;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -799,7 +845,7 @@ cudaError_t launch(const BwdArgs& a, const __nv_bfloat16* out, float* delta, cud
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, flash_bwd_dkdv_kernel<D, BQ, kWgmma>, a);
+  err = cudaLaunchKernelEx(&cfg, flash_bwd_dkdv_kernel<D, BQ, kWgmma, KT>, a);
   if (err != cudaSuccess) return err;
 
   // dq
@@ -853,8 +899,10 @@ extern "C" int slamkit_flash_bwd_bf16(const void* q, const void* k, const void* 
   a.sm_scale = sm_scale;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const auto* o = reinterpret_cast<const __nv_bfloat16*>(out);
-  if (D == 64) return (int)launch<64, 64, true, 64>(a, o, scratch, s);
-  // half-height tiles keep dK/dV and S/dP within the registers
-  if (D == 128) return (int)launch<128, 32, false, 32>(a, o, scratch, s);
+  if (D == 64) return (int)launch<64, 64, true, 64, 64>(a, o, scratch, s);
+  // half-height tiles keep dK/dV and S/dP within the registers; at d = 256
+  // also half as many keys a dkdv CTA, each warp holding half of the columns
+  if (D == 128) return (int)launch<128, 32, false, 32, 64>(a, o, scratch, s);
+  if (D == 256) return (int)launch<256, 32, false, 32, 32>(a, o, scratch, s);
   return (int)cudaErrorInvalidValue;
 }

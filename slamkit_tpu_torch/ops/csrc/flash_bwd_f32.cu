@@ -67,7 +67,13 @@
 //   * P on the SFU (ex2.approx in the base-2 domain, ~2^-22 relative).
 // At d = 128 the dK/dV pass takes q tiles of 32 rows, so that dK, dV, S^T
 // and dP^T fit one thread's registers. Shared memory: 106 KB (dkdv) and 105
-// KB (dq) at d = 64, 136 KB and 203 KB at d = 128.
+// KB (dq) at d = 64, 136 KB and 203 KB at d = 128. At d = 256 a 64-row CTA's
+// gradient rows would be 256 registers a thread and its tiles would not fit
+// 227 KB, so both passes take 32-row CTAs (32 keys, 32 q rows) and tiles of
+// 32 rows: warps 0-1 own 16 rows each for columns 0-127 of the gradients,
+// warps 2-3 the same rows for columns 128-255, each computing its rows' S
+// and dP over the whole head dim (those products twice, the registers of
+// d = 128); 196 KB of shared memory a CTA.
 // Left for later work: a warp of the dQ and dK/dV passes owns 16 rows, so
 // each fragment it splits serves one product (the forward's 32-row warps
 // halve that), and the cluster sum waits for the slowest CTA of the cluster
@@ -111,19 +117,31 @@ struct BwdArgs {
 
 // ------------------------------------------------------------------ prep --
 
+// The lanes of the delta pre-pass that share a row: one float4 each up to
+// d = 128, a warp (two float4 each) at d = 256, so a row never spans warps
+template <int D>
+struct PrepLanes {
+  static constexpr int value = D / 4 < 32 ? D / 4 : 32;
+};
+
 // delta[row] = sum_d dO[row, d] O[row, d] over the B*H*T rows
 template <int D>
 __global__ void __launch_bounds__(256)
 flash_bwd_f32_prep_kernel(const float* __restrict__ out, const float* __restrict__ dout,
                           float* __restrict__ delta, int rows) {
-  constexpr int kLanes = D / 4, kRowsPerBlock = 256 / kLanes;
+  constexpr int kLanes = PrepLanes<D>::value, kRowsPerBlock = 256 / kLanes;
   const int row = blockIdx.x * kRowsPerBlock + threadIdx.x / kLanes;
   const int l = threadIdx.x % kLanes;
   float acc = 0.f;
   if (row < rows) {
-    const float4 a = *reinterpret_cast<const float4*>(out + (size_t)row * D + 4 * l);
-    const float4 b = *reinterpret_cast<const float4*>(dout + (size_t)row * D + 4 * l);
-    acc = fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, a.w * b.w)));
+#pragma unroll
+    for (int i = 0; i < D / 4 / kLanes; ++i) {
+      const int c = 4 * (l + i * kLanes);
+      const float4 a = *reinterpret_cast<const float4*>(out + (size_t)row * D + c);
+      const float4 b = *reinterpret_cast<const float4*>(dout + (size_t)row * D + c);
+      const float part = fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, a.w * b.w)));
+      acc = i == 0 ? part : acc + part;
+    }
   }
 #pragma unroll
   for (int off = kLanes / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -157,16 +175,16 @@ __device__ __forceinline__ void two_products_nrows(float (&c1)[N][4], float (&c2
   }
 }
 
-// acc[D / 8] += P (16 x 8 J, from accumulators) B (8 J rows of a [.][D + 4]
-// tile), 3xTF32. The tensor cores add a product to their accumulator without
-// rounding to nearest, a bias that grows with the adds, so this tile's
-// product starts from zero, 32 columns at a time, and is added to acc in
-// float32: acc sums over every visited tile (and head)
-template <int D, int J>
-__device__ __forceinline__ void product_from_acc(float (&acc)[D / 8][4], const float (&p)[J][4],
-                                                 const float* bt, int g, int t4) {
+// acc[DC / 8] += P (16 x 8 J, from accumulators) B (8 J rows of a [.][D + 4]
+// tile, DC columns from c0), 3xTF32. The tensor cores add a product to their
+// accumulator without rounding to nearest, a bias that grows with the adds,
+// so this tile's product starts from zero, 32 columns at a time, and is added
+// to acc in float32: acc sums over every visited tile (and head)
+template <int D, int DC, int J>
+__device__ __forceinline__ void product_from_acc(float (&acc)[DC / 8][4], const float (&p)[J][4],
+                                                 const float* bt, int c0, int g, int t4) {
 #pragma unroll
-  for (int c = 0; c < D / 32; ++c) {
+  for (int c = 0; c < DC / 32; ++c) {
     float part[4][4];
 #pragma unroll
     for (int n = 0; n < 4; ++n) {
@@ -182,7 +200,7 @@ __device__ __forceinline__ void product_from_acc(float (&acc)[D / 8][4], const f
 #pragma unroll
       for (int n = 0; n < 4; ++n) {
         float y[2];
-        frag_b_krows<D>(y, bt, 8 * j, 32 * c + 8 * n, g, t4);
+        frag_b_krows<D>(y, bt, 8 * j, c0 + 32 * c + 8 * n, g, t4);
         split_tf32(y, b_hi[n], b_lo[n]);
       }
       mma_3xtf32(part, a_hi, a_lo, b_hi, b_lo);
@@ -197,29 +215,32 @@ __device__ __forceinline__ void product_from_acc(float (&acc)[D / 8][4], const f
 
 // ------------------------------------------------------------------ dkdv --
 
-// Shared memory in floats: K, V [64][D + 4] and the keys' ids [64];
+// Shared memory in floats: K, V [KT][D + 4] and the keys' ids [KT];
 // kStages x (Q, dO [BQ][D + 4], LSE, delta, q ids [BQ]); the list's length;
 // flags and list (n_q each). After the loop the cluster's gather,
-// [C][ceil(128 / C)][D + 4], reuses the front.
-template <int D, int BQ>
+// [C][ceil(2 KT / C)][D + 4], reuses the front.
+template <int D, int BQ, int KT>
 struct KvSmem {
-  static constexpr int kTileKV = kTile * Ld<D>::value, kTileQ = BQ * Ld<D>::value;
+  static constexpr int kTileKV = KT * Ld<D>::value, kTileQ = BQ * Ld<D>::value;
   static constexpr int kK = 0, kV = kTileKV, kKseg = 2 * kTileKV;
-  static constexpr int kStage = kKseg + kTile;
+  static constexpr int kStage = kKseg + KT;
   static constexpr int kStageF = 2 * kTileQ + 3 * BQ;
   static constexpr int kCount = kStage + kStages * kStageF, kFlags = kCount + 4;
-  static constexpr int kGatherF = (2 * kTile + kMaxCluster) * Ld<D>::value;
+  static constexpr int kGatherF = (2 * KT + kMaxCluster) * Ld<D>::value;
   static_assert(kGatherF <= kCount, "the gather must fit the tiles");
   static size_t bytes(int T) { return 4 * ((size_t)kFlags + 2 * ((T + BQ - 1) / BQ)); }
 };
 
-// One CTA per (64-key tile, rank, kv head, batch row); the grid's x is Hkv * C
+// One CTA per (KT-key tile, rank, kv head, batch row); the grid's x is Hkv * C
 // in clusters of C, the CTA of rank r walking heads hk G + r walk + [0, walk).
-template <int D, int BQ>
+// A warp owns 16 keys and DC columns of their dK and dV.
+template <int D, int BQ, int KT>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_f32_dkdv_kernel(const BwdArgs a) {
-  using L = KvSmem<D, BQ>;
-  constexpr int NC = D / 8, NQ = BQ / 8;
+  using L = KvSmem<D, BQ, KT>;
+  constexpr int kGroups = KT / 16, DC = D / (kWarps / kGroups);   // key groups; columns a warp
+  static_assert(kWarps % kGroups == 0, "the warps split the keys evenly");
+  constexpr int NC = DC / 8, NQ = BQ / 8;
   extern __shared__ float smem[];
   float* Ks = smem + L::kK;
   float* Vs = smem + L::kV;
@@ -236,7 +257,7 @@ flash_bwd_f32_dkdv_kernel(const BwdArgs a) {
   const int T = a.T, n_q = (T + BQ - 1) / BQ, G = a.H / a.Hkv;
   int* flags = reinterpret_cast<int*>(smem + L::kFlags);
   int* list = flags + n_q;
-  const int k0 = blockIdx.z * kTile;             // z = 0 first: under causality it sees the most
+  const int k0 = blockIdx.z * KT;                // z = 0 first: under causality it sees the most
   const int hk = blockIdx.x / C, b = blockIdx.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
@@ -261,9 +282,9 @@ flash_bwd_f32_dkdv_kernel(const BwdArgs a) {
   bool k_one = true;
   int uk = 0;
   int4 kr = empty_range();
-  if (has_seg) kr = rows_range<kTile>(a.k_seg + (size_t)b * T, k0, T, lane, k_one, uk);
+  if (has_seg) kr = rows_range<KT>(a.k_seg + (size_t)b * T, k0, T, lane, k_one, uk);
   auto corner_free = [&](int qt) {               // rows before T, keys before T, (causal) seen
-    return qt * BQ + BQ <= T && k0 + kTile <= T && (!a.causal || k0 + kTile - 1 <= qt * BQ);
+    return qt * BQ + BQ <= T && k0 + KT <= T && (!a.causal || k0 + KT - 1 <= qt * BQ);
   };
   const int n_list = list_tiles<BQ, kWarps>(flags, list, count_s, qs_row, kr, k_one,
                                             uk, qt_start, n_q, T, tid, corner_free);
@@ -275,13 +296,14 @@ flash_bwd_f32_dkdv_kernel(const BwdArgs a) {
   };
 
   // K, V, the keys' ids and the first q tile: group 0
-  cp_rows<kTile, D, kThreads>(Ks, a.k + kv_base, k0, T, tid);
-  cp_rows<kTile, D, kThreads>(Vs, a.v + kv_base, k0, T, tid);
-  if (has_seg) cp_vals<kTile>(kseg_s, a.k_seg + (size_t)b * T, k0, T, tid);
+  cp_rows<KT, D, kThreads>(Ks, a.k + kv_base, k0, T, tid);
+  cp_rows<KT, D, kThreads>(Vs, a.v + kv_base, k0, T, tid);
+  if (has_seg) cp_vals<KT>(kseg_s, a.k_seg + (size_t)b * T, k0, T, tid);
   if (iters > 0) load_stage(0);
   cp_async_commit();
 
-  const int kr0 = warp * 16;                     // this warp's keys in the tile
+  const int kr0 = (warp % kGroups) * 16;         // this warp's keys in the tile
+  const int c0 = (warp / kGroups) * DC;          // ... and its columns of dK and dV
   const int key0 = k0 + kr0 + g, key1 = key0 + 8;
   const float scale_log2 = a.scale * kLog2e;
   float dk[NC][4], dv[NC][4];
@@ -339,8 +361,8 @@ flash_bwd_f32_dkdv_kernel(const BwdArgs a) {
     }
 
     // dV += P^T dO and dK += dS^T Q: the k index is the query
-    product_from_acc<D, NQ>(dv, s, dOt, g, t4);
-    product_from_acc<D, NQ>(dk, dp, Qt, g, t4);
+    product_from_acc<D, DC, NQ>(dv, s, dOt, c0, g, t4);
+    product_from_acc<D, DC, NQ>(dk, dp, Qt, c0, g, t4);
   }
   cp_async_wait<0>();
   CTA_STAMP(0, kMarkLoopEnd);
@@ -349,7 +371,7 @@ flash_bwd_f32_dkdv_kernel(const BwdArgs a) {
   if (C == 1) {
 #pragma unroll
     for (int n = 0; n < NC; ++n) {
-      const int col = 8 * n + 2 * t4;
+      const int col = c0 + 8 * n + 2 * t4;
       if (key0 < T) {
         *reinterpret_cast<float2*>(a.dk + kv_base + (size_t)key0 * D + col) = make_float2(dk[n][0], dk[n][1]);
         *reinterpret_cast<float2*>(a.dv + kv_base + (size_t)key0 * D + col) = make_float2(dv[n][0], dv[n][1]);
@@ -362,13 +384,13 @@ flash_bwd_f32_dkdv_kernel(const BwdArgs a) {
     CTA_STAMP(0, kMarkEnd);
     return;
   }
-  // The tile's 128 rows (dK's, then dV's) go straight from the registers to
+  // The tile's 2 KT rows (dK's, then dV's) go straight from the registers to
   // the CTA that owns them (rows [o per, (o + 1) per) to rank o), into its
   // slot for this rank; after one more cluster barrier every owner sums its
   // rows' C slots in rank order and writes them. Every key row < T is
   // written, zeros included.
   constexpr int kRS = Ld<D>::value;
-  const int per = (2 * kTile + C - 1) / C;
+  const int per = (2 * KT + C - 1) / C;
   float* gather = smem;                          // [C][per][kRS], over the tiles
   cluster.sync();                                // every CTA of the cluster is done with its tiles
   auto put = [&](int row, int col, float x, float y) {
@@ -378,14 +400,14 @@ flash_bwd_f32_dkdv_kernel(const BwdArgs a) {
   };
 #pragma unroll
   for (int n = 0; n < NC; ++n) {
-    const int col = 8 * n + 2 * t4;
+    const int col = c0 + 8 * n + 2 * t4;
     put(kr0 + g, col, dk[n][0], dk[n][1]);
     put(kr0 + g + 8, col, dk[n][2], dk[n][3]);
-    put(kTile + kr0 + g, col, dv[n][0], dv[n][1]);
-    put(kTile + kr0 + g + 8, col, dv[n][2], dv[n][3]);
+    put(KT + kr0 + g, col, dv[n][0], dv[n][1]);
+    put(KT + kr0 + g + 8, col, dv[n][2], dv[n][3]);
   }
   cluster.sync();
-  const int row0 = rank * per, rows = min(2 * kTile, row0 + per) - row0;
+  const int row0 = rank * per, rows = min(2 * KT, row0 + per) - row0;
   for (int idx = tid; idx < rows * (D / 4); idx += kThreads) {
     const int lr = idx / (D / 4), col = (idx - lr * (D / 4)) * 4;
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -399,9 +421,9 @@ flash_bwd_f32_dkdv_kernel(const BwdArgs a) {
         acc.w += p.w;
       }
     }
-    const int row = row0 + lr, key = k0 + row % kTile;
+    const int row = row0 + lr, key = k0 + row % KT;
     if (key < T) {
-      float* dst = (row < kTile ? a.dk : a.dv) + kv_base + (size_t)key * D + col;
+      float* dst = (row < KT ? a.dk : a.dv) + kv_base + (size_t)key * D + col;
       *reinterpret_cast<float4*>(dst) = acc;
     }
   }
@@ -410,35 +432,40 @@ flash_bwd_f32_dkdv_kernel(const BwdArgs a) {
 
 // -------------------------------------------------------------------- dq --
 
-// Shared memory in floats: Q, dO [64][D + 4]; kStages x (K, V [64][D + 4],
-// the keys' ids [64]); the list's length; flags and list.
-template <int D>
+// Shared memory in floats: Q, dO [QT][D + 4]; kStages x (K, V [BN][D + 4],
+// the keys' ids [BN]); the list's length; flags and list.
+template <int D, int QT, int BN>
 struct QSmem {
-  static constexpr int kTileF = kTile * Ld<D>::value;
-  static constexpr int kQ = 0, kDO = kTileF, kStage = 2 * kTileF;
-  static constexpr int kStageF = 2 * kTileF + kTile;
+  static constexpr int kTileQ = QT * Ld<D>::value, kTileK = BN * Ld<D>::value;
+  static constexpr int kQ = 0, kDO = kTileQ, kStage = 2 * kTileQ;
+  static constexpr int kStageF = 2 * kTileK + BN;
   static constexpr int kCount = kStage + kStages * kStageF, kFlags = kCount + 4;
-  static size_t bytes(int T) { return 4 * ((size_t)kFlags + 2 * ((T + kTile - 1) / kTile)); }
+  static size_t bytes(int T) { return 4 * ((size_t)kFlags + 2 * ((T + BN - 1) / BN)); }
 };
 
-template <int D>
+// One CTA per (QT-row q tile, q head, batch row), BN keys a tile; a warp owns
+// 16 rows and DC columns of their dQ.
+template <int D, int QT, int BN>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_f32_dq_kernel(const BwdArgs a) {
-  using L = QSmem<D>;
-  constexpr int NC = D / 8;
+  using L = QSmem<D, QT, BN>;
+  constexpr int kGroups = QT / 16, DC = D / (kWarps / kGroups);   // row groups; columns a warp
+  static_assert(kWarps % kGroups == 0, "the warps split the rows evenly");
+  constexpr int NC = DC / 8, NB = BN / 8;
   extern __shared__ float smem[];
   float* Qs = smem + L::kQ;
   float* dOs = smem + L::kDO;
   int* count_s = reinterpret_cast<int*>(smem + L::kCount);
   auto Ks = [&](int st) { return smem + L::kStage + st * L::kStageF; };
-  auto Vs = [&](int st) { return Ks(st) + L::kTileF; };
-  auto ksegs = [&](int st) { return reinterpret_cast<int*>(Ks(st) + 2 * L::kTileF); };
+  auto Vs = [&](int st) { return Ks(st) + L::kTileK; };
+  auto ksegs = [&](int st) { return reinterpret_cast<int*>(Ks(st) + 2 * L::kTileK); };
 
-  const int T = a.T, n_t = (T + kTile - 1) / kTile;
+  const int T = a.T, n_k = (T + BN - 1) / BN;
   int* flags = reinterpret_cast<int*>(smem + L::kFlags);
-  int* list = flags + n_t;
-  const int q_tile = n_t - 1 - (int)blockIdx.z;  // the last first: it sees the most keys
-  const int q0 = q_tile * kTile;
+  int* list = flags + n_k;
+  // the last q tile first: it sees the most keys
+  const int q_tile = (T + QT - 1) / QT - 1 - (int)blockIdx.z;
+  const int q0 = q_tile * QT;
   const int h = blockIdx.x, hk = h / (a.H / a.Hkv), b = blockIdx.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
@@ -450,35 +477,35 @@ flash_bwd_f32_dq_kernel(const BwdArgs a) {
   CTA_STAMP(1, kMarkEntry);
 
   auto load_tile = [&](int st, int kt) {
-    cp_rows<kTile, D, kThreads>(Ks(st), kp, kt * kTile, T, tid);
-    cp_rows<kTile, D, kThreads>(Vs(st), vp, kt * kTile, T, tid);
-    if (has_seg) cp_vals<kTile>(ksegs(st), ks_row, kt * kTile, T, tid);
+    cp_rows<BN, D, kThreads>(Ks(st), kp, kt * BN, T, tid);
+    cp_rows<BN, D, kThreads>(Vs(st), vp, kt * BN, T, tid);
+    if (has_seg) cp_vals<BN>(ksegs(st), ks_row, kt * BN, T, tid);
   };
   auto load_stage = [&](int it) { load_tile(it % kStages, list[it] & (kInterior - 1)); };
 
   // ---- the k tiles these rows can see, listed before any tile is
   // loaded, so that the ids' reads do not queue behind the copies
-  const int k_end = a.causal ? q_tile + 1 : n_t;
+  const int k_end = a.causal ? min(n_k, (q0 + QT - 1) / BN + 1) : n_k;
   bool q_one = true;
   int uq = 0;
   int4 qr = empty_range();
-  if (has_seg) qr = rows_range<kTile>(a.q_seg + (size_t)b * T, q0, T, lane, q_one, uq);
+  if (has_seg) qr = rows_range<QT>(a.q_seg + (size_t)b * T, q0, T, lane, q_one, uq);
   auto corner_free = [&](int kt) {               // rows and keys before T, (causal) seen
-    return q0 + kTile <= T && kt * kTile + kTile <= T &&
-           (!a.causal || kt * kTile + kTile - 1 <= q0);
+    return q0 + QT <= T && kt * BN + BN <= T && (!a.causal || kt * BN + BN - 1 <= q0);
   };
-  const int n_list = list_tiles<kTile, kWarps>(flags, list, count_s, ks_row, qr, q_one,
+  const int n_list = list_tiles<BN, kWarps>(flags, list, count_s, ks_row, qr, q_one,
                                                uq, 0, k_end, T, tid, corner_free);
   CTA_STAMP(1, kMarkListed);
   CTA_TILES(1, n_list);
 
   // Q, dO and the first k tile: group 0
-  cp_rows<kTile, D, kThreads>(Qs, a.q + row_base * D, q0, T, tid);
-  cp_rows<kTile, D, kThreads>(dOs, a.dout + row_base * D, q0, T, tid);
+  cp_rows<QT, D, kThreads>(Qs, a.q + row_base * D, q0, T, tid);
+  cp_rows<QT, D, kThreads>(dOs, a.dout + row_base * D, q0, T, tid);
   if (n_list > 0) load_stage(0);
   cp_async_commit();
 
-  const int wr = warp * 16;                      // this warp's rows in the tile
+  const int wr = (warp % kGroups) * 16;          // this warp's rows in the tile
+  const int c0 = (warp / kGroups) * DC;          // ... and its columns of dQ
   const int row0 = q0 + wr + g, row1 = row0 + 8;
   const float scale_log2 = a.scale * kLog2e;
   float lse[2], delta[2];
@@ -504,23 +531,23 @@ flash_bwd_f32_dq_kernel(const BwdArgs a) {
     cp_async_commit();
     if (it == 0) CTA_STAMP(1, kMarkFirstTile);
     const int st = it % kStages, entry = list[it];
-    const int k0 = (entry & (kInterior - 1)) * kTile;
+    const int k0 = (entry & (kInterior - 1)) * BN;
     const float* Kt = Ks(st);
 
-    // S = Q K^T and dP = dO V^T: this warp's 16 rows x 64 keys
-    float s[8][4], dp[8][4];
+    // S = Q K^T and dP = dO V^T: this warp's 16 rows x BN keys
+    float s[NB][4], dp[NB][4];
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < NB; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
     }
-    two_products_nrows<D, 8>(s, dp, Qs, dOs, wr, Kt, Vs(st), g, t4);
+    two_products_nrows<D, NB>(s, dp, Qs, dOs, wr, Kt, Vs(st), g, t4);
 
     // dS = P (dP - delta) scale, P exactly 0 off the mask
     const bool interior = entry & kInterior;
     const int* kseg_t = ksegs(st);
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < NB; ++n) {
       const int kc = 8 * n + 2 * t4;
       const int2 ks2 = has_seg ? *reinterpret_cast<const int2*>(kseg_t + kc) : make_int2(0, 0);
 #pragma unroll
@@ -538,7 +565,7 @@ flash_bwd_f32_dq_kernel(const BwdArgs a) {
     }
 
     // dQ += dS K: the k index is the key
-    product_from_acc<D, 8>(dq, dp, Kt, g, t4);
+    product_from_acc<D, DC, NB>(dq, dp, Kt, c0, g, t4);
   }
   cp_async_wait<0>();                            // no copy outlives the CTA
   CTA_STAMP(1, kMarkLoopEnd);
@@ -550,7 +577,7 @@ flash_bwd_f32_dq_kernel(const BwdArgs a) {
     float* drow = a.dq + (row_base + row) * D;
 #pragma unroll
     for (int n = 0; n < NC; ++n) {
-      *reinterpret_cast<float2*>(drow + 8 * n + 2 * t4) =
+      *reinterpret_cast<float2*>(drow + c0 + 8 * n + 2 * t4) =
           make_float2(dq[n][2 * half], dq[n][2 * half + 1]);
     }
   }
@@ -559,29 +586,31 @@ flash_bwd_f32_dq_kernel(const BwdArgs a) {
 
 // ----------------------------------------------------------------- launch --
 
-template <int D, int BQ>
+// BQ q rows a dK/dV tile, KT keys a dK/dV CTA; QT q rows a dQ CTA, BN keys a
+// dQ tile
+template <int D, int BQ, int KT, int QT, int BN>
 cudaError_t launch(const BwdArgs& a, int B, const float* out, float* delta, cudaStream_t s) {
   static unsigned long long kv_configured = 0, q_configured = 0;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  err = allow_smem(flash_bwd_f32_dkdv_kernel<D, BQ>, kv_configured, dev);
+  err = allow_smem(flash_bwd_f32_dkdv_kernel<D, BQ, KT>, kv_configured, dev);
   if (err != cudaSuccess) return err;
-  err = allow_smem(flash_bwd_f32_dq_kernel<D>, q_configured, dev);
+  err = allow_smem(flash_bwd_f32_dq_kernel<D, QT, BN>, q_configured, dev);
   if (err != cudaSuccess) return err;
 
-  const int rows = B * a.H * a.T, per_block = 256 / (D / 4);
+  const int rows = B * a.H * a.T, per_block = 256 / PrepLanes<D>::value;
   flash_bwd_f32_prep_kernel<D><<<(rows + per_block - 1) / per_block, 256, 0, s>>>(
       out, a.dout, delta, rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   // dkdv: clusters of C CTAs along x
-  const int n_t = (a.T + kTile - 1) / kTile, C = a.H / a.Hkv / a.walk;
+  const int C = a.H / a.Hkv / a.walk;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.Hkv * C, B, n_t);
+  cfg.gridDim = dim3(a.Hkv * C, B, (a.T + KT - 1) / KT);
   cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = KvSmem<D, BQ>::bytes(a.T);
+  cfg.dynamicSmemBytes = KvSmem<D, BQ, KT>::bytes(a.T);
   cfg.stream = s;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -590,10 +619,11 @@ cudaError_t launch(const BwdArgs& a, int B, const float* out, float* delta, cuda
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, flash_bwd_f32_dkdv_kernel<D, BQ>, a);
+  err = cudaLaunchKernelEx(&cfg, flash_bwd_f32_dkdv_kernel<D, BQ, KT>, a);
   if (err != cudaSuccess) return err;
 
-  flash_bwd_f32_dq_kernel<D><<<dim3(a.H, B, n_t), kThreads, QSmem<D>::bytes(a.T), s>>>(a);
+  flash_bwd_f32_dq_kernel<D, QT, BN>
+      <<<dim3(a.H, B, (a.T + QT - 1) / QT), kThreads, QSmem<D, QT, BN>::bytes(a.T), s>>>(a);
   return cudaGetLastError();
 }
 
@@ -636,8 +666,11 @@ extern "C" int slamkit_flash_bwd_f32(const float* q, const float* k, const float
   a.walk = (H / Hkv) / cluster_size(H / Hkv);
   a.scale = sm_scale;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (D == 64) return (int)launch<64, 64>(a, B, out, scratch, s);
-  // half-height q tiles keep dK, dV, S^T and dP^T within one thread's registers
-  if (D == 128) return (int)launch<128, 32>(a, B, out, scratch, s);
+  if (D == 64) return (int)launch<64, 64, 64, 64, 64>(a, B, out, scratch, s);
+  // half-height q tiles keep dK, dV, S^T and dP^T within one thread's
+  // registers; at d = 256 every tile and CTA is 32 rows, each warp holding
+  // half of the gradient's columns
+  if (D == 128) return (int)launch<128, 32, 64, 64, 64>(a, B, out, scratch, s);
+  if (D == 256) return (int)launch<256, 32, 32, 32, 32>(a, B, out, scratch, s);
   return (int)cudaErrorInvalidValue;
 }

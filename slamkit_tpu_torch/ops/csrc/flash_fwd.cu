@@ -34,15 +34,19 @@
 //     CTA rather than by a pre-pass: its cost is the same one read of ids a
 //     pre-pass's table would have needed, and there is one launch a call;
 //   * loads: Q once into shared memory, K and V (and the keys' segment ids)
-//     through a cp.async ring (3 stages at d = 64, 2 at d = 128), the next
-//     tiles loading while this one multiplies; every tile is stored 128-byte
-//     swizzled, d = 128 as two 64-column halves;
+//     through a cp.async ring (3 stages at d = 64, 2 at d = 128 and 256), the
+//     next tiles loading while this one multiplies; every tile is stored
+//     128-byte swizzled, d = 128 (256) as two (four) 64-column halves;
 //   * products on wgmma m64n64k16: S = Q K^T with both operands in shared
 //     memory, then O += P V with P packed from the S accumulators straight
 //     into A-operand registers and V read MN-major. At d = 128 the registers
 //     allow it too (S 32, O 64, P 16 a thread; ptxas: 154 registers, no
 //     spills), and on the card d128_ctx1024 ran in 0.037-0.040 ms: d = 128
-//     stays on wgmma, O as two 64-column halves;
+//     stays on wgmma, O as two 64-column halves. d = 256 is the same code
+//     with four halves: O is 128 registers a thread, Q and two stages of K
+//     and V 160 KB of shared memory (one CTA an SM). No published decoder the
+//     port reads needs it; it exists so that any head dim up to 256 runs, as
+//     the JAX wrapper pads any d to a multiple of 128;
 //   * the mask only on the tiles that need it, as -inf; every element's
 //     exp is the SFU's 2^x with no branch (2^-inf = 0), the online softmax's
 //     running max floored at -1e25 so a row that has seen nothing stays 0;
@@ -412,5 +416,6 @@ extern "C" int slamkit_flash_fwd_bf16(const void* q, const void* k, const void* 
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (D == 64) return (int)launch<64>(a, B, s);
   if (D == 128) return (int)launch<128>(a, B, s);
+  if (D == 256) return (int)launch<256>(a, B, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -55,7 +55,10 @@
 //     relative), the running max floored at -1e25 so a row that has seen
 //     nothing stays 0;
 //   * no atomics and no split of the keys: bitwise deterministic.
-// Shared memory: 87 KB at d = 64 (two CTAs an SM), 169 KB at d = 128.
+// Shared memory: 87 KB at d = 64 (two CTAs an SM), 169 KB at d = 128. At
+// d = 256 two stages of 64-key tiles would not fit (260 KB), so its k tiles
+// are 32 keys (195 KB), and its P V runs 32 columns at a time, so that O's
+// 128 registers a thread leave room for the fragments.
 // Left for later work: mma.sync holds the tensor cores to about a third of
 // their TF32 rate here; wgmma on TF32 with the tiles in swizzled shared
 // memory is the next step. A warp of 32 q rows (two m16 tiles sharing each
@@ -94,33 +97,37 @@ struct F32Args {
   float scale;
 };
 
-// Shared memory in floats: Q [64][D + 4]; kStages x (K, V [64][D + 4], the
-// keys' ids [64]); the list's length; the flags and the list (n_k each).
+// Shared memory in floats: Q [64][D + 4]; kStages x (K, V [KT][D + 4], the
+// keys' ids [KT]); the list's length; the flags and the list (n_k each).
 template <int D>
 struct Smem {
-  static constexpr int kTileF = kTile * Ld<D>::value;
+  static constexpr int KT = D > 128 ? 32 : kTile;   // keys a tile
+  static constexpr int kTileF = kTile * Ld<D>::value, kTileK = KT * Ld<D>::value;
   static constexpr int kQ = 0, kStage = kQ + kTileF;
-  static constexpr int kStageF = 2 * kTileF + kTile;
+  static constexpr int kStageF = 2 * kTileK + KT;
   static constexpr int kCount = kStage + kStages * kStageF, kFlags = kCount + 4;
-  static size_t bytes(int T) { return 4 * ((size_t)kFlags + 2 * ((T + kTile - 1) / kTile)); }
+  static size_t bytes(int T) { return 4 * ((size_t)kFlags + 2 * ((T + KT - 1) / KT)); }
 };
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_f32_kernel(const F32Args a) {
   using L = Smem<D>;
+  constexpr int KT = L::KT, NK = KT / 8;         // keys a tile; its 8-key tiles
   constexpr int NO = D / 8;                      // 8-column tiles of O a warp holds
+  constexpr int NP = D > 128 ? 4 : 8;            // ... of one P V part
   extern __shared__ float smem[];
   float* Qs = smem + L::kQ;
   int* count_s = reinterpret_cast<int*>(smem + L::kCount);
   auto Ks = [&](int st) { return smem + L::kStage + st * L::kStageF; };
-  auto Vs = [&](int st) { return Ks(st) + L::kTileF; };
-  auto ksegs = [&](int st) { return reinterpret_cast<int*>(Ks(st) + 2 * L::kTileF); };
+  auto Vs = [&](int st) { return Ks(st) + L::kTileK; };
+  auto ksegs = [&](int st) { return reinterpret_cast<int*>(Ks(st) + 2 * L::kTileK); };
 
-  const int T = a.T, n_k = (T + kTile - 1) / kTile;
+  const int T = a.T, n_k = (T + KT - 1) / KT;
   int* flags = reinterpret_cast<int*>(smem + L::kFlags);
   int* list = flags + n_k;
-  const int q_tile = n_k - 1 - (int)blockIdx.z;  // the last first: it sees the most keys
+  // the last q tile first: it sees the most keys
+  const int q_tile = (T + kTile - 1) / kTile - 1 - (int)blockIdx.z;
   const int q0 = q_tile * kTile;
   const int h = blockIdx.x, hk = h / (a.H / a.Hkv), b = blockIdx.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -135,24 +142,24 @@ flash_fwd_f32_kernel(const F32Args a) {
   // ---- the k tiles these rows can see, marked interior or not; listed
   // before any tile is loaded, so that the ids' reads do not queue behind
   // the first wave's tile copies
-  const int k_end = a.causal ? min(n_k, q_tile + 1) : n_k;
+  const int k_end = a.causal ? min(n_k, (q0 + kTile - 1) / KT + 1) : n_k;
   bool q_one = true;
   int uq = 0;
   int4 qr = empty_range();
   if (has_seg) qr = rows_range<kTile>(a.q_seg + (size_t)b * T, q0, T, lane, q_one, uq);
   auto corner_free = [&](int kt) {               // before T, and (causal) below the diagonal
-    return kt * kTile + kTile <= T && (!a.causal || kt * kTile + kTile - 1 <= q0);
+    return kt * KT + KT <= T && (!a.causal || kt * KT + KT - 1 <= q0);
   };
-  const int n_list = list_tiles<kTile, kWarps>(flags, list, count_s, ks_row, qr, q_one, uq, 0,
+  const int n_list = list_tiles<KT, kWarps>(flags, list, count_s, ks_row, qr, q_one, uq, 0,
                                                k_end, T, tid, corner_free);
   CTA_STAMP(0, kMarkListed);
   CTA_TILES(0, n_list);
 
   auto load_stage = [&](int it) {
-    const int k0 = (list[it] & (kInterior - 1)) * kTile, st = it % kStages;
-    cp_rows<kTile, D, kThreads>(Ks(st), kp, k0, T, tid);
-    cp_rows<kTile, D, kThreads>(Vs(st), vp, k0, T, tid);
-    if (has_seg) cp_vals<kTile>(ksegs(st), ks_row, k0, T, tid);
+    const int k0 = (list[it] & (kInterior - 1)) * KT, st = it % kStages;
+    cp_rows<KT, D, kThreads>(Ks(st), kp, k0, T, tid);
+    cp_rows<KT, D, kThreads>(Vs(st), vp, k0, T, tid);
+    if (has_seg) cp_vals<KT>(ksegs(st), ks_row, k0, T, tid);
   };
   cp_rows<kTile, D, kThreads>(Qs, qp, q0, T, tid);
   if (n_list > 0) load_stage(0);
@@ -179,25 +186,25 @@ flash_fwd_f32_kernel(const F32Args a) {
     cp_async_commit();
     if (it == 0) CTA_STAMP(0, kMarkFirstTile);
     const int st = it % kStages, entry = list[it];
-    const int k0 = (entry & (kInterior - 1)) * kTile;
+    const int k0 = (entry & (kInterior - 1)) * KT;
     const float* Kt = Ks(st);
     const float* Vt = Vs(st);
 
-    // S = Q K^T: this warp's 16 rows x 64 keys, 8 tiles of 8 keys
-    float s[8][4];
+    // S = Q K^T: this warp's 16 rows x KT keys, NK tiles of 8 keys
+    float s[NK][4];
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < NK; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
     }
 #pragma unroll 2
     for (int kk = 0; kk < D / 8; ++kk) {
       float x[4];
-      uint32_t a_hi[4], a_lo[4], b_hi[8][2], b_lo[8][2];
+      uint32_t a_hi[4], a_lo[4], b_hi[NK][2], b_lo[NK][2];
       frag_a<D>(x, Qs, wr, 8 * kk, g, t4);
       split_tf32(x, a_hi, a_lo);
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
+      for (int n = 0; n < NK; ++n) {
         float y[2];
         frag_b_nrows<D>(y, Kt, 8 * kk, 8 * n, g, t4);
         split_tf32(y, b_hi[n], b_lo[n]);
@@ -213,7 +220,7 @@ flash_fwd_f32_kernel(const F32Args a) {
       const int row = half ? row1 : row0, qseg = half ? qseg1 : qseg0;
       float mx = -INFINITY;
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
+      for (int n = 0; n < NK; ++n) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           float x = s[n][2 * half + e] * scale_log2;
@@ -234,7 +241,7 @@ flash_fwd_f32_kernel(const F32Args a) {
       m[half] = mn;
       float ps = 0.f;
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
+      for (int n = 0; n < NK; ++n) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const float p = fast_exp2(s[n][2 * half + e] - mn);
@@ -254,34 +261,34 @@ flash_fwd_f32_kernel(const F32Args a) {
     // alike. The tensor cores add a product to their accumulator without
     // rounding to nearest (a bias that grows with the adds: over thousands
     // of keys, 1.3e-4 of |O| on a real model's activations), so
-    // each tile's P V starts from zero, 64 columns at a time, and is added
-    // to O in float32
+    // each tile's P V starts from zero, 8 NP columns at a time, and is
+    // added to O in float32
 #pragma unroll
-    for (int c = 0; c < NO / 8; ++c) {
-      float part[8][4];
+    for (int c = 0; c < NO / NP; ++c) {
+      float part[NP][4];
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
+      for (int n = 0; n < NP; ++n) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
       }
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < NK; ++j) {
         float x[4];
-        uint32_t a_hi[4], a_lo[4], b_hi[8][2], b_lo[8][2];
+        uint32_t a_hi[4], a_lo[4], b_hi[NP][2], b_lo[NP][2];
         frag_a_from_acc(x, s[j]);
         split_tf32(x, a_hi, a_lo);
 #pragma unroll
-        for (int n = 0; n < 8; ++n) {
+        for (int n = 0; n < NP; ++n) {
           float y[2];
-          frag_b_krows<D>(y, Vt, 8 * j, 64 * c + 8 * n, g, t4);
+          frag_b_krows<D>(y, Vt, 8 * j, 8 * NP * c + 8 * n, g, t4);
           split_tf32(y, b_hi[n], b_lo[n]);
         }
         mma_3xtf32(part, a_hi, a_lo, b_hi, b_lo);
       }
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
+      for (int n = 0; n < NP; ++n) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) o[8 * c + n][e] += part[n][e];
+        for (int e = 0; e < 4; ++e) o[NP * c + n][e] += part[n][e];
       }
     }
   }
@@ -353,5 +360,6 @@ extern "C" int slamkit_flash_fwd_f32(const float* q, const float* k, const float
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (D == 64) return (int)launch<64>(a, B, s);
   if (D == 128) return (int)launch<128>(a, B, s);
+  if (D == 256) return (int)launch<256>(a, B, s);
   return (int)cudaErrorInvalidValue;
 }

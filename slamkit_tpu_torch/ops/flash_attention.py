@@ -15,14 +15,15 @@ tensor launches the kernel of its dtype or raises (float16 and mixed
 dtypes). `FlashAttentionFunction` carries the gradient; `flash_attention`
 routes through it when autograd is recording.
 
-The kernels are built for head dims 64 and 128. Any d up to 128 runs on
-them as the JAX wrapper runs it (`flash_attention` :540-542, :566): q, k, v
-(and out, dO) zero-padded to 64 or 128 (`kernel_head_dim`), the scale taken
-from the original d, out and the gradients sliced back to d (`_launch` /
-`_launch_bwd`, around `_launch_kernel` / `_launch_bwd_kernel`). The zero
-columns add nothing to QK^T or dP (and split into zero hi and lo parts in
-3xTF32), so the padded call computes the unpadded function; the LSE is
-unchanged. d > 128 raises.
+The kernels are built for head dims 64, 128 and 256. Any d up to 256 runs
+on them as the JAX wrapper runs it (`flash_attention` :540-542, :566): q, k,
+v (and out, dO) zero-padded to 64, 128 or 256 (`kernel_head_dim`), the
+scale taken from the original d, out and the gradients sliced back to d
+(`_launch` / `_launch_bwd`, around `_launch_kernel` / `_launch_bwd_kernel`).
+The zero columns add nothing to QK^T or dP (and split into zero hi and lo
+parts in 3xTF32), so the padded call computes the unpadded function; the
+LSE is unchanged. d > 256 raises: a CTA's registers and shared memory hold
+a 256-wide head only by halving its tiles (ROADMAP queue 3).
 
 `flash_attention_fwd.launches` / `.f32_launches` and
 `flash_attention_bwd.launches` / `.f32_launches` count kernel launches of
@@ -106,24 +107,25 @@ def _segments(segment_ids, kv_segment_ids):
 
 
 #: the head dims the kernels are built for
-KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (64, 128, 256)
 
 
 def kernel_head_dim(d: int) -> int:
-    """The kernel head dim a head dim of `d` runs at: the least of 64 and
-    128 that holds it. d > 128 raises (the JAX wrapper pads it to 256, for
-    which no kernel is built: ROADMAP queue 3)."""
+    """The kernel head dim a head dim of `d` runs at: the least of 64, 128
+    and 256 that holds it, as the JAX wrapper pads d to a multiple of 128.
+    d > 256 raises (ROADMAP queue 3: no kernel is built for it)."""
     for kd in KERNEL_HEAD_DIMS:
         if d <= kd:
             return kd
     raise ValueError(f"the CUDA flash kernels take head dims up to {KERNEL_HEAD_DIMS[-1]} "
-                     f"(zero-padded to 64 or 128); got {d}: no kernel is built for a larger "
-                     f"head dim (ROADMAP queue 3)")
+                     f"(zero-padded to 64, 128 or 256); got {d}: no kernel is built for a "
+                     f"larger head dim (ROADMAP queue 3)")
 
 
 def _check_kernel_inputs(what: str, **tensors):
     """What the CUDA kernels take: tensors of one dtype, bf16 or float32,
-    contiguous, 16-byte aligned, d 64/128 (after `_launch`'s padding)."""
+    contiguous, 16-byte aligned, d 64, 128 or 256 (after `_launch`'s
+    padding)."""
     dtypes = (torch.bfloat16, torch.float32)
     got = {x.dtype for x in tensors.values()}
     if len(got) != 1 or not got <= set(dtypes):
@@ -135,7 +137,8 @@ def _check_kernel_inputs(what: str, **tensors):
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     d = tensors["q"].shape[-1]
     if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the CUDA flash {what} kernel takes head dim 64 or 128; got {d}")
+        raise ValueError(f"the CUDA flash {what} kernel takes head dim 64, 128 or 256; "
+                         f"got {d}")
 
 
 def _seg_ptrs(q_seg, k_seg):
@@ -149,7 +152,7 @@ def _seg_ptrs(q_seg, k_seg):
 def _launch(q, k, v, q_seg, k_seg, causal: bool, sm_scale: float,
             defines: tuple[str, ...] = ()):
     """The bf16 kernel for bf16 inputs, the float32 one for float32 inputs
-    (from the library built with `defines`), at any head dim d up to 128:
+    (from the library built with `defines`), at any head dim d up to 256:
     q, k, v zero-padded along D to `kernel_head_dim(d)`, out sliced back to
     d. The caller passes the scale of the original d."""
     d = q.shape[-1]
@@ -218,7 +221,7 @@ flash_attention_fwd.f32_launches = 0
 def _launch_bwd(q, k, v, out, lse, do, q_seg, k_seg, causal: bool, sm_scale: float,
                 defines: tuple[str, ...] = ()):
     """The bf16 kernel for bf16 inputs, the float32 one for float32 inputs
-    (from the library built with `defines`), at any head dim d up to 128:
+    (from the library built with `defines`), at any head dim d up to 256:
     q, k, v, out and do zero-padded along D to `kernel_head_dim(d)`, the
     gradients sliced back to d (their padded columns are 0). The caller
     passes the scale of the original d."""

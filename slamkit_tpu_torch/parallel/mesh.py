@@ -15,7 +15,14 @@ tile of the global batch and calls the collectives itself:
     `shard_batch` / `batch_sharding` (`:60-71`, `:217-236`) place on a device:
     rows over 'data', the time chunk over 'seq';
   * `Mesh.shard(...)` describes that tile to the model (`Shard`): the ring's
-    process group and the global shape the dropout masks are drawn at.
+    process group and the global shape the dropout masks are drawn at;
+    `Mesh.pair_shard(...)` is DPO's tile of a [2B, T] batch of chosen rows
+    over rejected rows: a rank's pairs, both halves; `Mesh.row_tile(n)` is
+    an evaluation batch's (`RowTile`): any n rows, padded as JAX's
+    `UnitLM._pad_rows` pads them, and gathered back without the pads;
+  * `all_reduce_grads(module)` sums the ranks' gradients in flat buckets,
+    the one collective of a training step (JAX sums; DistributedDataParallel
+    would average).
 
 A 'model' axis larger than 1 (tensor parallelism) raises; `fsdp_spec` is the
 JAX rule as a plain function, for the fsdp slice.
@@ -24,7 +31,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -37,6 +44,9 @@ KNOWN_AXES = ("data", "model", "seq")
 
 #: where the port's tensor parallelism over 'model' stands in ROADMAP.md
 MODEL_AXIS_ITEM = "ROADMAP queue 1 item 24"
+
+#: gradients are all-reduced in flat buckets of at most this many elements
+BUCKET_ELEMENTS = 1 << 26
 
 
 def init_distributed(device, init_method: Optional[str] = None) -> torch.device:
@@ -106,12 +116,13 @@ def check_mesh(shape: Optional[Sequence[int]], axis_names: Optional[Sequence[str
 @dataclasses.dataclass(frozen=True)
 class Shard:
     """What one rank's forward sees of a global [batch, time] batch: its
-    `rows`, the logical position of each of its columns (`cols`: a
-    contiguous chunk, or zigzag's two half-chunks), and the 'seq' group
-    (`group`, this rank's `rank` in it, its `size`) the ring runs over."""
+    `rows` (a slice, or the row indices in order), the logical position of
+    each of its columns (`cols`: a contiguous chunk, or zigzag's two
+    half-chunks), and the 'seq' group (`group`, this rank's `rank` in it,
+    its `size`) the ring runs over."""
     batch: int
     time: int
-    rows: slice
+    rows: Union[slice, np.ndarray]
     cols: np.ndarray
     group: Optional[object]
     rank: int
@@ -122,7 +133,36 @@ class Shard:
         """This rank's tile of a tensor drawn at the global shape: its rows
         of dim 0, its columns of dim `time_dim`."""
         cols = torch.from_numpy(self.cols).to(full.device)
-        return full[self.rows].index_select(time_dim, cols)
+        rows = (full[self.rows] if isinstance(self.rows, slice)
+                else full.index_select(0, torch.from_numpy(self.rows).to(full.device)))
+        return rows.index_select(time_dim, cols)
+
+
+@dataclasses.dataclass(frozen=True)
+class RowTile:
+    """This rank's rows [lo, hi) of an evaluation batch of `total` rows,
+    padded at the end to an equal share on each rank of the 'data' `group`
+    (JAX `unit_lm.py:178-192` pads, `:372` drops the pads)."""
+    lo: int
+    hi: int
+    total: int
+    group: Optional[object]
+
+    def mine(self, full: torch.Tensor, fill) -> torch.Tensor:
+        """This rank's rows of a [total, ...] tensor; rows past `total` (the
+        pads) hold `fill`."""
+        part = full[self.lo:min(self.hi, self.total)]
+        missing = self.hi - self.lo - part.shape[0]
+        if missing:
+            part = torch.cat([part, part.new_full((missing, *full.shape[1:]), fill)])
+        return part
+
+    def gather(self, part: torch.Tensor) -> torch.Tensor:
+        """Every rank's [hi - lo, ...] rows, in rank order, without the pads:
+        [total, ...] on every rank (one all-gather)."""
+        parts = [torch.empty_like(part) for _ in range(dist.get_world_size(self.group))]
+        dist.all_gather(parts, part.contiguous(), group=self.group)
+        return torch.cat(parts)[:self.total]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,6 +209,31 @@ class Mesh:
                      cols=np.ascontiguousarray(order[r * chunk:(r + 1) * chunk]),
                      group=self.group("seq") if n_seq > 1 else None,
                      rank=r, size=n_seq, schedule=schedule)
+
+    def row_tile(self, rows: int) -> RowTile:
+        """This rank's `RowTile` of an evaluation batch of `rows` rows over
+        'data' (a mesh of 'data' only)."""
+        n_data = self.shape["data"]
+        if self.size != n_data:
+            raise ValueError(f"a row tile splits rows over 'data' only; the mesh is {self.shape}")
+        per = -(-rows // n_data)
+        at = self.coordinate["data"]
+        return RowTile(lo=at * per, hi=(at + 1) * per, total=rows, group=self.group("data"))
+
+    def pair_shard(self, pairs: int, time: int) -> Shard:
+        """This rank's `Shard` of a [2 pairs, time] DPO batch (chosen rows
+        over rejected rows, row i paired with row pairs + i): the pairs
+        [lo, hi) of its 'data' coordinate, rows [lo, hi) then [pairs + lo,
+        pairs + hi), every column. The mesh has no 'seq' axis above 1."""
+        n_data = self.shape["data"]
+        if seq_axis_size(self) > 1:
+            raise ValueError("a pair shard splits rows only: the mesh has a 'seq' axis")
+        if pairs % n_data:
+            raise ValueError(f"{pairs} pairs do not divide over 'data' = {n_data}")
+        per = pairs // n_data
+        mine = np.arange(self.coordinate["data"] * per, (self.coordinate["data"] + 1) * per)
+        return Shard(batch=2 * pairs, time=time, rows=np.concatenate([mine, pairs + mine]),
+                     cols=np.arange(time), group=None, rank=0, size=1)
 
 
 def make_mesh(shape: Optional[Sequence[int]] = None,
@@ -226,6 +291,27 @@ def local_tile(batch: dict, mesh: Mesh) -> dict:
             x = x[:, at["seq"] * chunk:(at["seq"] + 1) * chunk]
         out[key] = x
     return out
+
+
+def all_reduce_grads(module: torch.nn.Module):
+    """Sum every rank's gradients of `module`'s parameters in place: one
+    all-reduce over the world per flat bucket of one dtype."""
+    def reduce(bucket):
+        flat = torch.cat([g.reshape(-1) for g in bucket])
+        dist.all_reduce(flat)
+        for g, part in zip(bucket, flat.split([g.numel() for g in bucket])):
+            g.copy_(part.view_as(g))
+
+    grads = [p.grad for p in module.parameters() if p.grad is not None]
+    for dtype in sorted({g.dtype for g in grads}, key=str):
+        bucket, size = [], 0
+        for g in (g for g in grads if g.dtype == dtype):
+            if bucket and size + g.numel() > BUCKET_ELEMENTS:
+                reduce(bucket)
+                bucket, size = [], 0
+            bucket.append(g)
+            size += g.numel()
+        reduce(bucket)
 
 
 def fsdp_spec(shape: Sequence[int], mesh: Mesh, axis: str = "data") -> tuple:

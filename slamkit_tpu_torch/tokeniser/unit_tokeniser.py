@@ -2,14 +2,16 @@
 
 A copy of `slamkit_tpu/tokeniser/unit_tokeniser.py`: `UnitVocab` (:27), the
 vocabulary that `text_tokeniser` holds and whose length `cli/train.py` reads
-for `vocab_size: -1`; the string side
-(`pad_token_batch` :60, `_encode_one` :103, `string_tokenise` :107,
-`__call__` :121, `prepare_batch` :137) and the audio side over a feature extractor
-(`tokenise` :126, `build_prompt` :129, `decode_sample` :141,
-`get_ignore_tokens` :146, `fe_sample_rate` :151), copied because the JAX
-package's tokeniser module cannot be imported without jax.
-`tests/test_torch_data.py` and `tests/test_torch_speech_lm.py` hold it equal
-to the original. The vocabulary: <PAD> = 0, <S> = 1 (bos and eos), <UnN> =
+for `vocab_size: -1`, with `convert_ids_to_tokens` and `decode` (:44-57); the
+string side (`pad_token_batch` :60, `_encode_one` :103, `string_tokenise`
+:107, `__call__` :121, `prepare_sample` :134, `prepare_batch` :137) and the
+audio side over a feature extractor (`tokenise` :126, `build_prompt` :129,
+`decode_sample` :141, `get_ignore_tokens` :146, `fe_sample_rate` :151); and
+`save_pretrained` / `from_pretrained` through `tokeniser_config.json`
+(:156-172), the same bytes, so each package loads the other's. Copied
+because the JAX package's tokeniser module cannot be imported without jax.
+`tests/test_torch_data.py`, `tests/test_torch_speech_lm.py` and
+`tests/test_torch_unit_tokeniser.py` hold it equal to the original. The vocabulary: <PAD> = 0, <S> = 1 (bos and eos), <UnN> =
 N + 2, so 500 units make 502 ids; every sequence is wrapped as `<S> units
 <S>`. The JAX tokeniser pads on its text tokeniser's `padding_side`, which
 SpeechLM sets to right for scoring and left for prompts; here `tokenise`
@@ -17,6 +19,8 @@ pads right and `build_prompt` left.
 """
 from __future__ import annotations
 
+import json
+import os
 from typing import Dict, List, Optional, Union
 
 import numpy as np
@@ -43,8 +47,8 @@ def pad_token_batch(seqs: List[List[int]], pad_id: int, padding_side: str = "rig
 
 
 class UnitVocab:
-    """The vocabulary's size and special ids (the JAX package's stand-in for
-    the reference's HF text tokeniser; the port reads only its length)."""
+    """The vocabulary's size and special ids, and ids back to token strings
+    (the JAX package's stand-in for the reference's HF text tokeniser)."""
 
     def __init__(self, num_units: int, offset: int, pad_token_id: int, bos_token_id: int,
                  eos_token_id: int):
@@ -56,6 +60,22 @@ class UnitVocab:
 
     def __len__(self) -> int:
         return self.num_units + self.offset
+
+    def convert_ids_to_tokens(self, ids) -> List[str]:
+        """Each id as `<PAD>`, `<S>` (bos and eos) or `<UnN>`."""
+        out = []
+        for i in np.atleast_1d(np.asarray(ids)):
+            i = int(i)
+            if i == self.pad_token_id:
+                out.append("<PAD>")
+            elif i in (self.bos_token_id, self.eos_token_id):
+                out.append("<S>")
+            else:
+                out.append(f"<Un{i - self.offset}>")
+        return out
+
+    def decode(self, ids) -> str:
+        return " ".join(self.convert_ids_to_tokens(ids))
 
 
 class UnitTokeniser(AudioTokeniser):
@@ -116,6 +136,10 @@ class UnitTokeniser(AudioTokeniser):
         seqs = [self._encode_one(s)[:-1] for s in audio_repr]
         return pad_token_batch(seqs, self.pad_token_id, "left")
 
+    def prepare_sample(self, sample: dict, **kwargs) -> dict:
+        """One jsonl row ({'audio_repr': ...}) through `string_tokenise`."""
+        return self.string_tokenise(sample["audio_repr"], **kwargs)
+
     def prepare_batch(self, samples: list) -> list:
         """jsonl rows ({'audio_repr': ...}) to id lists."""
         return [self._encode_one(s["audio_repr"]) for s in samples]
@@ -142,3 +166,27 @@ class UnitTokeniser(AudioTokeniser):
             raise RuntimeError("This tokeniser was built without a feature extractor "
                                "(load_fe=False)")
         return self.model.sample_rate
+
+    # -- persistence ---------------------------------------------------------------
+    def save_pretrained(self, save_directory: str, **kwargs):
+        """`tokeniser_config.json` in `save_directory`: the constructor's
+        arguments, with load_fe false (the feature extractor is not saved)."""
+        os.makedirs(save_directory, exist_ok=True)
+        cfg = {
+            "dedup": self.dedup,
+            "bos_eos_token_id": self.bos_token_id,
+            "pad_token_id": self.pad_token_id,
+            "num_units": self.num_units,
+            "load_fe": False,
+        }
+        with open(os.path.join(save_directory, "tokeniser_config.json"), "w") as f:
+            json.dump(cfg, f)
+
+    @classmethod
+    def from_pretrained(cls, path: str, **kwargs) -> "UnitTokeniser":
+        """The tokeniser that `save_pretrained` wrote to `path`, without a
+        feature extractor; `kwargs` go to the constructor (a key the file
+        holds raises)."""
+        with open(os.path.join(path, "tokeniser_config.json"), "r") as f:
+            cfg = json.load(f)
+        return cls(speech_tokeniser=None, **cfg, **kwargs)

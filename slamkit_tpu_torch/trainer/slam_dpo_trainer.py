@@ -1,4 +1,5 @@
-"""SLAMDPOTrainer: Direct Preference Optimization on one device.
+"""SLAMDPOTrainer: Direct Preference Optimization, on one card or on the
+'data' axis of a mesh of ranks.
 
 Counterpart of `slamkit_tpu/trainer/slam_dpo_trainer.py`, the call
 `cli/preference_alignment_train.py` makes: `SLAMDPOTrainer(model, tokenizer,
@@ -32,9 +33,31 @@ backward on the flash path is the flash backward. A model with dropout
 the policy's forward from a stream seeded by `seed`, whose state rides in
 the checkpoint (exact resume); the reference and evaluation forwards stay
 deterministic, as trl keeps the reference in eval mode. The loop runs
-synchronously on the model's device. Knobs of the JAX trainer that the port
-does not implement (fsdp, a multi-device mesh, a 'seq' axis, multihost)
-raise.
+synchronously on the model's device.
+
+Under torchrun (`parallel.init_distributed`) the trainer runs on the mesh of
+`training_args.mesh_shape` / `mesh_axes` (JAX `slam_dpo_trainer.py:65-117`,
+`:219-259`; `mesh_shape: null` is every rank on 'data'):
+
+  * the global batch is per_device_train_batch_size x the 'data' size of
+    pairs; every rank draws the same permutation and collates the global
+    [2B, T] batch (T the bucket of its longest row), then keeps its pairs,
+    rows [lo, hi) and [B + lo, B + hi) (`Mesh.pair_shard`), so chosen and
+    rejected rows of a pair stay on one rank;
+  * each rank's loss and reward metrics are its pairs' sums over the global
+    B, its share of the global means; the reference's forward runs on the
+    rank's pairs; after the backward the gradients get one all-reduce (SUM)
+    over the world (`parallel.all_reduce_grads`), so every rank steps with
+    the one-process gradient;
+  * the policy's dropout masks are drawn at the global [2B, T] shape and
+    tiled by the pair shard;
+  * the logged loss and metrics and the evaluation's per-batch loss and
+    accuracy are all-reduced; rank 0 alone logs and writes checkpoints (in
+    the one-rank format), every rank waits for it at a barrier, and every
+    rank resumes from the checkpoint.
+
+A 'seq' axis above 1 raises the JAX trainer's NotImplementedError; fsdp and
+multihost raise (ROADMAP queue 1 items 23 and 26).
 """
 from __future__ import annotations
 
@@ -46,13 +69,15 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from ..parallel.mesh import Mesh, all_reduce_grads, make_mesh, seq_axis_size
 from ..utils.calculation_utils import token_nll
 from . import checkpoint
 from .callbacks import TrainerCallback, TrainerControl, TrainerState
 from .optim import make_optimizer
-from .slam_trainer import _refuse_unported, dropout_stream, next_seed
+from .slam_trainer import _refuse_unported, agree, dropout_stream, next_seed
 
 logger = logging.getLogger(__name__)
 
@@ -113,27 +138,32 @@ def collate(rows: List[dict], bucket_lens: List[int], pad_id: int) -> Dict[str, 
 
 
 def sequence_logps(decoder, batch: Dict[str, torch.Tensor],
-                   dropout_seed: Optional[int] = None) -> torch.Tensor:
+                   dropout_seed: Optional[int] = None, shard=None) -> torch.Tensor:
     """[2B] float32: each row's summed log-probability of its completion
     tokens (the targets under `completion_mask`); dropout_seed turns on the
-    decoder's dropout rates."""
+    decoder's dropout rates; shard: the rows' `parallel.Shard` of the global
+    batch (where the masks are drawn), or None."""
     logits, _ = decoder(batch["input_ids"], segment_ids=batch["segment_ids"],
-                        dropout_seed=dropout_seed)
+                        dropout_seed=dropout_seed, shard=shard)
     lp = -token_nll(logits[:, :-1], batch["input_ids"][:, 1:])
     return (lp * batch["completion_mask"][:, 1:]).sum(-1)
 
 
-def dpo_objective(lp: torch.Tensor, ref_lp: torch.Tensor, beta: float):
+def dpo_objective(lp: torch.Tensor, ref_lp: torch.Tensor, beta: float,
+                  pairs: Optional[int] = None):
     """(loss, metrics) from the policy's and the reference's [2B] completion
-    log-probabilities, chosen rows first."""
+    log-probabilities, chosen rows first: each a sum over these B pairs
+    divided by `pairs` (default B: the means), so that a rank holding B of
+    the global batch's `pairs` gets its share of the global means."""
     b = lp.shape[0] // 2
+    n = b if pairs is None else pairs
     logits = beta * ((lp[:b] - lp[b:]) - (ref_lp[:b] - ref_lp[b:]))
-    loss = -F.logsigmoid(logits).mean()
+    loss = -F.logsigmoid(logits).sum() / n
     metrics = {
-        "rewards/chosen": (beta * (lp[:b] - ref_lp[:b])).mean(),
-        "rewards/rejected": (beta * (lp[b:] - ref_lp[b:])).mean(),
-        "rewards/accuracies": (logits > 0).float().mean(),
-        "rewards/margins": logits.mean(),
+        "rewards/chosen": (beta * (lp[:b] - ref_lp[:b])).sum() / n,
+        "rewards/rejected": (beta * (lp[b:] - ref_lp[b:])).sum() / n,
+        "rewards/accuracies": (logits > 0).float().sum() / n,
+        "rewards/margins": logits.sum() / n,
     }
     return loss, metrics
 
@@ -141,11 +171,23 @@ def dpo_objective(lp: torch.Tensor, ref_lp: torch.Tensor, beta: float):
 class SLAMDPOTrainer:
     def __init__(self, model, tokenizer, args, train_dataset: List[dict],
                  eval_dataset: Optional[List[dict]] = None,
-                 callbacks: Optional[List[TrainerCallback]] = None, log_fn=None):
-        _refuse_unported(args, dpo=True)
+                 callbacks: Optional[List[TrainerCallback]] = None, log_fn=None,
+                 mesh: Optional[Mesh] = None):
+        _refuse_unported(args)
+        self.mesh = mesh or make_mesh(args.get("mesh_shape", None), args.get("mesh_axes", None))
+        if seq_axis_size(self.mesh) > 1:
+            raise NotImplementedError(
+                "context parallelism ('seq' mesh axis) is a pretrain-trainer "
+                "feature; DPO batches are short prompt+completion rows")
+        self.world = self.mesh.size
         self.model = model
         self.args = args
         self.device = model.device
+        if self.world > 1:
+            # every rank starts from rank 0's weights (and so does the reference)
+            with torch.no_grad():
+                for p in model.decoder.parameters():
+                    dist.broadcast(p, src=0)
         self.callbacks = callbacks or []
         self.log_fn = log_fn
         self.beta = float(args.get("beta", 0.1))
@@ -168,7 +210,8 @@ class SLAMDPOTrainer:
         self.bucket_lens = self._bucket_lens(all_rows, int(args.get("length_buckets", 1) or 1),
                                              self.max_len)
 
-        self.batch_size = int(args["per_device_train_batch_size"])
+        # the global batch, in pairs
+        self.batch_size = int(args["per_device_train_batch_size"]) * self.mesh.shape["data"]
         epochs = float(args.get("num_train_epochs", 1))
         self.steps_per_epoch = max(len(self.train_rows) // self.batch_size, 1)
         max_steps = int(args.get("max_steps", -1) or -1)
@@ -198,28 +241,52 @@ class SLAMDPOTrainer:
         return collate(rows, self.bucket_lens, self.model.config.pad_token_id)
 
     def _to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(batch[k]).to(self.device, non_blocking=True)
+        return {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(self.device,
+                                                                       non_blocking=True)
                 for k in BATCH_KEYS}
+
+    def _local(self, batch: Dict[str, np.ndarray]):
+        """(this rank's pairs of a global [2B, T] host batch on the device,
+        their `parallel.Shard`). One rank: the batch itself and None."""
+        if self.world == 1:
+            return self._to_device(batch), None
+        ids = batch["input_ids"]
+        shard = self.mesh.pair_shard(ids.shape[0] // 2, ids.shape[1])
+        return self._to_device({k: batch[k][shard.rows] for k in BATCH_KEYS}), shard
+
+    def _all_reduce(self, values: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Each value summed over the ranks (one all-reduce); one rank: as is."""
+        if self.world == 1:
+            return values
+        flat = torch.stack([v.float() for v in values.values()])
+        dist.all_reduce(flat)
+        return dict(zip(values, flat.unbind()))
 
     # ------------------------------------------------------------------ #
     # compute
     # ------------------------------------------------------------------ #
-    def dpo_loss(self, batch: Dict[str, torch.Tensor], dropout_seed: Optional[int] = None):
+    def dpo_loss(self, batch: Dict[str, torch.Tensor], dropout_seed: Optional[int] = None,
+                 shard=None):
         """(loss, metrics) of one device batch: the policy under autograd
         (with dropout when `dropout_seed` is given), the reference without
-        either."""
-        lp = sequence_logps(self.model.decoder, batch, dropout_seed)
+        either. Under a pair `shard` of a global batch, each is this rank's
+        share of the global means."""
+        lp = sequence_logps(self.model.decoder, batch, dropout_seed, shard)
         with torch.no_grad():
-            ref_lp = sequence_logps(self.ref_decoder, batch)
-        return dpo_objective(lp, ref_lp, self.beta)
+            ref_lp = sequence_logps(self.ref_decoder, batch, shard=shard)
+        return dpo_objective(lp, ref_lp, self.beta,
+                             None if shard is None else shard.batch // 2)
 
     def _train_step(self, rows: List[dict]) -> Dict[str, torch.Tensor]:
-        loss, metrics = self.dpo_loss(self._to_device(self._collate(rows)),
-                                      next_seed(self.dropout_stream))
+        batch, shard = self._local(self._collate(rows))
+        loss, metrics = self.dpo_loss(batch, next_seed(self.dropout_stream), shard)
         loss.backward()
+        if self.world > 1:
+            all_reduce_grads(self.model.decoder)
         self.optimizer.step()
         self.optimizer.zero_grad()
-        return {"loss": loss.detach(), **{k: v.detach() for k, v in metrics.items()}}
+        return self._all_reduce({"loss": loss.detach(),
+                                 **{k: v.detach() for k, v in metrics.items()}})
 
     @torch.inference_mode()
     def evaluate(self) -> Dict[str, float]:
@@ -233,10 +300,11 @@ class SLAMDPOTrainer:
             rows = rows + rows[:rem] if rem <= len(rows) else \
                 (rows * (-(-self.batch_size // len(rows))))[:self.batch_size]
         for start in range(0, len(rows) - self.batch_size + 1, self.batch_size):
-            loss, metrics = self.dpo_loss(
-                self._to_device(self._collate(rows[start:start + self.batch_size])))
-            losses.append(float(loss))
-            accs.append(float(metrics["rewards/accuracies"]))
+            batch, shard = self._local(self._collate(rows[start:start + self.batch_size]))
+            loss, metrics = self.dpo_loss(batch, shard=shard)
+            got = self._all_reduce({"loss": loss, "acc": metrics["rewards/accuracies"]})
+            losses.append(float(got["loss"]))
+            accs.append(float(got["acc"]))
         out = {"eval_loss": float(np.mean(losses)) if losses else float("nan"),
                "eval_rewards/accuracies": float(np.mean(accs)) if accs else float("nan")}
         self._log({**out, "step": self.state.global_step})
@@ -246,6 +314,14 @@ class SLAMDPOTrainer:
     # checkpointing
     # ------------------------------------------------------------------ #
     def save_checkpoint(self):
+        """Rank 0 writes the checkpoint (in the background under async_save);
+        on a mesh every rank then waits for it at a barrier."""
+        if self.mesh.rank == 0:
+            self._write_checkpoint()
+        if self.world > 1:
+            dist.barrier()
+
+    def _write_checkpoint(self):
         path = os.path.abspath(checkpoint.ckpt_dir(self.args["output_dir"],
                                                    self.state.global_step))
         trainer_json = {"global_step": self.state.global_step, "epoch": self.state.epoch,
@@ -284,6 +360,8 @@ class SLAMDPOTrainer:
     # ------------------------------------------------------------------ #
     def _log(self, record: dict):
         self.state.log_history.append(record)
+        if self.mesh.rank:
+            return
         logger.info("%s", record)
         if self.log_fn is not None:
             self.log_fn(record)
@@ -332,6 +410,7 @@ class SLAMDPOTrainer:
                                "step": state.global_step})
                 for cb in self.callbacks:
                     cb.on_step_end(args, state, control)
+                agree(control, self.world, self.device)
                 if save_steps and state.global_step >= save_due:
                     save_due = (state.global_step // save_steps + 1) * save_steps
                     self.save_checkpoint()
@@ -343,6 +422,8 @@ class SLAMDPOTrainer:
         self.evaluate()
         self.save_checkpoint()
         self._saver.wait()   # train() returns with the final save on disk
+        if self.world > 1:
+            dist.barrier()
         for cb in self.callbacks:
             cb.on_train_end(args, state, control)
         return state

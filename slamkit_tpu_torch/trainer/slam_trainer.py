@@ -69,7 +69,7 @@ from torch.profiler import record_function
 
 from ..data.dataset import IGNORE_INDEX, Batcher, TokenDataset
 from ..ops.ring_attention import SCHEDULES, check_chunk, zigzag_permutation
-from ..parallel.mesh import Mesh, local_tile, make_mesh, seq_axis_size
+from ..parallel.mesh import Mesh, all_reduce_grads, local_tile, make_mesh, seq_axis_size
 from ..utils.calculation_utils import masked_sum, token_nll
 from . import checkpoint
 from .callbacks import TrainerCallback, TrainerControl, TrainerState
@@ -78,8 +78,6 @@ from .optim import make_optimizer
 logger = logging.getLogger(__name__)
 
 BATCH_KEYS = ("input_ids", "labels", "segment_ids", "positions")
-# gradients all-reduced in flat buckets of at most this many elements
-BUCKET_ELEMENTS = 1 << 26
 
 
 def _refuse(args, key, what: str, item: int):
@@ -87,27 +85,26 @@ def _refuse(args, key, what: str, item: int):
                               f"ported yet (ROADMAP queue 1 item {item})")
 
 
-def _refuse_unported(args, dpo: bool = False):
+def _refuse_unported(args):
     """The JAX trainers' knobs that wait for a later ROADMAP item raise
-    rather than being ignored: fsdp (item 23), multihost (item 26) and, for
-    DPO (`dpo=True`), any mesh (item 22). A 'model' axis raises in
-    `parallel.make_mesh` (item 24)."""
+    rather than being ignored: fsdp (item 23) and multihost (item 26). A
+    'model' axis raises in `parallel.make_mesh` (item 24)."""
     if args.get("fsdp", False):
         _refuse(args, "fsdp", "parameter sharding (fsdp)", 23)
     if args.get("multihost", False):
         _refuse(args, "multihost", "multi-host training", 26)
-    if not dpo:
+
+
+def agree(control, world: int, device):
+    """On a mesh, a stop, save or eval that any rank's callbacks ask for (a
+    run-time stopper reads its own clock) holds on every rank."""
+    if world == 1:
         return
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError(f"WORLD_SIZE={os.environ['WORLD_SIZE']}: DPO on several "
-                                  f"ranks is not ported yet (ROADMAP queue 1 item 22)")
-    mesh_shape = args.get("mesh_shape", None)
-    if mesh_shape is not None and int(np.prod(list(mesh_shape))) != 1:
-        _refuse(args, "mesh_shape", "DPO on a mesh", 22)
-    if "seq" in list(args.get("mesh_axes", None) or []):
-        _refuse(args, "mesh_axes", "DPO on a mesh (context parallelism)", 22)
-    if (args.get("cp_schedule", "contiguous") or "contiguous") != "contiguous":
-        _refuse(args, "cp_schedule", "DPO on a mesh (the ring schedule)", 22)
+    flags = torch.tensor([control.should_training_stop, control.should_save,
+                          control.should_evaluate], dtype=torch.int32, device=device)
+    dist.all_reduce(flags, op=dist.ReduceOp.MAX)
+    control.should_training_stop, control.should_save, control.should_evaluate = (
+        bool(f) for f in flags.tolist())
 
 
 def dropout_stream(model, args) -> Optional[torch.Generator]:
@@ -259,26 +256,6 @@ class SLAMTrainer:
         shard = self.mesh.shard(len(batch["input_ids"]), self.context_len, self.cp_schedule)
         return self._to_device(local_tile(batch, self.mesh)), shard, self.n_seq > 1
 
-    def _all_reduce_grads(self):
-        """Sum every rank's gradients (one all-reduce over the world per flat
-        bucket of one dtype)."""
-        def reduce(bucket):
-            flat = torch.cat([g.reshape(-1) for g in bucket])
-            dist.all_reduce(flat)
-            for g, part in zip(bucket, flat.split([g.numel() for g in bucket])):
-                g.copy_(part.view_as(g))
-
-        grads = [p.grad for p in self.model.decoder.parameters() if p.grad is not None]
-        for dtype in sorted({g.dtype for g in grads}, key=str):
-            bucket, size = [], 0
-            for g in (g for g in grads if g.dtype == dtype):
-                if bucket and size + g.numel() > BUCKET_ELEMENTS:
-                    reduce(bucket)
-                    bucket, size = [], 0
-                bucket.append(g)
-                size += g.numel()
-            reduce(bucket)
-
     def _train_step(self, group: List[Dict[str, np.ndarray]]):
         """Forward and backward over the group's microbatches, then one
         optimizer update; returns (summed loss tensor, tokens counted). The
@@ -298,7 +275,7 @@ class SLAMTrainer:
             loss_sum += loss.detach()
         if self.world > 1:
             with record_function("train/all_reduce"):
-                self._all_reduce_grads()
+                all_reduce_grads(self.model.decoder)
                 dist.all_reduce(loss_sum)
         with record_function("train/optimizer"):
             self.optimizer.step()
@@ -425,17 +402,6 @@ class SLAMTrainer:
         if self.log_fn is not None:
             self.log_fn(record)
 
-    def _agree(self, control):
-        """On a mesh, a stop, save or eval that any rank's callbacks ask for
-        (a run-time stopper reads its own clock) holds on every rank."""
-        if self.world == 1:
-            return
-        flags = torch.tensor([control.should_training_stop, control.should_save,
-                              control.should_evaluate], dtype=torch.int32, device=self.device)
-        dist.all_reduce(flags, op=dist.ReduceOp.MAX)
-        control.should_training_stop, control.should_save, control.should_evaluate = (
-            bool(f) for f in flags.tolist())
-
     def train(self, resume_from_checkpoint=False):
         args, state, control = self.args, self.state, self.control
         if resume_from_checkpoint:
@@ -496,7 +462,7 @@ class SLAMTrainer:
                 window_loss, window_t0, window_tokens = [], time.time(), 0
             for cb in self.callbacks:
                 cb.on_step_end(args, state, control)
-            self._agree(control)
+            agree(control, self.world, self.device)
             if do_eval and eval_steps and step_no >= eval_due:
                 control.should_evaluate = True
                 eval_due = next_due(step_no, eval_steps)

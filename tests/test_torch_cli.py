@@ -344,10 +344,12 @@ def test_eval_cli_generate_branch_matches_jax(eval_files, monkeypatch):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
+# eval_mesh itself is ported (tests/test_torch_eval_mesh.py); its parameter
+# sharding, eval_fsdp, is not
 @pytest.mark.parametrize("extra,match", [
     (["metric=asr_perplexity", "+metric.asr_backend=onnx"], "asr_backend='onnx'"),
     (["metric=llm_as_judge", "+metric.llm_backend=vllm"], "llm_backend='vllm'"),
-    (["metric=sblimp", "eval_mesh=2"], "item 25"),
+    (["metric=sblimp", "eval_mesh=2", "eval_fsdp=true"], "item 23"),
 ], ids=["extra0-asr_backend='onnx'", "extra1-llm_backend='vllm'", "extra2-item 14"])
 def test_eval_cli_refuses_what_is_not_ported(extra, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -355,8 +357,13 @@ def test_eval_cli_refuses_what_is_not_ported(extra, match):
 
 
 def test_eval_cli_refuses_several_ranks(monkeypatch):
-    """Under torchrun's WORLD_SIZE > 1 the eval raises (item 25) rather than
-    evaluating a copy on every rank."""
+    """Under torchrun's WORLD_SIZE > 1 without eval_mesh, and with an
+    eval_mesh of another size, the eval raises rather than evaluating a copy
+    on every rank; eval_mesh on one process raises too."""
     monkeypatch.setenv("WORLD_SIZE", "4")
-    with pytest.raises(NotImplementedError, match="item 25"):
-        port_eval.eval_main(["device=cpu", "metric=sblimp"])
+    for mesh in ([], ["eval_mesh=2"]):
+        with pytest.raises(ValueError, match="WORLD_SIZE=4"):
+            port_eval.eval_main(["device=cpu", "metric=sblimp", *mesh])
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    with pytest.raises(ValueError, match="--nproc_per_node 2.*WORLD_SIZE=1"):
+        port_eval.eval_main(["device=cpu", "metric=sblimp", "eval_mesh=2"])

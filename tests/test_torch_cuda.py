@@ -183,12 +183,16 @@ def test_kernels_match_plain_at_sims_rows(dev, direction):
         assert all(torch.equal(x, y) for x, y in zip(got, again))
 
 
-# head dims the kernels are not built for run zero-padded to 64 or 128:
+# head dims the kernels are not built for run zero-padded to 64, 128 or 256:
 # pythia-14m's 4 heads of 32 (config/train_inter_scale.yaml) at its context
-# 2048, and d = 80; all four kernels, each against its plain version under
-# its own bounds, and each call repeated bitwise
+# 2048, d = 80 and d = 160; and the d = 256 kernels themselves (32-key tiles
+# and CTAs, warps splitting the columns), at G = 4 and, in clusters, G = 7,
+# T off the tile sizes and T = 2; all four kernels, each against its plain
+# version under its own bounds, and each call repeated bitwise
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,h,hkv,t,d", [(8, 4, 4, 2048, 32), (2, 8, 2, 300, 80)])
+@pytest.mark.parametrize("b,h,hkv,t,d", [(8, 4, 4, 2048, 32), (2, 8, 2, 300, 80),
+                                         (2, 8, 2, 300, 160), (2, 8, 2, 300, 256),
+                                         (2, 7, 1, 129, 256), (1, 4, 4, 2, 256)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_padded_head_dims_match_plain(dev, b, h, hkv, t, d, causal):
     _compare(dev, b, h, hkv, t, d, causal, "sims")
@@ -309,8 +313,8 @@ def test_kernel_refuses_what_it_does_not_take(dev):
         flash_attention(q.half(), k.half(), v.half())
     with pytest.raises(TypeError, match="bfloat16"):
         flash_attention(q.float(), k, v)
-    with pytest.raises(ValueError, match="up to 128"):   # zero-padded up to 128, no further
-        wide = lambda x: torch.cat([x, x, x[..., :32]], -1)
+    with pytest.raises(ValueError, match="up to 256"):   # zero-padded up to 256, no further
+        wide = lambda x: torch.cat([x, x, x, x, x[..., :44]], -1)
         flash_attention(wide(q), wide(k), wide(v))
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
@@ -429,8 +433,8 @@ def test_backward_kernel_refuses_what_it_does_not_take(dev):
         flash_attention_bwd(q.half(), k.half(), v.half(), out.half(), lse, out.half())
     with pytest.raises(TypeError, match="bfloat16"):
         flash_attention_bwd(q.float(), k, v, out, lse, out)
-    with pytest.raises(ValueError, match="up to 128"):   # zero-padded up to 128, no further
-        s = lambda x: torch.cat([x, x, x[..., :32]], -1)
+    with pytest.raises(ValueError, match="up to 256"):   # zero-padded up to 256, no further
+        s = lambda x: torch.cat([x, x, x, x, x[..., :44]], -1)
         flash_attention_bwd(s(q), s(k), s(v), s(out), lse, s(out))
     with pytest.raises(ValueError, match="must be on"):
         flash_attention_bwd(q, k, v, out, lse.cpu(), out)
@@ -520,7 +524,7 @@ def test_f32_backward_dead_rows(dev, causal):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_f32_autograd_function_runs_both_f32_kernels(dev, d):
     """Float32 gradients through `flash_attention` under autograd come from
     the float32 kernels, one launch each, and match autograd through the

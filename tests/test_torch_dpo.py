@@ -360,23 +360,27 @@ def test_evaluate_wraps_round(tmp_path, flat):
         assert out["eval_rewards/accuracies"] == 0.0
 
 
-@pytest.mark.parametrize("override,match", [
-    (dict(fsdp="true"), "item 23"),
-    (dict(mesh_shape="[2]"), "item 22"),
-    (dict(mesh_axes="[data,seq]"), "item 22"),
-    (dict(multihost="true"), "item 26"),
+# fsdp and multihost are not ported; a mesh is, by the JAX `make_mesh` rules,
+# so on one process a 2-rank mesh and axes that do not match the shape raise
+# as they do in JAX (DPO on gloo ranks: tests/test_torch_parallel_dpo.py)
+@pytest.mark.parametrize("override,error,match", [
+    (dict(fsdp="true"), NotImplementedError, "item 23"),
+    (dict(mesh_shape="[2]"), ValueError, r"mesh shape \(2,\) != device count 1"),
+    (dict(mesh_axes="[data,seq]"), ValueError, "rank != mesh shape"),
+    (dict(multihost="true"), NotImplementedError, "item 26"),
 ], ids=[f"override{i}-item 14" for i in range(4)])
-def test_refuses_what_is_not_ported(tmp_path, flat, override, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_refuses_what_is_not_ported(tmp_path, flat, override, error, match):
+    with pytest.raises(error, match=match):
         SLAMDPOTrainer(port_model(flat), UnitTokeniser(num_units=60),
                        args_for(tmp_path, **override), pref_rows(4, seed=0))
 
 
 def test_refuses_several_ranks(tmp_path, flat, monkeypatch):
-    """Under torchrun's WORLD_SIZE > 1 DPO raises (item 22) rather than
-    training a copy on every rank."""
+    """Under torchrun's WORLD_SIZE > 1, a trainer built before the process
+    joined its ranks' group raises rather than training a copy on every
+    rank (the CLI joins it first: `parallel.init_distributed`)."""
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="item 22"):
+    with pytest.raises(RuntimeError, match="init_distributed"):
         SLAMDPOTrainer(port_model(flat), UnitTokeniser(num_units=60), args_for(tmp_path),
                        pref_rows(4, seed=0))
 
@@ -396,8 +400,8 @@ def test_refuses_a_model_with_dropout(tmp_path, flat, monkeypatch):
     seeds = []
     real = slam_dpo_trainer.sequence_logps
     monkeypatch.setattr(slam_dpo_trainer, "sequence_logps",
-                        lambda dec, b, seed=None: seeds.append((dec is tr.ref_decoder, seed))
-                        or real(dec, b, seed))
+                        lambda dec, b, seed=None, shard=None:
+                        seeds.append((dec is tr.ref_decoder, seed)) or real(dec, b, seed, shard))
     batch = tr._to_device(tr._collate(tr.train_rows))
     with torch.no_grad():
         plain = tr.dpo_loss(batch)[0].item()

@@ -1,12 +1,13 @@
-"""Head dims other than 64 and 128 on the flash kernels: the zero-padding
-in `slamkit_tpu_torch/ops/flash_attention.py::_launch` / `_launch_bwd` on the
-CPU.
+"""Head dims other than 64, 128 and 256 on the flash kernels: the
+zero-padding in `slamkit_tpu_torch/ops/flash_attention.py::_launch` /
+`_launch_bwd` on the CPU.
 
 The kernels run only on the card, so the kernel calls under the launch
 functions (`_launch_kernel` / `_launch_bwd_kernel`) are replaced here by the
 kernels' plain versions (`mha_reference` / `mha_reference_bwd`) run on the
-tensors they receive. At d = 32, 80 and 96 (padded to 64, 128 and 128) the
-padded computation is held against the same plain versions unpadded,
+tensors they receive. At d = 32, 80, 96, 160, 192 and 256 (padded to 64,
+128, 128, 256, 256 and not at all) the padded computation is held against
+the same plain versions unpadded,
 forward and backward, bf16 and float32, causal and non-causal, on packed
 rows with a -1 tail. The zero columns add exact zeros to every product, so
 only summation order may differ: float32 within 2^-20 of the largest entry
@@ -14,11 +15,12 @@ only summation order may differ: float32 within 2^-20 of the largest entry
 one bf16 rounding (2^-8 of the largest entry; the plain version rounds its
 float32 result to bf16 once). The LSE is float32 on both sides.
 
-The launch functions hand the kernel d = 64 or 128 only, zero columns and
-the scale of the original d. At d = 32 (pythia-14m,
-config/train_inter_scale.yaml) the port's `flash_attention` is held against
-the JAX `flash_attention` in interpret mode (which pads D to 128 lanes
-itself) within 1e-5 in float32; d = 160 raises.
+The launch functions hand the kernel d = 64, 128 or 256 only, zero columns
+and the scale of the original d. At d = 32 (pythia-14m,
+config/train_inter_scale.yaml) and d = 160 the port's `flash_attention` is
+held against the JAX `flash_attention` in interpret mode (which pads D to a
+multiple of 128 lanes itself, 256 at d = 160) within 1e-5 in float32;
+d = 300 raises.
 """
 import importlib
 
@@ -79,7 +81,7 @@ def plain_kernels(monkeypatch):
     return seen
 
 
-@pytest.mark.parametrize("d", [32, 80, 96])
+@pytest.mark.parametrize("d", [32, 80, 96, 160, 192, 256])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("causal", [True, False])
 def test_padded_plain_equals_unpadded(plain_kernels, d, dtype, causal):
@@ -99,7 +101,7 @@ def test_padded_plain_equals_unpadded(plain_kernels, d, dtype, causal):
         _close(g, w, dtype, name)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_kernel_head_dims_pass_through_unpadded(plain_kernels, d):
     """At the kernels' own head dims the kernel gets the caller's tensors
     themselves, and its results come back as they are."""
@@ -111,18 +113,18 @@ def test_kernel_head_dims_pass_through_unpadded(plain_kernels, d):
     assert all(a is b for a, b in zip(bwd_in, (q, k, v, out, do)))
 
 
-@pytest.mark.parametrize("d", [32, 80])
+@pytest.mark.parametrize("d", [32, 80, 160])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_launches_hand_the_kernel_its_head_dim(plain_kernels, d, dtype):
-    """`_launch` / `_launch_bwd` hand the kernel contiguous tensors of d = 64
-    or 128 whose first d columns are the caller's and the rest zero, and the
-    original d's scale."""
+    """`_launch` / `_launch_bwd` hand the kernel contiguous tensors of d = 64,
+    128 or 256 whose first d columns are the caller's and the rest zero, and
+    the original d's scale."""
     q, k, v, do, seg = _inputs(d, dtype, seed=3)
     scale = d ** -0.5
     out, lse = port_fa._launch(q, k, v, seg, seg, True, scale)
     port_fa._launch_bwd(q, k, v, out, lse, do, seg, seg, True, scale)
     kd = port_fa.kernel_head_dim(d)
-    assert kd == (64 if d <= 64 else 128)
+    assert kd == (64 if d <= 64 else 128 if d <= 128 else 256)
     (_, fwd_in, fwd_scale), (_, bwd_in, bwd_scale) = plain_kernels
     assert fwd_scale == bwd_scale == scale
     for got, orig in zip((*fwd_in, *bwd_in), (q, k, v, q, k, v, out, do)):
@@ -131,15 +133,16 @@ def test_launches_hand_the_kernel_its_head_dim(plain_kernels, d, dtype):
         assert torch.equal(got[..., :d], orig) and not got[..., d:].any()
 
 
-def test_head_dim_above_128_raises():
-    q, k, v, do, seg = _inputs(160, torch.float32)
-    with pytest.raises(ValueError, match="up to 128.*ROADMAP queue 3"):
-        port_fa.kernel_head_dim(160)
-    with pytest.raises(ValueError, match="up to 128"):
-        port_fa._launch(q, k, v, seg, seg, True, 160 ** -0.5)
-    with pytest.raises(ValueError, match="up to 128"):
+def test_head_dim_above_256_raises(plain_kernels):
+    q, k, v, do, seg = _inputs(300, torch.float32)
+    with pytest.raises(ValueError, match="up to 256.*ROADMAP queue 3"):
+        port_fa.kernel_head_dim(300)
+    with pytest.raises(ValueError, match="up to 256"):
+        port_fa._launch(q, k, v, seg, seg, True, 300 ** -0.5)
+    with pytest.raises(ValueError, match="up to 256"):
         port_fa._launch_bwd(q, k, v, q, torch.zeros(q.shape[:3]), do, seg, seg, True,
-                            160 ** -0.5)
+                            300 ** -0.5)
+    assert plain_kernels == []                   # refused before any kernel call
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -147,12 +150,22 @@ def test_d32_matches_the_jax_flash_attention(causal):
     """pythia-14m's heads (4 of 32): the port's `flash_attention` (and its
     gradients through `FlashAttentionFunction`) against the JAX
     `flash_attention` in interpret mode on the same float32 inputs."""
+    _match_jax_flash_attention(32, causal, hkv=4)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_d160_matches_the_jax_flash_attention(causal):
+    """A head dim both packages pad to 256 (G = 2): the same comparison."""
+    _match_jax_flash_attention(160, causal, hkv=2)
+
+
+def _match_jax_flash_attention(d, causal, hkv):
     import jax
     import jax.numpy as jnp
 
     from slamkit_tpu.ops import flash_attention as jax_flash_attention
 
-    q, k, v, do, seg = _inputs(32, torch.float32, seed=7, b=2, h=4, hkv=4, t=128)
+    q, k, v, do, seg = _inputs(d, torch.float32, seed=7, b=2, h=4, hkv=hkv, t=128)
     seg = seg if causal else seg.clamp(min=0)
     want = jax_flash_attention(*(jnp.asarray(x.numpy()) for x in (q, k, v)),
                                segment_ids=jnp.asarray(seg.numpy()), causal=causal,

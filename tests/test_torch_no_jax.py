@@ -460,7 +460,9 @@ def test_port_sources_never_import_jax():
         "utils/word_tokenize", "native/_build", "native/bindings", "native/codec",
         "native/pack", "utils/data_prep", "utils/tts_utils", "tools/data_recipe",
         "feature_extractor/kmeans", "parallel/__init__", "parallel/mesh",
-        "ops/ring_attention", "tools/parallel_smoke")} <= scanned
+        "ops/ring_attention", "tools/parallel_smoke", "ops/flash_attention",
+        "tokeniser/unit_tokeniser", "models/unit_lm", "models/generate", "cli/eval",
+        "trainer/slam_trainer")} <= scanned
     seen_allowed = set()
     for path in paths:
         rel = str(path.relative_to(ROOT))
@@ -491,8 +493,9 @@ def test_parallel_smoke_rehearsal_on_gloo_ranks_without_jax(tmp_path):
     """`tools/parallel_smoke.run` on 2 gloo ranks on the CPU, JAX and the
     rest blocked, at a 2-layer decoder, 2 rows of 512: the one-process
     reference, the meshes (DP [2], CP [1, 2] in both schedules, [2, 1]) with
-    their step-1 checks, exact resumes, the ring against one call, and no
-    kernel launch. (The 4-rank meshes of the card run are held on 4 gloo
+    their step-1 checks, exact resumes, the ring against one call, DPO on
+    [2] against one process with its resume, sharded scoring and generation
+    (greedy, int8 and sampled) against one process, and no kernel launch. (The 4-rank meshes of the card run are held on 4 gloo
     ranks by `test_torch_parallel_training.py` and
     `test_torch_ring_attention.py`.)"""
     import torch_mesh_workers
@@ -509,6 +512,14 @@ def test_parallel_smoke_rehearsal_on_gloo_ranks_without_jax(tmp_path):
         assert row["launches_by_rank"] == [{"flash_fwd": 0, "flash_bwd": 0}] * 2
         assert ("ring" in row) == (name in ("cp_contiguous", "cp_zigzag"))
     assert result["dp_scaling_efficiency"] > 0
+    dpo = result["dpo"]
+    assert dpo["resume_exact"] and len(dpo["losses"]) == 3, dpo
+    assert dpo["loss_err"] <= 1e-5 and dpo["grad_norm_rel_err"] <= 1e-5, dpo
+    assert dpo["launches_by_rank"] == [{"flash_fwd": 0, "flash_bwd": 0}] * 2
+    ev = result["eval"]
+    assert ev["ll_bitwise"] and ev["greedy_bitwise"] and ev["int8_greedy_bitwise"], ev
+    assert ev["sampled_token_agreement"] == 1.0, ev
+    assert ev["launches_by_rank"] == [{"flash_fwd": 0, "dq_matmul": 0}] * 2
 
 
 def test_chip_smoke_ring_rehearsal_on_cpu(chip_smoke, capsys):
@@ -809,6 +820,25 @@ def test_chip_smoke_counts_visible_pairs(chip_smoke, causal, kind):
                                                    backward=True)
     assert flops_bwd == 10 * 16 * 4 * int(mask.sum())
     assert n_bytes_bwd == n_bytes + 2 * (b * 4 * t * 16 * 2) + 2 * (b * 2 * t * 16 * 2)
+
+
+def test_chip_smoke_wide_head_cases(chip_smoke):
+    """Phases 3-3f's d = 256 and d = 160 cases: [4, 8/2, 1024, d], causal and
+    not, 4 packed segments, the causal flag where each phase's loop reads
+    it, the bound on the original d."""
+    fwd = chip_smoke._wide_head_cases(np.random.default_rng(0), with_causal=True)
+    bwd = chip_smoke._wide_head_cases(np.random.default_rng(0))
+    assert [c[0] for c in fwd] == [c[0] for c in bwd] == [
+        "d256", "d256_noncausal", "d160", "d160_noncausal"]
+    assert [c[2] for c in fwd] == [c[3] for c in bwd] == [True, False, True, False]
+    for f, b in zip(fwd, bwd):
+        d = int(f[0][1:4])
+        assert f[1] == b[1] == (4, 8, 2, 1024, d)
+        np.testing.assert_array_equal(f[3], b[2])
+        assert [len(set(row[row >= 0])) for row in f[3]] == [4] * 4
+    n_bytes, flops = chip_smoke.flash_cost((4, 8, 2, 1024, 160), fwd[2][3], None, True,
+                                           backward=False)
+    assert flops == 4 * 160 * 8 * chip_smoke.visible_pairs(fwd[2][3], None, True)
 
 
 def test_chip_smoke_bound_takes_the_larger_time(chip_smoke):

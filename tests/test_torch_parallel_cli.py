@@ -1,10 +1,17 @@
-"""`cli.train` under torchrun: two gloo ranks on the CPU (`torchrun
---standalone`, which picks a free port, so parallel test files share none)
-train the Slam recipe's decoder at 2 layers, 64 wide, with
+"""`cli.train` and `cli.preference_alignment_train` under torchrun: two gloo
+ranks on the CPU (`torchrun --standalone`, which picks a free port, so
+parallel test files share none).
+
+`cli.train` trains the Slam recipe's decoder at 2 layers, 64 wide, with
 `training_args.mesh_shape=[1,2] mesh_axes=[data,seq] cp_schedule=zigzag`,
-and their logged losses and eval loss equal the one-process `cli.train` run
+and its logged losses and eval loss equal the one-process `cli.train` run
 of the same global batch within 1e-5 (float32; the ring and the all-reduce
 sum in another order), its checkpoint written once, by rank 0.
+
+`cli.preference_alignment_train` runs DPO on 'data' (`mesh_shape: null`, 2
+pairs a rank) from a 2-layer pythia-14m-shaped checkpoint: its logged
+losses, reward metrics and eval loss equal the one-process run of the same
+4-pair global batch within 1e-5, and rank 0 alone writes its checkpoints.
 """
 import json
 import os
@@ -14,7 +21,8 @@ import sys
 
 import numpy as np
 
-from slamkit_tpu_torch.tools.slam_recipe import write_markov_corpus
+from slamkit_tpu_torch.models import UnitLM, UnitLMConfig
+from slamkit_tpu_torch.tools.slam_recipe import write_markov_corpus, write_preference_rows
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -35,11 +43,15 @@ def _history(out):
     return json.loads((out / "checkpoint-2" / "trainer_state.json").read_text())["log_history"]
 
 
+def _env():
+    return {**{k: v for k, v in os.environ.items() if k != "PYTHONPATH"},
+            "OMP_NUM_THREADS": "1", "PYTHONPATH": str(ROOT)}
+
+
 def test_train_cli_under_torchrun_equals_one_process(tmp_path):
     tokens = tmp_path / "tokens.jsonl"
     write_markov_corpus(tokens, 40)
-    env = {**{k: v for k, v in os.environ.items() if k != "PYTHONPATH"},
-           "OMP_NUM_THREADS": "1", "PYTHONPATH": str(ROOT)}
+    env = _env()
     cli = ["-m", "slamkit_tpu_torch.cli.train"]
     mesh = ["training_args.mesh_shape=[1,2]", "training_args.mesh_axes=[data,seq]",
             "training_args.cp_schedule=zigzag"]
@@ -59,3 +71,39 @@ def test_train_cli_under_torchrun_equals_one_process(tmp_path):
         np.testing.assert_allclose(pick(got, key), pick(want, key), rtol=1e-5, atol=1e-5)
     assert pick(got, "num_input_tokens_seen") == pick(want, "num_input_tokens_seen")
     assert sorted(p.name for p in (tmp_path / "mesh").iterdir()) == ["checkpoint-2"]
+
+
+def _dpo_overrides(d, out, per_device):
+    return [f"model.pretrained_model={d / 'ckpt'}", "model.config_args.torch_dtype=float32",
+            f"data.train_path={d / 'pref.jsonl'}", f"data.val_path={d / 'pref.jsonl'}",
+            f"training_args.output_dir={out}", "training_args.max_steps=2",
+            f"training_args.per_device_train_batch_size={per_device}",
+            "training_args.logging_steps=1", "training_args.save_steps=1",
+            "training_args.use_cpu=true"]
+
+
+def test_dpo_cli_under_torchrun_equals_one_process(tmp_path):
+    UnitLM(UnitLMConfig(base_model_name="EleutherAI/pythia-14m", vocab_size=502,
+                        twist_init=False, torch_dtype="float32",
+                        config_overrides=dict(num_hidden_layers=2)),
+           seed=0, device="cpu").save_pretrained(str(tmp_path / "ckpt"))
+    write_preference_rows(tmp_path / "pref.jsonl", 12, prompt_len=20, completion_len=10)
+    cli = ["-m", "slamkit_tpu_torch.cli.preference_alignment_train"]
+    runs = {
+        "mesh": [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                 "--nproc_per_node", "2", *cli, *_dpo_overrides(tmp_path, tmp_path / "mesh", 2)],
+        "one": [sys.executable, *cli, *_dpo_overrides(tmp_path, tmp_path / "one", 4)],
+    }
+    for name, cmd in runs.items():
+        proc = subprocess.run(cmd, cwd=tmp_path, env=_env(), capture_output=True, text=True,
+                              timeout=300)
+        assert proc.returncode == 0, (name, proc.stderr[-4000:])
+    got, want = _history(tmp_path / "mesh"), _history(tmp_path / "one")
+    pick = lambda h, key: [r[key] for r in h if key in r]
+    assert len(pick(want, "loss")) == 2 and len(pick(want, "eval_loss")) == 1
+    for key in ("loss", "rewards/chosen", "rewards/rejected", "rewards/accuracies",
+                "rewards/margins", "eval_loss", "eval_rewards/accuracies"):
+        np.testing.assert_allclose(pick(got, key), pick(want, key), rtol=1e-5, atol=1e-5,
+                                   err_msg=key)
+    assert sorted(p.name for p in (tmp_path / "mesh").iterdir()) == ["checkpoint-1",
+                                                                      "checkpoint-2"]

@@ -139,6 +139,63 @@ def train(tmp, config, args, train_seqs, eval_seqs, context_len):
     return out
 
 
+#: what a DPO run logs: each step's loss and reward metrics, the evaluation
+DPO_KEYS = ("loss", "rewards/chosen", "rewards/rejected", "rewards/accuracies",
+            "rewards/margins", "eval_loss", "eval_rewards/accuracies")
+
+
+def dpo(tmp, config, args, train_rows, eval_rows):
+    """`SLAMDPOTrainer` on the mesh of `args` (training_args as a dict) from
+    a fresh `UnitLM(config, seed=0)` over `train_rows` (preference rows of
+    unit strings), then a second trainer resuming from the first's
+    checkpoint-1: each run's logged `DPO_KEYS`, the first run's gradients
+    of each step, and each run's final parameters."""
+    from slamkit_tpu_torch.models import UnitLM, UnitLMConfig, to_flat
+    from slamkit_tpu_torch.tokeniser import UnitTokeniser
+    from slamkit_tpu_torch.trainer import SLAMDPOTrainer
+
+    out = {}
+    first = args["output_dir"]
+    for run, resume in (("a", None), ("b", first + "/checkpoint-1")):
+        model = UnitLM(UnitLMConfig(**config), seed=0, device="cpu")
+        tr = SLAMDPOTrainer(model, UnitTokeniser(num_units=60),
+                            {**args, "output_dir": first + ("" if run == "a" else "_b")},
+                            train_rows, eval_dataset=eval_rows)
+        grads = record_grads(tr)
+        history = tr.train(resume_from_checkpoint=resume).log_history
+        out.update({f"{run}/{key}": np.asarray([r[key] for r in history if key in r])
+                    for key in DPO_KEYS})
+        out.update({f"{run}/param/{k}": v for k, v in to_flat(model.decoder).items()})
+        if run == "a":
+            out.update({f"a/grad{i}/{k}": v for i, g in enumerate(grads) for k, v in g.items()})
+    return out
+
+
+def eval_calls(tlm, tokens, prompts) -> dict:
+    """The scoring and sampling calls the eval-mesh test compares: mean and
+    summed log-likelihoods, with ignored ids, and greedy, sampled and
+    penalised generations of the left-padded `prompts`."""
+    mask = (prompts != tlm.config.pad_token_id).astype(np.int32)
+    out = {"ll": tlm.log_likelihood(tokens), "ll_sum": tlm.log_likelihood(tokens, mean_nll=False),
+           "ll_ignore": tlm.log_likelihood(tokens, ignore_tokens=[5, 6, 7]),
+           "greedy": tlm.generate(prompts, mask, max_new_tokens=6, do_sample=False),
+           "sampled": tlm.generate(prompts, mask, max_new_tokens=6, top_k=20, temperature=0.8,
+                                   seed=3),
+           "penalised": tlm.generate(prompts, mask, max_new_tokens=6, top_p=0.9,
+                                     repetition_penalty=1.3, bad_words_ids=[[9]], seed=4)}
+    return {k: v.numpy() for k, v in out.items()}
+
+
+def eval_mesh(tmp, ckpt, tokens, prompts):
+    """`UnitLM.shard` over the world's 'data' mesh: `eval_calls` on the
+    global `tokens` and `prompts` (lists), every rank's results."""
+    from slamkit_tpu_torch.models import UnitLM
+    from slamkit_tpu_torch.parallel import make_mesh
+
+    tlm = UnitLM.from_pretrained(ckpt, device="cpu").shard(make_mesh())
+    return eval_calls(tlm, np.asarray(tokens, np.int32), np.asarray(prompts, np.int32))
+
+
 def parallel_smoke(tmp, context, rows, n_rows, lengths):
     """`tools/parallel_smoke.run` on the CPU at a 2-layer, 64-wide decoder
     in float32: its result as JSON, and the blocked modules loaded."""
