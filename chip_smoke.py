@@ -263,8 +263,10 @@ the sm_90a kernels). Phases, in order; any failure exits non-zero:
                version, the launches to the schedule's count; then each of
                its call shapes timed alone. Where the host has two or more
                cards, `tools/parallel_smoke.py` on all of them (an even
-               count) under torchrun (pretraining meshes, DPO and the
-               evaluation mesh); on one card a line says it is not run.
+               count) under torchrun, in two calls (pretraining meshes,
+               DPO and the evaluation mesh; then fsdp and SIMS at
+               Qwen2.5-7B's widths on fsdp); on one card a line says they
+               are not run.
 
 Phases 3 and 3b also hold the kernels at DPO's shape (`dpo_T152`: [16, 14/2,
 152, 64], one segment of 110-152 tokens a row and a -1 tail) and at SIMS's
@@ -4478,6 +4480,10 @@ def run_sims_defaults(dev, smi: str, work: pathlib.Path, tiny: bool = False, n_r
 
 # phase 17: the ring's 'seq' group as the multi-card leg runs it at N = 4
 RING_N = 4
+# ... and on a host of two or more cards, tools/parallel_smoke.py's legs in
+# two torchrun calls of at most 900 s each
+PARALLEL_CALLS = ("meshes,dpo,eval", "fsdp,sims7b")
+PARALLEL_LEGS = tuple(leg for call in PARALLEL_CALLS for leg in call.split(","))
 
 
 def _ring_errors(got, want, f32: bool, terms: int) -> dict:
@@ -4512,7 +4518,8 @@ def run_ring_kernels(dev, shape=(8, 14, 2, 1024, 64)) -> dict:
     plain version. Each of the ring's call shapes is then timed alone
     (graph ms beside its bound, the plain version and SDPA). Where the host
     has two or more cards, `tools/parallel_smoke.py` runs on all of them
-    (an even count) under torchrun; on one card a line says it is not run.
+    (an even count) under torchrun, in the two calls of PARALLEL_CALLS; on
+    one card a line says they are not run.
     Returns the launches of the ring runs by kernel, the checks, the times
     and the multi-card leg's result. On the CPU (a rehearsal at a small
     `shape`) the plain versions run every step, no launch may be counted,
@@ -4656,20 +4663,25 @@ def run_ring_kernels(dev, shape=(8, 14, 2, 1024, 64)) -> dict:
     torch.cuda.empty_cache()
     cards = torch.cuda.device_count()
     if cards < 2:
-        print(f"phase 17: {cards} card on this host: the multi-card leg "
-              f"(tools/parallel_smoke.py) needs two or more and is not run", flush=True)
+        print(f"phase 17: {cards} card on this host: the multi-card legs of "
+              f"tools/parallel_smoke.py ({', '.join(PARALLEL_LEGS)}: the data and 'seq' meshes, "
+              f"DPO, evaluation, fsdp and SIMS at Qwen2.5-7B's widths on fsdp) need two or "
+              f"more (NCCL takes one card a rank) and are not run", flush=True)
         return result
     n = cards - cards % 2
-    t1 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
-                           str(n), "-m", "slamkit_tpu_torch.tools.parallel_smoke"], cwd=ROOT,
-                          capture_output=True, text=True, timeout=900)
-    print(proc.stdout[-6000:], flush=True)
-    _require(proc.returncode == 0, f"tools/parallel_smoke.py on {n} cards failed "
-             f"({proc.returncode}):\n{proc.stderr[-4000:]}")
-    result["parallel_smoke"] = json.loads(proc.stdout.strip().splitlines()[-1])
-    print(f"phase 17: tools/parallel_smoke.py on {n} cards in "
-          f"{time.perf_counter() - t1:.1f} s", flush=True)
+    result["parallel_smoke"] = {}
+    for legs in PARALLEL_CALLS:   # two calls, each within its own limit
+        t1 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "torch.distributed.run",
+                               "--nproc_per_node", str(n), "-m",
+                               "slamkit_tpu_torch.tools.parallel_smoke", "--legs", legs],
+                              cwd=ROOT, capture_output=True, text=True, timeout=900)
+        print(proc.stdout[-6000:], flush=True)
+        _require(proc.returncode == 0, f"tools/parallel_smoke.py --legs {legs} on {n} cards "
+                 f"failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        result["parallel_smoke"][legs] = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(f"phase 17: tools/parallel_smoke.py --legs {legs} on {n} cards in "
+              f"{time.perf_counter() - t1:.1f} s", flush=True)
     return result
 
 

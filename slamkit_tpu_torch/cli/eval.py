@@ -34,7 +34,10 @@ the judge's LM run whole on every rank, as they run unsharded in JAX. Rank
     python -m torch.distributed.run --nproc_per_node 4 -m slamkit_tpu_torch.cli.eval \
         metric=sblimp eval_mesh=4 ...
 
-`eval_fsdp=true` (parameter sharding, ROADMAP queue 1 item 23) raises.
+`eval_fsdp=true` with `eval_mesh=N > 1` also shards the unit LM's weights
+over the N ranks (ZeRO-3, `parallel/fsdp.py`), each layer gathered as it
+runs, as the JAX CLI's `tlm.shard(mesh, fsdp=True)` does; the numbers are
+the one-process ones.
 """
 import logging
 import os
@@ -59,9 +62,6 @@ def eval_main(cfg):
         check_backend("llm_backend", cfg.metric.get("llm_backend", "torch"))
     n_mesh = int(cfg.get("eval_mesh", 0) or 0)
     world = int(os.environ.get("WORLD_SIZE", "1"))
-    if n_mesh > 1 and cfg.get("eval_fsdp", False):
-        raise NotImplementedError("eval_fsdp=true: parameter sharding is not ported yet "
-                                  "(ROADMAP queue 1 item 23)")
     if world != max(n_mesh, 1):
         raise ValueError(f"eval_mesh={n_mesh} runs on as many ranks (torchrun "
                          f"--nproc_per_node {max(n_mesh, 1)}); this run has WORLD_SIZE={world}")
@@ -100,8 +100,10 @@ def _eval(cfg, device, mesh):
         cfg.model.config_args.vocab_size = len(tokeniser.text_tokeniser)
     tlm = tlm_factory(cfg.model, device=device)
     if mesh is not None:
-        tlm.shard(mesh)
-        logger.info("eval sharded over a %d-rank data mesh", mesh.size)
+        fsdp = bool(cfg.get("eval_fsdp", False))
+        tlm.shard(mesh, fsdp=fsdp)
+        logger.info("eval sharded over a %d-rank data mesh%s", mesh.size,
+                    " (weights sharded: fsdp)" if fsdp else "")
     vocoder = vocoder_factory(cfg.vocoder, device=device)
     model = SpeechLM(tlm, tokeniser, vocoder=vocoder)
 

@@ -22,7 +22,8 @@ card (gloo on the CPU) and trains its pairs of every global batch on the
     python -m torch.distributed.run --nproc_per_node 4 \
         -m slamkit_tpu_torch.cli.preference_alignment_train ... training_args.mesh_shape=[4]
 
-A 'seq' axis, training_args.fsdp=true and multihost=true raise.
+training_args.fsdp=true shards the policy and the reference over 'data'
+(ZeRO-3, `parallel/fsdp.py`). A 'seq' axis and multihost=true raise.
 """
 import logging
 import os

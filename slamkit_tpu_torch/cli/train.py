@@ -26,7 +26,10 @@ training_args.mesh_shape / mesh_axes / cp_schedule describe:
     python -m torch.distributed.run --nproc_per_node 4 -m slamkit_tpu_torch.cli.train \
         model=slam ... training_args.mesh_shape=[1,4] training_args.mesh_axes=[data,seq]
 
-training_args.multihost=true and fsdp=true raise: they are not ported.
+training_args.fsdp=true shards the parameters, gradients and optimizer
+state over 'data' (ZeRO-3, `parallel/fsdp.py`; the checkpoints keep the
+one-rank format). training_args.multihost=true raises (ROADMAP queue 1
+item 26), and so does a 'model' axis above 1 (item 24).
 """
 import logging
 import os

@@ -18,6 +18,14 @@ import torch
 from .transformer import Decoder
 
 
+def whole(t: torch.Tensor) -> torch.Tensor:
+    """A tensor sharded over ranks (a DTensor) gathered whole; any other as
+    it is."""
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 def _expected_shapes(decoder: Decoder) -> dict[str, tuple]:
     shapes = {name: tuple(p.shape) for name, p in decoder.named_parameters(recurse=False)}
     L = len(decoder.layers)
@@ -31,10 +39,12 @@ def to_flat(decoder: Decoder, tensors: Optional[Mapping[str, torch.Tensor]] = No
     """The decoder's weights as the JAX package's flat `params.npz` dict.
 
     tensors: stand-ins for the parameters, keyed by the decoder's
-    `named_parameters()` names (a snapshot of them, or their gradients)."""
+    `named_parameters()` names (a snapshot of them, or their gradients).
+    Sharded tensors (`parallel/fsdp.py`) are gathered whole, so every rank
+    must call it then."""
     if tensors is None:
         tensors = dict(decoder.named_parameters())
-    get = lambda name: tensors[name].detach().float()
+    get = lambda name: whole(tensors[name].detach()).float()
     flat = {name: get(name).cpu().numpy()
             for name, _ in decoder.named_parameters(recurse=False)}
     for name, _ in decoder.layers[0].named_parameters():

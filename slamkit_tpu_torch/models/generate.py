@@ -15,7 +15,12 @@ through the dequant-matmul kernel in the prefill and in every decode step.
 On a mesh (`UnitLM.shard`) a rank decodes its rows (`parallel.RowTile`); a
 sampled step all-gathers the ranks' masked last-position logits to the
 global [B, V], draws from them and keeps its rows, so the draws are one
-process's. Greedy steps need no gather.
+process's. Greedy steps need no gather. A decoder whose weights are
+sharded over the ranks (`UnitLM.shard(fsdp=True)`) is never copied whole:
+dense generation runs it as it is, each layer gathered as it runs and cast
+at its use to the values `compute_copy` would hold (`Decoder.forward`'s
+`cast_weights`), and the int8 copy gathers one weight at a time and
+quantizes it whole.
 """
 from __future__ import annotations
 
@@ -24,6 +29,8 @@ from typing import Optional
 import torch
 
 from ..ops.quant import quantize_weight
+from ..parallel.fsdp import inference_forward, is_sharded
+from .convert import whole
 from .transformer import Decoder, init_cache
 
 NEG_INF = -1e30
@@ -98,17 +105,21 @@ def _assemble(decoder: Decoder, state: dict) -> Decoder:
     return clone
 
 
+def _cast(name: str, w, dtype):
+    """`compute_copy`'s value of the weight `name`: cast to `dtype` if it is
+    a layer's or has more than one dimension; int8 dicts pass through."""
+    cast = not isinstance(w, dict) and (name.startswith("layers.") or w.dim() > 1)
+    return w.to(dtype) if cast else w
+
+
 def compute_copy(decoder: Decoder) -> Decoder:
     """The decoder with its weights cast to the compute dtype once, as the
     JAX package casts every float32 array of more than one dimension before
     its decode loop (per-layer arrays are stacked there, so all of them; the
     1-D final norm stays float32 and is shared with `decoder`)."""
     dt = decoder.cfg.compute_dtype
-    state = {}
-    for name, p in _weights(decoder).items():
-        cast = not isinstance(p, dict) and (name.startswith("layers.") or p.dim() > 1)
-        state[name] = p.to(dt) if cast else p
-    return _assemble(decoder, state)
+    return _assemble(decoder, {name: _cast(name, p, dt)
+                               for name, p in _weights(decoder).items()})
 
 
 def _quantize_decode_params(state: dict) -> dict:
@@ -129,8 +140,17 @@ def prepare_int8_decode_params(decoder: Decoder) -> Decoder:
     FIRST and the cast values quantized, as JAX `generate` does
     (`generate.py:121-125`; quantizing the float32 masters instead would put
     a few weights one int8 step away). Idempotent: a decoder prepared before
-    comes back with the same int8 tensors."""
-    return _assemble(decoder, _quantize_decode_params(_weights(compute_copy(decoder))))
+    comes back with the same int8 tensors. A sharded decoder is gathered one
+    weight at a time, each quantized whole, so the int8 weights and scales
+    are the unsharded model's bit for bit; the copy is whole on every rank
+    (every rank must call it)."""
+    if not is_sharded(decoder):
+        return _assemble(decoder, _quantize_decode_params(_weights(compute_copy(decoder))))
+    dt = decoder.cfg.compute_dtype
+    state = {}
+    for name, p in decoder.named_parameters():
+        state.update(_quantize_decode_params({name: _cast(name, whole(p.detach()), dt)}))
+    return _assemble(decoder, state)
 
 
 def is_int8_prepared(decoder: Decoder) -> bool:
@@ -140,7 +160,7 @@ def is_int8_prepared(decoder: Decoder) -> bool:
                for layer in decoder.layers for key in _QUANT_KEYS)
 
 
-@torch.inference_mode()
+@inference_forward(lambda decoder, *args, **kwargs: decoder)
 def generate(decoder: Decoder, input_ids: torch.Tensor, attention_mask: torch.Tensor,
              generator: Optional[torch.Generator], *, max_new_tokens: int,
              do_sample: bool = True, temperature: Optional[float] = None,
@@ -165,8 +185,10 @@ def generate(decoder: Decoder, input_ids: torch.Tensor, attention_mask: torch.Te
         dec = decoder if is_int8_prepared(decoder) else prepare_int8_decode_params(decoder)
     elif weight_quant:
         raise ValueError(f"unknown weight_quant {weight_quant!r} (only 'int8')")
-    else:
+    elif not is_sharded(decoder):
         dec = compute_copy(decoder)
+    else:   # each layer gathered as it runs, cast as compute_copy casts it
+        dec = lambda *a, **kw: decoder(*a, cast_weights=True, **kw)
 
     mask = attention_mask.to(torch.int32)
     prompt_seg = torch.where(mask > 0, 0, -1).to(torch.int32)

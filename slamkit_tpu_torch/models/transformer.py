@@ -50,7 +50,10 @@ one-process run's; under a 'seq' axis of several ranks the flash route
 runs `ops.ring_flash_attention` on the chunk and the plain route gathers k,
 v and the key ids over the group (`ops.all_gather_seq`), the causal mask
 offset by the chunk's first position. A remat recompute replays the ring's
-rotations on every rank in the same order.
+rotations on every rank in the same order. The decoder runs each layer as a
+module call (`DecoderLayer.forward`, remat inside it), so a layer whose
+weights are sharded over 'data' (`parallel/fsdp.py`) is gathered around its
+forward, its recompute and its backward.
 
 int8 decode: a layer's seven projection weights may be int8 dicts instead of
 parameters (`_proj`); `models/generate.py` builds such a copy for
@@ -194,6 +197,35 @@ class DecoderLayer(nn.Module):
         _opt_param(self, "up_b", cfg.mlp_bias, F_, device=dev, fill=0.0)
         _opt_param(self, "gate_b", cfg.mlp_bias and glu, F_, device=dev, fill=0.0)
         _opt_param(self, "down_b", cfg.mlp_bias, D, device=dev, fill=0.0)
+
+    def forward(self, x, rope, segment_ids, cfg: DecoderConfig, *, cache_kv=None,
+                cache_index: Optional[int] = None, seed: Optional[int] = None, layer: int = 0,
+                shard=None, remat: bool = False, skip: bool = False, cast: bool = False):
+        """The block as the decoder's loop runs it (a module call, so an
+        fsdp-sharded layer is gathered around it), under the decoder's
+        `cfg`: skipped by layerdrop (`skip`), checkpointed under the config's
+        remat policy (`remat`), or `_layer` itself. cast: every weight cast
+        to the compute dtype at its use, the values
+        `models/generate.compute_copy` holds."""
+        if skip:
+            # HF layerdrop: the whole layer is skipped, no rescale
+            return _SkippedLayer.apply(x, *self.parameters()) if torch.is_grad_enabled() else x
+        lp = _Cast(self, cfg.compute_dtype) if cast else self
+        if remat and cfg.remat_policy == "qkv":
+            return _qkv_remat_layer(x, lp, rope, segment_ids, cfg, seed, layer, shard)
+        if remat:
+            return checkpoint(_layer, x, lp, rope, segment_ids, cfg, seed=seed, layer=layer,
+                              shard=shard, use_reentrant=False)
+        return _layer(x, lp, rope, segment_ids, cfg, cache_kv=cache_kv, cache_index=cache_index,
+                      seed=seed, layer=layer, shard=shard)
+
+
+class _Cast:
+    """A layer's weights (absent ones None) cast to `dtype`."""
+
+    def __init__(self, layer: nn.Module, dtype):
+        for name, p in layer._parameters.items():
+            setattr(self, name, None if p is None else p.to(dtype))
 
 
 # --------------------------------------------------------------------------- #
@@ -469,7 +501,7 @@ class Decoder(nn.Module):
                 cache: Optional[tuple] = None,
                 cache_index: Optional[int] = None,
                 dropout_seed: Optional[int] = None,
-                shard=None):
+                shard=None, cast_weights: bool = False):
         """Returns (logits float32 [B, T, V], cache).
 
         positions default to 0..T-1; pass explicit positions for left-padded
@@ -481,7 +513,10 @@ class Decoder(nn.Module):
         cache); without it the forward is deterministic. shard: this rank's
         tile of a global batch (`parallel.Shard`: input_ids and the rest are
         the tile; the dropout masks are the global batch's, and a 'seq'
-        group of several ranks runs the ring) or None."""
+        group of several ranks runs the ring) or None. cast_weights: run on
+        the weights `models/generate.compute_copy` would hold (each cast to
+        the compute dtype at its use, the 1-D final norm kept float32), for
+        a decoder whose weights are sharded and cannot be copied whole."""
         cfg = self.cfg
         dt = cfg.compute_dtype
         b, t = input_ids.shape
@@ -520,26 +555,18 @@ class Decoder(nn.Module):
         skipped = (_layer_drops(seed, cfg.num_layers, cfg.layerdrop)
                    if seed is not None and cfg.layerdrop > 0.0 else [False] * cfg.num_layers)
         for i, lp in enumerate(self.layers):
-            if skipped[i]:
-                # HF layerdrop: the whole layer is skipped, no rescale
-                if torch.is_grad_enabled():
-                    x = _SkippedLayer.apply(x, *lp.parameters())
-                continue
-            if i < n_remat and cfg.remat_policy == "qkv":
-                x = _qkv_remat_layer(x, lp, rope, segment_ids, cfg, seed, i, shard)
-            elif i < n_remat:
-                x = checkpoint(_layer, x, lp, rope, segment_ids, cfg, seed=seed, layer=i,
-                               shard=shard, use_reentrant=False)
-            else:
-                kv = None if cache is None else (cache[0][i], cache[1][i])
-                x = _layer(x, lp, rope, segment_ids, cfg, cache_kv=kv,
-                           cache_index=cache_index, seed=seed, layer=i, shard=shard)
+            kv = None if cache is None else (cache[0][i], cache[1][i])
+            x = lp(x, rope, segment_ids, cfg, cache_kv=kv, cache_index=cache_index,
+                   seed=seed, layer=i, shard=shard, remat=i < n_remat, skip=skipped[i],
+                   cast=cast_weights)
 
         if cfg.pre_norm:
             x = _norm(x, self.final_norm_scale, self.final_norm_bias, cfg)
         if cfg.embed_proj_dim:
             x = x @ self.proj_out_w.to(x.dtype)
         head = self.embed.t() if cfg.tie_word_embeddings else self.lm_head
+        if cast_weights:
+            head = head.to(dt)
         logits = x.float() @ head.float()
         return logits, cache
 

@@ -7,10 +7,11 @@ with `loss_fn` (training), `log_likelihood` (scoring), `generate` (sampling),
 and on the reference toolkit's HF checkpoints, `export_hf`, the TWIST warm
 start (`twist_init`, through `models/hf_convert.py`), and `tlm_factory`.
 `shard(mesh)` spreads evaluation over the ranks of a 'data' mesh (JAX
-`unit_lm.py:163-208`): every rank holds every weight, scores and samples
-its rows of each batch, and gathers the rest. fsdp and tensor-parallel
-placement (ROADMAP queue 1 items 23, 24) and `push_to_hub` (it needs the
-network) are not ported.
+`unit_lm.py:163-208`): every rank scores and samples its rows of each batch
+and gathers the rest; with `fsdp=True` the weights are sharded over the
+ranks too (`parallel/fsdp.py`), each layer gathered as it runs.
+Tensor-parallel placement (ROADMAP queue 1 item 24) and `push_to_hub` (it
+needs the network) are not ported.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..parallel.fsdp import inference_forward, local, shard_decoder
 from ..utils.calculation_utils import calc_nll, cross_entropy_loss
 from ..utils.device import DEFAULT_DEVICE, resolve_device
 from .convert import load_flat, to_flat
@@ -164,16 +166,17 @@ class UnitLM:
         as the JAX `shard` does: afterwards `log_likelihood` and `generate`
         pad each batch's rows to a multiple of the 'data' size, run this
         rank's rows and all-gather the results to every rank, the pad rows
-        dropped. Weights are not sharded: fsdp (item 23) and tp (item 24)
-        raise. Every rank must make the same calls."""
-        if fsdp:
-            raise NotImplementedError("UnitLM.shard(fsdp=True): parameter sharding is not "
-                                      "ported yet (ROADMAP queue 1 item 23)")
+        dropped. fsdp=True also shards the weights over 'data' (ZeRO-3,
+        `parallel.fsdp.shard_decoder`): each layer is gathered as it runs,
+        and int8 generation quantizes each weight whole. tp (item 24)
+        raises. Every rank must make the same calls."""
         if tp:
             raise NotImplementedError("UnitLM.shard(tp=True): tensor parallelism is not "
                                       "ported yet (ROADMAP queue 1 item 24)")
         if mesh.size != mesh.shape["data"]:
             raise ValueError(f"UnitLM.shard takes a mesh of 'data' only; got {mesh.shape}")
+        if fsdp:
+            shard_decoder(self.decoder, mesh)
         self._mesh = mesh if mesh.size > 1 else None
         return self
 
@@ -221,7 +224,7 @@ class UnitLM:
                 or self.config.layerdrop > 0.0)
 
     # -- scoring --------------------------------------------------------------
-    @torch.inference_mode()
+    @inference_forward(lambda self, *args, **kwargs: self.decoder)
     def log_likelihood(self, tokens, mean_nll: bool = True,
                        ignore_tokens: Optional[List[int]] = None) -> torch.Tensor:
         """Per-sequence log likelihood [B]: pads (pad_token_id) are excluded,
@@ -331,7 +334,7 @@ class UnitLM:
         the parameters' identity and their version counters, so assigning a
         new decoder, loading weights or an optimizer step (all in place here,
         unlike JAX's new arrays) invalidates it."""
-        key = [(p, p._version) for p in self.decoder.parameters()]
+        key = [(p, local(p)._version) for p in self.decoder.parameters()]
         cached = getattr(self, "_int8_cache", None)
         if cached is not None and len(cached[0]) == len(key) and all(
                 a is b and va == vb for (a, va), (b, vb) in zip(cached[0], key)):
@@ -348,7 +351,8 @@ class UnitLM:
         """Write `unit_lm_config.json` + `params.npz` in the JAX package's
         layout; the weights land via temp file + rename. params: a snapshot
         of the weights keyed by `decoder.named_parameters()` names to write
-        instead of the live ones (a background checkpoint's copy)."""
+        instead of the live ones (a background checkpoint's copy). Sharded
+        live weights are gathered whole: every rank must call it then."""
         os.makedirs(save_directory, exist_ok=True)
         with open(os.path.join(save_directory, CONFIG_NAME), "w") as f:
             json.dump(self.config.to_dict(), f, indent=2)

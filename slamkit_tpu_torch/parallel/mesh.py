@@ -25,7 +25,7 @@ tile of the global batch and calls the collectives itself:
     would average).
 
 A 'model' axis larger than 1 (tensor parallelism) raises; `fsdp_spec` is the
-JAX rule as a plain function, for the fsdp slice.
+JAX rule as a plain function, which `parallel/fsdp.py` shards parameters by.
 """
 from __future__ import annotations
 
@@ -293,16 +293,19 @@ def local_tile(batch: dict, mesh: Mesh) -> dict:
     return out
 
 
-def all_reduce_grads(module: torch.nn.Module):
+def all_reduce_grads(module: torch.nn.Module, group=None):
     """Sum every rank's gradients of `module`'s parameters in place: one
-    all-reduce over the world per flat bucket of one dtype."""
+    all-reduce over `group` (the world by default) per flat bucket of one
+    dtype; sharded gradients (`parallel/fsdp.py`) by their local shards."""
+    from .fsdp import local
+
     def reduce(bucket):
         flat = torch.cat([g.reshape(-1) for g in bucket])
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=group)
         for g, part in zip(bucket, flat.split([g.numel() for g in bucket])):
             g.copy_(part.view_as(g))
 
-    grads = [p.grad for p in module.parameters() if p.grad is not None]
+    grads = [local(p.grad) for p in module.parameters() if p.grad is not None]
     for dtype in sorted({g.dtype for g in grads}, key=str):
         bucket, size = [], 0
         for g in (g for g in grads if g.dtype == dtype):

@@ -1,7 +1,7 @@
 """The Slam recipe on several cards: the mesh's data and sequence axes.
 
     python -m torch.distributed.run --nproc_per_node N -m slamkit_tpu_torch.tools.parallel_smoke \
-        [--legs meshes,dpo,eval]
+        [--legs meshes,dpo,eval,fsdp,sims7b]
 
 Each of the N (>= 2, even) ranks joins NCCL on its own card
 (`parallel.init_distributed`) and, rank 0 first, builds the flash kernels.
@@ -49,14 +49,51 @@ Then the two other stages users run on several cards, on `mesh_shape [N]`:
     tokens/s (host clock, unprofiled), and the NCCL all-gather share of one
     more sampled call under the profiler.
 
-`--legs` runs a subset of the three (meshes, dpo, eval; default all). The
-last line is one JSON object of all of it; any failed check exits 1. It
-imports only the port.
+Then the parameters sharded over 'data' (`training_args.fsdp`, ZeRO-3,
+`parallel/fsdp.py`):
+
+  * fsdp: the Slam recipe as above on fsdp [N] and fsdp [2, N / 2] over
+    ('data', 'seq') (contiguous ring), with the same checks (step 1 against
+    the one-card run, each rank's flash launches equal to the unsharded
+    mesh's, the resume from checkpoint-3 bit for bit) and a one-card resume
+    of fsdp [N]'s checkpoint-3 (rank 0 alone loads the one-rank file and its
+    step 4 is within LOSS_BOUND of the mesh's); beside DP [N] (trained here
+    too unless the meshes leg ran), s a step, tokens/s, each rank's
+    `max_memory_allocated`, the all-gather / reduce-scatter / all-reduce
+    shares of one profiled step and how much of the NCCL kernels' time
+    overlaps other kernels; then the dpo leg with `training_args.fsdp=true` (policy and reference
+    sharded) and the eval leg through `UnitLM.shard(mesh, fsdp=True)`, each
+    rank's peak memory beside them;
+  * sims7b: `--config-name train_inter_scale` at Qwen2.5-7B's widths and
+    full depth (28 layers of 3584, 28 / 4 heads of 128, FFN 18944, untied
+    embeddings over SIMS's 152167 ids: 7.62e9 parameters), random weights
+    from seed 0, context 2048, bf16, full remat, float32 AdamW moments (the
+    yaml's), fsdp [N]; cut to 2 rows a rank (the yaml has 8) and 3 steps.
+    Its base directory is `tools/sims_recipe.py::write_base_dir(preset=
+    "Qwen/Qwen2.5-7B")` beside the 151665-entry WordLevel tokenizer, its
+    corpora `write_corpora`'s. Before sharding, rank 0 computes step 1's
+    global batch's loss unsharded on its card, without gradients, a row at
+    a time: the fsdp step 1 must be within LOSS_BOUND of it, step 1's
+    global gradient norm finite and positive, every parameter moved by the
+    last step on some rank, every step's loss finite, every rank's peak memory under
+    its card's. The steps go through `SLAMTrainer._train_step`, not
+    `train()`: the loop's logging and agreement all-reduce are held at Slam
+    width by the fsdp leg. It prints s a
+    step, tokens/s, MFU against N x the H100's dense bf16 peak, each rank's
+    peak memory beside the whole training state's bytes and the NCCL shares
+    of the profiled step 3. It saves no checkpoint: the one-rank file would
+    hold 61-91 GB, past the disk a call may use (resume is held at Slam
+    width in the fsdp leg).
+
+`--legs` runs a subset of the five (meshes, dpo, eval, fsdp, sims7b; default
+all). The last line is one JSON object of all of it; any failed check exits
+1. It imports only the port.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -64,6 +101,7 @@ import pathlib
 import shutil
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 
@@ -89,7 +127,11 @@ EVAL_LL_BOUND = 2e-2
 # |out| < 4); each gradient within 2e-2 of its max |one call| + 1e-5 (the
 # kernel's bound of 1e-2 against the plain version, on each side)
 RING_OUT_BOUND, RING_GRAD_REL = 3e-2, 2e-2
-LEGS = ("meshes", "dpo", "eval")
+# sims7b: context, rows a rank and steps (the yaml's 8 rows cut to 2)
+SIMS_CONTEXT, SIMS_PER_DEVICE, SIMS_STEPS = 2048, 2, 3
+#: one H100's dense bf16 peak (NVIDIA's data sheet, SXM part at 700 W)
+H100_BF16_FLOPS = 989e12
+LEGS = ("meshes", "dpo", "eval", "fsdp", "sims7b")
 
 
 def _require(ok: bool, msg: str):
@@ -168,14 +210,22 @@ def check_ring(dev, mesh, schedule: str, dcfg, rows: int, context: int, dtype) -
 
 def _grad_norm_recorder(trainer) -> list:
     """Make `trainer` record the global gradient norm each optimizer step
-    reads (after the mesh's all-reduce, before clipping)."""
+    reads (after the mesh's reduction, before clipping; under fsdp the
+    shards' squares summed over the 'data' group)."""
     import torch
+    import torch.distributed as dist
+
+    from ..parallel.fsdp import local
 
     norms, step = [], trainer.optimizer.step
 
     def recording_step(*a, **kw):
-        grads = [p.grad for p in trainer.model.decoder.parameters() if p.grad is not None]
-        norms.append(float(torch.sqrt(sum((g.float() ** 2).sum() for g in grads))))
+        grads = [local(p.grad) for p in trainer.model.decoder.parameters()
+                 if p.grad is not None]
+        sq = sum((g.float() ** 2).sum() for g in grads)
+        if trainer.optimizer.group is not None:
+            dist.all_reduce(sq, group=trainer.optimizer.group)
+        norms.append(float(torch.sqrt(sq)))
         return step(*a, **kw)
 
     trainer.optimizer.step = recording_step
@@ -183,10 +233,12 @@ def _grad_norm_recorder(trainer) -> list:
 
 
 def _comm_shares(prof, wall_ms: float) -> dict:
-    """Device milliseconds of NCCL's send / receive kernels, of its
-    all-reduce kernels and of all kernels in a profiled step, and the first
-    two as shares of the step's wall time."""
-    sums = {"p2p_ms": 0.0, "all_reduce_ms": 0.0, "kernels_ms": 0.0}
+    """Device milliseconds of NCCL's send / receive, all-reduce, all-gather
+    and reduce-scatter kernels and of all kernels in a profiled step, each
+    collective's as a share of the step's wall time, and how much of the
+    NCCL kernels' time other kernels overlap (`_overlap`)."""
+    sums = {"p2p_ms": 0.0, "all_reduce_ms": 0.0, "kernels_ms": 0.0,
+            "reduce_scatter_ms": 0.0}
     for e in prof.key_averages():
         if not str(e.device_type).endswith("CUDA"):
             continue
@@ -199,10 +251,49 @@ def _comm_shares(prof, wall_ms: float) -> dict:
             sums["all_reduce_ms"] += ms
         elif "nccl" in name and "allgather" in name:
             sums["all_gather_ms"] = sums.get("all_gather_ms", 0.0) + ms
+        elif "nccl" in name and "reducescatter" in name:
+            sums["reduce_scatter_ms"] += ms
     sums.update(wall_ms=wall_ms, p2p_share=sums["p2p_ms"] / wall_ms,
                 all_reduce_share=sums["all_reduce_ms"] / wall_ms,
-                all_gather_share=sums.get("all_gather_ms", 0.0) / wall_ms)
+                all_gather_share=sums.get("all_gather_ms", 0.0) / wall_ms,
+                reduce_scatter_share=sums["reduce_scatter_ms"] / wall_ms, **_overlap(prof))
     return sums
+
+
+def _overlap(prof) -> dict:
+    """From the profiled step's device timeline: the milliseconds in which
+    an NCCL kernel runs (`nccl_busy_ms`), in which another kernel runs
+    (`compute_busy_ms`), and the share of the first that the second
+    overlaps (`nccl_overlapped_share`; 0 on the CPU)."""
+    spans = {"nccl": [], "compute": []}
+    for e in prof.events():
+        if not str(e.device_type).endswith("CUDA") or e.time_range.elapsed_us() <= 0:
+            continue
+        kind = "nccl" if "nccl" in e.name.lower() else "compute"
+        spans[kind].append((e.time_range.start, e.time_range.end))
+
+    def union(intervals):
+        merged = []
+        for a, b in sorted(intervals):
+            if merged and a <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], b)
+            else:
+                merged.append([a, b])
+        return merged
+
+    nccl, compute = union(spans["nccl"]), union(spans["compute"])
+    both, j = 0.0, 0
+    for a, b in nccl:
+        while j < len(compute) and compute[j][1] <= a:
+            j += 1
+        k = j
+        while k < len(compute) and compute[k][0] < b:
+            both += min(b, compute[k][1]) - max(a, compute[k][0])
+            k += 1
+    busy = lambda m: sum(b - a for a, b in m) / 1e3
+    nccl_ms = busy(nccl)
+    return {"nccl_busy_ms": nccl_ms, "compute_busy_ms": busy(compute),
+            "nccl_overlapped_share": both / 1e3 / nccl_ms if nccl_ms else 0.0}
 
 
 def _profiled(lead: bool, cuda: bool, sync, fn):
@@ -230,11 +321,14 @@ def _profiled(lead: bool, cuda: bool, sync, fn):
 
 
 def run(dev, work: pathlib.Path, cfg=None, context: int = CONTEXT, rows: int = ROWS,
-        n_rows: int = 400, lengths=(100, 1001), legs=LEGS) -> dict:
+        n_rows: int = 400, lengths=(100, 1001), legs=LEGS, sims_arch=None,
+        sims_entries: Optional[int] = None, sims_context: int = SIMS_CONTEXT,
+        eval_sizes: Optional[dict] = None) -> dict:
     """Every check and measurement above of `legs` on this rank's `dev`
     (the card; a rehearsal passes the CPU, a small `cfg`, `context` and
-    `rows`, and then no launch may be counted); rank 0 returns the
-    results."""
+    `rows`, a small `sims_arch`, `sims_entries` and `sims_context`, fewer
+    evaluation rows and tokens in `eval_sizes` (`run_eval`'s keywords), and
+    then no launch may be counted); rank 0 returns the results."""
     import torch
     import torch.distributed as dist
 
@@ -262,56 +356,102 @@ def run(dev, work: pathlib.Path, cfg=None, context: int = CONTEXT, rows: int = R
                 f"{time.perf_counter() - t0:.1f} s")
     dist.barrier()
     cfg = dataclasses.replace(cfg or slam_config(), remat=True)
+    pretrain = None
+    if "meshes" in legs or "fsdp" in legs:
+        pretrain = _Pretrain(dev, work, cfg, context, rows, n_rows, lengths, say, sync)
     if "meshes" in legs:
-        run_meshes(dev, work, cfg, context, rows, n_rows, lengths, result, say, sync)
+        run_meshes(pretrain, result)
     if "dpo" in legs:
         result["dpo"] = run_dpo(dev, work, cfg, say, sync)
     if "eval" in legs:
-        result["eval"] = run_eval(dev, work, cfg, say, sync, context)
+        result["eval"] = run_eval(dev, work, cfg, say, sync, context, **(eval_sizes or {}))
+    if "fsdp" in legs:
+        result["fsdp"] = run_fsdp(pretrain, result, eval_sizes or {})
+    if "sims7b" in legs:
+        sims = {} if sims_entries is None else {"n_entries": sims_entries}
+        result["sims7b"] = run_sims7b(dev, work, say, sync, arch=sims_arch,
+                                      context=sims_context, **sims)
     return result
 
 
-def run_meshes(dev, work: pathlib.Path, cfg, context: int, rows: int, n_rows: int, lengths,
-               result: dict, say, sync):
-    """The pretraining leg (module docstring) on this rank, into rank 0's
-    `result`: the one-card reference, the four meshes, DP's efficiency."""
+def _peaks(dev) -> list:
+    """Every rank's `max_memory_allocated` in bytes, in rank order (None on
+    the CPU)."""
     import torch
     import torch.distributed as dist
 
-    from ..data import parse_single_dataset
-    from ..models import UnitLM
-    from ..ops import flash_attention_bwd, flash_attention_fwd
-    from ..parallel import Mesh, make_mesh
-    from ..tokeniser import UnitTokeniser
-    from ..trainer import SLAMTrainer, TrainerCallback
-    from .slam_recipe import slam_training_args, write_markov_corpus
+    mine = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+    peaks = [None] * dist.get_world_size()
+    dist.all_gather_object(peaks, mine)
+    return peaks
 
-    rank, world = dist.get_rank(), dist.get_world_size()
-    lead, cuda = rank == 0, dev.type == "cuda"
-    if lead:
-        write_markov_corpus(work / "tokens.jsonl", n_rows, lengths)
-    dist.barrier()
-    ds = parse_single_dataset({"data": {}, "model": {"context_len": context}},
-                              UnitTokeniser(), str(work / "tokens.jsonl"))["train"]
-    dcfg = cfg.decoder_config()
 
-    class Clock(TrainerCallback):
-        def __init__(self):
-            self.marks = []
+def _reset_peak(dev):
+    """Free what earlier runs left (a trainer whose optimizer step a
+    recorder wraps is a reference cycle: only the collector frees it) and
+    restart the card's peak."""
+    import torch
 
-        def on_step_end(self, args, state, control, **kw):
-            sync()
-            self.marks.append((time.perf_counter(), state.num_input_tokens_seen))
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
 
-    def trainer(out, mesh, n_data, **over):
-        args = slam_training_args(str(out), per_device_train_batch_size=rows // n_data,
+
+def _gib(peaks) -> str:
+    return ("not measured" if peaks[0] is None else
+            "[" + ", ".join(f"{b / 2 ** 30:.2f}" for b in peaks) + "] GiB")
+
+
+class _Pretrain:
+    """The Slam recipe's pretraining runs of this rank (the meshes and fsdp
+    legs): the corpus (rank 0 writes it), the trainer of a mesh, the
+    one-card reference, and one mesh's checked and timed run."""
+
+    def __init__(self, dev, work: pathlib.Path, cfg, context: int, rows: int, n_rows: int,
+                 lengths, say, sync):
+        import torch.distributed as dist
+
+        from ..data import parse_single_dataset
+        from ..tokeniser import UnitTokeniser
+        from .slam_recipe import write_markov_corpus
+
+        self.dev, self.work, self.cfg, self.context, self.rows = dev, work, cfg, context, rows
+        self.say, self.sync = say, sync
+        self.rank, self.world = dist.get_rank(), dist.get_world_size()
+        self.lead, self.cuda = self.rank == 0, dev.type == "cuda"
+        if self.lead:
+            write_markov_corpus(work / "tokens.jsonl", n_rows, lengths)
+        dist.barrier()
+        self.ds = parse_single_dataset({"data": {}, "model": {"context_len": context}},
+                                       UnitTokeniser(), str(work / "tokens.jsonl"))["train"]
+        self.dcfg = cfg.decoder_config()
+        self.ref = None
+
+    def trainer(self, out, mesh, n_data, **over):
+        from ..models import UnitLM
+        from ..trainer import SLAMTrainer, TrainerCallback
+        from .slam_recipe import slam_training_args
+
+        sync = self.sync
+
+        class Clock(TrainerCallback):
+            def __init__(self):
+                self.marks = []
+
+            def on_step_end(self, args, state, control, **kw):
+                sync()
+                self.marks.append((time.perf_counter(), state.num_input_tokens_seen))
+
+        args = slam_training_args(str(out), per_device_train_batch_size=self.rows // n_data,
                                   gradient_accumulation_steps=MICRO, max_steps=STEPS,
                                   save_steps=3, **over)
-        model = UnitLM(cfg, seed=0, device=dev)
+        model = UnitLM(self.cfg, seed=0, device=self.dev)
         clock = Clock()
-        return SLAMTrainer(model, args, ds, callbacks=[clock], packing=True,
-                           context_len=context, mesh=mesh), clock
+        return SLAMTrainer(model, args, self.ds, callbacks=[clock], packing=True,
+                           context_len=self.context, mesh=mesh), clock
 
+    @staticmethod
     def timed(marks) -> dict:
         """Steps 2-3 from (time, tokens seen) at each step's end (step 1
         warms up; step 4 follows the step-3 save)."""
@@ -319,103 +459,183 @@ def run_meshes(dev, work: pathlib.Path, cfg, context: int, rows: int, n_rows: in
         secs = (t3 - t1) / 2
         return {"step_s": secs, "tokens_per_s": (n3 - n1) / 2 / secs}
 
-    # ---- the reference: the global batch on rank 0's card alone --------
-    if lead:
-        tr, _ = trainer(work / "ref", Mesh(("data",), (1,)), 1)
-        norms = _grad_norm_recorder(tr)
-        batches = tr.train_batcher.epoch(0)
-        losses, marks, seen = [], [], 0
-        for _ in range(3):
-            loss, tokens = tr._train_step([next(batches) for _ in range(MICRO)])
-            losses.append(float(loss))
-            sync()
-            seen += tokens
-            marks.append((time.perf_counter(), seen))
-        ref = {"loss": losses[0], "grad_norm": norms[0], **timed(marks)}
-        say(f"one card: step 1 loss {ref['loss']:.6f}, gradient norm {ref['grad_norm']:.6f}; "
-            f"{ref['step_s']:.4f} s a step, {ref['tokens_per_s']:.1f} tokens/s")
-        result["one_card"] = ref
-        del tr
-    dist.barrier()
-    ref = result.get("one_card")
+    def reference(self, result: dict) -> Optional[dict]:
+        """The global batch on rank 0's card alone (kept in `result`, and
+        returned on rank 0): step 1's loss and gradient norm, steps 2-3's
+        time."""
+        import torch.distributed as dist
 
-    result["meshes"] = {}
-    for name, shape, axes, schedule in meshes(world):
+        from ..parallel import Mesh
+
+        if self.lead and "one_card" not in result:
+            tr, _ = self.trainer(self.work / "ref", Mesh(("data",), (1,)), 1)
+            norms = _grad_norm_recorder(tr)
+            batches = tr.train_batcher.epoch(0)
+            losses, marks, seen = [], [], 0
+            for _ in range(3):
+                loss, tokens = tr._train_step([next(batches) for _ in range(MICRO)])
+                losses.append(float(loss))
+                self.sync()
+                seen += tokens
+                marks.append((time.perf_counter(), seen))
+            ref = {"loss": losses[0], "grad_norm": norms[0], **self.timed(marks)}
+            self.say(f"one card: step 1 loss {ref['loss']:.6f}, gradient norm "
+                     f"{ref['grad_norm']:.6f}; {ref['step_s']:.4f} s a step, "
+                     f"{ref['tokens_per_s']:.1f} tokens/s")
+            result["one_card"] = ref
+            del tr
+        dist.barrier()
+        return result.get("one_card")
+
+    def mesh_run(self, name: str, shape: list, axes, schedule: str, ref: Optional[dict],
+                 fsdp: bool = False, one_card_resume: bool = False) -> dict:
+        """One mesh (module docstring): trained for STEPS steps with a save at
+        3, checked against `ref` (rank 0's) and resumed; with `fsdp` its
+        parameters sharded, `one_card_resume` rank 0 resumes its
+        checkpoint-3 alone."""
+        import torch
+        import torch.distributed as dist
+
+        from ..ops import flash_attention_bwd, flash_attention_fwd
+        from ..parallel import Mesh, make_mesh
+        from ..parallel.fsdp import local
+
+        rank, world, lead, cuda, say = self.rank, self.world, self.lead, self.cuda, self.say
         mesh = make_mesh(shape, axes)
         n_data = mesh.shape["data"]
-        out_a, out_b = work / f"{name}_a", work / f"{name}_b"
-        over = dict(mesh_shape=shape, mesh_axes=axes, cp_schedule=schedule)
-        tr, clock = trainer(out_a, mesh, n_data, **over)
+        out_a, out_b, out_c = (self.work / f"{name}_{x}" for x in "abc")
+        over = dict(mesh_shape=shape, mesh_axes=axes, cp_schedule=schedule, fsdp=fsdp)
+        _reset_peak(self.dev)
+        tr, clock = self.trainer(out_a, mesh, n_data, **over)
         norms = _grad_norm_recorder(tr)
         flash_attention_fwd.launches = flash_attention_bwd.launches = 0   # the main path
         state = tr.train()
         launches = {"flash_fwd": flash_attention_fwd.launches,
                     "flash_bwd": flash_attention_bwd.launches}
-        want = (expected_launches(shape, schedule, rank, dcfg.num_layers) if cuda
+        want = (expected_launches(shape, schedule, rank, self.dcfg.num_layers) if cuda
                 else {"flash_fwd": 0, "flash_bwd": 0})
         _require(launches == want, f"rank {rank} {name}: launches {launches}, expected {want}")
         losses = [r["loss"] for r in state.log_history if "loss" in r]
-        row = {"mesh_shape": shape, "mesh_axes": axes, "cp_schedule": schedule,
-               "losses": losses, "grad_norm_step1": norms[0], **timed(clock.marks)}
+        row = {"mesh_shape": shape, "mesh_axes": axes, "cp_schedule": schedule, "fsdp": fsdp,
+               "losses": losses, "grad_norm_step1": norms[0], **self.timed(clock.marks),
+               "max_memory_allocated": _peaks(self.dev)}
         launch_counts = [None] * world
         dist.all_gather_object(launch_counts, launches)
         row["launches_by_rank"] = launch_counts
         # one more step under the profiler on rank 0 (every rank steps)
         batches = tr.train_batcher.epoch(0, skip_batches=STEPS * MICRO)
         group = [next(batches) for _ in range(MICRO)]
-        params_a = {k: p.detach().clone() for k, p in tr.model.decoder.named_parameters()}
-        _, wall_ms, prof = _profiled(lead, cuda, sync, lambda: tr._train_step(group))
+        params_a = {k: local(p.detach()).clone()
+                    for k, p in tr.model.decoder.named_parameters()}
+        _, wall_ms, prof = _profiled(lead, cuda, self.sync, lambda: tr._train_step(group))
         if lead:
             row["profiled_step"] = _comm_shares(prof, wall_ms)
         del tr
         # the resume: a second trainer from checkpoint-3 repeats step 4
-        tr_b, _ = trainer(out_b, mesh, n_data, **over)
+        tr_b, _ = self.trainer(out_b, mesh, n_data, **over)
         state_b = tr_b.train(resume_from_checkpoint=str(out_a / "checkpoint-3"))
         losses_b = [r["loss"] for r in state_b.log_history if "loss" in r]
         same = losses_b == losses and all(
-            torch.equal(p, params_a[k]) for k, p in tr_b.model.decoder.named_parameters())
-        flags = torch.tensor([int(same)], device=dev)
+            torch.equal(local(p), params_a[k]) for k, p in tr_b.model.decoder.named_parameters())
+        flags = torch.tensor([int(same)], device=self.dev)
         dist.all_reduce(flags, op=dist.ReduceOp.MIN)
         row["resume_exact"] = bool(flags.item())
         del tr_b, params_a
         if cuda:
             torch.cuda.empty_cache()
-        if mesh.shape.get("seq", 1) > 1:
-            row["ring"] = check_ring(dev, mesh, schedule, dcfg, rows, context,
-                                     dcfg.compute_dtype)
+        if one_card_resume and lead:
+            # the one-rank checkpoint of the sharded run, on one card
+            tr_c, _ = self.trainer(out_c, Mesh(("data",), (1,)), 1)
+            state_c = tr_c.train(resume_from_checkpoint=str(out_a / "checkpoint-3"))
+            step4 = [r["loss"] for r in state_c.log_history if "loss" in r][-1]
+            row["one_card_resume"] = {"loss_step4": step4,
+                                      "loss_err": abs(step4 - losses[-1])}
+            del tr_c
+            if cuda:
+                torch.cuda.empty_cache()
+        dist.barrier()
+        if mesh.shape.get("seq", 1) > 1 and not fsdp:
+            row["ring"] = check_ring(self.dev, mesh, schedule, self.dcfg, self.rows,
+                                     self.context, self.dcfg.compute_dtype)
         dist.barrier()
         if lead:
-            shutil.rmtree(out_a, ignore_errors=True)
-            shutil.rmtree(out_b, ignore_errors=True)
+            for out in (out_a, out_b, out_c):
+                shutil.rmtree(out, ignore_errors=True)
             loss_err = abs(losses[0] - ref["loss"])
             norm_err = abs(norms[0] - ref["grad_norm"]) / ref["grad_norm"]
             row.update(loss_err=loss_err, grad_norm_rel_err=norm_err)
             p = row.get("profiled_step", {})
-            say(f"{name} {shape}: losses {losses}; step 1 |d loss| {loss_err:.3e} (<= "
-                f"{LOSS_BOUND}), gradient norm {norms[0]:.6f} rel {norm_err:.3e} (<= "
-                f"{GRAD_NORM_RTOL}); {row['step_s']:.4f} s a step, "
-                f"{row['tokens_per_s']:.1f} tokens/s; P2P {p.get('p2p_share', 0):.4f}, "
-                f"all-reduce {p.get('all_reduce_share', 0):.4f} of a "
-                f"{p.get('wall_ms', 0):.1f} ms profiled step; resume exact "
-                f"{row['resume_exact']}; launches {launch_counts}")
+            say(f"{name} {shape}{' fsdp' if fsdp else ''}: losses {losses}; step 1 |d loss| "
+                f"{loss_err:.3e} (<= {LOSS_BOUND}), gradient norm {norms[0]:.6f} rel "
+                f"{norm_err:.3e} (<= {GRAD_NORM_RTOL}); {row['step_s']:.4f} s a step, "
+                f"{row['tokens_per_s']:.1f} tokens/s; peak memory "
+                f"{_gib(row['max_memory_allocated'])}; P2P {p.get('p2p_share', 0):.4f}, "
+                f"all-reduce {p.get('all_reduce_share', 0):.4f}, all-gather "
+                f"{p.get('all_gather_share', 0):.4f}, reduce-scatter "
+                f"{p.get('reduce_scatter_share', 0):.4f} of a {p.get('wall_ms', 0):.1f} ms "
+                f"profiled step, NCCL overlapped {p.get('nccl_overlapped_share', 0):.4f}; "
+                f"resume exact {row['resume_exact']}; launches {launch_counts}")
             if "ring" in row:
                 say(f"{name} ring vs one call (rank 0): {row['ring']['max_abs_err']}")
+            if "one_card_resume" in row:
+                say(f"{name}: checkpoint-3 resumed on one card: step 4 loss "
+                    f"{row['one_card_resume']['loss_step4']:.6f}, |d| "
+                    f"{row['one_card_resume']['loss_err']:.3e} (<= {LOSS_BOUND})")
+                _require(row["one_card_resume"]["loss_err"] <= LOSS_BOUND,
+                         f"{name}: the one-card resume of the sharded checkpoint disagrees")
             _require(loss_err <= LOSS_BOUND and norm_err <= GRAD_NORM_RTOL,
                      f"{name}: step 1 disagrees with the one-card run")
         _require(row["resume_exact"], f"{name}: the resumed run did not repeat step 4")
-        result["meshes"][name] = row
         dist.barrier()
-    if lead:
+        return row
+
+
+def run_meshes(pretrain: _Pretrain, result: dict):
+    """The pretraining leg (module docstring) on this rank, into rank 0's
+    `result`: the one-card reference, the four meshes, DP's efficiency."""
+    ref = pretrain.reference(result)
+    result["meshes"] = {}
+    for name, shape, axes, schedule in meshes(pretrain.world):
+        result["meshes"][name] = pretrain.mesh_run(name, shape, axes, schedule, ref)
+    if pretrain.lead:
         dp = result["meshes"]["dp"]
-        result["dp_scaling_efficiency"] = dp["tokens_per_s"] / (world * ref["tokens_per_s"])
-        say(f"DP on {world} cards: {dp['tokens_per_s']:.1f} tokens/s against "
-            f"{ref['tokens_per_s']:.1f} on one: scaling efficiency "
-            f"{result['dp_scaling_efficiency']:.4f}")
+        result["dp_scaling_efficiency"] = dp["tokens_per_s"] / (pretrain.world *
+                                                                ref["tokens_per_s"])
+        pretrain.say(f"DP on {pretrain.world} cards: {dp['tokens_per_s']:.1f} tokens/s "
+                     f"against {ref['tokens_per_s']:.1f} on one: scaling efficiency "
+                     f"{result['dp_scaling_efficiency']:.4f}")
+
+
+def run_fsdp(pretrain: _Pretrain, result: dict, eval_sizes: dict) -> dict:
+    """The fsdp leg (module docstring) on this rank; rank 0 returns its row."""
+    n = pretrain.world
+    ref = pretrain.reference(result)
+    row = {"meshes": {}}
+    dp = result.get("meshes", {}).get("dp")
+    if dp is None:   # the unsharded DP [N] beside it
+        dp = pretrain.mesh_run("dp", [n], None, "contiguous", ref)
+    row["dp"] = dp
+    row["meshes"]["fsdp"] = pretrain.mesh_run("fsdp", [n], None, "contiguous", ref, fsdp=True,
+                                              one_card_resume=True)
+    row["meshes"]["fsdp_dp_cp"] = pretrain.mesh_run(
+        "fsdp_dp_cp", [2, n // 2], ["data", "seq"], "contiguous", ref, fsdp=True)
+    if pretrain.lead:
+        got = row["meshes"]["fsdp"]
+        pretrain.say(f"fsdp [{n}] against DP [{n}]: {got['step_s']:.4f} / {dp['step_s']:.4f} "
+                     f"s a step, {got['tokens_per_s']:.1f} / {dp['tokens_per_s']:.1f} "
+                     f"tokens/s; peak memory {_gib(got['max_memory_allocated'])} / "
+                     f"{_gib(dp['max_memory_allocated'])}")
+    args = (pretrain.dev, pretrain.work, pretrain.cfg, pretrain.say, pretrain.sync)
+    row["dpo"] = run_dpo(*args, fsdp=True)
+    row["eval"] = run_eval(*args, pretrain.context, fsdp=True, **eval_sizes)
+    return row
 
 
 def run_dpo(dev, work: pathlib.Path, cfg, say, sync, pairs: int = DPO_PAIRS,
-            prompt_len: int = DPO_PROMPT, completion_len: int = DPO_COMPLETION) -> dict:
-    """The DPO leg (module docstring) on this rank; rank 0 returns its row."""
+            prompt_len: int = DPO_PROMPT, completion_len: int = DPO_COMPLETION,
+            fsdp: bool = False) -> dict:
+    """The DPO leg (module docstring) on this rank, with `fsdp` the policy
+    and the reference sharded; rank 0 returns its row."""
     import torch
     import torch.distributed as dist
 
@@ -423,6 +643,7 @@ def run_dpo(dev, work: pathlib.Path, cfg, say, sync, pairs: int = DPO_PAIRS,
     from ..models import UnitLM
     from ..ops import flash_attention_bwd, flash_attention_fwd
     from ..parallel import Mesh, make_mesh
+    from ..parallel.fsdp import local
     from ..tokeniser import UnitTokeniser
     from ..trainer import SLAMDPOTrainer, TrainerCallback
     from .slam_recipe import write_preference_rows
@@ -451,7 +672,8 @@ def run_dpo(dev, work: pathlib.Path, cfg, say, sync, pairs: int = DPO_PAIRS,
             "training_args.logging_steps=1", f"training_args.save_steps={DPO_STEPS - 1}",
             "training_args.learning_rate=1e-4", "training_args.warmup_ratio=0.0",
             "training_args.warmup_steps=0", "training_args.async_save=false",
-            "data.train_path=-", "data.val_path=-"]).training_args
+            f"training_args.fsdp={str(fsdp).lower()}", "data.train_path=-",
+            "data.val_path=-"]).training_args
         clock = Clock()
         tr = SLAMDPOTrainer(UnitLM(cfg, seed=0, device=dev), UnitTokeniser(), args, rows,
                             callbacks=[clock], mesh=mesh)
@@ -471,6 +693,7 @@ def run_dpo(dev, work: pathlib.Path, cfg, say, sync, pairs: int = DPO_PAIRS,
         shutil.rmtree(work / "dpo_ref", ignore_errors=True)
     dist.barrier()
     mesh = make_mesh([world])
+    _reset_peak(dev)
     tr, clock, norms = trainer(work / "dpo_a", mesh, world)
     flash_attention_fwd.launches = flash_attention_bwd.launches = 0   # the main path
     state = tr.train()
@@ -484,15 +707,15 @@ def run_dpo(dev, work: pathlib.Path, cfg, say, sync, pairs: int = DPO_PAIRS,
     _require(launches == want, f"rank {rank} dpo: launches {launches}, expected {want}")
     got = losses(state)
     secs = clock.marks[1] - clock.marks[0]
-    row = {"mesh_shape": [world], "losses": got, "grad_norm_step1": norms[0],
-           "step_s": secs, "pairs_per_s": pairs / secs}
+    row = {"mesh_shape": [world], "fsdp": fsdp, "losses": got, "grad_norm_step1": norms[0],
+           "step_s": secs, "pairs_per_s": pairs / secs, "max_memory_allocated": _peaks(dev)}
     launch_counts = [None] * world
     dist.all_gather_object(launch_counts, launches)
     row["launches_by_rank"] = launch_counts
     # one more step under the profiler
     order = np.random.default_rng(0).permutation(len(rows))
     extra = [tr.train_rows[i] for i in order[:pairs]]
-    params_a = {k: p.detach().clone() for k, p in tr.model.decoder.named_parameters()}
+    params_a = {k: local(p.detach()).clone() for k, p in tr.model.decoder.named_parameters()}
     _, wall_ms, prof = _profiled(lead, cuda, sync, lambda: tr._train_step(extra))
     if lead:
         row["profiled_step"] = _comm_shares(prof, wall_ms)
@@ -500,7 +723,7 @@ def run_dpo(dev, work: pathlib.Path, cfg, say, sync, pairs: int = DPO_PAIRS,
     tr_b, _, _ = trainer(work / "dpo_b", mesh, world)
     state_b = tr_b.train(resume_from_checkpoint=str(work / "dpo_a" / f"checkpoint-{DPO_STEPS - 1}"))
     same = losses(state_b) == got and all(
-        torch.equal(p, params_a[k]) for k, p in tr_b.model.decoder.named_parameters())
+        torch.equal(local(p), params_a[k]) for k, p in tr_b.model.decoder.named_parameters())
     flags = torch.tensor([int(same)], device=dev)
     dist.all_reduce(flags, op=dist.ReduceOp.MIN)
     row["resume_exact"] = bool(flags.item())
@@ -515,14 +738,17 @@ def run_dpo(dev, work: pathlib.Path, cfg, say, sync, pairs: int = DPO_PAIRS,
         norm_err = abs(norms[0] - ref["grad_norm"]) / ref["grad_norm"]
         row.update(one_card=ref, loss_err=loss_err, grad_norm_rel_err=norm_err)
         p = row["profiled_step"]
-        say(f"dpo [{world}], {pairs} pairs of {prompt_len + completion_len + 2} tokens a "
+        say(f"dpo [{world}]{' fsdp' if fsdp else ''}, {pairs} pairs of "
+            f"{prompt_len + completion_len + 2} tokens a "
             f"step: losses {got} (one card {ref['losses']}); steps 1-2 |d loss| "
             f"{loss_err:.3e} (<= {LOSS_BOUND}), step-1 gradient norm {norms[0]:.6f} rel "
             f"{norm_err:.3e} (<= {GRAD_NORM_RTOL}); {secs:.4f} s a step, "
             f"{row['pairs_per_s']:.1f} pairs/s (one card {ref['step_s']:.4f} s, "
-            f"{ref['pairs_per_s']:.1f} pairs/s); all-reduce {p['all_reduce_share']:.4f} of a "
-            f"{p['wall_ms']:.1f} ms profiled step; resume exact {row['resume_exact']}; "
-            f"launches {launch_counts}")
+            f"{ref['pairs_per_s']:.1f} pairs/s); peak memory "
+            f"{_gib(row['max_memory_allocated'])}; all-reduce {p['all_reduce_share']:.4f}, "
+            f"all-gather {p['all_gather_share']:.4f}, reduce-scatter "
+            f"{p['reduce_scatter_share']:.4f} of a {p['wall_ms']:.1f} ms profiled step; "
+            f"resume exact {row['resume_exact']}; launches {launch_counts}")
         _require(loss_err <= LOSS_BOUND and norm_err <= GRAD_NORM_RTOL,
                  "dpo: steps 1-2 disagree with the one-card run")
     _require(row["resume_exact"], "dpo: the resumed run did not repeat step 3")
@@ -532,8 +758,9 @@ def run_dpo(dev, work: pathlib.Path, cfg, say, sync, pairs: int = DPO_PAIRS,
 
 def run_eval(dev, work: pathlib.Path, cfg, say, sync, context: int = CONTEXT,
              pairs: int = EVAL_PAIRS, batch: int = EVAL_BATCH, n_prompts: int = EVAL_PROMPTS,
-             new_tokens: int = EVAL_NEW) -> dict:
-    """The evaluation leg (module docstring) on this rank; rank 0 returns
+             new_tokens: int = EVAL_NEW, fsdp: bool = False) -> dict:
+    """The evaluation leg (module docstring) on this rank, with `fsdp` the
+    weights sharded too (`UnitLM.shard(mesh, fsdp=True)`); rank 0 returns
     its row."""
     import torch
     import torch.distributed as dist
@@ -580,7 +807,8 @@ def run_eval(dev, work: pathlib.Path, cfg, say, sync, context: int = CONTEXT,
         one["int8"] = torch.cat([tlm.generate(t, weight_quant="int8", **greedy)
                                  for t in tiles if len(t)])
     dist.barrier()
-    tlm.shard(make_mesh([world]))
+    _reset_peak(dev)
+    tlm.shard(make_mesh([world]), fsdp=fsdp)
     score(tlm)   # warm-up
     flash_attention_fwd.launches = dq_matmul.launches = 0   # the main path
     ll, score_s = timed(lambda: score(tlm))
@@ -594,9 +822,10 @@ def run_eval(dev, work: pathlib.Path, cfg, say, sync, context: int = CONTEXT,
              f"rank {rank} eval: launches {launches}")
     launch_counts = [None] * world
     dist.all_gather_object(launch_counts, launches)
-    row = {"mesh_shape": [world], "score_s": score_s, "pairs_per_s": pairs / score_s,
-           "generate_s": generate_s, "new_tokens_per_s": n_prompts * new_tokens / generate_s,
-           "launches_by_rank": launch_counts}
+    row = {"mesh_shape": [world], "fsdp": fsdp, "score_s": score_s,
+           "pairs_per_s": pairs / score_s, "generate_s": generate_s,
+           "new_tokens_per_s": n_prompts * new_tokens / generate_s,
+           "launches_by_rank": launch_counts, "max_memory_allocated": _peaks(dev)}
     if lead:
         ll_err = (ll - one["ll"]).abs().max().item()
         greedy_same = torch.equal(greedy_out, one["greedy"])
@@ -610,7 +839,8 @@ def run_eval(dev, work: pathlib.Path, cfg, say, sync, context: int = CONTEXT,
                    ll_max_abs_err=ll_err, ll_bitwise=bool(torch.equal(ll, one["ll"])),
                    greedy_bitwise=greedy_same, int8_greedy_bitwise=int8_same,
                    sampled_token_agreement=agree, profiled_generate=_comm_shares(prof, wall_ms))
-        say(f"eval [{world}] (UnitLM.shard): {2 * pairs} rows of 100-{context} scored in "
+        say(f"eval [{world}] (UnitLM.shard{'(fsdp=True)' if fsdp else ''}): {2 * pairs} rows "
+            f"of 100-{context} scored in "
             f"batches of {batch}, max |d ll| {ll_err:.3e} (<= {EVAL_LL_BOUND}; bitwise "
             f"{row['ll_bitwise']}), {score_s:.4f} s, {row['pairs_per_s']:.1f} pairs/s (one "
             f"card {one['score_s']:.4f} s); {n_prompts} prompts x {new_tokens} new tokens: "
@@ -618,12 +848,216 @@ def run_eval(dev, work: pathlib.Path, cfg, say, sync, context: int = CONTEXT,
             f"{int8_same}; sampled {row['generate_s']:.4f} s, {row['new_tokens_per_s']:.1f} "
             f"new tokens/s (one card {one['generate_s']:.4f} s), tokens equal to one card's "
             f"{agree:.4f}, all-gather {row['profiled_generate']['all_gather_share']:.4f} of "
-            f"a {wall_ms:.1f} ms profiled call; launches {launch_counts}")
+            f"a {wall_ms:.1f} ms profiled call; peak memory "
+            f"{_gib(row['max_memory_allocated'])}; launches {launch_counts}")
         _require(ll_err <= EVAL_LL_BOUND and greedy_same and int8_same,
                  "eval: the sharded scores or greedy tokens disagree with one card")
     del tlm
     if cuda:
         torch.cuda.empty_cache()
+    dist.barrier()
+    return row
+
+
+def _unsharded_loss(model, group, dev) -> float:
+    """The trainer's loss of a step's `group` of global host batches,
+    computed by `model` (whole on this card) without gradients, a row at a
+    time: each row's summed NLL over the group's valid-target count."""
+    import torch
+
+    from ..data.dataset import IGNORE_INDEX
+
+    num_items = sum(int((mb["labels"] != IGNORE_INDEX).sum()) for mb in group)
+    total = 0.0
+    with torch.no_grad():
+        for mb in group:
+            for r in range(len(mb["input_ids"])):
+                row = {k: torch.from_numpy(np.ascontiguousarray(mb[k][r:r + 1])).to(dev)
+                       for k in ("input_ids", "labels", "segment_ids", "positions")}
+                total += float(model.loss_fn({**row, "num_items_in_batch": num_items}))
+    return total
+
+
+def _shard_sums(decoder):
+    """Each parameter's local shard summed in float64, in
+    `named_parameters` order (an empty shard sums to 0)."""
+    import torch
+
+    from ..parallel.fsdp import local
+
+    with torch.no_grad():
+        return torch.stack([local(p).sum(dtype=torch.float64)
+                            for p in decoder.parameters()])
+
+
+def run_sims7b(dev, work: pathlib.Path, say, sync, arch=None, n_entries: Optional[int] = None,
+               context: int = SIMS_CONTEXT, per_device: int = SIMS_PER_DEVICE,
+               steps: int = SIMS_STEPS, n_rows: int = 96, lengths=(300, 700)) -> dict:
+    """The sims7b leg (module docstring) on this rank: `--config-name
+    train_inter_scale` at Qwen2.5-7B's widths (`arch` replaces them in a
+    rehearsal) on fsdp over every rank; rank 0 returns its row."""
+    import torch
+    import torch.distributed as dist
+
+    from ..config import compose
+    from ..data.dataset import Batcher, init_dataset
+    from ..models.unit_lm import tlm_factory
+    from ..ops import flash_attention_bwd, flash_attention_fwd
+    from ..parallel import make_mesh
+    from ..tokeniser import tokeniser_factory
+    from ..trainer import SLAMTrainer
+    from . import sims_recipe
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    lead, cuda = rank == 0, dev.type == "cuda"
+    root = work / "sims7b"
+    if lead:
+        t0 = time.perf_counter()
+        sims_recipe.write_base_dir(root, n_entries=n_entries or sims_recipe.QWEN25_VOCAB,
+                                   preset="Qwen/Qwen2.5-7B", arch=arch)
+        sims_recipe.write_corpora(root, n_rows, lengths)
+        say(f"sims7b: base directory and corpora written in {time.perf_counter() - t0:.1f} s")
+    dist.barrier()
+    base = root / "base"
+    cfg = compose(str(ROOT / "config"), "train_inter_scale", [
+        f"model.config_args.base_model_name={base}", "model.config_args.twist_init=false",
+        f"tokeniser.params.text_tokeniser_path={base}",
+        f"data.train_path=[{root / 'text.jsonl'},{root / 'inter.jsonl'},"
+        f"{root / 'speech.jsonl'}]", "data.val_path=null", f"model.context_len={context}",
+        "logger=print", f"training_args.output_dir={root / 'run'}",
+        f"training_args.max_steps={steps}",
+        f"training_args.per_device_train_batch_size={per_device}",
+        "training_args.fsdp=true", "training_args.remat=true", "training_args.save_steps=0",
+        *([] if cuda else ["training_args.use_cpu=true",
+                           "model.config_args.torch_dtype=float32"])])
+    # cli.train's own steps up to its trainer, which would save the state
+    # at the end of its run
+    tokeniser = tokeniser_factory(cfg.tokeniser, device=dev)
+    ds = init_dataset(cfg, tokeniser)["train"]
+    cfg.model.config_args.vocab_size = len(tokeniser.text_tokeniser)
+    cfg.model.config_args.remat = True
+    args = cfg.training_args
+    _reset_peak(dev)
+    t0 = time.perf_counter()
+    model = tlm_factory(cfg.model, device=dev)
+    sync()
+    init_s = time.perf_counter() - t0
+    dcfg = model.decoder.cfg
+    n_params = sum(p.numel() for p in model.parameters())
+    state_dtype = str(args.get("optim_state_dtype", "float32") or "float32")
+    state_bytes = n_params * (4 + 4 + 2 * (2 if state_dtype == "bfloat16" else 4))
+    # step 1's global batch, as the trainer's batcher will draw it
+    mesh = make_mesh()
+    accum = int(args.get("gradient_accumulation_steps", 1) or 1)
+    batcher = Batcher(ds, per_device * mesh.shape["data"], context,
+                      pad_id=model.config.pad_token_id, packing=True, shuffle=True,
+                      seed=int(args.get("seed", 0)),
+                      packing_strategy=cfg.data.get("packing_strategy", "bestfit"))
+    stream = batcher.epoch(0)
+    first = [next(stream) for _ in range(accum)]
+    ref_loss = None
+    if lead:
+        t0 = time.perf_counter()
+        ref_loss = _unsharded_loss(model, first, dev)
+        say(f"sims7b: {n_params} parameters ({dcfg.num_layers} layers of "
+            f"{dcfg.hidden_size}, {dcfg.num_heads}/{dcfg.num_kv_heads} heads of "
+            f"{dcfg.head_dim}, FFN {dcfg.intermediate_size}, vocab {dcfg.vocab_size}) built "
+            f"in {init_s:.1f} s; step 1's batch unsharded on one card, a row at a time: "
+            f"loss {ref_loss:.6f} ({time.perf_counter() - t0:.1f} s)")
+    dist.barrier()
+    init_peaks = _peaks(dev)
+    tr = SLAMTrainer(model, args, ds, packing=True, context_len=context,
+                     packing_strategy=cfg.data.get("packing_strategy", "bestfit"), mesh=mesh)
+    del model
+    _reset_peak(dev)
+    norms = _grad_norm_recorder(tr)
+    before = _shard_sums(tr.model.decoder)
+    batches = tr.train_batcher.epoch(0)
+    flash_attention_fwd.launches = flash_attention_bwd.launches = 0   # the main path
+    losses, secs, tokens, prof, wall_ms = [], [], [], None, 0.0
+    for step in range(steps):
+        group = [next(batches) for _ in range(tr.accum)]
+        tokens.append(int(sum((b["segment_ids"] >= 0).sum() for b in group)))
+        if step == steps - 1:   # the last step under the profiler on rank 0
+            (loss, _), wall_ms, prof = _profiled(lead, cuda, sync,
+                                                 lambda: tr._train_step(group))
+            secs.append(wall_ms / 1e3)
+        else:
+            sync()
+            t0 = time.perf_counter()
+            loss, _ = tr._train_step(group)
+            sync()
+            secs.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        if step == 0:
+            del tr.optimizer.step   # the recorder's wrapper: steps 2-3 run unrecorded
+    # every parameter's updates reached some rank's shard (step 1's learning
+    # rate is 0, the warmup's start, so steps 2-3 move them)
+    moved = (_shard_sums(tr.model.decoder) != before).to(torch.int32)
+    dist.all_reduce(moved, op=dist.ReduceOp.MAX)
+    unmoved = [n for (n, _), m in zip(tr.model.decoder.named_parameters(), moved) if not m]
+    del before
+    launches = {"flash_fwd": flash_attention_fwd.launches,
+                "flash_bwd": flash_attention_bwd.launches}
+    per_step = dcfg.num_layers * tr.accum
+    want = ({"flash_fwd": 2 * per_step * steps, "flash_bwd": per_step * steps} if cuda
+            else {"flash_fwd": 0, "flash_bwd": 0})
+    _require(launches == want, f"rank {rank} sims7b: launches {launches}, expected {want}")
+    launch_counts = [None] * world
+    dist.all_gather_object(launch_counts, launches)
+    peaks = _peaks(dev)
+    card_bytes = torch.cuda.get_device_properties(dev).total_memory if cuda else None
+    del tr
+    if cuda:
+        torch.cuda.empty_cache()
+    dist.barrier()
+    row = {"mesh_shape": [world], "fsdp": True, "context": context, "rows_a_step":
+           per_device * world * accum, "parameters": n_params, "layers": dcfg.num_layers,
+           "hidden_size": dcfg.hidden_size, "vocab_size": dcfg.vocab_size,
+           "optim_state_dtype": state_dtype, "losses": losses, "reference_loss": ref_loss,
+           "grad_norm_step1": norms[0], "unmoved_parameters": unmoved, "step_s": secs, "tokens": tokens, "launches_by_rank": launch_counts,
+           "init_max_memory_allocated": init_peaks, "max_memory_allocated": peaks,
+           "state_bytes": state_bytes, "card_bytes": card_bytes, "checkpoint": None}
+    if lead:
+        shutil.rmtree(root, ignore_errors=True)
+        # a step's model FLOPs: 6 N a token over every parameter (the untied
+        # input embedding's, a gather, included), plus the causal
+        # attention's 6 L T d_q a token over the whole context T, not per
+        # packed document (forward and backward, no remat recompute): an
+        # upper count, so the MFU is one too
+        flops = [n * (6 * n_params + 6 * dcfg.num_layers * context * dcfg.q_dim)
+                 for n in tokens]
+        timed = secs[1:-1] or secs[-1:]   # unprofiled steps after the first
+        step_s = float(np.mean(timed))
+        tokens_per_s = float(np.mean(tokens[1:len(timed) + 1])) / step_s
+        mfu = (float(np.mean(flops[1:len(timed) + 1])) / step_s /
+               (world * H100_BF16_FLOPS)) if cuda else None
+        row.update(loss_err=abs(losses[0] - ref_loss), timed_step_s=step_s,
+                   tokens_per_s=tokens_per_s, mfu=mfu,
+                   profiled_step=_comm_shares(prof, wall_ms))
+        p = row["profiled_step"]
+        say(f"sims7b fsdp [{world}]: {row['rows_a_step']} rows of {context} a step, losses "
+            f"{losses}; step 1 |d loss| {row['loss_err']:.3e} against the unsharded "
+            f"{ref_loss:.6f} (<= {LOSS_BOUND}), gradient norm {norms[0]:.6f}, parameters "
+            f"not moved by step {steps} {unmoved}; s a step {secs} ({step_s:.4f} s unprofiled, "
+            f"{tokens_per_s:.1f} tokens/s, MFU "
+            f"{'not measured' if mfu is None else f'{mfu:.4f}'} against {world} x "
+            f"{H100_BF16_FLOPS:.3g} FLOP/s); peak memory training {_gib(peaks)}, "
+            f"building {_gib(init_peaks)}, whole state {state_bytes / 2 ** 30:.2f} GiB; "
+            f"all-gather {p['all_gather_share']:.4f}, reduce-scatter "
+            f"{p['reduce_scatter_share']:.4f}, all-reduce {p['all_reduce_share']:.4f} of the "
+            f"{wall_ms:.1f} ms profiled step 3, NCCL overlapped "
+            f"{p['nccl_overlapped_share']:.4f}; launches {launch_counts}; no checkpoint "
+            f"(the one-rank state would be {state_bytes / 1e9:.1f} GB with its moments)")
+        _require(row["loss_err"] <= LOSS_BOUND, "sims7b: step 1 disagrees with the "
+                 "unsharded loss")
+    _require(all(math.isfinite(x) for x in losses), f"sims7b: losses {losses}")
+    _require(math.isfinite(norms[0]) and norms[0] > 0,
+             f"sims7b: step 1's gradient norm {norms[0]}")
+    _require(not unmoved, f"sims7b: {steps} steps left {unmoved} unchanged on every rank")
+    _require(card_bytes is None or all(b < card_bytes for b in peaks + init_peaks),
+             f"sims7b: a rank's peak memory {peaks} {init_peaks} reached its card's "
+             f"{card_bytes}")
     dist.barrier()
     return row
 

@@ -6,7 +6,8 @@
     after `<pad>`, `<s>`, `</s>`, `<unk>`), written as plain JSON in the
     layout `PreTrainedTokenizerFast.save_pretrained` gives it, so no
     tokenizers package is needed; `tiny=True` gives scripts/rehearse_sims.py
-    --tiny's 4-layer, 64-wide decoder;
+    --tiny's 4-layer, 64-wide decoder, `preset="Qwen/Qwen2.5-7B"` SIMS's
+    largest scale;
   * `write_corpora(root, n_rows)` — a text-only, an interleaved and a
     speech-only tokens.jsonl of first-order Markov chains over the words and
     the units, as scripts/rehearse_sims.py::gen_corpora builds them;
@@ -41,6 +42,7 @@ from __future__ import annotations
 import json
 import os
 import pathlib
+from typing import Optional
 
 import numpy as np
 
@@ -88,6 +90,16 @@ QWEN25_ARCH = dict(hidden_size=896, num_hidden_layers=24, num_attention_heads=14
                    num_key_value_heads=2, intermediate_size=4864)
 TINY_ARCH = dict(hidden_size=64, num_hidden_layers=4, num_attention_heads=4,
                  num_key_value_heads=2, intermediate_size=128)
+_QWEN7B = PRESETS["Qwen/Qwen2.5-7B"]
+#: Qwen/Qwen2.5-7B's config.json fields (the preset's published widths)
+QWEN25_7B_CONFIG = dict(hidden_size=_QWEN7B["hidden_size"],
+                        num_hidden_layers=_QWEN7B["num_layers"],
+                        num_attention_heads=_QWEN7B["num_heads"],
+                        num_key_value_heads=_QWEN7B["num_kv_heads"],
+                        intermediate_size=_QWEN7B["intermediate_size"],
+                        max_position_embeddings=_QWEN7B["max_position_embeddings"],
+                        rope_theta=_QWEN7B["rope_theta"], rms_norm_eps=_QWEN7B["norm_eps"],
+                        tie_word_embeddings=_QWEN7B["tie_word_embeddings"])
 
 
 def write_wordlevel_tokenizer(folder, n_entries: int) -> None:
@@ -119,16 +131,26 @@ def write_wordlevel_tokenizer(folder, n_entries: int) -> None:
         json.dump(names, f, indent=2)
 
 
-def write_base_dir(root, tiny: bool = False, n_entries: int = QWEN25_VOCAB) -> str:
+def write_base_dir(root, tiny: bool = False, n_entries: int = QWEN25_VOCAB,
+                   preset: Optional[str] = None, arch: Optional[dict] = None) -> str:
     """root/base: the decoder's config.json (Qwen2.5-0.5B's widths, rope_theta
-    10000, tied embeddings; `tiny` for the 4-layer CPU decoder) and its
-    WordLevel tokenizer of `n_entries` ids."""
+    10000, tied embeddings; `tiny` for the 4-layer CPU decoder; `preset`
+    "Qwen/Qwen2.5-7B" for that model's published config: 28 layers of 3584,
+    28 / 4 heads, FFN 18944, rope_theta 1e6, untied embeddings; `arch`
+    replaces the widths, to cut the depth or rehearse at small widths) and
+    its WordLevel tokenizer of `n_entries` ids."""
     base = pathlib.Path(root) / "base"
     write_wordlevel_tokenizer(base, n_entries)
+    config = {"model_type": "qwen2", "max_position_embeddings": 32768,
+              "rope_theta": 10000.0, "rms_norm_eps": 1e-6, "tie_word_embeddings": True,
+              **(TINY_ARCH if tiny else QWEN25_ARCH)}
+    if preset == "Qwen/Qwen2.5-7B":
+        config.update(QWEN25_7B_CONFIG)
+    elif preset is not None:
+        raise ValueError(f"write_base_dir writes Qwen2.5-0.5B or Qwen/Qwen2.5-7B, not {preset}")
+    config.update(arch or {}, vocab_size=n_entries)
     with open(base / "config.json", "w") as f:
-        json.dump({"model_type": "qwen2", "max_position_embeddings": 32768,
-                   "rope_theta": 10000.0, "rms_norm_eps": 1e-6, "tie_word_embeddings": True,
-                   "vocab_size": n_entries, **(TINY_ARCH if tiny else QWEN25_ARCH)}, f)
+        json.dump(config, f)
     return str(base)
 
 

@@ -18,6 +18,13 @@ Counterpart of `slamkit_tpu/trainer/checkpoint.py`. A checkpoint is
 `AsyncSaver` writes in a worker thread from a device-side snapshot
 (`snapshot`, a `clone()` of every tensor) taken before the next step
 updates the parameters in place.
+
+A model sharded over 'data' (`parallel/fsdp.py`) saves in the same one-rank
+format: `train_state` gathers each parameter and each parameter-shaped
+optimizer tensor whole, one at a time, to rank 0's host (every rank takes
+part), so a run may resume on another number of ranks. `restore` reads the
+file on the host (memory-mapped) and copies each rank's slice into its
+shards, the whole state never on a card.
 """
 from __future__ import annotations
 
@@ -29,6 +36,8 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import torch
+
+from ..parallel.fsdp import ParamShard, is_sharded, local, reshard
 
 logger = logging.getLogger(__name__)
 
@@ -116,11 +125,38 @@ def load_state(path: str, device) -> dict:
                       weights_only=True)
 
 
-def train_state(model, optimizer, dropout_stream: Optional[torch.Generator] = None) -> dict:
-    """The live state a checkpoint holds: the decoder's parameters by name,
-    the optimizer's kind, state and step count, and the dropout stream's
-    state where the model uses dropout (so a resume repeats the masks)."""
+def train_state(model, optimizer, dropout_stream: Optional[torch.Generator] = None,
+                copy: bool = False, keep: bool = True) -> Optional[dict]:
+    """The state a checkpoint holds: the decoder's parameters by name, the
+    optimizer's kind, state and step count, and the dropout stream's state
+    where the model uses dropout (so a resume repeats the masks). The live
+    tensors, or with `copy` a snapshot the next step leaves alone. A sharded
+    model's state is gathered whole to the host of the rank that passes
+    `keep` (the others get None); every rank must call it then."""
+    if is_sharded(model.decoder):
+        return _gathered_state(model, optimizer, dropout_stream, keep)
     state = {"params": dict(model.decoder.named_parameters()), **optimizer.state_dict()}
+    if dropout_stream is not None:
+        state["dropout_rng"] = dropout_stream.get_state()
+    return snapshot(state) if copy else state
+
+
+def _gathered_state(model, optimizer, dropout_stream, keep: bool) -> Optional[dict]:
+    """`train_state` of a sharded model: one tensor at a time gathered on
+    the card and copied to the keeping rank's host."""
+    reshard(model.decoder)
+    params = {name: ParamShard.of(p).to_host(local(p.detach()), keep)
+              for name, p in model.decoder.named_parameters()}
+    state = optimizer.state_dict()
+    for key in optimizer.SHARDED_KEYS:
+        state[key] = [None if t is None else shard.to_host(t, keep)
+                      for t, shard in zip(state[key], optimizer.shards)]
+    if not keep:
+        return None
+    state = {"params": params, **{k: (v.cpu() if isinstance(v, torch.Tensor) else
+                                      [None if t is None else t.cpu() for t in v]
+                                      if isinstance(v, list) else v)
+                                  for k, v in state.items()}}
     if dropout_stream is not None:
         state["dropout_rng"] = dropout_stream.get_state()
     return state
@@ -130,14 +166,18 @@ def train_state(model, optimizer, dropout_stream: Optional[torch.Generator] = No
 def restore(path: str, model, optimizer,
             dropout_stream: Optional[torch.Generator] = None):
     """Load `path`'s train state into the model's parameters, the optimizer
-    and the dropout stream, in place. A checkpoint without a stream (written
-    by a run without dropout) leaves `dropout_stream` as seeded."""
-    state = load_state(path, model.device)
+    and the dropout stream, in place: read on the host, memory-mapped, and
+    copied tensor by tensor (this rank's slice of each into a sharded
+    model). A checkpoint without a stream (written by a run without
+    dropout) leaves `dropout_stream` as seeded."""
+    state = torch.load(os.path.join(path, STATE_DIR, STATE_FILE), map_location="cpu",
+                       weights_only=True, mmap=True)
+    reshard(model.decoder)
     params = dict(model.decoder.named_parameters())
     if sorted(state["params"]) != sorted(params):
         raise ValueError(f"{path} holds other parameters than this model")
     for name, p in params.items():
-        p.copy_(state["params"][name])
+        local(p).copy_(ParamShard.of(p).narrow(state["params"][name]))
     optimizer.load_state_dict(state)
     if dropout_stream is not None:
         if "dropout_rng" in state:

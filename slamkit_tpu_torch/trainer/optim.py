@@ -18,14 +18,30 @@ Moment arithmetic runs in float32 whatever the stored dtype. bfloat16 moments
 `scale_by_factored_rms()` and `scale_by_param_block_rms()` at optax's
 defaults (`Adafactor`). The parameters are updated in place. `state_dict()`
 records the optimizer's kind, and loading another kind's state raises.
+
+Parameters sharded over 'data' (`parallel/fsdp.py`) are updated on their
+local shards, plain tensors in the same arithmetic: a moment is sharded as
+its parameter is, the global norm sums the shards' squares with one
+all-reduce over the 'data' group, and Adafactor's factored statistics and
+the parameter's RMS take their sums over whole rows, columns and tensors
+across the shards, so both compute the unsharded run's numbers (JAX keeps
+the factored statistics whole on every device, `parallel/mesh.py:188-202`;
+so does the port). `state_dict()` holds the local shards; the keys in
+`SHARDED_KEYS` are lists shaped like the parameters, which a checkpoint
+gathers whole (`trainer/checkpoint.py`), and `load_state_dict` takes whole
+tensors and keeps this rank's slice.
 """
 from __future__ import annotations
 
 import math
+import re
 from typing import Callable, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from ..parallel.fsdp import ParamShard, data_group, local
 
 
 def resolve_warmup_steps(warmup_steps: int, warmup_ratio: float, total_steps: int) -> int:
@@ -69,17 +85,52 @@ def make_schedule(lr_scheduler_type: str, learning_rate: float, total_steps: int
     raise ValueError(f"Unknown lr_scheduler_type: {lr_scheduler_type}")
 
 
-def _global_norm(grads: list, max_grad_norm: float):
+def _global_norm(grads: list, max_grad_norm: float, group=None):
     """optax.clip_by_global_norm's (norm, keep): the global norm as a 0-d
     float32 tensor and the flag that leaves the gradients unclipped, a device
     flag rather than a host sync. Each gradient is clipped in the update's
-    loop, one at a time (`_clipped`)."""
-    g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    loop, one at a time (`_clipped`). group: the 'data' group the gradients
+    are shards over, whose squares are summed with one all-reduce."""
+    sq = sum(torch.sum(g * g) for g in grads)
+    if group is not None:
+        dist.all_reduce(sq, group=group)
+    g_norm = torch.sqrt(sq)
     return g_norm, g_norm < max_grad_norm
 
 
 def _clipped(g, g_norm, keep, max_grad_norm: float):
     return torch.where(keep, g, g / g_norm * max_grad_norm)
+
+
+def _load_list(mine: list, theirs: list, shards: list, key: str):
+    """Copy a saved list of whole tensors (None where the state has none)
+    into this optimizer's, this rank's slice of the parameter-shaped ones."""
+    if len(mine) != len(theirs):
+        raise ValueError(f"optimizer state holds {len(theirs)} tensors, "
+                         f"the model {len(mine)}")
+    for a, b, shard in zip(mine, theirs, shards):
+        if (a is None) != (b is None):
+            raise ValueError(f"optimizer state's {key} is factored otherwise "
+                             f"than this model's parameters")
+        if a is not None:
+            a.copy_(shard.narrow(b) if tuple(b.shape) == shard.shape else b)
+
+
+class _Sharded:
+    """What both optimizers keep of their parameters: the parameters, each
+    one's `ParamShard` and the 'data' group the gradients are sharded over."""
+
+    def _init_params(self, params):
+        self.params = list(params)
+        self.shards = [ParamShard.of(p) for p in self.params]
+        self.group = data_group(self.params)
+
+    def zero_grad(self):
+        for p in self.params:
+            p.grad = None
+
+    def _grads(self) -> list:
+        return [local(p.grad).float() for p in self.params]
 
 
 def _check_kind(state: dict, kind: str):
@@ -91,10 +142,11 @@ def _check_kind(state: dict, kind: str):
                          f"optimizer is {kind} (training_args.optim)")
 
 
-class AdamW:
+class AdamW(_Sharded):
     """clip -> Adam -> decoupled weight decay -> -lr, on `params`' `.grad`s."""
 
     kind = "adamw"
+    SHARDED_KEYS = ("exp_avg", "exp_avg_sq")
 
     def __init__(self, params: List[torch.nn.Parameter], schedule: Callable[[int], float],
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
@@ -102,26 +154,22 @@ class AdamW:
                  state_dtype: torch.dtype = torch.float32):
         if state_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"Unsupported optim_state_dtype: {state_dtype}")
-        self.params = list(params)
+        self._init_params(params)
         self.schedule = schedule
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay = weight_decay
         self.max_grad_norm = max_grad_norm
         self.state_dtype = state_dtype
         self.step_count = 0
-        self.exp_avg = [torch.zeros_like(p, dtype=state_dtype) for p in self.params]
-        self.exp_avg_sq = [torch.zeros_like(p, dtype=state_dtype) for p in self.params]
-
-    def zero_grad(self):
-        for p in self.params:
-            p.grad = None
+        self.exp_avg = [torch.zeros_like(local(p), dtype=state_dtype) for p in self.params]
+        self.exp_avg_sq = [torch.zeros_like(local(p), dtype=state_dtype) for p in self.params]
 
     @torch.no_grad()
     def step(self) -> torch.Tensor:
         """One update from the current `.grad`s; returns the global gradient
         norm before clipping (a 0-d float32 tensor on the parameters' device)."""
-        grads = [p.grad.float() for p in self.params]
-        g_norm, keep = _global_norm(grads, self.max_grad_norm)
+        grads = self._grads()
+        g_norm, keep = _global_norm(grads, self.max_grad_norm, self.group)
         count = self.step_count + 1
         b1, b2 = self.b1, self.b2
         # the bias corrections in float32, as optax takes them; host scalars,
@@ -132,6 +180,7 @@ class AdamW:
         lr = -self.schedule(self.step_count)
         compact = self.state_dtype == torch.bfloat16
         for p, g, m_s, v_s in zip(self.params, grads, self.exp_avg, self.exp_avg_sq):
+            p = local(p)
             g = _clipped(g, g_norm, keep, self.max_grad_norm)
             if compact:   # scale_by_adam_compact: f32 arithmetic, bf16 storage
                 m = b1 * m_s.float() + (1.0 - b1) * g
@@ -157,13 +206,8 @@ class AdamW:
     def load_state_dict(self, state: dict):
         _check_kind(state, self.kind)
         self.step_count = int(state["step"])
-        for mine, theirs in ((self.exp_avg, state["exp_avg"]),
-                             (self.exp_avg_sq, state["exp_avg_sq"])):
-            if len(mine) != len(theirs):
-                raise ValueError(f"optimizer state holds {len(theirs)} tensors, "
-                                 f"the model {len(mine)}")
-            for a, b in zip(mine, theirs):
-                a.copy_(b)
+        for key in self.SHARDED_KEYS:
+            _load_list(getattr(self, key), state[key], self.shards, key)
 
 
 # optax's defaults of scale_by_factored_rms and scale_by_param_block_rms,
@@ -184,7 +228,7 @@ def _factored_dims(shape):
     return int(order[-2]), int(order[-1])
 
 
-class Adafactor:
+class Adafactor(_Sharded):
     """The JAX package's adafactor chain, on `params`' `.grad`s:
 
         clip_by_global_norm(max_grad_norm)
@@ -198,66 +242,88 @@ class Adafactor:
 
     count is the number of updates before this one (optax's state.count).
     The state is float32: per factored parameter a row and a column
-    statistic, per other parameter a full second moment."""
+    statistic, per other parameter a full second moment. names: the
+    parameters' names (`named_parameters()`); the layers' parameters of one
+    name then take the RMS of all of them together, as the JAX package's
+    leaf stacks them on a layer axis (`models/convert.py`). Without names
+    each parameter is a block of its own."""
 
     kind = "adafactor"
+    SHARDED_KEYS = ("v",)
 
     def __init__(self, params: List[torch.nn.Parameter], schedule: Callable[[int], float],
-                 weight_decay: float = 0.0, max_grad_norm: float = 1.0):
-        self.params = list(params)
+                 weight_decay: float = 0.0, max_grad_norm: float = 1.0,
+                 names: Optional[List[str]] = None):
+        self._init_params(params)
+        self.blocks = (list(range(len(self.params))) if names is None else
+                       [re.sub(r"^layers\.\d+\.", "layers/", n) for n in names])
         self.schedule = schedule
         self.weight_decay = weight_decay
         self.max_grad_norm = max_grad_norm
         self.step_count = 0
         self.dims = [_factored_dims(tuple(p.shape)) for p in self.params]
         zeros = lambda p, drop: torch.zeros([n for i, n in enumerate(p.shape) if i != drop],
-                                            dtype=torch.float32, device=p.device)
+                                            dtype=torch.float32, device=local(p).device)
         # v_row drops the largest axis (d0), v_col the second largest (d1)
         self.v_row = [zeros(p, d[1]) if d else None for p, d in zip(self.params, self.dims)]
         self.v_col = [zeros(p, d[0]) if d else None for p, d in zip(self.params, self.dims)]
-        self.v = [None if d else torch.zeros_like(p, dtype=torch.float32)
+        self.v = [None if d else torch.zeros_like(local(p), dtype=torch.float32)
                   for p, d in zip(self.params, self.dims)]
-
-    def zero_grad(self):
-        for p in self.params:
-            p.grad = None
 
     @torch.no_grad()
     def step(self) -> torch.Tensor:
         """One update from the current `.grad`s; returns the global gradient
         norm before clipping (a 0-d float32 tensor on the parameters' device)."""
-        grads = [p.grad.float() for p in self.params]
-        g_norm, keep = _global_norm(grads, self.max_grad_norm)
+        grads = self._grads()
+        g_norm, keep = _global_norm(grads, self.max_grad_norm, self.group)
         # optax's decay schedule in float32 (host scalars, no device copy)
         f32 = np.float32
         decay = f32(1) - np.power(f32(self.step_count + 1), f32(-DECAY_RATE))
         new = float(f32(1) - decay)
         decay = float(decay)
         lr = -self.schedule(self.step_count)
-        for i, (p, g) in enumerate(zip(self.params, grads)):
+        scales = self._block_scales()
+        for i, (p, g, shard) in enumerate(zip(self.params, grads, self.shards)):
+            p = local(p)
             g = _clipped(g, g_norm, keep, self.max_grad_norm)
             g_sqr = g * g + EPS
             if self.dims[i] is not None:
                 d1, d0 = self.dims[i]
-                v_row = decay * self.v_row[i] + new * g_sqr.mean(dim=d0)
-                v_col = decay * self.v_col[i] + new * g_sqr.mean(dim=d1)
+                # whole statistics (sums across the shards where sharded)
+                v_row = decay * self.v_row[i] + new * shard.mean(g_sqr, d0)
+                v_col = decay * self.v_col[i] + new * shard.mean(g_sqr, d1)
                 self.v_row[i].copy_(v_row)
                 self.v_col[i].copy_(v_col)
                 reduced_d1 = d1 - 1 if d1 > d0 else d1
                 row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)) ** -0.5
-                u = g * row_factor.unsqueeze(d0) * (v_col ** -0.5).unsqueeze(d1)
+                u = (g * shard.slice_of(row_factor, d0).unsqueeze(d0)
+                     * shard.slice_of(v_col ** -0.5, d1).unsqueeze(d1))
             else:
                 v = decay * self.v[i] + new * g_sqr
                 self.v[i].copy_(v)
                 u = g * v ** -0.5
-            # optax.safe_root_mean_squares of the parameter, floored
-            rms = torch.sqrt(torch.mean(p * p))
-            u = u * torch.where(rms <= MIN_SCALE, MIN_SCALE, rms)
+            u = u * scales[self.blocks[i]]
             if self.weight_decay:
                 u = u + self.weight_decay * p
             p.add_(u * lr)
         self.step_count += 1
         return g_norm
+
+    def _block_scales(self) -> dict:
+        """optax.safe_root_mean_squares of each block's parameters, floored
+        at MIN_SCALE: block -> 0-d tensor (sums of squares across the shards
+        in one all-reduce)."""
+        sums, sizes = {}, {}
+        for p, shard, block in zip(self.params, self.shards, self.blocks):
+            p = local(p)
+            sums[block] = sums.get(block, 0.0) + torch.sum(p * p)
+            sizes[block] = sizes.get(block, 0) + math.prod(shard.shape)
+        if self.group is not None:
+            flat = torch.stack(list(sums.values()))
+            dist.all_reduce(flat, group=self.group)
+            sums = dict(zip(sums, flat.unbind()))
+        rms = {b: torch.sqrt(sums[b] / sizes[b]) for b in sums}
+        return {b: torch.where(r <= MIN_SCALE, MIN_SCALE, r) for b, r in rms.items()}
 
     def state_dict(self) -> dict:
         return {"kind": self.kind, "step": self.step_count, "v_row": self.v_row,
@@ -268,24 +334,16 @@ class Adafactor:
         _check_kind(state, self.kind)
         self.step_count = int(state["step"])
         for key in ("v_row", "v_col", "v"):
-            mine, theirs = getattr(self, key), state[key]
-            if len(mine) != len(theirs):
-                raise ValueError(f"optimizer state holds {len(theirs)} tensors, "
-                                 f"the model {len(mine)}")
-            for a, b in zip(mine, theirs):
-                if (a is None) != (b is None):
-                    raise ValueError(f"optimizer state's {key} is factored otherwise "
-                                     f"than this model's parameters")
-                if a is not None:
-                    a.copy_(b)
+            _load_list(getattr(self, key), state[key], self.shards, key)
 
 
-def make_optimizer(args, params: List[torch.nn.Parameter], total_steps: int):
+def make_optimizer(args, params: List[torch.nn.Parameter], total_steps: int,
+                   names: Optional[List[str]] = None):
     """(optimizer, schedule) from the training_args mapping: learning_rate,
     lr_scheduler_type, lr_scheduler_kwargs.min_lr, warmup_steps /
     warmup_ratio, max_grad_norm, weight_decay, optim (adamw_* -> AdamW with
     adam_beta1/2, adam_epsilon and optim_state_dtype float32 | bfloat16;
-    adafactor -> Adafactor)."""
+    adafactor -> Adafactor, which takes the parameters' `names`)."""
     warmup = resolve_warmup_steps(args.get("warmup_steps", 0),
                                   args.get("warmup_ratio", 0.0), total_steps)
     kwargs = args.get("lr_scheduler_kwargs", None)
@@ -298,7 +356,7 @@ def make_optimizer(args, params: List[torch.nn.Parameter], total_steps: int):
     max_grad_norm = float(args.get("max_grad_norm", 1.0))
     if optim == "adafactor":
         return Adafactor(params, schedule, weight_decay=weight_decay,
-                         max_grad_norm=max_grad_norm), schedule
+                         max_grad_norm=max_grad_norm, names=names), schedule
     if not optim.startswith("adamw"):
         raise ValueError(f"Unsupported optim: {optim!r} (adamw_*, adafactor)")
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}

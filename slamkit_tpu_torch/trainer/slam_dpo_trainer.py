@@ -56,8 +56,15 @@ Under torchrun (`parallel.init_distributed`) the trainer runs on the mesh of
     the one-rank format), every rank waits for it at a barrier, and every
     rank resumes from the checkpoint.
 
-A 'seq' axis above 1 raises the JAX trainer's NotImplementedError; fsdp and
-multihost raise (ROADMAP queue 1 items 23 and 26).
+`training_args.fsdp: true` shards the policy's parameters, gradients and
+optimizer state over 'data' (`parallel/fsdp.py`), and the frozen reference
+is copied from the policy before and sharded as it is (JAX
+`slam_dpo_trainer.py:219-246` gives both the same shardings); the
+gradients are reduce-scattered in the backward instead of all-reduced, and
+checkpoints are gathered to rank 0 in the one-rank format.
+
+A 'seq' axis above 1 raises the JAX trainer's NotImplementedError;
+multihost raises (ROADMAP queue 1 item 26).
 """
 from __future__ import annotations
 
@@ -72,6 +79,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from ..parallel import fsdp
 from ..parallel.mesh import Mesh, all_reduce_grads, make_mesh, seq_axis_size
 from ..utils.calculation_utils import token_nll
 from . import checkpoint
@@ -218,11 +226,16 @@ class SLAMDPOTrainer:
         self.total_steps = (max_steps if max_steps > 0
                             else max(int(epochs * self.steps_per_epoch), 1))
         self.state.max_steps = self.total_steps
-        self.optimizer, self.schedule = make_optimizer(args, model.parameters(),
-                                                       self.total_steps)
-        self.dropout_stream = dropout_stream(model, args)
         # the frozen reference: the policy as built, before any step
         self.ref_decoder = copy.deepcopy(model.decoder).requires_grad_(False).eval()
+        if args.get("fsdp", False):
+            fsdp.shard_decoder(model.decoder, self.mesh)
+            fsdp.shard_decoder(self.ref_decoder, self.mesh)
+        self.sharded = fsdp.is_sharded(model.decoder)
+        self.optimizer, self.schedule = make_optimizer(
+            args, model.parameters(), self.total_steps,
+            names=[n for n, _ in model.decoder.named_parameters()])
+        self.dropout_stream = dropout_stream(model, args)
 
     # ------------------------------------------------------------------ #
     # batches
@@ -274,6 +287,7 @@ class SLAMDPOTrainer:
         lp = sequence_logps(self.model.decoder, batch, dropout_seed, shard)
         with torch.no_grad():
             ref_lp = sequence_logps(self.ref_decoder, batch, shard=shard)
+        fsdp.reshard(self.ref_decoder)
         return dpo_objective(lp, ref_lp, self.beta,
                              None if shard is None else shard.batch // 2)
 
@@ -281,14 +295,14 @@ class SLAMDPOTrainer:
         batch, shard = self._local(self._collate(rows))
         loss, metrics = self.dpo_loss(batch, next_seed(self.dropout_stream), shard)
         loss.backward()
-        if self.world > 1:
+        if self.world > 1 and not self.sharded:
             all_reduce_grads(self.model.decoder)
         self.optimizer.step()
         self.optimizer.zero_grad()
         return self._all_reduce({"loss": loss.detach(),
                                  **{k: v.detach() for k, v in metrics.items()}})
 
-    @torch.inference_mode()
+    @fsdp.inference_forward(lambda self: self.model.decoder)
     def evaluate(self) -> Dict[str, float]:
         if not self.eval_rows:
             return {}
@@ -315,8 +329,9 @@ class SLAMDPOTrainer:
     # ------------------------------------------------------------------ #
     def save_checkpoint(self):
         """Rank 0 writes the checkpoint (in the background under async_save);
-        on a mesh every rank then waits for it at a barrier."""
-        if self.mesh.rank == 0:
+        on a mesh every rank then waits for it at a barrier. Sharded, every
+        rank first helps gather the state to rank 0."""
+        if self.mesh.rank == 0 or self.sharded:
             self._write_checkpoint()
         if self.world > 1:
             dist.barrier()
@@ -327,9 +342,10 @@ class SLAMDPOTrainer:
         trainer_json = {"global_step": self.state.global_step, "epoch": self.state.epoch,
                         "log_history": self.state.log_history[-50:]}
         self._saver.wait()
-        state = checkpoint.train_state(self.model, self.optimizer, self.dropout_stream)
-        if self._async_save:
-            state = checkpoint.snapshot(state)
+        state = checkpoint.train_state(self.model, self.optimizer, self.dropout_stream,
+                                       copy=self._async_save, keep=self.mesh.rank == 0)
+        if state is None:
+            return
         output_dir, limit = self.args["output_dir"], self.args.get("save_total_limit", None)
 
         def write():

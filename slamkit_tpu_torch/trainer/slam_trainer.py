@@ -48,6 +48,17 @@ Under torchrun (`parallel.init_distributed`) the trainer runs on the mesh of
     traces and writes checkpoints, and every rank waits for it at a
     barrier; every rank resumes from the checkpoint.
 
+`training_args.fsdp: true` shards the parameters, the gradients and the
+optimizer state over 'data' (ZeRO-3, `parallel/fsdp.py`; JAX
+`slam_trainer.py:229`, `:285-301`): rank 0's weights are broadcast, then
+sharded; each layer is gathered around its forward and its backward, and
+each microbatch's gradients are reduce-scattered (summed) in the backward,
+so the all-reduce above does not run; under a 'seq' axis the sharded
+gradients are then all-reduced over 'seq'. The optimizer updates the local
+shards (`trainer/optim.py`), and a checkpoint is gathered to rank 0 in the
+one-rank format, so a run may resume on another number of ranks. With one
+rank on 'data' nothing is sharded: the unsharded run, as in JAX.
+
 With one rank (no torchrun) nothing of this runs. The loop runs
 synchronously on the model's device (no upload or metrics threads); a
 checkpoint may be written in the background from a snapshot. Knobs of the
@@ -69,6 +80,7 @@ from torch.profiler import record_function
 
 from ..data.dataset import IGNORE_INDEX, Batcher, TokenDataset
 from ..ops.ring_attention import SCHEDULES, check_chunk, zigzag_permutation
+from ..parallel import fsdp
 from ..parallel.mesh import Mesh, all_reduce_grads, local_tile, make_mesh, seq_axis_size
 from ..utils.calculation_utils import masked_sum, token_nll
 from . import checkpoint
@@ -87,10 +99,8 @@ def _refuse(args, key, what: str, item: int):
 
 def _refuse_unported(args):
     """The JAX trainers' knobs that wait for a later ROADMAP item raise
-    rather than being ignored: fsdp (item 23) and multihost (item 26). A
-    'model' axis raises in `parallel.make_mesh` (item 24)."""
-    if args.get("fsdp", False):
-        _refuse(args, "fsdp", "parameter sharding (fsdp)", 23)
+    rather than being ignored: multihost (item 26). A 'model' axis raises
+    in `parallel.make_mesh` (item 24)."""
     if args.get("multihost", False):
         _refuse(args, "multihost", "multi-host training", 26)
 
@@ -147,6 +157,9 @@ class SLAMTrainer:
             with torch.no_grad():
                 for p in model.decoder.parameters():
                     dist.broadcast(p, src=0)
+        if args.get("fsdp", False):
+            fsdp.shard_decoder(model.decoder, self.mesh)
+        self.sharded = fsdp.is_sharded(model.decoder)
         self.state = TrainerState()
         self.control = TrainerControl()
         self._data_pos = (0, 0)  # (epoch, microbatches consumed in epoch)
@@ -184,8 +197,9 @@ class SLAMTrainer:
             epochs = float(args.get("num_train_epochs", 1))
             self.total_steps = max(int(epochs * self.steps_per_epoch), 1)
         self.state.max_steps = self.total_steps
-        self.optimizer, self.schedule = make_optimizer(args, model.parameters(),
-                                                       self.total_steps)
+        self.optimizer, self.schedule = make_optimizer(
+            args, model.parameters(), self.total_steps,
+            names=[n for n, _ in model.decoder.named_parameters()])
         self.dropout_stream = dropout_stream(model, args)
 
     def _setup_seq_axis(self):
@@ -275,14 +289,17 @@ class SLAMTrainer:
             loss_sum += loss.detach()
         if self.world > 1:
             with record_function("train/all_reduce"):
-                all_reduce_grads(self.model.decoder)
+                if not self.sharded:
+                    all_reduce_grads(self.model.decoder)
+                elif self.n_seq > 1:   # the shards are replicated over 'seq'
+                    all_reduce_grads(self.model.decoder, self.mesh.group("seq"))
                 dist.all_reduce(loss_sum)
         with record_function("train/optimizer"):
             self.optimizer.step()
             self.optimizer.zero_grad()
         return loss_sum, sum(self._count_tokens(mb["labels"]) for mb in group)
 
-    @torch.inference_mode()
+    @fsdp.inference_forward(lambda self: self.model.decoder)
     def evaluate(self) -> Dict[str, float]:
         if self.eval_batcher is None:
             return {}
@@ -311,8 +328,9 @@ class SLAMTrainer:
     # ------------------------------------------------------------------ #
     def save_checkpoint(self):
         """Rank 0 writes the checkpoint (in the background under async_save);
-        on a mesh every rank then waits for it at a barrier."""
-        if self.mesh.rank == 0:
+        on a mesh every rank then waits for it at a barrier. Sharded, every
+        rank first helps gather the state to rank 0."""
+        if self.mesh.rank == 0 or self.sharded:
             self._write_checkpoint()
         if self.world > 1:
             dist.barrier()
@@ -334,9 +352,10 @@ class SLAMTrainer:
             "num_input_tokens_seen": self.state.num_input_tokens_seen,
             "log_history": self.state.log_history[-50:]}
         self._saver.wait()
-        state = checkpoint.train_state(self.model, self.optimizer, self.dropout_stream)
-        if self._async_save:
-            state = checkpoint.snapshot(state)
+        state = checkpoint.train_state(self.model, self.optimizer, self.dropout_stream,
+                                       copy=self._async_save, keep=self.mesh.rank == 0)
+        if state is None:
+            return
         output_dir, limit = self.args["output_dir"], self.args.get("save_total_limit", None)
 
         def write():

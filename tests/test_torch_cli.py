@@ -163,7 +163,8 @@ def _cached_runs_match(work, tmp_path, mixed):
     (["training_args.multihost=true"], "item 26"),
     (["data.train_path=[/a.jsonl,/b.jsonl]", "data.saved_ds_path=/tmp/ds"], None),
     (["data.saved_ds_path=/tmp/ds"], None),
-    (["training_args.fsdp=true"], "item 23"),
+    # fsdp is ported (tests/test_torch_fsdp*.py); with multihost it raises
+    (["training_args.fsdp=true", "training_args.multihost=true"], "item 26"),
 ], ids=["overrides0-item 14", "overrides1-item 18", "overrides2-item 18", "overrides3-item 14"])
 def test_train_cli_refuses_what_is_not_ported(work, tmp_path, overrides, match):
     """What is not ported raises; data.saved_ds_path (match None), ported
@@ -344,12 +345,13 @@ def test_eval_cli_generate_branch_matches_jax(eval_files, monkeypatch):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
-# eval_mesh itself is ported (tests/test_torch_eval_mesh.py); its parameter
-# sharding, eval_fsdp, is not
+# eval_mesh and its parameter sharding, eval_fsdp, are ported
+# (tests/test_torch_eval_mesh.py, tests/test_torch_fsdp_jax.py); a backend
+# of another package raises for either metric
 @pytest.mark.parametrize("extra,match", [
     (["metric=asr_perplexity", "+metric.asr_backend=onnx"], "asr_backend='onnx'"),
     (["metric=llm_as_judge", "+metric.llm_backend=vllm"], "llm_backend='vllm'"),
-    (["metric=sblimp", "eval_mesh=2", "eval_fsdp=true"], "item 23"),
+    (["metric=llm_as_judge", "+metric.asr_backend=whisperx"], "asr_backend='whisperx'"),
 ], ids=["extra0-asr_backend='onnx'", "extra1-llm_backend='vllm'", "extra2-item 14"])
 def test_eval_cli_refuses_what_is_not_ported(extra, match):
     with pytest.raises(NotImplementedError, match=match):

@@ -360,11 +360,11 @@ def test_evaluate_wraps_round(tmp_path, flat):
         assert out["eval_rewards/accuracies"] == 0.0
 
 
-# fsdp and multihost are not ported; a mesh is, by the JAX `make_mesh` rules,
+# multihost is not ported (with fsdp too); a mesh is, by the JAX `make_mesh` rules,
 # so on one process a 2-rank mesh and axes that do not match the shape raise
 # as they do in JAX (DPO on gloo ranks: tests/test_torch_parallel_dpo.py)
 @pytest.mark.parametrize("override,error,match", [
-    (dict(fsdp="true"), NotImplementedError, "item 23"),
+    (dict(fsdp="true", multihost="true"), NotImplementedError, "item 26"),
     (dict(mesh_shape="[2]"), ValueError, r"mesh shape \(2,\) != device count 1"),
     (dict(mesh_axes="[data,seq]"), ValueError, "rank != mesh shape"),
     (dict(multihost="true"), NotImplementedError, "item 26"),

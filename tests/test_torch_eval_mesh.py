@@ -95,9 +95,13 @@ def test_row_tiles_pad_and_drop_as_jax_does():
 
 
 def test_shard_refuses_what_is_not_ported(ckpt):
+    """tp raises (item 24); fsdp=True is ported: on one rank it is the
+    unsharded model (the ranks' sharding: tests/test_torch_fsdp.py)."""
+    from slamkit_tpu_torch.parallel.fsdp import is_sharded
+
     tlm = UnitLM.from_pretrained(str(ckpt), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 23"):
-        tlm.shard(Mesh(("data",), (1,)), fsdp=True)
+    assert tlm.shard(Mesh(("data",), (1,)), fsdp=True) is tlm
+    assert not is_sharded(tlm.decoder) and tlm._row_tile(5) is None
     with pytest.raises(NotImplementedError, match="item 24"):
         tlm.shard(Mesh(("data",), (1,)), tp=True)
     assert tlm.shard(Mesh(("data",), (1,))) is tlm and tlm._row_tile(5) is None
@@ -132,7 +136,9 @@ def _sblimp_files(d):
     np.save(d / "km.npy", frames[rng.choice(len(frames), 500)].astype(np.float32))
 
 
-def test_eval_cli_under_torchrun_prints_one_process_numbers(tmp_path, ckpt):
+def test_eval_cli_under_torchrun_prints_one_process_numbers(tmp_path, ckpt, fsdp=False):
+    """`eval_mesh=2` (with `fsdp`, `eval_fsdp=true`: the weights sharded
+    too) prints the one-process numbers."""
     _sblimp_files(tmp_path)
     ov = [f"model.pretrained_model={ckpt}", "model.config_args.torch_dtype=float32",
           "metric=sblimp", f"metric.data_path={tmp_path / 'sblimp'}", "metric.subfolder=false",
@@ -143,7 +149,8 @@ def test_eval_cli_under_torchrun_prints_one_process_numbers(tmp_path, ckpt):
     env = {**{k: v for k, v in os.environ.items() if k != "PYTHONPATH"},
            "OMP_NUM_THREADS": "1", "PYTHONPATH": str(ROOT)}
     runs = {"mesh": [sys.executable, "-m", "torch.distributed.run", "--standalone",
-                     "--nproc_per_node", "2", *cli, *ov, "eval_mesh=2"],
+                     "--nproc_per_node", "2", *cli, *ov, "eval_mesh=2",
+                     f"eval_fsdp={str(fsdp).lower()}"],
             "one": [sys.executable, *cli, *ov]}
     printed = {}
     for name, cmd in runs.items():
@@ -152,3 +159,7 @@ def test_eval_cli_under_torchrun_prints_one_process_numbers(tmp_path, ckpt):
         assert proc.returncode == 0, (name, proc.stderr[-4000:])
         printed[name] = [line for line in proc.stdout.splitlines() if ":" in line]
     assert printed["one"] and printed["mesh"] == printed["one"]
+
+
+def test_eval_cli_fsdp_under_torchrun_prints_one_process_numbers(tmp_path, ckpt):
+    test_eval_cli_under_torchrun_prints_one_process_numbers(tmp_path, ckpt, fsdp=True)

@@ -522,6 +522,39 @@ def test_parallel_smoke_rehearsal_on_gloo_ranks_without_jax(tmp_path):
     assert ev["launches_by_rank"] == [{"flash_fwd": 0, "dq_matmul": 0}] * 2
 
 
+#: the sims7b leg's rehearsal: Qwen2.5-7B's config.json with its widths
+#: cut to a 2-layer, 64-wide decoder, an 804-entry tokenizer, context 256
+SIMS_REHEARSAL = dict(arch=dict(hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
+                                num_key_value_heads=2, intermediate_size=128),
+                      entries=804, context=256)
+
+
+def test_sims7b_leg_rehearsal_on_gloo_ranks_without_jax(tmp_path):
+    """`tools/parallel_smoke.run(legs=("sims7b",))` on 2 gloo ranks, JAX and
+    the rest blocked: `--config-name train_inter_scale` with
+    `training_args.fsdp=true` from the 7B base directory (untied
+    embeddings, rope_theta 1e6) at 2 layers, 64 wide: 3 finite steps of 4
+    rows of 256, step 1 equal to the unsharded loss a row at a time, its
+    gradient norm finite, every parameter moved, no launch and no
+    checkpoint."""
+    import torch_mesh_workers
+
+    ranks = torch_mesh_workers.launch("parallel_smoke", 2, tmp_path, timeout=300, block=True,
+                                      context=256, rows=2, n_rows=30, lengths=[50, 300],
+                                      legs=["sims7b"], sims=SIMS_REHEARSAL)
+    assert all(json.loads(str(r["loaded"])) == [] for r in ranks)
+    row = json.loads(str(ranks[0]["result"]))["sims7b"]
+    assert row["mesh_shape"] == [2] and row["fsdp"] and row["rows_a_step"] == 4
+    assert row["layers"] == 2 and row["hidden_size"] == 64 and row["vocab_size"] == 804 + 502
+    assert len(row["losses"]) == 3 and all(np.isfinite(row["losses"]))
+    assert row["loss_err"] <= 1e-5, row
+    assert np.isfinite(row["grad_norm_step1"]) and row["grad_norm_step1"] > 0
+    assert row["unmoved_parameters"] == [], row
+    assert row["launches_by_rank"] == [{"flash_fwd": 0, "flash_bwd": 0}] * 2
+    assert row["checkpoint"] is None and row["mfu"] is None
+    assert not (tmp_path / "work" / "sims7b").exists()
+
+
 def test_chip_smoke_ring_rehearsal_on_cpu(chip_smoke, capsys):
     """Phase 17 on the CPU at a small shape: both schedules, float32 and
     bf16 (the plain versions), every check, no launch and no timing."""

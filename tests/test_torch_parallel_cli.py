@@ -107,3 +107,62 @@ def test_dpo_cli_under_torchrun_equals_one_process(tmp_path):
                                    err_msg=key)
     assert sorted(p.name for p in (tmp_path / "mesh").iterdir()) == ["checkpoint-1",
                                                                       "checkpoint-2"]
+
+
+def _torchrun_and_one(tmp_path, cli, mesh_args, one_args):
+    """Run `cli` under `torchrun --standalone --nproc_per_node 2` and in one
+    process."""
+    runs = {"mesh": [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                     "--nproc_per_node", "2", *cli, *mesh_args],
+            "one": [sys.executable, *cli, *one_args]}
+    for name, cmd in runs.items():
+        proc = subprocess.run(cmd, cwd=tmp_path, env=_env(), capture_output=True, text=True,
+                              timeout=300)
+        assert proc.returncode == 0, (name, proc.stderr[-4000:])
+
+
+def test_train_cli_fsdp_under_torchrun_equals_one_process(tmp_path):
+    """`cli.train training_args.fsdp=true` on [2] (parameters, gradients and
+    moments sharded) logs the one-process run's losses and eval loss of the
+    same 4-row global batch within 1e-5, and its checkpoint-2 holds the
+    one-process parameters in the one-rank layout."""
+    tokens = tmp_path / "tokens.jsonl"
+    write_markov_corpus(tokens, 40)
+    cli = ["-m", "slamkit_tpu_torch.cli.train"]
+    mesh = [*_overrides(tokens, tmp_path / "mesh"), "training_args.fsdp=true",
+            "training_args.mesh_shape=[2]"]
+    one = [*_overrides(tokens, tmp_path / "one"), "training_args.per_device_train_batch_size=4",
+           "training_args.per_device_eval_batch_size=4"]
+    _torchrun_and_one(tmp_path, cli, mesh, one)
+    got, want = _history(tmp_path / "mesh"), _history(tmp_path / "one")
+    pick = lambda h, key: [r[key] for r in h if key in r]
+    assert len(pick(want, "loss")) == 2 and len(pick(want, "eval_loss")) == 1
+    for key in ("loss", "eval_loss"):
+        np.testing.assert_allclose(pick(got, key), pick(want, key), rtol=1e-5, atol=1e-5)
+    with np.load(tmp_path / "mesh" / "checkpoint-2" / "params.npz") as a, \
+            np.load(tmp_path / "one" / "checkpoint-2" / "params.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in b.files:
+            np.testing.assert_allclose(a[k], b[k], rtol=1e-5, atol=1e-5, err_msg=k)
+
+
+def test_dpo_cli_fsdp_under_torchrun_equals_one_process(tmp_path):
+    """`cli.preference_alignment_train training_args.fsdp=true` on 'data'
+    (policy and reference sharded, 2 pairs a rank) logs the one-process
+    run's losses, reward metrics and eval loss within 1e-5."""
+    UnitLM(UnitLMConfig(base_model_name="EleutherAI/pythia-14m", vocab_size=502,
+                        twist_init=False, torch_dtype="float32",
+                        config_overrides=dict(num_hidden_layers=2)),
+           seed=0, device="cpu").save_pretrained(str(tmp_path / "ckpt"))
+    write_preference_rows(tmp_path / "pref.jsonl", 12, prompt_len=20, completion_len=10)
+    cli = ["-m", "slamkit_tpu_torch.cli.preference_alignment_train"]
+    _torchrun_and_one(tmp_path, cli,
+                      [*_dpo_overrides(tmp_path, tmp_path / "mesh", 2), "training_args.fsdp=true"],
+                      _dpo_overrides(tmp_path, tmp_path / "one", 4))
+    got, want = _history(tmp_path / "mesh"), _history(tmp_path / "one")
+    pick = lambda h, key: [r[key] for r in h if key in r]
+    assert len(pick(want, "loss")) == 2 and len(pick(want, "eval_loss")) == 1
+    for key in ("loss", "rewards/chosen", "rewards/rejected", "rewards/accuracies",
+                "rewards/margins", "eval_loss", "eval_rewards/accuracies"):
+        np.testing.assert_allclose(pick(got, key), pick(want, key), rtol=1e-5, atol=1e-5,
+                                   err_msg=key)

@@ -250,8 +250,9 @@ def test_preference_train_equals_jax_and_resumes(dpo_files):
 
 @pytest.mark.parametrize("overrides,error,match", [
     (["tokeniser=interleaved_hubert_25"], ValueError, "Interleave tokeniser"),
-    pytest.param(["training_args.fsdp=true"], NotImplementedError, "item 23",
-                 id="overrides1-NotImplementedError-item 14"),
+    # fsdp is ported (tests/test_torch_fsdp*.py); with multihost it raises
+    pytest.param(["training_args.fsdp=true", "training_args.multihost=true"],
+                 NotImplementedError, "item 26", id="overrides1-NotImplementedError-item 14"),
     pytest.param(["training_args.multihost=true"], NotImplementedError, "item 26",
                  id="overrides2-NotImplementedError-item 14"),
     # attention dropout on the flash path raises, as in JAX (the id is the

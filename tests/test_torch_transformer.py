@@ -196,3 +196,24 @@ def test_reset_parameters_is_seeded():
         np.testing.assert_array_equal(a[k], b[k])
     assert np.all(a["layers/attn_norm_scale"] == 1.0) and np.all(a["layers/q_b"] == 0.0)
     assert abs(float(a["layers/q_w"].std()) - cfg.initializer_range) < 0.005
+
+
+def test_layers_run_under_the_decoders_config(monkeypatch):
+    """Each layer takes the decoder's config at every call, so replacing
+    `decoder.cfg` (as `chip_smoke.py` phase 15 switches remat policies)
+    changes how the layers run: the qkv policy's split checkpoints run
+    under remat_policy=qkv alone, once a layer."""
+    from slamkit_tpu_torch.models import transformer
+
+    cfg, _ = _configs("qwen2")
+    dec = Decoder(dataclasses.replace(cfg, remat=True), device="cpu").reset_parameters(
+        torch.Generator().manual_seed(0))
+    calls, real = [], transformer._qkv_remat_layer
+    monkeypatch.setattr(transformer, "_qkv_remat_layer",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    ids = torch.from_numpy(np.random.default_rng(0).integers(0, 96, (2, 16)))
+    for policy, want in (("full", 0), ("qkv", cfg.num_layers), ("full", 0)):
+        dec.cfg = dataclasses.replace(cfg, remat=True, remat_policy=policy)
+        calls.clear()
+        dec(ids)[0].sum().backward()
+        assert len(calls) == want, policy

@@ -96,12 +96,15 @@ def ring(tmp, inputs, schedule, dtype="float32"):
 # --------------------------------------------------------------------------- #
 def record_grads(trainer) -> list:
     """Make `trainer` keep a copy of the gradients each optimizer step
-    reads (on a mesh: the all-reduced global gradient); returns the list
-    they are appended to, one {parameter name: array} a step."""
+    reads (on a mesh: the all-reduced global gradient, gathered whole
+    where it is sharded); returns the list they are appended to, one
+    {parameter name: array} a step."""
+    from slamkit_tpu_torch.models.convert import whole
+
     steps, step = [], trainer.optimizer.step
 
     def recording_step(*a, **kw):
-        steps.append({n: p.grad.detach().clone().numpy()
+        steps.append({n: whole(p.grad.detach()).clone().numpy()
                       for n, p in trainer.model.decoder.named_parameters()
                       if p.grad is not None})
         return step(*a, **kw)
@@ -110,12 +113,21 @@ def record_grads(trainer) -> list:
     return steps
 
 
-def train(tmp, config, args, train_seqs, eval_seqs, context_len):
+def _params(params_path):
+    """The flat JAX-layout weights saved at `params_path`, or None."""
+    if params_path is None:
+        return None
+    with np.load(params_path) as flat:
+        return {k: flat[k] for k in flat.files}
+
+
+def train(tmp, config, args, train_seqs, eval_seqs, context_len, params_path=None):
     """`SLAMTrainer` on the mesh of `args` (training_args as a dict), a fresh
-    `UnitLM(config, seed=0)` and `train_seqs` packed at `context_len`, then
-    a second trainer resuming from the first's checkpoint-1: each run's
-    logged losses and eval losses, the first run's gradients of each step,
-    and each run's final parameters."""
+    `UnitLM(config, seed=0)` (or the weights at `params_path`) and
+    `train_seqs` packed at `context_len`, then a second trainer resuming
+    from the first's checkpoint-1: each run's logged losses and eval losses,
+    the first run's gradients of each step, and each run's final
+    parameters."""
     from slamkit_tpu_torch.data import TokenDataset
     from slamkit_tpu_torch.models import UnitLM, UnitLMConfig, to_flat
     from slamkit_tpu_torch.trainer import SLAMTrainer
@@ -123,7 +135,8 @@ def train(tmp, config, args, train_seqs, eval_seqs, context_len):
     out = {}
     first = args["output_dir"]
     for run, resume in (("a", False), ("b", first + "/checkpoint-1")):
-        model = UnitLM(UnitLMConfig(**config), seed=0, device="cpu")
+        model = UnitLM(UnitLMConfig(**config), params=_params(params_path), seed=0,
+                       device="cpu")
         tr = SLAMTrainer(model, {**args, "output_dir": first + ("" if run == "a" else "_b")},
                          TokenDataset.from_lists(train_seqs),
                          eval_dataset=TokenDataset.from_lists(eval_seqs), packing=True,
@@ -144,12 +157,13 @@ DPO_KEYS = ("loss", "rewards/chosen", "rewards/rejected", "rewards/accuracies",
             "rewards/margins", "eval_loss", "eval_rewards/accuracies")
 
 
-def dpo(tmp, config, args, train_rows, eval_rows):
+def dpo(tmp, config, args, train_rows, eval_rows, params_path=None):
     """`SLAMDPOTrainer` on the mesh of `args` (training_args as a dict) from
-    a fresh `UnitLM(config, seed=0)` over `train_rows` (preference rows of
-    unit strings), then a second trainer resuming from the first's
-    checkpoint-1: each run's logged `DPO_KEYS`, the first run's gradients
-    of each step, and each run's final parameters."""
+    a fresh `UnitLM(config, seed=0)` (or the weights at `params_path`) over
+    `train_rows` (preference rows of unit strings), then a second trainer
+    resuming from the first's checkpoint-1: each run's logged `DPO_KEYS`,
+    the first run's gradients of each step, and each run's final
+    parameters."""
     from slamkit_tpu_torch.models import UnitLM, UnitLMConfig, to_flat
     from slamkit_tpu_torch.tokeniser import UnitTokeniser
     from slamkit_tpu_torch.trainer import SLAMDPOTrainer
@@ -157,7 +171,8 @@ def dpo(tmp, config, args, train_rows, eval_rows):
     out = {}
     first = args["output_dir"]
     for run, resume in (("a", None), ("b", first + "/checkpoint-1")):
-        model = UnitLM(UnitLMConfig(**config), seed=0, device="cpu")
+        model = UnitLM(UnitLMConfig(**config), params=_params(params_path), seed=0,
+                       device="cpu")
         tr = SLAMDPOTrainer(model, UnitTokeniser(num_units=60),
                             {**args, "output_dir": first + ("" if run == "a" else "_b")},
                             train_rows, eval_dataset=eval_rows)
@@ -171,10 +186,11 @@ def dpo(tmp, config, args, train_rows, eval_rows):
     return out
 
 
-def eval_calls(tlm, tokens, prompts) -> dict:
+def eval_calls(tlm, tokens, prompts, int8: bool = False) -> dict:
     """The scoring and sampling calls the eval-mesh test compares: mean and
     summed log-likelihoods, with ignored ids, and greedy, sampled and
-    penalised generations of the left-padded `prompts`."""
+    penalised generations of the left-padded `prompts` (with `int8`, also
+    the int8 greedy one)."""
     mask = (prompts != tlm.config.pad_token_id).astype(np.int32)
     out = {"ll": tlm.log_likelihood(tokens), "ll_sum": tlm.log_likelihood(tokens, mean_nll=False),
            "ll_ignore": tlm.log_likelihood(tokens, ignore_tokens=[5, 6, 7]),
@@ -183,22 +199,45 @@ def eval_calls(tlm, tokens, prompts) -> dict:
                                    seed=3),
            "penalised": tlm.generate(prompts, mask, max_new_tokens=6, top_p=0.9,
                                      repetition_penalty=1.3, bad_words_ids=[[9]], seed=4)}
+    if int8:
+        out["int8"] = tlm.generate(prompts, mask, max_new_tokens=6, do_sample=False,
+                                   weight_quant="int8")
     return {k: v.numpy() for k, v in out.items()}
 
 
-def eval_mesh(tmp, ckpt, tokens, prompts):
-    """`UnitLM.shard` over the world's 'data' mesh: `eval_calls` on the
-    global `tokens` and `prompts` (lists), every rank's results."""
+def eval_mesh(tmp, ckpt, tokens, prompts, fsdp=False, overrides=None):
+    """`UnitLM.shard` over the world's 'data' mesh (with `fsdp`, the weights
+    sharded too): `eval_calls` on the global `tokens` and `prompts` (lists),
+    every rank's results (with `fsdp`, the int8 greedy call too).
+    overrides: `from_pretrained` keyword overrides."""
     from slamkit_tpu_torch.models import UnitLM
     from slamkit_tpu_torch.parallel import make_mesh
 
-    tlm = UnitLM.from_pretrained(ckpt, device="cpu").shard(make_mesh())
-    return eval_calls(tlm, np.asarray(tokens, np.int32), np.asarray(prompts, np.int32))
+    tlm = UnitLM.from_pretrained(ckpt, device="cpu", **(overrides or {}))
+    tlm.shard(make_mesh(), fsdp=fsdp)
+    return eval_calls(tlm, np.asarray(tokens, np.int32), np.asarray(prompts, np.int32),
+                      int8=fsdp)
 
 
-def parallel_smoke(tmp, context, rows, n_rows, lengths):
-    """`tools/parallel_smoke.run` on the CPU at a 2-layer, 64-wide decoder
-    in float32: its result as JSON, and the blocked modules loaded."""
+def fsdp_placement(tmp, config, params_path):
+    """`UnitLM.shard(fsdp=True)` of the weights at `params_path` over the
+    world's 'data' mesh: this rank's local shard of every parameter, by
+    `named_parameters()` name."""
+    from slamkit_tpu_torch.models import UnitLM, UnitLMConfig
+    from slamkit_tpu_torch.parallel import make_mesh
+    from slamkit_tpu_torch.parallel.fsdp import local
+
+    tlm = UnitLM(UnitLMConfig(**config), params=_params(params_path), device="cpu")
+    tlm.shard(make_mesh(), fsdp=True)
+    return {name: local(p.detach()).numpy() for name, p in tlm.decoder.named_parameters()}
+
+
+def parallel_smoke(tmp, context, rows, n_rows, lengths, legs=("meshes", "dpo", "eval"),
+                   sims=None, eval_sizes=None):
+    """`tools/parallel_smoke.run` of `legs` on the CPU at a 2-layer, 64-wide
+    decoder in float32 (`sims`: the sims7b leg's `sims_*` keyword
+    arguments; `eval_sizes`: `run_eval`'s): its result as JSON, and the
+    blocked modules loaded."""
     import torch
 
     from slamkit_tpu_torch.models import UnitLMConfig
@@ -212,7 +251,9 @@ def parallel_smoke(tmp, context, rows, n_rows, lengths):
     work = tmp / "work"
     work.mkdir(exist_ok=True)
     result = smoke.run(torch.device("cpu"), work, cfg=cfg, context=context, rows=rows,
-                       n_rows=n_rows, lengths=tuple(lengths))
+                       n_rows=n_rows, lengths=tuple(lengths), legs=tuple(legs),
+                       eval_sizes=eval_sizes,
+                       **{f"sims_{k}": v for k, v in (sims or {}).items()})
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     return {"result": np.asarray(json.dumps(result)), "loaded": np.asarray(json.dumps(loaded))}
 
