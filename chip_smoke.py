@@ -281,7 +281,13 @@ d = 160 (`d160`, the same layout), and at d = 256 itself (`d256`), the last
 two causal and not (`_noncausal`), their bounds on the original d; no
 shipped config runs d = 160 or 256. Phases 3e and 3f also hold the float32
 kernels at float32 SIMS's shape (`sims_f32`: [4, 14/2, 2048, 64], rows
-packed as `sims_T2048`'s), which phase 16 (c) runs.
+packed as `sims_T2048`'s), which phase 16 (c) runs. Phases 3 and 3b hold
+the bf16 kernels at the local heads of tensor parallelism over 'model'
+(`parallel/tensor.py`): the Slam batch at model = 2 (`tp2_slam`: [8, 7/1,
+1024, 64]) and SIMS at Qwen2.5-7B's widths at model = 4 (`tp4_sims7b`: [2,
+7/1, 2048, 128], tools/parallel_smoke.py's 2 rows a step), and phase 3c
+holds dq_matmul at the Slam projections split over model = 2 (up / gate's
+[896, 2432] columns, down's [2432, 896] rows).
 
 Each main path runs with the launch counters zeroed just before it and read
 just after: every scoring forward and every generation prefill launches the
@@ -438,6 +444,9 @@ F32_LOSS_REL_BOUND, F32_GRAD_REL_BOUND, F32_GRAD_FLOOR = 1e-5, 1e-4, 1e-2
 # the Slam decoder's (K, N) projection shapes: q/o 896x896, k/v 896x128,
 # up/gate 896x4864, down 4864x896
 SLAM_KN = ((896, 896), (896, 128), (896, 4864), (4864, 896))
+# the same projections split over 'model' = 2 (tensor parallelism,
+# slamkit_tpu_torch/parallel/tensor.py): up/gate's columns, down's rows
+TP2_SLAM_KN = ((896, 2432), (2432, 896))
 # phase 8, card against float32 CPU on the same weights. HuBERT runs float32
 # on both (TF32 off), so its tapped features differ by summation order only
 # (~1e-6 relative per stage over ~20 stages): ||card - cpu|| / ||cpu|| <=
@@ -890,6 +899,8 @@ def check_kernels(dev, f32: bool = False) -> list[dict]:
         ("pythia14m_sims", (8, 4, 4, 2048, 32), True, _mixed_segments(rng, 8, 2048)),
         ("d80", (4, 8, 2, 1024, 80), True, _packed_segments(rng, 4, 1024, 4)),
         *_wide_head_cases(rng, with_causal=True),
+        ("tp2_slam", (8, 7, 1, 1024, 64), True, _packed_segments(rng, 8, 1024, 8)),
+        ("tp4_sims7b", (2, 7, 1, 2048, 128), True, _mixed_segments(rng, 2, 2048)),
     ]
     dtype, counter = (torch.float32, "f32_launches") if f32 else (torch.bfloat16, "launches")
     out_bound, lse_bound = (F32_OUT_BOUND, F32_LSE_BOUND) if f32 else (OUT_BOUND, LSE_BOUND)
@@ -1052,6 +1063,8 @@ def check_backward_kernels(dev, f32: bool = False) -> list[dict]:
         ("pythia14m_sims", (8, 4, 4, 2048, 32), _mixed_segments(rng, 8, 2048)),
         ("d80", (4, 8, 2, 1024, 80), _packed_segments(rng, 4, 1024, 4)),
         *_wide_head_cases(rng),
+        ("tp2_slam", (8, 7, 1, 1024, 64), _packed_segments(rng, 8, 1024, 8)),
+        ("tp4_sims7b", (2, 7, 1, 2048, 128), _mixed_segments(rng, 2, 2048)),
     ]
     dtype, counter = (torch.float32, "f32_launches") if f32 else (torch.bfloat16, "launches")
     results = []
@@ -1150,7 +1163,8 @@ def _int8pack_library(x, q, s, want):
 
 def check_dq_kernels(dev) -> list[dict]:
     """Phase 3c: the dq_matmul kernel against its plain version at the Slam
-    decoder's four (K, N) pairs, for the decode rows (M = 8, the smoke's
+    decoder's four (K, N) pairs and the two that 'model' = 2 splits them to
+    (`TP2_SLAM_KN`), for the decode rows (M = 8, the smoke's
     batch, and 16, tools/bench_decode.py's) and the prefill rows (M = 8 x 75,
     phase 8's prompt of 3 s at 25 Hz, and 8 x 128); beside it
     `torch._weight_int8pack_mm` on the same (x, q, s) and, for the prefill
@@ -1165,7 +1179,7 @@ def check_dq_kernels(dev) -> list[dict]:
 
     results = []
     for m in (8, 16, 600, 1024):
-        for k, n in SLAM_KN:
+        for k, n in SLAM_KN + TP2_SLAM_KN:
             g = torch.Generator(device=dev).manual_seed(m + k + n)
             x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
             q, s = quantize_weight(torch.randn((k, n), generator=g, device=dev) * 0.02)
@@ -4482,7 +4496,7 @@ def run_sims_defaults(dev, smi: str, work: pathlib.Path, tiny: bool = False, n_r
 RING_N = 4
 # ... and on a host of two or more cards, tools/parallel_smoke.py's legs in
 # two torchrun calls of at most 900 s each
-PARALLEL_CALLS = ("meshes,dpo,eval", "fsdp,sims7b")
+PARALLEL_CALLS = ("meshes,dpo,eval", "fsdp,sims7b", "tp,tp_eval,tp_sims7b")
 PARALLEL_LEGS = tuple(leg for call in PARALLEL_CALLS for leg in call.split(","))
 
 
@@ -4518,7 +4532,7 @@ def run_ring_kernels(dev, shape=(8, 14, 2, 1024, 64)) -> dict:
     plain version. Each of the ring's call shapes is then timed alone
     (graph ms beside its bound, the plain version and SDPA). Where the host
     has two or more cards, `tools/parallel_smoke.py` runs on all of them
-    (an even count) under torchrun, in the two calls of PARALLEL_CALLS; on
+    (an even count) under torchrun, in the three calls of PARALLEL_CALLS; on
     one card a line says they are not run.
     Returns the launches of the ring runs by kernel, the checks, the times
     and the multi-card leg's result. On the CPU (a rehearsal at a small
@@ -4665,12 +4679,13 @@ def run_ring_kernels(dev, shape=(8, 14, 2, 1024, 64)) -> dict:
     if cards < 2:
         print(f"phase 17: {cards} card on this host: the multi-card legs of "
               f"tools/parallel_smoke.py ({', '.join(PARALLEL_LEGS)}: the data and 'seq' meshes, "
-              f"DPO, evaluation, fsdp and SIMS at Qwen2.5-7B's widths on fsdp) need two or "
+              f"DPO, evaluation, fsdp, tensor parallelism over 'model' and SIMS at "
+              f"Qwen2.5-7B's widths on fsdp and on 'model') need two or "
               f"more (NCCL takes one card a rank) and are not run", flush=True)
         return result
     n = cards - cards % 2
     result["parallel_smoke"] = {}
-    for legs in PARALLEL_CALLS:   # two calls, each within its own limit
+    for legs in PARALLEL_CALLS:   # three calls, each within its own limit
         t1 = time.perf_counter()
         proc = subprocess.run([sys.executable, "-m", "torch.distributed.run",
                                "--nproc_per_node", str(n), "-m",

@@ -28,8 +28,16 @@ training_args.mesh_shape / mesh_axes / cp_schedule describe:
 
 training_args.fsdp=true shards the parameters, gradients and optimizer
 state over 'data' (ZeRO-3, `parallel/fsdp.py`; the checkpoints keep the
-one-rank format). training_args.multihost=true raises (ROADMAP queue 1
-item 26), and so does a 'model' axis above 1 (item 24).
+one-rank format). training_args.mesh_shape=[d,m] mesh_axes=[data,model]
+splits the decoder's weights over 'model' (tensor parallelism,
+`parallel/tensor.py`), the batch over 'data':
+
+    python -m torch.distributed.run --nproc_per_node 4 -m slamkit_tpu_torch.cli.train \
+        model=slam ... training_args.mesh_shape=[2,2] training_args.mesh_axes=[data,model]
+
+training_args.multihost=true raises (ROADMAP queue 1 item 26), fsdp beside a
+'model' axis above 1 raises (item 28), and so does 'model' beside 'seq'
+(item 29).
 """
 import logging
 import os

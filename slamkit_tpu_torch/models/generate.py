@@ -21,15 +21,27 @@ dense generation runs it as it is, each layer gathered as it runs and cast
 at its use to the values `compute_copy` would hold (`Decoder.forward`'s
 `cast_weights`), and the int8 copy gathers one weight at a time and
 quantizes it whole.
+
+A decoder split over 'model' (`UnitLM.shard(tp=True)`, `parallel/tensor.py`)
+keeps its slices: the KV cache holds the rank's kv heads, the last
+position's vocab columns are gathered whole (`gather_vocab`) before they are
+masked and sampled, so every rank of a 'model' line draws the same token
+from the same generator. Its int8 copy quantizes each projection whole, so
+the scales are the unsharded ones bit for bit, then keeps the rank's slice:
+a column-parallel weight its columns of q and s, a row-parallel one its
+rows of q and the whole s; `dq_matmul` runs on the slices and the
+row-parallel partial outputs are summed over the line.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch import nn
 
 from ..ops.quant import quantize_weight
 from ..parallel.fsdp import inference_forward, is_sharded
+from ..parallel.tensor import gather_vocab, is_tp, tp_shard, whole_of
 from .convert import whole
 from .transformer import Decoder, init_cache
 
@@ -89,19 +101,24 @@ def _weights(decoder: Decoder) -> dict:
 
 
 def _assemble(decoder: Decoder, state: dict) -> Decoder:
-    """A Decoder holding `state`'s tensors without copies; an int8 dict
-    replaces its parameter as a plain attribute, which `_proj` reads."""
+    """A Decoder holding `state`'s tensors without copies (a tensor-parallel
+    rank's slices, with the decoder's `tp`); an int8 dict replaces its
+    parameter as a plain attribute, which `_proj` reads."""
     clone = Decoder(decoder.cfg, device="meta")
-    dense = {k: v for k, v in state.items() if not isinstance(v, dict)}
-    missing = clone.load_state_dict(dense, strict=False, assign=True).missing_keys
-    if set(missing) != {k for k, v in state.items() if isinstance(v, dict)}:
-        raise ValueError(f"weights missing from the decoder's state: {sorted(missing)}")
+    missing = sorted({name for name, _ in clone.named_parameters()} - set(state))
+    if missing:
+        raise ValueError(f"weights missing from the decoder's state: {missing}")
     for name, w in state.items():
+        module, leaf = name.rsplit(".", 1) if "." in name else ("", name)
+        owner = clone.get_submodule(module)
         if isinstance(w, dict):
-            module, leaf = name.rsplit(".", 1)
-            layer = clone.get_submodule(module)
-            del layer._parameters[leaf]
-            setattr(layer, leaf, w)
+            del owner._parameters[leaf]
+            setattr(owner, leaf, w)
+        else:
+            owner._parameters[leaf] = nn.Parameter(w, requires_grad=False)
+    clone.tp = decoder.tp
+    for mine, theirs in zip(clone.layers, decoder.layers):
+        mine.tp = theirs.tp
     return clone
 
 
@@ -143,13 +160,22 @@ def prepare_int8_decode_params(decoder: Decoder) -> Decoder:
     comes back with the same int8 tensors. A sharded decoder is gathered one
     weight at a time, each quantized whole, so the int8 weights and scales
     are the unsharded model's bit for bit; the copy is whole on every rank
-    (every rank must call it)."""
-    if not is_sharded(decoder):
+    (every rank must call it). A decoder split over 'model' quantizes each
+    projection whole the same way, then keeps the rank's slice of q (and of
+    s where it scales the split columns); its other weights stay slices."""
+    if not is_sharded(decoder) and not is_tp(decoder):
         return _assemble(decoder, _quantize_decode_params(_weights(compute_copy(decoder))))
     dt = decoder.cfg.compute_dtype
-    state = {}
+    state = {name: w for name, w in _weights(decoder).items() if isinstance(w, dict)}
     for name, p in decoder.named_parameters():
-        state.update(_quantize_decode_params({name: _cast(name, whole(p.detach()), dt)}))
+        shard = tp_shard(p)
+        quantized = name.startswith("layers.") and name.rsplit(".", 1)[-1] in _QUANT_KEYS
+        w = whole(p.detach()) if not quantized else whole_of(p, whole(p.detach()))
+        w = _quantize_decode_params({name: _cast(name, w, dt)})[name]
+        if shard is not None and quantized:
+            part = lambda t: shard.narrow(t).clone(memory_format=torch.contiguous_format)
+            w = {"q": part(w["q"]), "s": w["s"] if shard.dim == 0 else part(w["s"])}
+        state[name] = w
     return _assemble(decoder, state)
 
 
@@ -197,10 +223,13 @@ def generate(decoder: Decoder, input_ids: torch.Tensor, attention_mask: torch.Te
     positions = (torch.cumsum(mask, dim=1) - 1).clamp(min=0)
     prompt_len = mask.sum(dim=1)
 
-    cache = init_cache(cfg, b, l0 + max_new_tokens, device=dev)
+    tp = decoder.tp
+    cache = init_cache(cfg, b, l0 + max_new_tokens, device=dev,
+                       kv_heads=cfg.num_kv_heads // (tp.size if tp is not None else 1))
     logits, cache = dec(input_ids, positions=positions, segment_ids=prompt_seg,
                         cache=cache, cache_index=0)
-    last_logits = logits[:, -1, :]  # rightmost position is the last real token
+    # rightmost position is the last real token
+    last_logits = gather_vocab(logits[:, -1, :], tp)
 
     def mask_logits(lg, seen):
         if bad_words_mask is not None:
@@ -229,7 +258,7 @@ def generate(decoder: Decoder, input_ids: torch.Tensor, attention_mask: torch.Te
         pos = (prompt_len + i)[:, None]
         logits, cache = dec(tok[:, None], positions=pos, segment_ids=seg_full,
                             cache=cache, cache_index=l0 + i)
-        nxt = sample(mask_logits(logits[:, -1, :], seen))
+        nxt = sample(mask_logits(gather_vocab(logits[:, -1, :], tp), seen))
         nxt = torch.where(finished, torch.full_like(nxt, pad_token_id), nxt)
         seen[rows, nxt] = True
         if eos_token_id is not None:

@@ -55,6 +55,20 @@ module call (`DecoderLayer.forward`, remat inside it), so a layer whose
 weights are sharded over 'data' (`parallel/fsdp.py`) is gathered around its
 forward, its recompute and its backward.
 
+Tensor parallelism (`parallel/tensor.py`, a decoder that `shard_decoder_tp`
+split over a 'model' line): a layer runs on its local heads and MLP columns,
+the head counts read from the projections' widths (at Slam and model = 2, 7
+q heads and 1 kv head, the GQA group still 7). The q / k / v and MLP inputs
+pass `copy_in` (their gradient summed over the line), the o and down
+projections' partial outputs are summed (`reduce_out`) before their biases
+and the residual dropout, both in the parallel-residual layout too. A
+vocab-sharded embedding looks up the rank's rows and sums them; a
+vocab-sharded head gives the rank's float32 logit columns. The dropout
+sites act on replicated tensors, so every rank draws the same masks;
+attention-probability dropout draws the global heads' mask and takes the
+rank's heads. A remat recompute replays the collectives in the same order
+on every rank.
+
 int8 decode: a layer's seven projection weights may be int8 dicts instead of
 parameters (`_proj`); `models/generate.py` builds such a copy for
 `generate(weight_quant="int8")`, and its prefill and decode steps then run
@@ -71,6 +85,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops import (all_gather_seq, dq_matmul, flash_attention, mha_reference,
                    ring_flash_attention)
+from ..parallel.tensor import copy_in, embed_lookup, reduce_out
 from .presets import DecoderConfig
 
 NEG_INF = -1e30
@@ -197,6 +212,7 @@ class DecoderLayer(nn.Module):
         _opt_param(self, "up_b", cfg.mlp_bias, F_, device=dev, fill=0.0)
         _opt_param(self, "gate_b", cfg.mlp_bias and glu, F_, device=dev, fill=0.0)
         _opt_param(self, "down_b", cfg.mlp_bias, D, device=dev, fill=0.0)
+        self.tp = None   # parallel.tensor.TensorParallel once split over 'model'
 
     def forward(self, x, rope, segment_ids, cfg: DecoderConfig, *, cache_kv=None,
                 cache_index: Optional[int] = None, seed: Optional[int] = None, layer: int = 0,
@@ -226,6 +242,7 @@ class _Cast:
     def __init__(self, layer: nn.Module, dtype):
         for name, p in layer._parameters.items():
             setattr(self, name, None if p is None else p.to(dtype))
+        self.tp = layer.tp
 
 
 # --------------------------------------------------------------------------- #
@@ -283,8 +300,19 @@ def _proj(x, w, b, dt):
     return y + b.to(dt) if b is not None else y
 
 
+def _row_proj(x, w, b, dt, tp):
+    """A row-parallel `_proj`: the ranks' partial products summed over the
+    'model' line (`tp`), then the bias; `_proj` itself without `tp`."""
+    if tp is None:
+        return _proj(x, w, b, dt)
+    y = reduce_out(_proj(x, w, None, dt), tp)
+    return y + b.to(dt) if b is not None else y
+
+
 def _mlp(x, lp: DecoderLayer, cfg: DecoderConfig):
     dt = x.dtype
+    tp = lp.tp if lp.tp is not None and lp.tp.mlp else None
+    x = copy_in(x, tp)
     up = _proj(x, lp.up_w, lp.up_b, dt)
     if cfg.act == "silu_glu":
         h = F.silu(_proj(x, lp.gate_w, lp.gate_b, dt)) * up
@@ -294,12 +322,14 @@ def _mlp(x, lp: DecoderLayer, cfg: DecoderConfig):
         h = F.relu(up)
     else:  # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(up, approximate="tanh")
-    return _proj(h, lp.down_w, lp.down_b, dt)
+    return _row_proj(h, lp.down_w, lp.down_b, dt, tp)
 
 
-def _split_heads(x, n_heads, head_dim):
+def _split_heads(x, head_dim):
+    """[B, T, H * Dh] -> [B, H, T, Dh]; H from the width (a tensor-parallel
+    layer's local heads)."""
     b, t, _ = x.shape
-    return x.view(b, t, n_heads, head_dim).transpose(1, 2)
+    return x.view(b, t, -1, head_dim).transpose(1, 2)
 
 
 def _merge_heads(x):
@@ -309,10 +339,11 @@ def _merge_heads(x):
 
 def _decode_attention(q, k, v, segment_ids, cache_index: int, cfg: DecoderConfig):
     """One query token against the UN-repeated cache: q heads are kv-major,
-    so head i reads kv head i // groups. q [B,H,1,Dh], k/v [B,Hkv,Tmax,Dh]."""
-    b, _, _, dh = q.shape
-    groups = cfg.num_heads // cfg.num_kv_heads
-    qg = q[:, :, 0].reshape(b, cfg.num_kv_heads, groups, dh)
+    so head i reads kv head i // groups. q [B,H,1,Dh], k/v [B,Hkv,Tmax,Dh]
+    (a tensor-parallel layer's local heads)."""
+    b, h, _, dh = q.shape
+    hkv = k.shape[1]
+    qg = q[:, :, 0].reshape(b, hkv, h // hkv, dh)
     scores = torch.einsum("bkgd,bktd->bkgt", qg.float(), k.float()) * cfg.head_dim ** -0.5
     valid = torch.arange(k.shape[2], device=q.device)[None, None, None, :] <= cache_index
     if segment_ids is not None:
@@ -320,7 +351,7 @@ def _decode_attention(q, k, v, segment_ids, cache_index: int, cfg: DecoderConfig
     scores = scores.masked_fill(~valid, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     attn = torch.einsum("bkgt,bktd->bkgd", probs, v)
-    return attn.reshape(b, cfg.num_heads, 1, dh)
+    return attn.reshape(b, h, 1, dh)
 
 
 def _use_flash(cfg: DecoderConfig, device) -> bool:
@@ -343,9 +374,10 @@ def _pre_attention(x, lp: DecoderLayer, rope, cfg: DecoderConfig):
     """Norm (pre-norm), q/k/v projections and rope: (q, k, v)."""
     dt = x.dtype
     h = _norm(x, lp.attn_norm_scale, lp.attn_norm_bias, cfg) if cfg.pre_norm else x
-    q = _split_heads(_proj(h, lp.q_w, lp.q_b, dt), cfg.num_heads, cfg.head_dim)
-    k = _split_heads(_proj(h, lp.k_w, lp.k_b, dt), cfg.num_kv_heads, cfg.head_dim)
-    v = _split_heads(_proj(h, lp.v_w, lp.v_b, dt), cfg.num_kv_heads, cfg.head_dim)
+    h = copy_in(h, lp.tp)
+    q = _split_heads(_proj(h, lp.q_w, lp.q_b, dt), cfg.head_dim)
+    k = _split_heads(_proj(h, lp.k_w, lp.k_b, dt), cfg.head_dim)
+    v = _split_heads(_proj(h, lp.v_w, lp.v_b, dt), cfg.head_dim)
     if rope is not None:
         q = _rope(q, *rope)
         k = _rope(k, *rope)
@@ -353,7 +385,7 @@ def _pre_attention(x, lp: DecoderLayer, rope, cfg: DecoderConfig):
 
 
 def _attention(q, k, v, segment_ids, cfg: DecoderConfig, seed: Optional[int], layer: int,
-               shard=None):
+               shard=None, tp=None):
     """Full-sequence causal attention (scoring, training, a prefill's window)
     on the route `_flash_route` picks, with probability dropout on the plain
     attention when `seed` is given.
@@ -363,7 +395,8 @@ def _attention(q, k, v, segment_ids, cfg: DecoderConfig, seed: Optional[int], la
     `ring_flash_attention` (JAX `models/transformer.py:206-222`) and the
     plain route gathers k, v and the key segment ids over the group, with
     the causal mask offset by the chunk's first position, as GSPMD does on
-    the JAX package's XLA path."""
+    the JAX package's XLA path. Under `tp` (q, k, v hold the rank's heads)
+    the probabilities' mask is the global heads' mask, narrowed to them."""
     rate = cfg.attention_dropout if seed is not None else 0.0
     ring = shard is not None and shard.size > 1
     if _flash_route(cfg, q.device, rate > 0.0):
@@ -382,10 +415,14 @@ def _attention(q, k, v, segment_ids, cfg: DecoderConfig, seed: Optional[int], la
         offset = shard.rank * q.shape[2]
 
     def keep(shape):
+        heads = shape[1] if tp is None else cfg.num_heads
         if shard is None:
-            return _keep_mask(seed, (ATTN_PROBS, layer), shape, rate, q.device)
-        full = (shard.batch, shape[1], shard.time, shard.time)
-        return shard.tile(_keep_mask(seed, (ATTN_PROBS, layer), full, rate, q.device), 2)
+            mask = _keep_mask(seed, (ATTN_PROBS, layer), (shape[0], heads, *shape[2:]), rate,
+                              q.device)
+        else:
+            full = (shard.batch, heads, shard.time, shard.time)
+            mask = shard.tile(_keep_mask(seed, (ATTN_PROBS, layer), full, rate, q.device), 2)
+        return mask if tp is None else mask.narrow(1, tp.rank * shape[1], shape[1])
 
     return mha_reference(q, k, v, segment_ids=segment_ids, causal=True,
                          sm_scale=cfg.head_dim ** -0.5, kv_segment_ids=kv_segment_ids,
@@ -397,8 +434,8 @@ def _post_attention(x, attn, lp: DecoderLayer, cfg: DecoderConfig, seed: Optiona
     """The o projection, the residuals and the MLP of the block's layout,
     with residual-branch dropout (HF hidden dropout) when `seed` is given."""
     dt = x.dtype
-    attn_out = _dropout(_proj(_merge_heads(attn), lp.o_w, lp.o_b, dt), cfg.dropout, seed,
-                        (ATTN_RES, layer), shard)
+    attn_out = _dropout(_row_proj(_merge_heads(attn), lp.o_w, lp.o_b, dt, lp.tp), cfg.dropout,
+                        seed, (ATTN_RES, layer), shard)
     mlp = lambda h: _dropout(_mlp(h, lp, cfg), cfg.dropout, seed, (MLP_RES, layer), shard)
     if cfg.parallel_residual:
         h2 = _norm(x, lp.mlp_norm_scale, lp.mlp_norm_bias, cfg)
@@ -433,7 +470,7 @@ def _layer(x, lp: DecoderLayer, rope, segment_ids, cfg: DecoderConfig,
     if decode:
         attn = _decode_attention(q, k, v, segment_ids, cache_index, cfg)
     else:
-        attn = _attention(q, k, v, segment_ids, cfg, seed, layer, shard)
+        attn = _attention(q, k, v, segment_ids, cfg, seed, layer, shard, lp.tp)
     return _post_attention(x, attn, lp, cfg, seed, layer, shard)
 
 
@@ -447,9 +484,9 @@ def _qkv_remat_layer(x, lp: DecoderLayer, rope, segment_ids, cfg: DecoderConfig,
     q, k, v = checkpoint(_pre_attention, x, lp, rope, cfg, use_reentrant=False)
     rate = cfg.attention_dropout if seed is not None else 0.0
     if _flash_route(cfg, x.device, rate > 0.0):
-        attn = _attention(q, k, v, segment_ids, cfg, seed, layer, shard)
+        attn = _attention(q, k, v, segment_ids, cfg, seed, layer, shard, lp.tp)
     else:
-        attn = checkpoint(_attention, q, k, v, segment_ids, cfg, seed, layer, shard,
+        attn = checkpoint(_attention, q, k, v, segment_ids, cfg, seed, layer, shard, lp.tp,
                           use_reentrant=False)
     return checkpoint(_post_attention, x, attn, lp, cfg, seed, layer, shard,
                       use_reentrant=False)
@@ -478,6 +515,7 @@ class Decoder(nn.Module):
                    cfg.max_position_embeddings + cfg.learned_pos_offset, D, device=dev)
         _opt_param(self, "lm_head", not cfg.tie_word_embeddings, E, cfg.vocab_size,
                    device=dev)
+        self.tp = None   # parallel.tensor.TensorParallel once split over 'model'
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -502,7 +540,9 @@ class Decoder(nn.Module):
                 cache_index: Optional[int] = None,
                 dropout_seed: Optional[int] = None,
                 shard=None, cast_weights: bool = False):
-        """Returns (logits float32 [B, T, V], cache).
+        """Returns (logits float32 [B, T, V], cache); split over 'model'
+        (`parallel.tensor.shard_decoder_tp`) with a vocab-sharded head, the
+        rank's [B, T, V / size] columns.
 
         positions default to 0..T-1; pass explicit positions for left-padded
         prompts. segment_ids [B, T]: -1 marks padding. cache: (k, v) tensors
@@ -533,7 +573,7 @@ class Decoder(nn.Module):
         if positions is None:
             positions = torch.arange(t, device=input_ids.device).expand(b, t)
 
-        x = F.embedding(input_ids, self.embed).to(dt)
+        x = embed_lookup(input_ids, self.embed, self.tp).to(dt)
         if cfg.embed_proj_dim:
             # OPT-350m: project before the learned positions are added
             x = x @ self.proj_in_w.to(dt)
@@ -567,14 +607,17 @@ class Decoder(nn.Module):
         head = self.embed.t() if cfg.tie_word_embeddings else self.lm_head
         if cast_weights:
             head = head.to(dt)
-        logits = x.float() @ head.float()
+        vocab_tp = self.tp if self.tp is not None and self.tp.vocab is not None else None
+        logits = copy_in(x.float(), vocab_tp) @ head.float()
         return logits, cache
 
 
-def init_cache(cfg: DecoderConfig, batch: int, max_len: int, dtype=None, device=None):
-    """KV cache tensors [L, B, Hkv, Tmax, Dh], zero-filled."""
+def init_cache(cfg: DecoderConfig, batch: int, max_len: int, dtype=None, device=None,
+               kv_heads: Optional[int] = None):
+    """KV cache tensors [L, B, Hkv, Tmax, Dh], zero-filled; kv_heads: a
+    tensor-parallel rank's local count (default all of them)."""
     dtype = dtype or cfg.compute_dtype
-    shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+    shape = (cfg.num_layers, batch, kv_heads or cfg.num_kv_heads, max_len, cfg.head_dim)
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
 

@@ -9,9 +9,10 @@ start (`twist_init`, through `models/hf_convert.py`), and `tlm_factory`.
 `shard(mesh)` spreads evaluation over the ranks of a 'data' mesh (JAX
 `unit_lm.py:163-208`): every rank scores and samples its rows of each batch
 and gathers the rest; with `fsdp=True` the weights are sharded over the
-ranks too (`parallel/fsdp.py`), each layer gathered as it runs.
-Tensor-parallel placement (ROADMAP queue 1 item 24) and `push_to_hub` (it
-needs the network) are not ported.
+ranks too (`parallel/fsdp.py`), each layer gathered as it runs; with
+`tp=True` the weights are split over a 'model' axis (`parallel/tensor.py`),
+the rows still over 'data'. `push_to_hub` (it needs the network) is not
+ported.
 """
 from __future__ import annotations
 
@@ -26,6 +27,8 @@ import torch
 import torch.distributed as dist
 
 from ..parallel.fsdp import inference_forward, local, shard_decoder
+from ..parallel.mesh import seq_axis_size
+from ..parallel.tensor import refuse_fsdp, shard_decoder_tp
 from ..utils.calculation_utils import calc_nll, cross_entropy_loss
 from ..utils.device import DEFAULT_DEVICE, resolve_device
 from .convert import load_flat, to_flat
@@ -162,21 +165,30 @@ class UnitLM:
 
     # -- several ranks ----------------------------------------------------------
     def shard(self, mesh, fsdp: bool = False, tp: bool = False) -> "UnitLM":
-        """Spread evaluation over `mesh` (`parallel.make_mesh`, 'data' only),
-        as the JAX `shard` does: afterwards `log_likelihood` and `generate`
-        pad each batch's rows to a multiple of the 'data' size, run this
-        rank's rows and all-gather the results to every rank, the pad rows
-        dropped. fsdp=True also shards the weights over 'data' (ZeRO-3,
+        """Spread evaluation over `mesh` (`parallel.make_mesh`: 'data', and
+        'model'), as the JAX `shard` does: afterwards `log_likelihood` and
+        `generate` pad each batch's rows to a multiple of the 'data' size,
+        run this rank's rows and all-gather the results to every rank, the
+        pad rows dropped; the ranks of a 'model' line run the same rows.
+        fsdp=True also shards the weights over 'data' (ZeRO-3,
         `parallel.fsdp.shard_decoder`): each layer is gathered as it runs,
-        and int8 generation quantizes each weight whole. tp (item 24)
-        raises. Every rank must make the same calls."""
-        if tp:
-            raise NotImplementedError("UnitLM.shard(tp=True): tensor parallelism is not "
-                                      "ported yet (ROADMAP queue 1 item 24)")
-        if mesh.size != mesh.shape["data"]:
-            raise ValueError(f"UnitLM.shard takes a mesh of 'data' only; got {mesh.shape}")
+        and int8 generation quantizes each weight whole. tp=True splits the
+        weights over 'model' (`parallel.tensor.shard_decoder_tp`, rank 0's
+        weights first broadcast): scores come from vocab-sharded logits,
+        the KV cache holds the rank's kv heads, every rank of a line samples
+        the same token from the gathered last-position logits, and int8
+        generation quantizes each projection whole and keeps its slice.
+        Without tp a 'model' axis holds replicas (JAX `unit_lm.py:163-177`).
+        fsdp beside a 'model' axis above 1 raises (item 28). Every rank must
+        make the same calls."""
+        if seq_axis_size(mesh) > 1:
+            raise ValueError(f"UnitLM.shard takes a mesh of 'data' and 'model'; got "
+                             f"{mesh.shape}")
+        refuse_fsdp(fsdp, mesh, "UnitLM.shard(fsdp=True)")
         if fsdp:
             shard_decoder(self.decoder, mesh)
+        if tp:
+            shard_decoder_tp(self.decoder, mesh)
         self._mesh = mesh if mesh.size > 1 else None
         return self
 
@@ -214,7 +226,7 @@ class UnitLM:
                                  segment_ids=get("segment_ids"), dropout_seed=dropout_seed,
                                  shard=shard)
         return cross_entropy_loss(logits, get("labels"), batch.get("num_items_in_batch"),
-                                  pre_shifted=pre_shifted)
+                                  pre_shifted=pre_shifted, tp=self.decoder.tp)
 
     @property
     def uses_dropout(self) -> bool:
@@ -231,7 +243,8 @@ class UnitLM:
         bos scores as a real token, ignored vocab ids get -inf logits. T is
         padded up to a multiple of 64 with pads (scores are unchanged).
         Sharded (`shard`), this rank scores its rows and every rank returns
-        all B scores."""
+        all B scores; split over 'model', the NLL is taken from the
+        vocab-sharded logits without gathering them."""
         pad = self.config.pad_token_id
         tokens = self._tensor(tokens)
         rem = (-tokens.shape[-1]) % 64
@@ -242,12 +255,15 @@ class UnitLM:
             tokens = rows.mine(tokens, pad)
         seg = torch.where(tokens == pad, -1, 0).to(torch.int32)
         logits, _ = self.decoder(tokens, segment_ids=seg)
+        tp = self.decoder.tp
         if ignore_tokens is not None:
             m = torch.zeros(self.decoder.cfg.vocab_size, dtype=torch.bool, device=self.device)
             m[torch.as_tensor(list(ignore_tokens), dtype=torch.long, device=self.device)] = True
+            if tp is not None and tp.vocab is not None:
+                m = m[tp.vocab[0]:tp.vocab[1]]
             logits = logits.masked_fill(m, float("-inf"))
         target = tokens[..., 1:]
-        ll = -calc_nll(logits[..., :-1, :], target, target != pad, mean_nll)
+        ll = -calc_nll(logits[..., :-1, :], target, target != pad, mean_nll, tp=tp)
         return ll if rows is None else rows.gather(ll)
 
     # -- generation -----------------------------------------------------------
@@ -264,7 +280,8 @@ class UnitLM:
         [B, L0 + max_new_tokens] on the model's device.
 
         Draws come from `generator` (on the model's device), else from a new
-        one seeded with `seed` (random when None, rank 0's under `shard`).
+        one seeded with `seed` (random when None, rank 0's under `shard`,
+        so every rank of a 'model' line draws the same).
         weight_quant="int8" decodes with int8 projection weights through the
         dq_matmul kernel. Unsupported HF generate kwargs raise unless passed
         at their no-op value. Sharded (`shard`), this rank decodes its rows;
@@ -300,8 +317,7 @@ class UnitLM:
             generator = torch.Generator(device=self.device)
             if seed is None and rows is not None:   # one stream on every rank
                 seed = torch.randint(1 << 62, (), device=self.device)
-                dist.broadcast(seed, src=dist.get_global_rank(rows.group, 0)
-                               if rows.group is not None else 0, group=rows.group)
+                dist.broadcast(seed, src=0)
                 seed = int(seed)
             if seed is None:
                 generator.seed()

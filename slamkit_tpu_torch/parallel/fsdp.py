@@ -19,7 +19,8 @@ FSDP2 (`torch.distributed.fsdp.fully_shard`) does it around module calls:
     gradients over 'seq' after the backward (`mesh.all_reduce_grads` on the
     'seq' group), as JAX replicates over 'seq'.
   * `ParamShard` is what the optimizers, the checkpoints and the int8
-    decode copy need of a sharded parameter: its 'data' group, the dim and
+    decode copy need of a sharded parameter: its 'data' group (or the
+    'model' group of a tensor-parallel slice, `parallel/tensor.py`), the dim and
     the rows [lo, hi) of it that this rank holds. It gathers a tensor of the
     parameter's shape (a moment, a gradient) whole, narrows a whole one to
     this rank's slice, and takes means over whole rows and columns (the
@@ -139,6 +140,12 @@ class ParamShard:
 
     @classmethod
     def of(cls, p: torch.Tensor) -> "ParamShard":
+        """p's shard: over 'data' for an FSDP2 parameter, over 'model' for
+        one that `parallel.tensor.shard_decoder_tp` split (its
+        `param_shard`), else the whole."""
+        tagged = getattr(p, "param_shard", None)
+        if tagged is not None:
+            return tagged
         shape = tuple(p.shape)
         if not isinstance(p, _dtensor()):
             return cls(shape, hi=shape[0] if shape else 0)
@@ -201,11 +208,3 @@ class ParamShard:
             return stat
         d = self.dim - (self.dim > dropped)
         return stat.narrow(d, self.lo, self.hi - self.lo)
-
-
-def data_group(params) -> Optional[object]:
-    """The 'data' group the parameters are sharded over (None unsharded)."""
-    for p in params:
-        if isinstance(p, _dtensor()):
-            return p.device_mesh.get_group()
-    return None

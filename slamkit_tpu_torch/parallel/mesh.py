@@ -15,7 +15,8 @@ tile of the global batch and calls the collectives itself:
     `shard_batch` / `batch_sharding` (`:60-71`, `:217-236`) place on a device:
     rows over 'data', the time chunk over 'seq';
   * `Mesh.shard(...)` describes that tile to the model (`Shard`): the ring's
-    process group and the global shape the dropout masks are drawn at;
+    process group and the global shape the dropout masks are drawn at
+    (the 'model' ranks of one 'data' coordinate hold the same tile);
     `Mesh.pair_shard(...)` is DPO's tile of a [2B, T] batch of chosen rows
     over rejected rows: a rank's pairs, both halves; `Mesh.row_tile(n)` is
     an evaluation batch's (`RowTile`): any n rows, padded as JAX's
@@ -24,8 +25,12 @@ tile of the global batch and calls the collectives itself:
     the one collective of a training step (JAX sums; DistributedDataParallel
     would average).
 
-A 'model' axis larger than 1 (tensor parallelism) raises; `fsdp_spec` is the
-JAX rule as a plain function, which `parallel/fsdp.py` shards parameters by.
+A 'model' axis (tensor parallelism, `parallel/tensor.py`) splits each
+layer's weights, never the batch: `Mesh.batch_group()` is the group that
+holds different tiles, over which gradients and losses are summed. A
+'model' axis beside a 'seq' axis above 1 raises (`TP_SEQ_ITEM`); `fsdp_spec`
+is the JAX rule as a plain function, which `parallel/fsdp.py` shards
+parameters by.
 """
 from __future__ import annotations
 
@@ -42,8 +47,8 @@ import torch.distributed as dist
 #: time dim of batches is split over it and attention runs the ring).
 KNOWN_AXES = ("data", "model", "seq")
 
-#: where the port's tensor parallelism over 'model' stands in ROADMAP.md
-MODEL_AXIS_ITEM = "ROADMAP queue 1 item 24"
+#: where tensor parallelism beside the ring over 'seq' stands in ROADMAP.md
+TP_SEQ_ITEM = "ROADMAP queue 1 item 29"
 
 #: gradients are all-reduced in flat buckets of at most this many elements
 BUCKET_ELEMENTS = 1 << 26
@@ -192,6 +197,13 @@ class Mesh:
         """The process group of this rank's line along `axis` (None on one rank)."""
         return None if self.device_mesh is None else self.device_mesh.get_group(axis)
 
+    def batch_group(self):
+        """The group whose ranks hold different tiles of a batch, over which
+        gradients, losses and evaluation sums add up: the world (None), or
+        the 'data' line where a 'model' axis above 1 gives each tile to
+        several ranks (`make_mesh` refuses 'model' beside 'seq')."""
+        return self.group("data") if self.shape.get("model", 1) > 1 else None
+
     def shard(self, batch: int, time: int, schedule: str = "contiguous") -> Shard:
         """The `Shard` of this rank in a global [batch, time] batch; under
         zigzag the columns are the logical positions of its half-chunks."""
@@ -212,9 +224,10 @@ class Mesh:
 
     def row_tile(self, rows: int) -> RowTile:
         """This rank's `RowTile` of an evaluation batch of `rows` rows over
-        'data' (a mesh of 'data' only)."""
+        'data' (the 'model' ranks of a 'data' coordinate hold the same
+        rows; a 'seq' axis above 1 raises)."""
         n_data = self.shape["data"]
-        if self.size != n_data:
+        if seq_axis_size(self) > 1:
             raise ValueError(f"a row tile splits rows over 'data' only; the mesh is {self.shape}")
         per = -(-rows // n_data)
         at = self.coordinate["data"]
@@ -241,20 +254,24 @@ def make_mesh(shape: Optional[Sequence[int]] = None,
     """The mesh over the world's ranks (one, without a process group).
 
     shape=None -> every rank on a 1-D 'data' axis (data parallelism);
+    shape=[d, m] -> ('data', 'model'): tensor parallelism over 'model'
+    (`parallel/tensor.py`), the rank's 'model' line one group;
     shape=[d, s] with axis_names=('data', 'seq') -> context parallelism
-    (the ring over 'seq'). A 'model' axis above 1 raises, and so does a
-    process that torchrun started as one of several ranks before it joined
-    their group (`init_distributed`): it would train alone."""
+    (the ring over 'seq'). 'model' and 'seq' both above 1 raise
+    (`TP_SEQ_ITEM`), and so does a process that torchrun started as one of
+    several ranks before it joined their group (`init_distributed`): it
+    would train alone."""
     launched = int(os.environ.get("WORLD_SIZE", "1"))
     if launched > 1 and not dist.is_initialized():
         raise RuntimeError(f"WORLD_SIZE={launched} but this process has joined no process "
                            f"group: call parallel.init_distributed first")
     n = world_size()
     shape, axis_names = check_mesh(shape, axis_names, n)
-    if dict(zip(axis_names, shape)).get("model", 1) > 1:
+    sizes = dict(zip(axis_names, shape))
+    if sizes.get("model", 1) > 1 and sizes.get("seq", 1) > 1:
         raise NotImplementedError(
-            f"mesh axis 'model' of size {dict(zip(axis_names, shape))['model']}: tensor "
-            f"parallelism is not ported yet ({MODEL_AXIS_ITEM})")
+            f"mesh {sizes}: tensor parallelism over 'model' beside the ring over 'seq' "
+            f"is not ported yet ({TP_SEQ_ITEM})")
     if n == 1:
         return Mesh(axis_names, shape)
     from torch.distributed.device_mesh import init_device_mesh
@@ -296,7 +313,8 @@ def local_tile(batch: dict, mesh: Mesh) -> dict:
 def all_reduce_grads(module: torch.nn.Module, group=None):
     """Sum every rank's gradients of `module`'s parameters in place: one
     all-reduce over `group` (the world by default) per flat bucket of one
-    dtype; sharded gradients (`parallel/fsdp.py`) by their local shards."""
+    dtype; sharded gradients (`parallel/fsdp.py`, `parallel/tensor.py`) by
+    their local shards."""
     from .fsdp import local
 
     def reduce(bucket):

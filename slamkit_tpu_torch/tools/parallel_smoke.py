@@ -1,7 +1,7 @@
-"""The Slam recipe on several cards: the mesh's data and sequence axes.
+"""The Slam recipe on several cards: the mesh's data, sequence and model axes.
 
     python -m torch.distributed.run --nproc_per_node N -m slamkit_tpu_torch.tools.parallel_smoke \
-        [--legs meshes,dpo,eval,fsdp,sims7b]
+        [--legs meshes,dpo,eval,fsdp,sims7b,tp,tp_eval,tp_sims7b]
 
 Each of the N (>= 2, even) ranks joins NCCL on its own card
 (`parallel.init_distributed`) and, rank 0 first, builds the flash kernels.
@@ -85,9 +85,36 @@ Then the parameters sharded over 'data' (`training_args.fsdp`, ZeRO-3,
     hold 61-91 GB, past the disk a call may use (resume is held at Slam
     width in the fsdp leg).
 
-`--legs` runs a subset of the five (meshes, dpo, eval, fsdp, sims7b; default
-all). The last line is one JSON object of all of it; any failed check exits
-1. It imports only the port.
+Then tensor parallelism over 'model' (`parallel/tensor.py`):
+
+  * tp: the Slam recipe as above on TP [2, N / 2] over ('data', 'model')
+    (each layer's heads and MLP columns split over the 'model' line, the
+    batch over 'data'), beside DP [N] (trained here unless an earlier leg
+    did) and the one-card reference, with the same checks (step 1's loss
+    and gradient norm against one card, each rank's flash launches, the
+    exact resume from checkpoint-3, rank 0 resuming the gathered
+    checkpoint-3 alone), every replicated parameter (norms, o_b, down_b, a
+    whole vocabulary) bitwise equal across each 'model' line after the last
+    step, and s a step, tokens/s, peak memory and the NCCL shares;
+  * tp_eval: `UnitLM.shard(mesh, tp=True)` on [2, N / 2] with the Slam
+    decoder in float32 (the float32 flash forward): the scores against rank
+    0's one-card scores, greedy generation bit for bit against one card
+    decoding each 'data' tile's rows alone, sampled generation bit for bit
+    against one card's, and int8 greedy as `tests/test_torch_tp_eval.py`
+    states it: the int8 prefill's last-position logits within
+    `int8_tp_atol` of one card's (the row-parallel products round each
+    rank's bf16 partial output once more), the tokens' agreement with one
+    card's reported; times as the eval leg's;
+  * tp_sims7b: the sims7b leg on TP [1, N] without fsdp, 2 rows a step (its
+    one 'data' coordinate) and 3 steps: step 1 against the unsharded loss,
+    the peaks while building and training, s a step and MFU with the same
+    upper count.
+
+`--legs` runs a subset of the eight (meshes, dpo, eval, fsdp, sims7b, tp,
+tp_eval, tp_sims7b; default the first five: `chip_smoke.py` runs the
+three tp legs in a call of their own, in that order). The last line is one
+JSON object of all of it; a failed check on any rank ends every rank and
+exits 1, so the legs after it do not run. It imports only the port.
 """
 from __future__ import annotations
 
@@ -101,6 +128,7 @@ import pathlib
 import shutil
 import sys
 import time
+import traceback
 from typing import Optional
 
 import numpy as np
@@ -131,7 +159,19 @@ RING_OUT_BOUND, RING_GRAD_REL = 3e-2, 2e-2
 SIMS_CONTEXT, SIMS_PER_DEVICE, SIMS_STEPS = 2048, 2, 3
 #: one H100's dense bf16 peak (NVIDIA's data sheet, SXM part at 700 W)
 H100_BF16_FLOPS = 989e12
-LEGS = ("meshes", "dpo", "eval", "fsdp", "sims7b")
+LEGS = ("meshes", "dpo", "eval", "fsdp", "sims7b", "tp", "tp_eval", "tp_sims7b")
+DEFAULT_LEGS = LEGS[:5]
+
+
+def int8_tp_atol(logits, layers: int) -> float:
+    """How far the int8 prefill's logits on a 'model' line may sit from one
+    card's (`tests/test_torch_tp_eval.py` holds the same bound): each
+    layer's two row-parallel products (o, down) round the ranks' bf16
+    partial outputs before their sum, one bf16 ulp (2^-8) of the output
+    more than one product at most, and the 2 x layers such roundings add
+    up through the residual stream as a random walk: sqrt(2 x layers) x
+    2^-8 of the largest logit."""
+    return math.sqrt(2 * layers) * 2.0 ** -8 * float(abs(logits).max())
 
 
 def _require(ok: bool, msg: str):
@@ -146,12 +186,13 @@ def meshes(n: int) -> list:
             ("cp_zigzag", [1, n], seq, "zigzag"), ("dp_cp", [2, n // 2], seq, "contiguous")]
 
 
-def expected_launches(shape: list, schedule: str, rank: int, layers: int) -> dict:
+def expected_launches(shape: list, axes, schedule: str, rank: int, layers: int) -> dict:
     """The flash launches of one rank's trainer run (STEPS x MICRO
     microbatches, full remat: each layer's forward twice, its backward once):
     a ring pass of seq rank r launches 1 + r calls (contiguous) or 1 + 2(n-1)
-    (zigzag), forward and backward alike."""
-    n_seq = shape[1] if len(shape) > 1 else 1
+    (zigzag), forward and backward alike; a 'model' axis changes no count
+    (each rank runs its heads in one call)."""
+    n_seq = shape[1] if len(shape) > 1 and (axes or [])[1:] == ["seq"] else 1
     r = rank % n_seq
     per_pass = 1 + (2 * (n_seq - 1) if schedule == "zigzag" else r)
     micro = STEPS * MICRO * layers
@@ -210,22 +251,25 @@ def check_ring(dev, mesh, schedule: str, dcfg, rows: int, context: int, dtype) -
 
 def _grad_norm_recorder(trainer) -> list:
     """Make `trainer` record the global gradient norm each optimizer step
-    reads (after the mesh's reduction, before clipping; under fsdp the
-    shards' squares summed over the 'data' group)."""
+    reads (after the mesh's reduction, before clipping; the squares of the
+    shards over 'data' (fsdp) or the slices over 'model' (tp) summed over
+    their group, a replicated parameter's counted once)."""
     import torch
     import torch.distributed as dist
 
     from ..parallel.fsdp import local
 
-    norms, step = [], trainer.optimizer.step
+    opt = trainer.optimizer
+    norms, step = [], opt.step
 
     def recording_step(*a, **kw):
-        grads = [local(p.grad) for p in trainer.model.decoder.parameters()
-                 if p.grad is not None]
-        sq = sum((g.float() ** 2).sum() for g in grads)
-        if trainer.optimizer.group is not None:
-            dist.all_reduce(sq, group=trainer.optimizer.group)
-        norms.append(float(torch.sqrt(sq)))
+        sq = {True: torch.zeros((), device=trainer.device), False: 0.0}
+        for p, shard in zip(opt.params, opt.shards):
+            if p.grad is not None:
+                sq[shard.sharded] = sq[shard.sharded] + (local(p.grad).float() ** 2).sum()
+        if opt.group is not None:
+            dist.all_reduce(sq[True], group=opt.group)
+        norms.append(float(torch.sqrt(sq[True] + sq[False])))
         return step(*a, **kw)
 
     trainer.optimizer.step = recording_step
@@ -296,6 +340,28 @@ def _overlap(prof) -> dict:
             "nccl_overlapped_share": both / 1e3 / nccl_ms if nccl_ms else 0.0}
 
 
+def _replicas_equal(decoder, mesh) -> list:
+    """The names of the parameters that `parallel.tensor` keeps whole on
+    every rank of a 'model' line but that differ across this rank's line
+    (compared bit for bit through the line's elementwise MAX and MIN)."""
+    import torch
+    import torch.distributed as dist
+
+    from ..parallel.tensor import tp_shard
+
+    differ = []
+    with torch.no_grad():
+        for name, p in decoder.named_parameters():
+            if tp_shard(p) is not None:
+                continue
+            hi, lo = p.detach().clone(), p.detach().clone()
+            dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=mesh.group("model"))
+            dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=mesh.group("model"))
+            if not (torch.equal(hi, p) and torch.equal(lo, p)):
+                differ.append(name)
+    return differ
+
+
 def _profiled(lead: bool, cuda: bool, sync, fn):
     """(fn's result, its wall milliseconds, the profiler) with rank 0 under
     `torch.profiler` and every rank starting together."""
@@ -321,7 +387,7 @@ def _profiled(lead: bool, cuda: bool, sync, fn):
 
 
 def run(dev, work: pathlib.Path, cfg=None, context: int = CONTEXT, rows: int = ROWS,
-        n_rows: int = 400, lengths=(100, 1001), legs=LEGS, sims_arch=None,
+        n_rows: int = 400, lengths=(100, 1001), legs=DEFAULT_LEGS, sims_arch=None,
         sims_entries: Optional[int] = None, sims_context: int = SIMS_CONTEXT,
         eval_sizes: Optional[dict] = None) -> dict:
     """Every check and measurement above of `legs` on this rank's `dev`
@@ -333,7 +399,7 @@ def run(dev, work: pathlib.Path, cfg=None, context: int = CONTEXT, rows: int = R
     import torch.distributed as dist
 
     from ..ops import _build
-    from ..ops.flash_attention import KERNEL, KERNEL_BWD
+    from ..ops.flash_attention import KERNEL, KERNEL_BWD, KERNEL_F32
     from ..ops.quant import KERNEL as KERNEL_DQ
     from .slam_recipe import nvidia_smi, slam_config
 
@@ -350,14 +416,15 @@ def run(dev, work: pathlib.Path, cfg=None, context: int = CONTEXT, rows: int = R
             say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {world} ranks on "
                 f"{torch.cuda.device_count()} x {result['device']}")
             t0 = time.perf_counter()
-            for name in (KERNEL, KERNEL_BWD, KERNEL_DQ):
+            names = (KERNEL, KERNEL_BWD, KERNEL_DQ,
+                     *((KERNEL_F32,) if "tp_eval" in legs else ()))
+            for name in names:
                 _build.build(name)
-            say(f"built {KERNEL}, {KERNEL_BWD}, {KERNEL_DQ} in "
-                f"{time.perf_counter() - t0:.1f} s")
+            say(f"built {', '.join(names)} in {time.perf_counter() - t0:.1f} s")
     dist.barrier()
     cfg = dataclasses.replace(cfg or slam_config(), remat=True)
     pretrain = None
-    if "meshes" in legs or "fsdp" in legs:
+    if "meshes" in legs or "fsdp" in legs or "tp" in legs:
         pretrain = _Pretrain(dev, work, cfg, context, rows, n_rows, lengths, say, sync)
     if "meshes" in legs:
         run_meshes(pretrain, result)
@@ -371,6 +438,15 @@ def run(dev, work: pathlib.Path, cfg=None, context: int = CONTEXT, rows: int = R
         sims = {} if sims_entries is None else {"n_entries": sims_entries}
         result["sims7b"] = run_sims7b(dev, work, say, sync, arch=sims_arch,
                                       context=sims_context, **sims)
+    if "tp" in legs:
+        result["tp"] = run_tp(pretrain, result)
+    if "tp_eval" in legs:
+        result["tp_eval"] = run_eval(dev, work, cfg, say, sync, context, tp=True,
+                                     **(eval_sizes or {}))
+    if "tp_sims7b" in legs:
+        sims = {} if sims_entries is None else {"n_entries": sims_entries}
+        result["tp_sims7b"] = run_sims7b(dev, work, say, sync, arch=sims_arch,
+                                         context=sims_context, tp=True, **sims)
     return result
 
 
@@ -512,7 +588,7 @@ class _Pretrain:
         state = tr.train()
         launches = {"flash_fwd": flash_attention_fwd.launches,
                     "flash_bwd": flash_attention_bwd.launches}
-        want = (expected_launches(shape, schedule, rank, self.dcfg.num_layers) if cuda
+        want = (expected_launches(shape, axes, schedule, rank, self.dcfg.num_layers) if cuda
                 else {"flash_fwd": 0, "flash_bwd": 0})
         _require(launches == want, f"rank {rank} {name}: launches {launches}, expected {want}")
         losses = [r["loss"] for r in state.log_history if "loss" in r]
@@ -522,6 +598,13 @@ class _Pretrain:
         launch_counts = [None] * world
         dist.all_gather_object(launch_counts, launches)
         row["launches_by_rank"] = launch_counts
+        if mesh.shape.get("model", 1) > 1:   # tensor parallel: the replicas agree
+            differ = _replicas_equal(tr.model.decoder, mesh)
+            flags = torch.tensor([len(differ)], device=self.dev)
+            dist.all_reduce(flags, op=dist.ReduceOp.MAX)
+            row["replicated_bitwise_equal"] = not flags.item()
+            _require(not differ, f"rank {rank} {name}: replicated parameters differ across "
+                     f"the 'model' line: {differ}")
         # one more step under the profiler on rank 0 (every rank steps)
         batches = tr.train_batcher.epoch(0, skip_batches=STEPS * MICRO)
         group = [next(batches) for _ in range(MICRO)]
@@ -565,7 +648,8 @@ class _Pretrain:
             norm_err = abs(norms[0] - ref["grad_norm"]) / ref["grad_norm"]
             row.update(loss_err=loss_err, grad_norm_rel_err=norm_err)
             p = row.get("profiled_step", {})
-            say(f"{name} {shape}{' fsdp' if fsdp else ''}: losses {losses}; step 1 |d loss| "
+            say(f"{name} {shape}{' fsdp' if fsdp else ''}{f' {axes}' if axes else ''}: losses "
+                f"{losses}; step 1 |d loss| "
                 f"{loss_err:.3e} (<= {LOSS_BOUND}), gradient norm {norms[0]:.6f} rel "
                 f"{norm_err:.3e} (<= {GRAD_NORM_RTOL}); {row['step_s']:.4f} s a step, "
                 f"{row['tokens_per_s']:.1f} tokens/s; peak memory "
@@ -574,7 +658,10 @@ class _Pretrain:
                 f"{p.get('all_gather_share', 0):.4f}, reduce-scatter "
                 f"{p.get('reduce_scatter_share', 0):.4f} of a {p.get('wall_ms', 0):.1f} ms "
                 f"profiled step, NCCL overlapped {p.get('nccl_overlapped_share', 0):.4f}; "
-                f"resume exact {row['resume_exact']}; launches {launch_counts}")
+                f"resume exact {row['resume_exact']}; launches {launch_counts}"
+                + (f"; replicated parameters bitwise equal across 'model' "
+                   f"{row['replicated_bitwise_equal']}" if "replicated_bitwise_equal" in row
+                   else ""))
             if "ring" in row:
                 say(f"{name} ring vs one call (rank 0): {row['ring']['max_abs_err']}")
             if "one_card_resume" in row:
@@ -629,6 +716,41 @@ def run_fsdp(pretrain: _Pretrain, result: dict, eval_sizes: dict) -> dict:
     row["dpo"] = run_dpo(*args, fsdp=True)
     row["eval"] = run_eval(*args, pretrain.context, fsdp=True, **eval_sizes)
     return row
+
+
+def run_tp(pretrain: _Pretrain, result: dict) -> dict:
+    """The tp leg (module docstring) on this rank; rank 0 returns its row."""
+    n = pretrain.world
+    ref = pretrain.reference(result)
+    row = {}
+    dp = (result.get("meshes", {}).get("dp") or result.get("fsdp", {}).get("dp")
+          or pretrain.mesh_run("dp", [n], None, "contiguous", ref))
+    row["dp"] = dp
+    row["tp"] = pretrain.mesh_run("tp", [2, n // 2], ["data", "model"], "contiguous", ref,
+                                  one_card_resume=True)
+    if pretrain.lead:
+        got = row["tp"]
+        pretrain.say(f"tp [2, {n // 2}] against DP [{n}] and one card: {got['step_s']:.4f} / "
+                     f"{dp['step_s']:.4f} / {ref['step_s']:.4f} s a step, "
+                     f"{got['tokens_per_s']:.1f} / {dp['tokens_per_s']:.1f} / "
+                     f"{ref['tokens_per_s']:.1f} tokens/s; peak memory "
+                     f"{_gib(got['max_memory_allocated'])} / {_gib(dp['max_memory_allocated'])}")
+    return row
+
+
+def _prefill_logits(decoder, prompts):
+    """The last position's logits (whole vocabulary) of `generate`'s
+    prefill of the left-padded `prompts` (pad 0) through `decoder`."""
+    import torch
+
+    from ..parallel.tensor import gather_vocab
+
+    mask = (prompts != 0).to(torch.int32)
+    positions = (torch.cumsum(mask, dim=1) - 1).clamp(min=0)
+    seg = torch.where(mask > 0, 0, -1).to(torch.int32)
+    with torch.inference_mode():
+        logits, _ = decoder(prompts, positions=positions, segment_ids=seg)
+        return gather_vocab(logits[:, -1], decoder.tp).float()
 
 
 def run_dpo(dev, work: pathlib.Path, cfg, say, sync, pairs: int = DPO_PAIRS,
@@ -758,10 +880,11 @@ def run_dpo(dev, work: pathlib.Path, cfg, say, sync, pairs: int = DPO_PAIRS,
 
 def run_eval(dev, work: pathlib.Path, cfg, say, sync, context: int = CONTEXT,
              pairs: int = EVAL_PAIRS, batch: int = EVAL_BATCH, n_prompts: int = EVAL_PROMPTS,
-             new_tokens: int = EVAL_NEW, fsdp: bool = False) -> dict:
+             new_tokens: int = EVAL_NEW, fsdp: bool = False, tp: bool = False) -> dict:
     """The evaluation leg (module docstring) on this rank, with `fsdp` the
-    weights sharded too (`UnitLM.shard(mesh, fsdp=True)`); rank 0 returns
-    its row."""
+    weights sharded too (`UnitLM.shard(mesh, fsdp=True)`), with `tp` split
+    over the 'model' axis of [2, N / 2] in float32 (`UnitLM.shard(mesh,
+    tp=True)`); rank 0 returns its row."""
     import torch
     import torch.distributed as dist
 
@@ -771,7 +894,10 @@ def run_eval(dev, work: pathlib.Path, cfg, say, sync, context: int = CONTEXT,
 
     rank, world = dist.get_rank(), dist.get_world_size()
     lead, cuda = rank == 0, dev.type == "cuda"
-    cfg = dataclasses.replace(cfg, remat=False)
+    cfg = dataclasses.replace(cfg, remat=False, **({"torch_dtype": "float32"} if tp else {}))
+    shape, axes = ([2, world // 2], ["data", "model"]) if tp else ([world], None)
+    n_tiles = shape[0]
+    counter = "f32_launches" if tp else "launches"
     rng = np.random.default_rng(23)
     lens = rng.integers(100, context + 1, 2 * pairs)
     tokens = np.zeros((2 * pairs, context), np.int64)
@@ -797,32 +923,42 @@ def run_eval(dev, work: pathlib.Path, cfg, say, sync, context: int = CONTEXT,
     greedy = dict(gen_kwargs, do_sample=False)
     tlm = UnitLM(cfg, seed=0, device=dev)
     one = {}
-    if lead:   # one card: the whole batches, and each rank's rows of the prompts alone
+    if lead:   # one card: the whole batches, and each tile's rows of the prompts alone
         score(tlm)   # warm-up
         one["ll"], one["score_s"] = timed(lambda: score(tlm))
         one["sampled"], one["generate_s"] = timed(lambda: tlm.generate(prompts, **sampled))
-        per = -(-n_prompts // world)
-        tiles = [prompts[r * per:(r + 1) * per] for r in range(world)]
+        per = -(-n_prompts // n_tiles)
+        tiles = [prompts[r * per:(r + 1) * per] for r in range(n_tiles)]
         one["greedy"] = torch.cat([tlm.generate(t, **greedy) for t in tiles if len(t)])
         one["int8"] = torch.cat([tlm.generate(t, weight_quant="int8", **greedy)
                                  for t in tiles if len(t)])
+        if tp:
+            one["int8_logits"] = _prefill_logits(tlm._int8_decode_params(),
+                                                 torch.from_numpy(prompts).to(dev))
+            tlm._int8_cache = None
     dist.barrier()
     _reset_peak(dev)
-    tlm.shard(make_mesh([world]), fsdp=fsdp)
+    mesh = make_mesh(shape, axes)
+    tlm.shard(mesh, fsdp=fsdp, tp=tp)
     score(tlm)   # warm-up
-    flash_attention_fwd.launches = dq_matmul.launches = 0   # the main path
+    setattr(flash_attention_fwd, counter, 0)   # the main path
+    dq_matmul.launches = 0
     ll, score_s = timed(lambda: score(tlm))
     greedy_out = tlm.generate(prompts, **greedy)
     int8_out = tlm.generate(prompts, weight_quant="int8", **greedy)
     sampled_out, generate_s = timed(lambda: tlm.generate(prompts, **sampled))
-    launches = {"flash_fwd": flash_attention_fwd.launches, "dq_matmul": dq_matmul.launches}
+    launches = {"flash_fwd": getattr(flash_attention_fwd, counter),
+                "dq_matmul": dq_matmul.launches}
+    int8_logits = (_prefill_logits(tlm._int8_decode_params(), torch.from_numpy(prompts).to(dev))
+                   if tp else None)
     again, wall_ms, prof = _profiled(lead, cuda, sync, lambda: tlm.generate(prompts, **sampled))
     _require(torch.equal(again, sampled_out), f"rank {rank} eval: a sampled call did not repeat")
     _require(not cuda or (launches["flash_fwd"] > 0 and launches["dq_matmul"] > 0),
              f"rank {rank} eval: launches {launches}")
     launch_counts = [None] * world
     dist.all_gather_object(launch_counts, launches)
-    row = {"mesh_shape": [world], "fsdp": fsdp, "score_s": score_s,
+    row = {"mesh_shape": shape, "mesh_axes": axes, "fsdp": fsdp, "tp": tp,
+           "dtype": cfg.torch_dtype or "bfloat16", "score_s": score_s,
            "pairs_per_s": pairs / score_s, "generate_s": generate_s,
            "new_tokens_per_s": n_prompts * new_tokens / generate_s,
            "launches_by_rank": launch_counts, "max_memory_allocated": _peaks(dev)}
@@ -832,6 +968,13 @@ def run_eval(dev, work: pathlib.Path, cfg, say, sync, context: int = CONTEXT,
         int8_same = torch.equal(int8_out, one["int8"])
         new = slice(prompts.shape[1], None)
         agree = (sampled_out[:, new] == one["sampled"][:, new]).float().mean().item()
+        if tp:
+            d = (int8_logits - one["int8_logits"]).abs().max().item()
+            bound = int8_tp_atol(one["int8_logits"], cfg.decoder_config().num_layers)
+            int8_agree = (int8_out[:, new] == one["int8"][:, new]).float().mean().item()
+            row.update(int8_prefill_max_abs_err=d, int8_prefill_bound=bound,
+                       int8_token_agreement=int8_agree,
+                       sampled_bitwise=bool(torch.equal(sampled_out, one["sampled"])))
         row.update(one_card={"score_s": one["score_s"],
                              "pairs_per_s": pairs / one["score_s"],
                              "generate_s": one["generate_s"],
@@ -839,7 +982,8 @@ def run_eval(dev, work: pathlib.Path, cfg, say, sync, context: int = CONTEXT,
                    ll_max_abs_err=ll_err, ll_bitwise=bool(torch.equal(ll, one["ll"])),
                    greedy_bitwise=greedy_same, int8_greedy_bitwise=int8_same,
                    sampled_token_agreement=agree, profiled_generate=_comm_shares(prof, wall_ms))
-        say(f"eval [{world}] (UnitLM.shard{'(fsdp=True)' if fsdp else ''}): {2 * pairs} rows "
+        say(f"eval {shape} (UnitLM.shard{'(fsdp=True)' if fsdp else ''}"
+            f"{'(tp=True), ' + row['dtype'] if tp else ''}): {2 * pairs} rows "
             f"of 100-{context} scored in "
             f"batches of {batch}, max |d ll| {ll_err:.3e} (<= {EVAL_LL_BOUND}; bitwise "
             f"{row['ll_bitwise']}), {score_s:.4f} s, {row['pairs_per_s']:.1f} pairs/s (one "
@@ -850,8 +994,18 @@ def run_eval(dev, work: pathlib.Path, cfg, say, sync, context: int = CONTEXT,
             f"{agree:.4f}, all-gather {row['profiled_generate']['all_gather_share']:.4f} of "
             f"a {wall_ms:.1f} ms profiled call; peak memory "
             f"{_gib(row['max_memory_allocated'])}; launches {launch_counts}")
-        _require(ll_err <= EVAL_LL_BOUND and greedy_same and int8_same,
-                 "eval: the sharded scores or greedy tokens disagree with one card")
+        if tp:
+            say(f"eval tp: int8 prefill max |d logits| {row['int8_prefill_max_abs_err']:.3e} "
+                f"(<= {row['int8_prefill_bound']:.3e}), int8 tokens equal to one card's "
+                f"{row['int8_token_agreement']:.4f}; sampled bit for bit "
+                f"{row['sampled_bitwise']}")
+            _require(ll_err <= EVAL_LL_BOUND and greedy_same and row["sampled_bitwise"]
+                     and row["int8_prefill_max_abs_err"] <= row["int8_prefill_bound"],
+                     "eval tp: the scores, greedy or sampled tokens or the int8 prefill "
+                     "disagree with one card")
+        else:
+            _require(ll_err <= EVAL_LL_BOUND and greedy_same and int8_same,
+                     "eval: the sharded scores or greedy tokens disagree with one card")
     del tlm
     if cuda:
         torch.cuda.empty_cache()
@@ -892,10 +1046,12 @@ def _shard_sums(decoder):
 
 def run_sims7b(dev, work: pathlib.Path, say, sync, arch=None, n_entries: Optional[int] = None,
                context: int = SIMS_CONTEXT, per_device: int = SIMS_PER_DEVICE,
-               steps: int = SIMS_STEPS, n_rows: int = 96, lengths=(300, 700)) -> dict:
+               steps: int = SIMS_STEPS, n_rows: int = 96, lengths=(300, 700),
+               tp: bool = False) -> dict:
     """The sims7b leg (module docstring) on this rank: `--config-name
     train_inter_scale` at Qwen2.5-7B's widths (`arch` replaces them in a
-    rehearsal) on fsdp over every rank; rank 0 returns its row."""
+    rehearsal) on fsdp over every rank, or with `tp` on TP [1, N] over
+    ('data', 'model') without fsdp; rank 0 returns its row."""
     import torch
     import torch.distributed as dist
 
@@ -927,7 +1083,8 @@ def run_sims7b(dev, work: pathlib.Path, say, sync, arch=None, n_entries: Optiona
         "logger=print", f"training_args.output_dir={root / 'run'}",
         f"training_args.max_steps={steps}",
         f"training_args.per_device_train_batch_size={per_device}",
-        "training_args.fsdp=true", "training_args.remat=true", "training_args.save_steps=0",
+        f"training_args.fsdp={str(not tp).lower()}", "training_args.remat=true",
+        "training_args.save_steps=0",
         *([] if cuda else ["training_args.use_cpu=true",
                            "model.config_args.torch_dtype=float32"])])
     # cli.train's own steps up to its trainer, which would save the state
@@ -947,7 +1104,7 @@ def run_sims7b(dev, work: pathlib.Path, say, sync, arch=None, n_entries: Optiona
     state_dtype = str(args.get("optim_state_dtype", "float32") or "float32")
     state_bytes = n_params * (4 + 4 + 2 * (2 if state_dtype == "bfloat16" else 4))
     # step 1's global batch, as the trainer's batcher will draw it
-    mesh = make_mesh()
+    mesh = make_mesh([1, world], ["data", "model"]) if tp else make_mesh()
     accum = int(args.get("gradient_accumulation_steps", 1) or 1)
     batcher = Batcher(ds, per_device * mesh.shape["data"], context,
                       pad_id=model.config.pad_token_id, packing=True, shuffle=True,
@@ -1011,8 +1168,9 @@ def run_sims7b(dev, work: pathlib.Path, say, sync, arch=None, n_entries: Optiona
     if cuda:
         torch.cuda.empty_cache()
     dist.barrier()
-    row = {"mesh_shape": [world], "fsdp": True, "context": context, "rows_a_step":
-           per_device * world * accum, "parameters": n_params, "layers": dcfg.num_layers,
+    row = {"mesh_shape": list(mesh.sizes), "mesh_axes": list(mesh.axis_names), "fsdp": not tp,
+           "context": context, "rows_a_step": per_device * mesh.shape["data"] * accum,
+           "parameters": n_params, "layers": dcfg.num_layers,
            "hidden_size": dcfg.hidden_size, "vocab_size": dcfg.vocab_size,
            "optim_state_dtype": state_dtype, "losses": losses, "reference_loss": ref_loss,
            "grad_norm_step1": norms[0], "unmoved_parameters": unmoved, "step_s": secs, "tokens": tokens, "launches_by_rank": launch_counts,
@@ -1036,7 +1194,8 @@ def run_sims7b(dev, work: pathlib.Path, say, sync, arch=None, n_entries: Optiona
                    tokens_per_s=tokens_per_s, mfu=mfu,
                    profiled_step=_comm_shares(prof, wall_ms))
         p = row["profiled_step"]
-        say(f"sims7b fsdp [{world}]: {row['rows_a_step']} rows of {context} a step, losses "
+        say(f"sims7b {'tp' if tp else 'fsdp'} {row['mesh_shape']}: {row['rows_a_step']} rows "
+            f"of {context} a step, losses "
             f"{losses}; step 1 |d loss| {row['loss_err']:.3e} against the unsharded "
             f"{ref_loss:.6f} (<= {LOSS_BOUND}), gradient norm {norms[0]:.6f}, parameters "
             f"not moved by step {steps} {unmoved}; s a step {secs} ({step_s:.4f} s unprofiled, "
@@ -1064,8 +1223,9 @@ def run_sims7b(dev, work: pathlib.Path, say, sync, arch=None, n_entries: Optiona
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--legs", default=",".join(LEGS),
-                    help=f"comma-separated subset of {','.join(LEGS)}")
+    ap.add_argument("--legs", default=",".join(DEFAULT_LEGS),
+                    help=f"comma-separated subset of {','.join(LEGS)} (default "
+                         f"{','.join(DEFAULT_LEGS)})")
     legs = tuple(ap.parse_args(argv).legs.split(","))
     if not set(legs) <= set(LEGS):
         print(f"parallel_smoke: --legs takes {','.join(LEGS)}", file=sys.stderr)
@@ -1094,13 +1254,20 @@ def main(argv=None) -> int:
     dist.barrier()
     try:
         result = run(dev, work, legs=legs)
-        if dist.get_rank() == 0:
-            print(json.dumps(result), flush=True)
-    finally:
-        dist.barrier()
-        if dist.get_rank() == 0:
-            shutil.rmtree(work, ignore_errors=True)
-        dist.destroy_process_group()
+    except BaseException:
+        # a check that fails on one rank (rank 0 holds most of them) ends
+        # this process at once, so torchrun stops the others instead of
+        # leaving them waiting in a collective until NCCL's timeout
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+    if dist.get_rank() == 0:
+        print(json.dumps(result), flush=True)
+    dist.barrier()
+    if dist.get_rank() == 0:
+        shutil.rmtree(work, ignore_errors=True)
+    dist.destroy_process_group()
     return 0
 
 

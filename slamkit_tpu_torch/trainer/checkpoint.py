@@ -24,7 +24,9 @@ format: `train_state` gathers each parameter and each parameter-shaped
 optimizer tensor whole, one at a time, to rank 0's host (every rank takes
 part), so a run may resume on another number of ranks. `restore` reads the
 file on the host (memory-mapped) and copies each rank's slice into its
-shards, the whole state never on a card.
+shards, the whole state never on a card. A model split over 'model'
+(`parallel/tensor.py`) is gathered and restored the same way over its
+'model' groups.
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ from typing import Optional
 import torch
 
 from ..parallel.fsdp import ParamShard, is_sharded, local, reshard
+from ..parallel.tensor import is_tp
 
 logger = logging.getLogger(__name__)
 
@@ -133,7 +136,7 @@ def train_state(model, optimizer, dropout_stream: Optional[torch.Generator] = No
     tensors, or with `copy` a snapshot the next step leaves alone. A sharded
     model's state is gathered whole to the host of the rank that passes
     `keep` (the others get None); every rank must call it then."""
-    if is_sharded(model.decoder):
+    if is_sharded(model.decoder) or is_tp(model.decoder):
         return _gathered_state(model, optimizer, dropout_stream, keep)
     state = {"params": dict(model.decoder.named_parameters()), **optimizer.state_dict()}
     if dropout_stream is not None:

@@ -30,6 +30,13 @@ so does the port). `state_dict()` holds the local shards; the keys in
 `SHARDED_KEYS` are lists shaped like the parameters, which a checkpoint
 gathers whole (`trainer/checkpoint.py`), and `load_state_dict` takes whole
 tensors and keeps this rank's slice.
+
+Parameters split over 'model' (`parallel/tensor.py`) are updated the same
+way over the 'model' group: their `ParamShard` stands for the 'data' one.
+Beside them sit replicated parameters (norms, o_b, down_b, a vocabulary
+the axis does not divide), whose whole gradients every rank holds: the
+global norm and the block RMS count those once, the sharded ones' squares
+summed over the group.
 """
 from __future__ import annotations
 
@@ -41,7 +48,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..parallel.fsdp import ParamShard, data_group, local
+from ..parallel.fsdp import ParamShard, local
 
 
 def resolve_warmup_steps(warmup_steps: int, warmup_ratio: float, total_steps: int) -> int:
@@ -85,15 +92,19 @@ def make_schedule(lr_scheduler_type: str, learning_rate: float, total_steps: int
     raise ValueError(f"Unknown lr_scheduler_type: {lr_scheduler_type}")
 
 
-def _global_norm(grads: list, max_grad_norm: float, group=None):
+def _global_norm(grads: list, shards: list, max_grad_norm: float, group=None):
     """optax.clip_by_global_norm's (norm, keep): the global norm as a 0-d
     float32 tensor and the flag that leaves the gradients unclipped, a device
     flag rather than a host sync. Each gradient is clipped in the update's
-    loop, one at a time (`_clipped`). group: the 'data' group the gradients
-    are shards over, whose squares are summed with one all-reduce."""
-    sq = sum(torch.sum(g * g) for g in grads)
-    if group is not None:
-        dist.all_reduce(sq, group=group)
+    loop, one at a time (`_clipped`). shards: each gradient's `ParamShard`;
+    the sharded ones' squares are summed over their `group` with one
+    all-reduce, the whole ones counted once."""
+    sq = sum(torch.sum(g * g) for g, s in zip(grads, shards) if not s.sharded)
+    parts = [torch.sum(g * g) for g, s in zip(grads, shards) if s.sharded]
+    if parts:
+        part = sum(parts)
+        dist.all_reduce(part, group=group)
+        sq = sq + part
     g_norm = torch.sqrt(sq)
     return g_norm, g_norm < max_grad_norm
 
@@ -118,12 +129,13 @@ def _load_list(mine: list, theirs: list, shards: list, key: str):
 
 class _Sharded:
     """What both optimizers keep of their parameters: the parameters, each
-    one's `ParamShard` and the 'data' group the gradients are sharded over."""
+    one's `ParamShard` and the group the sharded ones are split over ('data'
+    under fsdp, 'model' under tensor parallelism; None)."""
 
     def _init_params(self, params):
         self.params = list(params)
         self.shards = [ParamShard.of(p) for p in self.params]
-        self.group = data_group(self.params)
+        self.group = next((s.group for s in self.shards if s.sharded), None)
 
     def zero_grad(self):
         for p in self.params:
@@ -169,7 +181,7 @@ class AdamW(_Sharded):
         """One update from the current `.grad`s; returns the global gradient
         norm before clipping (a 0-d float32 tensor on the parameters' device)."""
         grads = self._grads()
-        g_norm, keep = _global_norm(grads, self.max_grad_norm, self.group)
+        g_norm, keep = _global_norm(grads, self.shards, self.max_grad_norm, self.group)
         count = self.step_count + 1
         b1, b2 = self.b1, self.b2
         # the bias corrections in float32, as optax takes them; host scalars,
@@ -261,12 +273,16 @@ class Adafactor(_Sharded):
         self.weight_decay = weight_decay
         self.max_grad_norm = max_grad_norm
         self.step_count = 0
-        self.dims = [_factored_dims(tuple(p.shape)) for p in self.params]
-        zeros = lambda p, drop: torch.zeros([n for i, n in enumerate(p.shape) if i != drop],
-                                            dtype=torch.float32, device=local(p).device)
+        # the whole parameters' shapes decide the factoring and size the
+        # (whole) statistics
+        self.dims = [_factored_dims(s.shape) for s in self.shards]
+        zeros = lambda p, s, drop: torch.zeros([n for i, n in enumerate(s.shape) if i != drop],
+                                               dtype=torch.float32, device=local(p).device)
         # v_row drops the largest axis (d0), v_col the second largest (d1)
-        self.v_row = [zeros(p, d[1]) if d else None for p, d in zip(self.params, self.dims)]
-        self.v_col = [zeros(p, d[0]) if d else None for p, d in zip(self.params, self.dims)]
+        self.v_row = [zeros(p, s, d[1]) if d else None
+                      for p, s, d in zip(self.params, self.shards, self.dims)]
+        self.v_col = [zeros(p, s, d[0]) if d else None
+                      for p, s, d in zip(self.params, self.shards, self.dims)]
         self.v = [None if d else torch.zeros_like(local(p), dtype=torch.float32)
                   for p, d in zip(self.params, self.dims)]
 
@@ -275,7 +291,7 @@ class Adafactor(_Sharded):
         """One update from the current `.grad`s; returns the global gradient
         norm before clipping (a 0-d float32 tensor on the parameters' device)."""
         grads = self._grads()
-        g_norm, keep = _global_norm(grads, self.max_grad_norm, self.group)
+        g_norm, keep = _global_norm(grads, self.shards, self.max_grad_norm, self.group)
         # optax's decay schedule in float32 (host scalars, no device copy)
         f32 = np.float32
         decay = f32(1) - np.power(f32(self.step_count + 1), f32(-DECAY_RATE))
@@ -312,16 +328,19 @@ class Adafactor(_Sharded):
     def _block_scales(self) -> dict:
         """optax.safe_root_mean_squares of each block's parameters, floored
         at MIN_SCALE: block -> 0-d tensor (sums of squares across the shards
-        in one all-reduce)."""
-        sums, sizes = {}, {}
+        in one all-reduce; a whole parameter counted once)."""
+        sums, whole, sizes = {}, {}, {}
         for p, shard, block in zip(self.params, self.shards, self.blocks):
             p = local(p)
-            sums[block] = sums.get(block, 0.0) + torch.sum(p * p)
+            into = sums if shard.sharded else whole
+            into[block] = into.get(block, 0.0) + torch.sum(p * p)
             sizes[block] = sizes.get(block, 0) + math.prod(shard.shape)
-        if self.group is not None:
+        if sums:
             flat = torch.stack(list(sums.values()))
             dist.all_reduce(flat, group=self.group)
             sums = dict(zip(sums, flat.unbind()))
+        for block, sq in whole.items():
+            sums[block] = sums[block] + sq if block in sums else sq
         rms = {b: torch.sqrt(sums[b] / sizes[b]) for b in sums}
         return {b: torch.where(r <= MIN_SCALE, MIN_SCALE, r) for b, r in rms.items()}
 

@@ -63,6 +63,13 @@ is copied from the policy before and sharded as it is (JAX
 gradients are reduce-scattered in the backward instead of all-reduced, and
 checkpoints are gathered to rank 0 in the one-rank format.
 
+On a ('data', 'model') mesh the trainer does what the JAX DPO trainer does
+(`slam_dpo_trainer.py:219-246` takes `param_shardings` without tp): the
+parameters stay whole on every rank, the pairs go over 'data', the ranks of
+a 'model' line compute the same pairs, and the gradients and the logged
+sums are summed over 'data' alone (`Mesh.batch_group`). fsdp beside a
+'model' axis above 1 raises (ROADMAP queue 1 item 28).
+
 A 'seq' axis above 1 raises the JAX trainer's NotImplementedError;
 multihost raises (ROADMAP queue 1 item 26).
 """
@@ -81,6 +88,7 @@ import torch.nn.functional as F
 
 from ..parallel import fsdp
 from ..parallel.mesh import Mesh, all_reduce_grads, make_mesh, seq_axis_size
+from ..parallel.tensor import refuse_fsdp
 from ..utils.calculation_utils import token_nll
 from . import checkpoint
 from .callbacks import TrainerCallback, TrainerControl, TrainerState
@@ -183,6 +191,7 @@ class SLAMDPOTrainer:
                  mesh: Optional[Mesh] = None):
         _refuse_unported(args)
         self.mesh = mesh or make_mesh(args.get("mesh_shape", None), args.get("mesh_axes", None))
+        refuse_fsdp(args.get("fsdp", False), self.mesh, "training_args.fsdp=true")
         if seq_axis_size(self.mesh) > 1:
             raise NotImplementedError(
                 "context parallelism ('seq' mesh axis) is a pretrain-trainer "
@@ -268,11 +277,12 @@ class SLAMDPOTrainer:
         return self._to_device({k: batch[k][shard.rows] for k in BATCH_KEYS}), shard
 
     def _all_reduce(self, values: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """Each value summed over the ranks (one all-reduce); one rank: as is."""
+        """Each value summed over the ranks that hold different pairs (one
+        all-reduce); one rank: as is."""
         if self.world == 1:
             return values
         flat = torch.stack([v.float() for v in values.values()])
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=self.mesh.batch_group())
         return dict(zip(values, flat.unbind()))
 
     # ------------------------------------------------------------------ #
@@ -296,7 +306,7 @@ class SLAMDPOTrainer:
         loss, metrics = self.dpo_loss(batch, next_seed(self.dropout_stream), shard)
         loss.backward()
         if self.world > 1 and not self.sharded:
-            all_reduce_grads(self.model.decoder)
+            all_reduce_grads(self.model.decoder, self.mesh.batch_group())
         self.optimizer.step()
         self.optimizer.zero_grad()
         return self._all_reduce({"loss": loss.detach(),

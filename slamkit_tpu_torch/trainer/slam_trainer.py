@@ -59,6 +59,19 @@ shards (`trainer/optim.py`), and a checkpoint is gathered to rank 0 in the
 one-rank format, so a run may resume on another number of ranks. With one
 rank on 'data' nothing is sharded: the unsharded run, as in JAX.
 
+A 'model' axis (`mesh_shape: [d, m]`, `mesh_axes: [data, model]`) trains
+with the decoder's weights split over it (Megatron tensor parallelism,
+`parallel/tensor.py`; JAX `slam_trainer.py:284-291`): rank 0's weights are
+broadcast, then each rank keeps its slice; the batch goes over 'data' only,
+so the ranks of a 'model' line hold the same tile, and the loss is the
+vocab-parallel NLL of the rank's logit columns. The gradients, the loss and
+the eval sums are summed over 'data' alone (`Mesh.batch_group`); the
+optimizer's global norm and Adafactor's statistics take their sums over
+'model' (`trainer/optim.py`), and checkpoints are gathered over 'model' to
+rank 0 in the one-rank format. fsdp beside a 'model' axis above 1 raises
+(ROADMAP queue 1 item 28), and so does a 'model' axis beside 'seq' (item 29,
+`parallel.make_mesh`).
+
 With one rank (no torchrun) nothing of this runs. The loop runs
 synchronously on the model's device (no upload or metrics threads); a
 checkpoint may be written in the background from a snapshot. Knobs of the
@@ -82,6 +95,7 @@ from ..data.dataset import IGNORE_INDEX, Batcher, TokenDataset
 from ..ops.ring_attention import SCHEDULES, check_chunk, zigzag_permutation
 from ..parallel import fsdp
 from ..parallel.mesh import Mesh, all_reduce_grads, local_tile, make_mesh, seq_axis_size
+from ..parallel.tensor import refuse_fsdp, shard_decoder_tp
 from ..utils.calculation_utils import masked_sum, token_nll
 from . import checkpoint
 from .callbacks import TrainerCallback, TrainerControl, TrainerState
@@ -99,8 +113,7 @@ def _refuse(args, key, what: str, item: int):
 
 def _refuse_unported(args):
     """The JAX trainers' knobs that wait for a later ROADMAP item raise
-    rather than being ignored: multihost (item 26). A 'model' axis raises
-    in `parallel.make_mesh` (item 24)."""
+    rather than being ignored: multihost (item 26)."""
     if args.get("multihost", False):
         _refuse(args, "multihost", "multi-host training", 26)
 
@@ -146,13 +159,19 @@ class SLAMTrainer:
         self.callbacks = callbacks or []
         self.log_fn = log_fn
         self.mesh = mesh or make_mesh(args.get("mesh_shape", None), args.get("mesh_axes", None))
+        refuse_fsdp(args.get("fsdp", False), self.mesh, "training_args.fsdp=true")
         self.world = self.mesh.size
         n_data = self.mesh.shape["data"]
+        # ranks holding different tiles of a batch (not the 'model' line)
+        self.n_tiles = self.world // self.mesh.shape.get("model", 1)
         self.accum = int(args.get("gradient_accumulation_steps", 1) or 1)
         self.global_batch = int(args["per_device_train_batch_size"]) * n_data
         self.context_len = int(context_len or model.decoder.cfg.max_position_embeddings)
         self._setup_seq_axis()
-        if self.world > 1:
+        self.tp = self.mesh.shape.get("model", 1) > 1
+        if self.tp:   # broadcasts rank 0's weights, then keeps the rank's slices
+            shard_decoder_tp(model.decoder, self.mesh)
+        elif self.world > 1:
             # every rank starts from rank 0's weights
             with torch.no_grad():
                 for p in model.decoder.parameters():
@@ -275,7 +294,8 @@ class SLAMTrainer:
         optimizer update; returns (summed loss tensor, tokens counted). The
         three parts are named ranges in a `torch.profiler` trace
         (`tools/profile_train.py` reads them); on a mesh the gradients' and
-        the loss's all-reduce is `train/all_reduce`."""
+        the loss's all-reduce is `train/all_reduce`, over the ranks that
+        hold different tiles (`Mesh.batch_group`)."""
         num_items = sum(int((mb["labels"] != IGNORE_INDEX).sum()) for mb in group)
         loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
         for mb in group:
@@ -287,13 +307,13 @@ class SLAMTrainer:
             with record_function("train/backward"):
                 loss.backward()
             loss_sum += loss.detach()
-        if self.world > 1:
+        if self.n_tiles > 1:
             with record_function("train/all_reduce"):
                 if not self.sharded:
-                    all_reduce_grads(self.model.decoder)
+                    all_reduce_grads(self.model.decoder, self.mesh.batch_group())
                 elif self.n_seq > 1:   # the shards are replicated over 'seq'
                     all_reduce_grads(self.model.decoder, self.mesh.group("seq"))
-                dist.all_reduce(loss_sum)
+                dist.all_reduce(loss_sum, group=self.mesh.batch_group())
         with record_function("train/optimizer"):
             self.optimizer.step()
             self.optimizer.zero_grad()
@@ -314,10 +334,10 @@ class SLAMTrainer:
             else:
                 logits, labels = logits[..., :-1, :], b["labels"][..., 1:]
             valid = labels != IGNORE_INDEX
-            total_nll += masked_sum(token_nll(logits, labels), valid)
+            total_nll += masked_sum(token_nll(logits, labels, self.model.decoder.tp), valid)
             total_tokens += int((batch["labels"][..., 1:] != IGNORE_INDEX).sum())
-        if self.world > 1:
-            dist.all_reduce(total_nll)
+        if self.n_tiles > 1:
+            dist.all_reduce(total_nll, group=self.mesh.batch_group())
         loss = float(total_nll) / max(total_tokens, 1)
         metrics = {"eval_loss": loss, "eval_ppl": float(np.exp(min(loss, 30.0)))}
         self._log({**metrics, "step": self.state.global_step})
@@ -328,9 +348,9 @@ class SLAMTrainer:
     # ------------------------------------------------------------------ #
     def save_checkpoint(self):
         """Rank 0 writes the checkpoint (in the background under async_save);
-        on a mesh every rank then waits for it at a barrier. Sharded, every
-        rank first helps gather the state to rank 0."""
-        if self.mesh.rank == 0 or self.sharded:
+        on a mesh every rank then waits for it at a barrier. Sharded (fsdp
+        or 'model'), every rank first helps gather the state to rank 0."""
+        if self.mesh.rank == 0 or self.sharded or self.tp:
             self._write_checkpoint()
         if self.world > 1:
             dist.barrier()

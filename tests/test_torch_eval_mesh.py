@@ -95,15 +95,22 @@ def test_row_tiles_pad_and_drop_as_jax_does():
 
 
 def test_shard_refuses_what_is_not_ported(ckpt):
-    """tp raises (item 24); fsdp=True is ported: on one rank it is the
-    unsharded model (the ranks' sharding: tests/test_torch_fsdp.py)."""
+    """fsdp beside a 'model' axis raises (item 28), and a 'seq' axis is
+    refused; fsdp=True and tp=True are ported: on one rank each is the
+    unsharded model (the ranks' sharding: tests/test_torch_fsdp.py and
+    tests/test_torch_tp_eval.py)."""
     from slamkit_tpu_torch.parallel.fsdp import is_sharded
+    from slamkit_tpu_torch.parallel.tensor import is_tp
 
     tlm = UnitLM.from_pretrained(str(ckpt), device="cpu")
     assert tlm.shard(Mesh(("data",), (1,)), fsdp=True) is tlm
     assert not is_sharded(tlm.decoder) and tlm._row_tile(5) is None
-    with pytest.raises(NotImplementedError, match="item 24"):
-        tlm.shard(Mesh(("data",), (1,)), tp=True)
+    assert tlm.shard(Mesh(("data", "model"), (1, 1)), tp=True) is tlm
+    assert not is_tp(tlm.decoder) and tlm._row_tile(5) is None
+    with pytest.raises(NotImplementedError, match="item 28"):
+        tlm.shard(Mesh(("data", "model"), (1, 2)), fsdp=True, tp=True)
+    with pytest.raises(ValueError, match="'data' and 'model'"):
+        tlm.shard(Mesh(("data", "seq"), (1, 2)))
     assert tlm.shard(Mesh(("data",), (1,))) is tlm and tlm._row_tile(5) is None
 
 

@@ -119,9 +119,22 @@ def test_a_rank_outside_its_group_raises(monkeypatch):
 
 
 def test_model_axis_raises_naming_the_roadmap(monkeypatch):
+    """A 'model' axis is ported (tensor parallelism): beside 'data' it
+    passes the JAX rules, and only beside a 'seq' axis above 1 does the
+    mesh raise, naming its ROADMAP item (29)."""
+    assert port_mesh.check_mesh([2, 2], ["data", "model"], 4) == ((2, 2), ("data", "model"))
+    assert port_mesh.check_mesh([2, 2], None, 4) == ((2, 2), ("data", "model"))
     monkeypatch.setattr(port_mesh, "world_size", lambda: 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 24"):
-        port_mesh.make_mesh([2, 2], ["data", "model"])
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 29"):
+        port_mesh.make_mesh([1, 2, 2], ["data", "model", "seq"])
+    # the batch goes over 'data' alone: both ranks of a 'model' line hold
+    # the same tile, rows and dropout shape
+    meshes = [port_mesh.Mesh(("data", "model"), (2, 2), rank=r) for r in range(4)]
+    assert [m.coordinate for m in meshes] == [{"data": d, "model": m}
+                                              for d in range(2) for m in range(2)]
+    shards = [m.shard(8, 64) for m in meshes]
+    assert [s.rows for s in shards] == [slice(0, 4), slice(0, 4), slice(4, 8), slice(4, 8)]
+    assert [m.row_tile(5).lo for m in meshes] == [0, 0, 3, 3]
 
 
 def test_a_rank_without_its_card_raises(monkeypatch):

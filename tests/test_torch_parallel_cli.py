@@ -8,6 +8,10 @@ and its logged losses and eval loss equal the one-process `cli.train` run
 of the same global batch within 1e-5 (float32; the ring and the all-reduce
 sum in another order), its checkpoint written once, by rank 0.
 
+Under `mesh_shape=[1,2] mesh_axes=[data,model]` `cli.train` splits the
+decoder's weights over 'model' (tensor parallelism) and equals the
+one-process run the same way.
+
 `cli.preference_alignment_train` runs DPO on 'data' (`mesh_shape: null`, 2
 pairs a rank) from a 2-layer pythia-14m-shaped checkpoint: its logged
 losses, reward metrics and eval loss equal the one-process run of the same
@@ -143,6 +147,32 @@ def test_train_cli_fsdp_under_torchrun_equals_one_process(tmp_path):
             np.load(tmp_path / "one" / "checkpoint-2" / "params.npz") as b:
         assert sorted(a.files) == sorted(b.files)
         for k in b.files:
+            np.testing.assert_allclose(a[k], b[k], rtol=1e-5, atol=1e-5, err_msg=k)
+
+
+def test_train_cli_tp_under_torchrun_equals_one_process(tmp_path):
+    """`cli.train training_args.mesh_shape=[1,2] mesh_axes=[data,model]`
+    (the decoder's weights split over 'model', the vocabulary too) logs the
+    one-process run's losses and eval loss of the same global batch within
+    1e-5, and its checkpoint-2, gathered over 'model', holds the one-process
+    parameters in the one-rank layout."""
+    tokens = tmp_path / "tokens.jsonl"
+    write_markov_corpus(tokens, 40)
+    cli = ["-m", "slamkit_tpu_torch.cli.train"]
+    mesh = [*_overrides(tokens, tmp_path / "mesh"), "training_args.mesh_shape=[1,2]",
+            "training_args.mesh_axes=[data,model]"]
+    one = _overrides(tokens, tmp_path / "one")
+    _torchrun_and_one(tmp_path, cli, mesh, one)
+    got, want = _history(tmp_path / "mesh"), _history(tmp_path / "one")
+    pick = lambda h, key: [r[key] for r in h if key in r]
+    assert len(pick(want, "loss")) == 2 and len(pick(want, "eval_loss")) == 1
+    for key in ("loss", "eval_loss"):
+        np.testing.assert_allclose(pick(got, key), pick(want, key), rtol=1e-5, atol=1e-5)
+    with np.load(tmp_path / "mesh" / "checkpoint-2" / "params.npz") as a, \
+            np.load(tmp_path / "one" / "checkpoint-2" / "params.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in b.files:
+            assert a[k].shape == b[k].shape, k
             np.testing.assert_allclose(a[k], b[k], rtol=1e-5, atol=1e-5, err_msg=k)
 
 

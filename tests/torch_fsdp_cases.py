@@ -45,15 +45,16 @@ def train_args(out, **overrides) -> dict:
     return to_container(args_node(out, **overrides))
 
 
-def one_process(out, config, params=None, resume=False, **overrides):
+def one_process(out, config, params=None, resume=False, train=TRAIN, evals=EVAL,
+                **overrides):
     """The one-process run of the global batch: its losses, eval losses,
     each step's gradients and its final parameters (resumed from `resume`,
-    a checkpoint, when given)."""
+    a checkpoint, when given; `train` / `evals`: the corpora)."""
     args = train_args(out, per_device_train_batch_size=GLOBAL_ROWS,
                       per_device_eval_batch_size=GLOBAL_ROWS, **overrides)
     model = UnitLM(UnitLMConfig(**config), params=params, seed=0, device="cpu")
-    tr = SLAMTrainer(model, args, TokenDataset.from_lists(TRAIN),
-                     eval_dataset=TokenDataset.from_lists(EVAL), packing=True,
+    tr = SLAMTrainer(model, args, TokenDataset.from_lists(train),
+                     eval_dataset=TokenDataset.from_lists(evals), packing=True,
                      context_len=CONTEXT)
     grads = torch_mesh_workers.record_grads(tr)
     history = tr.train(resume_from_checkpoint=resume).log_history

@@ -97,14 +97,15 @@ def ring(tmp, inputs, schedule, dtype="float32"):
 def record_grads(trainer) -> list:
     """Make `trainer` keep a copy of the gradients each optimizer step
     reads (on a mesh: the all-reduced global gradient, gathered whole
-    where it is sharded); returns the list they are appended to, one
-    {parameter name: array} a step."""
+    where it is sharded over 'data' or split over 'model'); returns the list
+    they are appended to, one {parameter name: array} a step."""
     from slamkit_tpu_torch.models.convert import whole
+    from slamkit_tpu_torch.parallel.tensor import whole_of
 
     steps, step = [], trainer.optimizer.step
 
     def recording_step(*a, **kw):
-        steps.append({n: whole(p.grad.detach()).clone().numpy()
+        steps.append({n: whole_of(p, whole(p.grad.detach())).clone().numpy()
                       for n, p in trainer.model.decoder.named_parameters()
                       if p.grad is not None})
         return step(*a, **kw)
@@ -121,13 +122,15 @@ def _params(params_path):
         return {k: flat[k] for k in flat.files}
 
 
-def train(tmp, config, args, train_seqs, eval_seqs, context_len, params_path=None):
+def train(tmp, config, args, train_seqs, eval_seqs, context_len, params_path=None,
+          local_params=False):
     """`SLAMTrainer` on the mesh of `args` (training_args as a dict), a fresh
     `UnitLM(config, seed=0)` (or the weights at `params_path`) and
     `train_seqs` packed at `context_len`, then a second trainer resuming
     from the first's checkpoint-1: each run's logged losses and eval losses,
     the first run's gradients of each step, and each run's final
-    parameters."""
+    parameters (with `local_params`, also the first run's parameters as
+    this rank holds them, `a/local/<name>`)."""
     from slamkit_tpu_torch.data import TokenDataset
     from slamkit_tpu_torch.models import UnitLM, UnitLMConfig, to_flat
     from slamkit_tpu_torch.trainer import SLAMTrainer
@@ -149,6 +152,9 @@ def train(tmp, config, args, train_seqs, eval_seqs, context_len, params_path=Non
         out.update({f"{run}/param/{k}": v for k, v in to_flat(model.decoder).items()})
         if run == "a":
             out.update({f"a/grad{i}/{k}": v for i, g in enumerate(grads) for k, v in g.items()})
+            if local_params:
+                out.update({f"a/local/{k}": p.detach().numpy()
+                            for k, p in model.decoder.named_parameters()})
     return out
 
 
@@ -205,18 +211,74 @@ def eval_calls(tlm, tokens, prompts, int8: bool = False) -> dict:
     return {k: v.numpy() for k, v in out.items()}
 
 
-def eval_mesh(tmp, ckpt, tokens, prompts, fsdp=False, overrides=None):
+def eval_mesh(tmp, ckpt, tokens, prompts, fsdp=False, overrides=None, tp_shape=None):
     """`UnitLM.shard` over the world's 'data' mesh (with `fsdp`, the weights
-    sharded too): `eval_calls` on the global `tokens` and `prompts` (lists),
-    every rank's results (with `fsdp`, the int8 greedy call too).
-    overrides: `from_pretrained` keyword overrides."""
+    sharded too; with `tp_shape` [d, m], a ('data', 'model') mesh and
+    `tp=True`): `eval_calls` on the global `tokens` and `prompts` (lists),
+    every rank's results (with `fsdp` or `tp_shape`, the int8 greedy call
+    too). overrides: `from_pretrained` keyword overrides."""
     from slamkit_tpu_torch.models import UnitLM
     from slamkit_tpu_torch.parallel import make_mesh
 
     tlm = UnitLM.from_pretrained(ckpt, device="cpu", **(overrides or {}))
-    tlm.shard(make_mesh(), fsdp=fsdp)
+    if tp_shape is None:
+        tlm.shard(make_mesh(), fsdp=fsdp)
+    else:
+        tlm.shard(make_mesh(tp_shape, ["data", "model"]), tp=True)
     return eval_calls(tlm, np.asarray(tokens, np.int32), np.asarray(prompts, np.int32),
-                      int8=fsdp)
+                      int8=fsdp or tp_shape is not None)
+
+
+# --------------------------------------------------------------------------- #
+# tensor parallelism
+# --------------------------------------------------------------------------- #
+def tp_forward(tmp, config, params_path, ids, mesh_shape):
+    """The decoder split over a ('data', 'model') mesh of `mesh_shape`
+    (`shard_decoder_tp`): this rank's 'data' rows of `ids` forward, the
+    vocab columns and then the rows gathered (`logits`), and the shape of
+    every parameter this rank holds (`shape/<name>`)."""
+    import torch
+
+    from slamkit_tpu_torch.models import UnitLM, UnitLMConfig
+    from slamkit_tpu_torch.parallel import make_mesh
+    from slamkit_tpu_torch.parallel.tensor import gather_vocab, shard_decoder_tp
+
+    tlm = UnitLM(UnitLMConfig(**config), params=_params(params_path), device="cpu")
+    mesh = make_mesh(mesh_shape, ["data", "model"])
+    shard_decoder_tp(tlm.decoder, mesh)
+    ids = torch.tensor(ids)
+    tile = mesh.row_tile(len(ids))
+    with torch.no_grad():
+        logits, _ = tlm.decoder(tile.mine(ids, 0))
+    out = {"logits": tile.gather(gather_vocab(logits, tlm.decoder.tp)).numpy()}
+    out.update({f"shape/{k}": np.asarray(p.shape) for k, p in tlm.decoder.named_parameters()})
+    return out
+
+
+def tp_int8(tmp, ckpt, prompts, mesh_shape):
+    """`UnitLM.shard(tp=True)`'s int8 decode copy on a ('data', 'model')
+    mesh: every projection's q and s as this rank holds them, and the int8
+    prefill's last-position logits of the global `prompts` (gathered)."""
+    import torch
+
+    from slamkit_tpu_torch.models import UnitLM
+    from slamkit_tpu_torch.models.generate import _QUANT_KEYS
+    from slamkit_tpu_torch.parallel import make_mesh
+    from slamkit_tpu_torch.parallel.tensor import gather_vocab
+
+    tlm = UnitLM.from_pretrained(ckpt, device="cpu")
+    mesh = make_mesh(mesh_shape, ["data", "model"])
+    tlm.shard(mesh, tp=True)
+    dec = tlm._int8_decode_params()
+    out = {f"{part}/{i}/{key}": getattr(layer, key)[part].float().numpy()
+           for i, layer in enumerate(dec.layers) for key in _QUANT_KEYS
+           if isinstance(getattr(layer, key, None), dict) for part in ("q", "s")}
+    ids = torch.tensor(prompts)
+    tile = mesh.row_tile(len(ids))
+    with torch.inference_mode():
+        logits, _ = dec(tile.mine(ids, 0))
+    out["logits"] = tile.gather(gather_vocab(logits[:, -1], dec.tp)).numpy()
+    return out
 
 
 def fsdp_placement(tmp, config, params_path):
