@@ -49,7 +49,10 @@ the sm_90a kernels). Phases, in order; any failure exits non-zero:
                1700-3584 tokens and a -1 tail; `judge_prefill`: [8, 32/8,
                7680, 64], left-padded; the plain version there batch rows
                at a time) and phase 13's training batches (`twist_f32`:
-               [8, 12/12, 512, 64], `slam_f32`: [8, 14/2, 1024, 64], packed),
+               [8, 12/12, 512, 64], `slam_f32`: [8, 14/2, 1024, 64], packed)
+               and tensor parallelism's float32 scoring at 'model' = 2
+               (`tp2_slam_f32`: [10, 7/1, 1024, 64], rows of 100-1024 and a
+               -1 tail, the kernels line's `tp2_slam_f32` entry),
                each call repeated bitwise, timed as phase 3
                times the bf16
                forward; bound by bytes over 3.35 TB/s or FLOPs over the
@@ -263,10 +266,14 @@ the sm_90a kernels). Phases, in order; any failure exits non-zero:
                version, the launches to the schedule's count; then each of
                its call shapes timed alone. Where the host has two or more
                cards, `tools/parallel_smoke.py` on all of them (an even
-               count) under torchrun, in two calls (pretraining meshes,
+               count) under torchrun, in three calls (pretraining meshes,
                DPO and the evaluation mesh; then fsdp and SIMS at
-               Qwen2.5-7B's widths on fsdp); on one card a line says they
-               are not run.
+               Qwen2.5-7B's widths on fsdp; then tensor parallelism); on
+               four or more, `tools/multinode.py` then starts its ranks as
+               two torchrun nodes of two cards (DP [4], TP [2, 2] and
+               fsdp [4] with training_args.multihost=true against one node
+               of 4, DP again over NCCL's socket transport) within its own
+               900 s; on one card a line says they are not run.
 
 Phases 3 and 3b also hold the kernels at DPO's shape (`dpo_T152`: [16, 14/2,
 152, 64], one segment of 110-152 tokens a row and a -1 tail) and at SIMS's
@@ -751,6 +758,17 @@ def prefill_entry(at: dict) -> dict:
             "tflops": at["tflops"], "dense_graph_ms": at["dense_graph_ms"]}
 
 
+def shape_entry(at: dict) -> dict:
+    """A forward case's times from its phase-3 / 3e row `at`, under the
+    kernels line's names: a second shape of an entry's kernel."""
+    return {"shape": at["shape"], "ms": at["ms"], "plain_ms": at["plain_ms"],
+            "graph_ms": at["device_ms"], "plain_graph_ms": at["plain_device_ms"],
+            "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
+            "cuda_core_bound_ms": at["cuda_core_bound_ms"], "library_ms": at["library_ms"],
+            "library_timed": at["library"], "roofline_share": at["roofline_share"],
+            "vs_library": at["vs_library"], "max_abs_err": at["max_abs_err_out"]}
+
+
 def _first_error(e: BaseException) -> str:
     """The first line of the error that started a chain: a capture that
     fails inside the graph is reported by `capture_end` as "a previous error
@@ -886,6 +904,7 @@ def check_kernels(dev, f32: bool = False) -> list[dict]:
         ("d80", (4, 8, 2, 1024, 80), True, _packed_segments(rng, 4, 1024, 4)),
         ("sims_f32", (4, 14, 2, 2048, 64), True, _mixed_segments(rng, 4, 2048)),
         *_wide_head_cases(rng, with_causal=True),
+        ("tp2_slam_f32", (10, 7, 1, 1024, 64), True, _right_padded(rng, 10, 1024, lo=100)),
     ] if f32 else [
         ("score_ctx1024", (8, 14, 2, 1024, 64), True, _packed_segments(rng, 8, 1024, 8)),
         ("score_requests", (8, 14, 2, 1024, 64), True, _right_padded(rng, 8, 1024)),
@@ -4495,7 +4514,8 @@ def run_sims_defaults(dev, smi: str, work: pathlib.Path, tiny: bool = False, n_r
 # phase 17: the ring's 'seq' group as the multi-card leg runs it at N = 4
 RING_N = 4
 # ... and on a host of two or more cards, tools/parallel_smoke.py's legs in
-# two torchrun calls of at most 900 s each
+# three torchrun calls of at most 900 s each (on four or more, then
+# tools/multinode.py's two torchrun nodes within another 900 s)
 PARALLEL_CALLS = ("meshes,dpo,eval", "fsdp,sims7b", "tp,tp_eval,tp_sims7b")
 PARALLEL_LEGS = tuple(leg for call in PARALLEL_CALLS for leg in call.split(","))
 
@@ -4681,7 +4701,9 @@ def run_ring_kernels(dev, shape=(8, 14, 2, 1024, 64)) -> dict:
               f"tools/parallel_smoke.py ({', '.join(PARALLEL_LEGS)}: the data and 'seq' meshes, "
               f"DPO, evaluation, fsdp, tensor parallelism over 'model' and SIMS at "
               f"Qwen2.5-7B's widths on fsdp and on 'model') need two or "
-              f"more (NCCL takes one card a rank) and are not run", flush=True)
+              f"more (NCCL takes one card a rank), and tools/multinode.py's two torchrun "
+              f"nodes of two cards (training_args.multihost=true) need four; none is run",
+              flush=True)
         return result
     n = cards - cards % 2
     result["parallel_smoke"] = {}
@@ -4697,6 +4719,19 @@ def run_ring_kernels(dev, shape=(8, 14, 2, 1024, 64)) -> dict:
         result["parallel_smoke"][legs] = json.loads(proc.stdout.strip().splitlines()[-1])
         print(f"phase 17: tools/parallel_smoke.py --legs {legs} on {n} cards in "
               f"{time.perf_counter() - t1:.1f} s", flush=True)
+    if cards < 4:
+        print(f"phase 17: {cards} cards on this host: tools/multinode.py's two torchrun nodes "
+              f"of two cards need four and are not run", flush=True)
+        return result
+    t1 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "slamkit_tpu_torch.tools.multinode"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=900)
+    print(proc.stdout[-8000:], flush=True)
+    _require(proc.returncode == 0, f"tools/multinode.py failed ({proc.returncode}):\n"
+             f"{proc.stderr[-4000:]}")
+    result["multinode"] = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"phase 17: tools/multinode.py (two torchrun nodes of two cards) in "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
     return result
 
 
@@ -4851,7 +4886,9 @@ def main() -> int:
                         + f32_launches["flash_fwd_f32"] + defaults_launches["flash_fwd_f32"]
                         + ring_launches["flash_fwd_f32"],
                         max(r["max_abs_err_out"] for r in f32_rows), f32),
-             cuda_core_bound_ms=f32["cuda_core_bound_ms"]),
+             cuda_core_bound_ms=f32["cuda_core_bound_ms"],
+             tp2_slam_f32=shape_entry(next(r for r in f32_rows
+                                           if r["name"] == "tp2_slam_f32"))),
         dict(kernel_row("flash_bwd_f32", "slamkit_tpu_torch/ops/csrc/flash_bwd_f32.cu",
                         "slamkit_tpu/ops/flash_attention.py:247",
                         ["flash_bwd_f32_prep_kernel", "flash_bwd_f32_dkdv_kernel",

@@ -34,6 +34,10 @@ the judge's LM run whole on every rank, as they run unsharded in JAX. Rank
     python -m torch.distributed.run --nproc_per_node 4 -m slamkit_tpu_torch.cli.eval \
         metric=sblimp eval_mesh=4 ...
 
+The ranks may span several nodes (torchrun --nnodes N --node_rank k on
+each, WORLD_SIZE = N x --nproc_per_node = eval_mesh): no flag, as the
+evaluation writes no checkpoint; each rank reads the metric's data itself.
+
 `eval_fsdp=true` with `eval_mesh=N > 1` also shards the unit LM's weights
 over the N ranks (ZeRO-3, `parallel/fsdp.py`), each layer gathered as it
 runs, as the JAX CLI's `tlm.shard(mesh, fsdp=True)` does; the numbers are
@@ -41,8 +45,6 @@ the one-process ones.
 """
 import logging
 import os
-
-import torch.distributed as dist
 
 from ..config import main, to_container
 from ..utils.path_utils import resolve_reference_path
@@ -68,13 +70,10 @@ def eval_main(cfg):
     device = "cpu" if cfg.get("device", None) == "cpu" else DEFAULT_DEVICE
     if world == 1:
         return _eval(cfg, device, None)
-    from ..parallel import init_distributed, make_mesh
+    from ..parallel import make_mesh, process_group
 
-    device = init_distributed(device)
-    try:
+    with process_group(device) as device:
         return _eval(cfg, device, make_mesh([n_mesh]))
-    finally:
-        dist.destroy_process_group()
 
 
 def _eval(cfg, device, mesh):

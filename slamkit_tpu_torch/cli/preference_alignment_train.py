@@ -23,17 +23,20 @@ card (gloo on the CPU) and trains its pairs of every global batch on the
         -m slamkit_tpu_torch.cli.preference_alignment_train ... training_args.mesh_shape=[4]
 
 training_args.fsdp=true shards the policy and the reference over 'data'
-(ZeRO-3, `parallel/fsdp.py`). A 'seq' axis and multihost=true raise.
+(ZeRO-3, `parallel/fsdp.py`). A 'seq' axis raises. training_args.multihost=true
+trains over several hosts, torchrun on each (`torch.distributed.run --nnodes
+N --node_rank k ...`, as `cli.train` says): data.train_path / val_path must
+exist on every node and training_args.output_dir must be shared by them
+(both checked); without torchrun it raises, and so does a launch over
+several nodes without it.
 """
 import logging
 import os
 
-import torch.distributed as dist
-
 from ..config import main
 from ..data.preference import init_preference_optimization_dataset
 from ..models.unit_lm import tlm_factory
-from ..parallel import init_distributed, make_mesh
+from ..parallel import make_mesh, multihost, process_group
 from ..tokeniser import tokeniser_factory
 from ..trainer import RunTimeStopperCallback, SLAMDPOTrainer
 from ..utils.device import DEFAULT_DEVICE
@@ -47,13 +50,11 @@ def train(cfg):
     logging.basicConfig(level=logging.INFO)
     if cfg.tokeniser.tokeniser_type == "interleave":
         raise ValueError("Interleave tokeniser not supported for Preference Alignment yet")
+    multihost.check_launch(bool(cfg.training_args.get("multihost", False)))
     device = "cpu" if cfg.training_args.get("use_cpu", False) else DEFAULT_DEVICE
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        device = init_distributed(device)
-        try:
+        with process_group(device) as device:
             return _train(cfg, device)
-        finally:
-            dist.destroy_process_group()
     return _train(cfg, device)
 
 
@@ -62,6 +63,8 @@ def _train(cfg, device):
                      cfg.training_args.get("mesh_axes", None))
     tokeniser = tokeniser_factory(cfg.tokeniser, device=device)
     logger.info("tokeniser inited")
+    if mesh.nodes > 1:
+        multihost.check_data_paths(cfg.data, mesh, device)
     ds = init_preference_optimization_dataset(cfg.data)
     logger.info("datasets loaded")
 

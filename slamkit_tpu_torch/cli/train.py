@@ -35,9 +35,21 @@ splits the decoder's weights over 'model' (tensor parallelism,
     python -m torch.distributed.run --nproc_per_node 4 -m slamkit_tpu_torch.cli.train \
         model=slam ... training_args.mesh_shape=[2,2] training_args.mesh_axes=[data,model]
 
-training_args.multihost=true raises (ROADMAP queue 1 item 26), fsdp beside a
-'model' axis above 1 raises (item 28), and so does 'model' beside 'seq'
-(item 29).
+training_args.multihost=true trains over several hosts: start torchrun on
+every node with the same rendezvous, each with its node's rank
+(`parallel/multihost.py`):
+
+    python -m torch.distributed.run --nnodes 2 --node_rank k --nproc_per_node 4 \
+        --master_addr <node 0> --master_port <port> -m slamkit_tpu_torch.cli.train \
+        model=slam ... training_args.multihost=true
+
+Every node reads the same data.train_path / val_path (each must exist on
+every node) and keeps its tiles; training_args.output_dir and a
+data.saved_ds_path cache must be directories every node shares, which is
+checked, every rank raising together where a node cannot see rank 0's.
+multihost=true without torchrun raises, and so does a launch over several
+nodes without it. fsdp beside a 'model' axis above 1 raises (ROADMAP queue
+1 item 28), and so does 'model' beside 'seq' (item 29).
 """
 import logging
 import os
@@ -47,7 +59,7 @@ import torch.distributed as dist
 from ..config import main
 from ..data.dataset import init_dataset
 from ..models.unit_lm import tlm_factory
-from ..parallel import init_distributed, make_mesh
+from ..parallel import make_mesh, multihost, process_group
 from ..tokeniser import tokeniser_factory
 from ..trainer import MaxTokensStopperCallback, RunTimeStopperCallback, SLAMTrainer
 from ..utils.device import DEFAULT_DEVICE
@@ -59,16 +71,11 @@ logger = logging.getLogger(__name__)
 @main(config_name="train", config_path="../../config")
 def train(cfg):
     logging.basicConfig(level=logging.INFO)
-    if cfg.training_args.get("multihost", False):
-        raise NotImplementedError("training_args.multihost=true: multi-host training is not "
-                                  "ported yet (ROADMAP queue 1 item 26)")
+    multihost.check_launch(bool(cfg.training_args.get("multihost", False)))
     device = "cpu" if cfg.training_args.get("use_cpu", False) else DEFAULT_DEVICE
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        device = init_distributed(device)
-        try:
+        with process_group(device) as device:
             return _train(cfg, device)
-        finally:
-            dist.destroy_process_group()
     return _train(cfg, device)
 
 
@@ -96,11 +103,19 @@ def _train(cfg, device):
 
     # rank 0 builds (and, under data.saved_ds_path, caches) the datasets
     # before the other ranks build or load theirs
+    if mesh.nodes > 1:
+        multihost.check_data_paths(cfg.data, mesh, device)
+    if mesh.rank == 0:
+        ds = init_dataset(cfg, tokeniser)
+    if mesh.size > 1:
+        dist.barrier()
+        saved = cfg.data.get("saved_ds_path", None)
+        if saved and mesh.nodes > 1:
+            multihost.every_node(os.path.isdir(saved), f"data.saved_ds_path {saved}, which rank "
+                                 f"0 built or loaded, must be a directory every node shares",
+                                 mesh, device)
     if mesh.rank:
-        dist.barrier()
-    ds = init_dataset(cfg, tokeniser)
-    if mesh.size > 1 and mesh.rank == 0:
-        dist.barrier()
+        ds = init_dataset(cfg, tokeniser)
     logger.info("datasets loaded: train=%d rows", len(ds["train"]))
 
     if cfg.model.config_args.vocab_size == -1:

@@ -5,12 +5,18 @@ global array on a `jax.sharding.Mesh` of devices and lets XLA insert the
 collectives; here every rank is a process that torchrun starts, holds its own
 tile of the global batch and calls the collectives itself:
 
-  * `init_distributed(device)` joins torchrun's process group (`RANK`,
-    `WORLD_SIZE`, `LOCAL_RANK`): NCCL on the rank's card, gloo on the CPU;
+  * `topology()` reads where torchrun put this process (`RANK`,
+    `WORLD_SIZE`, `LOCAL_RANK`, `LOCAL_WORLD_SIZE`, `GROUP_RANK`: its node);
+  * `init_distributed(device)` joins torchrun's process group: NCCL on the
+    card `LOCAL_RANK` of its node, gloo on the CPU;
   * `make_mesh(shape, axis_names)` keeps the JAX rules and messages
     (`mesh.py:28-52`) over the world's ranks, built on
     `torch.distributed.device_mesh.init_device_mesh` (rank = row-major
-    position in the mesh, as JAX lays devices out);
+    position in the mesh, as JAX lays devices out). torchrun numbers ranks
+    node by node, so an axis's groups stay inside a node when the product of
+    its size and the sizes after it divides the ranks of a node
+    (`Mesh.cross_node_axes`): rank 0 logs which axes cross nodes, with a
+    warning where a 'model' or 'seq' group does (JAX allows it too);
   * `local_tile(batch, mesh)` is the slice of a global [B, T] batch that JAX's
     `shard_batch` / `batch_sharding` (`:60-71`, `:217-236`) place on a device:
     rows over 'data', the time chunk over 'seq';
@@ -34,13 +40,18 @@ parameters by.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import datetime
+import logging
 import os
 from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+logger = logging.getLogger(__name__)
 
 #: Mesh axes the trainers understand: 'data' (the batch axis, always
 #: present), 'model' (tensor parallelism), 'seq' (context parallelism: the
@@ -54,22 +65,68 @@ TP_SEQ_ITEM = "ROADMAP queue 1 item 29"
 BUCKET_ELEMENTS = 1 << 26
 
 
-def init_distributed(device, init_method: Optional[str] = None) -> torch.device:
-    """Join the process group of torchrun's `RANK` / `WORLD_SIZE` /
-    `LOCAL_RANK` and return the rank's device: on "cuda" the card
-    `LOCAL_RANK` (made current before any model is built, so the port's
-    `resolve_device("cuda")` finds it) over NCCL, on "cpu" gloo.
-    init_method defaults to torchrun's `env://` (a test passes a
-    `file://` store). A rank without its card, or a failed init, raises."""
-    rank = int(os.environ.get("RANK", "0"))
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    local = int(os.environ.get("LOCAL_RANK", str(rank)))
+@dataclasses.dataclass(frozen=True)
+class Topology:
+    """Where torchrun put this process: global `rank` of `world`,
+    `local_rank` of the `local_world` ranks on its `node`."""
+    rank: int = 0
+    world: int = 1
+    local_rank: int = 0
+    local_world: int = 1
+    node: int = 0
+
+    @property
+    def nodes(self) -> int:
+        return self.world // self.local_world
+
+
+def topology(env=None) -> Topology:
+    """This process's `Topology` from torchrun's environment (`env`, default
+    `os.environ`). Without `LOCAL_WORLD_SIZE` every rank is on one node (a
+    launch that sets only RANK / WORLD_SIZE / LOCAL_RANK); without
+    `LOCAL_RANK` the rank is its own local rank, but only on one node: a
+    second node would pick a card its host does not have. Nodes hold equal
+    numbers of ranks, numbered node by node, as torchrun numbers them."""
+    env = os.environ if env is None else env
+    rank, world = int(env.get("RANK", "0")), int(env.get("WORLD_SIZE", "1"))
+    local_world = int(env.get("LOCAL_WORLD_SIZE", str(world)))
+    if local_world < 1 or world % local_world:
+        raise ValueError(f"WORLD_SIZE={world} is not a whole number of nodes of "
+                         f"LOCAL_WORLD_SIZE={local_world} ranks: start every node with the "
+                         f"same --nproc_per_node")
+    if "LOCAL_RANK" in env:
+        local = int(env["LOCAL_RANK"])
+    elif local_world < world:
+        raise RuntimeError(f"rank {rank}: LOCAL_RANK is not set, and WORLD_SIZE={world} spans "
+                           f"{world // local_world} nodes of {local_world} ranks, so RANK "
+                           f"names no card of this host: start every node with torchrun")
+    else:
+        local = rank
+    node = int(env.get("GROUP_RANK", str(rank // local_world)))
+    if node != rank // local_world or local != rank % local_world:
+        raise ValueError(f"rank {rank} is local rank {local} of node {node}, but torchrun "
+                         f"numbers ranks node by node ({local_world} a node)")
+    return Topology(rank, world, local, local_world, node)
+
+
+def init_distributed(device, init_method: Optional[str] = None,
+                     timeout: Optional[float] = None) -> torch.device:
+    """Join the process group of torchrun's `topology()` and return the
+    rank's device: on "cuda" the card `LOCAL_RANK` of its node (made current
+    before any model is built, so the port's `resolve_device("cuda")` finds
+    it) over NCCL, on "cpu" gloo. init_method defaults to torchrun's
+    `env://` (a test passes a `file://` store); `timeout` (seconds) bounds
+    every collective, so a rank whose peer on another node died fails
+    instead of waiting out the backend's default. A rank without its card,
+    or a failed init, raises."""
+    topo = topology()
+    rank, world, local = topo.rank, topo.world, topo.local_rank
     dev = torch.device(device)
     if dev.type == "cuda":
         count = torch.cuda.device_count() if torch.cuda.is_available() else 0
         if local >= count:
-            raise RuntimeError(f"rank {rank} (local rank {local}) has no CUDA card: "
-                               f"{count} visible on this host")
+            raise RuntimeError(f"rank {rank} (local rank {local} of node {topo.node}) has no "
+                               f"CUDA card: {count} visible on this host")
         torch.cuda.set_device(local)
         dev = torch.device("cuda", local)
         backend = "nccl"
@@ -83,11 +140,26 @@ def init_distributed(device, init_method: Optional[str] = None) -> torch.device:
                                f"{dist.get_world_size()} exists; the environment says "
                                f"{rank} / {world}")
         return dev
+    extra = {} if timeout is None else {"timeout": datetime.timedelta(seconds=timeout)}
     # device_id binds NCCL to the card at once, so a failed init raises here
     dist.init_process_group(backend, init_method=init_method or "env://", rank=rank,
                             world_size=world,
-                            device_id=dev if backend == "nccl" else None)
+                            device_id=dev if backend == "nccl" else None, **extra)
     return dev
+
+
+@contextlib.contextmanager
+def process_group(device):
+    """The rank's device (`init_distributed`) inside torchrun's process
+    group, left at the end; a process already in one keeps it (a caller
+    that runs several entry points in one group)."""
+    joined = not dist.is_initialized()
+    dev = init_distributed(device)
+    try:
+        yield dev
+    finally:
+        if joined:
+            dist.destroy_process_group()
 
 
 def world_size() -> int:
@@ -174,15 +246,40 @@ class RowTile:
 class Mesh:
     """A mesh of `sizes` over the world's ranks, named `axis_names`; this
     process is `rank` (row-major over the mesh). `device_mesh` is torch's
-    DeviceMesh where the world has several ranks, else None."""
+    DeviceMesh where the world has several ranks, else None. `local_size`
+    is the ranks of a node (0: every rank on one node)."""
     axis_names: tuple
     sizes: tuple
     rank: int = 0
     device_mesh: Optional[object] = None
+    local_size: int = 0
 
     @property
     def shape(self) -> dict:
         return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def nodes(self) -> int:
+        return self.size // self.local_size if self.local_size else 1
+
+    @property
+    def node(self) -> int:
+        return self.rank // self.local_size if self.local_size else 0
+
+    @property
+    def cross_node_axes(self) -> tuple:
+        """The axes some of whose groups hold ranks of several nodes (ranks
+        numbered node by node, groups row-major as `init_device_mesh` forms
+        them)."""
+        if self.nodes == 1:
+            return ()
+        ranks = np.arange(self.size).reshape(self.sizes)
+        crossing = []
+        for i, name in enumerate(self.axis_names):
+            nodes = np.moveaxis(ranks, i, -1).reshape(-1, self.sizes[i]) // self.local_size
+            if (nodes != nodes[:, :1]).any():
+                crossing.append(name)
+        return tuple(crossing)
 
     @property
     def size(self) -> int:
@@ -277,8 +374,30 @@ def make_mesh(shape: Optional[Sequence[int]] = None,
     from torch.distributed.device_mesh import init_device_mesh
 
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return Mesh(axis_names, shape, dist.get_rank(),
-                init_device_mesh(device_type, shape, mesh_dim_names=axis_names))
+    topo = topology()
+    mesh = Mesh(axis_names, shape, dist.get_rank(),
+                init_device_mesh(device_type, shape, mesh_dim_names=axis_names),
+                local_size=topo.local_world if topo.nodes > 1 else 0)
+    if mesh.nodes > 1 and mesh.rank == 0:
+        _log_layout(mesh)
+    return mesh
+
+
+def _log_layout(mesh: Mesh):
+    """Which axes of a mesh over several nodes cross them: 'data' may (its
+    collectives are one gradient all-reduce a step); a 'model' or 'seq'
+    group that does runs each layer's collectives over the slow link, which
+    is allowed, as in JAX, and warned of."""
+    crossing = mesh.cross_node_axes
+    logger.info("mesh %s over %d nodes of %d ranks: %s", mesh.shape, mesh.nodes,
+                mesh.local_size, f"{', '.join(crossing)} cross nodes" if crossing
+                else "every axis stays inside a node")
+    for axis in ("model", "seq"):
+        if axis in crossing and mesh.shape[axis] > 1:
+            logger.warning("mesh %s: the '%s' groups (%d ranks) cross nodes (%d ranks a "
+                           "node): each layer's collectives over '%s' leave the node; an "
+                           "axis size that divides the ranks of a node keeps them inside",
+                           mesh.shape, axis, mesh.shape[axis], mesh.local_size, axis)
 
 
 def seq_axis_size(mesh: Mesh) -> int:

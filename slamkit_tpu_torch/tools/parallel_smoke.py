@@ -110,11 +110,22 @@ Then tensor parallelism over 'model' (`parallel/tensor.py`):
     the peaks while building and training, s a step and MFU with the same
     upper count.
 
-`--legs` runs a subset of the eight (meshes, dpo, eval, fsdp, sims7b, tp,
-tp_eval, tp_sims7b; default the first five: `chip_smoke.py` runs the
-three tp legs in a call of their own, in that order). The last line is one
-JSON object of all of it; a failed check on any rank ends every rank and
-exits 1, so the legs after it do not run. It imports only the port.
+Then the meshes over several nodes (`tools/multinode.py` starts the ranks
+as two torchrun nodes, with `--multihost`: `training_args.multihost=true`):
+
+  * nodes: DP [N] and TP [2, N / 2] as the tp leg runs them, then fsdp [N],
+    each with the same checks and times and rank 0 resuming the mesh's
+    checkpoint-3 on one card; each row names the mesh's nodes and the axes
+    whose groups cross them. nodes_dp: DP [N] alone (the run over NCCL's
+    socket transport, where TP's and fsdp's traffic would take minutes).
+
+`--legs` runs a subset of the ten (meshes, dpo, eval, fsdp, sims7b, tp,
+tp_eval, tp_sims7b, nodes, nodes_dp; default the first five:
+`chip_smoke.py` runs the three tp legs in a call of their own, in that
+order, and the nodes legs through `tools/multinode.py`). `--timeout`
+bounds every collective (seconds; `init_process_group`'s timeout). The
+last line is one JSON object of all of it; a failed check on any rank ends
+every rank and exits 1, so the legs after it do not run. It imports only the port.
 """
 from __future__ import annotations
 
@@ -159,7 +170,8 @@ RING_OUT_BOUND, RING_GRAD_REL = 3e-2, 2e-2
 SIMS_CONTEXT, SIMS_PER_DEVICE, SIMS_STEPS = 2048, 2, 3
 #: one H100's dense bf16 peak (NVIDIA's data sheet, SXM part at 700 W)
 H100_BF16_FLOPS = 989e12
-LEGS = ("meshes", "dpo", "eval", "fsdp", "sims7b", "tp", "tp_eval", "tp_sims7b")
+LEGS = ("meshes", "dpo", "eval", "fsdp", "sims7b", "tp", "tp_eval", "tp_sims7b", "nodes",
+        "nodes_dp")
 DEFAULT_LEGS = LEGS[:5]
 
 
@@ -389,12 +401,13 @@ def _profiled(lead: bool, cuda: bool, sync, fn):
 def run(dev, work: pathlib.Path, cfg=None, context: int = CONTEXT, rows: int = ROWS,
         n_rows: int = 400, lengths=(100, 1001), legs=DEFAULT_LEGS, sims_arch=None,
         sims_entries: Optional[int] = None, sims_context: int = SIMS_CONTEXT,
-        eval_sizes: Optional[dict] = None) -> dict:
+        eval_sizes: Optional[dict] = None, multihost: bool = False) -> dict:
     """Every check and measurement above of `legs` on this rank's `dev`
     (the card; a rehearsal passes the CPU, a small `cfg`, `context` and
     `rows`, a small `sims_arch`, `sims_entries` and `sims_context`, fewer
     evaluation rows and tokens in `eval_sizes` (`run_eval`'s keywords), and
-    then no launch may be counted); rank 0 returns the results."""
+    then no launch may be counted); `multihost` trains with
+    `training_args.multihost=true`; rank 0 returns the results."""
     import torch
     import torch.distributed as dist
 
@@ -424,8 +437,9 @@ def run(dev, work: pathlib.Path, cfg=None, context: int = CONTEXT, rows: int = R
     dist.barrier()
     cfg = dataclasses.replace(cfg or slam_config(), remat=True)
     pretrain = None
-    if "meshes" in legs or "fsdp" in legs or "tp" in legs:
-        pretrain = _Pretrain(dev, work, cfg, context, rows, n_rows, lengths, say, sync)
+    if {"meshes", "fsdp", "tp", "nodes", "nodes_dp"} & set(legs):
+        pretrain = _Pretrain(dev, work, cfg, context, rows, n_rows, lengths, say, sync,
+                             multihost)
     if "meshes" in legs:
         run_meshes(pretrain, result)
     if "dpo" in legs:
@@ -447,6 +461,8 @@ def run(dev, work: pathlib.Path, cfg=None, context: int = CONTEXT, rows: int = R
         sims = {} if sims_entries is None else {"n_entries": sims_entries}
         result["tp_sims7b"] = run_sims7b(dev, work, say, sync, arch=sims_arch,
                                          context=sims_context, tp=True, **sims)
+    if "nodes" in legs or "nodes_dp" in legs:
+        result["nodes"] = run_nodes(pretrain, result, dp_only="nodes" not in legs)
     return result
 
 
@@ -485,7 +501,7 @@ class _Pretrain:
     one-card reference, and one mesh's checked and timed run."""
 
     def __init__(self, dev, work: pathlib.Path, cfg, context: int, rows: int, n_rows: int,
-                 lengths, say, sync):
+                 lengths, say, sync, multihost: bool = False):
         import torch.distributed as dist
 
         from ..data import parse_single_dataset
@@ -493,7 +509,7 @@ class _Pretrain:
         from .slam_recipe import write_markov_corpus
 
         self.dev, self.work, self.cfg, self.context, self.rows = dev, work, cfg, context, rows
-        self.say, self.sync = say, sync
+        self.say, self.sync, self.multihost = say, sync, multihost
         self.rank, self.world = dist.get_rank(), dist.get_world_size()
         self.lead, self.cuda = self.rank == 0, dev.type == "cuda"
         if self.lead:
@@ -521,7 +537,7 @@ class _Pretrain:
 
         args = slam_training_args(str(out), per_device_train_batch_size=self.rows // n_data,
                                   gradient_accumulation_steps=MICRO, max_steps=STEPS,
-                                  save_steps=3, **over)
+                                  save_steps=3, multihost=self.multihost, **over)
         model = UnitLM(self.cfg, seed=0, device=self.dev)
         clock = Clock()
         return SLAMTrainer(model, args, self.ds, callbacks=[clock], packing=True,
@@ -593,6 +609,7 @@ class _Pretrain:
         _require(launches == want, f"rank {rank} {name}: launches {launches}, expected {want}")
         losses = [r["loss"] for r in state.log_history if "loss" in r]
         row = {"mesh_shape": shape, "mesh_axes": axes, "cp_schedule": schedule, "fsdp": fsdp,
+               "nodes": mesh.nodes, "cross_node_axes": list(mesh.cross_node_axes),
                "losses": losses, "grad_norm_step1": norms[0], **self.timed(clock.marks),
                "max_memory_allocated": _peaks(self.dev)}
         launch_counts = [None] * world
@@ -724,7 +741,7 @@ def run_tp(pretrain: _Pretrain, result: dict) -> dict:
     ref = pretrain.reference(result)
     row = {}
     dp = (result.get("meshes", {}).get("dp") or result.get("fsdp", {}).get("dp")
-          or pretrain.mesh_run("dp", [n], None, "contiguous", ref))
+          or pretrain.mesh_run("dp", [n], None, "contiguous", ref, one_card_resume=True))
     row["dp"] = dp
     row["tp"] = pretrain.mesh_run("tp", [2, n // 2], ["data", "model"], "contiguous", ref,
                                   one_card_resume=True)
@@ -736,6 +753,26 @@ def run_tp(pretrain: _Pretrain, result: dict) -> dict:
                      f"{ref['tokens_per_s']:.1f} tokens/s; peak memory "
                      f"{_gib(got['max_memory_allocated'])} / {_gib(dp['max_memory_allocated'])}")
     return row
+
+
+def run_nodes(pretrain: _Pretrain, result: dict, dp_only: bool = False) -> dict:
+    """The nodes legs (module docstring) on this rank: DP [N] and TP [2, N /
+    2] as the tp leg runs them, then fsdp [N] with a one-card resume; DP
+    alone with `dp_only`. Rank 0 returns the rows by mesh."""
+    n, ref = pretrain.world, pretrain.reference(result)
+    if dp_only:
+        rows = {"dp": pretrain.mesh_run("dp", [n], None, "contiguous", ref,
+                                        one_card_resume=True)}
+    else:
+        rows = run_tp(pretrain, result)
+        rows["fsdp"] = pretrain.mesh_run("fsdp", [n], None, "contiguous", ref, fsdp=True,
+                                         one_card_resume=True)
+    if pretrain.lead:
+        for name, got in rows.items():
+            pretrain.say(f"nodes {name}: {got['nodes']} nodes, axes crossing them "
+                         f"{got['cross_node_axes']}; {got['step_s']:.4f} s a step against one "
+                         f"card's {ref['step_s']:.4f}")
+    return rows
 
 
 def _prefill_logits(decoder, prompts):
@@ -1226,7 +1263,12 @@ def main(argv=None) -> int:
     ap.add_argument("--legs", default=",".join(DEFAULT_LEGS),
                     help=f"comma-separated subset of {','.join(LEGS)} (default "
                          f"{','.join(DEFAULT_LEGS)})")
-    legs = tuple(ap.parse_args(argv).legs.split(","))
+    ap.add_argument("--multihost", action="store_true",
+                    help="train with training_args.multihost=true (ranks on several nodes)")
+    ap.add_argument("--timeout", type=float, default=None,
+                    help="seconds a collective may wait (default: the backend's)")
+    args = ap.parse_args(argv)
+    legs = tuple(args.legs.split(","))
     if not set(legs) <= set(LEGS):
         print(f"parallel_smoke: --legs takes {','.join(LEGS)}", file=sys.stderr)
         return 2
@@ -1246,18 +1288,19 @@ def main(argv=None) -> int:
 
     from ..parallel import init_distributed
 
-    dev = init_distributed("cuda")
+    dev = init_distributed("cuda", timeout=args.timeout)
     work = ROOT / "build" / "parallel_smoke"
     if dist.get_rank() == 0:
         shutil.rmtree(work, ignore_errors=True)
         work.mkdir(parents=True)
     dist.barrier()
     try:
-        result = run(dev, work, legs=legs)
+        result = run(dev, work, legs=legs, multihost=args.multihost)
     except BaseException:
         # a check that fails on one rank (rank 0 holds most of them) ends
-        # this process at once, so torchrun stops the others instead of
-        # leaving them waiting in a collective until NCCL's timeout
+        # this process at once, so torchrun (and tools/multinode.py, the
+        # other node's) stops the others instead of leaving them waiting in
+        # a collective until NCCL's timeout
         traceback.print_exc()
         sys.stdout.flush()
         sys.stderr.flush()

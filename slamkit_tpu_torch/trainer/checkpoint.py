@@ -17,7 +17,8 @@ Counterpart of `slamkit_tpu/trainer/checkpoint.py`. A checkpoint is
 
 `AsyncSaver` writes in a worker thread from a device-side snapshot
 (`snapshot`, a `clone()` of every tensor) taken before the next step
-updates the parameters in place.
+updates the parameters in place; over several nodes (`async_allowed`)
+saves are synchronous, as the JAX package's are with several processes.
 
 A model sharded over 'data' (`parallel/fsdp.py`) saves in the same one-rank
 format: `train_state` gathers each parameter and each parameter-shaped
@@ -109,6 +110,20 @@ class AsyncSaver:
     def submit(self, fn):
         self.wait()
         self._inflight = self._pool.submit(fn)
+
+
+def async_allowed(requested: bool, nodes: int) -> bool:
+    """Whether saves run on the writer thread: as requested on one node,
+    never over several (JAX `checkpoint.py:137-147` turns them off with
+    more than one process). The port's writer thread issues no collective
+    (a sharded state is gathered on the main thread first), but a save over
+    several hosts lands on a file system they share, and a synchronous save
+    is on disk before any rank goes on."""
+    if requested and nodes > 1:
+        logger.warning("async_save disabled on multihost (%d nodes): the checkpoint is "
+                       "written before the next step", nodes)
+        return False
+    return requested
 
 
 def save_state(path: str, train_state: dict):

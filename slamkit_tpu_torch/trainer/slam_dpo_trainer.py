@@ -54,7 +54,7 @@ Under torchrun (`parallel.init_distributed`) the trainer runs on the mesh of
   * the logged loss and metrics and the evaluation's per-batch loss and
     accuracy are all-reduced; rank 0 alone logs and writes checkpoints (in
     the one-rank format), every rank waits for it at a barrier, and every
-    rank resumes from the checkpoint.
+    rank resumes from the checkpoint rank 0 resolves.
 
 `training_args.fsdp: true` shards the policy's parameters, gradients and
 optimizer state over 'data' (`parallel/fsdp.py`), and the frozen reference
@@ -70,8 +70,12 @@ a 'model' line compute the same pairs, and the gradients and the logged
 sums are summed over 'data' alone (`Mesh.batch_group`). fsdp beside a
 'model' axis above 1 raises (ROADMAP queue 1 item 28).
 
-A 'seq' axis above 1 raises the JAX trainer's NotImplementedError;
-multihost raises (ROADMAP queue 1 item 26).
+A 'seq' axis above 1 raises the JAX trainer's NotImplementedError.
+`training_args.multihost: true` spans several hosts as `SLAMTrainer` does
+(JAX `slam_dpo_trainer.py:83-90` reads the process count): it needs a
+process group, a launch over several nodes needs it, `output_dir` must be
+shared by every node, the checkpoint to resume from is rank 0's, and saves
+are synchronous over several nodes.
 """
 from __future__ import annotations
 
@@ -86,14 +90,14 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from ..parallel import fsdp
+from ..parallel import fsdp, multihost
 from ..parallel.mesh import Mesh, all_reduce_grads, make_mesh, seq_axis_size
 from ..parallel.tensor import refuse_fsdp
 from ..utils.calculation_utils import token_nll
 from . import checkpoint
 from .callbacks import TrainerCallback, TrainerControl, TrainerState
 from .optim import make_optimizer
-from .slam_trainer import _refuse_unported, agree, dropout_stream, next_seed
+from .slam_trainer import agree, dropout_stream, next_seed
 
 logger = logging.getLogger(__name__)
 
@@ -189,7 +193,7 @@ class SLAMDPOTrainer:
                  eval_dataset: Optional[List[dict]] = None,
                  callbacks: Optional[List[TrainerCallback]] = None, log_fn=None,
                  mesh: Optional[Mesh] = None):
-        _refuse_unported(args)
+        multihost.check_launch(bool(args.get("multihost", False)))
         self.mesh = mesh or make_mesh(args.get("mesh_shape", None), args.get("mesh_axes", None))
         refuse_fsdp(args.get("fsdp", False), self.mesh, "training_args.fsdp=true")
         if seq_axis_size(self.mesh) > 1:
@@ -210,7 +214,8 @@ class SLAMDPOTrainer:
         self.beta = float(args.get("beta", 0.1))
         self.state = TrainerState()
         self.control = TrainerControl()
-        self._async_save = bool(args.get("async_save", True))
+        self._async_save = checkpoint.async_allowed(bool(args.get("async_save", True)),
+                                                    self.mesh.nodes)
         self._saver = checkpoint.AsyncSaver()
 
         # the unit tokeniser carries bos / eos and __call__ itself (DPO
@@ -394,9 +399,11 @@ class SLAMDPOTrainer:
 
     def train(self, resume_from_checkpoint=None):
         args, state, control = self.args, self.state, self.control
+        if self.mesh.nodes > 1:
+            multihost.check_shared_dir(args["output_dir"], self.mesh, self.device)
         if resume_from_checkpoint:
-            path = (resume_from_checkpoint if isinstance(resume_from_checkpoint, str)
-                    else checkpoint.latest_checkpoint(args["output_dir"]))
+            path = multihost.agree_on_checkpoint(resume_from_checkpoint, args["output_dir"],
+                                                 self.mesh, self.device)
             if path:
                 self.load_checkpoint(path)
             else:

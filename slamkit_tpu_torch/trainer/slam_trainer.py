@@ -46,7 +46,16 @@ Under torchrun (`parallel.init_distributed`) the trainer runs on the mesh of
   * dropout masks are drawn at the global batch's shape and tiled;
   * the logged loss and the eval sums are all-reduced; rank 0 alone logs,
     traces and writes checkpoints, and every rank waits for it at a
-    barrier; every rank resumes from the checkpoint.
+    barrier; every rank resumes from the checkpoint rank 0 resolves
+    (`parallel.multihost.agree_on_checkpoint`), which every rank must read.
+
+`training_args.multihost: true` trains one process group over several
+hosts (torchrun on each, `parallel/multihost.py`; JAX `cli/train.py:33-38`):
+without a process group it raises, and a launch over several nodes without
+it raises. Over several nodes `output_dir` must be one directory every node
+shares (checked before step 1, every rank raising together where a node
+does not see rank 0's marker) and saves are synchronous
+(`checkpoint.async_allowed`).
 
 `training_args.fsdp: true` shards the parameters, the gradients and the
 optimizer state over 'data' (ZeRO-3, `parallel/fsdp.py`; JAX
@@ -74,8 +83,7 @@ rank 0 in the one-rank format. fsdp beside a 'model' axis above 1 raises
 
 With one rank (no torchrun) nothing of this runs. The loop runs
 synchronously on the model's device (no upload or metrics threads); a
-checkpoint may be written in the background from a snapshot. Knobs of the
-JAX trainer that the port does not implement raise.
+checkpoint may be written in the background from a snapshot.
 """
 from __future__ import annotations
 
@@ -93,7 +101,7 @@ from torch.profiler import record_function
 
 from ..data.dataset import IGNORE_INDEX, Batcher, TokenDataset
 from ..ops.ring_attention import SCHEDULES, check_chunk, zigzag_permutation
-from ..parallel import fsdp
+from ..parallel import fsdp, multihost
 from ..parallel.mesh import Mesh, all_reduce_grads, local_tile, make_mesh, seq_axis_size
 from ..parallel.tensor import refuse_fsdp, shard_decoder_tp
 from ..utils.calculation_utils import masked_sum, token_nll
@@ -104,18 +112,6 @@ from .optim import make_optimizer
 logger = logging.getLogger(__name__)
 
 BATCH_KEYS = ("input_ids", "labels", "segment_ids", "positions")
-
-
-def _refuse(args, key, what: str, item: int):
-    raise NotImplementedError(f"training_args.{key}={args.get(key)!r}: {what} is not "
-                              f"ported yet (ROADMAP queue 1 item {item})")
-
-
-def _refuse_unported(args):
-    """The JAX trainers' knobs that wait for a later ROADMAP item raise
-    rather than being ignored: multihost (item 26)."""
-    if args.get("multihost", False):
-        _refuse(args, "multihost", "multi-host training", 26)
 
 
 def agree(control, world: int, device):
@@ -152,7 +148,7 @@ class SLAMTrainer:
                  callbacks: Optional[List[TrainerCallback]] = None,
                  packing: bool = False, context_len: Optional[int] = None,
                  log_fn=None, packing_strategy: str = "bestfit", mesh: Optional[Mesh] = None):
-        _refuse_unported(args)
+        multihost.check_launch(bool(args.get("multihost", False)))
         self.model = model
         self.args = args
         self.device = model.device
@@ -184,7 +180,8 @@ class SLAMTrainer:
         self._data_pos = (0, 0)  # (epoch, microbatches consumed in epoch)
         # (epoch, index) of every microbatch consumed but not yet stepped
         self._pending_positions = deque()
-        self._async_save = bool(args.get("async_save", True))
+        self._async_save = checkpoint.async_allowed(bool(args.get("async_save", True)),
+                                                    self.mesh.nodes)
         self._saver = checkpoint.AsyncSaver()
         pad = model.config.pad_token_id
         self.train_batcher = Batcher(train_dataset, self.global_batch, self.context_len,
@@ -443,9 +440,11 @@ class SLAMTrainer:
 
     def train(self, resume_from_checkpoint=False):
         args, state, control = self.args, self.state, self.control
+        if self.mesh.nodes > 1:
+            multihost.check_shared_dir(args["output_dir"], self.mesh, self.device)
         if resume_from_checkpoint:
-            path = (resume_from_checkpoint if isinstance(resume_from_checkpoint, str)
-                    else checkpoint.latest_checkpoint(args["output_dir"]))
+            path = multihost.agree_on_checkpoint(resume_from_checkpoint, args["output_dir"],
+                                                 self.mesh, self.device)
             if not path:
                 raise ValueError(f"No valid checkpoint found in {args['output_dir']} "
                                  f"(resume_from_checkpoint was requested)")

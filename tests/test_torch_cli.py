@@ -160,21 +160,25 @@ def _cached_runs_match(work, tmp_path, mixed):
 
 
 @pytest.mark.parametrize("overrides,match", [
-    (["training_args.multihost=true"], "item 26"),
+    (["training_args.multihost=true"], "torch.distributed.run --nnodes N"),
     (["data.train_path=[/a.jsonl,/b.jsonl]", "data.saved_ds_path=/tmp/ds"], None),
     (["data.saved_ds_path=/tmp/ds"], None),
-    # fsdp is ported (tests/test_torch_fsdp*.py); with multihost it raises
-    (["training_args.fsdp=true", "training_args.multihost=true"], "item 26"),
+    # fsdp and multihost are ported (tests/test_torch_fsdp*.py,
+    # tests/test_torch_multihost.py); multihost without torchrun raises
+    (["training_args.fsdp=true", "training_args.multihost=true"],
+     "torch.distributed.run --nnodes N"),
 ], ids=["overrides0-item 14", "overrides1-item 18", "overrides2-item 18", "overrides3-item 14"])
 def test_train_cli_refuses_what_is_not_ported(work, tmp_path, overrides, match):
-    """What is not ported raises; data.saved_ds_path (match None), ported
-    since, caches the dataset instead: see _cached_runs_match."""
+    """multihost=true without torchrun raises, naming the launch over
+    several nodes, as `jax.distributed.initialize()` raises without a
+    cluster; data.saved_ds_path (match None), ported since, caches the
+    dataset instead: see _cached_runs_match."""
     if match is None:
         _cached_runs_match(work, tmp_path, mixed=overrides[0].startswith("data.train_path=["))
         return
     base = [f"data.train_path={work / 'train.jsonl'}", f"data.val_path={work / 'val.jsonl'}",
             f"training_args.output_dir={tmp_path}", "training_args.use_cpu=true"]
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(RuntimeError, match=match):
         port_train.train(base + overrides)
 
 

@@ -360,14 +360,16 @@ def test_evaluate_wraps_round(tmp_path, flat):
         assert out["eval_rewards/accuracies"] == 0.0
 
 
-# multihost is not ported (with fsdp too); a mesh is, by the JAX `make_mesh` rules,
-# so on one process a 2-rank mesh and axes that do not match the shape raise
-# as they do in JAX (DPO on gloo ranks: tests/test_torch_parallel_dpo.py)
+# multihost without a process group raises (with fsdp too), naming the
+# torchrun launch over several nodes; a mesh follows the JAX `make_mesh`
+# rules, so on one process a 2-rank mesh and axes that do not match the
+# shape raise as they do in JAX (DPO on gloo ranks:
+# tests/test_torch_parallel_dpo.py, over two nodes: tests/test_torch_multihost.py)
 @pytest.mark.parametrize("override,error,match", [
-    (dict(fsdp="true", multihost="true"), NotImplementedError, "item 26"),
+    (dict(fsdp="true", multihost="true"), RuntimeError, "torch.distributed.run --nnodes N"),
     (dict(mesh_shape="[2]"), ValueError, r"mesh shape \(2,\) != device count 1"),
     (dict(mesh_axes="[data,seq]"), ValueError, "rank != mesh shape"),
-    (dict(multihost="true"), NotImplementedError, "item 26"),
+    (dict(multihost="true"), RuntimeError, "torch.distributed.run --nnodes N"),
 ], ids=[f"override{i}-item 14" for i in range(4)])
 def test_refuses_what_is_not_ported(tmp_path, flat, override, error, match):
     with pytest.raises(error, match=match):

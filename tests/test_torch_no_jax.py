@@ -464,7 +464,8 @@ def test_port_sources_never_import_jax():
         "ops/ring_attention", "tools/parallel_smoke", "ops/flash_attention",
         "tokeniser/unit_tokeniser", "models/unit_lm", "models/generate", "cli/eval",
         "trainer/slam_trainer", "parallel/tensor", "parallel/fsdp", "models/transformer",
-        "trainer/optim", "trainer/checkpoint", "cli/train")} <= scanned
+        "trainer/optim", "trainer/checkpoint", "cli/train", "parallel/multihost",
+        "tools/multinode")} <= scanned
     seen_allowed = set()
     for path in paths:
         rel = str(path.relative_to(ROOT))
@@ -489,6 +490,41 @@ def test_parallel_smoke_refuses_one_rank_and_a_cpu_host():
                          text=True, timeout=120)
     assert two.returncode == 1 and "cuda" in two.stderr.lower(), two.stderr
     assert '"ok"' not in one.stdout + two.stdout
+
+
+def test_multinode_refuses_a_host_without_four_cards():
+    """The two-node leg needs four cards (two nodes of two) and says so,
+    printing no result; its comparison and transport count read what
+    `parallel_smoke` and NCCL write."""
+    proc = _run([sys.executable, "-m", "slamkit_tpu_torch.tools.multinode"], cwd=ROOT)
+    assert proc.returncode == 1 and "need 4 CUDA cards" in proc.stderr, proc.stderr
+    assert proc.stdout == ""
+
+
+def test_multinode_compares_a_row_and_counts_transports(tmp_path):
+    from slamkit_tpu_torch.tools import multinode
+
+    one = {"losses": [6.25, 6.0], "grad_norm_step1": 2.0}
+    assert multinode.compare("dp", dict(one), one) == {
+        "mesh": "dp", "loss_err": 0.0, "grad_norm_rel_err": 0.0, "losses_equal": True,
+        "bound": 0.0, "ok": True}
+    # the two nodes over NVLink: bit for bit, every step
+    late = {"losses": [6.25, 6.0 + 2e-6], "grad_norm_step1": 2.0}
+    got = multinode.compare("dp", late, one)
+    assert not got["ok"] and not got["losses_equal"] and got["loss_err"] == pytest.approx(2e-6)
+    # over the socket transport: every step within SOCKET_BOUND
+    assert multinode.compare("dp", late, one, multinode.SOCKET_BOUND)["ok"]
+    for bad in ({"losses": [6.25, 6.0 + 2e-5], "grad_norm_step1": 2.0},
+                {"losses": [6.25, 6.0], "grad_norm_step1": 2.0001},
+                {"losses": [6.25], "grad_norm_step1": 2.0}):
+        assert not multinode.compare("dp", bad, one, multinode.SOCKET_BOUND)["ok"], bad
+    (tmp_path / "nccl.host.1").write_text(
+        "host:1:2 [0] NCCL INFO Channel 00/0 : 0[0] -> 1[1] via P2P/CUMEM\n"
+        "host:1:2 [0] NCCL INFO Channel 01/0 : 0[0] -> 1[1] via P2P/CUMEM\n"
+        "host:1:2 [0] NCCL INFO Channel 00/0 : 1[1] -> 2[0] [send] via NET/Socket/0\n"
+        "host:1:2 [0] NCCL INFO comm 0x1 rank 0 nranks 4 - Init COMPLETE\n")
+    assert multinode.nccl_transports(tmp_path) == {"P2P/CUMEM": 2, "NET/Socket/0": 1}
+    assert multinode._last_json('noise\n{"a": 1}\n{"b": 2}\ntrailing\n') == {"b": 2}
 
 
 def test_parallel_smoke_rehearsal_on_gloo_ranks_without_jax(tmp_path):
@@ -1054,6 +1090,22 @@ def test_chip_smoke_prefill_entry_names_the_gemm_and_its_graph_times(chip_smoke)
     assert (entry["graph_ms"], entry["plain_graph_ms"], entry["ms"]) == (0.03, 0.27, 0.04)
     assert (entry["bound_ms"], entry["library_ms"], entry["dense_graph_ms"]) == (
         0.009, 9.8, 0.016)
+
+
+def test_chip_smoke_shape_entry_carries_a_second_shapes_times(chip_smoke):
+    """The flash_fwd_f32 entry's `tp2_slam_f32` sub-entry carries that
+    phase-3e row: its shape, eager and graph times, both bounds, the
+    library's time and its error, under the kernels line's names."""
+    at = dict(name="tp2_slam_f32", shape=[10, 7, 1, 1024, 64], ms=0.09, plain_ms=2.1,
+              device_ms=0.08, plain_device_ms=2.0, bound_ms=0.02, bound_by="operations",
+              cuda_core_bound_ms=0.05, library_ms=0.6, library="sdpa memory-efficient, graph",
+              roofline_share=0.25, vs_library=0.13, max_abs_err_out=1e-6)
+    entry = chip_smoke.shape_entry(at)
+    assert entry["shape"] == [10, 7, 1, 1024, 64] and entry["max_abs_err"] == 1e-6
+    assert (entry["graph_ms"], entry["plain_graph_ms"], entry["ms"]) == (0.08, 2.0, 0.09)
+    assert (entry["bound_ms"], entry["cuda_core_bound_ms"], entry["library_ms"]) == (
+        0.02, 0.05, 0.6)
+    assert entry["library_timed"].startswith("sdpa") and entry["vs_library"] == 0.13
 
 
 def test_chip_smoke_reports_the_error_that_broke_a_capture(chip_smoke):

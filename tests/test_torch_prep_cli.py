@@ -250,11 +250,13 @@ def test_preference_train_equals_jax_and_resumes(dpo_files):
 
 @pytest.mark.parametrize("overrides,error,match", [
     (["tokeniser=interleaved_hubert_25"], ValueError, "Interleave tokeniser"),
-    # fsdp is ported (tests/test_torch_fsdp*.py); with multihost it raises
+    # fsdp and multihost are ported (tests/test_torch_fsdp*.py,
+    # tests/test_torch_multihost.py); multihost without torchrun raises
     pytest.param(["training_args.fsdp=true", "training_args.multihost=true"],
-                 NotImplementedError, "item 26", id="overrides1-NotImplementedError-item 14"),
-    pytest.param(["training_args.multihost=true"], NotImplementedError, "item 26",
-                 id="overrides2-NotImplementedError-item 14"),
+                 RuntimeError, "torch.distributed.run --nnodes N",
+                 id="overrides1-NotImplementedError-item 14"),
+    pytest.param(["training_args.multihost=true"], RuntimeError,
+                 "torch.distributed.run --nnodes N", id="overrides2-NotImplementedError-item 14"),
     # attention dropout on the flash path raises, as in JAX (the id is the
     # case's name from when any dropout was refused)
     pytest.param(["model.pretrained_model=null", "model.config_args.attention_dropout=0.1",

@@ -298,18 +298,19 @@ def test_save_host_artifacts_atomic_and_nonmutating(tmp_path):
 
 
 @pytest.mark.parametrize("knob,error,match", [
-    (dict(fsdp="true", multihost="true"), NotImplementedError, "ROADMAP queue 1 item 26"),
+    (dict(fsdp="true", multihost="true"), RuntimeError, "torch.distributed.run --nnodes N"),
     (dict(mesh_shape="[4,2]"), ValueError, r"mesh shape \(4, 2\) != device count 1"),
     (dict(mesh_axes="[data,seq]"), ValueError, "rank != mesh shape"),
     (dict(cp_schedule="striped"), ValueError, "unknown ring schedule"),
-    (dict(multihost="true"), NotImplementedError, "ROADMAP queue 1 item 26"),
+    (dict(multihost="true"), RuntimeError, "torch.distributed.run --nnodes N"),
     (dict(mesh_shape="[1,2]"), ValueError, r"mesh shape \(1, 2\) != device count 1"),
 ], ids=[f"knob{i}" for i in range(6)])
 def test_unported_knobs_raise(tmp_path, knob, error, match):
-    """What the port still does not run raises naming its ROADMAP item
-    (multihost, with fsdp too); the mesh knobs (ported) raise, as in JAX,
-    where the mesh does not fit the world (one process here) or the
-    schedule is unknown."""
+    """multihost=true (ported) without a process group raises naming the
+    torchrun launch over several nodes, with fsdp too, as
+    `jax.distributed.initialize()` raises without a cluster; the mesh knobs
+    (ported) raise, as in JAX, where the mesh does not fit the world (one
+    process here) or the schedule is unknown."""
     with pytest.raises(error, match=match):
         SLAMTrainer(tiny_model(), train_args(tmp_path, **knob), tiny_dataset(), context_len=32)
 

@@ -7,6 +7,12 @@ under `tmp` (so parallel test files never share a port), runs `fn` on its
 rank and saves what it computed to `tmp/<fn>-<rank>.npz`. The test reads
 those files back. Nothing here imports JAX; with `block=True` the ranks
 refuse to import it (and the other packages the card's host lacks).
+
+Under torchrun itself (`python -m torch.distributed.run ... tests/
+torch_mesh_workers.py <fn> <tmp> --torchrun`, as `tools/multinode.py`
+starts its nodes) a rank joins torchrun's group (`parallel.process_group`)
+and `fn` runs the port's command-line entry points in it, which keep it;
+the result goes to `tmp/<fn>-<rank>.json`.
 """
 from __future__ import annotations
 
@@ -33,9 +39,10 @@ class _Blocker(importlib.abc.MetaPathFinder):
 
 
 def launch(fn: str, world: int, tmp: pathlib.Path, timeout: float = 240.0,
-           block: bool = False, **kwargs):
+           block: bool = False, per_node: int = 0, **kwargs):
     """Run `fn(**kwargs)` on `world` ranks (with `block`, none may import
-    JAX and the rest of `BLOCKED`); returns each rank's saved arrays."""
+    JAX and the rest of `BLOCKED`; with `per_node`, torchrun's environment
+    of nodes of that many ranks); returns each rank's saved arrays."""
     tmp = pathlib.Path(tmp)
     tmp.mkdir(parents=True, exist_ok=True)
     (tmp / f"{fn}.json").write_text(json.dumps(kwargs))
@@ -46,6 +53,9 @@ def launch(fn: str, world: int, tmp: pathlib.Path, timeout: float = 240.0,
     for rank in range(world):
         env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
                    OMP_NUM_THREADS="1", PYTHONPATH=str(REPO_ROOT))
+        if per_node:
+            env.update(LOCAL_RANK=str(rank % per_node), LOCAL_WORLD_SIZE=str(per_node),
+                       GROUP_RANK=str(rank // per_node))
         procs.append(subprocess.Popen([sys.executable, __file__, fn, str(tmp),
                                        *(["--block"] if block else [])], env=env,
                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
@@ -295,11 +305,11 @@ def fsdp_placement(tmp, config, params_path):
 
 
 def parallel_smoke(tmp, context, rows, n_rows, lengths, legs=("meshes", "dpo", "eval"),
-                   sims=None, eval_sizes=None):
+                   sims=None, eval_sizes=None, multihost=False):
     """`tools/parallel_smoke.run` of `legs` on the CPU at a 2-layer, 64-wide
     decoder in float32 (`sims`: the sims7b leg's `sims_*` keyword
-    arguments; `eval_sizes`: `run_eval`'s): its result as JSON, and the
-    blocked modules loaded."""
+    arguments; `eval_sizes`: `run_eval`'s; `multihost`: its own): its
+    result as JSON, and the blocked modules loaded."""
     import torch
 
     from slamkit_tpu_torch.models import UnitLMConfig
@@ -314,10 +324,69 @@ def parallel_smoke(tmp, context, rows, n_rows, lengths, legs=("meshes", "dpo", "
     work.mkdir(exist_ok=True)
     result = smoke.run(torch.device("cpu"), work, cfg=cfg, context=context, rows=rows,
                        n_rows=n_rows, lengths=tuple(lengths), legs=tuple(legs),
-                       eval_sizes=eval_sizes,
+                       eval_sizes=eval_sizes, multihost=multihost,
                        **{f"sims_{k}": v for k, v in (sims or {}).items()})
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     return {"result": np.asarray(json.dumps(result)), "loaded": np.asarray(json.dumps(loaded))}
+
+
+# --------------------------------------------------------------------------- #
+# several nodes: the command-line entry points under torchrun
+# --------------------------------------------------------------------------- #
+def spy_on_threads() -> dict:
+    """Record every `torch.distributed` function (but isend / irecv, whose
+    identity `P2POp` checks) called from a thread other than the main one
+    (`dist`: [thread, function] pairs) and the threads
+    `checkpoint.save_state` ran on (`save_state`)."""
+    import threading
+
+    import torch.distributed as dist
+
+    from slamkit_tpu_torch.trainer import checkpoint
+
+    seen = {"dist": [], "save_state": []}
+
+    def wrap(name, fn):
+        def spy(*a, **kw):
+            if threading.current_thread() is not threading.main_thread():
+                seen["dist"].append([threading.current_thread().name, name])
+            return fn(*a, **kw)
+        return spy
+
+    for name, fn in list(vars(dist).items()):
+        # `P2POp` checks its op by identity with isend / irecv: those two stay
+        # (a point-to-point exchange goes through batch_isend_irecv, wrapped)
+        if callable(fn) and not isinstance(fn, type) and name not in ("isend", "irecv") and \
+                getattr(fn, "__module__", "").startswith("torch.distributed"):
+            setattr(dist, name, wrap(name, fn))
+    save = checkpoint.save_state
+
+    def save_state(*a, **kw):
+        seen["save_state"].append(threading.current_thread().name)
+        return save(*a, **kw)
+
+    checkpoint.save_state = save_state
+    return seen
+
+
+def cli_cases(tmp, cases, spy=False):
+    """Each of `cases` ([name, cli, overrides]: cli `train`, `dpo` or
+    `eval`) through the port's entry point on this rank of torchrun's
+    launch: a training run's `log_history` or the evaluation's scores, by
+    name; with `spy`, what `spy_on_threads` saw."""
+    from slamkit_tpu_torch.cli import eval as port_eval
+    from slamkit_tpu_torch.cli import preference_alignment_train as port_dpo
+    from slamkit_tpu_torch.cli import train as port_train
+
+    seen = spy_on_threads() if spy else None
+    entry = {"train": port_train.train, "dpo": port_dpo.train, "eval": port_eval.eval_main}
+    out = {}
+    for name, cli, overrides in cases:
+        got = entry[cli](list(overrides))
+        out[name] = got if cli == "eval" else got.log_history
+    if spy:
+        out["threads"] = seen
+    return out
 
 
 def main():
@@ -327,7 +396,13 @@ def main():
     import torch
 
     torch.set_num_threads(1)
-    from slamkit_tpu_torch.parallel import init_distributed
+    from slamkit_tpu_torch.parallel import init_distributed, process_group
+
+    if "--torchrun" in sys.argv[3:]:
+        with process_group("cpu"):
+            result = globals()[fn](tmp, **json.loads((tmp / f"{fn}.json").read_text()))
+        (tmp / f"{fn}-{os.environ['RANK']}.json").write_text(json.dumps(result, default=float))
+        return
 
     init_distributed("cpu", init_method=f"file://{tmp / (fn + '.store')}")
     import torch.distributed as dist
