@@ -266,9 +266,10 @@ the sm_90a kernels). Phases, in order; any failure exits non-zero:
                version, the launches to the schedule's count; then each of
                its call shapes timed alone. Where the host has two or more
                cards, `tools/parallel_smoke.py` on all of them (an even
-               count) under torchrun, in three calls (pretraining meshes,
+               count) under torchrun, in four calls (pretraining meshes,
                DPO and the evaluation mesh; then fsdp and SIMS at
-               Qwen2.5-7B's widths on fsdp; then tensor parallelism); on
+               Qwen2.5-7B's widths on fsdp; then tensor parallelism; then
+               tensor parallelism with fsdp, Slam and SIMS 7B); on
                four or more, `tools/multinode.py` then starts its ranks as
                two torchrun nodes of two cards (DP [4], TP [2, 2] and
                fsdp [4] with training_args.multihost=true against one node
@@ -292,7 +293,10 @@ packed as `sims_T2048`'s), which phase 16 (c) runs. Phases 3 and 3b hold
 the bf16 kernels at the local heads of tensor parallelism over 'model'
 (`parallel/tensor.py`): the Slam batch at model = 2 (`tp2_slam`: [8, 7/1,
 1024, 64]) and SIMS at Qwen2.5-7B's widths at model = 4 (`tp4_sims7b`: [2,
-7/1, 2048, 128], tools/parallel_smoke.py's 2 rows a step), and phase 3c
+7/1, 2048, 128], tools/parallel_smoke.py's 2 rows a step) and at model = 2
+under TP + fsdp [2, 2] (`tp2_sims7b`: [2, 14/2, 2048, 128]); they also hold
+them at the whole heads of SIMS 7B on fsdp [4] (`fsdp4_sims7b`: [2, 28/4,
+2048, 128]). Phase 3c
 holds dq_matmul at the Slam projections split over model = 2 (up / gate's
 [896, 2432] columns, down's [2432, 896] rows).
 
@@ -920,6 +924,8 @@ def check_kernels(dev, f32: bool = False) -> list[dict]:
         *_wide_head_cases(rng, with_causal=True),
         ("tp2_slam", (8, 7, 1, 1024, 64), True, _packed_segments(rng, 8, 1024, 8)),
         ("tp4_sims7b", (2, 7, 1, 2048, 128), True, _mixed_segments(rng, 2, 2048)),
+        ("tp2_sims7b", (2, 14, 2, 2048, 128), True, _mixed_segments(rng, 2, 2048)),
+        ("fsdp4_sims7b", (2, 28, 4, 2048, 128), True, _mixed_segments(rng, 2, 2048)),
     ]
     dtype, counter = (torch.float32, "f32_launches") if f32 else (torch.bfloat16, "launches")
     out_bound, lse_bound = (F32_OUT_BOUND, F32_LSE_BOUND) if f32 else (OUT_BOUND, LSE_BOUND)
@@ -1084,6 +1090,8 @@ def check_backward_kernels(dev, f32: bool = False) -> list[dict]:
         *_wide_head_cases(rng),
         ("tp2_slam", (8, 7, 1, 1024, 64), _packed_segments(rng, 8, 1024, 8)),
         ("tp4_sims7b", (2, 7, 1, 2048, 128), _mixed_segments(rng, 2, 2048)),
+        ("tp2_sims7b", (2, 14, 2, 2048, 128), _mixed_segments(rng, 2, 2048)),
+        ("fsdp4_sims7b", (2, 28, 4, 2048, 128), _mixed_segments(rng, 2, 2048)),
     ]
     dtype, counter = (torch.float32, "f32_launches") if f32 else (torch.bfloat16, "launches")
     results = []
@@ -4514,9 +4522,10 @@ def run_sims_defaults(dev, smi: str, work: pathlib.Path, tiny: bool = False, n_r
 # phase 17: the ring's 'seq' group as the multi-card leg runs it at N = 4
 RING_N = 4
 # ... and on a host of two or more cards, tools/parallel_smoke.py's legs in
-# three torchrun calls of at most 900 s each (on four or more, then
+# four torchrun calls of at most 900 s each (on four or more, then
 # tools/multinode.py's two torchrun nodes within another 900 s)
-PARALLEL_CALLS = ("meshes,dpo,eval", "fsdp,sims7b", "tp,tp_eval,tp_sims7b")
+PARALLEL_CALLS = ("meshes,dpo,eval", "fsdp,sims7b", "tp,tp_eval,tp_sims7b",
+                  "tp_fsdp,tp_fsdp_sims7b")
 PARALLEL_LEGS = tuple(leg for call in PARALLEL_CALLS for leg in call.split(","))
 
 
@@ -4552,7 +4561,7 @@ def run_ring_kernels(dev, shape=(8, 14, 2, 1024, 64)) -> dict:
     plain version. Each of the ring's call shapes is then timed alone
     (graph ms beside its bound, the plain version and SDPA). Where the host
     has two or more cards, `tools/parallel_smoke.py` runs on all of them
-    (an even count) under torchrun, in the three calls of PARALLEL_CALLS; on
+    (an even count) under torchrun, in the four calls of PARALLEL_CALLS; on
     one card a line says they are not run.
     Returns the launches of the ring runs by kernel, the checks, the times
     and the multi-card leg's result. On the CPU (a rehearsal at a small
@@ -4699,15 +4708,16 @@ def run_ring_kernels(dev, shape=(8, 14, 2, 1024, 64)) -> dict:
     if cards < 2:
         print(f"phase 17: {cards} card on this host: the multi-card legs of "
               f"tools/parallel_smoke.py ({', '.join(PARALLEL_LEGS)}: the data and 'seq' meshes, "
-              f"DPO, evaluation, fsdp, tensor parallelism over 'model' and SIMS at "
-              f"Qwen2.5-7B's widths on fsdp and on 'model') need two or "
+              f"DPO, evaluation, fsdp, tensor parallelism over 'model', tensor parallelism "
+              f"with fsdp over 'data' on one mesh, and SIMS at Qwen2.5-7B's widths on fsdp, "
+              f"on 'model' and on both) need two or "
               f"more (NCCL takes one card a rank), and tools/multinode.py's two torchrun "
               f"nodes of two cards (training_args.multihost=true) need four; none is run",
               flush=True)
         return result
     n = cards - cards % 2
     result["parallel_smoke"] = {}
-    for legs in PARALLEL_CALLS:   # three calls, each within its own limit
+    for legs in PARALLEL_CALLS:   # four calls, each within its own limit
         t1 = time.perf_counter()
         proc = subprocess.run([sys.executable, "-m", "torch.distributed.run",
                                "--nproc_per_node", str(n), "-m",

@@ -23,7 +23,9 @@ card (gloo on the CPU) and trains its pairs of every global batch on the
         -m slamkit_tpu_torch.cli.preference_alignment_train ... training_args.mesh_shape=[4]
 
 training_args.fsdp=true shards the policy and the reference over 'data'
-(ZeRO-3, `parallel/fsdp.py`). A 'seq' axis raises. training_args.multihost=true
+(ZeRO-3, `parallel/fsdp.py`); beside a 'model' axis over each 'model'
+coordinate's 'data' line, the weights whole across 'model' as JAX's DPO
+keeps them. A 'seq' axis raises. training_args.multihost=true
 trains over several hosts, torchrun on each (`torch.distributed.run --nnodes
 N --node_rank k ...`, as `cli.train` says): data.train_path / val_path must
 exist on every node and training_args.output_dir must be shared by them

@@ -48,8 +48,14 @@ every node) and keeps its tiles; training_args.output_dir and a
 data.saved_ds_path cache must be directories every node shares, which is
 checked, every rank raising together where a node cannot see rank 0's.
 multihost=true without torchrun raises, and so does a launch over several
-nodes without it. fsdp beside a 'model' axis above 1 raises (ROADMAP queue
-1 item 28), and so does 'model' beside 'seq' (item 29).
+nodes without it. training_args.fsdp=true beside a 'model' axis also shards
+each rank's slices over 'data' (JAX `tp_shardings(fsdp=True)`):
+
+    python -m torch.distributed.run --nproc_per_node 4 -m slamkit_tpu_torch.cli.train \
+        model=slam ... training_args.mesh_shape=[2,2] training_args.mesh_axes=[data,model] \
+        training_args.fsdp=true
+
+'model' beside 'seq' raises (ROADMAP queue 1 item 29).
 """
 import logging
 import os

@@ -41,13 +41,13 @@ def to_flat(decoder: Decoder, tensors: Optional[Mapping[str, torch.Tensor]] = No
 
     tensors: stand-ins for the parameters, keyed by the decoder's
     `named_parameters()` names (a snapshot of them, or their gradients).
-    Sharded tensors (`parallel/fsdp.py`) and a tensor-parallel rank's slices
-    (`parallel/tensor.py`) are gathered whole, so every rank must call it
-    then."""
+    Sharded tensors (`parallel/fsdp.py`), a tensor-parallel rank's slices
+    (`parallel/tensor.py`) and the shards of its slices are gathered whole
+    (`whole_of`), so every rank must call it then."""
     params = dict(decoder.named_parameters())
     if tensors is None:
         tensors = params
-    get = lambda name: whole_of(params[name], whole(tensors[name].detach())).float()
+    get = lambda name: whole_of(params[name], tensors[name].detach()).float()
     flat = {name: get(name).cpu().numpy()
             for name, _ in decoder.named_parameters(recurse=False)}
     for name, _ in decoder.layers[0].named_parameters():

@@ -11,8 +11,8 @@ start (`twist_init`, through `models/hf_convert.py`), and `tlm_factory`.
 and gathers the rest; with `fsdp=True` the weights are sharded over the
 ranks too (`parallel/fsdp.py`), each layer gathered as it runs; with
 `tp=True` the weights are split over a 'model' axis (`parallel/tensor.py`),
-the rows still over 'data'. `push_to_hub` (it needs the network) is not
-ported.
+the rows still over 'data' (fsdp then dropped, as JAX drops it).
+`push_to_hub` (it needs the network) is not ported.
 """
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ import torch.distributed as dist
 
 from ..parallel.fsdp import inference_forward, local, shard_decoder
 from ..parallel.mesh import seq_axis_size
-from ..parallel.tensor import refuse_fsdp, shard_decoder_tp
+from ..parallel.tensor import shard_decoder_tp
 from ..utils.calculation_utils import calc_nll, cross_entropy_loss
 from ..utils.device import DEFAULT_DEVICE, resolve_device
 from .convert import load_flat, to_flat
@@ -178,13 +178,18 @@ class UnitLM:
         the KV cache holds the rank's kv heads, every rank of a line samples
         the same token from the gathered last-position logits, and int8
         generation quantizes each projection whole and keeps its slice.
-        Without tp a 'model' axis holds replicas (JAX `unit_lm.py:163-177`).
-        fsdp beside a 'model' axis above 1 raises (item 28). Every rank must
-        make the same calls."""
+        Without tp a 'model' axis holds replicas (JAX `unit_lm.py:163-177`),
+        and fsdp shards the weights over each 'model' coordinate's 'data'
+        line; tp=True takes tensor parallelism alone, as the JAX `shard`
+        does: fsdp is then dropped, with a warning. Every rank must make the
+        same calls."""
         if seq_axis_size(mesh) > 1:
             raise ValueError(f"UnitLM.shard takes a mesh of 'data' and 'model'; got "
                              f"{mesh.shape}")
-        refuse_fsdp(fsdp, mesh, "UnitLM.shard(fsdp=True)")
+        if tp and fsdp:
+            logger.warning("UnitLM.shard(tp=True) drops fsdp=True, as the JAX shard does: the "
+                           "weights are split over 'model' and whole over 'data'")
+            fsdp = False
         if fsdp:
             shard_decoder(self.decoder, mesh)
         if tp:

@@ -30,11 +30,17 @@ and the decoder (`models/transformer.py`) calls the collectives itself:
     never gathered;
   * `shard_decoder_tp(decoder, mesh)` broadcasts rank 0's weights over the
     world, then replaces each sharded parameter by the rank's slice, tagged
-    with its `ParamShard` (`param_shard`), which the optimizers, the
-    checkpoints and `whole_of` (a slice gathered whole; `models.to_flat`)
-    read: they see the 'model' group as fsdp's 'data' group, so the global
-    gradient norm, Adafactor's factored statistics and its block RMS are the
-    unsharded run's.
+    with its `ParamShard` over the 'model' group (`param_shard`), which the
+    optimizers, the checkpoints and `whole_of` (a parameter's tensor
+    gathered whole; `models.to_flat`) read, so the global gradient norm,
+    Adafactor's factored statistics and its block RMS are the unsharded
+    run's;
+  * with fsdp over 'data' (JAX `tp_shardings(fsdp=True)`), `fsdp.shard_decoder`
+    then shards the slices over each 'model' coordinate's 'data' line, on
+    the largest of the dims 'model' left alone that the 'data' size divides
+    (`tp_fsdp_plan`, by which `fsdp.shard_decoder` places every parameter,
+    names both dims); the slice's tag rides on the sharded parameter, whose
+    `ParamShard.of` holds both splits.
 
 Replicated parameters see the same forward on every 'model' rank, and
 `copy_in`'s all-reduce gives each the whole gradient, so they stay equal
@@ -49,10 +55,8 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from .fsdp import ParamShard
+from .fsdp import ParamShard, _dtensor, data_dim, local
 
-#: where tensor parallelism with fsdp over 'data' stands in ROADMAP.md
-TP_FSDP_ITEM = "ROADMAP queue 1 item 28"
 #: where the port's whole-heads rule is recorded against JAX's
 HEADS_ITEM = "ROADMAP queue 3"
 
@@ -98,6 +102,19 @@ def tp_plan(shapes: dict, size: int) -> dict:
     return plan
 
 
+def tp_fsdp_plan(shapes: dict, model: Optional[int], data: int) -> dict:
+    """name -> (the dim 'model' splits or None, the dim 'data' shards or
+    None) over a ('data', 'model') mesh of those sizes with fsdp: JAX
+    `tp_shardings(fsdp=True)` on the port's per-layer parameters (JAX's
+    stacked layer axis, which it may shard over 'data', dropped); `model`
+    None, no tensor parallelism: JAX `param_shardings(fsdp=True)`. None on
+    'data' is JAX's replication, where FSDP2 pads dim 0. `fsdp.shard_decoder`
+    places every parameter by it. shapes: name -> whole shape."""
+    split = tp_plan(shapes, model) if model else dict.fromkeys(shapes)
+    return {name: (dim, data_dim(shapes[name], data, skip=dim))
+            for name, dim in split.items()}
+
+
 def check_heads(cfg, size: int):
     """Whole heads per rank: `num_heads` and `num_kv_heads` both divide the
     'model' size, else ValueError."""
@@ -106,15 +123,6 @@ def check_heads(cfg, size: int):
             f"{cfg.num_heads} q heads and {cfg.num_kv_heads} kv heads over 'model' = {size}: "
             f"the port splits whole heads only, so both must divide the axis; JAX's rule "
             f"would split a head's features ({HEADS_ITEM})")
-
-
-def refuse_fsdp(fsdp: bool, mesh, what: str):
-    """fsdp over 'data' beside a 'model' axis above 1 waits for item 28
-    (`TP_FSDP_ITEM`): NotImplementedError naming `what` asked for it."""
-    if fsdp and mesh.shape.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"{what} on a 'model' axis of {mesh.shape['model']}: fsdp beside tensor "
-            f"parallelism is not ported yet ({TP_FSDP_ITEM})")
 
 
 def is_tp(decoder) -> bool:
@@ -243,7 +251,8 @@ def shard_decoder_tp(decoder: nn.Module, mesh) -> nn.Module:
         per = shape[dim] // n
         part = nn.Parameter(p.detach().narrow(dim, rank * per, per).clone(),
                             requires_grad=p.requires_grad)
-        part.param_shard = ParamShard(shape, dim, rank * per, (rank + 1) * per, n, rank, group)
+        part.param_shard = ParamShard(shape, dim, rank * per, (rank + 1) * per, n, rank, group,
+                                      axis="model")
         owner._parameters[leaf] = part
     vocab_rows = decoder.cfg.vocab_size // n
     tp = TensorParallel(group=group, size=n, rank=rank,
@@ -257,8 +266,11 @@ def shard_decoder_tp(decoder: nn.Module, mesh) -> nn.Module:
 
 
 def whole_of(p: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    """t (the parameter p's value, gradient or snapshot) whole: gathered
-    over the 'model' line where p is split and t is its slice."""
+    """t (the parameter p's value, gradient or snapshot) whole: a part
+    sharded as p is (over 'data', a DTensor) gathered over both axes, a
+    'model' slice over the 'model' line; a whole tensor as it is."""
+    if isinstance(t, _dtensor()):
+        return ParamShard.of(p).gather(local(t))
     shard = tp_shard(p)
     if shard is None or tuple(t.shape) == shard.shape:
         return t

@@ -1,7 +1,7 @@
 """The Slam recipe on several cards: the mesh's data, sequence and model axes.
 
     python -m torch.distributed.run --nproc_per_node N -m slamkit_tpu_torch.tools.parallel_smoke \
-        [--legs meshes,dpo,eval,fsdp,sims7b,tp,tp_eval,tp_sims7b]
+        [--legs meshes,dpo,eval,fsdp,sims7b,tp,tp_eval,tp_sims7b,tp_fsdp,tp_fsdp_sims7b]
 
 Each of the N (>= 2, even) ranks joins NCCL on its own card
 (`parallel.init_distributed`) and, rank 0 first, builds the flash kernels.
@@ -16,8 +16,8 @@ weights from seed 0) through `SLAMTrainer.train()` on four meshes, each for
     each schedule (chunks of 1024 / N: 256 at N = 4, zigzag halves of 128);
   * dp_cp: `[2, N / 2]`.
 
-For each it holds step 1's loss and global gradient norm to the one-card
-reference (bf16 on both sides; bounds below), the ring's forward and
+For each it holds every step's loss and step 1's global gradient norm to
+the one-card reference (bf16 on both sides; bounds below), the ring's forward and
 backward on every rank's chunk to one flash call over the whole sequence
 on its card (the CP meshes), the flash launches of every rank to what the
 schedule makes, and a resume: a second trainer from checkpoint-3 repeats
@@ -110,6 +110,23 @@ Then tensor parallelism over 'model' (`parallel/tensor.py`):
     the peaks while building and training, s a step and MFU with the same
     upper count.
 
+Then tensor parallelism with fsdp on one mesh (JAX `tp_shardings(fsdp=True)`:
+each rank's 'model' slices sharded over its 'data' line):
+
+  * tp_fsdp: the Slam recipe on TP + fsdp [2, N / 2] beside TP [2, N / 2]
+    and fsdp [N] (each trained here unless an earlier leg of the call did)
+    and the one-card reference, with the tp leg's checks (step 1's loss and
+    gradient norm against one card, each rank's flash launches, the exact
+    resume from checkpoint-3, one card repeating step 4 from it, the
+    replicated parameters' shards bitwise equal across each 'model' line,
+    all four losses within LOSS_BOUND of one card's); s a step, tokens/s,
+    peaks and NCCL shares of each;
+  * tp_fsdp_sims7b: the sims7b leg on TP + fsdp [2, N / 2], 2 rows a 'data'
+    coordinate (4 a step) and 3 steps, beside fsdp [N] and TP [1, N] (each
+    run here unless the sims7b or tp_sims7b leg ran): step 1 against the
+    unsharded loss, s a step, tokens/s, MFU, the peaks while building and
+    training.
+
 Then the meshes over several nodes (`tools/multinode.py` starts the ranks
 as two torchrun nodes, with `--multihost`: `training_args.multihost=true`):
 
@@ -119,10 +136,11 @@ as two torchrun nodes, with `--multihost`: `training_args.multihost=true`):
     whose groups cross them. nodes_dp: DP [N] alone (the run over NCCL's
     socket transport, where TP's and fsdp's traffic would take minutes).
 
-`--legs` runs a subset of the ten (meshes, dpo, eval, fsdp, sims7b, tp,
-tp_eval, tp_sims7b, nodes, nodes_dp; default the first five:
-`chip_smoke.py` runs the three tp legs in a call of their own, in that
-order, and the nodes legs through `tools/multinode.py`). `--timeout`
+`--legs` runs a subset of the twelve (meshes, dpo, eval, fsdp, sims7b, tp,
+tp_eval, tp_sims7b, tp_fsdp, tp_fsdp_sims7b, nodes, nodes_dp; default the
+first five: `chip_smoke.py` runs the three tp legs in a call of their own,
+in that order, the two tp_fsdp legs in another, and the nodes legs through
+`tools/multinode.py`). `--timeout`
 bounds every collective (seconds; `init_process_group`'s timeout). The
 last line is one JSON object of all of it; a failed check on any rank ends
 every rank and exits 1, so the legs after it do not run. It imports only the port.
@@ -168,10 +186,14 @@ EVAL_LL_BOUND = 2e-2
 RING_OUT_BOUND, RING_GRAD_REL = 3e-2, 2e-2
 # sims7b: context, rows a rank and steps (the yaml's 8 rows cut to 2)
 SIMS_CONTEXT, SIMS_PER_DEVICE, SIMS_STEPS = 2048, 2, 3
+#: the sims7b leg's layouts: N ranks -> (mesh_shape, mesh_axes, fsdp)
+SIMS_LAYOUTS = {"fsdp": lambda n: ([n], None, True),
+                "tp": lambda n: ([1, n], ["data", "model"], False),
+                "tp_fsdp": lambda n: ([2, n // 2], ["data", "model"], True)}
 #: one H100's dense bf16 peak (NVIDIA's data sheet, SXM part at 700 W)
 H100_BF16_FLOPS = 989e12
-LEGS = ("meshes", "dpo", "eval", "fsdp", "sims7b", "tp", "tp_eval", "tp_sims7b", "nodes",
-        "nodes_dp")
+LEGS = ("meshes", "dpo", "eval", "fsdp", "sims7b", "tp", "tp_eval", "tp_sims7b", "tp_fsdp",
+        "tp_fsdp_sims7b", "nodes", "nodes_dp")
 DEFAULT_LEGS = LEGS[:5]
 
 
@@ -264,24 +286,19 @@ def check_ring(dev, mesh, schedule: str, dcfg, rows: int, context: int, dtype) -
 def _grad_norm_recorder(trainer) -> list:
     """Make `trainer` record the global gradient norm each optimizer step
     reads (after the mesh's reduction, before clipping; the squares of the
-    shards over 'data' (fsdp) or the slices over 'model' (tp) summed over
-    their group, a replicated parameter's counted once)."""
-    import torch
-    import torch.distributed as dist
-
+    shards over 'data' (fsdp), the slices over 'model' (tp) or both summed
+    over their groups, a replicated parameter's counted once:
+    `trainer.optim.global_norm`)."""
     from ..parallel.fsdp import local
+    from ..trainer.optim import global_norm
 
     opt = trainer.optimizer
     norms, step = [], opt.step
 
     def recording_step(*a, **kw):
-        sq = {True: torch.zeros((), device=trainer.device), False: 0.0}
-        for p, shard in zip(opt.params, opt.shards):
-            if p.grad is not None:
-                sq[shard.sharded] = sq[shard.sharded] + (local(p.grad).float() ** 2).sum()
-        if opt.group is not None:
-            dist.all_reduce(sq[True], group=opt.group)
-        norms.append(float(torch.sqrt(sq[True] + sq[False])))
+        held = [(local(p.grad).float(), shard) for p, shard in zip(opt.params, opt.shards)
+                if p.grad is not None]
+        norms.append(float(global_norm(*map(list, zip(*held)))))
         return step(*a, **kw)
 
     trainer.optimizer.step = recording_step
@@ -354,11 +371,13 @@ def _overlap(prof) -> dict:
 
 def _replicas_equal(decoder, mesh) -> list:
     """The names of the parameters that `parallel.tensor` keeps whole on
-    every rank of a 'model' line but that differ across this rank's line
-    (compared bit for bit through the line's elementwise MAX and MIN)."""
+    every rank of a 'model' line (with fsdp: the ranks' 'data' shards of
+    them) but that differ across this rank's line (compared bit for bit
+    through the line's elementwise MAX and MIN)."""
     import torch
     import torch.distributed as dist
 
+    from ..parallel.fsdp import local
     from ..parallel.tensor import tp_shard
 
     differ = []
@@ -366,10 +385,11 @@ def _replicas_equal(decoder, mesh) -> list:
         for name, p in decoder.named_parameters():
             if tp_shard(p) is not None:
                 continue
-            hi, lo = p.detach().clone(), p.detach().clone()
+            mine = local(p.detach())   # fsdp: the same 'data' shard across the line
+            hi, lo = mine.clone(), mine.clone()
             dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=mesh.group("model"))
             dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=mesh.group("model"))
-            if not (torch.equal(hi, p) and torch.equal(lo, p)):
+            if not (torch.equal(hi, mine) and torch.equal(lo, mine)):
                 differ.append(name)
     return differ
 
@@ -437,7 +457,7 @@ def run(dev, work: pathlib.Path, cfg=None, context: int = CONTEXT, rows: int = R
     dist.barrier()
     cfg = dataclasses.replace(cfg or slam_config(), remat=True)
     pretrain = None
-    if {"meshes", "fsdp", "tp", "nodes", "nodes_dp"} & set(legs):
+    if {"meshes", "fsdp", "tp", "tp_fsdp", "nodes", "nodes_dp"} & set(legs):
         pretrain = _Pretrain(dev, work, cfg, context, rows, n_rows, lengths, say, sync,
                              multihost)
     if "meshes" in legs:
@@ -451,7 +471,7 @@ def run(dev, work: pathlib.Path, cfg=None, context: int = CONTEXT, rows: int = R
     if "sims7b" in legs:
         sims = {} if sims_entries is None else {"n_entries": sims_entries}
         result["sims7b"] = run_sims7b(dev, work, say, sync, arch=sims_arch,
-                                      context=sims_context, **sims)
+                                      context=sims_context, layout="fsdp", **sims)
     if "tp" in legs:
         result["tp"] = run_tp(pretrain, result)
     if "tp_eval" in legs:
@@ -460,7 +480,14 @@ def run(dev, work: pathlib.Path, cfg=None, context: int = CONTEXT, rows: int = R
     if "tp_sims7b" in legs:
         sims = {} if sims_entries is None else {"n_entries": sims_entries}
         result["tp_sims7b"] = run_sims7b(dev, work, say, sync, arch=sims_arch,
-                                         context=sims_context, tp=True, **sims)
+                                         context=sims_context, layout="tp", **sims)
+    if "tp_fsdp" in legs:
+        result["tp_fsdp"] = run_tp_fsdp(pretrain, result)
+    if "tp_fsdp_sims7b" in legs:
+        sims = {} if sims_entries is None else {"n_entries": sims_entries}
+        result["tp_fsdp_sims7b"] = run_tp_fsdp_sims7b(dev, work, say, sync, result,
+                                                      arch=sims_arch, context=sims_context,
+                                                      **sims)
     if "nodes" in legs or "nodes_dp" in legs:
         result["nodes"] = run_nodes(pretrain, result, dp_only="nodes" not in legs)
     return result
@@ -553,8 +580,8 @@ class _Pretrain:
 
     def reference(self, result: dict) -> Optional[dict]:
         """The global batch on rank 0's card alone (kept in `result`, and
-        returned on rank 0): step 1's loss and gradient norm, steps 2-3's
-        time."""
+        returned on rank 0): the STEPS steps' losses, step 1's gradient norm,
+        steps 2-3's time."""
         import torch.distributed as dist
 
         from ..parallel import Mesh
@@ -564,13 +591,14 @@ class _Pretrain:
             norms = _grad_norm_recorder(tr)
             batches = tr.train_batcher.epoch(0)
             losses, marks, seen = [], [], 0
-            for _ in range(3):
+            for _ in range(STEPS):
                 loss, tokens = tr._train_step([next(batches) for _ in range(MICRO)])
                 losses.append(float(loss))
                 self.sync()
                 seen += tokens
                 marks.append((time.perf_counter(), seen))
-            ref = {"loss": losses[0], "grad_norm": norms[0], **self.timed(marks)}
+            ref = {"loss": losses[0], "losses": losses, "grad_norm": norms[0],
+                   **self.timed(marks)}
             self.say(f"one card: step 1 loss {ref['loss']:.6f}, gradient norm "
                      f"{ref['grad_norm']:.6f}; {ref['step_s']:.4f} s a step, "
                      f"{ref['tokens_per_s']:.1f} tokens/s")
@@ -582,9 +610,9 @@ class _Pretrain:
     def mesh_run(self, name: str, shape: list, axes, schedule: str, ref: Optional[dict],
                  fsdp: bool = False, one_card_resume: bool = False) -> dict:
         """One mesh (module docstring): trained for STEPS steps with a save at
-        3, checked against `ref` (rank 0's) and resumed; with `fsdp` its
-        parameters sharded, `one_card_resume` rank 0 resumes its
-        checkpoint-3 alone."""
+        3, every step's loss and step 1's gradient norm checked against `ref`
+        (rank 0's), and resumed; with `fsdp` its parameters sharded,
+        `one_card_resume` rank 0 resumes its checkpoint-3 alone."""
         import torch
         import torch.distributed as dist
 
@@ -663,12 +691,15 @@ class _Pretrain:
                 shutil.rmtree(out, ignore_errors=True)
             loss_err = abs(losses[0] - ref["loss"])
             norm_err = abs(norms[0] - ref["grad_norm"]) / ref["grad_norm"]
-            row.update(loss_err=loss_err, grad_norm_rel_err=norm_err)
+            losses_err = max(abs(a - b) for a, b in zip(losses, ref["losses"]))
+            row.update(loss_err=loss_err, grad_norm_rel_err=norm_err, losses_max_err=losses_err)
             p = row.get("profiled_step", {})
             say(f"{name} {shape}{' fsdp' if fsdp else ''}{f' {axes}' if axes else ''}: losses "
                 f"{losses}; step 1 |d loss| "
                 f"{loss_err:.3e} (<= {LOSS_BOUND}), gradient norm {norms[0]:.6f} rel "
-                f"{norm_err:.3e} (<= {GRAD_NORM_RTOL}); {row['step_s']:.4f} s a step, "
+                f"{norm_err:.3e} (<= {GRAD_NORM_RTOL}); all {STEPS} losses |d| <= "
+                f"{losses_err:.3e} (<= {LOSS_BOUND}); "
+                f"{row['step_s']:.4f} s a step, "
                 f"{row['tokens_per_s']:.1f} tokens/s; peak memory "
                 f"{_gib(row['max_memory_allocated'])}; P2P {p.get('p2p_share', 0):.4f}, "
                 f"all-reduce {p.get('all_reduce_share', 0):.4f}, all-gather "
@@ -689,6 +720,9 @@ class _Pretrain:
                          f"{name}: the one-card resume of the sharded checkpoint disagrees")
             _require(loss_err <= LOSS_BOUND and norm_err <= GRAD_NORM_RTOL,
                      f"{name}: step 1 disagrees with the one-card run")
+            _require(losses_err <= LOSS_BOUND,
+                     f"{name}: the losses {losses} disagree with the one-card run's "
+                     f"{ref['losses']}")
         _require(row["resume_exact"], f"{name}: the resumed run did not repeat step 4")
         dist.barrier()
         return row
@@ -752,6 +786,55 @@ def run_tp(pretrain: _Pretrain, result: dict) -> dict:
                      f"{got['tokens_per_s']:.1f} / {dp['tokens_per_s']:.1f} / "
                      f"{ref['tokens_per_s']:.1f} tokens/s; peak memory "
                      f"{_gib(got['max_memory_allocated'])} / {_gib(dp['max_memory_allocated'])}")
+    return row
+
+
+def run_tp_fsdp(pretrain: _Pretrain, result: dict) -> dict:
+    """The tp_fsdp leg (module docstring) on this rank; rank 0 returns its
+    rows: TP [2, N / 2], fsdp [N] (an earlier leg's rows where it ran them)
+    and TP + fsdp [2, N / 2]."""
+    n = pretrain.world
+    ref = pretrain.reference(result)
+    tp_axes = ["data", "model"]
+    row = {"tp": result.get("tp", {}).get("tp") or pretrain.mesh_run(
+               "tp", [2, n // 2], tp_axes, "contiguous", ref, one_card_resume=True),
+           "fsdp": result.get("fsdp", {}).get("meshes", {}).get("fsdp") or pretrain.mesh_run(
+               "fsdp", [n], None, "contiguous", ref, fsdp=True, one_card_resume=True)}
+    row["tp_fsdp"] = pretrain.mesh_run("tp_fsdp", [2, n // 2], tp_axes, "contiguous", ref,
+                                       fsdp=True, one_card_resume=True)
+    if pretrain.lead:
+        got, tp, fs = row["tp_fsdp"], row["tp"], row["fsdp"]
+        pretrain.say(f"tp_fsdp [2, {n // 2}] against TP [2, {n // 2}], fsdp [{n}] and one "
+                     f"card: {got['step_s']:.4f} / {tp['step_s']:.4f} / {fs['step_s']:.4f} / "
+                     f"{ref['step_s']:.4f} s a step, {got['tokens_per_s']:.1f} / "
+                     f"{tp['tokens_per_s']:.1f} / {fs['tokens_per_s']:.1f} / "
+                     f"{ref['tokens_per_s']:.1f} tokens/s; peak memory "
+                     f"{_gib(got['max_memory_allocated'])} / {_gib(tp['max_memory_allocated'])}"
+                     f" / {_gib(fs['max_memory_allocated'])}")
+    return row
+
+
+def run_tp_fsdp_sims7b(dev, work: pathlib.Path, say, sync, result: dict, **sims) -> dict:
+    """The tp_fsdp_sims7b leg (module docstring) on this rank: the sims7b
+    leg on TP + fsdp [2, N / 2] beside fsdp [N] and TP [1, N] (the sims7b
+    and tp_sims7b legs' rows where they ran); rank 0 returns the rows."""
+    import torch.distributed as dist
+
+    row = {"fsdp": result.get("sims7b") or run_sims7b(dev, work, say, sync, layout="fsdp",
+                                                      **sims),
+           "tp": result.get("tp_sims7b") or run_sims7b(dev, work, say, sync, layout="tp",
+                                                       **sims)}
+    row["tp_fsdp"] = run_sims7b(dev, work, say, sync, layout="tp_fsdp", **sims)
+    if dist.get_rank() == 0:
+        rows = [row[k] for k in ("tp_fsdp", "tp", "fsdp")]
+        mfu = lambda r: "not measured" if r["mfu"] is None else f"{r['mfu']:.4f}"
+        say(f"sims7b TP + fsdp {rows[0]['mesh_shape']} against TP {rows[1]['mesh_shape']} and "
+            f"fsdp {rows[2]['mesh_shape']}: "
+            + " / ".join(f"{r['timed_step_s']:.4f}" for r in rows) + " s a step, "
+            + " / ".join(f"{r['tokens_per_s']:.1f}" for r in rows) + " tokens/s, MFU "
+            + " / ".join(mfu(r) for r in rows) + "; peak memory training "
+            + " / ".join(_gib(r["max_memory_allocated"]) for r in rows) + ", building "
+            + " / ".join(_gib(r["init_max_memory_allocated"]) for r in rows))
     return row
 
 
@@ -1084,11 +1167,12 @@ def _shard_sums(decoder):
 def run_sims7b(dev, work: pathlib.Path, say, sync, arch=None, n_entries: Optional[int] = None,
                context: int = SIMS_CONTEXT, per_device: int = SIMS_PER_DEVICE,
                steps: int = SIMS_STEPS, n_rows: int = 96, lengths=(300, 700),
-               tp: bool = False) -> dict:
+               layout: str = "fsdp") -> dict:
     """The sims7b leg (module docstring) on this rank: `--config-name
     train_inter_scale` at Qwen2.5-7B's widths (`arch` replaces them in a
-    rehearsal) on fsdp over every rank, or with `tp` on TP [1, N] over
-    ('data', 'model') without fsdp; rank 0 returns its row."""
+    rehearsal) on `layout` (SIMS_LAYOUTS: fsdp over every rank, TP [1, N]
+    over ('data', 'model') without fsdp, or TP + fsdp [2, N / 2]); rank 0
+    returns its row."""
     import torch
     import torch.distributed as dist
 
@@ -1103,6 +1187,7 @@ def run_sims7b(dev, work: pathlib.Path, say, sync, arch=None, n_entries: Optiona
 
     rank, world = dist.get_rank(), dist.get_world_size()
     lead, cuda = rank == 0, dev.type == "cuda"
+    shape, axes, fsdp = SIMS_LAYOUTS[layout](world)
     root = work / "sims7b"
     if lead:
         t0 = time.perf_counter()
@@ -1120,7 +1205,7 @@ def run_sims7b(dev, work: pathlib.Path, say, sync, arch=None, n_entries: Optiona
         "logger=print", f"training_args.output_dir={root / 'run'}",
         f"training_args.max_steps={steps}",
         f"training_args.per_device_train_batch_size={per_device}",
-        f"training_args.fsdp={str(not tp).lower()}", "training_args.remat=true",
+        f"training_args.fsdp={str(fsdp).lower()}", "training_args.remat=true",
         "training_args.save_steps=0",
         *([] if cuda else ["training_args.use_cpu=true",
                            "model.config_args.torch_dtype=float32"])])
@@ -1141,7 +1226,7 @@ def run_sims7b(dev, work: pathlib.Path, say, sync, arch=None, n_entries: Optiona
     state_dtype = str(args.get("optim_state_dtype", "float32") or "float32")
     state_bytes = n_params * (4 + 4 + 2 * (2 if state_dtype == "bfloat16" else 4))
     # step 1's global batch, as the trainer's batcher will draw it
-    mesh = make_mesh([1, world], ["data", "model"]) if tp else make_mesh()
+    mesh = make_mesh(shape, axes)
     accum = int(args.get("gradient_accumulation_steps", 1) or 1)
     batcher = Batcher(ds, per_device * mesh.shape["data"], context,
                       pad_id=model.config.pad_token_id, packing=True, shuffle=True,
@@ -1205,7 +1290,7 @@ def run_sims7b(dev, work: pathlib.Path, say, sync, arch=None, n_entries: Optiona
     if cuda:
         torch.cuda.empty_cache()
     dist.barrier()
-    row = {"mesh_shape": list(mesh.sizes), "mesh_axes": list(mesh.axis_names), "fsdp": not tp,
+    row = {"mesh_shape": list(mesh.sizes), "mesh_axes": list(mesh.axis_names), "fsdp": fsdp,
            "context": context, "rows_a_step": per_device * mesh.shape["data"] * accum,
            "parameters": n_params, "layers": dcfg.num_layers,
            "hidden_size": dcfg.hidden_size, "vocab_size": dcfg.vocab_size,
@@ -1231,7 +1316,7 @@ def run_sims7b(dev, work: pathlib.Path, say, sync, arch=None, n_entries: Optiona
                    tokens_per_s=tokens_per_s, mfu=mfu,
                    profiled_step=_comm_shares(prof, wall_ms))
         p = row["profiled_step"]
-        say(f"sims7b {'tp' if tp else 'fsdp'} {row['mesh_shape']}: {row['rows_a_step']} rows "
+        say(f"sims7b {layout} {row['mesh_shape']}: {row['rows_a_step']} rows "
             f"of {context} a step, losses "
             f"{losses}; step 1 |d loss| {row['loss_err']:.3e} against the unsharded "
             f"{ref_loss:.6f} (<= {LOSS_BOUND}), gradient norm {norms[0]:.6f}, parameters "

@@ -27,7 +27,8 @@ part), so a run may resume on another number of ranks. `restore` reads the
 file on the host (memory-mapped) and copies each rank's slice into its
 shards, the whole state never on a card. A model split over 'model'
 (`parallel/tensor.py`) is gathered and restored the same way over its
-'model' groups.
+'model' groups, and one split over 'model' and sharded over 'data' over
+both (each part's 'data' line first, then its 'model' line).
 """
 from __future__ import annotations
 

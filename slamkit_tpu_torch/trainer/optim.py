@@ -34,9 +34,12 @@ tensors and keeps this rank's slice.
 Parameters split over 'model' (`parallel/tensor.py`) are updated the same
 way over the 'model' group: their `ParamShard` stands for the 'data' one.
 Beside them sit replicated parameters (norms, o_b, down_b, a vocabulary
-the axis does not divide), whose whole gradients every rank holds: the
-global norm and the block RMS count those once, the sharded ones' squares
-summed over the group.
+the axis does not divide), whose whole gradients every rank holds. With
+fsdp beside 'model' a parameter may be split on both axes, on 'data' only
+(replicated over 'model') or on neither; the global norm and the block RMS
+sum each kind's squares over the groups of its own axes (`sum_over`), so
+every square counts once over the world, and the factored statistics
+reduce each dim over the group that splits it (`ParamShard.mean`).
 """
 from __future__ import annotations
 
@@ -92,20 +95,40 @@ def make_schedule(lr_scheduler_type: str, learning_rate: float, total_steps: int
     raise ValueError(f"Unknown lr_scheduler_type: {lr_scheduler_type}")
 
 
-def _global_norm(grads: list, shards: list, max_grad_norm: float, group=None):
-    """optax.clip_by_global_norm's (norm, keep): the global norm as a 0-d
-    float32 tensor and the flag that leaves the gradients unclipped, a device
-    flag rather than a host sync. Each gradient is clipped in the update's
-    loop, one at a time (`_clipped`). shards: each gradient's `ParamShard`;
-    the sharded ones' squares are summed over their `group` with one
-    all-reduce, the whole ones counted once."""
-    sq = sum(torch.sum(g * g) for g, s in zip(grads, shards) if not s.sharded)
-    parts = [torch.sum(g * g) for g, s in zip(grads, shards) if s.sharded]
-    if parts:
-        part = sum(parts)
-        dist.all_reduce(part, group=group)
-        sq = sq + part
-    g_norm = torch.sqrt(sq)
+def sum_over(values: list, shards: list) -> list:
+    """Each of `values` (0-d tensors, parts of sums over whole parameters)
+    summed over the groups of its `ParamShard`'s axes: the values of one
+    kind of split stacked into one all-reduce a group, a whole parameter's
+    left as it is. Every rank must call it with the same kinds of split."""
+    kinds = {}
+    for i, shard in enumerate(shards):
+        kinds.setdefault(shard.axes, []).append(i)
+    out = list(values)
+    for axes in sorted(kinds):
+        if not axes:
+            continue
+        idx = kinds[axes]
+        flat = torch.stack([values[i] for i in idx])
+        for level in shards[idx[0]].levels:
+            dist.all_reduce(flat, group=level.group)
+        for i, v in zip(idx, flat.unbind()):
+            out[i] = v
+    return out
+
+
+def global_norm(grads: list, shards: list) -> torch.Tensor:
+    """The global norm of the gradients (each this rank's part, with its
+    `ParamShard`) as a 0-d float32 tensor: each one's squares summed over
+    its groups (`sum_over`), a whole one counted once."""
+    return torch.sqrt(sum(sum_over([torch.sum(g * g) for g in grads], shards)))
+
+
+def _global_norm(grads: list, shards: list, max_grad_norm: float):
+    """optax.clip_by_global_norm's (norm, keep): the global norm
+    (`global_norm`) and the flag that leaves the gradients unclipped, a
+    device flag rather than a host sync. Each gradient is clipped in the
+    update's loop, one at a time (`_clipped`)."""
+    g_norm = global_norm(grads, shards)
     return g_norm, g_norm < max_grad_norm
 
 
@@ -128,14 +151,13 @@ def _load_list(mine: list, theirs: list, shards: list, key: str):
 
 
 class _Sharded:
-    """What both optimizers keep of their parameters: the parameters, each
-    one's `ParamShard` and the group the sharded ones are split over ('data'
-    under fsdp, 'model' under tensor parallelism; None)."""
+    """What both optimizers keep of their parameters: the parameters and
+    each one's `ParamShard` (over 'data' under fsdp, 'model' under tensor
+    parallelism, both with both)."""
 
     def _init_params(self, params):
         self.params = list(params)
         self.shards = [ParamShard.of(p) for p in self.params]
-        self.group = next((s.group for s in self.shards if s.sharded), None)
 
     def zero_grad(self):
         for p in self.params:
@@ -181,7 +203,7 @@ class AdamW(_Sharded):
         """One update from the current `.grad`s; returns the global gradient
         norm before clipping (a 0-d float32 tensor on the parameters' device)."""
         grads = self._grads()
-        g_norm, keep = _global_norm(grads, self.shards, self.max_grad_norm, self.group)
+        g_norm, keep = _global_norm(grads, self.shards, self.max_grad_norm)
         count = self.step_count + 1
         b1, b2 = self.b1, self.b2
         # the bias corrections in float32, as optax takes them; host scalars,
@@ -291,7 +313,7 @@ class Adafactor(_Sharded):
         """One update from the current `.grad`s; returns the global gradient
         norm before clipping (a 0-d float32 tensor on the parameters' device)."""
         grads = self._grads()
-        g_norm, keep = _global_norm(grads, self.shards, self.max_grad_norm, self.group)
+        g_norm, keep = _global_norm(grads, self.shards, self.max_grad_norm)
         # optax's decay schedule in float32 (host scalars, no device copy)
         f32 = np.float32
         decay = f32(1) - np.power(f32(self.step_count + 1), f32(-DECAY_RATE))
@@ -327,21 +349,19 @@ class Adafactor(_Sharded):
 
     def _block_scales(self) -> dict:
         """optax.safe_root_mean_squares of each block's parameters, floored
-        at MIN_SCALE: block -> 0-d tensor (sums of squares across the shards
-        in one all-reduce; a whole parameter counted once)."""
-        sums, whole, sizes = {}, {}, {}
+        at MIN_SCALE: block -> 0-d tensor (each block's sum of squares over
+        the groups its parameters are split over, `sum_over`; a block's
+        parameters, one name in every layer, are split alike)."""
+        sums, kinds, sizes = {}, {}, {}
         for p, shard, block in zip(self.params, self.shards, self.blocks):
             p = local(p)
-            into = sums if shard.sharded else whole
-            into[block] = into.get(block, 0.0) + torch.sum(p * p)
+            sums[block] = sums.get(block, 0.0) + torch.sum(p * p)
+            kinds.setdefault(block, shard)
             sizes[block] = sizes.get(block, 0) + math.prod(shard.shape)
-        if sums:
-            flat = torch.stack(list(sums.values()))
-            dist.all_reduce(flat, group=self.group)
-            sums = dict(zip(sums, flat.unbind()))
-        for block, sq in whole.items():
-            sums[block] = sums[block] + sq if block in sums else sq
-        rms = {b: torch.sqrt(sums[b] / sizes[b]) for b in sums}
+        blocks = list(sums)
+        total = dict(zip(blocks, sum_over([sums[b] for b in blocks],
+                                          [kinds[b] for b in blocks])))
+        rms = {b: torch.sqrt(total[b] / sizes[b]) for b in blocks}
         return {b: torch.where(r <= MIN_SCALE, MIN_SCALE, r) for b, r in rms.items()}
 
     def state_dict(self) -> dict:

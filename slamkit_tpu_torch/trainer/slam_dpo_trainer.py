@@ -67,8 +67,10 @@ On a ('data', 'model') mesh the trainer does what the JAX DPO trainer does
 (`slam_dpo_trainer.py:219-246` takes `param_shardings` without tp): the
 parameters stay whole on every rank, the pairs go over 'data', the ranks of
 a 'model' line compute the same pairs, and the gradients and the logged
-sums are summed over 'data' alone (`Mesh.batch_group`). fsdp beside a
-'model' axis above 1 raises (ROADMAP queue 1 item 28).
+sums are summed over 'data' alone (`Mesh.batch_group`). With `fsdp: true`
+there (JAX's `param_shardings(fsdp=True)` on that mesh) the policy and the
+reference are sharded over each 'model' coordinate's 'data' line, whole
+across 'model': every line reduce-scatters the same gradients.
 
 A 'seq' axis above 1 raises the JAX trainer's NotImplementedError.
 `training_args.multihost: true` spans several hosts as `SLAMTrainer` does
@@ -92,7 +94,6 @@ import torch.nn.functional as F
 
 from ..parallel import fsdp, multihost
 from ..parallel.mesh import Mesh, all_reduce_grads, make_mesh, seq_axis_size
-from ..parallel.tensor import refuse_fsdp
 from ..utils.calculation_utils import token_nll
 from . import checkpoint
 from .callbacks import TrainerCallback, TrainerControl, TrainerState
@@ -195,7 +196,6 @@ class SLAMDPOTrainer:
                  mesh: Optional[Mesh] = None):
         multihost.check_launch(bool(args.get("multihost", False)))
         self.mesh = mesh or make_mesh(args.get("mesh_shape", None), args.get("mesh_axes", None))
-        refuse_fsdp(args.get("fsdp", False), self.mesh, "training_args.fsdp=true")
         if seq_axis_size(self.mesh) > 1:
             raise NotImplementedError(
                 "context parallelism ('seq' mesh axis) is a pretrain-trainer "

@@ -77,8 +77,14 @@ vocab-parallel NLL of the rank's logit columns. The gradients, the loss and
 the eval sums are summed over 'data' alone (`Mesh.batch_group`); the
 optimizer's global norm and Adafactor's statistics take their sums over
 'model' (`trainer/optim.py`), and checkpoints are gathered over 'model' to
-rank 0 in the one-rank format. fsdp beside a 'model' axis above 1 raises
-(ROADMAP queue 1 item 28), and so does a 'model' axis beside 'seq' (item 29,
+rank 0 in the one-rank format. With `fsdp: true` beside it (JAX
+`tp_shardings(fsdp=True)`, `slam_trainer.py:284-291`) each rank's slices are
+then sharded over its 'model' coordinate's 'data' line
+(`parallel.fsdp.shard_decoder`, by `parallel.tensor.tp_fsdp_plan`): the reduce-scatter sums each microbatch's
+gradients over 'data' (a parameter replicated over 'model' has its whole
+gradient on every rank of the line, through `copy_in`), the optimizer's
+sums run over each parameter's groups, and checkpoints are gathered over
+both axes. A 'model' axis beside 'seq' raises (ROADMAP queue 1 item 29,
 `parallel.make_mesh`).
 
 With one rank (no torchrun) nothing of this runs. The loop runs
@@ -103,7 +109,7 @@ from ..data.dataset import IGNORE_INDEX, Batcher, TokenDataset
 from ..ops.ring_attention import SCHEDULES, check_chunk, zigzag_permutation
 from ..parallel import fsdp, multihost
 from ..parallel.mesh import Mesh, all_reduce_grads, local_tile, make_mesh, seq_axis_size
-from ..parallel.tensor import refuse_fsdp, shard_decoder_tp
+from ..parallel.tensor import shard_decoder_tp
 from ..utils.calculation_utils import masked_sum, token_nll
 from . import checkpoint
 from .callbacks import TrainerCallback, TrainerControl, TrainerState
@@ -155,7 +161,6 @@ class SLAMTrainer:
         self.callbacks = callbacks or []
         self.log_fn = log_fn
         self.mesh = mesh or make_mesh(args.get("mesh_shape", None), args.get("mesh_axes", None))
-        refuse_fsdp(args.get("fsdp", False), self.mesh, "training_args.fsdp=true")
         self.world = self.mesh.size
         n_data = self.mesh.shape["data"]
         # ranks holding different tiles of a batch (not the 'model' line)
@@ -172,7 +177,7 @@ class SLAMTrainer:
             with torch.no_grad():
                 for p in model.decoder.parameters():
                     dist.broadcast(p, src=0)
-        if args.get("fsdp", False):
+        if args.get("fsdp", False):   # the slices, under a 'model' axis
             fsdp.shard_decoder(model.decoder, self.mesh)
         self.sharded = fsdp.is_sharded(model.decoder)
         self.state = TrainerState()

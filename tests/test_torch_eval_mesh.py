@@ -94,11 +94,12 @@ def test_row_tiles_pad_and_drop_as_jax_does():
         Mesh(("data", "seq"), (1, 2)).row_tile(5)
 
 
-def test_shard_refuses_what_is_not_ported(ckpt):
-    """fsdp beside a 'model' axis raises (item 28), and a 'seq' axis is
-    refused; fsdp=True and tp=True are ported: on one rank each is the
-    unsharded model (the ranks' sharding: tests/test_torch_fsdp.py and
-    tests/test_torch_tp_eval.py)."""
+def test_shard_refuses_what_is_not_ported(ckpt, caplog):
+    """A 'seq' axis is refused; fsdp=True and tp=True are ported: on one
+    rank each is the unsharded model (the ranks' sharding:
+    tests/test_torch_fsdp.py, tests/test_torch_tp_eval.py and
+    tests/test_torch_tp_fsdp.py), and both together take tp alone, fsdp
+    dropped with a warning, as the JAX `shard` drops it (item 28)."""
     from slamkit_tpu_torch.parallel.fsdp import is_sharded
     from slamkit_tpu_torch.parallel.tensor import is_tp
 
@@ -107,8 +108,10 @@ def test_shard_refuses_what_is_not_ported(ckpt):
     assert not is_sharded(tlm.decoder) and tlm._row_tile(5) is None
     assert tlm.shard(Mesh(("data", "model"), (1, 1)), tp=True) is tlm
     assert not is_tp(tlm.decoder) and tlm._row_tile(5) is None
-    with pytest.raises(NotImplementedError, match="item 28"):
-        tlm.shard(Mesh(("data", "model"), (1, 2)), fsdp=True, tp=True)
+    with caplog.at_level("WARNING", logger="slamkit_tpu_torch.models.unit_lm"):
+        assert tlm.shard(Mesh(("data", "model"), (1, 1)), fsdp=True, tp=True) is tlm
+    assert [r.getMessage() for r in caplog.records if "drops fsdp=True" in r.getMessage()]
+    assert not is_sharded(tlm.decoder) and not is_tp(tlm.decoder)
     with pytest.raises(ValueError, match="'data' and 'model'"):
         tlm.shard(Mesh(("data", "seq"), (1, 2)))
     assert tlm.shard(Mesh(("data",), (1,))) is tlm and tlm._row_tile(5) is None

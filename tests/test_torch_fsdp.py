@@ -32,7 +32,7 @@ from slamkit_tpu.models.unit_lm import UnitLM as JaxUnitLM
 from slamkit_tpu.models.unit_lm import UnitLMConfig as JaxUnitLMConfig
 from slamkit_tpu.models.unit_lm import _flatten
 from slamkit_tpu.parallel.mesh import param_shardings
-from slamkit_tpu_torch.parallel.fsdp import placement
+from slamkit_tpu_torch.parallel.fsdp import data_dim
 from slamkit_tpu_torch.trainer.optim import _factored_dims
 
 import torch_mesh_workers
@@ -75,7 +75,7 @@ def test_local_shards_are_jax_param_shardings(tmp_path, ranks):
                     # holds rows of dim 0 (torch.chunk's split, padded)
                     replicated += 1
                     chunk = -(-part.shape[0] // ranks)
-                    assert placement(part.shape, ranks).dim == 0
+                    assert data_dim(part.shape, ranks) is None
                     np.testing.assert_array_equal(mine, part[rank * chunk:(rank + 1) * chunk],
                                                   err_msg=name)
                 else:
@@ -120,8 +120,8 @@ def test_fsdp_equals_one_process_and_resumes_exactly(tmp_path, case):
             assert np.sqrt(sum(float((g.astype(np.float64) ** 2).sum())
                                for g in grads.values())) > 0.05
         for shape in ((128, 128), (128, 256)):
-            assert placement(shape, 2).dim in _factored_dims(shape)
-        assert {placement(s, 2).dim for s in ((128, 128), (128, 256))} == {0, 1}
+            assert data_dim(shape, 2) in _factored_dims(shape)
+        assert {data_dim(s, 2) for s in ((128, 128), (128, 256))} == {0, 1}
     for rank in got:
         np.testing.assert_allclose(rank["a/loss"], want_loss, rtol=1e-5, atol=1e-5)
         np.testing.assert_allclose(rank["a/eval_loss"], want_eval, rtol=1e-5, atol=1e-5)

@@ -10,7 +10,8 @@ sum in another order), its checkpoint written once, by rank 0.
 
 Under `mesh_shape=[1,2] mesh_axes=[data,model]` `cli.train` splits the
 decoder's weights over 'model' (tensor parallelism) and equals the
-one-process run the same way.
+one-process run the same way; so does `mesh_shape=[2,2]` with
+`training_args.fsdp=true` on 4 ranks (each slice also sharded over 'data').
 
 `cli.preference_alignment_train` runs DPO on 'data' (`mesh_shape: null`, 2
 pairs a rank) from a 2-layer pythia-14m-shaped checkpoint: its logged
@@ -113,11 +114,11 @@ def test_dpo_cli_under_torchrun_equals_one_process(tmp_path):
                                                                       "checkpoint-2"]
 
 
-def _torchrun_and_one(tmp_path, cli, mesh_args, one_args):
-    """Run `cli` under `torchrun --standalone --nproc_per_node 2` and in one
-    process."""
+def _torchrun_and_one(tmp_path, cli, mesh_args, one_args, nproc=2):
+    """Run `cli` under `torchrun --standalone --nproc_per_node nproc` and in
+    one process."""
     runs = {"mesh": [sys.executable, "-m", "torch.distributed.run", "--standalone",
-                     "--nproc_per_node", "2", *cli, *mesh_args],
+                     "--nproc_per_node", str(nproc), *cli, *mesh_args],
             "one": [sys.executable, *cli, *one_args]}
     for name, cmd in runs.items():
         proc = subprocess.run(cmd, cwd=tmp_path, env=_env(), capture_output=True, text=True,
@@ -163,6 +164,34 @@ def test_train_cli_tp_under_torchrun_equals_one_process(tmp_path):
             "training_args.mesh_axes=[data,model]"]
     one = _overrides(tokens, tmp_path / "one")
     _torchrun_and_one(tmp_path, cli, mesh, one)
+    got, want = _history(tmp_path / "mesh"), _history(tmp_path / "one")
+    pick = lambda h, key: [r[key] for r in h if key in r]
+    assert len(pick(want, "loss")) == 2 and len(pick(want, "eval_loss")) == 1
+    for key in ("loss", "eval_loss"):
+        np.testing.assert_allclose(pick(got, key), pick(want, key), rtol=1e-5, atol=1e-5)
+    with np.load(tmp_path / "mesh" / "checkpoint-2" / "params.npz") as a, \
+            np.load(tmp_path / "one" / "checkpoint-2" / "params.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in b.files:
+            assert a[k].shape == b[k].shape, k
+            np.testing.assert_allclose(a[k], b[k], rtol=1e-5, atol=1e-5, err_msg=k)
+
+
+def test_train_cli_tp_fsdp_under_torchrun_equals_one_process(tmp_path):
+    """`cli.train training_args.mesh_shape=[2,2] mesh_axes=[data,model]
+    training_args.fsdp=true` on 4 ranks (the weights split over 'model',
+    each slice sharded over 'data') logs the one-process run's losses and
+    eval loss of the same 4-row global batch within 1e-5, and its
+    checkpoint-2, gathered over both axes, holds the one-process parameters
+    in the one-rank layout."""
+    tokens = tmp_path / "tokens.jsonl"
+    write_markov_corpus(tokens, 40)
+    cli = ["-m", "slamkit_tpu_torch.cli.train"]
+    mesh = [*_overrides(tokens, tmp_path / "mesh"), "training_args.mesh_shape=[2,2]",
+            "training_args.mesh_axes=[data,model]", "training_args.fsdp=true"]
+    one = [*_overrides(tokens, tmp_path / "one"), "training_args.per_device_train_batch_size=4",
+           "training_args.per_device_eval_batch_size=4"]
+    _torchrun_and_one(tmp_path, cli, mesh, one, nproc=4)
     got, want = _history(tmp_path / "mesh"), _history(tmp_path / "one")
     pick = lambda h, key: [r[key] for r in h if key in r]
     assert len(pick(want, "loss")) == 2 and len(pick(want, "eval_loss")) == 1

@@ -20,19 +20,19 @@ ranks on the CPU, against the one-process run of the same global batch.
     keys, shapes and dtypes, and one process resuming from it takes step 2
     within 1e-5 of the one-process run.
   * The raises: heads or kv heads that do not divide 'model' (naming
-    ROADMAP queue 3), fsdp beside 'model' (item 28), 'model' beside 'seq'
-    (item 29).
+    ROADMAP queue 3), 'model' beside 'seq' (item 29). fsdp beside 'model'
+    (item 28) no longer raises: on [1, 2] it shards nothing, and
+    `UnitLM.shard(fsdp=True, tp=True)` takes TP alone with a warning.
 """
+import json
+
 import numpy as np
 import pytest
 import torch
 
-from slamkit_tpu_torch.data import TokenDataset
 from slamkit_tpu_torch.models import UnitLM, UnitLMConfig
-from slamkit_tpu_torch.parallel import Mesh
 from slamkit_tpu_torch.parallel import mesh as port_mesh
 from slamkit_tpu_torch.parallel.tensor import check_heads, tp_plan
-from slamkit_tpu_torch.trainer import SLAMTrainer
 
 import torch_mesh_workers
 from torch_fsdp_cases import (CONFIG, CONTEXT, EVAL, GLOBAL_ROWS, TRAIN, WIDE, one_process,
@@ -77,7 +77,7 @@ def test_tp_equals_one_process_and_resumes_exactly(tmp_path, case):
                       mesh_axes="[data,model]", **over)
     got = torch_mesh_workers.launch("train", ranks, tmp_path / "ranks", config=config,
                                     args=args, train_seqs=train, eval_seqs=evals,
-                                    context_len=CONTEXT, local_params=True)
+                                    context_len=CONTEXT)
     want_loss, want_eval, want_grads, want_params = one_process(
         tmp_path / "one", config, train=train, evals=evals, **optim)
     assert len(want_loss) == 2 and len(want_eval) == 2 and len(want_grads) == 2
@@ -162,14 +162,19 @@ def test_heads_that_do_not_divide_raise_naming_queue_3(heads, kv_heads, size):
 
 
 def test_fsdp_beside_model_raises_naming_item_28(tmp_path):
-    model = UnitLM(UnitLMConfig(**CONFIG), seed=0, device="cpu")
-    args = train_args(tmp_path, per_device_train_batch_size=2, fsdp="true")
-    mesh = Mesh(("data", "model"), (1, 2))
-    with pytest.raises(NotImplementedError, match="item 28"):
-        SLAMTrainer(model, args, TokenDataset.from_lists(TRAIN), context_len=CONTEXT,
-                    mesh=mesh)
-    with pytest.raises(NotImplementedError, match="item 28"):
-        model.shard(mesh, fsdp=True, tp=True)
+    """What replaced the refusal (item 28, ported): on [1, 2] the trainer
+    builds with fsdp=true, splits over 'model' and shards nothing over its
+    one 'data' rank; `shard(fsdp=True, tp=True)` gives TP alone and warns
+    that fsdp is dropped, as JAX drops it."""
+    args = train_args(tmp_path / "out", per_device_train_batch_size=2, fsdp="true",
+                      mesh_shape="[1,2]", mesh_axes="[data,model]")
+    got = torch_mesh_workers.launch("fsdp_on_one_line", 2, tmp_path / "ranks", config=CONFIG,
+                                    args=args, train_seqs=TRAIN, context_len=CONTEXT)
+    for rank in got:
+        assert rank["trainer"].tolist() == [True, False]
+        assert rank["shard"].tolist() == [True, False]
+        warnings = json.loads(str(rank["warnings"]))
+        assert len(warnings) == 1 and "drops fsdp=True" in warnings[0], warnings
 
 
 def test_model_beside_seq_raises_naming_item_29(monkeypatch):

@@ -132,39 +132,47 @@ def _params(params_path):
         return {k: flat[k] for k in flat.files}
 
 
-def train(tmp, config, args, train_seqs, eval_seqs, context_len, params_path=None,
-          local_params=False):
+def train(tmp, config, args, train_seqs, eval_seqs, context_len, params_path=None):
     """`SLAMTrainer` on the mesh of `args` (training_args as a dict), a fresh
     `UnitLM(config, seed=0)` (or the weights at `params_path`) and
     `train_seqs` packed at `context_len`, then a second trainer resuming
-    from the first's checkpoint-1: each run's logged losses and eval losses,
-    the first run's gradients of each step, and each run's final
-    parameters (with `local_params`, also the first run's parameters as
-    this rank holds them, `a/local/<name>`)."""
+    from the first's checkpoint-1 (`train_runs`' runs "a" and "b")."""
+    first = args["output_dir"]
+    return train_runs(tmp, config, [["a", args, None],
+                                    ["b", {**args, "output_dir": first + "_b"},
+                                     first + "/checkpoint-1"]],
+                      train_seqs, eval_seqs, context_len, params_path)
+
+
+def train_runs(tmp, config, runs, train_seqs, eval_seqs, context_len, params_path=None):
+    """`SLAMTrainer` runs one after another in this rank's process group,
+    each `runs` entry [name, args (training_args as a dict, its mesh's),
+    a checkpoint to resume from or None] from a fresh `UnitLM(config,
+    seed=0)` (or the weights at `params_path`) over `train_seqs` packed at
+    `context_len`: each run's logged losses and eval losses, the gradients
+    of each step it took, its final parameters and every parameter as this
+    rank holds it (`<name>/local/<parameter>`)."""
     from slamkit_tpu_torch.data import TokenDataset
     from slamkit_tpu_torch.models import UnitLM, UnitLMConfig, to_flat
+    from slamkit_tpu_torch.parallel.fsdp import local
     from slamkit_tpu_torch.trainer import SLAMTrainer
 
     out = {}
-    first = args["output_dir"]
-    for run, resume in (("a", False), ("b", first + "/checkpoint-1")):
+    for name, args, resume in runs:
         model = UnitLM(UnitLMConfig(**config), params=_params(params_path), seed=0,
                        device="cpu")
-        tr = SLAMTrainer(model, {**args, "output_dir": first + ("" if run == "a" else "_b")},
-                         TokenDataset.from_lists(train_seqs),
+        tr = SLAMTrainer(model, args, TokenDataset.from_lists(train_seqs),
                          eval_dataset=TokenDataset.from_lists(eval_seqs), packing=True,
                          context_len=context_len)
         grads = record_grads(tr)
-        history = tr.train(resume_from_checkpoint=resume).log_history
-        out[f"{run}/loss"] = np.asarray([r["loss"] for r in history if "loss" in r])
-        out[f"{run}/eval_loss"] = np.asarray([r["eval_loss"] for r in history
-                                              if "eval_loss" in r])
-        out.update({f"{run}/param/{k}": v for k, v in to_flat(model.decoder).items()})
-        if run == "a":
-            out.update({f"a/grad{i}/{k}": v for i, g in enumerate(grads) for k, v in g.items()})
-            if local_params:
-                out.update({f"a/local/{k}": p.detach().numpy()
-                            for k, p in model.decoder.named_parameters()})
+        history = tr.train(resume_from_checkpoint=resume or False).log_history
+        out[f"{name}/loss"] = np.asarray([r["loss"] for r in history if "loss" in r])
+        out[f"{name}/eval_loss"] = np.asarray([r["eval_loss"] for r in history
+                                               if "eval_loss" in r])
+        out.update({f"{name}/param/{k}": v for k, v in to_flat(model.decoder).items()})
+        out.update({f"{name}/grad{i}/{k}": v for i, g in enumerate(grads) for k, v in g.items()})
+        out.update({f"{name}/local/{k}": local(p.detach()).numpy()
+                    for k, p in model.decoder.named_parameters()})
     return out
 
 
@@ -221,12 +229,13 @@ def eval_calls(tlm, tokens, prompts, int8: bool = False) -> dict:
     return {k: v.numpy() for k, v in out.items()}
 
 
-def eval_mesh(tmp, ckpt, tokens, prompts, fsdp=False, overrides=None, tp_shape=None):
+def eval_mesh(tmp, ckpt, tokens, prompts, fsdp=False, overrides=None, tp_shape=None, tp=True):
     """`UnitLM.shard` over the world's 'data' mesh (with `fsdp`, the weights
     sharded too; with `tp_shape` [d, m], a ('data', 'model') mesh and
-    `tp=True`): `eval_calls` on the global `tokens` and `prompts` (lists),
-    every rank's results (with `fsdp` or `tp_shape`, the int8 greedy call
-    too). overrides: `from_pretrained` keyword overrides."""
+    `tp=True`, or `tp` False: 'model' replicas): `eval_calls` on the global
+    `tokens` and `prompts` (lists), every rank's results (with `fsdp` or
+    `tp_shape`, the int8 greedy call too). overrides: `from_pretrained`
+    keyword overrides."""
     from slamkit_tpu_torch.models import UnitLM
     from slamkit_tpu_torch.parallel import make_mesh
 
@@ -234,7 +243,7 @@ def eval_mesh(tmp, ckpt, tokens, prompts, fsdp=False, overrides=None, tp_shape=N
     if tp_shape is None:
         tlm.shard(make_mesh(), fsdp=fsdp)
     else:
-        tlm.shard(make_mesh(tp_shape, ["data", "model"]), tp=True)
+        tlm.shard(make_mesh(tp_shape, ["data", "model"]), fsdp=fsdp, tp=tp)
     return eval_calls(tlm, np.asarray(tokens, np.int32), np.asarray(prompts, np.int32),
                       int8=fsdp or tp_shape is not None)
 
@@ -289,6 +298,38 @@ def tp_int8(tmp, ckpt, prompts, mesh_shape):
         logits, _ = dec(tile.mine(ids, 0))
     out["logits"] = tile.gather(gather_vocab(logits[:, -1], dec.tp)).numpy()
     return out
+
+
+def fsdp_on_one_line(tmp, config, args, train_seqs, context_len):
+    """On a ('data', 'model') mesh of one 'data' coordinate: `SLAMTrainer`
+    built with `training_args.fsdp=true` (what it split and sharded), then
+    `UnitLM.shard(mesh, fsdp=True, tp=True)` (the same, and the warnings
+    it logged)."""
+    import logging
+
+    from slamkit_tpu_torch.data import TokenDataset
+    from slamkit_tpu_torch.models import UnitLM, UnitLMConfig
+    from slamkit_tpu_torch.parallel import make_mesh
+    from slamkit_tpu_torch.parallel.fsdp import is_sharded
+    from slamkit_tpu_torch.parallel.tensor import is_tp
+    from slamkit_tpu_torch.trainer import SLAMTrainer
+
+    mesh = make_mesh(args["mesh_shape"], args["mesh_axes"])
+    tr = SLAMTrainer(UnitLM(UnitLMConfig(**config), seed=0, device="cpu"), args,
+                     TokenDataset.from_lists(train_seqs), context_len=context_len, mesh=mesh)
+    warnings = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            if record.levelno >= logging.WARNING:
+                warnings.append(record.getMessage())
+
+    log = logging.getLogger("slamkit_tpu_torch.models.unit_lm")
+    log.addHandler(Keep())
+    tlm = UnitLM(UnitLMConfig(**config), seed=0, device="cpu").shard(mesh, fsdp=True, tp=True)
+    return {"trainer": np.asarray([is_tp(tr.model.decoder), is_sharded(tr.model.decoder)]),
+            "shard": np.asarray([is_tp(tlm.decoder), is_sharded(tlm.decoder)]),
+            "warnings": np.asarray(json.dumps(warnings))}
 
 
 def fsdp_placement(tmp, config, params_path):
