@@ -264,12 +264,18 @@ the sm_90a kernels). Phases, in order; any failure exits non-zero:
                LSE, rotating in memory; out, LSE and gradients held to one
                kernel call over the whole sequence and to the plain
                version, the launches to the schedule's count; then each of
-               its call shapes timed alone. Where the host has two or more
+               its call shapes timed alone. The same, in bf16, at the local
+               heads of the ('data', 'model', 'seq') mesh [1, 2, 2]: the
+               Slam batch's 7/1 heads a rank cut into 2 chunks of 512
+               (zigzag: halves of 256), and its call shapes (`diagonal`
+               and `off_diagonal` [8, 7/1, 512, 64], `zigzag_half` [8, 7/1,
+               256, 64]) timed alone. Where the host has two or more
                cards, `tools/parallel_smoke.py` on all of them (an even
-               count) under torchrun, in four calls (pretraining meshes,
+               count) under torchrun, in five calls (pretraining meshes,
                DPO and the evaluation mesh; then fsdp and SIMS at
                Qwen2.5-7B's widths on fsdp; then tensor parallelism; then
-               tensor parallelism with fsdp, Slam and SIMS 7B); on
+               tensor parallelism with fsdp, Slam and SIMS 7B; then tensor
+               parallelism beside the ring over 'seq'); on
                four or more, `tools/multinode.py` then starts its ranks as
                two torchrun nodes of two cards (DP [4], TP [2, 2] and
                fsdp [4] with training_args.multihost=true against one node
@@ -330,7 +336,8 @@ float32 forward twice and the backward once, its scoring the forward once
 per layer a call, its generation once per layer a prefill, and the text LM
 of GenPPL the float32 forward once per text-LM layer a call (phase 16); a
 ring pass of seq rank r of n launches 1 + r calls of each (contiguous) or
-1 + 2 (n - 1) (zigzag), 10 and 28 a pass of all 4 ranks (phase 17); the
+1 + 2 (n - 1) (zigzag), 10 and 28 a pass of all 4 ranks, 3 and 6 of both
+'seq' ranks at the local heads (phase 17); the
 probe's entry
 point launches its kernel 7 times a shape (phase 3d). A flash backward call
 counts one, though it launches three kernels (the delta / segment-range
@@ -4521,11 +4528,15 @@ def run_sims_defaults(dev, smi: str, work: pathlib.Path, tiny: bool = False, n_r
 
 # phase 17: the ring's 'seq' group as the multi-card leg runs it at N = 4
 RING_N = 4
+# ... and at the local heads of the ('data', 'model', 'seq') mesh [1, 2, 2]
+# (the tp_seq leg): the Slam batch's 14/2 heads over 'model' = 2, the
+# sequence over 'seq' = 2
+TP_SEQ_SHAPE, TP_SEQ_N = (8, 7, 1, 1024, 64), 2
 # ... and on a host of two or more cards, tools/parallel_smoke.py's legs in
-# four torchrun calls of at most 900 s each (on four or more, then
+# five torchrun calls of at most 900 s each (on four or more, then
 # tools/multinode.py's two torchrun nodes within another 900 s)
 PARALLEL_CALLS = ("meshes,dpo,eval", "fsdp,sims7b", "tp,tp_eval,tp_sims7b",
-                  "tp_fsdp,tp_fsdp_sims7b")
+                  "tp_fsdp,tp_fsdp_sims7b", "tp_seq")
 PARALLEL_LEGS = tuple(leg for call in PARALLEL_CALLS for leg in call.split(","))
 
 
@@ -4548,10 +4559,80 @@ def _ring_errors(got, want, f32: bool, terms: int) -> dict:
     return errs
 
 
-def run_ring_kernels(dev, shape=(8, 14, 2, 1024, 64)) -> dict:
+def run_ring_kernels(dev, shape=(8, 14, 2, 1024, 64), tp_shape=None) -> dict:
     """Phase 17: the ring's kernel sequence (`ops/ring_attention.py`) on this
     card at the Slam shape, its sequence cut into RING_N = 4 chunks of 256
-    (zigzag: halves of 128): for both schedules, bf16 and float32,
+    (zigzag: halves of 128), then in bf16 at `tp_shape` (main passes
+    TP_SEQ_SHAPE: a rank's heads on the ('data', 'model', 'seq') mesh [1, 2,
+    2]) cut into TP_SEQ_N = 2 chunks (`ring_sequence`). Where the host has
+    two or more cards, `tools/parallel_smoke.py` runs on all of them (an even
+    count) under torchrun, in the five calls of PARALLEL_CALLS; on one card
+    a line says they are not run. Returns the launches of the ring runs by
+    kernel, the checks, the times and the multi-card leg's result."""
+    import subprocess
+
+    import torch
+
+    t0 = time.perf_counter()
+    launches, checks, calls = ring_sequence(dev, shape, RING_N, (False, True))
+    if tp_shape is not None:
+        tp_launches, tp_checks, tp_calls = ring_sequence(dev, tp_shape, TP_SEQ_N, (False,),
+                                                         label="tp_seq ")
+        launches = {k: v + tp_launches[k] for k, v in launches.items()}
+        checks, calls = checks + tp_checks, calls + tp_calls
+    seconds = time.perf_counter() - t0
+    print(f"phase 17: the ring's kernels on one device in {seconds:.1f} s; launches "
+          f"{launches}", flush=True)
+    result = {"launches": launches, "checks": checks, "calls": calls, "seconds": seconds}
+    if dev.type != "cuda":
+        return result
+    torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"phase 17: {cards} card on this host: the multi-card legs of "
+              f"tools/parallel_smoke.py ({', '.join(PARALLEL_LEGS)}: the data and 'seq' meshes, "
+              f"DPO, evaluation, fsdp, tensor parallelism over 'model', tensor parallelism "
+              f"with fsdp over 'data' on one mesh, SIMS at Qwen2.5-7B's widths on fsdp, "
+              f"on 'model' and on both, and tensor parallelism beside the ring over 'seq') "
+              f"need two or "
+              f"more (NCCL takes one card a rank), and tools/multinode.py's two torchrun "
+              f"nodes of two cards (training_args.multihost=true) need four; none is run",
+              flush=True)
+        return result
+    n = cards - cards % 2
+    result["parallel_smoke"] = {}
+    for legs in PARALLEL_CALLS:   # five calls, each within its own limit
+        t1 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "torch.distributed.run",
+                               "--nproc_per_node", str(n), "-m",
+                               "slamkit_tpu_torch.tools.parallel_smoke", "--legs", legs],
+                              cwd=ROOT, capture_output=True, text=True, timeout=900)
+        print(proc.stdout[-6000:], flush=True)
+        _require(proc.returncode == 0, f"tools/parallel_smoke.py --legs {legs} on {n} cards "
+                 f"failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        result["parallel_smoke"][legs] = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(f"phase 17: tools/parallel_smoke.py --legs {legs} on {n} cards in "
+              f"{time.perf_counter() - t1:.1f} s", flush=True)
+    if cards < 4:
+        print(f"phase 17: {cards} cards on this host: tools/multinode.py's two torchrun nodes "
+              f"of two cards need four and are not run", flush=True)
+        return result
+    t1 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "slamkit_tpu_torch.tools.multinode"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=900)
+    print(proc.stdout[-8000:], flush=True)
+    _require(proc.returncode == 0, f"tools/multinode.py failed ({proc.returncode}):\n"
+             f"{proc.stderr[-4000:]}")
+    result["multinode"] = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"phase 17: tools/multinode.py (two torchrun nodes of two cards) in "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
+    return result
+
+
+def ring_sequence(dev, shape, n: int, f32s=(False, True), label: str = "") -> tuple:
+    """The ring's kernel sequence on this card at `shape` ([B, H/Hkv, T, D]
+    as (B, H, Hkv, T, D)), its sequence cut into `n` chunks (zigzag: halves
+    of them): for both schedules, in bf16 and (with True in `f32s`) float32,
     `ring_on_one_device` runs every rank's steps (the causal diagonal call;
     the non-causal off-diagonal calls between a query chunk and an earlier
     key chunk, with their distinct q / k segment ids and their dead rows;
@@ -4559,36 +4640,30 @@ def run_ring_kernels(dev, shape=(8, 14, 2, 1024, 64)) -> dict:
     LSE), rotating in memory instead of over NCCL. Its out, LSE and
     gradients are held to one kernel call over the whole sequence and to the
     plain version. Each of the ring's call shapes is then timed alone
-    (graph ms beside its bound, the plain version and SDPA). Where the host
-    has two or more cards, `tools/parallel_smoke.py` runs on all of them
-    (an even count) under torchrun, in the four calls of PARALLEL_CALLS; on
-    one card a line says they are not run.
-    Returns the launches of the ring runs by kernel, the checks, the times
-    and the multi-card leg's result. On the CPU (a rehearsal at a small
-    `shape`) the plain versions run every step, no launch may be counted,
-    and nothing is timed."""
-    import subprocess
-
+    (graph ms beside its bound, the plain version and SDPA). Returns (the
+    launches of the ring runs by kernel, the checks, the calls' times); the
+    rows carry `label` and `n`. On the CPU (a rehearsal at a small `shape`)
+    the plain versions run every step, no launch may be counted, and
+    nothing is timed."""
     import torch
 
     from slamkit_tpu_torch.ops import (flash_attention_bwd, flash_attention_fwd, mha_reference,
                                        mha_reference_bwd)
     from slamkit_tpu_torch.ops.ring_attention import ring_on_one_device, zigzag_permutation
 
-    t0 = time.perf_counter()
     cuda = dev.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     b, h, hkv, t, d = shape
-    c = t // RING_N
+    c = t // n
     rng = np.random.default_rng(17)
     seg_np = _packed_segments(rng, b, t, 8)
     seg = torch.from_numpy(seg_np).to(dev)
     launches = {"flash_fwd": 0, "flash_bwd": 0, "flash_fwd_f32": 0, "flash_bwd_f32": 0}
-    expect = ({"contiguous": RING_N * (RING_N + 1) // 2, "zigzag": RING_N * (2 * RING_N - 1)}
+    expect = ({"contiguous": n * (n + 1) // 2, "zigzag": n * (2 * n - 1)}
               if cuda else {"contiguous": 0, "zigzag": 0})
     checks, calls = [], []
     with torch.inference_mode():
-        for f32 in (False, True):
+        for f32 in f32s:
             dtype = torch.float32 if f32 else torch.bfloat16
             g = torch.Generator(device=dev).manual_seed(1700 + f32)
             mk = lambda hh: torch.randn((b, hh, t, d), generator=g, device=dev).to(dtype)
@@ -4602,10 +4677,10 @@ def run_ring_kernels(dev, shape=(8, 14, 2, 1024, 64)) -> dict:
                                 else ("flash_fwd", "flash_bwd"))
             counter = "f32_launches" if f32 else "launches"
             for schedule in ("contiguous", "zigzag"):
-                order = zigzag_permutation(t, RING_N) if schedule == "zigzag" else np.arange(t)
+                order = zigzag_permutation(t, n) if schedule == "zigzag" else np.arange(t)
                 idx = torch.from_numpy(order).to(dev)
                 perm = lambda x, dim=2: x.index_select(dim, idx).contiguous()
-                args = (perm(q), perm(k), perm(v), perm(seg, 1), perm(do), RING_N, schedule)
+                args = (perm(q), perm(k), perm(v), perm(seg, 1), perm(do), n, schedule)
                 f0, b0 = getattr(flash_attention_fwd, counter), getattr(flash_attention_bwd,
                                                                         counter)
                 got = ring_on_one_device(*args)
@@ -4622,14 +4697,15 @@ def run_ring_kernels(dev, shape=(8, 14, 2, 1024, 64)) -> dict:
                 ok = (all(e <= bd for e, bd in (*vs_kernel.values(), *vs_plain.values()))
                       and n_fwd == n_bwd == expect[schedule]
                       and all(bool(torch.isfinite(x).all().item()) for x in got))
-                row = dict(dtype=str(dtype)[6:], schedule=schedule, n=RING_N, chunk=c,
+                row = dict(dtype=str(dtype)[6:], schedule=schedule, n=n, chunk=c, heads=[h, hkv],
                            launches={"forward": n_fwd, "backward": n_bwd},
                            expected_launches=expect[schedule], ms=ms,
                            vs_kernel={k_: e for k_, (e, _) in vs_kernel.items()},
                            vs_plain={k_: e for k_, (e, _) in vs_plain.items()},
                            bounds={k_: bd for k_, (_, bd) in vs_plain.items()}, ok=ok)
                 checks.append(row)
-                print(f"ring {row['dtype']} {schedule} n={RING_N} chunk {c}: {n_fwd} forward and "
+                print(f"{label}ring {row['dtype']} {schedule} [{b},{h}/{hkv},{t},{d}] n={n} chunk "
+                      f"{c}: {n_fwd} forward and "
                       f"{n_bwd} backward launches (expected {expect[schedule]} each); vs one "
                       f"kernel call " + " ".join(f"|{k_}|={e:.3e}" for k_, (e, _) in
                                                  vs_kernel.items())
@@ -4637,8 +4713,8 @@ def run_ring_kernels(dev, shape=(8, 14, 2, 1024, 64)) -> dict:
                                                  in vs_plain.items())
                       + f"; all ranks' forward + backward {ms:.3f} ms eager  "
                       f"{'ok' if ok else 'FAIL'}", flush=True)
-                _require(ok, f"the {row['dtype']} {schedule} ring disagrees with one call or "
-                         f"the plain version, or launched other kernels than its schedule")
+                _require(ok, f"the {label}{row['dtype']} {schedule} ring disagrees with one call "
+                         f"or the plain version, or launched other kernels than its schedule")
                 del got
             if not cuda:
                 continue
@@ -4684,65 +4760,21 @@ def run_ring_kernels(dev, shape=(8, 14, 2, 1024, 64)) -> dict:
                     device_ms, plain_ms = _graph_ms(run, 20), _graph_ms(plain_call, 2)
                     share, vs_library = _ratios(device_ms, bound, library_ms)
                     dead = int((l >= 1e30).sum().item())
-                    calls.append(dict(name=name, dtype=str(dtype)[6:], causal=causal,
+                    calls.append(dict(name=label + name, dtype=str(dtype)[6:], causal=causal,
                                       backward=backward, shape=[b, h, hkv, tl, d],
                                       dead_rows=dead, graph_ms=device_ms,
                                       plain_graph_ms=plain_ms, bound_ms=bound,
                                       bound_by=bound_by, library_ms=library_ms,
                                       library=timed, roofline_share=share,
                                       vs_library=vs_library))
-                    print(f"ring call {name} {str(dtype)[6:]} {'backward' if backward else 'forward'}"
+                    print(f"{label}ring call {name} {str(dtype)[6:]} "
+                          f"{'backward' if backward else 'forward'}"
                           f" [{b},{h}/{hkv},{tl},{d}] causal={causal} ({dead} dead rows of "
                           f"{b * h * tl}): graph {device_ms:.4f} ms, plain {plain_ms:.4f} ms, "
                           f"{_library_text(library_ms, timed, vs_library)}; bound {bound:.4f} "
                           f"ms by {bound_by}, roofline_share {share:.3f}", flush=True)
             del q, k, v, do, kernel, plain
-    seconds = time.perf_counter() - t0
-    print(f"phase 17: the ring's kernels on one device in {seconds:.1f} s; launches "
-          f"{launches}", flush=True)
-    result = {"launches": launches, "checks": checks, "calls": calls, "seconds": seconds}
-    if not cuda:
-        return result
-    torch.cuda.empty_cache()
-    cards = torch.cuda.device_count()
-    if cards < 2:
-        print(f"phase 17: {cards} card on this host: the multi-card legs of "
-              f"tools/parallel_smoke.py ({', '.join(PARALLEL_LEGS)}: the data and 'seq' meshes, "
-              f"DPO, evaluation, fsdp, tensor parallelism over 'model', tensor parallelism "
-              f"with fsdp over 'data' on one mesh, and SIMS at Qwen2.5-7B's widths on fsdp, "
-              f"on 'model' and on both) need two or "
-              f"more (NCCL takes one card a rank), and tools/multinode.py's two torchrun "
-              f"nodes of two cards (training_args.multihost=true) need four; none is run",
-              flush=True)
-        return result
-    n = cards - cards % 2
-    result["parallel_smoke"] = {}
-    for legs in PARALLEL_CALLS:   # four calls, each within its own limit
-        t1 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "torch.distributed.run",
-                               "--nproc_per_node", str(n), "-m",
-                               "slamkit_tpu_torch.tools.parallel_smoke", "--legs", legs],
-                              cwd=ROOT, capture_output=True, text=True, timeout=900)
-        print(proc.stdout[-6000:], flush=True)
-        _require(proc.returncode == 0, f"tools/parallel_smoke.py --legs {legs} on {n} cards "
-                 f"failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-        result["parallel_smoke"][legs] = json.loads(proc.stdout.strip().splitlines()[-1])
-        print(f"phase 17: tools/parallel_smoke.py --legs {legs} on {n} cards in "
-              f"{time.perf_counter() - t1:.1f} s", flush=True)
-    if cards < 4:
-        print(f"phase 17: {cards} cards on this host: tools/multinode.py's two torchrun nodes "
-              f"of two cards need four and are not run", flush=True)
-        return result
-    t1 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "slamkit_tpu_torch.tools.multinode"],
-                          cwd=ROOT, capture_output=True, text=True, timeout=900)
-    print(proc.stdout[-8000:], flush=True)
-    _require(proc.returncode == 0, f"tools/multinode.py failed ({proc.returncode}):\n"
-             f"{proc.stderr[-4000:]}")
-    result["multinode"] = json.loads(proc.stdout.strip().splitlines()[-1])
-    print(f"phase 17: tools/multinode.py (two torchrun nodes of two cards) in "
-          f"{time.perf_counter() - t1:.1f} s", flush=True)
-    return result
+    return launches, checks, calls
 
 
 def main() -> int:
@@ -4825,7 +4857,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         defaults_result = run_sims_defaults(dev, smi, pathlib.Path(work))
     torch.cuda.empty_cache()
-    ring_result = run_ring_kernels(dev)
+    ring_result = run_ring_kernels(dev, tp_shape=TP_SEQ_SHAPE)
     ring_launches = ring_result["launches"]
     speech_runs = speech_result["runs"]
     defaults_launches = defaults_result["launches"]

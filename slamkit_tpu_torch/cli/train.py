@@ -55,7 +55,14 @@ each rank's slices over 'data' (JAX `tp_shardings(fsdp=True)`):
         model=slam ... training_args.mesh_shape=[2,2] training_args.mesh_axes=[data,model] \
         training_args.fsdp=true
 
-'model' beside 'seq' raises (ROADMAP queue 1 item 29).
+A 'model' axis beside 'seq' (JAX's three-axis mesh, the names in any
+order) splits each layer's heads over 'model' and runs the ring over 'seq'
+on the rank's heads, with or without fsdp over 'data':
+
+    python -m torch.distributed.run --nproc_per_node 4 -m slamkit_tpu_torch.cli.train \
+        model=slam ... training_args.mesh_shape=[1,2,2] \
+        training_args.mesh_axes=[data,model,seq] [training_args.cp_schedule=zigzag] \
+        [training_args.fsdp=true]
 """
 import logging
 import os

@@ -22,7 +22,8 @@ tile of the global batch and calls the collectives itself:
     rows over 'data', the time chunk over 'seq';
   * `Mesh.shard(...)` describes that tile to the model (`Shard`): the ring's
     process group and the global shape the dropout masks are drawn at
-    (the 'model' ranks of one 'data' coordinate hold the same tile);
+    (the 'model' ranks of one 'data' and 'seq' coordinate hold the same
+    tile);
     `Mesh.pair_shard(...)` is DPO's tile of a [2B, T] batch of chosen rows
     over rejected rows: a rank's pairs, both halves; `Mesh.row_tile(n)` is
     an evaluation batch's (`RowTile`): any n rows, padded as JAX's
@@ -33,10 +34,11 @@ tile of the global batch and calls the collectives itself:
 
 A 'model' axis (tensor parallelism, `parallel/tensor.py`) splits each
 layer's weights, never the batch: `Mesh.batch_group()` is the group that
-holds different tiles, over which gradients and losses are summed. A
-'model' axis beside a 'seq' axis above 1 raises (`TP_SEQ_ITEM`); `fsdp_spec`
-is the JAX rule as a plain function, which `parallel/fsdp.py` shards
-parameters by.
+holds different tiles, over which gradients and losses are summed: on a
+('data', 'model', 'seq') mesh, in any order of the names, the 'data' x
+'seq' plane of the rank's 'model' coordinate (one group a plane, built by
+`make_mesh`). `fsdp_spec` is the JAX rule as a plain function, which
+`parallel/fsdp.py` shards parameters by.
 """
 from __future__ import annotations
 
@@ -57,9 +59,6 @@ logger = logging.getLogger(__name__)
 #: present), 'model' (tensor parallelism), 'seq' (context parallelism: the
 #: time dim of batches is split over it and attention runs the ring).
 KNOWN_AXES = ("data", "model", "seq")
-
-#: where tensor parallelism beside the ring over 'seq' stands in ROADMAP.md
-TP_SEQ_ITEM = "ROADMAP queue 1 item 29"
 
 #: gradients are all-reduced in flat buckets of at most this many elements
 BUCKET_ELEMENTS = 1 << 26
@@ -247,12 +246,15 @@ class Mesh:
     """A mesh of `sizes` over the world's ranks, named `axis_names`; this
     process is `rank` (row-major over the mesh). `device_mesh` is torch's
     DeviceMesh where the world has several ranks, else None. `local_size`
-    is the ranks of a node (0: every rank on one node)."""
+    is the ranks of a node (0: every rank on one node). `plane_group` is
+    this rank's 'data' x 'seq' plane where 'model' and both other axes are
+    above 1 (`make_mesh` builds it), else None."""
     axis_names: tuple
     sizes: tuple
     rank: int = 0
     device_mesh: Optional[object] = None
     local_size: int = 0
+    plane_group: Optional[object] = None
 
     @property
     def shape(self) -> dict:
@@ -296,10 +298,16 @@ class Mesh:
 
     def batch_group(self):
         """The group whose ranks hold different tiles of a batch, over which
-        gradients, losses and evaluation sums add up: the world (None), or
-        the 'data' line where a 'model' axis above 1 gives each tile to
-        several ranks (`make_mesh` refuses 'model' beside 'seq')."""
-        return self.group("data") if self.shape.get("model", 1) > 1 else None
+        gradients, losses and evaluation sums add up: the world (None) without
+        a 'model' axis above 1; beside one, which gives each tile to the
+        ranks of a 'model' line, the 'data' x 'seq' plane of this rank's
+        'model' coordinate: the 'data' line, the 'seq' line where 'data' is
+        1, or `plane_group` where both are above 1."""
+        if self.shape.get("model", 1) == 1:
+            return None
+        if seq_axis_size(self) == 1:
+            return self.group("data")
+        return self.group("seq") if self.shape["data"] == 1 else self.plane_group
 
     def shard(self, batch: int, time: int, schedule: str = "contiguous") -> Shard:
         """The `Shard` of this rank in a global [batch, time] batch; under
@@ -354,21 +362,18 @@ def make_mesh(shape: Optional[Sequence[int]] = None,
     shape=[d, m] -> ('data', 'model'): tensor parallelism over 'model'
     (`parallel/tensor.py`), the rank's 'model' line one group;
     shape=[d, s] with axis_names=('data', 'seq') -> context parallelism
-    (the ring over 'seq'). 'model' and 'seq' both above 1 raise
-    (`TP_SEQ_ITEM`), and so does a process that torchrun started as one of
-    several ranks before it joined their group (`init_distributed`): it
-    would train alone."""
+    (the ring over 'seq'); shape=[d, m, s] with the three names in any
+    order -> both beside 'data', as JAX's `make_mesh` takes them, with one
+    group a 'data' x 'seq' plane (`Mesh.batch_group`) where all three axes
+    are above 1: every rank builds every plane's group, in the same order.
+    A process that torchrun started as one of several ranks raises before
+    it has joined their group (`init_distributed`): it would train alone."""
     launched = int(os.environ.get("WORLD_SIZE", "1"))
     if launched > 1 and not dist.is_initialized():
         raise RuntimeError(f"WORLD_SIZE={launched} but this process has joined no process "
                            f"group: call parallel.init_distributed first")
     n = world_size()
     shape, axis_names = check_mesh(shape, axis_names, n)
-    sizes = dict(zip(axis_names, shape))
-    if sizes.get("model", 1) > 1 and sizes.get("seq", 1) > 1:
-        raise NotImplementedError(
-            f"mesh {sizes}: tensor parallelism over 'model' beside the ring over 'seq' "
-            f"is not ported yet ({TP_SEQ_ITEM})")
     if n == 1:
         return Mesh(axis_names, shape)
     from torch.distributed.device_mesh import init_device_mesh
@@ -377,10 +382,35 @@ def make_mesh(shape: Optional[Sequence[int]] = None,
     topo = topology()
     mesh = Mesh(axis_names, shape, dist.get_rank(),
                 init_device_mesh(device_type, shape, mesh_dim_names=axis_names),
-                local_size=topo.local_world if topo.nodes > 1 else 0)
+                local_size=topo.local_world if topo.nodes > 1 else 0,
+                plane_group=_plane_group(axis_names, shape, dist.get_rank()))
     if mesh.nodes > 1 and mesh.rank == 0:
         _log_layout(mesh)
     return mesh
+
+
+def planes(axis_names: Sequence[str], shape: Sequence[int]) -> np.ndarray:
+    """The ranks of each 'data' x 'seq' plane of a mesh with a 'model'
+    axis (row-major rank numbering), one row a 'model' coordinate, in the
+    order of the plane's ranks."""
+    ranks = np.arange(int(np.prod(shape))).reshape(shape)
+    return np.moveaxis(ranks, list(axis_names).index("model"), 0).reshape(
+        shape[list(axis_names).index("model")], -1)
+
+
+def _plane_group(axis_names: Sequence[str], shape: Sequence[int], rank: int):
+    """This rank's 'data' x 'seq' plane as a process group where 'model',
+    'data' and 'seq' are all above 1, else None. Every rank creates every
+    plane's group, in the same order, as `dist.new_group` requires."""
+    sizes = dict(zip(axis_names, shape))
+    if min(sizes.get(a, 1) for a in KNOWN_AXES) == 1:
+        return None
+    mine = None
+    for plane in planes(axis_names, shape):
+        group = dist.new_group(plane.tolist())
+        if rank in plane:
+            mine = group
+    return mine
 
 
 def _log_layout(mesh: Mesh):

@@ -1,7 +1,7 @@
 """The Slam recipe on several cards: the mesh's data, sequence and model axes.
 
     python -m torch.distributed.run --nproc_per_node N -m slamkit_tpu_torch.tools.parallel_smoke \
-        [--legs meshes,dpo,eval,fsdp,sims7b,tp,tp_eval,tp_sims7b,tp_fsdp,tp_fsdp_sims7b]
+        [--legs meshes,dpo,eval,fsdp,sims7b,tp,tp_eval,tp_sims7b,tp_fsdp,tp_fsdp_sims7b,tp_seq]
 
 Each of the N (>= 2, even) ranks joins NCCL on its own card
 (`parallel.init_distributed`) and, rank 0 first, builds the flash kernels.
@@ -127,6 +127,24 @@ each rank's 'model' slices sharded over its 'data' line):
     unsharded loss, s a step, tokens/s, MFU, the peaks while building and
     training.
 
+Then tensor parallelism beside the ring over 'seq' on one ('data', 'model',
+'seq') mesh (JAX's three-axis mesh: each rank's heads over 'model', its
+chunk of the sequence over 'seq'):
+
+  * tp_seq: the Slam recipe on [1, 2, N / 2] over ('data', 'model', 'seq'),
+    contiguous and zigzag (the flash route: the ring's bf16 kernels on the
+    rank's 7 / 1 heads over chunks of 1024 / (N / 2), 512 at N = 4), beside
+    TP [2, N / 2] and CP [1, N] contiguous (each trained here unless an
+    earlier leg of the call did) and the one-card reference, with the tp
+    leg's checks (step 1's loss and gradient norm and all four losses
+    against one card, each rank's flash launches, the exact resume from
+    checkpoint-3, one card repeating step 4 from it, the replicated
+    parameters bitwise equal across each 'model' line), every parameter
+    bitwise equal across each 'seq' line after the last step (the 'seq'
+    replicas of a 'model' slice), and the ring on the rank's heads and
+    chunk against one flash call over the whole sequence; s a step,
+    tokens/s, peaks and NCCL shares of each.
+
 Then the meshes over several nodes (`tools/multinode.py` starts the ranks
 as two torchrun nodes, with `--multihost`: `training_args.multihost=true`):
 
@@ -136,11 +154,11 @@ as two torchrun nodes, with `--multihost`: `training_args.multihost=true`):
     whose groups cross them. nodes_dp: DP [N] alone (the run over NCCL's
     socket transport, where TP's and fsdp's traffic would take minutes).
 
-`--legs` runs a subset of the twelve (meshes, dpo, eval, fsdp, sims7b, tp,
-tp_eval, tp_sims7b, tp_fsdp, tp_fsdp_sims7b, nodes, nodes_dp; default the
-first five: `chip_smoke.py` runs the three tp legs in a call of their own,
-in that order, the two tp_fsdp legs in another, and the nodes legs through
-`tools/multinode.py`). `--timeout`
+`--legs` runs a subset of the thirteen (meshes, dpo, eval, fsdp, sims7b,
+tp, tp_eval, tp_sims7b, tp_fsdp, tp_fsdp_sims7b, tp_seq, nodes, nodes_dp;
+default the first five: `chip_smoke.py` runs the three tp legs in a call of
+their own, in that order, the two tp_fsdp legs in another, tp_seq in a
+third, and the nodes legs through `tools/multinode.py`). `--timeout`
 bounds every collective (seconds; `init_process_group`'s timeout). The
 last line is one JSON object of all of it; a failed check on any rank ends
 every rank and exits 1, so the legs after it do not run. It imports only the port.
@@ -193,7 +211,7 @@ SIMS_LAYOUTS = {"fsdp": lambda n: ([n], None, True),
 #: one H100's dense bf16 peak (NVIDIA's data sheet, SXM part at 700 W)
 H100_BF16_FLOPS = 989e12
 LEGS = ("meshes", "dpo", "eval", "fsdp", "sims7b", "tp", "tp_eval", "tp_sims7b", "tp_fsdp",
-        "tp_fsdp_sims7b", "nodes", "nodes_dp")
+        "tp_fsdp_sims7b", "tp_seq", "nodes", "nodes_dp")
 DEFAULT_LEGS = LEGS[:5]
 
 
@@ -226,8 +244,9 @@ def expected_launches(shape: list, axes, schedule: str, rank: int, layers: int) 
     a ring pass of seq rank r launches 1 + r calls (contiguous) or 1 + 2(n-1)
     (zigzag), forward and backward alike; a 'model' axis changes no count
     (each rank runs its heads in one call)."""
-    n_seq = shape[1] if len(shape) > 1 and (axes or [])[1:] == ["seq"] else 1
-    r = rank % n_seq
+    axes = list(axes or ("data", "model")[:len(shape)])
+    n_seq = shape[axes.index("seq")] if "seq" in axes else 1
+    r = int(np.unravel_index(rank, shape)[axes.index("seq")]) if n_seq > 1 else 0
     per_pass = 1 + (2 * (n_seq - 1) if schedule == "zigzag" else r)
     micro = STEPS * MICRO * layers
     return {"flash_fwd": 2 * micro * per_pass, "flash_bwd": micro * per_pass}
@@ -248,16 +267,18 @@ def packed_segments(rng, b: int, t: int, mean: int = 128) -> np.ndarray:
 
 def check_ring(dev, mesh, schedule: str, dcfg, rows: int, context: int, dtype) -> dict:
     """This rank's chunk of the ring over the mesh's 'seq' group at the
-    decoder's attention shape (the Slam recipe: [8, 14/2, 1024, 64] in bf16)
-    with packed segments, forward and backward, against one flash call over
-    the whole sequence on this device."""
+    decoder's attention shape on the rank's heads (the Slam recipe: [8, 14/2,
+    1024, 64] in bf16; [8, 7/1, 1024, 64] beside 'model' = 2) with packed
+    segments, forward and backward, against one flash call over the whole
+    sequence on this device."""
     import torch
 
     from ..ops import flash_attention, ring_flash_attention, zigzag_permutation
 
     n, r = mesh.shape["seq"], mesh.coordinate["seq"]
     g = torch.Generator(device="cpu").manual_seed(17)
-    hq, hkv, d = dcfg.num_heads, dcfg.num_kv_heads, dcfg.head_dim
+    m = mesh.shape.get("model", 1)
+    hq, hkv, d = dcfg.num_heads // m, dcfg.num_kv_heads // m, dcfg.head_dim
     q, do = (torch.randn(rows, hq, context, d, generator=g).to(dev, dtype) for _ in range(2))
     k, v = (torch.randn(rows, hkv, context, d, generator=g).to(dev, dtype) for _ in range(2))
     seg = torch.from_numpy(packed_segments(np.random.default_rng(17), rows, context)).to(dev)
@@ -369,11 +390,12 @@ def _overlap(prof) -> dict:
             "nccl_overlapped_share": both / 1e3 / nccl_ms if nccl_ms else 0.0}
 
 
-def _replicas_equal(decoder, mesh) -> list:
-    """The names of the parameters that `parallel.tensor` keeps whole on
-    every rank of a 'model' line (with fsdp: the ranks' 'data' shards of
-    them) but that differ across this rank's line (compared bit for bit
-    through the line's elementwise MAX and MIN)."""
+def _replicas_equal(decoder, mesh, axis: str = "model") -> list:
+    """The names of the parameters that differ across this rank's line
+    along `axis` (compared bit for bit through the line's elementwise MAX
+    and MIN) but should not: along 'model' those that `parallel.tensor`
+    keeps whole on every rank of the line (with fsdp: the ranks' 'data'
+    shards of them), along 'seq' every parameter (a 'model' slice too)."""
     import torch
     import torch.distributed as dist
 
@@ -383,12 +405,12 @@ def _replicas_equal(decoder, mesh) -> list:
     differ = []
     with torch.no_grad():
         for name, p in decoder.named_parameters():
-            if tp_shard(p) is not None:
+            if axis == "model" and tp_shard(p) is not None:
                 continue
             mine = local(p.detach())   # fsdp: the same 'data' shard across the line
             hi, lo = mine.clone(), mine.clone()
-            dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=mesh.group("model"))
-            dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=mesh.group("model"))
+            dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=mesh.group(axis))
+            dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=mesh.group(axis))
             if not (torch.equal(hi, mine) and torch.equal(lo, mine)):
                 differ.append(name)
     return differ
@@ -457,7 +479,7 @@ def run(dev, work: pathlib.Path, cfg=None, context: int = CONTEXT, rows: int = R
     dist.barrier()
     cfg = dataclasses.replace(cfg or slam_config(), remat=True)
     pretrain = None
-    if {"meshes", "fsdp", "tp", "tp_fsdp", "nodes", "nodes_dp"} & set(legs):
+    if {"meshes", "fsdp", "tp", "tp_fsdp", "tp_seq", "nodes", "nodes_dp"} & set(legs):
         pretrain = _Pretrain(dev, work, cfg, context, rows, n_rows, lengths, say, sync,
                              multihost)
     if "meshes" in legs:
@@ -488,6 +510,8 @@ def run(dev, work: pathlib.Path, cfg=None, context: int = CONTEXT, rows: int = R
         result["tp_fsdp_sims7b"] = run_tp_fsdp_sims7b(dev, work, say, sync, result,
                                                       arch=sims_arch, context=sims_context,
                                                       **sims)
+    if "tp_seq" in legs:
+        result["tp_seq"] = run_tp_seq(pretrain, result)
     if "nodes" in legs or "nodes_dp" in legs:
         result["nodes"] = run_nodes(pretrain, result, dp_only="nodes" not in legs)
     return result
@@ -644,12 +668,18 @@ class _Pretrain:
         dist.all_gather_object(launch_counts, launches)
         row["launches_by_rank"] = launch_counts
         if mesh.shape.get("model", 1) > 1:   # tensor parallel: the replicas agree
-            differ = _replicas_equal(tr.model.decoder, mesh)
-            flags = torch.tensor([len(differ)], device=self.dev)
-            dist.all_reduce(flags, op=dist.ReduceOp.MAX)
-            row["replicated_bitwise_equal"] = not flags.item()
-            _require(not differ, f"rank {rank} {name}: replicated parameters differ across "
-                     f"the 'model' line: {differ}")
+            # ... across 'model' (the whole parameters), and beside a 'seq'
+            # axis across 'seq' (every parameter, the slices too)
+            for axis, key in (("model", "replicated_bitwise_equal"),
+                              ("seq", "seq_replicas_bitwise_equal")):
+                if mesh.shape.get(axis, 1) == 1:
+                    continue
+                differ = _replicas_equal(tr.model.decoder, mesh, axis)
+                flags = torch.tensor([len(differ)], device=self.dev)
+                dist.all_reduce(flags, op=dist.ReduceOp.MAX)
+                row[key] = not flags.item()
+                _require(not differ, f"rank {rank} {name}: parameters differ across the "
+                         f"'{axis}' line: {differ}")
         # one more step under the profiler on rank 0 (every rank steps)
         batches = tr.train_batcher.epoch(0, skip_batches=STEPS * MICRO)
         group = [next(batches) for _ in range(MICRO)]
@@ -709,7 +739,10 @@ class _Pretrain:
                 f"resume exact {row['resume_exact']}; launches {launch_counts}"
                 + (f"; replicated parameters bitwise equal across 'model' "
                    f"{row['replicated_bitwise_equal']}" if "replicated_bitwise_equal" in row
-                   else ""))
+                   else "")
+                + (f"; every parameter bitwise equal across 'seq' "
+                   f"{row['seq_replicas_bitwise_equal']}"
+                   if "seq_replicas_bitwise_equal" in row else ""))
             if "ring" in row:
                 say(f"{name} ring vs one call (rank 0): {row['ring']['max_abs_err']}")
             if "one_card_resume" in row:
@@ -835,6 +868,38 @@ def run_tp_fsdp_sims7b(dev, work: pathlib.Path, say, sync, result: dict, **sims)
             + " / ".join(mfu(r) for r in rows) + "; peak memory training "
             + " / ".join(_gib(r["max_memory_allocated"]) for r in rows) + ", building "
             + " / ".join(_gib(r["init_max_memory_allocated"]) for r in rows))
+    return row
+
+
+def run_tp_seq(pretrain: _Pretrain, result: dict) -> dict:
+    """The tp_seq leg (module docstring) on this rank; rank 0 returns its
+    rows: TP [2, N / 2] and CP [1, N] contiguous (an earlier leg's rows where
+    it ran them), then [1, 2, N / 2] over ('data', 'model', 'seq') in both
+    schedules."""
+    n = pretrain.world
+    if n < 4:   # [1, 2, 1] would be TP alone
+        pretrain.say(f"tp_seq: {n} ranks; a 'seq' axis of 2 beside 'model' = 2 needs 4 or more")
+        return {"skipped": f"{n} ranks"}
+    ref = pretrain.reference(result)
+    axes = ["data", "model", "seq"]
+    row = {"tp": (result.get("tp", {}).get("tp") or result.get("tp_fsdp", {}).get("tp")
+                  or pretrain.mesh_run("tp", [2, n // 2], ["data", "model"], "contiguous",
+                                       ref, one_card_resume=True)),
+           "cp_contiguous": (result.get("meshes", {}).get("cp_contiguous")
+                             or pretrain.mesh_run("cp_contiguous", [1, n], ["data", "seq"],
+                                                  "contiguous", ref))}
+    for schedule in ("contiguous", "zigzag"):
+        row[f"tp_seq_{schedule}"] = pretrain.mesh_run(
+            f"tp_seq_{schedule}", [1, 2, n // 2], axes, schedule, ref, one_card_resume=True)
+    if pretrain.lead:
+        rows = [row[k] for k in ("tp_seq_contiguous", "tp_seq_zigzag", "tp", "cp_contiguous")]
+        pretrain.say(f"tp_seq [1, 2, {n // 2}] contiguous / zigzag against TP [2, {n // 2}], "
+                     f"CP [1, {n}] contiguous and one card: "
+                     + " / ".join(f"{r['step_s']:.4f}" for r in rows)
+                     + f" / {ref['step_s']:.4f} s a step, "
+                     + " / ".join(f"{r['tokens_per_s']:.1f}" for r in rows)
+                     + f" / {ref['tokens_per_s']:.1f} tokens/s; peak memory "
+                     + " / ".join(_gib(r["max_memory_allocated"]) for r in rows))
     return row
 
 

@@ -84,8 +84,22 @@ then sharded over its 'model' coordinate's 'data' line
 gradients over 'data' (a parameter replicated over 'model' has its whole
 gradient on every rank of the line, through `copy_in`), the optimizer's
 sums run over each parameter's groups, and checkpoints are gathered over
-both axes. A 'model' axis beside 'seq' raises (ROADMAP queue 1 item 29,
-`parallel.make_mesh`).
+both axes.
+
+A 'model' axis beside 'seq' (`mesh_shape: [d, m, s]`, `mesh_axes` the
+three names in any order; JAX `slam_trainer.py:229-317`) runs both: each
+rank holds its 'data' rows and its 'seq' chunk of the batch and its
+'model' slices of the weights, and the ring (or the plain route's k / v
+gathers) runs over its 'seq' line on the rank's heads. The ranks that hold
+different tiles are the 'data' x 'seq' plane of a 'model' coordinate
+(`Mesh.batch_group`): the gradients (without fsdp), the loss and the eval
+sums are summed over it, never over 'model'. With `fsdp: true` the slices
+are sharded over each ('model', 'seq') coordinate's 'data' line, and the
+sharded gradients are then all-reduced over 'seq' as above. The 'seq'
+replicas of a slice stay bitwise equal; the optimizers' sums run over the
+'model' (and 'data') groups alone, so a 'seq' replica is never counted
+twice, and checkpoints are gathered as for TP, the 'seq' replicas writing
+nothing.
 
 With one rank (no torchrun) nothing of this runs. The loop runs
 synchronously on the model's device (no upload or metrics threads); a
@@ -163,7 +177,7 @@ class SLAMTrainer:
         self.mesh = mesh or make_mesh(args.get("mesh_shape", None), args.get("mesh_axes", None))
         self.world = self.mesh.size
         n_data = self.mesh.shape["data"]
-        # ranks holding different tiles of a batch (not the 'model' line)
+        # ranks holding different tiles of a batch: the 'data' x 'seq' plane
         self.n_tiles = self.world // self.mesh.shape.get("model", 1)
         self.accum = int(args.get("gradient_accumulation_steps", 1) or 1)
         self.global_batch = int(args["per_device_train_batch_size"]) * n_data

@@ -3,9 +3,10 @@ package's (`slamkit_tpu/parallel/mesh.py`) on the suite's 8 CPU devices:
 the shapes and axes `make_mesh` takes and refuses, with JAX's messages; each
 rank's `local_tile` of a batch against the slice JAX's `shard_batch` places
 on the device at the rank's mesh position (`devices_indices_map`); the fsdp
-rule; and the refusals that have no JAX counterpart (a 'model' axis, a rank
-without its card). No process group is started: a rank's mesh is built for
-its rank directly.
+rule; and the refusals that have no JAX counterpart (a rank without its
+card). No process group is started, a rank's mesh being built for its rank
+directly, except where a ('data', 'model', 'seq') mesh is built on 4 gloo
+ranks (`torch_mesh_workers.launch`).
 """
 import numpy as np
 import pytest
@@ -16,6 +17,8 @@ from jax.sharding import Mesh as JaxMesh
 from slamkit_tpu.parallel import mesh as jax_mesh
 from slamkit_tpu_torch.parallel import mesh as port_mesh
 from slamkit_tpu_torch.ops.ring_attention import zigzag_permutation
+
+import torch_mesh_workers
 
 torch.set_num_threads(1)
 
@@ -118,15 +121,22 @@ def test_a_rank_outside_its_group_raises(monkeypatch):
         port_mesh.make_mesh(None, None)
 
 
-def test_model_axis_raises_naming_the_roadmap(monkeypatch):
+def test_model_axis_raises_naming_the_roadmap(tmp_path):
     """A 'model' axis is ported (tensor parallelism): beside 'data' it
-    passes the JAX rules, and only beside a 'seq' axis above 1 does the
-    mesh raise, naming its ROADMAP item (29)."""
+    passes the JAX rules, and beside a 'seq' axis above 1 (ROADMAP item 29,
+    ported) the mesh no longer raises: `make_mesh([1, 2, 2], ['data',
+    'model', 'seq'])` builds on 4 gloo ranks, each at its row-major
+    coordinate, its 'model' and 'seq' lines and its batch group (the 'seq'
+    line: the one 'data' coordinate's plane) those of that coordinate."""
     assert port_mesh.check_mesh([2, 2], ["data", "model"], 4) == ((2, 2), ("data", "model"))
     assert port_mesh.check_mesh([2, 2], None, 4) == ((2, 2), ("data", "model"))
-    monkeypatch.setattr(port_mesh, "world_size", lambda: 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 29"):
-        port_mesh.make_mesh([1, 2, 2], ["data", "model", "seq"])
+    got = torch_mesh_workers.launch("mesh_groups", 4, tmp_path, shape=[1, 2, 2],
+                                    orders=[["data", "model", "seq"]])
+    assert [r["0/coordinate"].tolist() for r in got] == [[0, m, s] for m in range(2)
+                                                         for s in range(2)]
+    assert [r["0/model"].tolist() for r in got] == [[0, 2], [1, 3], [0, 2], [1, 3]]
+    assert [r["0/seq"].tolist() for r in got] == [[0, 1], [0, 1], [2, 3], [2, 3]]
+    assert [r["0/batch"].tolist() for r in got] == [[0, 1], [0, 1], [2, 3], [2, 3]]
     # the batch goes over 'data' alone: both ranks of a 'model' line hold
     # the same tile, rows and dropout shape
     meshes = [port_mesh.Mesh(("data", "model"), (2, 2), rank=r) for r in range(4)]

@@ -11,7 +11,9 @@ sum in another order), its checkpoint written once, by rank 0.
 Under `mesh_shape=[1,2] mesh_axes=[data,model]` `cli.train` splits the
 decoder's weights over 'model' (tensor parallelism) and equals the
 one-process run the same way; so does `mesh_shape=[2,2]` with
-`training_args.fsdp=true` on 4 ranks (each slice also sharded over 'data').
+`training_args.fsdp=true` on 4 ranks (each slice also sharded over 'data'),
+and `mesh_shape=[1,2,2] mesh_axes=[data,model,seq] cp_schedule=zigzag` on 4
+ranks (the ring over 'seq' on each rank's heads).
 
 `cli.preference_alignment_train` runs DPO on 'data' (`mesh_shape: null`, 2
 pairs a rank) from a 2-layer pythia-14m-shaped checkpoint: its logged
@@ -197,6 +199,33 @@ def test_train_cli_tp_fsdp_under_torchrun_equals_one_process(tmp_path):
     assert len(pick(want, "loss")) == 2 and len(pick(want, "eval_loss")) == 1
     for key in ("loss", "eval_loss"):
         np.testing.assert_allclose(pick(got, key), pick(want, key), rtol=1e-5, atol=1e-5)
+    with np.load(tmp_path / "mesh" / "checkpoint-2" / "params.npz") as a, \
+            np.load(tmp_path / "one" / "checkpoint-2" / "params.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in b.files:
+            assert a[k].shape == b[k].shape, k
+            np.testing.assert_allclose(a[k], b[k], rtol=1e-5, atol=1e-5, err_msg=k)
+
+
+def test_train_cli_tp_seq_under_torchrun_equals_one_process(tmp_path):
+    """`cli.train training_args.mesh_shape=[1,2,2]
+    mesh_axes=[data,model,seq] cp_schedule=zigzag` on 4 ranks (each
+    layer's heads split over 'model', the zigzag ring over 'seq' on the
+    rank's heads) logs the one-process run's losses and eval loss within
+    1e-5, and its checkpoint-2, gathered over 'model', holds the one-process
+    parameters in the one-rank layout."""
+    tokens = tmp_path / "tokens.jsonl"
+    write_markov_corpus(tokens, 40)
+    cli = ["-m", "slamkit_tpu_torch.cli.train"]
+    mesh = [*_overrides(tokens, tmp_path / "mesh"), "training_args.mesh_shape=[1,2,2]",
+            "training_args.mesh_axes=[data,model,seq]", "training_args.cp_schedule=zigzag"]
+    _torchrun_and_one(tmp_path, cli, mesh, _overrides(tokens, tmp_path / "one"), nproc=4)
+    got, want = _history(tmp_path / "mesh"), _history(tmp_path / "one")
+    pick = lambda h, key: [r[key] for r in h if key in r]
+    assert len(pick(want, "loss")) == 2 and len(pick(want, "eval_loss")) == 1
+    for key in ("loss", "eval_loss"):
+        np.testing.assert_allclose(pick(got, key), pick(want, key), rtol=1e-5, atol=1e-5)
+    assert pick(got, "num_input_tokens_seen") == pick(want, "num_input_tokens_seen")
     with np.load(tmp_path / "mesh" / "checkpoint-2" / "params.npz") as a, \
             np.load(tmp_path / "one" / "checkpoint-2" / "params.npz") as b:
         assert sorted(a.files) == sorted(b.files)

@@ -20,9 +20,11 @@ ranks on the CPU, against the one-process run of the same global batch.
     keys, shapes and dtypes, and one process resuming from it takes step 2
     within 1e-5 of the one-process run.
   * The raises: heads or kv heads that do not divide 'model' (naming
-    ROADMAP queue 3), 'model' beside 'seq' (item 29). fsdp beside 'model'
-    (item 28) no longer raises: on [1, 2] it shards nothing, and
-    `UnitLM.shard(fsdp=True, tp=True)` takes TP alone with a warning.
+    ROADMAP queue 3). fsdp beside 'model' (item 28) no longer raises: on
+    [1, 2] it shards nothing, and `UnitLM.shard(fsdp=True, tp=True)` takes
+    TP alone with a warning. 'model' beside 'seq' (item 29) no longer
+    raises either: the ('data', 'model', 'seq') mesh builds in both orders
+    (`test_torch_tp_seq.py` trains on it).
 """
 import json
 
@@ -31,7 +33,6 @@ import pytest
 import torch
 
 from slamkit_tpu_torch.models import UnitLM, UnitLMConfig
-from slamkit_tpu_torch.parallel import mesh as port_mesh
 from slamkit_tpu_torch.parallel.tensor import check_heads, tp_plan
 
 import torch_mesh_workers
@@ -177,7 +178,16 @@ def test_fsdp_beside_model_raises_naming_item_28(tmp_path):
         assert len(warnings) == 1 and "drops fsdp=True" in warnings[0], warnings
 
 
-def test_model_beside_seq_raises_naming_item_29(monkeypatch):
-    monkeypatch.setattr(port_mesh, "world_size", lambda: 4)
-    with pytest.raises(NotImplementedError, match="item 29"):
-        port_mesh.make_mesh([1, 2, 2], ["data", "model", "seq"])
+def test_model_beside_seq_raises_naming_item_29(tmp_path):
+    """What replaced the refusal (item 29, ported): 'model' beside 'seq'
+    builds in both orders on 4 gloo ranks; in ('data', 'seq', 'model') the
+    'seq' lines are strided ({0, 2}, {1, 3}) and each is the batch group of
+    its 'model' coordinate."""
+    got = torch_mesh_workers.launch("mesh_groups", 4, tmp_path, shape=[1, 2, 2],
+                                    orders=[["data", "model", "seq"], ["data", "seq", "model"]])
+    assert [r["1/coordinate"].tolist() for r in got] == [[0, s, m] for s in range(2)
+                                                         for m in range(2)]
+    assert [r["1/seq"].tolist() for r in got] == [[0, 2], [1, 3], [0, 2], [1, 3]]
+    assert [r["1/model"].tolist() for r in got] == [[0, 1], [0, 1], [2, 3], [2, 3]]
+    for i in range(2):
+        assert [r[f"{i}/batch"].tolist() for r in got] == [r[f"{i}/seq"].tolist() for r in got]

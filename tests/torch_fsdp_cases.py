@@ -46,16 +46,17 @@ def train_args(out, **overrides) -> dict:
 
 
 def one_process(out, config, params=None, resume=False, train=TRAIN, evals=EVAL,
-                **overrides):
+                context=CONTEXT, **overrides):
     """The one-process run of the global batch: its losses, eval losses,
     each step's gradients and its final parameters (resumed from `resume`,
-    a checkpoint, when given; `train` / `evals`: the corpora)."""
+    a checkpoint, when given; `train` / `evals`: the corpora; `context`:
+    the packed rows' length)."""
     args = train_args(out, per_device_train_batch_size=GLOBAL_ROWS,
                       per_device_eval_batch_size=GLOBAL_ROWS, **overrides)
     model = UnitLM(UnitLMConfig(**config), params=params, seed=0, device="cpu")
     tr = SLAMTrainer(model, args, TokenDataset.from_lists(train),
                      eval_dataset=TokenDataset.from_lists(evals), packing=True,
-                     context_len=CONTEXT)
+                     context_len=context)
     grads = torch_mesh_workers.record_grads(tr)
     history = tr.train(resume_from_checkpoint=resume).log_history
     return ([r["loss"] for r in history if "loss" in r],

@@ -101,6 +101,58 @@ def ring(tmp, inputs, schedule, dtype="float32"):
             "dk": k.grad.float().numpy(), "dv": v.grad.float().numpy()}
 
 
+def ring_tp(tmp, inputs, schedule, mesh_shape, mesh_axes):
+    """`ring` on a mesh with a 'model' axis: this rank's heads of q, k, v
+    (its 'model' coordinate's share of each) and its chunk of the sequence
+    (its 'seq' coordinate's) through `ring_flash_attention` over its 'seq'
+    group: out, dq, dk, dv, and the coordinate they belong to."""
+    import torch
+
+    from slamkit_tpu_torch.ops.ring_attention import ring_flash_attention
+    from slamkit_tpu_torch.parallel import make_mesh
+
+    g = dict(np.load(inputs))
+    mesh = make_mesh(mesh_shape, mesh_axes)
+    at, n, m = mesh.coordinate, mesh.shape["seq"], mesh.shape["model"]
+    c = g["q"].shape[2] // n
+    cols = np.arange(at["seq"] * c, (at["seq"] + 1) * c)
+
+    def part(x, heads=True):
+        if heads:
+            h = x.shape[1] // m
+            x = x[:, at["model"] * h:(at["model"] + 1) * h]
+        return torch.from_numpy(np.ascontiguousarray(np.take(x, cols, axis=-2 if heads
+                                                             else 1)))
+
+    q, k, v = (part(g[name]).requires_grad_() for name in ("q", "k", "v"))
+    out = ring_flash_attention(q, k, v, part(g["seg"], heads=False), group=mesh.group("seq"),
+                               schedule=schedule, sm_scale=float(g["scale"]))
+    out.backward(part(g["do"]))
+    return {"out": out.detach().numpy(), "dq": q.grad.numpy(), "dk": k.grad.numpy(),
+            "dv": v.grad.numpy(), "model": np.asarray(at["model"]),
+            "seq": np.asarray(at["seq"])}
+
+
+def mesh_groups(tmp, shape, orders):
+    """For each axis order of `orders` on a mesh of `shape`: this rank's
+    coordinate and the global ranks of its `batch_group()` (the world: all
+    ranks) and of its 'model' and 'seq' lines."""
+    import torch.distributed as dist
+
+    from slamkit_tpu_torch.parallel import make_mesh
+
+    out = {}
+    for i, axes in enumerate(orders):
+        mesh = make_mesh(shape, axes)
+        group = mesh.batch_group()
+        out[f"{i}/batch"] = np.asarray(list(range(dist.get_world_size())) if group is None
+                                       else dist.get_process_group_ranks(group))
+        for axis in ("model", "seq"):
+            out[f"{i}/{axis}"] = np.asarray(dist.get_process_group_ranks(mesh.group(axis)))
+        out[f"{i}/coordinate"] = np.asarray([mesh.coordinate[a] for a in axes])
+    return out
+
+
 # --------------------------------------------------------------------------- #
 # the trainer
 # --------------------------------------------------------------------------- #
