@@ -2,8 +2,8 @@
 """Drive the PyTorch port's serving, training, speech-continuation, DPO,
 interleaved speech-text (SIMS), generation-metric (GenPPL, LLM judge),
 float32-training, data-preparation and training-settings (dropout,
-layerdrop, qkv remat, Adafactor) slices, SIMS at its shipped defaults and
-its command line once on an NVIDIA GPU.
+layerdrop, qkv remat, Adafactor) slices, SIMS at its shipped defaults,
+model=slam_dh128 and its command line once on an NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -37,8 +37,8 @@ the sm_90a kernels). Phases, in order; any failure exits non-zero:
                1024); library call `torch._weight_int8pack_mm`; beside each
                prefill row the dense path's `x @ w` (bf16, weight dequantized
                before the timing).
-  3d. probe  — the contraction-probe kernel against its plain version at its
-               four shapes, the K=64/K=128 and N=64/N=128 time ratios, then
+  3d. probe  — the contraction-probe kernel (wgmma, as the flash kernels'
+               products) against its plain version at its four shapes, the K=64/K=128 and N=64/N=128 time ratios, then
                its entry point `tools/bench_flash.py --matmul-probe` (no
                single PyTorch call computes the probe: no library time).
   3e. float32 forward — the float32 flash forward (flash_fwd_f32.cu)
@@ -150,10 +150,11 @@ the sm_90a kernels). Phases, in order; any failure exits non-zero:
                WAVs (.txt written), every new token inside its modality.
   12. GenPPL and the LLM judge — in phase 9's work directory:
                `tools/genppl_recipe.py` writes a whisper-large-v3-turbo-shaped
-               checkpoint (d_model 1280, 32 + 4 layers, 128 mel bins, vocab
+               checkpoint (d_model 1280, its 32 encoder layers cut to
+               `GENPPL_DEPTHS`' 8, 4 decoder layers, 128 mel bins, vocab
                51866, the real special-token ids and suppress lists) and a
-               Llama-3.2-1B-shaped text LM (16 layers, hidden 2048, 32/8
-               heads, vocab 128256, tied), random F16 weights; then
+               Llama-3.2-1B-shaped text LM (16 layers cut to 4, hidden 2048,
+               32/8 heads, vocab 128256, tied), random F16 weights; then
                `cli.eval metric=asr_perplexity` over 8 of phase 9's WAVs
                (batch 8) from phase 9's checkpoint with vocoder_hubert_25 at
                phase 8's widths and asr_perplexity.yaml's generate_kwargs
@@ -164,8 +165,9 @@ the sm_90a kernels). Phases, in order; any failure exits non-zero:
                last float32 flash launch (the last layer of the scoring
                batch, of the judge prefill) held against the plain version
                on that launch's q, k, v and both against float64; the
-               text LM's logits and token log-probabilities over a whole
-               transcript of the scoring batch, and one Whisper window (its
+               text LM's logits and token log-probabilities over the
+               first `GENPPL_CPU_CHARS` characters of a transcript of the
+               scoring batch, and one Whisper window (its
                encoder output and the
                decoder teacher-forced on the CPU's greedy tokens), held
                against float32 CPU runs.
@@ -281,6 +283,18 @@ the sm_90a kernels). Phases, in order; any failure exits non-zero:
                fsdp [4] with training_args.multihost=true against one node
                of 4, DP again over NCCL's socket transport) within its own
                900 s; on one card a line says they are not run.
+  18. slam_dh128 — in phase 9's work directory: `cli.train
+               model=slam_dh128` (config/model/slam_dh128.yaml: the Slam
+               recipe's decoder re-headed to 7 heads of 128 over one kv
+               head, the same parameters; 24 layers, context 1024, bf16,
+               full remat, bf16 moments, as phase 9 passes them) on a seeded
+               Markov corpus, 2 steps of 4 x [8, 1024] (the recipe's
+               accumulation of 16 cut to 4, `DH128_CUTS`) with a save every
+               step, and a run resumed from checkpoint-1 whose step-2 loss
+               equals the uninterrupted run's bit for bit; then one packed
+               [2, 256] microbatch of its corpus in bf16 on the card against
+               float32 on the CPU on the same weights (phase 7's bounds);
+               seconds a step, non-pad tokens/s and `max_memory_allocated`.
 
 Phases 3 and 3b also hold the kernels at DPO's shape (`dpo_T152`: [16, 14/2,
 152, 64], one segment of 110-152 tokens a row and a -1 tail) and at SIMS's
@@ -302,7 +316,8 @@ the bf16 kernels at the local heads of tensor parallelism over 'model'
 7/1, 2048, 128], tools/parallel_smoke.py's 2 rows a step) and at model = 2
 under TP + fsdp [2, 2] (`tp2_sims7b`: [2, 14/2, 2048, 128]); they also hold
 them at the whole heads of SIMS 7B on fsdp [4] (`fsdp4_sims7b`: [2, 28/4,
-2048, 128]). Phase 3c
+2048, 128]), and phase 3b at Qwen2.5-3B's heads at the SIMS context
+(`qwen25_3b_sims`: [4, 16/2, 2048, 128], G = 8). Phase 3c
 holds dq_matmul at the Slam projections split over model = 2 (up / gate's
 [896, 2432] columns, down's [2432, 896] rows).
 
@@ -337,7 +352,9 @@ per layer a call, its generation once per layer a prefill, and the text LM
 of GenPPL the float32 forward once per text-LM layer a call (phase 16); a
 ring pass of seq rank r of n launches 1 + r calls of each (contiguous) or
 1 + 2 (n - 1) (zigzag), 10 and 28 a pass of all 4 ranks, 3 and 6 of both
-'seq' ranks at the local heads (phase 17); the
+'seq' ranks at the local heads (phase 17); slam_dh128's training
+launches the backward once per layer a microbatch (96 a step: at d = 128
+its warp-specialised dK / dV kernel) and the forward twice (phase 18); the
 probe's entry
 point launches its kernel 7 times a shape (phase 3d). A flash backward call
 counts one, though it launches three kernels (the delta / segment-range
@@ -439,12 +456,23 @@ F32_YARDSTICK_FACTOR = 2.0
 # phase 12, card against float32 CPU on the same weights and inputs, float32
 # on both sides (TF32 off), so they differ by summation order alone (~1e-6
 # relative), where a TF32 or bf16 path would sit at 1e-3 or more. The text
-# LM over a whole transcript: its logits at every scored position,
+# LM over a transcript's first GENPPL_CPU_CHARS characters: its logits at
+# every scored position,
 # ||card - cpu|| / ||cpu|| <= 1e-4, and each scored token's log-probability
 # (logits of a few units: ~1e-5 nats of float32 noise) within 1e-4 nats.
 # Whisper's encoder output over its 32 layers and the teacher-forced decoder
 # logits: ||card - cpu|| / ||cpu|| <= 1e-4, as HuBERT's
 GENPPL_LOGIT_REL_BOUND, GENPPL_LOGP_BOUND, WHISPER_REL_BOUND = 1e-4, 1e-4, 1e-4
+# ~500 of the text LM's tokens: the CPU's float32 forward over a whole
+# transcript (~2600 tokens) took ~81 s on the card's host, time the whole
+# run's 1200 s limit no longer leaves; every scored position of the prefix
+# is held to the same bounds
+GENPPL_CPU_CHARS = 320
+# phase 12's Whisper encoder layers and text-LM layers, cut in depth (from
+# 32 and 16) at their published widths for the same reason: writing both
+# directories, loading them four times and the CPU's float32 runs took
+# ~62 s, ~123 s and ~45 s of the run at full depth
+GENPPL_DEPTHS = (8, 4)
 # phase 13, float32 training: one microbatch's loss and every parameter
 # gradient on the card against float32 on the CPU, on the same weights and
 # batch. Both sides compute in float32 (TF32 off; 3xTF32 flash kernels)
@@ -1059,10 +1087,12 @@ def _sdpa_backward_ms(q, k, v, do, seg, kv_seg, causal: bool = True):
 def check_backward_kernels(dev, f32: bool = False) -> list[dict]:
     """Phase 3b: the backward kernel against the plain backward at the
     training shapes: the Slam batch (8 packed segments and a -1 tail), a
-    ragged T, d = 128 (config/model/slam_dh128.yaml), the SIMS context 2048
-    (config/train_inter_scale.yaml), dead rows, and DPO's [2 x 8, 152] batch
-    (one segment of 110-152 tokens a row, then a -1 tail), and SIMS's rows
-    packed from segments of mixed length. Phase 3f (`f32`): the float32
+    ragged T, d = 128 (config/model/slam_dh128.yaml, which phase 18 trains),
+    the SIMS context 2048 (config/train_inter_scale.yaml), dead rows, and
+    DPO's [2 x 8, 152] batch (one segment of 110-152 tokens a row, then a -1
+    tail), and SIMS's rows packed from segments of mixed length, at the
+    Slam heads and at Qwen2.5's heads of 128 (7B's split by tensor
+    parallelism and fsdp; 3B's 16 / 2, G = 8). Phase 3f (`f32`): the float32
     backward (flash_bwd_f32.cu) against the same plain version on float32
     inputs at phase 13's shapes: train.yaml's default model (OPT-125m, 12/12
     heads, G = 1, context 512), the Slam batch (G = 7), slam_dh128, a ragged
@@ -1099,6 +1129,7 @@ def check_backward_kernels(dev, f32: bool = False) -> list[dict]:
         ("tp4_sims7b", (2, 7, 1, 2048, 128), _mixed_segments(rng, 2, 2048)),
         ("tp2_sims7b", (2, 14, 2, 2048, 128), _mixed_segments(rng, 2, 2048)),
         ("fsdp4_sims7b", (2, 28, 4, 2048, 128), _mixed_segments(rng, 2, 2048)),
+        ("qwen25_3b_sims", (4, 16, 2, 2048, 128), _mixed_segments(rng, 4, 2048)),
     ]
     dtype, counter = (torch.float32, "f32_launches") if f32 else (torch.bfloat16, "launches")
     results = []
@@ -1558,9 +1589,11 @@ def run_training(dev, smi: str, cfg=None, work: pathlib.Path = None, n_rows: int
     return result
 
 
-def check_card_vs_cpu(dev, work: pathlib.Path, cfg=None, batch=2, context=256) -> dict:
-    """Phase 7: one packed microbatch, loss and gradients in bf16 on the card
-    against float32 on the CPU from the same weights."""
+def check_card_vs_cpu(dev, work: pathlib.Path, cfg=None, batch=2, context=256,
+                      tokens: pathlib.Path = None) -> dict:
+    """Phase 7: one packed microbatch of `tokens` (phase 6's tokens.jsonl by
+    default), loss and gradients in bf16 on the card against float32 on the
+    CPU from the same weights."""
     import torch
 
     from slamkit_tpu_torch.data import Batcher, parse_single_dataset
@@ -1569,7 +1602,7 @@ def check_card_vs_cpu(dev, work: pathlib.Path, cfg=None, batch=2, context=256) -
     from slamkit_tpu_torch.tools.slam_recipe import slam_config
 
     ds = parse_single_dataset({"data": {}, "model": {"context_len": context}},
-                              UnitTokeniser(), str(work / "tokens.jsonl"))["train"]
+                              UnitTokeniser(), str(tokens or work / "tokens.jsonl"))["train"]
     mb = next(iter(Batcher(ds, batch, context, PAD, packing=True, seed=1).epoch(0)))
     batch_t = {k: torch.from_numpy(mb[k]) for k in
                ("input_ids", "labels", "segment_ids", "positions")}
@@ -2807,7 +2840,8 @@ def run_genppl(dev, smi: str, work: pathlib.Path, tiny: bool = False, hubert_cfg
     directory, centroids and WAVs): GenPPL and the LLM judge through the
     port's command line. `tools/genppl_recipe.py` writes a
     whisper-large-v3-turbo-shaped checkpoint and a Llama-3.2-1B-shaped text
-    LM (random F16 weights; `tiny` for the CPU rehearsal's widths), then
+    LM at their widths, cut in depth to `GENPPL_DEPTHS` (random F16
+    weights; `tiny` for the CPU rehearsal's widths), then
     `cli.eval metric=asr_perplexity` and `metric=llm_as_judge` (alignment
     prompts) run over `n_files` of phase 9's WAVs with vocoder_hubert_25 at
     phase 8's CodeHiFiGAN widths, each stage timed. On the card every
@@ -2815,8 +2849,9 @@ def run_genppl(dev, smi: str, work: pathlib.Path, tiny: bool = False, hubert_cfg
     prefill), every text-LM scoring call and every judge prefill the float32
     forward once per text-LM layer; the last float32 launch of each run (the
     last layer of a scoring batch, of a judge prefill) is held against the
-    plain version and float64 on its own q, k, v, and a whole transcript of
-    the first scoring batch and one Whisper window against float32 CPU runs.
+    plain version and float64 on its own q, k, v, and the first
+    GENPPL_CPU_CHARS characters of a transcript of the first scoring batch
+    and one Whisper window against float32 CPU runs.
     On the CPU no launch may be counted."""
     import gc
     import importlib
@@ -2840,8 +2875,10 @@ def run_genppl(dev, smi: str, work: pathlib.Path, tiny: bool = False, hubert_cfg
     on_card = dev.type == "cuda"
     root = work / "genppl"
     t0 = phase_start = time.perf_counter()
-    whisper_dir = genppl_recipe.write_whisper_dir(root / "whisper", tiny=tiny)
-    llama_dir = genppl_recipe.write_llama_dir(root / "llama", tiny=tiny)
+    whisper_dir = genppl_recipe.write_whisper_dir(
+        root / "whisper", tiny=tiny, encoder_layers=None if tiny else GENPPL_DEPTHS[0])
+    llama_dir = genppl_recipe.write_llama_dir(root / "llama", tiny=tiny,
+                                              num_layers=None if tiny else GENPPL_DEPTHS[1])
     write_s = time.perf_counter() - t0
     with open(pathlib.Path(whisper_dir) / "config.json") as f:
         w_cfg = json.load(f)
@@ -3033,11 +3070,11 @@ def run_genppl(dev, smi: str, work: pathlib.Path, tiny: bool = False, hubert_cfg
     CHECKPOINT_MANAGER.set_root(textless_root)
 
     # ---- the card against float32 CPU runs ----------------------------------
-    # text LM: the shortest transcript of the first scoring batch, whole
-    # (the CPU's float32 forward is the slow side), through the card's model
-    # and a CPU one
+    # text LM: the start of the shortest transcript of the first scoring
+    # batch (the CPU's float32 forward is the slow side), through the card's
+    # model and a CPU one
     t0 = time.perf_counter()
-    texts = [min(score_texts, key=len)]
+    texts = [min(score_texts, key=len)[:GENPPL_CPU_CHARS]]
     card_logits, card_logp, counts = lm_scores(card_lm, card_tok, texts)
     del card_lm
     gc.collect()
@@ -3052,7 +3089,7 @@ def run_genppl(dev, smi: str, work: pathlib.Path, tiny: bool = False, hubert_cfg
     gc.collect()
     lm_check_s = time.perf_counter() - t0
     nll = lambda logp: [round(-float(x.mean()), 6) for x in logp.split(counts)]
-    print(f"text LM card vs float32 CPU on {len(texts)} whole transcript "
+    print(f"text LM card vs float32 CPU on the start of {len(texts)} transcript "
           f"({[len(t) for t in texts]} characters, {counts} scored tokens): logits "
           f"||d||/||cpu|| {logit_err:.3e} (<= {GENPPL_LOGIT_REL_BOUND}), token log-probabilities "
           f"max |d| {logp_err:.3e} (<= {GENPPL_LOGP_BOUND}); mean NLL {nll(card_logp)} vs "
@@ -4526,6 +4563,100 @@ def run_sims_defaults(dev, smi: str, work: pathlib.Path, tiny: bool = False, n_r
     return dict(result, metrics=metrics, launches=launches, seconds=seconds)
 
 
+# phase 18: config/model/slam_dh128.yaml through `cli.train`, the Slam
+# recipe's overrides as phase 9 passes them; its accumulation is cut from the
+# recipe's 16 to 4 (DH128_CUTS)
+DH128_CUTS = ("training_args.gradient_accumulation_steps: 16 -> 4 (2 steps of 4 x [8, 1024])",)
+
+
+def run_dh128_training(dev, smi: str, work: pathlib.Path, model_overrides=(), n_rows: int = 400,
+                       lengths=(100, 1001), context: int = 1024, batch: int = 8,
+                       accum: int = 4, steps: int = 2, cpu_batch: int = 2,
+                       cpu_context: int = 256) -> dict:
+    """Phase 18, in phase 9's work directory: `cli.train model=slam_dh128`
+    (the Slam recipe's decoder re-headed from 14 x 64 to 7 x 128 with one kv
+    head: 24 layers, context 1024, bf16, full remat, bf16 moments) at full
+    width and depth on a seeded Markov corpus, `steps` steps of `accum` x
+    `batch` with a save every step, and a run resumed from checkpoint-1
+    whose last loss equals the uninterrupted run's bit for bit. Every
+    microbatch launches the flash backward once a layer and the forward
+    twice (remat): at d = 128 the backward's warp-specialised dK / dV
+    kernel. Then one packed [`cpu_batch`, `cpu_context`] microbatch of the
+    corpus, loss and every gradient in bf16 on the card against float32 on
+    the CPU on the same weights (phase 7's check and bounds). Prints seconds
+    a step, non-pad tokens/s and `max_memory_allocated`. On the CPU (a
+    rehearsal at narrow widths, `model_overrides`) no launch may be
+    counted."""
+    from slamkit_tpu_torch.cli import train as cli_train
+    from slamkit_tpu_torch.models import UnitLMConfig
+    from slamkit_tpu_torch.models.unit_lm import CONFIG_NAME
+    from slamkit_tpu_torch.ops import flash_attention_bwd, flash_attention_fwd
+    from slamkit_tpu_torch.tools.slam_recipe import write_markov_corpus
+    from slamkit_tpu_torch.trainer import SLAMTrainer
+
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    counters = ((flash_attention_fwd, "launches"), (flash_attention_bwd, "launches"))
+    nonpad = lambda tr, group: sum(int((mb["segment_ids"] >= 0).sum()) for mb in group)
+    logged = lambda state, key: [r[key] for r in state.log_history if key in r]
+    tokens = work / "dh128_tokens.jsonl"
+    write_markov_corpus(tokens, n_rows, lengths, seed=4)
+    args = ["model=slam_dh128", f"model.context_len={context}", *model_overrides,
+            f"data.train_path={tokens}", "data.val_path=null", "data.packing=true",
+            f"training_args.max_steps={steps}",
+            f"training_args.per_device_train_batch_size={batch}",
+            f"training_args.gradient_accumulation_steps={accum}",
+            "training_args.remat=true", "training_args.optim_state_dtype=bfloat16",
+            "training_args.save_steps=1", "training_args.logging_steps=1",
+            *([] if on_card else ["training_args.use_cpu=true"])]
+    out, resumed = work / "dh128_run", work / "dh128_resumed"
+    first = _cli_run(dev, cli_train.train, SLAMTrainer,
+                     [*args, f"training_args.output_dir={out}"], nonpad, counters)
+    again = _cli_run(dev, cli_train.train, SLAMTrainer,
+                     [*args, f"training_args.output_dir={resumed}",
+                      f"cont_training={out / 'checkpoint-1'}"], nonpad, counters)
+    L = first["n_layers"]
+    for what, rec, n_steps in (("slam_dh128", first, steps),
+                               ("slam_dh128 resumed", again, steps - 1)):
+        bwd = n_steps * accum * L if on_card else 0
+        losses = logged(rec["state"], "loss")
+        print(f"{what} (cli.train model=slam_dh128; cut: {'; '.join(DH128_CUTS)}): "
+              f"{rec['state'].global_step} steps of {accum} x [{batch}, {context}] "
+              f"({rec['dtype']}, {L} layers, remat {rec['remat']}), losses {losses}; seconds a "
+              f"step {rec['seconds']}, non-pad tokens/s {rec['tokens_per_s']}, "
+              f"{rec['wall_s']:.1f} s the whole call; launches (fwd, bwd) {rec['launches']} "
+              f"(a step {rec['step_launches']}; backward expected {bwd}); "
+              f"max_memory_allocated {rec['max_memory_allocated']} B; on {smi}", flush=True)
+        _require(rec["state"].global_step == steps and len(rec["seconds"]) == n_steps
+                 and len(losses) == steps and all(math.isfinite(x) for x in losses)
+                 and rec["remat"], f"{what} did not take {n_steps} finite remat steps: {losses}")
+        _require(rec["launches"] == ((2 * bwd, bwd) if on_card else (0, 0)),
+                 f"{what} launched (fwd, bwd) {rec['launches']}, not ({2 * bwd}, {bwd}): the "
+                 f"backward once a layer a microbatch, the forward twice")
+    pair = (logged(first["state"], "loss")[-1], logged(again["state"], "loss")[-1])
+    print(f"slam_dh128 resumed from checkpoint-1: step {steps} loss {pair[1]} against "
+          f"{pair[0]}", flush=True)
+    _require(pair[0] == pair[1], f"the resumed slam_dh128 run does not repeat step {steps} "
+             f"bit for bit: {pair}")
+    cfg = UnitLMConfig.from_dict(json.loads((out / "checkpoint-1" / CONFIG_NAME).read_text()))
+    _drop(out, resumed)
+    for rec in (first, again):
+        rec.pop("first_microbatch")
+        _free(dev)
+    cpu = check_card_vs_cpu(dev, work, cfg=cfg, batch=cpu_batch, context=cpu_context,
+                            tokens=tokens)
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 18 (slam_dh128): {seconds:.1f} s", flush=True)
+    return dict(cuts=list(DH128_CUTS), layers=L, losses=logged(first["state"], "loss"),
+                resumed_loss=pair[1], step_seconds=first["seconds"],
+                resumed_step_seconds=again["seconds"], tokens_per_s=first["tokens_per_s"],
+                launches=list(first["launches"]), step_launches=first["step_launches"],
+                resumed_launches=list(again["launches"]),
+                max_memory_allocated=first["max_memory_allocated"],
+                wall_s=first["wall_s"], resumed_wall_s=again["wall_s"], card_vs_cpu=cpu,
+                seconds=seconds)
+
+
 # phase 17: the ring's 'seq' group as the multi-card leg runs it at N = 4
 RING_N = 4
 # ... and at the local heads of the ('data', 'model', 'seq') mesh [1, 2, 2]
@@ -4856,11 +4987,15 @@ def main() -> int:
         settings_result = run_training_settings(dev, smi, pathlib.Path(work))
         torch.cuda.empty_cache()
         defaults_result = run_sims_defaults(dev, smi, pathlib.Path(work))
+        torch.cuda.empty_cache()
+        dh128_result = run_dh128_training(dev, smi, pathlib.Path(work))
     torch.cuda.empty_cache()
     ring_result = run_ring_kernels(dev, tp_shape=TP_SEQ_SHAPE)
     ring_launches = ring_result["launches"]
     speech_runs = speech_result["runs"]
     defaults_launches = defaults_result["launches"]
+    dh128_fwd, dh128_bwd = (a + b for a, b in zip(dh128_result["launches"],
+                                                  dh128_result["resumed_launches"]))
 
     score = next(r for r in kernel_rows if r["name"] == "score_ctx1024")
     bwd = next(r for r in backward_rows if r["name"] == "slam_ctx1024")
@@ -4884,7 +5019,8 @@ def main() -> int:
                       "genppl": genppl_result, "f32_backward_shapes": f32_bwd_rows,
                       "f32_training": f32_train_result, "data_path": data_result,
                       "training_settings": settings_result,
-                      "sims_defaults": defaults_result, "ring": ring_result}), flush=True)
+                      "sims_defaults": defaults_result, "ring": ring_result,
+                      "slam_dh128": dh128_result}), flush=True)
     print(f"the whole run: {time.perf_counter() - start:.1f} s", flush=True)
     print(nvidia_smi(), flush=True)
 
@@ -4900,18 +5036,19 @@ def main() -> int:
                    + sum(r["launches"]["flash_fwd"] for r in genppl_runs)
                    + data_result["launches"]["flash_fwd"]
                    + settings_result["launches"]["flash_fwd"] + defaults_launches["flash_fwd"]
-                   + ring_launches["flash_fwd"],
+                   + ring_launches["flash_fwd"] + dh128_fwd,
                    max(r["max_abs_err_out"] for r in kernel_rows), score),
         kernel_row("flash_bwd", "slamkit_tpu_torch/ops/csrc/flash_bwd.cu",
                    "slamkit_tpu/ops/flash_attention.py:247",
-                   ["flash_bwd_prep_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"],
+                   ["flash_bwd_prep_kernel",
+                    "flash_bwd_dkdv_kernel | flash_bwd_dkdv128_kernel", "flash_bwd_dq_kernel"],
                    train_result["launches"]["flash_bwd"]
                    + cli_result["train_launches"]["flash_bwd"]
                    + dpo_result["launches"]["flash_bwd"]
                    + sims_result["train_launches"]["flash_bwd"]
                    + data_result["launches"]["flash_bwd"]
                    + settings_result["launches"]["flash_bwd"] + defaults_launches["flash_bwd"]
-                   + ring_launches["flash_bwd"],
+                   + ring_launches["flash_bwd"] + dh128_bwd,
                    max(max(r["max_abs_err"].values()) for r in backward_rows), bwd),
         dict(kernel_row("dq_matmul", "slamkit_tpu_torch/ops/csrc/dq_matmul.cu",
                         "slamkit_tpu/ops/quant.py:43", ["dq_gemv_kernel | dq_gemm_kernel"],

@@ -1,15 +1,19 @@
 // Building blocks shared by the Hopper (sm_90a) kernels of this package:
-// flash_fwd.cu, flash_bwd.cu, dq_matmul.cu and the float32 flash kernels.
+// flash_fwd.cu, flash_bwd.cu, dq_matmul.cu, matmul_probe.cu and the float32
+// flash kernels.
 //
 //   * bf16 packing and the branch-free SFU exp2;
 //   * cp.async (global -> shared, zero-filling what is out of range) and its
 //     groups; 128-byte-swizzled tile loads in the layout wgmma reads;
 //   * ldmatrix and mma.sync m16n8k16; mma.sync m16n8k8 on TF32 and the
 //     3xTF32 split that keeps float32 accuracy on the tensor cores;
-//   * wgmma (bf16 in, f32 accumulate): m64n64k16 with both operands from
-//     shared memory, or A from registers and B MN-major or K-major; m64n128k16
-//     with A from registers and B K-major;
-//   * mbarriers and TMA tile loads, with the tensor maps they read;
+//   * wgmma (bf16 in, f32 accumulate): m64n64k16 and m64n32k16 with both
+//     operands from shared memory (m64n32k16 also as the first product of a
+//     sum, writing its accumulators without reading them), m64n64k16 with A
+//     from registers and B MN-major or K-major; m64n128k16
+//     with A from registers and B K-major or MN-major (two swizzled halves);
+//   * mbarriers (arrivals of threads, of their cp.async copies and of TMA
+//     bytes) and 2-D and 3-D TMA tile loads, with the tensor maps they read;
 //   * the named barrier of one warpgroup; the split cluster barrier and the
 //     flash backward kernels' cluster size;
 //   * segment-id ranges that keep a block's pads (id < 0) apart;
@@ -123,6 +127,16 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
                :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
 }
+// one arrival of the calling thread
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
+}
+// one arrival, made when every cp.async the calling thread issued before it
+// has landed (the barrier's count includes it: .noinc)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(smem_u32(bar))
+               : "memory");
+}
 // waits for the phase of parity `parity` to complete; a barrier that never
 // completes (a fault) traps after ~2^28 polls instead of hanging the card
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
@@ -144,6 +158,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const void* tmap, int c0,
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%2, %3}], [%4];\n"
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(tmap)), "r"(c0), "r"(c1),
+         "r"(smem_u32(bar))
+      : "memory");
+}
+
+// the box of a 3-D tensor map at (c0, innermost; c1; c2), as tma_load_2d
+__device__ __forceinline__ void tma_load_3d(void* dst, const void* tmap, int c0, int c1, int c2,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(tmap)), "r"(c0), "r"(c1), "r"(c2),
          "r"(smem_u32(bar))
       : "memory");
 }
@@ -255,6 +280,15 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
   return ((addr & 0x3FFFFull) >> 4) | (1ull << 16) | ((1024ull >> 4) << 32) | (1ull << 62);
 }
 constexpr uint64_t kDescRows16 = 2048 >> 4;
+// The same for an MN-major operand 128 values wide, stored as two such
+// tiles of [rows][64] (the first 64 columns, then the next), `half_bytes`
+// apart: the leading byte offset is the step from one 64-wide half to the
+// other, the stride byte offset (1024) the step of 8 rows down the k index.
+__device__ __forceinline__ uint64_t sw128_desc_mn(const void* tile, uint32_t half_bytes) {
+  const uint64_t addr = smem_u32(tile);
+  return ((addr & 0x3FFFFull) >> 4) | ((uint64_t)((half_bytes >> 4) & 0x3FFF) << 16) |
+         ((1024ull >> 4) << 32) | (1ull << 62);
+}
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -285,6 +319,32 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
       ", %32, %33, p, 1, 1, 0, 0;\n}\n"
       : HOPPER_WGMMA_OUT32(d)
       : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 32, f32) (+)= A (64 x 16, smem, K-major) * B (16 x 32, smem,
+// K-major), and the first product of a sum: it writes d without reading it
+// (scale-d off), so nothing the compiler must keep lives in d before it
+#define HOPPER_WGMMA_D16                                                                 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " HOPPER_WGMMA_D16
+      ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(1));
+}
+__device__ __forceinline__ void wgmma_ss_first(float (&d)[16], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " HOPPER_WGMMA_D16
+      ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]),
+        "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]),
+        "=f"(d[13]), "=f"(d[14]), "=f"(d[15])
+      : "l"(a), "l"(b), "r"(0));
 }
 
 // d (64 x 64, f32) += A (64 x 16, registers) * B (16 x 64, smem, MN-major).
@@ -332,6 +392,17 @@ __device__ __forceinline__ void wgmma_rs_bk(float (&d)[64], const uint32_t (&a)[
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_WGMMA_D64
       ", {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : HOPPER_WGMMA_OUT64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 128, f32) += A (64 x 16, registers) * B (16 x 128, smem, MN-major:
+// two [16][64] halves, the descriptor from sw128_desc_mn)
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_WGMMA_D64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       : HOPPER_WGMMA_OUT64(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
@@ -492,6 +563,26 @@ inline cudaError_t tmap_bf16_sw128(CUtensorMap* map, const void* base, int rows,
   const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A bf16 tensor [depth][rows][cols] (cols a multiple of 8, the base 16-byte
+// aligned) read in boxes of one slab x box_rows rows x 64 columns, 128-byte
+// swizzled as tmap_bf16_sw128; zeros past the rows (and columns) of a slab,
+// so a box that passes the end of one slab never reads the next.
+inline cudaError_t tmap_bf16_sw128_3d(CUtensorMap* map, const void* base, int depth, int rows,
+                                      int cols, int box_rows) {
+  EncodeTiledFn fn;
+  const cudaError_t err = encode_tiled_fn(&fn);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)depth};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)rows * cols * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

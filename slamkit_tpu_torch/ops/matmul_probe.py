@@ -2,8 +2,9 @@
 
 Counterpart of `scripts/bench_flash.py::matmul_probe` (:90), whose Pallas body
 (`kern` :98) asked the TPU whether a head-dim-64 contraction costs half of
-128. The kernel is `ops/csrc/matmul_probe.cu` (mma.sync), built with nvcc on
-first use and called through ctypes; a CPU tensor runs the plain version.
+128. The kernel is `ops/csrc/matmul_probe.cu` (wgmma, the instruction the
+flash kernels' products run on), built with nvcc on first use and called
+through ctypes; a CPU tensor runs the plain version.
 `matmul_probe.launches` counts kernel launches.
 """
 from __future__ import annotations

@@ -1,19 +1,22 @@
-"""Cycles of each phase inside a CTA of the float32 flash kernels.
+"""Cycles of each phase inside a CTA of the float32 flash kernels and of the
+bf16 backward's dK/dV pass at head dim 128.
 
     python -m slamkit_tpu_torch.tools.cta_clocks [--json PATH]
 
-Builds `ops/csrc/flash_fwd_f32.cu` and `flash_bwd_f32.cu` with
-`-DSLAMKIT_CTA_CLOCKS` into libraries of their own name
+Builds `ops/csrc/flash_fwd_f32.cu`, `flash_bwd_f32.cu` and `flash_bwd.cu`
+with `-DSLAMKIT_CTA_CLOCKS` into libraries of their own name
 (`libflash_fwd_f32_slamkit_cta_clocks.so`, ...; the main path's libraries
 hold no stamp), runs each once at the shapes of `chip_smoke.py` phases 3e
-(forward) and 3f (backward), and prints, per kernel (the forward; the
-backward's dK/dV and dQ passes), the median and mean cycles of a CTA's
-phases, read by thread 0 with clock64 (`hopper.cuh`'s marks):
+(forward), 3f (backward) and 3b (the bf16 backward at d = 128), and prints,
+per kernel (the forward; the float32 backward's dK/dV and dQ passes; the
+bf16 d = 128 dK/dV pass), the median and mean cycles of a CTA's phases,
+read by thread 0 with clock64 (`hopper.cuh`'s marks):
 
   * list:  entry to the tile list ready (the segment-range scan);
   * first: to the first tile's operands in shared memory;
   * loop:  the tile loop, and its cycles per tile visited;
-  * tail:  the epilogue (normalise and store; the dK/dV cluster sum);
+  * tail:  the epilogue (normalise and store; the dK/dV sums over the
+           warpgroups and the cluster);
   * total, and the CTAs and tiles a CTA.
 
 The command needs a CUDA card; it exits 1 without one. Stamping costs a few
@@ -29,7 +32,8 @@ import sys
 import numpy as np
 import torch
 
-from ..ops.flash_attention import KERNEL_BWD_F32, KERNEL_F32, _build, _launch, _launch_bwd
+from ..ops.flash_attention import (KERNEL_BWD, KERNEL_BWD_F32, KERNEL_F32, _build, _launch,
+                                   _launch_bwd)
 
 DEFINES = ("SLAMKIT_CTA_CLOCKS",)
 WORDS = 6            # hopper.cuh's kClockWords: 5 marks, then the tiles visited
@@ -75,6 +79,11 @@ BACKWARD = [
     ("d128_f32", (8, 7, 1, 1024, 128), lambda r: _packed(r, 8, 1024, 8)),
     ("dpo_f32", (16, 14, 2, 152, 64), lambda r: _right_padded(r, 16, 152, 110)),
 ]
+# ... and phase 3b's bf16 backward at d = 128 (slam_dh128; SIMS 7B on fsdp [4])
+BACKWARD_D128 = [
+    ("d128_ctx1024", (8, 7, 1, 1024, 128), lambda r: _packed(r, 8, 1024, 8)),
+    ("fsdp4_sims7b", (2, 28, 4, 2048, 128), lambda r: _packed(r, 2, 2048, 4)),
+]
 
 
 def _set_slot(lib_name: str, slot: int, buf) -> None:
@@ -100,26 +109,30 @@ def summarize(rows: np.ndarray) -> dict:
             "loop_per_tile": stat(per_tile), "tail": stat(d[:, 3]), "total": stat(total)}
 
 
-def _grid_ctas(shape, backward: bool):
+def _grid_ctas(shape, backward: bool, bf16: bool = False):
     b, h, hkv, t, _ = shape
     n_t = (t + TILE - 1) // TILE
     if not backward:
         return {"fwd": h * b * n_t}
+    if bf16:     # the d = 128 dK/dV pass: at most 8 CTAs (a cluster) a kv group and key tile
+        return {"dkdv": 8 * hkv * b * n_t}
     # the dK/dV pass launches at most H CTAs a kv group and key tile
     return {"dkdv": h * b * n_t, "dq": h * b * n_t}
 
 
-def run_case(dev, name, shape, make_seg, backward: bool) -> dict:
-    """One launch of the stamped forward (or backward) at `shape`."""
+def run_case(dev, name, shape, make_seg, backward: bool, bf16: bool = False) -> dict:
+    """One launch of the stamped forward (or backward; in bf16, `bf16`) at
+    `shape`."""
     b, h, hkv, t, d = shape
     g = torch.Generator(device=dev).manual_seed(7)
-    mk = lambda hh: torch.randn((b, hh, t, d), generator=g, device=dev)
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    mk = lambda hh: torch.randn((b, hh, t, d), generator=g, device=dev).to(dtype)
     q, k, v = mk(h), mk(hkv), mk(hkv)
     seg = torch.from_numpy(make_seg(np.random.default_rng(5))).to(dev)
     scale = d ** -0.5
-    lib = KERNEL_BWD_F32 if backward else KERNEL_F32
+    lib = (KERNEL_BWD if bf16 else KERNEL_BWD_F32) if backward else KERNEL_F32
     bufs = {kind: torch.zeros((n, WORDS), dtype=torch.int64, device=dev)
-            for kind, n in _grid_ctas(shape, backward).items()}
+            for kind, n in _grid_ctas(shape, backward, bf16).items()}
     out, lse = _launch(q, k, v, seg, seg, True, scale)
     for slot, buf in enumerate(bufs.values()):
         _set_slot(lib, slot, buf)
@@ -144,10 +157,13 @@ def _line(name, shape, kind, s) -> str:
 
 
 def run(dev) -> dict:
-    result = {"device": torch.cuda.get_device_name(dev), "forward": {}, "backward": {}}
-    for section, cases, backward in (("forward", FORWARD, False), ("backward", BACKWARD, True)):
+    result = {"device": torch.cuda.get_device_name(dev), "forward": {}, "backward": {},
+              "backward_bf16_d128": {}}
+    for section, cases, backward, bf16 in (("forward", FORWARD, False, False),
+                                           ("backward", BACKWARD, True, False),
+                                           ("backward_bf16_d128", BACKWARD_D128, True, True)):
         for name, shape, make_seg in cases:
-            res = run_case(dev, name, shape, make_seg, backward)
+            res = run_case(dev, name, shape, make_seg, backward, bf16)
             result[section][name] = {"shape": list(shape), **res}
             for kind, s in res.items():
                 print(_line(name, list(shape), kind, s), flush=True)

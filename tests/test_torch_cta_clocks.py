@@ -5,7 +5,7 @@ import numpy as np
 import torch
 
 from slamkit_tpu_torch.ops import _build
-from slamkit_tpu_torch.ops.flash_attention import KERNEL_BWD_F32, KERNEL_F32
+from slamkit_tpu_torch.ops.flash_attention import KERNEL_BWD, KERNEL_BWD_F32, KERNEL_F32
 from slamkit_tpu_torch.tools import cta_clocks
 
 torch.set_num_threads(1)
@@ -27,7 +27,7 @@ def test_summarize_reads_phases_from_the_stamps():
 
 
 def test_stamped_libraries_are_apart_from_the_main_path():
-    for name in (KERNEL_F32, KERNEL_BWD_F32):
+    for name in (KERNEL_F32, KERNEL_BWD_F32, KERNEL_BWD):
         main = _build.library_path(name)
         stamped = _build.library_path(name, cta_clocks.DEFINES)
         assert main != stamped and main.parent != stamped.parent

@@ -185,12 +185,13 @@ def test_kernels_match_plain_at_sims_rows(dev, direction):
 
 # head dims the kernels are not built for run zero-padded to 64, 128 or 256:
 # pythia-14m's 4 heads of 32 (config/train_inter_scale.yaml) at its context
-# 2048, d = 80 and d = 160; and the d = 256 kernels themselves (32-key tiles
+# 2048, d = 80, 96 and 112 (on the d = 128 kernels) and d = 160; and the d = 256 kernels themselves (32-key tiles
 # and CTAs, warps splitting the columns), at G = 4 and, in clusters, G = 7,
 # T off the tile sizes and T = 2; all four kernels, each against its plain
 # version under its own bounds, and each call repeated bitwise
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,hkv,t,d", [(8, 4, 4, 2048, 32), (2, 8, 2, 300, 80),
+                                         (2, 8, 2, 300, 96), (2, 7, 1, 129, 112),
                                          (2, 8, 2, 300, 160), (2, 8, 2, 300, 256),
                                          (2, 7, 1, 129, 256), (1, 4, 4, 2, 256)])
 @pytest.mark.parametrize("causal", [True, False])
@@ -373,6 +374,24 @@ def test_backward_kernel_matches_plain(dev, b, h, hkv, t, d, causal, kind):
     _compare_bwd(dev, b, h, hkv, t, d, causal, kind)
 
 
+# The d = 128 backward (the warp-specialised dK / dV kernel of 128 keys a
+# CTA, two consumer warpgroups, the (Q, dO) ring fed by TMA; the dq kernel on
+# wgmma) at every group size of the presets and past the cluster size (G =
+# 1, 2, 3, 4, 6, 7, 8, 11, 16) and at T = 1, off the 64- and 128-row tiles,
+# 1000 and 2048, each against the plain version and repeated bitwise
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,hkv,t", [
+    (2, 4, 4, 65), (2, 4, 2, 333), (1, 6, 2, 129), (2, 8, 2, 17), (1, 12, 2, 1000),
+    (2, 7, 1, 1), (4, 16, 2, 2048), (1, 11, 1, 129), (2, 16, 1, 333),
+])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("kind", [None, "packed", "left_padded"])
+def test_d128_backward_matches_plain_and_repeats(dev, b, h, hkv, t, causal, kind):
+    got = _compare_bwd(dev, b, h, hkv, t, 128, causal, kind)
+    again = _compare_bwd(dev, b, h, hkv, t, 128, causal, kind)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,hkv,t,d", [(8, 14, 2, 1024, 64), (2, 7, 1, 333, 128),
                                          (1, 16, 1, 200, 64)])
@@ -391,15 +410,17 @@ def test_backward_kernel_is_deterministic(dev, b, h, hkv, t, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("h,hkv,d", [(14, 2, 64), (7, 1, 128)])
 @pytest.mark.parametrize("causal", [True, False])
-def test_backward_dead_rows(dev, causal):
+def test_backward_dead_rows(dev, causal, h, hkv, d):
     """Query ids 7 never appear among the keys: those rows' P is exactly 0, so
-    their dq is exactly 0, and they add nothing to dk and dv."""
+    their dq is exactly 0, and they add nothing to dk and dv (at d = 64 and on
+    the d = 128 kernels)."""
     b, t = 2, 256
     seg = torch.zeros((b, t), dtype=torch.int32, device=dev)
     seg[:, 100:140] = 7
     kv_seg = torch.zeros_like(seg)
-    dq, _, _ = _compare_bwd(dev, b, 14, 2, t, 64, causal, None, kv_seg=kv_seg, seg=seg)
+    dq, _, _ = _compare_bwd(dev, b, h, hkv, t, d, causal, None, kv_seg=kv_seg, seg=seg)
     assert bool((dq[:, :, 100:140] == 0).all())
 
 
@@ -630,10 +651,13 @@ def test_dq_matmul_kernel_refuses_what_it_does_not_take(dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n,reps", [(1024, 64, 1024, 64), (1024, 128, 1024, 64),
                                         (1024, 1024, 64, 64), (1024, 1024, 128, 64),
-                                        (64, 32, 64, 1), (128, 96, 192, 3)])
+                                        (64, 32, 64, 1), (128, 96, 192, 3),
+                                        (128, 256, 128, 2), (64, 160, 256, 3)])
 def test_probe_kernel_matches_plain(dev, m, k, n, reps):
     """Within `error_bound(K, reps)` of max |plain| (the reason is there:
-    the tensor cores truncate each step into the kernel's one float32 sum)."""
+    the tensor cores truncate each step into the kernel's one float32 sum):
+    the four SHAPES, K resident (<= 128) and streamed, a last k chunk half
+    past K, 64- and 128-wide output tiles."""
     from slamkit_tpu_torch.ops import matmul_probe, matmul_probe_reference
     from slamkit_tpu_torch.ops.matmul_probe import error_bound
 
@@ -663,12 +687,16 @@ def test_probe_kernel_refuses_what_it_does_not_take(dev):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 14, 2, 1024, 64), (8, 7, 1, 1024, 128)],
+                         ids=["slam", "slam_dh128"])
 @pytest.mark.parametrize("schedule", ["contiguous", "zigzag"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-def test_ring_kernel_modes_match_plain(dev, schedule, dtype):
+def test_ring_kernel_modes_match_plain(dev, schedule, dtype, shape):
     """The ring's kernel sequence (`ops/ring_attention.ring_on_one_device`:
     every rank of a 'seq' group of 4, rotated in memory) at the Slam shape
-    [8, 14/2, 1024, 64] with packed segments and a -1 tail: the causal
+    [8, 14/2, 1024, 64] and slam_dh128's [8, 7/1, 1024, 128] (the d = 128
+    backward from the ring's external O and LSE) with packed segments and a
+    -1 tail: the causal
     diagonal calls, the non-causal off-diagonal calls with distinct q / k
     segment ids (and their dead rows), the LSE merge and the backward from
     the global merged out and LSE, all launching the kernels of `dtype`,
@@ -677,7 +705,7 @@ def test_ring_kernel_modes_match_plain(dev, schedule, dtype):
     gradients, each rounded by the kernel)."""
     from slamkit_tpu_torch.ops.ring_attention import ring_on_one_device, zigzag_permutation
 
-    n, (b, h, hkv, t, d) = 4, (8, 14, 2, 1024, 64)
+    n, (b, h, hkv, t, d) = 4, shape
     f32 = dtype == torch.float32
     g = torch.Generator(device=dev).manual_seed(5)
     mk = lambda hh: torch.randn((b, hh, t, d), generator=g, device=dev).to(dtype)
