@@ -295,6 +295,24 @@ the sm_90a kernels). Phases, in order; any failure exits non-zero:
                [2, 256] microbatch of its corpus in bf16 on the card against
                float32 on the CPU on the same weights (phase 7's bounds);
                seconds a step, non-pad tokens/s and `max_memory_allocated`.
+  19. SIMS at pythia-1b's widths — in phase 9's work directory: `cli.train
+               --config-name train_inter_scale` with
+               model.config_args.base_model_name swapped to
+               `tools/sims_recipe.py::write_pythia1b_base`'s directory
+               (EleutherAI/pythia-1b's published config.json: 16 layers,
+               hidden 2048, 8 heads of 256; its GPT-NeoX tokenizer; no
+               weights, so TWIST falls back to random init) on the recipe's
+               stock settings ([8, 2048] a step, accumulation 1, remat off,
+               bf16, flash_attention_2) and the seeded three-corpus mix, 2
+               steps with the checkpoint of step 1 alone written
+               synchronously (one ~16 GB checkpoint on disk), a run resumed
+               from it whose step-2 loss
+               equals the uninterrupted run's bit for bit, then one row's
+               first 256 tokens of the first microbatch at 2 of the 16
+               layers, in bf16 on the card against float32 on the CPU on the
+               same weights (phase 7's bounds; `PYTHIA1B_CUTS`); seconds a
+               step, non-pad tokens/s, `max_memory_allocated`, the disk in
+               use with the checkpoint; the phase's directory is dropped.
 
 Phases 3 and 3b also hold the kernels at DPO's shape (`dpo_T152`: [16, 14/2,
 152, 64], one segment of 110-152 tokens a row and a -1 tail) and at SIMS's
@@ -317,7 +335,9 @@ the bf16 kernels at the local heads of tensor parallelism over 'model'
 under TP + fsdp [2, 2] (`tp2_sims7b`: [2, 14/2, 2048, 128]); they also hold
 them at the whole heads of SIMS 7B on fsdp [4] (`fsdp4_sims7b`: [2, 28/4,
 2048, 128]), and phase 3b at Qwen2.5-3B's heads at the SIMS context
-(`qwen25_3b_sims`: [4, 16/2, 2048, 128], G = 8). Phase 3c
+(`qwen25_3b_sims`: [4, 16/2, 2048, 128], G = 8) and at phase 19's SIMS
+batch at pythia-1b's heads (`pythia1b_sims`: [8, 8/8, 2048, 256], SIMS's
+packed rows). Phase 3c
 holds dq_matmul at the Slam projections split over model = 2 (up / gate's
 [896, 2432] columns, down's [2432, 896] rows).
 
@@ -354,7 +374,9 @@ ring pass of seq rank r of n launches 1 + r calls of each (contiguous) or
 1 + 2 (n - 1) (zigzag), 10 and 28 a pass of all 4 ranks, 3 and 6 of both
 'seq' ranks at the local heads (phase 17); slam_dh128's training
 launches the backward once per layer a microbatch (96 a step: at d = 128
-its warp-specialised dK / dV kernel) and the forward twice (phase 18); the
+its warp-specialised dK / dV kernel) and the forward twice (phase 18);
+pythia-1b's SIMS training the d = 256 forward and backward once per layer a
+microbatch (16 each a step), the resumed run's step the same (phase 19); the
 probe's entry
 point launches its kernel 7 times a shape (phase 3d). A flash backward call
 counts one, though it launches three kernels (the delta / segment-range
@@ -1130,6 +1152,7 @@ def check_backward_kernels(dev, f32: bool = False) -> list[dict]:
         ("tp2_sims7b", (2, 14, 2, 2048, 128), _mixed_segments(rng, 2, 2048)),
         ("fsdp4_sims7b", (2, 28, 4, 2048, 128), _mixed_segments(rng, 2, 2048)),
         ("qwen25_3b_sims", (4, 16, 2, 2048, 128), _mixed_segments(rng, 4, 2048)),
+        ("pythia1b_sims", (8, 8, 8, 2048, 256), _mixed_segments(rng, 8, 2048)),
     ]
     dtype, counter = (torch.float32, "f32_launches") if f32 else (torch.bfloat16, "launches")
     results = []
@@ -1590,10 +1613,11 @@ def run_training(dev, smi: str, cfg=None, work: pathlib.Path = None, n_rows: int
 
 
 def check_card_vs_cpu(dev, work: pathlib.Path, cfg=None, batch=2, context=256,
-                      tokens: pathlib.Path = None) -> dict:
+                      tokens: pathlib.Path = None, microbatch: dict = None) -> dict:
     """Phase 7: one packed microbatch of `tokens` (phase 6's tokens.jsonl by
-    default), loss and gradients in bf16 on the card against float32 on the
-    CPU from the same weights."""
+    default; or `microbatch`, a trainer's packed rows, as they are), loss and
+    gradients in bf16 on the card against float32 on the CPU from the same
+    weights."""
     import torch
 
     from slamkit_tpu_torch.data import Batcher, parse_single_dataset
@@ -1601,10 +1625,12 @@ def check_card_vs_cpu(dev, work: pathlib.Path, cfg=None, batch=2, context=256,
     from slamkit_tpu_torch.tokeniser import UnitTokeniser
     from slamkit_tpu_torch.tools.slam_recipe import slam_config
 
-    ds = parse_single_dataset({"data": {}, "model": {"context_len": context}},
-                              UnitTokeniser(), str(tokens or work / "tokens.jsonl"))["train"]
-    mb = next(iter(Batcher(ds, batch, context, PAD, packing=True, seed=1).epoch(0)))
-    batch_t = {k: torch.from_numpy(mb[k]) for k in
+    if microbatch is None:
+        ds = parse_single_dataset({"data": {}, "model": {"context_len": context}},
+                                  UnitTokeniser(), str(tokens or work / "tokens.jsonl"))["train"]
+        microbatch = next(iter(Batcher(ds, batch, context, PAD, packing=True, seed=1).epoch(0)))
+    batch, context = microbatch["input_ids"].shape
+    batch_t = {k: torch.from_numpy(np.ascontiguousarray(microbatch[k])) for k in
                ("input_ids", "labels", "segment_ids", "positions")}
     card = UnitLM(cfg or slam_config(), seed=3, device=dev)
     card.save_pretrained(str(work / "card_vs_cpu"))
@@ -3210,13 +3236,15 @@ def _free(dev):
         torch.cuda.empty_cache()
 
 
-def _cli_run(dev, main, cls, args, tokens, counters) -> dict:
+def _cli_run(dev, main, cls, args, tokens, counters, saves=None) -> dict:
     """One entry point's call (`main(args)`) with `cls._train_step` timed:
     per step the seconds between two synchronizes, the launches read from
     `counters` ((function, attribute) pairs, zeroed before the call: the
     main path's count) and `tokens(trainer, group)`; the call's wall
     seconds, state, peak memory (with what was allocated before the call,
-    which earlier phases may leave) and its trainer's facts."""
+    which earlier phases may leave) and its trainer's facts. `saves`, where
+    given, are the only global steps whose checkpoint is written (to keep
+    one full-size checkpoint on disk at a time)."""
     import torch
 
     from slamkit_tpu_torch.trainer import SLAMTrainer
@@ -3224,7 +3252,11 @@ def _cli_run(dev, main, cls, args, tokens, counters) -> dict:
     on_card = dev.type == "cuda"
     counts = lambda: tuple(getattr(f, c) for f, c in counters)
     rec = dict(seconds=[], step_launches=[], tokens=[])
-    inner = cls._train_step
+    inner, inner_save = cls._train_step, cls.save_checkpoint
+
+    def save(tr):
+        if saves is None or tr.state.global_step in saves:
+            inner_save(tr)
 
     def step(tr, group):
         rec["trainer"] = tr
@@ -3243,7 +3275,7 @@ def _cli_run(dev, main, cls, args, tokens, counters) -> dict:
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
     before = torch.cuda.memory_allocated(dev) if on_card else None
-    cls._train_step = step
+    cls._train_step, cls.save_checkpoint = step, save
     for f, c in counters:   # the main path's count
         setattr(f, c, 0)
     try:
@@ -3252,11 +3284,11 @@ def _cli_run(dev, main, cls, args, tokens, counters) -> dict:
             state = main(args)
         _sync(dev)
     finally:
-        cls._train_step = inner
+        cls._train_step, cls.save_checkpoint = inner, inner_save
     tr = rec.pop("trainer")
     dcfg = tr.model.decoder.cfg
     rec.update(state=state, launches=counts(), wall_s=time.perf_counter() - t0,
-               n_layers=dcfg.num_layers, remat=bool(dcfg.remat),
+               n_layers=dcfg.num_layers, head_dim=dcfg.head_dim, remat=bool(dcfg.remat),
                remat_policy=dcfg.remat_policy, dtype=str(dcfg.compute_dtype)[6:],
                twist=twist_log[:1], optimizer=tr.optimizer.kind,
                max_memory_allocated=torch.cuda.max_memory_allocated(dev) if on_card else None,
@@ -4657,6 +4689,134 @@ def run_dh128_training(dev, smi: str, work: pathlib.Path, model_overrides=(), n_
                 seconds=seconds)
 
 
+# phase 19: config/train_inter_scale.yaml at EleutherAI/pythia-1b's widths
+# and depth (`model.config_args.base_model_name` swapped, as a SIMS user
+# scales the recipe); what the phase cuts (PYTHIA1B_CUTS)
+PYTHIA1B_CUTS = (
+    "weights: seeded random init (TWIST falls back: the real checkpoint is not in the "
+    "repository), the GPT-NeoX-shaped tokenizer of sims_recipe, the seeded three-corpus mix",
+    "steps: 2 (with the save at step 1 alone, one ~16 GB checkpoint on disk), then 1 resumed",
+    "saves: synchronous (training_args.async_save=false): the asynchronous save's on-card "
+    "copy of the ~12 GB train state would come on top of a step's ~60 GB and what earlier "
+    "phases leave allocated (~12 GB)",
+    "card vs float32 CPU: 2 of the 16 layers at full width, one row's first 256 tokens of "
+    "the first microbatch",
+)
+
+
+def run_pythia1b_training(dev, smi: str, work: pathlib.Path, model_overrides=(),
+                          n_rows: int = 96, lengths=(300, 700), context: int = 2048,
+                          batch: int = 8, steps: int = 2, cpu_layers: int = 2,
+                          cpu_tokens: int = 256) -> dict:
+    """Phase 19, in phase 9's work directory: `cli.train --config-name
+    train_inter_scale` on its stock settings (per-device batch `batch`,
+    accumulation 1, context `context`, remat off, bf16, flash_attention_2)
+    over `sims_recipe.write_pythia1b_base` (EleutherAI/pythia-1b's published
+    config.json: 16 layers, 8 heads of 256, hidden 2048; its GPT-NeoX
+    tokenizer; no weights, so TWIST falls back to random init) on the
+    seeded three-corpus mix, `steps` steps with the checkpoint of step 1
+    alone written (synchronously: `PYTHIA1B_CUTS`), and a run resumed from
+    it whose last loss equals the
+    uninterrupted run's bit for bit. Every microbatch launches the d = 256
+    flash forward and backward once a layer (16 each a step). Then one
+    row's first `cpu_tokens` tokens of the first microbatch, at
+    `cpu_layers` layers of the same widths, loss and every gradient in bf16
+    on the card against float32 on the CPU on the same weights (phase 7's
+    check and bounds). Prints seconds a step, non-pad tokens/s,
+    `max_memory_allocated` and the disk in use with the checkpoint. On the
+    CPU (a rehearsal at narrow widths, `model_overrides`) no launch may be
+    counted. The phase's directory is dropped before it returns."""
+    import shutil
+
+    from slamkit_tpu_torch.cli import train as cli_train
+    from slamkit_tpu_torch.models import UnitLMConfig
+    from slamkit_tpu_torch.models.unit_lm import CONFIG_NAME
+    from slamkit_tpu_torch.ops import flash_attention_bwd, flash_attention_fwd
+    from slamkit_tpu_torch.tools import sims_recipe
+    from slamkit_tpu_torch.trainer import SLAMTrainer
+
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    root = work / "pythia1b"
+    counters = ((flash_attention_fwd, "launches"), (flash_attention_bwd, "launches"))
+    nonpad = lambda tr, group: sum(int((mb["segment_ids"] >= 0).sum()) for mb in group)
+    logged = lambda state, key: [r[key] for r in state.log_history if key in r]
+    base = sims_recipe.write_pythia1b_base(root / "base")
+    text, inter, speech = sims_recipe.write_corpora(root, n_rows, lengths)
+    args = ["--config-name", "train_inter_scale", f"model.config_args.base_model_name={base}",
+            *model_overrides, f"data.train_path=[{text},{inter},{speech}]", "data.val_path=null",
+            f"model.context_len={context}", "logger=print",
+            f"training_args.per_device_train_batch_size={batch}",
+            f"training_args.max_steps={steps}", "training_args.save_steps=1",
+            "training_args.logging_steps=1", "training_args.async_save=false",
+            *([] if on_card else ["training_args.use_cpu=true",
+                                  "model.config_args.torch_dtype=float32"])]
+    out, resumed = root / "run", root / "resumed"
+    first = _cli_run(dev, cli_train.train, SLAMTrainer,
+                     [*args, f"training_args.output_dir={out}"], nonpad, counters, saves=(1,))
+    disk = shutil.disk_usage(root)
+    ckpt_bytes = sum(f.stat().st_size for f in (out / "checkpoint-1").rglob("*") if f.is_file())
+    print(f"disk: {disk.used / 2**30:.1f} GiB used with checkpoint-1 ({ckpt_bytes} B) on disk",
+          flush=True)
+    again = _cli_run(dev, cli_train.train, SLAMTrainer,
+                     [*args, f"training_args.output_dir={resumed}",
+                      f"cont_training={out / 'checkpoint-1'}"], nonpad, counters, saves=())
+    L = first["n_layers"]
+    for what, rec, n_steps in (("pythia-1b SIMS", first, steps),
+                               ("pythia-1b SIMS resumed", again, steps - 1)):
+        per_step = L if on_card else 0
+        losses = logged(rec["state"], "loss")
+        print(f"{what} (cli.train --config-name train_inter_scale at pythia-1b's widths; "
+              f"cuts: {'; '.join(PYTHIA1B_CUTS)}): {rec['state'].global_step} steps of "
+              f"[{batch}, {context}] ({rec['dtype']}, {L} layers, remat {rec['remat']}), losses "
+              f"{losses}; seconds a step {rec['seconds']}, non-pad tokens a step "
+              f"{rec['tokens']}, non-pad tokens/s {rec['tokens_per_s']}, {rec['wall_s']:.1f} s "
+              f"the whole call; d = 256 launches (fwd, bwd) {rec['launches']} (a step "
+              f"{rec['step_launches']}; expected {per_step} each); max_memory_allocated "
+              f"{rec['max_memory_allocated']} B ({rec['allocated_before']} B allocated before "
+              f"the call); {rec['twist']}; on {smi}", flush=True)
+        _require(rec["state"].global_step == steps and len(rec["seconds"]) == n_steps
+                 and len(losses) == steps and all(math.isfinite(x) for x in losses)
+                 and not rec["remat"], f"{what} did not take {n_steps} finite steps without "
+                 f"remat: {losses}")
+        _require(rec["launches"] == (n_steps * per_step,) * 2
+                 and all(x == (per_step,) * 2 for x in rec["step_launches"]),
+                 f"{what} launched (fwd, bwd) {rec['launches']} ({rec['step_launches']} a step), "
+                 f"not {per_step} each a step: the forward and the backward once a layer")
+    _require(not on_card or (first["dtype"] == "bfloat16" and L == 16
+                             and first["head_dim"] == 256),
+             f"phase 19 ran {first['dtype']}, {L} layers, head dim {first['head_dim']}, not "
+             f"bfloat16, 16 layers of heads of 256")
+    pair = (logged(first["state"], "loss")[-1], logged(again["state"], "loss")[-1])
+    print(f"pythia-1b SIMS resumed from checkpoint-1: step {steps} loss {pair[1]} against "
+          f"{pair[0]}", flush=True)
+    _require(pair[0] == pair[1], f"the resumed pythia-1b SIMS run does not repeat step "
+             f"{steps} bit for bit: {pair}")
+    saved = json.loads((out / "checkpoint-1" / CONFIG_NAME).read_text())
+    cfg = UnitLMConfig.from_dict({**saved, "config_overrides": {
+        **(saved.get("config_overrides") or {}), "num_hidden_layers": cpu_layers}})
+    mb = first.pop("first_microbatch")
+    mb = {k: mb[k][:1, :cpu_tokens] for k in ("input_ids", "labels", "segment_ids", "positions")}
+    again.pop("first_microbatch")
+    _drop(*(d for d in (out, resumed) if d.exists()))   # the resumed run writes no checkpoint
+    _free(dev)
+    cpu = check_card_vs_cpu(dev, root, cfg=cfg, microbatch=mb)
+    _drop(root)
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 19 (pythia-1b SIMS): {seconds:.1f} s", flush=True)
+    return dict(cuts=list(PYTHIA1B_CUTS), layers=L, head_dim=first["head_dim"],
+                losses=logged(first["state"], "loss"), resumed_loss=pair[1],
+                step_seconds=first["seconds"], resumed_step_seconds=again["seconds"],
+                tokens_a_step=first["tokens"], tokens_per_s=first["tokens_per_s"],
+                launches=list(first["launches"]), step_launches=first["step_launches"],
+                resumed_launches=list(again["launches"]),
+                max_memory_allocated=first["max_memory_allocated"],
+                resumed_max_memory_allocated=again["max_memory_allocated"],
+                disk_used_with_checkpoint=disk.used, checkpoint_bytes=ckpt_bytes,
+                wall_s=first["wall_s"], resumed_wall_s=again["wall_s"], card_vs_cpu=cpu,
+                seconds=seconds)
+
+
 # phase 17: the ring's 'seq' group as the multi-card leg runs it at N = 4
 RING_N = 4
 # ... and at the local heads of the ('data', 'model', 'seq') mesh [1, 2, 2]
@@ -4989,6 +5149,8 @@ def main() -> int:
         defaults_result = run_sims_defaults(dev, smi, pathlib.Path(work))
         torch.cuda.empty_cache()
         dh128_result = run_dh128_training(dev, smi, pathlib.Path(work))
+        torch.cuda.empty_cache()
+        pythia1b_result = run_pythia1b_training(dev, smi, pathlib.Path(work))
     torch.cuda.empty_cache()
     ring_result = run_ring_kernels(dev, tp_shape=TP_SEQ_SHAPE)
     ring_launches = ring_result["launches"]
@@ -4996,6 +5158,8 @@ def main() -> int:
     defaults_launches = defaults_result["launches"]
     dh128_fwd, dh128_bwd = (a + b for a, b in zip(dh128_result["launches"],
                                                   dh128_result["resumed_launches"]))
+    pythia1b_fwd, pythia1b_bwd = (a + b for a, b in zip(pythia1b_result["launches"],
+                                                        pythia1b_result["resumed_launches"]))
 
     score = next(r for r in kernel_rows if r["name"] == "score_ctx1024")
     bwd = next(r for r in backward_rows if r["name"] == "slam_ctx1024")
@@ -5020,7 +5184,8 @@ def main() -> int:
                       "f32_training": f32_train_result, "data_path": data_result,
                       "training_settings": settings_result,
                       "sims_defaults": defaults_result, "ring": ring_result,
-                      "slam_dh128": dh128_result}), flush=True)
+                      "slam_dh128": dh128_result, "pythia1b_sims": pythia1b_result}),
+          flush=True)
     print(f"the whole run: {time.perf_counter() - start:.1f} s", flush=True)
     print(nvidia_smi(), flush=True)
 
@@ -5036,19 +5201,20 @@ def main() -> int:
                    + sum(r["launches"]["flash_fwd"] for r in genppl_runs)
                    + data_result["launches"]["flash_fwd"]
                    + settings_result["launches"]["flash_fwd"] + defaults_launches["flash_fwd"]
-                   + ring_launches["flash_fwd"] + dh128_fwd,
+                   + ring_launches["flash_fwd"] + dh128_fwd + pythia1b_fwd,
                    max(r["max_abs_err_out"] for r in kernel_rows), score),
         kernel_row("flash_bwd", "slamkit_tpu_torch/ops/csrc/flash_bwd.cu",
                    "slamkit_tpu/ops/flash_attention.py:247",
                    ["flash_bwd_prep_kernel",
-                    "flash_bwd_dkdv_kernel | flash_bwd_dkdv128_kernel", "flash_bwd_dq_kernel"],
+                    "flash_bwd_dkdv_kernel | flash_bwd_dkdv128_kernel | flash_bwd_dkdv256_kernel",
+                    "flash_bwd_dq_kernel"],
                    train_result["launches"]["flash_bwd"]
                    + cli_result["train_launches"]["flash_bwd"]
                    + dpo_result["launches"]["flash_bwd"]
                    + sims_result["train_launches"]["flash_bwd"]
                    + data_result["launches"]["flash_bwd"]
                    + settings_result["launches"]["flash_bwd"] + defaults_launches["flash_bwd"]
-                   + ring_launches["flash_bwd"] + dh128_bwd,
+                   + ring_launches["flash_bwd"] + dh128_bwd + pythia1b_bwd,
                    max(max(r["max_abs_err"].values()) for r in backward_rows), bwd),
         dict(kernel_row("dq_matmul", "slamkit_tpu_torch/ops/csrc/dq_matmul.cu",
                         "slamkit_tpu/ops/quant.py:43", ["dq_gemv_kernel | dq_gemm_kernel"],

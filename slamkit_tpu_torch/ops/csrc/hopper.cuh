@@ -5,7 +5,7 @@
 //   * bf16 packing and the branch-free SFU exp2;
 //   * cp.async (global -> shared, zero-filling what is out of range) and its
 //     groups; 128-byte-swizzled tile loads in the layout wgmma reads;
-//   * ldmatrix and mma.sync m16n8k16; mma.sync m16n8k8 on TF32 and the
+//   * mma.sync m16n8k16; mma.sync m16n8k8 on TF32 and the
 //     3xTF32 split that keeps float32 accuracy on the tensor cores;
 //   * wgmma (bf16 in, f32 accumulate): m64n64k16 and m64n32k16 with both
 //     operands from shared memory (m64n32k16 also as the first product of a
@@ -38,13 +38,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16_raw(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // 2^x on the SFU (ex2.approx, relative error ~2^-22, subnormal results
 // flushed to 0: far below the bf16 rounding of P), called on every element
 // (-inf where the mask is off) so that the warp never branches.
@@ -52,10 +45,6 @@ __device__ __forceinline__ float fast_exp2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -253,18 +242,6 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[N][4], const uint32_t (&a_
   for (int n = 0; n < N; ++n) mma_1688_tf32(c[n], a_hi, b_lo[n]);
 #pragma unroll
   for (int n = 0; n < N; ++n) mma_1688_tf32(c[n], a_hi, b_hi[n]);
-}
-
-// four 8 x 8 bf16 matrices from shared memory, lane l giving row l % 8 of
-// matrix l / 8; as mma fragments (.trans: transposed, for a B whose k index
-// runs down the rows)
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
 }
 
 // --------------------------------------------------------------- wgmma --

@@ -1,22 +1,23 @@
 """Cycles of each phase inside a CTA of the float32 flash kernels and of the
-bf16 backward's dK/dV pass at head dim 128.
+bf16 backward's dK/dV pass at head dims 128 and 256.
 
-    python -m slamkit_tpu_torch.tools.cta_clocks [--json PATH]
+    python -m slamkit_tpu_torch.tools.cta_clocks [--json PATH] [--sections NAME,...]
 
 Builds `ops/csrc/flash_fwd_f32.cu`, `flash_bwd_f32.cu` and `flash_bwd.cu`
 with `-DSLAMKIT_CTA_CLOCKS` into libraries of their own name
 (`libflash_fwd_f32_slamkit_cta_clocks.so`, ...; the main path's libraries
 hold no stamp), runs each once at the shapes of `chip_smoke.py` phases 3e
-(forward), 3f (backward) and 3b (the bf16 backward at d = 128), and prints,
-per kernel (the forward; the float32 backward's dK/dV and dQ passes; the
-bf16 d = 128 dK/dV pass), the median and mean cycles of a CTA's phases,
-read by thread 0 with clock64 (`hopper.cuh`'s marks):
+(forward), 3f (backward) and 3b (the bf16 backward at d = 128 and 256), and
+prints, per kernel (the forward; the float32 backward's dK/dV and dQ
+passes; the bf16 d = 128 and d = 256 dK/dV passes), the median and mean
+cycles of a CTA's phases, read by thread 0 with clock64 (`hopper.cuh`'s
+marks; at d = 256 thread 0 is in the warpgroup that keeps dV):
 
   * list:  entry to the tile list ready (the segment-range scan);
   * first: to the first tile's operands in shared memory;
   * loop:  the tile loop, and its cycles per tile visited;
   * tail:  the epilogue (normalise and store; the dK/dV sums over the
-           warpgroups and the cluster);
+           warpgroups and the cluster; at d = 256 the warpgroup's store);
   * total, and the CTAs and tiles a CTA.
 
 The command needs a CUDA card; it exits 1 without one. Stamping costs a few
@@ -84,6 +85,11 @@ BACKWARD_D128 = [
     ("d128_ctx1024", (8, 7, 1, 1024, 128), lambda r: _packed(r, 8, 1024, 8)),
     ("fsdp4_sims7b", (2, 28, 4, 2048, 128), lambda r: _packed(r, 2, 2048, 4)),
 ]
+# ... and at d = 256 (pythia-1b's SIMS batch; the d256 row at G = 4)
+BACKWARD_D256 = [
+    ("pythia1b_sims", (8, 8, 8, 2048, 256), lambda r: _packed(r, 8, 2048, 5)),
+    ("d256", (4, 8, 2, 1024, 256), lambda r: _packed(r, 4, 1024, 4)),
+]
 
 
 def _set_slot(lib_name: str, slot: int, buf) -> None:
@@ -114,7 +120,7 @@ def _grid_ctas(shape, backward: bool, bf16: bool = False):
     n_t = (t + TILE - 1) // TILE
     if not backward:
         return {"fwd": h * b * n_t}
-    if bf16:     # the d = 128 dK/dV pass: at most 8 CTAs (a cluster) a kv group and key tile
+    if bf16:     # the d = 128 and 256 dK/dV pass: at most 8 CTAs (a cluster) a kv group and key tile
         return {"dkdv": 8 * hkv * b * n_t}
     # the dK/dV pass launches at most H CTAs a kv group and key tile
     return {"dkdv": h * b * n_t, "dq": h * b * n_t}
@@ -156,12 +162,17 @@ def _line(name, shape, kind, s) -> str:
             f"total {f('total')} (mean {s['total']['mean']:.0f})")
 
 
-def run(dev) -> dict:
-    result = {"device": torch.cuda.get_device_name(dev), "forward": {}, "backward": {},
-              "backward_bf16_d128": {}}
-    for section, cases, backward, bf16 in (("forward", FORWARD, False, False),
-                                           ("backward", BACKWARD, True, False),
-                                           ("backward_bf16_d128", BACKWARD_D128, True, True)):
+#: section name -> (cases, backward, bf16)
+SECTIONS = {"forward": (FORWARD, False, False), "backward": (BACKWARD, True, False),
+            "backward_bf16_d128": (BACKWARD_D128, True, True),
+            "backward_bf16_d256": (BACKWARD_D256, True, True)}
+
+
+def run(dev, sections=tuple(SECTIONS)) -> dict:
+    result = {"device": torch.cuda.get_device_name(dev)}
+    for section in sections:
+        cases, backward, bf16 = SECTIONS[section]
+        result[section] = {}
         for name, shape, make_seg in cases:
             res = run_case(dev, name, shape, make_seg, backward, bf16)
             result[section][name] = {"shape": list(shape), **res}
@@ -173,11 +184,17 @@ def run(dev) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", default=None, help="also write the summary here")
+    ap.add_argument("--sections", default=",".join(SECTIONS),
+                    help=f"which kernels to stamp, of {', '.join(SECTIONS)}")
     args = ap.parse_args(argv)
+    sections = args.sections.split(",")
+    unknown = sorted(set(sections) - set(SECTIONS))
+    if unknown:
+        ap.error(f"unknown sections {unknown}")
     if not torch.cuda.is_available():
         print("cta_clocks needs a CUDA card", file=sys.stderr)
         return 1
-    result = run(torch.device("cuda", 0))
+    result = run(torch.device("cuda", 0), sections)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(result, f, indent=1)

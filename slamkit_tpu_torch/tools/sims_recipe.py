@@ -32,7 +32,10 @@
     interleaving text tokeniser from the base model's directory;
   * `write_pythia14m_base(folder)` — config/train_inter_scale.yaml's base,
     `EleutherAI/pythia-14m`: its config.json from the preset's published
-    widths and a GPT-NeoX-shaped byte-level tokenizer.json of 50277 ids.
+    widths and a GPT-NeoX-shaped byte-level tokenizer.json of 50277 ids;
+  * `write_pythia1b_base(folder)` — the same recipe scaled to
+    `EleutherAI/pythia-1b` (`model.config_args.base_model_name` swapped):
+    its published config.json (8 heads of 256) beside the same tokenizer.
 
 Neither BPE needs the tokenizers package: the vocabularies and merges come
 from `genppl_recipe.random_bpe` (real sizes and ids, random strings).
@@ -82,6 +85,16 @@ PYTHIA14M_CONFIG = dict(model_type="gpt_neox", architectures=["GPTNeoXForCausalL
                         use_parallel_residual=_PYTHIA["parallel_residual"],
                         layer_norm_eps=_PYTHIA["norm_eps"], bos_token_id=0, eos_token_id=0,
                         initializer_range=0.02, torch_dtype="float16")
+#: EleutherAI/pythia-1b's config.json as published
+#: (huggingface.co/EleutherAI/pythia-1b/config.json): hidden 2048 over 8
+#: heads of 256, 16 layers, rotary on a quarter of each head
+PYTHIA1B_CONFIG = dict(model_type="gpt_neox", architectures=["GPTNeoXForCausalLM"],
+                       hidden_size=2048, num_hidden_layers=16, num_attention_heads=8,
+                       intermediate_size=8192, vocab_size=50304, max_position_embeddings=2048,
+                       tie_word_embeddings=False, hidden_act="gelu", rotary_pct=0.25,
+                       rotary_emb_base=10000, use_parallel_residual=True, layer_norm_eps=1e-5,
+                       bos_token_id=0, eos_token_id=0, initializer_range=0.02,
+                       torch_dtype="float16")
 #: Qwen2.5's tokenizer length: 151643 BPE entries and 22 added tokens
 QWEN25_VOCAB = 151665
 N_UNITS = 500
@@ -343,11 +356,30 @@ def write_opt125m_base(folder, seed: int = 0) -> str:
 
 def write_pythia14m_base(folder, seed: int = 4) -> str:
     """folder/config.json of EleutherAI/pythia-14m (`PYTHIA14M_CONFIG`) and
-    its GPT-NeoX-shaped tokenizer: a tokenizer.json of `<|endoftext|>` and
-    `<|padding|>` at ids 0-1, a seeded byte-level BPE up to 50254 ids and
-    23 added runs of 24 down to 2 spaces (50254-50276); NFC, ByteLevel
-    pre-tokenizer, post-processor and decoder; bos / eos / unk
-    `<|endoftext|>`, no pad; GPTNeoXTokenizer (no token_type_ids)."""
+    its GPT-NeoX-shaped tokenizer (`write_neox_tokenizer`)."""
+    return _write_pythia_base(folder, PYTHIA14M_CONFIG, seed)
+
+
+def write_pythia1b_base(folder, seed: int = 4) -> str:
+    """folder/config.json of EleutherAI/pythia-1b (`PYTHIA1B_CONFIG`) and
+    the GPT-NeoX-shaped tokenizer of `write_pythia14m_base` (the pythia
+    suite shares one). No weights: TWIST falls back to random init."""
+    return _write_pythia_base(folder, PYTHIA1B_CONFIG, seed)
+
+
+def _write_pythia_base(folder, config: dict, seed: int) -> str:
+    write_neox_tokenizer(folder, seed)
+    with open(pathlib.Path(folder) / "config.json", "w") as f:
+        json.dump(config, f, indent=2)
+    return str(folder)
+
+
+def write_neox_tokenizer(folder, seed: int = 4) -> str:
+    """folder's GPT-NeoX-shaped tokenizer: a tokenizer.json of
+    `<|endoftext|>` and `<|padding|>` at ids 0-1, a seeded byte-level BPE up
+    to 50254 ids and 23 added runs of 24 down to 2 spaces (50254-50276);
+    NFC, ByteLevel pre-tokenizer, post-processor and decoder; bos / eos /
+    unk `<|endoftext|>`, no pad; GPTNeoXTokenizer (no token_type_ids)."""
     folder = pathlib.Path(folder)
     folder.mkdir(parents=True, exist_ok=True)
     specials = ["<|endoftext|>", "<|padding|>"]
@@ -376,6 +408,4 @@ def write_pythia14m_base(folder, seed: int = 4) -> str:
                    "tokenizer_class": "GPTNeoXTokenizer"}, f, indent=2)
     with open(folder / "special_tokens_map.json", "w") as f:
         json.dump(special, f, indent=2)
-    with open(folder / "config.json", "w") as f:
-        json.dump(PYTHIA14M_CONFIG, f, indent=2)
     return str(folder)

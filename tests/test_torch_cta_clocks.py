@@ -2,6 +2,7 @@
 its libraries are built apart from the main path's, and the command needs a
 card (the stamps themselves run only there)."""
 import numpy as np
+import pytest
 import torch
 
 from slamkit_tpu_torch.ops import _build
@@ -42,3 +43,24 @@ def test_the_command_needs_a_card(capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert cta_clocks.main([]) == 1
     assert "needs a CUDA card" in capsys.readouterr().err
+
+
+def test_d256_section_stamps_the_d256_backward():
+    """The bf16 d = 256 dK / dV pass has a section of its own (pythia-1b's
+    SIMS batch and the d256 row), on the stamped bf16 backward library, with
+    a stamp slot for every CTA the launch can have (8 a kv group and key
+    tile at most); the command refuses a section it does not know."""
+    cases, backward, bf16 = cta_clocks.SECTIONS["backward_bf16_d256"]
+    assert backward and bf16
+    assert {name: shape for name, shape, _ in cases} == {
+        "pythia1b_sims": (8, 8, 8, 2048, 256), "d256": (4, 8, 2, 1024, 256)}
+    for name, shape, make_seg in cases:
+        b, _, hkv, t, _ = shape
+        assert make_seg(np.random.default_rng(5)).shape == (b, t)
+        assert cta_clocks._grid_ctas(shape, True, bf16=True) == {"dkdv": 8 * hkv * b * t // 64}
+    text = (_build.CSRC / "flash_bwd.cu").read_text()
+    body = text[text.index("flash_bwd_dkdv256_kernel("):]
+    for mark in ("kMarkEntry", "kMarkListed", "kMarkFirstTile", "kMarkLoopEnd", "kMarkEnd"):
+        assert f"CTA_STAMP(0, {mark})" in body, mark
+    with pytest.raises(SystemExit):
+        cta_clocks.main(["--sections", "backward_bf16_d512"])

@@ -185,14 +185,17 @@ def test_kernels_match_plain_at_sims_rows(dev, direction):
 
 # head dims the kernels are not built for run zero-padded to 64, 128 or 256:
 # pythia-14m's 4 heads of 32 (config/train_inter_scale.yaml) at its context
-# 2048, d = 80, 96 and 112 (on the d = 128 kernels) and d = 160; and the d = 256 kernels themselves (32-key tiles
-# and CTAs, warps splitting the columns), at G = 4 and, in clusters, G = 7,
-# T off the tile sizes and T = 2; all four kernels, each against its plain
-# version under its own bounds, and each call repeated bitwise
+# 2048, d = 80, 96 and 112 (on the d = 128 kernels) and d = 160 and 192; and
+# the d = 256 kernels themselves (the bf16 backward's dK / dV CTA of 64 keys
+# split by gradient between two warpgroups, its dq CTA on wgmma), at G = 4
+# and, in clusters, G = 7, G = 1 at pythia-1b's T = 1000 with d = 160, T off
+# the tile sizes and T = 2; all four kernels, each against its plain version
+# under its own bounds, and each call repeated bitwise
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,hkv,t,d", [(8, 4, 4, 2048, 32), (2, 8, 2, 300, 80),
                                          (2, 8, 2, 300, 96), (2, 7, 1, 129, 112),
-                                         (2, 8, 2, 300, 160), (2, 8, 2, 300, 256),
+                                         (2, 8, 2, 300, 160), (2, 8, 2, 300, 192),
+                                         (1, 8, 8, 1000, 160), (2, 8, 2, 300, 256),
                                          (2, 7, 1, 129, 256), (1, 4, 4, 2, 256)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_padded_head_dims_match_plain(dev, b, h, hkv, t, d, causal):
@@ -392,6 +395,24 @@ def test_d128_backward_matches_plain_and_repeats(dev, b, h, hkv, t, causal, kind
     assert all(torch.equal(x, y) for x, y in zip(got, again))
 
 
+# The d = 256 backward (the dK / dV CTA of 64 keys whose two warpgroups keep
+# dV and dK, P^T handed between them through shared memory, the (Q, dO) ring
+# fed by TMA; the dq kernel on wgmma at 32 keys a step) at G = 1, 2, 4, 8
+# and 16 and at T = 1, 17, 65, 129, 333, 1000 and 2048 (pythia-1b's context),
+# each against the plain version and repeated bitwise
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,hkv,t", [
+    (2, 4, 4, 65), (2, 4, 2, 333), (1, 8, 2, 129), (2, 8, 1, 17), (2, 8, 1, 1),
+    (1, 16, 1, 1000), (2, 8, 8, 2048), (1, 16, 2, 2048), (2, 16, 1, 333),
+])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("kind", [None, "packed", "left_padded"])
+def test_d256_backward_matches_plain_and_repeats(dev, b, h, hkv, t, causal, kind):
+    got = _compare_bwd(dev, b, h, hkv, t, 256, causal, kind)
+    again = _compare_bwd(dev, b, h, hkv, t, 256, causal, kind)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,hkv,t,d", [(8, 14, 2, 1024, 64), (2, 7, 1, 333, 128),
                                          (1, 16, 1, 200, 64)])
@@ -410,12 +431,13 @@ def test_backward_kernel_is_deterministic(dev, b, h, hkv, t, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("h,hkv,d", [(14, 2, 64), (7, 1, 128)])
+@pytest.mark.parametrize("h,hkv,d", [(14, 2, 64), (7, 1, 128), (8, 2, 160), (8, 2, 192),
+                                     (8, 8, 256)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_backward_dead_rows(dev, causal, h, hkv, d):
     """Query ids 7 never appear among the keys: those rows' P is exactly 0, so
-    their dq is exactly 0, and they add nothing to dk and dv (at d = 64 and on
-    the d = 128 kernels)."""
+    their dq is exactly 0, and they add nothing to dk and dv (at d = 64, on
+    the d = 128 kernels and on the d = 256 ones, d = 160 and 192 padded)."""
     b, t = 2, 256
     seg = torch.zeros((b, t), dtype=torch.int32, device=dev)
     seg[:, 100:140] = 7
@@ -687,15 +709,17 @@ def test_probe_kernel_refuses_what_it_does_not_take(dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(8, 14, 2, 1024, 64), (8, 7, 1, 1024, 128)],
-                         ids=["slam", "slam_dh128"])
+@pytest.mark.parametrize("shape", [(8, 14, 2, 1024, 64), (8, 7, 1, 1024, 128),
+                                   (2, 8, 8, 1024, 256)],
+                         ids=["slam", "slam_dh128", "pythia1b"])
 @pytest.mark.parametrize("schedule", ["contiguous", "zigzag"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 def test_ring_kernel_modes_match_plain(dev, schedule, dtype, shape):
     """The ring's kernel sequence (`ops/ring_attention.ring_on_one_device`:
     every rank of a 'seq' group of 4, rotated in memory) at the Slam shape
-    [8, 14/2, 1024, 64] and slam_dh128's [8, 7/1, 1024, 128] (the d = 128
-    backward from the ring's external O and LSE) with packed segments and a
+    [8, 14/2, 1024, 64], slam_dh128's [8, 7/1, 1024, 128] (the d = 128
+    backward from the ring's external O and LSE) and pythia-1b's heads [2,
+    8/8, 1024, 256] (the d = 256 one) with packed segments and a
     -1 tail: the causal
     diagonal calls, the non-causal off-diagonal calls with distinct q / k
     segment ids (and their dead rows), the LSE merge and the backward from
